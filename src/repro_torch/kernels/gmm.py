@@ -1,0 +1,39 @@
+"""Grouped matmul (paper Stage 4) on Hopper: launcher for ``csrc/gmm.cu``.
+
+Replaces the JAX package's ``kernels/gmm.py::gmm_pallas``. The kernel's
+row tile ``BLOCK_M`` is the group alignment the dispatch must honour
+(``ops.gmm_align``); see the source note in ``csrc/gmm.cu`` for the design.
+"""
+from __future__ import annotations
+
+import torch
+
+from ._build import check_launch, check_operand, library, stream_ptr
+
+BLOCK_M = 16   # must equal repro_gmm_block_m() in csrc/gmm.cu
+
+
+def gmm_cuda(lhs: torch.Tensor, rhs: torch.Tensor,
+             group_sizes: torch.Tensor) -> torch.Tensor:
+    """lhs (M, K) bf16, rhs (G, K, N) bf16, group_sizes (G,) int32, all on
+    one CUDA device; every group size a multiple of ``BLOCK_M`` and
+    ``M % BLOCK_M == 0``. Returns (M, N) bf16; rows past the total are 0."""
+    check_operand(lhs, "gmm lhs", 2)
+    check_operand(rhs, "gmm rhs", 3)
+    check_operand(group_sizes, "gmm group_sizes", 1, torch.int32)
+    M, K = lhs.shape
+    G, K2, N = rhs.shape
+    if K2 != K or group_sizes.shape[0] != G:
+        raise ValueError(f"gmm shapes disagree: lhs {tuple(lhs.shape)}, rhs "
+                         f"{tuple(rhs.shape)}, group_sizes {tuple(group_sizes.shape)}")
+    if M % BLOCK_M or K % 8 or N % 8:
+        raise ValueError(f"gmm needs M % {BLOCK_M} == 0 and K, N multiples of 8; "
+                         f"got M={M} K={K} N={N}")
+    lib = library()
+    if lib.repro_gmm_block_m() != BLOCK_M:
+        raise RuntimeError("csrc/gmm.cu BM disagrees with kernels/gmm.py BLOCK_M")
+    out = torch.empty((M, N), dtype=lhs.dtype, device=lhs.device)
+    err = lib.repro_gmm(lhs.data_ptr(), rhs.data_ptr(), group_sizes.data_ptr(),
+                        out.data_ptr(), M, K, N, G, stream_ptr(lhs.device))
+    check_launch(err, "gmm")
+    return out

@@ -1,0 +1,102 @@
+"""Plain PyTorch versions of the serving path's kernels.
+
+They define the semantics the CUDA kernels in ``csrc/`` implement, run on
+the CPU (where every wrapper in ``ops.py`` uses them) and are what
+``chip_smoke.py`` holds each kernel against on the card. Like the Pallas
+kernels of the JAX package they accumulate in float32 and return the
+input dtype.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+NEG = -1e30
+
+
+def gmm_ref(lhs: torch.Tensor, rhs: torch.Tensor,
+            group_sizes: torch.Tensor) -> torch.Tensor:
+    """Grouped matmul. lhs: (M, K) rows grouped by expert; rhs: (G, K, N);
+    group_sizes: (G,) with sum <= M. Row m of group g is ``lhs[m] @ rhs[g]``;
+    rows past ``sum(group_sizes)`` are zero."""
+    M = lhs.shape[0]
+    out = torch.zeros((M, rhs.shape[2]), dtype=lhs.dtype, device=lhs.device)
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        if size > 0:
+            out[start:start + size] = (lhs[start:start + size].float()
+                                       @ rhs[g].float()).to(lhs.dtype)
+        start += size
+    return out
+
+
+def swiglu_ref(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    """``silu(gate) * up`` in float32, cast to the input dtype."""
+    g = gate.float()
+    return (g * torch.sigmoid(g) * up.float()).to(gate.dtype)
+
+
+def combine_ref(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """rows (T, K, D), weights (T, K) -> (T, D):
+    ``out[t] = sum_k weights[t, k] * rows[t, k]``, accumulated in float32."""
+    return torch.einsum("tkd,tk->td", rows.float(),
+                        weights.float()).to(rows.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Dense softmax attention. q: (B, Sq, nh, hd); k/v: (B, Skv, nkv, hd)
+    with nh % nkv == 0 (query head h reads kv head ``h // (nh // nkv)``).
+    Scale 1/sqrt(hd); causal (``q >= k``) and window (``q - k < window``)
+    masks set scores to -1e30."""
+    B, Sq, nh, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    groups = nh // nkv
+    qf = q.float().reshape(B, Sq, nkv, groups, hd)
+    s = torch.einsum("bqngh,bknh->bngqk", qf, k.float()) / math.sqrt(hd)
+    qp = torch.arange(Sq, device=q.device)[:, None]
+    kp = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qp >= kp
+    if window > 0:
+        mask &= qp - kp < window
+    s = torch.where(mask, s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bngqk,bknh->bqngh", p, v.float())
+    return o.reshape(B, Sq, nh, hd).to(q.dtype)
+
+
+def slot_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                              v_cache: torch.Tensor, positions: torch.Tensor,
+                              *, ring: bool = False) -> torch.Tensor:
+    """Single-token cached GQA attention with per-row positions (the serve
+    engine's decode step).
+
+    q: (B, nh, hd) post-RoPE queries; k_cache/v_cache: (B, S, nkv, hd);
+    positions: (B,) absolute position of the current token per row. With
+    ``ring`` the cache is a sliding-window ring where position p lives at
+    slot ``p % S``; otherwise slot s holds position s. Entries past a row's
+    position (or outside its window) are masked. Returns (B, nh, hd) in the
+    dtype of q, computed in float32.
+    """
+    B, nh, hd = q.shape
+    S, nkv = k_cache.shape[1], k_cache.shape[2]
+    groups = nh // nkv
+    idx = positions.to(torch.int64)
+    slots = torch.arange(S, device=q.device)[None, :]
+    if ring:
+        sl = (idx % S)[:, None]
+        wrap = torch.where(slots <= sl, slots, slots - S)
+        abs_pos = idx[:, None] - sl + wrap
+    else:
+        abs_pos = slots.expand(B, S)
+    valid = (abs_pos >= 0) & (abs_pos <= idx[:, None])
+
+    qf = q.reshape(B, nkv, groups, hd).float() / math.sqrt(hd)
+    s = torch.einsum("bngh,bsnh->bngs", qf, k_cache.float())
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bngs,bsnh->bngh", p, v_cache.float())
+    return o.reshape(B, nh, hd).to(q.dtype)

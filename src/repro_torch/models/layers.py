@@ -1,0 +1,189 @@
+"""Transformer layers for the serving path: norms, RoPE, GQA attention
+(prefill through the flash kernel, cached single-token decode), MLPs,
+embedding. Port of the JAX package's ``models/layers.py``.
+
+Parameters are plain dicts of tensors in the JAX package's layout (weights
+stored (in, out), so ``x @ w``); every function is a plain function on
+tensors. KV caches are updated in place (the JAX package returns new
+arrays): a decode step writes one position per row instead of copying the
+cache.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import slot_decode_attention_ref
+
+
+# ----------------------------------------------------------------------------
+# Norms
+# ----------------------------------------------------------------------------
+
+def init_norm(kind: str, d: int, *, num_layers: int, device) -> dict:
+    shape = (num_layers, d) if num_layers else (d,)
+    p = {"scale": torch.ones(shape, dtype=torch.float32, device=device)}
+    if kind != "rmsnorm":
+        p["bias"] = torch.zeros(shape, dtype=torch.float32, device=device)
+    return p
+
+
+def apply_norm(params, x, kind: str = "rmsnorm", eps: float = 1e-6):
+    """RMSNorm or LayerNorm, computed in float32 and cast back."""
+    dtype = x.dtype
+    x = x.float()
+    if kind == "rmsnorm":
+        out = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * params["scale"]
+    else:
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+        out = (x - mu) * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
+    return out.to(dtype)
+
+
+# ----------------------------------------------------------------------------
+# RoPE (half-split, not interleaved)
+# ----------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    angles = positions[..., None].float() * freqs                 # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                          # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Attention (GQA, full or sliding window)
+# ----------------------------------------------------------------------------
+
+def init_attention(cfg, *, num_layers: int, generator: torch.Generator, device, dtype) -> dict:
+    d, nh, nkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = 1.0 / math.sqrt(d)
+
+    def normal(shape):
+        return torch.randn((num_layers, *shape), generator=generator, device=device,
+                           dtype=dtype).mul_(s)
+
+    return {"wq": normal((d, nh * hd)), "wk": normal((d, nkv * hd)),
+            "wv": normal((d, nkv * hd)), "wo": normal((nh * hd, d))}
+
+
+def attention(params, x, cfg, *, return_kv: bool = False):
+    """Causal self-attention over a whole prompt from position 0 (prefill),
+    through the flash kernel. x: (B, S, d). ``return_kv`` also returns the
+    post-RoPE (k, v), each (B, S, nkv, hd), for the cache."""
+    B, S, d = x.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    positions = torch.arange(S, device=x.device)[None, :]
+    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, nh, hd)
+    k = (x @ params["wk"].to(x.dtype)).reshape(B, S, nkv, hd)
+    v = (x @ params["wv"].to(x.dtype)).reshape(B, S, nkv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window).to(x.dtype)
+    out = o.reshape(B, S, nh * hd) @ params["wo"].to(x.dtype)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+# ---- decode with KV cache ----------------------------------------------------
+
+def init_kv_cache(cfg, batch: int, max_len: int, *, num_layers: int, device,
+                  dtype=torch.bfloat16) -> dict:
+    """Ring-buffer cache when sliding_window > 0 (window-sized), else full."""
+    size = min(max_len, cfg.sliding_window) if cfg.sliding_window > 0 else max_len
+    shape = (num_layers, batch, size, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(params, x, cache, index, cfg):
+    """One-token decode. x: (B, 1, d); cache: {"k", "v"} each (B, S, nkv, hd),
+    written in place; index: (B,) per-row absolute positions (or a scalar).
+
+    Sliding-window caches are rings indexed by ``position % window``; a
+    write whose position falls outside a full cache is dropped. Returns
+    out (B, 1, d)."""
+    B, _, d = x.shape
+    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    idx = torch.as_tensor(index, device=x.device).long().expand(B)
+    q = (x @ params["wq"].to(x.dtype)).reshape(B, 1, nh, hd)
+    k = (x @ params["wk"].to(x.dtype)).reshape(B, 1, nkv, hd)
+    v = (x @ params["wv"].to(x.dtype)).reshape(B, 1, nkv, hd)
+    pos = idx[:, None]
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+
+    ck, cv = cache["k"], cache["v"]
+    size = ck.shape[1]
+    ring = cfg.sliding_window > 0
+    slot = idx % size if ring else idx
+    # mode="drop" without a host sync: an out-of-range row rewrites the
+    # value already at slot 0 (rows are distinct, so no write collides)
+    keep = (slot < size)[:, None, None]
+    target = torch.where(slot < size, slot, torch.zeros_like(slot))
+    rows = torch.arange(B, device=x.device)
+    ck[rows, target] = torch.where(keep, k[:, 0].to(ck.dtype), ck[rows, target])
+    cv[rows, target] = torch.where(keep, v[:, 0].to(cv.dtype), cv[rows, target])
+
+    o = slot_decode_attention_ref(q[:, 0], ck, cv, idx, ring=ring)
+    o = o.reshape(B, 1, nh * hd).to(x.dtype)
+    return o @ params["wo"].to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# MLP
+# ----------------------------------------------------------------------------
+
+def init_mlp(d: int, d_ff: int, activation: str, *, num_layers: int,
+             generator: torch.Generator, device, dtype) -> dict:
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(d_ff)
+
+    def normal(shape, scale):
+        return torch.randn((num_layers, *shape), generator=generator, device=device,
+                           dtype=dtype).mul_(scale)
+
+    p = {"up": normal((d, d_ff), s_in), "down": normal((d_ff, d), s_out)}
+    if activation == "swiglu":
+        p["gate"] = normal((d, d_ff), s_in)
+    return p
+
+
+def apply_mlp(params, x, activation: str):
+    up = x @ params["up"].to(x.dtype)
+    if activation == "swiglu":
+        h = F.silu(x @ params["gate"].to(x.dtype)) * up
+    else:
+        h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
+    return h @ params["down"].to(x.dtype)
+
+
+# ----------------------------------------------------------------------------
+# Embedding / LM head
+# ----------------------------------------------------------------------------
+
+def init_embedding(vocab: int, d: int, *, generator: torch.Generator, device,
+                   dtype) -> dict:
+    return {"table": torch.randn((vocab, d), generator=generator, device=device,
+                                 dtype=dtype).mul_(0.02)}
+
+
+def embed(params, tokens, dtype):
+    return params["table"][tokens].to(dtype)
+
+
+def unembed(params, x):
+    return x @ params["table"].T.to(x.dtype)

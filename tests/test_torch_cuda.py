@@ -1,0 +1,139 @@
+"""PyTorch port, on the card: each CUDA kernel of ``repro_torch`` against
+its plain PyTorch version on the same bf16 inputs (the plain version in
+float32), the launch counts, and the dtype checks. Imports no JAX, so it
+runs on a machine without it:
+
+    PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
+
+Without a CUDA device every test skips (the kernels have no CPU mode; the
+CPU tests hold the plain versions against the JAX package). Tolerances: max
+|err| <= 1e-2 * max|plain| (bf16 output rounding, another summation order);
+SwiGLU within one bf16 ulp of the plain value."""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+
+def _close(out, plain, rel=1e-2):
+    err = (out.float() - plain).abs().max().item()
+    assert err <= rel * plain.abs().max().item(), err
+
+
+def test_gmm_kernel_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    M, K, N = 160, 256, 136
+    gs = torch.tensor([32, 0, 48, 16, 0], dtype=torch.int32, device=cuda)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(5, K, N, generator=g, device=cuda) / 16).bfloat16()
+    before = ops.launches["gmm"]
+    out = ops.gmm(x, w, gs)
+    torch.cuda.synchronize()
+    assert ops.launches["gmm"] == before + 1
+    _close(out, ref.gmm_ref(x.float(), w.float(), gs))
+    assert (out[96:] == 0).all()
+
+
+def test_swiglu_kernel_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    a = (3 * torch.randn(257, 100, generator=g, device=cuda)).bfloat16()
+    b = torch.randn(257, 100, generator=g, device=cuda).bfloat16()
+    out = ops.fused_swiglu(a, b).float()
+    plain = ref.swiglu_ref(a.float(), b.float())
+    _, expo = torch.frexp(plain)
+    ulp = torch.ldexp(torch.ones_like(plain), expo - 8)     # bf16 ulp of each value
+    assert ((out - plain).abs() <= ulp).all()
+
+
+def test_combine_kernel_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    rows = torch.randn(33, 8, 264, generator=g, device=cuda).bfloat16()
+    w = torch.rand(33, 8, generator=g, device=cuda).bfloat16()
+    _close(ops.combine(rows, w), ref.combine_ref(rows.float(), w.float()))
+
+
+@pytest.mark.parametrize("S,nh,nkv,hd,window", [(128, 4, 4, 128, 0), (100, 4, 2, 64, 0),
+                                                (200, 4, 1, 128, 48)])
+def test_flash_kernel_on_card(cuda, S, nh, nkv, hd, window):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(2, S, nh, hd, generator=g, device=cuda).bfloat16()
+    k = torch.randn(2, S, nkv, hd, generator=g, device=cuda).bfloat16()
+    v = torch.randn(2, S, nkv, hd, generator=g, device=cuda).bfloat16()
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    _close(out, ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True,
+                                        window=window))
+
+
+def test_kernels_refuse_other_dtypes_on_card(cuda):
+    x = torch.ones(16, 8, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        ops.fused_swiglu(x, x)
+
+
+def test_gmm_rejects_rows_not_a_multiple_of_the_tile(cuda):
+    x = torch.zeros(24, 64, dtype=torch.bfloat16, device=cuda)
+    w = torch.zeros(2, 64, 64, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="M % 16"):
+        ops.gmm(x, w, torch.tensor([16, 8], dtype=torch.int32, device=cuda))
+
+
+def _small_moe_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serve.engine import dropless_cfg
+    cfg = reduced(get_config("mula-7b-a1b"), d_model=256, max_experts=64)   # hd 64
+    # forced uniform routing: bf16 noise cannot flip an expert choice
+    return dropless_cfg(dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, forced_uniform_routing=True)))
+
+
+def test_small_model_on_card_matches_cpu(cuda):
+    """Prefill + decode through the kernels (bf16) against the CPU plain
+    path (float32) from the same weights: logits within 3e-2 of max|ref|."""
+    from repro_torch.models import decode_step, init_cache, init_params, prefill_with_cache
+    cfg = _small_moe_cfg()
+    pg = init_params(cfg, seed=0, device=cuda, dtype=torch.bfloat16)
+
+    def cpu(t):
+        return {k: cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.float().cpu()
+
+    pc = cpu(pg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(0))
+    cg = init_cache(cfg, 2, 64, device=cuda, dtype=torch.bfloat16)
+    cc = init_cache(cfg, 2, 64, device="cpu", dtype=torch.float32)
+    lg, cg = prefill_with_cache(pg, toks.to(cuda), cg, [0, 1], [32, 20], cfg)
+    lc, cc = prefill_with_cache(pc, toks, cc, [0, 1], [32, 20], cfg, compute_dtype=torch.float32)
+    assert (lg.float().cpu() - lc).abs().max() <= 3e-2 * lc.abs().max()
+    pos = torch.tensor([32, 20])
+    tok = lc[:, :cfg.vocab_size].argmax(-1)[:, None]
+    lg, cg = decode_step(pg, tok.to(cuda), cg, pos.to(cuda), cfg)
+    lc, cc = decode_step(pc, tok, cc, pos, cfg, compute_dtype=torch.float32)
+    assert (lg.float().cpu() - lc).abs().max() <= 3e-2 * lc.abs().max()
+
+
+def test_engine_on_card_launch_counts(cuda):
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine
+    cfg = _small_moe_cfg()
+    eng = ServeEngine(init_params(cfg, seed=0, device=cuda, dtype=torch.bfloat16), cfg,
+                      num_slots=2, max_len=64, cache_dtype=torch.bfloat16,
+                      compute_dtype=torch.bfloat16, device=cuda)
+    ops.reset_launches()
+    for n in (5, 30, 17):
+        eng.submit(list(range(1, n + 1)), 6)
+    res = eng.run()
+    assert all(len(r.tokens) == 6 for r in res.values())
+    fwd = eng.prefills + eng.decode_steps
+    assert ops.launches == {"gmm": 3 * cfg.num_layers * fwd, "swiglu": cfg.num_layers * fwd,
+                            "combine": cfg.num_layers * fwd,
+                            "flash_attention": cfg.num_layers * eng.prefills}
