@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA
-H100: the quickest proof that the port builds, is right and serves.
+H100: the quickest proof that the port builds, is right, serves and trains.
 
     python3 chip_smoke.py                      # all phases, one card
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
   device     the card (nvidia-smi name and power limit) and the time to
              build the CUDA kernels from ``src/repro_torch/csrc``;
   kernels    each kernel against its plain PyTorch version on the card, at
-             the serving path's shapes, with its time, the plain version's,
-             one PyTorch library call's where there is one, and its bound;
+             the serving and training paths' shapes, with its time, the
+             plain version's, one PyTorch library call's where there is
+             one, and its bound;
   reference  a small MoE model served through the CUDA kernels agrees with
              the same model run on the CPU through the plain versions;
+  train_reference  one training step of a small MoE model on the card
+             (bf16, through the kernels) agrees with the same step on the
+             CPU (float32, plain versions) in loss and gradient norm;
   serve      full-width, full-depth Mula-7B-A1B in bf16 (random weights
              from seed 0) serves 16 requests on 8 slots; asserts the
              results and that every kernel of the path was launched the
-             expected number of times.
+             expected number of times;
+  train      full-width Mula-7B-A1B cut to 4 of its 16 layers (random
+             weights from seed 0, fp32 params and AdamW state, bf16
+             compute) takes 6 steps on one fixed batch of 2 x 2 x 2048
+             tokens; asserts finite metrics, a falling loss, clip_scale
+             <= 1 and the exact launch count of every kernel of the path.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object listing the kernels, and
@@ -28,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -120,15 +130,14 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str
 # kernels against their plain versions
 # ----------------------------------------------------------------------------
 
-def _routing_groups(T: int, cfg, gen):
+def _routing_groups(T: int, m, gen, experts: int = 0):
     """Group sizes of one MoE dispatch of T tokens with random top-k
-    routing, sized as the serve path sizes its pool."""
+    routing over the first ``experts`` experts (all if 0), the pool sized
+    from the MoE config ``m`` as the model sizes it."""
     import torch
     from repro_torch.core import moe
     from repro_torch.kernels import ops
-    from repro_torch.serve.engine import dropless_cfg
-    m = dropless_cfg(cfg).moe
-    idx = torch.rand((T, m.num_experts), generator=gen, device=DEV).topk(
+    idx = torch.rand((T, experts or m.num_experts), generator=gen, device=DEV).topk(
         m.experts_per_token, dim=-1).indices
     rows = moe.dispatch_pool_rows(T, m)
     plan = moe.make_dispatch_plan(idx, num_experts=m.num_experts, pool_rows=rows,
@@ -136,25 +145,28 @@ def _routing_groups(T: int, cfg, gen):
     return plan.group_sizes, rows
 
 
-def _grouped_mm_yardstick(x, w, gs, plain):
-    """torch._grouped_mm on the same inputs, where the installed PyTorch has
-    it: (callable of (x, w, gs) or None, note). It is checked against the
-    plain version on the rows below the total (it leaves the rest undefined)."""
+def _grouped_mm_yardstick(call, args, plain, rows_of=None, what="torch._grouped_mm"):
+    """One ``torch._grouped_mm`` call on the same inputs, where the
+    installed PyTorch has it and accepts the form: (``call`` or None,
+    note). It is checked against the plain version, on the rows below the
+    total where ``rows_of`` (a function of the output) cuts them (it leaves
+    the rest undefined)."""
     import torch
     if not hasattr(torch, "_grouped_mm"):
         return None, "torch._grouped_mm not in this PyTorch"
-
-    def call(x, w, gs):
-        return torch._grouped_mm(x, w, offs=torch.cumsum(gs, 0, dtype=torch.int32))
-
     try:
-        y = call(x, w, gs)
+        y = call(*args)
         torch.cuda.synchronize()
     except (RuntimeError, TypeError) as e:
-        return None, "torch._grouped_mm refused: " + str(e).splitlines()[0]
-    total = int(gs.sum())
-    err = float((y[:total].float() - plain[:total]).abs().max())
-    return call, f"torch._grouped_mm, max|err| vs plain {err:.4g} on rows < total"
+        return None, f"{what} refused: " + str(e).splitlines()[0]
+    y, plain = (rows_of(y), rows_of(plain)) if rows_of else (y, plain)
+    err = float((y.float() - plain).abs().max())
+    return call, f"{what}, max|err| vs plain {err:.4g}"
+
+
+def _offs(gs):
+    import torch
+    return torch.cumsum(gs, 0, dtype=torch.int32)
 
 
 def kernel_cases(cfg) -> list[dict]:
@@ -165,6 +177,7 @@ def kernel_cases(cfg) -> list[dict]:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.serve.engine import dropless_cfg
 
     gen = torch.Generator(device=DEV).manual_seed(0)
     bf = torch.bfloat16
@@ -181,13 +194,15 @@ def kernel_cases(cfg) -> list[dict]:
     w_gate = randn(E, d, f, scale=d ** -0.5)
     w_down = randn(E, f, d, scale=f ** -0.5)
     for phase, T in (("decode", 8), ("prefill512", 512)):
-        gs, rows = _routing_groups(T, cfg, gen)
+        gs, rows = _routing_groups(T, dropless_cfg(cfg).moe, gen)
         total = int(gs.sum())
         active = int((gs > 0).sum())
         for proj, w in (("gate", w_gate), ("down", w_down)):
             kin, nout = w.shape[1], w.shape[2]
             x = randn(rows, kin)
-            lib, note = _grouped_mm_yardstick(x, w, gs, gmm_plain(x, w, gs))
+            lib, note = _grouped_mm_yardstick(
+                lambda x, w, gs: torch._grouped_mm(x, w, offs=_offs(gs)), (x, w, gs),
+                gmm_plain(x, w, gs), rows_of=lambda y, n=total: y[:n])
             cases.append(dict(
                 kernel="gmm", case=f"{phase} {proj} M={rows} K={kin} N={nout} rows={total}",
                 args=(x, w, gs), fn=ops.gmm, plain=gmm_plain, library=lib, library_note=note,
@@ -205,6 +220,8 @@ def kernel_cases(cfg) -> list[dict]:
             library=lambda r, w: torch.einsum("tkd,tk->td", r, w),
             bytes=2 * (T * K * d + T * K + T * d), flops=2.0 * T * K * d, peak=FP32_FLOPS,
             tol="rel"))
+
+    cases += train_kernel_cases(cfg, gen, randn)
 
     nh, hd = cfg.num_heads, cfg.head_dim
     for S, nkv, window in ((512, nh, 0), (500, nh, 0), (1000, nh // 4, 256)):
@@ -231,6 +248,108 @@ def kernel_cases(cfg) -> list[dict]:
     return cases
 
 
+TRAIN_TOKENS = 2 * 2048          # tokens per microbatch of the train phase
+
+
+def train_kernel_cases(cfg, gen, randn) -> list[dict]:
+    """The training step's kernel calls at its shapes: 4096 tokens per
+    microbatch, the capacity pool of ``dispatch_pool_rows(4096)`` rows (the
+    model's own capacity factor, so some pairs are dropped as in training),
+    gmm forward and its transposed-rhs input gradient for both weight
+    shapes, tgmm for both (and with empty groups), the combine and SwiGLU
+    backward kernels."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+
+    m = cfg.moe
+    d, f = cfg.d_model, m.d_ff_expert
+    E, K, T = m.num_experts, m.experts_per_token, TRAIN_TOKENS
+    w_gate = randn(E, d, f, scale=d ** -0.5)
+    w_down = randn(E, f, d, scale=f ** -0.5)
+    cases = []
+    gs, rows = _routing_groups(T, m, gen)
+    total, active = int(gs.sum()), int((gs > 0).sum())
+    for proj, w in (("gate", w_gate), ("down", w_down)):
+        kin, nout = w.shape[1], w.shape[2]
+        x = randn(rows, kin)
+        plain = ref.gmm_ref(x.float(), w.float(), gs)
+        lib, note = _grouped_mm_yardstick(
+            lambda x, w, gs: torch._grouped_mm(x, w, offs=_offs(gs)), (x, w, gs), plain,
+            rows_of=lambda y, n=total: y[:n])
+        cases.append(dict(
+            kernel="gmm", case=f"train {proj} M={rows} K={kin} N={nout} rows={total}",
+            args=(x, w, gs), fn=ops.gmm, plain=lambda x, w, gs: ref.gmm_ref(x.float(),
+                                                                          w.float(), gs),
+            library=lib, library_note=note,
+            bytes=2 * (total * kin + active * kin * nout + rows * nout),
+            flops=2.0 * total * kin * nout, peak=BF16_TENSOR_FLOPS, tol="rel"))
+        # dx = dy @ w^T: dy has the projection's output width
+        dy = randn(rows, nout)
+        plain = ref.gmm_ref(dy.float(), w.float().transpose(1, 2), gs)
+        lib, note = _grouped_mm_yardstick(
+            lambda dy, w, gs: torch._grouped_mm(dy, w.transpose(1, 2), offs=_offs(gs)),
+            (dy, w, gs), plain, rows_of=lambda y, n=total: y[:n],
+            what="torch._grouped_mm(dy, w.transpose(1, 2))")
+        cases.append(dict(
+            kernel="gmm", case=f"train dx {proj} (transposed rhs) M={rows} K={nout} N={kin} "
+                               f"rows={total}",
+            args=(dy, w, gs), fn=lambda dy, w, gs: ops.gmm_transposed(dy, w, gs),
+            plain=lambda dy, w, gs: ref.gmm_ref(dy.float(), w.float().transpose(1, 2), gs),
+            library=lib, library_note=note,
+            bytes=2 * (total * nout + active * kin * nout + rows * kin),
+            flops=2.0 * total * kin * nout, peak=BF16_TENSOR_FLOPS, tol="rel"))
+    # dW[g] = x_g^T dy_g for both projections, and with 8 of 64 experts empty
+    groups = [("gate", gs, total, rows, d, f), ("down", gs, total, rows, f, d)]
+    gs_e, rows_e = _routing_groups(T, m, gen, experts=E - 8)
+    groups.append(("gate, 8 groups empty", gs_e, int(gs_e.sum()), rows_e, d, f))
+    for proj, g_s, tot, M, kin, nout in groups:
+        x, dy = randn(M, kin), randn(M, nout)
+        plain = ref.tgmm_ref(x.float(), dy.float(), g_s, E)
+        lib, note = _grouped_mm_yardstick(
+            lambda x, dy, g_s: torch._grouped_mm(x.t(), dy, offs=_offs(g_s)), (x, dy, g_s),
+            plain, what="torch._grouped_mm(x.t(), dy, offs) (2-D x 2-D)")
+        cases.append(dict(
+            kernel="tgmm", case=f"train {proj} M={M} K={kin} N={nout} rows={tot}",
+            args=(x, dy, g_s), fn=ops.tgmm,
+            plain=lambda x, dy, g_s: ref.tgmm_ref(x.float(), dy.float(), g_s, E),
+            library=lib, library_note=note,
+            bytes=2 * (tot * kin + tot * nout + E * kin * nout),
+            flops=2.0 * tot * kin * nout, peak=BF16_TENSOR_FLOPS, tol="rel"))
+    wts = torch.softmax(torch.randn((T, K), generator=gen, device=DEV), -1).to(torch.bfloat16)
+    cases.append(dict(
+        kernel="combine", case=f"train T={T} K={K} D={d}", args=(randn(T, K, d), wts),
+        fn=ops.combine, plain=lambda r, w: ref.combine_ref(r.float(), w.float()),
+        library=lambda r, w: torch.einsum("tkd,tk->td", r, w),
+        bytes=2 * (T * K * d + T * K + T * d), flops=2.0 * T * K * d, peak=FP32_FLOPS,
+        tol="rel"))
+    cases.append(dict(
+        kernel="combine_bwd", case=f"train T={T} K={K} D={d}",
+        args=(randn(T, K, d), wts, randn(T, d)), fn=ops.combine_bwd,
+        plain=lambda r, w, g: ref.combine_bwd_ref(r.float(), w.float(), g.float()),
+        library=lambda r, w, g: (w[..., None] * g[:, None, :],
+                                 torch.einsum("tkd,td->tk", r, g)),
+        library_note="2 PyTorch calls: w[..., None] * dout[:, None, :] and "
+                     "einsum('tkd,td->tk', rows, dout)",
+        bytes=2 * (2 * T * K * d + T * K + T * d) + 4 * T * K, flops=3.0 * T * K * d,
+        peak=FP32_FLOPS, tol="rel"))
+    g, u, dh = randn(rows, f, scale=3.0), randn(rows, f), randn(rows, f)
+    cases.append(dict(
+        kernel="swiglu", case=f"train M={rows} N={f}", args=(g, u),
+        fn=ops.fused_swiglu, plain=lambda g, u: ref.swiglu_ref(g.float(), u.float()),
+        library=lambda g, u: F.silu(g) * u,
+        bytes=3 * 2 * rows * f, flops=5.0 * rows * f, peak=FP32_FLOPS, tol="1ulp"))
+    cases.append(dict(
+        kernel="swiglu_bwd", case=f"train M={rows} N={f}", args=(g, u, dh),
+        fn=ops.swiglu_bwd,
+        plain=lambda g, u, d: ref.swiglu_bwd_ref(g.float(), u.float(), d.float()),
+        library=lambda g, u, d: (torch.ops.aten.silu_backward(d * u, g), d * F.silu(g)),
+        library_note="4 PyTorch calls: aten.silu_backward(dout * up, gate) and "
+                     "dout * silu(gate)",
+        bytes=5 * 2 * rows * f, flops=12.0 * rows * f, peak=FP32_FLOPS, tol="rel"))
+    return cases
+
+
 def _ulp_check(out, plain) -> tuple[float, float]:
     """Largest error, absolute and in units of the bf16 ulp of the plain value."""
     import torch
@@ -249,20 +368,29 @@ def phase_kernels(cfg) -> list[dict]:
     results = []
     for c in kernel_cases(cfg):
         args = c["args"]
-        out = c["fn"](*args)
-        plain = c["plain"](*args)
+        outs = c["fn"](*args)
+        plains = c["plain"](*args)
         torch.cuda.synchronize()
-        if not torch.isfinite(out.float()).all():
-            raise AssertionError(f"{c['kernel']} {c['case']}: non-finite output")
-        if c["tol"] == "1ulp":
-            err, ulps = _ulp_check(out, plain)
-            ok, tol_txt = ulps <= 1.0, f"<= 1 bf16 ulp of the plain value (got {ulps:.3f} ulp)"
-        else:
-            err = float((out.float() - plain).abs().max())
-            tol = 1e-2 * float(plain.abs().max())
-            ok, tol_txt = err <= tol, f"<= 1e-2 * max|plain| = {tol:.4g}"
-        if not ok:
-            raise AssertionError(f"{c['kernel']} {c['case']}: max|err| {err} not {tol_txt}")
+        if torch.is_tensor(outs):
+            outs, plains = (outs,), (plains,)
+        errs, tols = [], []
+        for out, plain in zip(outs, plains):
+            if not torch.isfinite(out.float()).all():
+                raise AssertionError(f"{c['kernel']} {c['case']}: non-finite output")
+            if c["tol"] == "1ulp":
+                err, ulps = _ulp_check(out, plain)
+                ok = ulps <= 1.0
+                tol_txt = f"<= 1 bf16 ulp of the plain value (got {ulps:.3f} ulp)"
+            else:
+                err = float((out.float() - plain).abs().max())
+                tol = 1e-2 * float(plain.abs().max())
+                ok, tol_txt = err <= tol, f"<= 1e-2 * max|plain| = {tol:.4g}"
+            if not ok:
+                raise AssertionError(f"{c['kernel']} {c['case']}: max|err| {err} not {tol_txt}")
+            errs.append(err)
+            tols.append(tol_txt)
+        err, tol_txt = max(errs), "; ".join(tols)
+        del outs, plains
         b_ms, b_by = bound_ms(c["bytes"], c["flops"], c["peak"])
         row = {"kernel": c["kernel"], "case": c["case"], "max_abs_err": err,
                "tolerance": tol_txt, "ms": graph_ms(c["fn"], args),
@@ -337,6 +465,158 @@ def phase_reference() -> dict:
 
 
 # ----------------------------------------------------------------------------
+# training: a small model on the card against the CPU, then full width
+# ----------------------------------------------------------------------------
+
+def _fixed_batch(vocab: int, batch: int, seq: int, device) -> dict:
+    """One batch of next-token pairs from a seeded ``torch.Generator``."""
+    import torch
+    toks = torch.randint(0, vocab, (batch, seq + 1), generator=torch.Generator().manual_seed(0))
+    return {"tokens": toks[:, :-1].to(device), "labels": toks[:, 1:].to(device)}
+
+
+def phase_train_reference() -> dict:
+    """Reduced Mula-7B-A1B (2 layers, d_model 256, 64 experts top-8,
+    forced uniform routing so bf16 noise cannot flip an expert choice,
+    dropless) takes one training step (2 microbatches of 2 x 128 tokens)
+    from the same fp32 weights and AdamW state on the card (bf16 compute
+    and gradient reduction, through the kernels) and on the CPU (float32,
+    plain versions). Loss and gradient norm must agree; the worst per-leaf
+    gradient difference (one loss_fn backward on each side) is reported."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ParallelConfig, TrainConfig, get_config, reduced
+    from repro_torch.models import loss_fn
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainState, init_state, make_train_step
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    cfg = reduced(get_config(MULA), d_model=256, max_experts=64)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, forced_uniform_routing=True, dispatch="dropless"))
+    par = ParallelConfig(microbatches=2)
+    t_gpu = TrainConfig(seq_len=128, global_batch=4, warmup_steps=2, total_steps=100)
+    t_cpu = dataclasses.replace(t_gpu, compute_dtype="float32", grad_reduce_dtype="float32")
+    s_gpu = init_state(cfg, t_gpu, seed=0, device=DEV)
+    p_cpu = tree_map(lambda p: p.detach().cpu().clone(), s_gpu.params)
+    s_cpu = TrainState(p_cpu, adamw_init(p_cpu))
+    b_gpu = _fixed_batch(cfg.vocab_size, 4, 128, DEV)
+    b_cpu = {k: v.cpu() for k, v in b_gpu.items()}
+
+    grads = {}
+    for side, params, batch, dt in (("gpu", s_gpu.params, b_gpu, torch.bfloat16),
+                                    ("cpu", p_cpu, b_cpu, torch.float32)):
+        tree = tree_map(lambda p: p.detach().requires_grad_(), params)
+        paths, flat = zip(*leaves_with_path(tree))
+        loss, _ = loss_fn(tree, batch, cfg, compute_dtype=dt)
+        grads[side] = dict(zip(paths, (g.float().cpu() for g in torch.autograd.grad(loss, flat))))
+    leaf_err = {k: float((grads["gpu"][k] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+                for k, g in grads["cpu"].items()}
+    worst = max(leaf_err, key=leaf_err.get)
+
+    _, m_gpu = make_train_step(cfg, par, t_gpu)(s_gpu, b_gpu)
+    _, m_cpu = make_train_step(cfg, par, t_cpu)(s_cpu, b_cpu)
+    tol = {"loss": 1e-2, "grad_norm": 3e-2}
+    rel = {k: abs(float(m_gpu[k]) - float(m_cpu[k])) / abs(float(m_cpu[k])) for k in tol}
+    row = {"config": cfg.name, "microbatches": par.microbatches, "tokens": 4 * 128,
+           "loss_gpu": float(m_gpu["loss"]), "loss_cpu": float(m_cpu["loss"]),
+           "grad_norm_gpu": float(m_gpu["grad_norm"]), "grad_norm_cpu": float(m_cpu["grad_norm"]),
+           "rel_err": rel, "tolerance": tol,
+           "worst_leaf": worst, "worst_leaf_rel_grad_err": leaf_err[worst],
+           "leaf_rel_grad_err": leaf_err}
+    emit("train_reference", **row)
+    bad = {k: v for k, v in rel.items() if not v <= tol[k]}
+    if bad:
+        raise AssertionError(f"train_reference: relative errors {bad} above {tol}")
+    return row
+
+
+TRAIN_STEPS = 6
+
+
+def expected_train_launches(num_layers: int, microbatches: int, steps: int) -> dict:
+    """Launches per training run under block remat. Per layer and
+    microbatch: forward gmm x3, SwiGLU, combine; the backward recomputes
+    that forward, then gmm x3 for dx (transposed rhs), tgmm x3 for dW, one
+    swiglu_bwd and one combine_bwd. Attention is the plain blockwise path."""
+    n = num_layers * microbatches * steps
+    return {"gmm": 9 * n, "tgmm": 3 * n, "swiglu": 2 * n, "swiglu_bwd": n,
+            "combine": 2 * n, "combine_bwd": n, "flash_attention": 0}
+
+
+def phase_train() -> dict:
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ParallelConfig, TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(MULA), num_layers=4)
+    train = TrainConfig(seq_len=2048, global_batch=4, warmup_steps=2, total_steps=100)
+    par = ParallelConfig(microbatches=2, remat_policy="block")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, train, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(state.params))
+    # fp32 params share their storage with the master weights: count it once
+    state_bytes = sum(t.numel() * t.element_size() for t in {
+        t.data_ptr(): t for tree in (state.params, state.opt.master, state.opt.m, state.opt.v)
+        for t in leaves(tree)}.values())
+    batch = _fixed_batch(cfg.vocab_size, train.global_batch, train.seq_len, DEV)
+    step = make_train_step(cfg, par, train)
+
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    history = []
+    ops.reset_launches()
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"step": i, **{k: float(m[k]) for k in keys}, "step_ms": ms}
+        history.append(rec)
+        emit("train_step", **rec)
+    launches = dict(ops.launches)
+    peak_mem = torch.cuda.max_memory_allocated()
+    expect = expected_train_launches(cfg.num_layers, par.microbatches, TRAIN_STEPS)
+    counts = m["moe_counts"].float()
+
+    bad = [r for r in history if not all(math.isfinite(r[k]) for k in keys)]
+    if bad:
+        raise AssertionError(f"train: non-finite metrics {bad}")
+    if not history[-1]["loss"] < history[0]["loss"]:
+        raise AssertionError(f"train: loss did not fall: {[r['loss'] for r in history]}")
+    if not all(r["clip_scale"] <= 1.0 for r in history):
+        raise AssertionError("train: clip_scale above 1")
+    if launches != expect:
+        raise AssertionError(f"train: kernel launches {launches} != expected {expect}")
+    tokens = train.global_batch * train.seq_len
+    if float(counts.sum()) != tokens * cfg.moe.experts_per_token:
+        raise AssertionError(f"train: moe_counts sum {float(counts.sum())} != routed pairs")
+
+    profile = _profile_window(lambda: step(state, batch))
+    step_ms = statistics.median(r["step_ms"] for r in history[1:])
+    row = {"model": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "state_bytes": state_bytes, "param_init_s": init_s,
+           "global_batch": train.global_batch, "seq_len": train.seq_len,
+           "microbatches": par.microbatches, "remat_policy": par.remat_policy,
+           "steps": TRAIN_STEPS, "losses": [r["loss"] for r in history],
+           "step_ms_median": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "max_memory_allocated_bytes": peak_mem, "launches": launches,
+           "expected_launches": expect, "moe_load_max": float((counts / counts.sum()).max()),
+           "profile_step": profile}
+    emit("train", **row)
+    return row
+
+
+# ----------------------------------------------------------------------------
 # full-width serving
 # ----------------------------------------------------------------------------
 
@@ -347,13 +627,14 @@ def phase_serve() -> dict:
     from repro_torch.kernels import ops
     from repro_torch.models import init_params
     from repro_torch.serve import SamplingParams, ServeEngine
+    from repro_torch.tree import leaves
 
     cfg = get_config(MULA)
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=DEV, dtype=torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in _leaves(params))
+    n_params = sum(t.numel() for t in leaves(params))
 
     prefill_ms: dict[int, list[float]] = {}
     decode_ms: list[float] = []
@@ -399,7 +680,8 @@ def phase_serve() -> dict:
     expect = {"gmm": 3 * cfg.num_layers * (prefills + steps),
               "swiglu": cfg.num_layers * (prefills + steps),
               "combine": cfg.num_layers * (prefills + steps),
-              "flash_attention": cfg.num_layers * prefills}
+              "flash_attention": cfg.num_layers * prefills,
+              "tgmm": 0, "swiglu_bwd": 0, "combine_bwd": 0}
     if launches != expect:
         raise AssertionError(f"kernel launches {launches} != expected {expect}")
 
@@ -471,26 +753,26 @@ def _profile_serving(engine, prompts) -> dict:
     return {"profile_prefill_1024": prefill, "profile_decode_3_steps": decode}
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 # ----------------------------------------------------------------------------
 
 SOURCES = {"gmm": "src/repro_torch/csrc/gmm.cu",
+           "tgmm": "src/repro_torch/csrc/tgmm.cu",
            "swiglu": "src/repro_torch/csrc/swiglu.cu",
+           "swiglu_bwd": "src/repro_torch/csrc/swiglu.cu",
            "combine": "src/repro_torch/csrc/combine.cu",
+           "combine_bwd": "src/repro_torch/csrc/combine.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
 REPLACES = {"gmm": "src/repro/kernels/gmm.py:40",
+            "tgmm": "src/repro/kernels/gmm.py:98",
             "swiglu": "src/repro/kernels/swiglu.py:21",
+            "swiglu_bwd": "src/repro/kernels/ops.py:253",
             "combine": "src/repro/kernels/combine.py:26",
+            "combine_bwd": "src/repro/kernels/combine.py:58",
             "flash_attention": "src/repro/kernels/flash_attention.py:67"}
-# the case whose numbers head the summary line: the one the path runs most
-HEADLINE = {"gmm": "decode gate", "swiglu": "decode", "combine": "decode",
+# the case whose numbers head the summary line: the training path's for the
+# kernels it runs, the 512-token prefill for flash (serving only)
+HEADLINE = {"gmm": "train gate", "tgmm": "train gate M", "swiglu": "train",
+            "swiglu_bwd": "train", "combine": "train", "combine_bwd": "train",
             "flash_attention": "Sq=512 "}
 
 
@@ -523,16 +805,20 @@ def main(argv=None) -> int:
 
     kernel_rows = phase_kernels(get_config(MULA))
     phase_reference()
+    phase_train_reference()
     serve = phase_serve()
+    train = phase_train()
 
     summary = []
     for name in SOURCES:
         rows = [r for r in kernel_rows if r["kernel"] == name]
         head = next((r for r in rows if HEADLINE[name] in r["case"]), rows[0])
+        by_path = {"serve": serve["launches"][name], "train": train["launches"][name]}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": serve["launches"][name],
+            "launches": by_path["train"] or by_path["serve"],
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],

@@ -2,7 +2,7 @@
 ``ARCH_REGISTRY``, a copy of the JAX package's registry (the port imports
 nothing of that package, so it keeps its own copies of the config modules).
 """
-from .base import ModelConfig, MoEConfig, SSMConfig, reduced
+from .base import ModelConfig, MoEConfig, ParallelConfig, SSMConfig, TrainConfig, reduced
 from . import (zamba2_7b, starcoder2_3b, falcon_mamba_7b, deepseek_7b,
                seamless_m4t_medium, dbrx_132b, llama3_405b,
                phi_3_vision_4_2b, mixtral_8x7b, moonshot_v1_16b_a3b)
@@ -35,5 +35,5 @@ def get_config(arch_id: str) -> ModelConfig:
     return ARCH_REGISTRY[arch_id]
 
 
-__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "reduced",
+__all__ = ["ModelConfig", "MoEConfig", "ParallelConfig", "SSMConfig", "TrainConfig", "reduced",
            "ARCH_REGISTRY", "get_config"]

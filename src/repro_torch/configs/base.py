@@ -2,8 +2,9 @@
 ``configs/base.py`` dataclasses (``MoEConfig``, ``SSMConfig``,
 ``ModelConfig``) and ``reduced``, kept field-for-field identical so that a
 config built here and one built there compare equal under
-``dataclasses.asdict`` (tests/test_torch_configs.py). The training and
-parallelism configs are not copied: the port serves on one device.
+``dataclasses.asdict`` (tests/test_torch_configs.py). ``ParallelConfig``
+and ``TrainConfig`` are copied whole; the port's trainer runs on one device
+and rejects the mesh-only settings (pipeline stages, optimizer overlap).
 """
 from __future__ import annotations
 
@@ -185,6 +186,80 @@ class ModelConfig:
         inactive = self.num_layers * 3 * self.d_model * m.d_ff_expert * (
             m.num_experts - m.experts_per_token)
         return self.param_count() - inactive
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """How the model maps onto the ('data','model') / ('pod','data','model') mesh."""
+    # role of the 'model' axis for this arch: 'tp' | 'ep' | 'etp' (expert-TP)
+    model_axis_role: str = "tp"
+    # shard params over the data axis too (ZeRO-3/FSDP style) — for 405B-class
+    fsdp_params: bool = False
+    # optimizer state sharding: 'none' | 'so' (DP only) | 'epso' (DP x MP)
+    optimizer_sharding: str = "epso"
+    # overlapped optimizer collectives (optim/overlap.py): None/'auto' turns
+    # the bucketed ring update on for epso on a real mesh; 'ring'/'xla' force
+    # an impl; 'off' keeps the eager GSPMD-derived tail.
+    opt_overlap: Optional[str] = None   # None|'auto'|'off'|'ring'|'xla'
+    # selective activation checkpointing modules (paper §1 SAC)
+    remat_policy: str = "block"     # none|norm|attn|moe|block(=full block inputs)
+    # gradient accumulation microbatches inside train_step
+    microbatches: int = 1
+    # pipeline parallelism (paper-faithful Mula-100B/220B path): stages map
+    # onto the 'pp' mesh axis; microbatches become pipeline microbatches
+    pp_stages: int = 1
+    pp_schedule: str = "1f1b"       # gpipe | 1f1b
+    # executor: 'shardmap' = per-stage programs over the 'pp' axis (only
+    # stage 0 embeds, only the last stage runs head+CE); 'masked' = legacy
+    # single-program SPMD where every stage pays the masked embed/head cost.
+    # 'shardmap' needs a meshed 'pp' axis; off-mesh runs fall back to
+    # 'masked' (the single-device PP simulation).
+    pp_impl: str = "shardmap"       # shardmap | masked
+    # MoE dispatch override: None defers to MoEConfig.dispatch; 'capacity' /
+    # 'dropless' force that path in the step builder so every executor the
+    # step composes (plain, microbatched, both PP executors) runs one MoE
+    # dispatch mode.
+    moe_dispatch: Optional[str] = None
+
+    def __post_init__(self):
+        if self.pp_schedule not in ("gpipe", "1f1b"):
+            raise ValueError(f"pp_schedule must be 'gpipe' or '1f1b', "
+                             f"got {self.pp_schedule!r}")
+        if self.pp_impl not in ("shardmap", "masked"):
+            raise ValueError(f"pp_impl must be 'shardmap' or 'masked', "
+                             f"got {self.pp_impl!r}")
+        if self.moe_dispatch not in (None, "capacity", "dropless"):
+            raise ValueError(f"moe_dispatch must be None, 'capacity' or "
+                             f"'dropless', got {self.moe_dispatch!r}")
+        if self.opt_overlap not in (None, "auto", "off", "ring", "xla"):
+            raise ValueError(f"opt_overlap must be None, 'auto', 'off', "
+                             f"'ring' or 'xla', got {self.opt_overlap!r}")
+        if self.pp_stages < 1:
+            raise ValueError(f"pp_stages must be >= 1, got {self.pp_stages}")
+        if self.microbatches < 1:
+            raise ValueError(
+                f"microbatches must be >= 1, got {self.microbatches}")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Paper §2.1 recipe."""
+    seq_len: int = 2048
+    global_batch: int = 3072
+    lr_peak: float = 4e-4
+    lr_min: float = 4e-5
+    warmup_steps: int = 2500
+    total_steps: int = 630_000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.99
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    clip_after_warmup_only: bool = True   # paper: clip only after warmup
+    grad_reduce_dtype: str = "bfloat16"   # paper: bf16 gradient reduction
+    param_dtype: str = "float32"          # fp32 master weights
+    compute_dtype: str = "bfloat16"       # bf16 fwd/bwd
+    seed: int = 0
 
 
 def reduced(cfg: ModelConfig, *, layers: int = 2, d_model: int = 256,

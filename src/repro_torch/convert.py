@@ -1,10 +1,12 @@
-"""Parameter conversion from the JAX package.
+"""Parameter and optimizer-state conversion from the JAX package.
 
 ``params_from_jax`` takes the JAX package's parameter pytree with its
 leaves already turned into numpy arrays (``jax.tree.map(np.asarray, p)`` on
 the JAX side — this package never imports JAX) and returns the port's
-parameter dict: the same nested layout, leaves as tensors. Tests use it to
-give both packages the same weights, since JAX's PRNG is not reproduced.
+parameter dict: the same nested layout, leaves as tensors.
+``opt_state_from_jax`` does the same for an ``AdamWState``. Tests use them
+to start both packages from the same weights and optimizer state, since
+JAX's PRNG is not reproduced.
 """
 from __future__ import annotations
 
@@ -14,22 +16,30 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import padded_vocab
+from repro_torch.optim import AdamWState
+
+
+def _tensors(node, dev, dtype):
+    if isinstance(node, dict):
+        return {k: _tensors(v, dev, dtype) for k, v in node.items()}
+    return torch.from_numpy(np.array(node, dtype=np.float32)).to(device=dev, dtype=dtype)
 
 
 def params_from_jax(tree, cfg: ModelConfig, *, device: DeviceLike = None,
                     dtype: torch.dtype = torch.float32) -> dict:
     """Nested dict of array-likes -> nested dict of tensors on ``device`` in
     ``dtype``. Checks the embedding against ``cfg``'s padded vocab."""
-    dev = resolve_device(device)
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return torch.from_numpy(np.array(node, dtype=np.float32)).to(device=dev, dtype=dtype)
-
-    out = conv(tree)
+    out = _tensors(tree, resolve_device(device), dtype)
     rows = out["embed"]["table"].shape[0]
     if rows != padded_vocab(cfg):
         raise ValueError(f"embedding has {rows} rows; {cfg.name} pads its vocab "
                          f"to {padded_vocab(cfg)}")
     return out
+
+
+def opt_state_from_jax(opt, *, device: DeviceLike = None) -> AdamWState:
+    """The JAX package's ``AdamWState`` (step, master, m, v), leaves as
+    numpy arrays -> the port's, float32 on ``device``, step int32."""
+    dev = resolve_device(device)
+    step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32, device=dev)
+    return AdamWState(step, *(_tensors(t, dev, torch.float32) for t in (opt.master, opt.m, opt.v)))

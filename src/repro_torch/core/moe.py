@@ -15,6 +15,12 @@ the worst-case routing. Both use count-aligned groups, padded to
 ``ops.gmm_align()`` rows so that no gmm row tile straddles two experts.
 Everything stays on the device: no step of the dispatch reads a value back
 to the host.
+
+The block is differentiable end to end: the gathers into the pool and back
+out of it are indexing ops (their backward scatter-adds), the grouped FFN
+and the combine are ``autograd.Function``s over the kernels, the combine
+weights carry the gradient into the router, and the router's aux and z
+losses are plain PyTorch.
 """
 from __future__ import annotations
 

@@ -1,9 +1,16 @@
-// Grouped matrix multiply for the MoE expert FFN (paper Stage 4), forward.
+// Grouped matrix multiply for the MoE expert FFN (paper Stage 4).
 //
 // Replaces src/repro/kernels/gmm.py::gmm_pallas (_gmm_kernel), reached in the
-// JAX package through kernels/ops.py::gmm.
+// JAX package through kernels/ops.py::gmm, forward and in its custom VJP.
 //
-//   out[m, :] = lhs[m, :] @ rhs[g(m)]     lhs (M, K), rhs (G, K, N), bf16
+//   out[m, :] = lhs[m, :] @ rhs[g(m)]       lhs (M, K), rhs (G, K, N), bf16
+//   out[m, :] = lhs[m, :] @ rhs[g(m)]^T     trans_rhs: rhs (G, N, K)
+//
+// The transposed mode is the input gradient dx = dy @ w^T: the JAX wrapper
+// materialises swapaxes(w, 1, 2) (a 268 MB copy of each expert stack of
+// Mula-7B-A1B per backward); here the B tile is read from w as stored,
+// 16 bytes at a time along K, and fed to the tensor cores as a col_major
+// fragment, so no transposed copy is made.
 //
 // Rows are grouped by expert and every group is padded to a multiple of
 // BM rows by the dispatch (core/moe.py aligns to kernels.ops.gmm_align()),
@@ -40,14 +47,17 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int LDA = BK + 8;   // padded leading dims (multiples of 8 elements)
 constexpr int LDB = BN + 8;
+constexpr int LDBT = BK + 8;  // transposed B tile: BN rows of BK
+constexpr int SB_ELEMS = BK * LDB > BN * LDBT ? BK * LDB : BN * LDBT;
 constexpr int LDC = BN + 4;
 
+template <bool TRANS>
 __global__ void __launch_bounds__(THREADS)
 gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
            const int* __restrict__ group_sizes, bf16* __restrict__ out,
            int M, int K, int N, int G) {
   __shared__ __align__(128) bf16 sA[BM * LDA];
-  __shared__ __align__(128) bf16 sB[BK * LDB];
+  __shared__ __align__(128) bf16 sB[SB_ELEMS];
   __shared__ __align__(128) float sC[BM * LDC];
   __shared__ int s_gid, s_total;
 
@@ -92,7 +102,7 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
   }
 
   const bf16* A = lhs + (size_t)m0 * K;
-  const bf16* B = rhs + (size_t)gid * K * N;
+  const bf16* B = rhs + (size_t)gid * K * N;   // (K, N), or (N, K) if TRANS
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
   wmma::fill_fragment(acc[0], 0.0f);
@@ -106,11 +116,21 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
       if (k0 + c < K) v = repro::load_vec8(A + (size_t)r * K + k0 + c);
       repro::store_vec8(&sA[r * LDA + c], v);
     }
-    for (int i = tid; i < BK * VN; i += THREADS) {
-      const int r = i / VN, c = (i % VN) * 8;
-      uint4 v = repro::zero_vec8();
-      if (k0 + r < K && n0 + c < N) v = repro::load_vec8(B + (size_t)(k0 + r) * N + n0 + c);
-      repro::store_vec8(&sB[r * LDB + c], v);
+    if (TRANS) {
+      // sB holds the tile as BN rows of BK (n-major): B^T as stored
+      for (int i = tid; i < BN * VK; i += THREADS) {
+        const int r = i / VK, c = (i % VK) * 8;
+        uint4 v = repro::zero_vec8();
+        if (n0 + r < N && k0 + c < K) v = repro::load_vec8(B + (size_t)(n0 + r) * K + k0 + c);
+        repro::store_vec8(&sB[r * LDBT + c], v);
+      }
+    } else {
+      for (int i = tid; i < BK * VN; i += THREADS) {
+        const int r = i / VN, c = (i % VN) * 8;
+        uint4 v = repro::zero_vec8();
+        if (k0 + r < K && n0 + c < N) v = repro::load_vec8(B + (size_t)(k0 + r) * N + n0 + c);
+        repro::store_vec8(&sB[r * LDB + c], v);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -119,9 +139,16 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
       wmma::load_matrix_sync(a, sA + kk, LDA);
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, sB + kk * LDB + warp * 32 + j * 16, LDB);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
+        if (TRANS) {
+          // element (k, n) of the B tile sits at sB[n * LDBT + k]
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
+          wmma::load_matrix_sync(b, sB + (warp * 32 + j * 16) * LDBT + kk, LDBT);
+          wmma::mma_sync(acc[j], a, b, acc[j]);
+        } else {
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+          wmma::load_matrix_sync(b, sB + kk * LDB + warp * 32 + j * 16, LDB);
+          wmma::mma_sync(acc[j], a, b, acc[j]);
+        }
       }
     }
     __syncthreads();
@@ -143,15 +170,17 @@ gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
 
 REPRO_API int repro_gmm_block_m() { return BM; }
 
-// lhs (M, K), rhs (G, K, N), group_sizes (G,) int32, out (M, N); all on the
-// device, bf16, contiguous, 16-byte aligned. Requires M % BM == 0,
-// K % 8 == 0, N % 8 == 0 and every group size a multiple of BM.
+// lhs (M, K), rhs (G, K, N) -- or (G, N, K) with trans_rhs -- group_sizes
+// (G,) int32, out (M, N); all on the device, bf16, contiguous, 16-byte
+// aligned. Requires M % BM == 0, K % 8 == 0, N % 8 == 0 and every group
+// size a multiple of BM.
 REPRO_API int repro_gmm(const void* lhs, const void* rhs, const void* group_sizes, void* out,
-                        int M, int K, int N, int G, void* stream) {
+                        int M, int K, int N, int G, int trans_rhs, void* stream) {
   if (M % BM != 0 || K % 8 != 0 || N % 8 != 0 || G < 1) return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return (int)cudaSuccess;
   dim3 grid(M / BM, (N + BN - 1) / BN);
-  gmm_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = trans_rhs ? gmm_kernel<true> : gmm_kernel<false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs),
       static_cast<const int*>(group_sizes), static_cast<bf16*>(out), M, K, N, G);
   return (int)cudaGetLastError();

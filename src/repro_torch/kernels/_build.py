@@ -33,9 +33,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "repro_gmm_block_m": ([], _I),
     "repro_error_string": ([_I], ctypes.c_char_p),
-    "repro_gmm": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "repro_gmm": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    "repro_tgmm": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "repro_swiglu": ([_P, _P, _P, ctypes.c_longlong, _P], _I),
+    "repro_swiglu_bwd": ([_P, _P, _P, _P, _P, ctypes.c_longlong, _P], _I),
     "repro_combine": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "repro_combine_max_k": ([], _I),
+    "repro_combine_bwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "repro_flash_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P], _I),
 }

@@ -1,30 +1,41 @@
 """Public kernel wrappers of the port (the JAX package's ``kernels/ops.py``).
 
-* ``gmm(x, w, group_sizes)``       grouped matmul, paper Stage 4
-* ``fused_swiglu(gate, up)``       silu(gate) * up
-* ``combine(rows, weights)``       weighted top-k combine, paper Stage 5
-* ``flash_attention(q, k, v)``     causal / sliding-window attention
+* ``gmm(x, w, group_sizes)``       grouped matmul, paper Stage 4. Backward:
+                                   ``dx = gmm(dy, w^T)`` (the gmm kernel in
+                                   its transposed-rhs mode), ``dw = tgmm(x,
+                                   dy)``; no gradient for ``group_sizes``.
+* ``fused_swiglu(gate, up)``       silu(gate) * up; backward through the
+                                   ``swiglu_bwd`` kernel.
+* ``combine(rows, weights)``       weighted top-k combine, paper Stage 5;
+                                   backward through the fused
+                                   ``combine_bwd`` kernel.
+* ``flash_attention(q, k, v)``     causal / sliding-window attention,
+                                   forward only (training attention is the
+                                   plain blockwise path of ``models/layers``).
 
-Each wrapper dispatches on the device of the tensor it is given: a CPU
-tensor goes to the plain PyTorch version in ``ref.py``; a CUDA tensor
-launches the hand-written kernel (``csrc/``) or raises, never falling back.
-``launches`` counts kernel launches per wrapper (a plain integer each,
-bumped where the kernel is launched and nowhere else), so a run can show
-that its main path went through the kernels.
-
-Forward only: the serving path needs no gradient.
+The first three are ``torch.autograd.Function``s, as the JAX package's
+are ``jax.custom_vjp``s. Their backward kernels are callable on their
+own: ``gmm_transposed``, ``tgmm``, ``swiglu_bwd`` and ``combine_bwd``.
+Each wrapper dispatches on the device of the
+tensor it is given: a CPU tensor goes to the plain PyTorch version in
+``ref.py``; a CUDA tensor launches the hand-written kernel (``csrc/``) or
+raises, never falling back. ``launches`` counts kernel launches per
+kernel (a plain integer each, bumped where the kernel is launched and
+nowhere else), so a run can show that its main path went through the
+kernels.
 """
 from __future__ import annotations
 
 import torch
 
 from . import ref
-from .combine import combine_cuda
+from .combine import combine_bwd_cuda, combine_cuda
 from .flash_attention import flash_attention_cuda
-from .gmm import BLOCK_M, gmm_cuda
-from .swiglu import swiglu_cuda
+from .gmm import BLOCK_M, gmm_cuda, tgmm_cuda
+from .swiglu import swiglu_bwd_cuda, swiglu_cuda
 
-launches = {"gmm": 0, "swiglu": 0, "combine": 0, "flash_attention": 0}
+launches = {"gmm": 0, "tgmm": 0, "swiglu": 0, "swiglu_bwd": 0, "combine": 0,
+            "combine_bwd": 0, "flash_attention": 0}
 
 
 def reset_launches() -> None:
@@ -42,17 +53,36 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
-    """x (M, K) rows grouped by expert, w (G, K, N), group_sizes (G,) ->
-    (M, N); rows past ``sum(group_sizes)`` are zero."""
+# ----------------------------------------------------------------------------
+# kernel calls: plain version on the CPU, kernel on the card
+# ----------------------------------------------------------------------------
+
+def _gmm(x, w, group_sizes, trans_rhs: bool = False):
     if _on_cpu(x):
-        return ref.gmm_ref(x, w, group_sizes)
-    out = gmm_cuda(x, w, group_sizes)
+        return ref.gmm_ref(x, w.transpose(1, 2) if trans_rhs else w, group_sizes)
+    out = gmm_cuda(x, w, group_sizes, trans_rhs=trans_rhs)
     launches["gmm"] += 1
     return out
 
 
-def fused_swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+def tgmm(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """x (M, K), dy (M, N) grouped as for ``gmm`` -> (G, K, N) in x's dtype,
+    ``out[g] = x_g.T @ dy_g``; empty groups are zero. gmm's weight gradient."""
+    if _on_cpu(x):
+        return ref.tgmm_ref(x, dy, group_sizes, group_sizes.shape[0])
+    out = tgmm_cuda(x, dy, group_sizes)
+    launches["tgmm"] += 1
+    return out
+
+
+def gmm_transposed(dy: torch.Tensor, w: torch.Tensor,
+                   group_sizes: torch.Tensor) -> torch.Tensor:
+    """dy (M, N), w (G, K, N) -> (M, K), ``dy[m] @ w[g(m)].T`` without a
+    transposed copy of w: gmm's input gradient."""
+    return _gmm(dy, w, group_sizes, trans_rhs=True)
+
+
+def _swiglu(gate, up):
     if _on_cpu(gate):
         return ref.swiglu_ref(gate, up)
     out = swiglu_cuda(gate, up)
@@ -60,13 +90,92 @@ def fused_swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def combine(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
-    """rows (T, K, D), weights (T, K) -> (T, D)."""
+def swiglu_bwd(gate: torch.Tensor, up: torch.Tensor, dout: torch.Tensor):
+    """Gradients (dgate, dup) of ``silu(gate) * up``, computed in float32."""
+    if _on_cpu(gate):
+        return ref.swiglu_bwd_ref(gate, up, dout)
+    out = swiglu_bwd_cuda(gate, up, dout)
+    launches["swiglu_bwd"] += 1
+    return out
+
+
+def _combine(rows, weights):
     if _on_cpu(rows):
         return ref.combine_ref(rows, weights)
     out = combine_cuda(rows, weights)
     launches["combine"] += 1
     return out
+
+
+def combine_bwd(rows: torch.Tensor, weights: torch.Tensor, dout: torch.Tensor):
+    """Gradients (drows in rows's dtype, dw in float32) of ``combine``."""
+    if _on_cpu(rows):
+        return ref.combine_bwd_ref(rows, weights, dout)
+    out = combine_bwd_cuda(rows, weights, dout)
+    launches["combine_bwd"] += 1
+    return out
+
+
+# ----------------------------------------------------------------------------
+# autograd
+# ----------------------------------------------------------------------------
+
+class _Gmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, group_sizes):
+        ctx.save_for_backward(x, w, group_sizes)
+        return _gmm(x, w, group_sizes)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, group_sizes = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = gmm_transposed(dy, w, group_sizes).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = tgmm(x, dy, group_sizes).to(w.dtype)
+        return dx, dw, None
+
+
+class _Swiglu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, gate, up):
+        ctx.save_for_backward(gate, up)
+        return _swiglu(gate, up)
+
+    @staticmethod
+    def backward(ctx, dout):
+        gate, up = ctx.saved_tensors
+        return swiglu_bwd(gate, up, dout.contiguous())
+
+
+class _Combine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, rows, weights):
+        ctx.save_for_backward(rows, weights)
+        return _combine(rows, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        rows, weights = ctx.saved_tensors
+        drows, dw = combine_bwd(rows, weights, dout.contiguous())
+        return drows, dw.to(weights.dtype)
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+    """x (M, K) rows grouped by expert, w (G, K, N), group_sizes (G,) ->
+    (M, N); rows past ``sum(group_sizes)`` are zero."""
+    return _Gmm.apply(x, w, group_sizes)
+
+
+def fused_swiglu(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
+    return _Swiglu.apply(gate, up)
+
+
+def combine(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """rows (T, K, D), weights (T, K) -> (T, D)."""
+    return _Combine.apply(rows, weights)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the serving path's kernels.
+"""Plain PyTorch versions of the port's kernels, forward and backward.
 
 They define the semantics the CUDA kernels in ``csrc/`` implement, run on
 the CPU (where every wrapper in ``ops.py`` uses them) and are what
@@ -31,10 +31,42 @@ def gmm_ref(lhs: torch.Tensor, rhs: torch.Tensor,
     return out
 
 
+def tgmm_ref(lhs: torch.Tensor, rhs: torch.Tensor, group_sizes: torch.Tensor,
+             num_groups: int) -> torch.Tensor:
+    """Transposed grouped matmul (the grouped matmul's weight gradient).
+    lhs: (M, K), rhs: (M, N), rows grouped as in ``gmm_ref`` ->
+    (num_groups, K, N) with ``out[g] = lhs[rows of g].T @ rhs[rows of g]``,
+    accumulated in float32, in lhs's dtype. A group with no rows is zero;
+    rows past ``sum(group_sizes)`` are never read."""
+    K, N = lhs.shape[1], rhs.shape[1]
+    out = torch.zeros((num_groups, K, N), dtype=lhs.dtype, device=lhs.device)
+    start = 0
+    for g, size in enumerate(group_sizes.tolist()):
+        if size > 0:
+            out[g] = (lhs[start:start + size].float().T
+                      @ rhs[start:start + size].float()).to(lhs.dtype)
+        start += size
+    return out
+
+
 def swiglu_ref(gate: torch.Tensor, up: torch.Tensor) -> torch.Tensor:
     """``silu(gate) * up`` in float32, cast to the input dtype."""
     g = gate.float()
     return (g * torch.sigmoid(g) * up.float()).to(gate.dtype)
+
+
+def swiglu_bwd_ref(gate: torch.Tensor, up: torch.Tensor,
+                   dout: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Backward of ``silu(gate) * up`` in float32 (the JAX package's
+    ``ops.py`` custom VJP): ``dgate = dout * up * dsilu``, ``dup = dout *
+    silu``, with ``dsilu = sig * (1 + gate * (1 - sig))``; each cast to its
+    input's dtype."""
+    g = gate.float()
+    sig = torch.sigmoid(g)
+    silu = g * sig
+    dsilu = sig * (1 + g * (1 - sig))
+    d = dout.float()
+    return (d * up.float() * dsilu).to(gate.dtype), (d * silu).to(up.dtype)
 
 
 def combine_ref(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -42,6 +74,18 @@ def combine_ref(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     ``out[t] = sum_k weights[t, k] * rows[t, k]``, accumulated in float32."""
     return torch.einsum("tkd,tk->td", rows.float(),
                         weights.float()).to(rows.dtype)
+
+
+def combine_bwd_ref(rows: torch.Tensor, weights: torch.Tensor,
+                    dout: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Backward of ``combine_ref`` (the paper's fused backward): ``drows[t,
+    k] = weights[t, k] * dout[t]`` in rows's dtype and ``dw[t, k] =
+    sum_d rows[t, k, d] * dout[t, d]`` in float32 (the kernel's output; the
+    autograd wrapper casts it to the weights' dtype)."""
+    d = dout.float()
+    drows = (weights.float()[..., None] * d[:, None, :]).to(rows.dtype)
+    dw = torch.einsum("tkd,td->tk", rows.float(), d)
+    return drows, dw
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,6 +1,6 @@
-"""Model stack for the serving path (dense and moe)."""
-from .model import (decode_step, init_cache, init_params, padded_vocab,
-                    prefill_with_cache)
+"""Model stack (dense and moe): training forward and loss, serving."""
+from .model import (decode_step, forward, init_cache, init_params, loss_fn, masked_ce,
+                    padded_vocab, prefill_with_cache)
 
-__all__ = ["decode_step", "init_cache", "init_params", "padded_vocab",
-           "prefill_with_cache"]
+__all__ = ["decode_step", "forward", "init_cache", "init_params", "loss_fn", "masked_ce",
+           "padded_vocab", "prefill_with_cache"]

@@ -1,6 +1,7 @@
-"""Transformer layers for the serving path: norms, RoPE, GQA attention
-(prefill through the flash kernel, cached single-token decode), MLPs,
-embedding. Port of the JAX package's ``models/layers.py``.
+"""Transformer layers: norms, RoPE, GQA attention (prefill through the
+flash kernel, training through the plain blockwise path, cached
+single-token decode), MLPs, embedding. Port of the JAX package's
+``models/layers.py``; every function here is differentiable by autograd.
 
 Parameters are plain dicts of tensors in the JAX package's layout (weights
 stored (in, out), so ``x @ w``); every function is a plain function on
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import slot_decode_attention_ref
+from repro_torch.kernels.ref import NEG, slot_decode_attention_ref
 
 
 # ----------------------------------------------------------------------------
@@ -80,10 +81,78 @@ def init_attention(cfg, *, num_layers: int, generator: torch.Generator, device, 
             "wv": normal((d, nkv * hd)), "wo": normal((nh * hd, d))}
 
 
-def attention(params, x, cfg, *, return_kv: bool = False):
-    """Causal self-attention over a whole prompt from position 0 (prefill),
-    through the flash kernel. x: (B, S, d). ``return_kv`` also returns the
+def blockwise_attention(q, k, v, *, causal: bool, window: int,
+                        q_block: int = 512, kv_block: int = 512):
+    """Flash-style double-blocked attention in plain PyTorch (online
+    softmax), differentiated by autograd: the JAX package's
+    ``_blockwise_attention``, its training attention, which no Pallas kernel
+    computes. q: (B, Sq, nh, hd); k/v: (B, Skv, nkv, hd), q and k both from
+    position 0. ``window`` > 0 lets each query see keys in (pos - window,
+    pos]. Kv blocks that the causal or window mask hides from every query
+    of a q block are skipped: they would add exact zeros.
+    """
+    B, Sq, nh, hd = q.shape
+    Skv, nkv = k.shape[1], k.shape[2]
+    groups = nh // nkv
+    scale = 1.0 / math.sqrt(hd)
+    qb, kb = min(q_block, Sq), min(kv_block, Skv)
+    nq, nk = -(-Sq // qb), -(-Skv // kb)
+    Sq_pad, Skv_pad = nq * qb, nk * kb
+    q = F.pad(q, (0, 0, 0, 0, 0, Sq_pad - Sq))
+    k = F.pad(k, (0, 0, 0, 0, 0, Skv_pad - Skv))
+    v = F.pad(v, (0, 0, 0, 0, 0, Skv_pad - Skv))
+    qr = q.reshape(B, nq, qb, nkv, groups, hd).permute(0, 3, 4, 1, 2, 5)   # (B,nkv,g,nq,qb,hd)
+    kr = k.reshape(B, nk, kb, nkv, hd).permute(0, 3, 1, 2, 4)               # (B,nkv,nk,kb,hd)
+    vr = v.reshape(B, nk, kb, nkv, hd).permute(0, 3, 1, 2, 4)
+    dev = q.device
+    q_pos = torch.arange(Sq_pad, device=dev).reshape(nq, qb)
+    kv_pos = torch.arange(Skv_pad, device=dev).reshape(nk, kb)
+
+    outs = []
+    for qi in range(nq):
+        qt = qr[:, :, :, qi].float() * scale                                # (B,nkv,g,qb,hd)
+        qp = q_pos[qi]
+        q_lo, q_hi = qi * qb, qi * qb + qb - 1
+        m = torch.full((B, nkv, groups, qb), NEG, device=dev)
+        l = torch.zeros((B, nkv, groups, qb), device=dev)
+        acc = torch.zeros((B, nkv, groups, qb, hd), device=dev)
+        for ki in range(nk):
+            if causal and ki * kb > q_hi:
+                continue
+            if window > 0 and q_lo - (ki * kb + kb - 1) >= window:
+                continue
+            kt, vt = kr[:, :, ki].float(), vr[:, :, ki].float()
+            s = torch.einsum("bngqh,bnkh->bngqk", qt, kt)
+            kp = kv_pos[ki]
+            mask = (kp < Skv)[None, :].expand(qb, kb)
+            if causal:
+                mask = mask & (qp[:, None] >= kp[None, :])
+            if window > 0:
+                mask = mask & (qp[:, None] - kp[None, :] < window)
+            s = torch.where(mask, s, torch.full_like(s, NEG))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum("bngqk,bnkh->bngqh", p, vt)
+            m = m_new
+        outs.append(acc / torch.clamp(l[..., None], min=1e-30))
+    o = torch.stack(outs)                                                   # (nq,B,nkv,g,qb,hd)
+    o = o.permute(1, 0, 4, 2, 3, 5).reshape(B, Sq_pad, nh, hd)
+    return o[:, :Sq].to(q.dtype)
+
+
+ATTN_IMPLS = ("flash", "blockwise")
+
+
+def attention(params, x, cfg, *, impl: str = "flash", return_kv: bool = False):
+    """Causal self-attention over a whole sequence from position 0. x: (B,
+    S, d). ``impl`` chooses as the JAX plan's ``attn_impl`` does: 'flash'
+    (the forward-only kernel; serving and prefill) or 'blockwise' (plain
+    PyTorch with a backward; training). ``return_kv`` also returns the
     post-RoPE (k, v), each (B, S, nkv, hd), for the cache."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attention impl must be one of {ATTN_IMPLS}, got {impl!r}")
     B, S, d = x.shape
     nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     positions = torch.arange(S, device=x.device)[None, :]
@@ -92,8 +161,11 @@ def attention(params, x, cfg, *, return_kv: bool = False):
     v = (x @ params["wv"].to(x.dtype)).reshape(B, S, nkv, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window).to(x.dtype)
-    out = o.reshape(B, S, nh * hd) @ params["wo"].to(x.dtype)
+    if impl == "flash":
+        o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    else:
+        o = blockwise_attention(q, k, v, causal=True, window=cfg.sliding_window)
+    out = o.to(x.dtype).reshape(B, S, nh * hd) @ params["wo"].to(x.dtype)
     if return_kv:
         return out, (k, v)
     return out

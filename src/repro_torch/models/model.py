@@ -1,6 +1,7 @@
-"""Model builder for the serving path (``arch_type`` dense and moe): params,
-KV caches, one decode step and prefill into cache slots. Port of the JAX
-package's ``models/model.py``.
+"""Model builder (``arch_type`` dense and moe): params, the training
+forward and loss (with selective activation checkpointing), KV caches, one
+decode step and prefill into cache slots. Port of the JAX package's
+``models/model.py``.
 
 Parameters keep the JAX package's pytree layout — a nested dict whose
 ``layers`` leaves are stacked with a leading layer dim — so a JAX parameter
@@ -10,6 +11,7 @@ scans over the stacked layers, the port loops over them in Python.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import moe as moe_lib
@@ -18,7 +20,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from . import layers as L
 
 VOCAB_ALIGN = 256
-SERVE_ARCHS = ("dense", "moe")
+ARCHS = ("dense", "moe")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -26,9 +28,9 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.arch_type not in SERVE_ARCHS:
+    if cfg.arch_type not in ARCHS:
         raise NotImplementedError(
-            f"the port serves arch_type {SERVE_ARCHS}, not {cfg.arch_type!r}")
+            f"the port runs arch_type {ARCHS}, not {cfg.arch_type!r}")
 
 
 # ----------------------------------------------------------------------------
@@ -61,11 +63,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
     return p
 
 
-def layer_params(tree, i: int):
-    """Slice layer ``i`` out of a stacked-layer param (or cache) dict."""
+def unstack_layers(tree, n: int) -> list:
+    """The ``n`` per-layer dicts of a stacked-layer param dict, as views cut
+    with ``torch.unbind``: in training its backward stacks the layers'
+    gradients once, where slicing each layer would build a zero-padded
+    full-size gradient per layer and leaf."""
     if isinstance(tree, dict):
-        return {k: layer_params(v, i) for k, v in tree.items()}
-    return tree[i]
+        cols = {k: unstack_layers(v, n) for k, v in tree.items()}
+        return [{k: c[i] for k, c in cols.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
 
 
 # ----------------------------------------------------------------------------
@@ -107,8 +113,7 @@ def decode_step(params, tokens, cache: dict, index, cfg: ModelConfig, *,
     _check_arch(cfg)
     h = L.embed(params["embed"], tokens, compute_dtype)
     kv = cache["kv"]
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
+    for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         a = L.decode_attention(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm),
                                {"k": kv["k"][i], "v": kv["v"][i]}, index, cfg)
         h = h + a
@@ -149,8 +154,7 @@ def prefill_with_cache(params, tokens, cache: dict, slots, lengths, cfg: ModelCo
     dest = p_idx % W if cfg.sliding_window > 0 else p_idx
 
     h = L.embed(params["embed"], tokens, compute_dtype)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params["layers"], i)
+    for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         a, (k, v) = L.attention(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm), cfg,
                                 return_kv=True)
         kv["k"][i][rows, dest] = k[b_idx, p_idx].to(kv["k"].dtype)
@@ -160,3 +164,121 @@ def prefill_with_cache(params, tokens, cache: dict, slots, lengths, cfg: ModelCo
 
     last = h[torch.arange(len(lens), device=dev), lengths - 1]             # (B', d)
     return _logits(params, last, cfg), cache
+
+
+# ----------------------------------------------------------------------------
+# SAC wrappers (selective activation checkpointing, paper §1)
+# ----------------------------------------------------------------------------
+
+def _remat(fn):
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return wrapped
+
+
+def _sac(fn, name: str, policy: str):
+    """Checkpoint ``fn`` when its module is selected by the SAC policy (a
+    comma-separated set, e.g. 'attn,moe'): only its inputs are saved, its
+    insides are recomputed in the backward."""
+    selected = set(policy.split(",")) if policy else set()
+    return _remat(fn) if name in selected else fn
+
+
+def block_remat(fn, sac: str):
+    """Whole-block remat: 'block' saves only the block's inputs. The JAX
+    package's 'block_sc' (also save the outputs of the collectives) has no
+    meaning on one device and is not ported."""
+    modes = set(sac.split(",")) if sac else set()
+    if "block_sc" in modes:
+        raise NotImplementedError("remat policy 'block_sc' saves collective outputs; "
+                                  "the port trains on one device and has none")
+    return _remat(fn) if "block" in modes else fn
+
+
+# ----------------------------------------------------------------------------
+# training forward
+# ----------------------------------------------------------------------------
+
+def _dense_block(lp, h, cfg, sac: str):
+    attn = _sac(lambda q, x: L.attention(q, x, cfg, impl="blockwise"), "attn", sac)
+    mlp = _sac(lambda q, x: L.apply_mlp(q, x, cfg.mlp_activation), "mlp", sac)
+    h = h + attn(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm))
+    return h + mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm))
+
+
+def _moe_block(lp, h, cfg, sac: str):
+    attn = _sac(lambda q, x: L.attention(q, x, cfg, impl="blockwise"), "attn", sac)
+    moe = _sac(lambda q, x: moe_lib.sparse_moe_block(q, x, cfg), "moe", sac)
+    h = h + attn(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm))
+    mo, aux, z, stats = moe(lp["moe"], L.apply_norm(lp["ln2"], h, cfg.norm))
+    return h + mo, aux, z, stats
+
+
+def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
+            compute_dtype: torch.dtype = torch.bfloat16):
+    """Training forward. batch["tokens"]: (B, S) int. Returns (logits (B,
+    S, V_pad), aux) with aux = {"moe_aux", "moe_z"} summed over layers and,
+    for MoE, "moe_stats" (routing telemetry summed over layers), as the JAX
+    package's ``_scan_layers_aux``. Attention is the blockwise path."""
+    _check_arch(cfg)
+    h = L.embed(params["embed"], batch["tokens"], compute_dtype)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    aux = {"moe_aux": zero, "moe_z": zero}
+    layers = unstack_layers(params["layers"], cfg.num_layers)
+    if cfg.arch_type == "moe":
+        block = block_remat(lambda lp, x: _moe_block(lp, x, cfg, sac), sac)
+        counts = torch.zeros(cfg.moe.num_experts, dtype=torch.float32, device=h.device)
+        drops = zero
+        for lp in layers:
+            h, a, z, st = block(lp, h)
+            aux["moe_aux"] = aux["moe_aux"] + a
+            aux["moe_z"] = aux["moe_z"] + z
+            counts, drops = counts + st.counts, drops + st.drops
+        aux["moe_stats"] = moe_lib.MoeStats(counts, drops)
+    else:
+        block = block_remat(lambda lp, x: _dense_block(lp, x, cfg, sac), sac)
+        for lp in layers:
+            h = block(lp, h)
+    return _logits(params, h, cfg), aux
+
+
+def masked_ce(logits, labels, cfg: ModelConfig):
+    """Masked next-token CE over padded-vocab logits (labels < 0 are
+    masked). Returns (ce, ntok)."""
+    vp = padded_vocab(cfg)
+    logits = logits.float()
+    if vp != cfg.vocab_size:     # mask padded vocab columns out of the lse
+        pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e9)
+    mask = labels >= 0
+    safe = torch.clamp(labels, min=0)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    nll = torch.where(mask, lse - ll, torch.zeros_like(lse))
+    ntok = torch.clamp(mask.sum(), min=1)
+    return nll.sum() / ntok, ntok
+
+
+def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
+            compute_dtype: torch.dtype = torch.bfloat16):
+    """Next-token cross entropy plus the MoE aux and z losses (each
+    averaged over layers, times its coefficient). Returns (loss, metrics):
+    ce, moe_aux, moe_z, ntok and, for MoE, moe_counts (per-layer mean of
+    the routed pairs per expert), moe_load (its share) and moe_drops
+    (summed over layers)."""
+    logits, aux = forward(params, batch, cfg, sac=sac, compute_dtype=compute_dtype)
+    ce, ntok = masked_ce(logits, batch["labels"], cfg)
+    total = ce
+    nl = max(cfg.num_layers, 1)
+    if cfg.is_moe:
+        total = total + cfg.moe.router_aux_coef * aux["moe_aux"] / cfg.num_layers
+        total = total + cfg.moe.router_z_coef * aux["moe_z"] / cfg.num_layers
+    metrics = {"ce": ce, "moe_aux": aux["moe_aux"] / nl, "moe_z": aux["moe_z"] / nl,
+               "ntok": ntok}
+    if "moe_stats" in aux:
+        st = aux["moe_stats"]
+        counts = st.counts / nl
+        metrics["moe_counts"] = counts
+        metrics["moe_load"] = counts / torch.clamp(counts.sum(), min=1.0)
+        metrics["moe_drops"] = st.drops
+    return total, metrics

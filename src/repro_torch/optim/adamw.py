@@ -1,0 +1,136 @@
+"""AdamW with the paper's mixed-precision recipe (§1, §2.1): port of the JAX
+package's ``optim/adamw.py``.
+
+* bf16 weights and gradients in the forward and backward,
+* fp32 master weights and fp32 (m, v) optimizer states,
+* global-norm gradient clipping, optionally only after warmup,
+* decoupled weight decay on every parameter.
+
+The update math is ``adamw_leaf``, written as the JAX package writes it
+(not ``torch.optim.AdamW``, whose update differs). ``adamw_update`` applies
+it leaf by leaf and writes the results into the state's tensors in place
+(the JAX version returns new arrays): the optimizer state of a full-width
+layer stack is tens of GB, and a second copy would not fit beside it. It
+walks a stacked leaf one layer at a time to bound the temporaries.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.tree import leaves, leaves_with_path, tree_map
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor        # int32 scalar
+    master: dict              # fp32 master weights (tree like params)
+    m: dict                   # fp32 first moment
+    v: dict                   # fp32 second moment
+
+
+def adamw_init(params) -> AdamWState:
+    """Step 0, fp32 master weights and zero moments. A float32 param and
+    its master weight share one tensor (``Tensor.to`` to the same dtype
+    does not copy), so the in-place update moves both."""
+    first = leaves(params)[0]
+    return AdamWState(torch.zeros((), dtype=torch.int32, device=first.device),
+                      tree_map(lambda p: p.detach().to(torch.float32), params),
+                      tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
+                      tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params))
+
+
+def is_expert_stack(path: str, shape, num_layers: int, num_experts: int) -> bool:
+    """True for the routed expert stacks ``layers/moe/{gate,up,down}`` with
+    a leading (L, E, ...): never the router, never shared experts."""
+    if "moe" not in path or "shared" in path:
+        return False
+    leaf = path.rsplit("/", 1)[-1]
+    return (leaf in ("gate", "up", "down") and len(shape) >= 3
+            and shape[0] == num_layers and shape[1] == num_experts)
+
+
+def expert_leaf_mask(tree, num_layers: int, num_experts: int) -> tuple:
+    """Per-leaf booleans in leaf order: True where the leaf is a routed
+    expert stack, whose grad-norm share ``global_norm`` takes per (layer,
+    expert) slice."""
+    return tuple(is_expert_stack(path, tuple(leaf.shape), num_layers, num_experts)
+                 for path, leaf in leaves_with_path(tree))
+
+
+def expert_slice_sumsq(g: torch.Tensor, inv=None) -> torch.Tensor:
+    """Squared sum of an (L, E, ...) expert-stack gradient with a canonical
+    association: per-(layer, expert) slice sums first, reordered to global
+    expert ids when ``inv`` (the (L, E) id -> position map of a placement)
+    is given, then one (L, E) sum."""
+    s = torch.sum(torch.square(g.float()), dim=tuple(range(2, g.ndim)))
+    if inv is not None:
+        s = torch.gather(s, 1, inv.long())
+    return torch.sum(s)
+
+
+def global_norm(grads, *, expert_norm=None) -> torch.Tensor:
+    """Global L2 norm of a gradient tree. ``expert_norm``, when given, is a
+    ``(mask, inv)`` pair: leaves flagged in ``mask`` contribute through
+    ``expert_slice_sumsq``; ``None`` keeps the plain whole-leaf sums."""
+    mask = expert_norm[0] if expert_norm is not None else ()
+    inv = expert_norm[1] if expert_norm is not None else None
+    sums = [expert_slice_sumsq(g, inv) if i < len(mask) and mask[i]
+            else torch.sum(torch.square(g.float()))
+            for i, g in enumerate(leaves(grads))]
+    return torch.sqrt(torch.sum(torch.stack(sums)))
+
+
+def clip_scale(gnorm, grad_clip, clip_enabled) -> torch.Tensor:
+    """The global-norm clip multiplier; 1 when clipping is off
+    (``grad_clip <= 0``, or ``clip_enabled`` false)."""
+    if grad_clip <= 0:
+        return torch.ones_like(gnorm)
+    scale = torch.where(gnorm > grad_clip, grad_clip / (gnorm + 1e-12),
+                        torch.ones_like(gnorm))
+    if clip_enabled is not None:
+        scale = torch.where(torch.as_tensor(clip_enabled, device=gnorm.device), scale,
+                            torch.ones_like(gnorm))
+    return scale
+
+
+def adamw_leaf(g, master, m, v, *, scale, lr, bc1, bc2, beta1, beta2, eps,
+               weight_decay):
+    """Elementwise AdamW on one leaf (or any slice of one). Returns
+    (new_master, new_m, new_v)."""
+    g = g.float() * scale
+    m2 = beta1 * m + (1 - beta1) * g
+    v2 = beta2 * v + (1 - beta2) * torch.square(g)
+    mhat = m2 / bc1
+    vhat = v2 / bc2
+    new_master = master - lr * (mhat / (torch.sqrt(vhat) + eps) + weight_decay * master)
+    return new_master, m2, v2
+
+
+def _slices(t: torch.Tensor) -> list:
+    return list(t) if t.ndim >= 3 else [t]
+
+
+@torch.no_grad()
+def adamw_update(grads, state: AdamWState, *, lr, beta1=0.9, beta2=0.99, eps=1e-8,
+                 weight_decay=0.1, grad_clip=1.0, clip_enabled=None,
+                 param_dtype=torch.float32, expert_norm=None):
+    """One optimizer step; ``lr`` and ``clip_enabled`` may be tensors. The
+    state's master, m and v are updated in place. Returns (new_params in
+    ``param_dtype``, new_state, metrics {grad_norm, clip_scale})."""
+    step = state.step + 1
+    gnorm = global_norm(grads, expert_norm=expert_norm)
+    scale = clip_scale(gnorm, grad_clip, clip_enabled)
+    t = step.to(torch.float32)
+    bc1 = 1.0 - beta1 ** t
+    bc2 = 1.0 - beta2 ** t
+    for g, ma, m, v in zip(leaves(grads), leaves(state.master), leaves(state.m),
+                           leaves(state.v)):
+        for gs, mas, ms, vs in zip(_slices(g), _slices(ma), _slices(m), _slices(v)):
+            new = adamw_leaf(gs, mas, ms, vs, scale=scale, lr=lr, bc1=bc1, bc2=bc2,
+                             beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
+            for dst, src in zip((mas, ms, vs), new):
+                dst.copy_(src)
+    new_params = tree_map(lambda ma: ma.to(param_dtype), state.master)
+    return new_params, AdamWState(step, state.master, state.m, state.v), \
+        {"grad_norm": gnorm, "clip_scale": scale}

@@ -1,0 +1,130 @@
+"""The training step on one device: port of the JAX package's
+``train/trainer.py`` (``TrainState``, ``init_state``, ``make_train_step``)
+without a mesh.
+
+The paper's recipe (§2.1): bf16 forward and backward on fp32 params
+(cast inside the layers), gradient accumulation over microbatches in f32,
+the gradient rounded to ``grad_reduce_dtype`` (bf16) and back as the
+reduction would, warmup + cosine LR, global-norm clipping only after
+warmup, AdamW on fp32 master weights. The MoE expert stacks take their
+grad-norm share per (layer, expert) slice, as the JAX step does.
+
+Mesh-only features raise ``NotImplementedError``: pipeline stages, a
+sharded optimizer state (``opt_sharding_mode`` other than 'none'), an
+optimizer overlap ('ring' or 'xla'), an expert placement.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
+from repro_torch.device import DeviceLike
+from repro_torch.models.model import init_params, loss_fn
+from repro_torch.optim import (AdamWState, adamw_init, adamw_update, expert_leaf_mask,
+                               warmup_cosine)
+from repro_torch.tree import leaves, tree_map
+
+
+class TrainState(NamedTuple):
+    params: dict          # params in TrainConfig.param_dtype
+    opt: AdamWState       # fp32 master + moments
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def init_state(cfg: ModelConfig, train: TrainConfig, *, seed: int = 0,
+               device: DeviceLike = None) -> TrainState:
+    """Random params (``init_params`` from ``seed``) and a fresh AdamW
+    state, on ``cuda`` unless ``device`` says otherwise."""
+    params = init_params(cfg, seed=seed, device=device)
+    opt = adamw_init(params)
+    pd = _dtype(train.param_dtype)
+    return TrainState(tree_map(lambda p: p.to(pd), params), opt)
+
+
+def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConfig, *,
+                    opt_sharding_mode: Optional[str] = None, placement=None):
+    """Build ``train_step(state, batch) -> (state, metrics)``. batch:
+    {"tokens", "labels"}, each (global_batch, seq) int; labels < 0 are
+    masked. The step updates the optimizer state in place and returns the
+    new state; metrics are device tensors: loss, lr, ce, grad_norm,
+    clip_scale and, for MoE, moe_counts, moe_load and moe_drops (with one
+    microbatch also moe_aux, moe_z and ntok, as in the JAX step)."""
+    if parallel.pp_stages > 1:
+        raise NotImplementedError("pipeline parallelism needs a mesh; the port's "
+                                  "trainer runs on one device")
+    if opt_sharding_mode not in (None, "none"):
+        raise NotImplementedError(f"optimizer sharding {opt_sharding_mode!r} needs a mesh")
+    if parallel.opt_overlap in ("ring", "xla"):
+        raise NotImplementedError(f"optimizer overlap {parallel.opt_overlap!r} needs a mesh")
+    if placement is not None:
+        raise NotImplementedError("expert placement is not ported")
+    if (parallel.moe_dispatch is not None and cfg.moe is not None
+            and cfg.moe.dispatch != parallel.moe_dispatch):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=parallel.moe_dispatch))
+    cd = _dtype(train.compute_dtype)
+    pd = _dtype(train.param_dtype)
+    rd = _dtype(train.grad_reduce_dtype)
+    nmb = parallel.microbatches
+    sac = parallel.remat_policy
+
+    def train_step(state: TrainState, batch: dict):
+        if batch["tokens"].shape[0] % nmb:
+            raise ValueError(f"batch of {batch['tokens'].shape[0]} rows does not split "
+                             f"into {nmb} microbatches")
+        leaf = tree_map(lambda p: p.detach().requires_grad_(), state.params)
+        flat = leaves(leaf)
+        mbs = [dict(zip(batch, vals)) for vals in zip(*(t.chunk(nmb) for t in batch.values()))]
+        loss = torch.zeros((), device=batch["tokens"].device)
+        acc = sums = None
+        for mb in mbs:
+            mb_loss, metrics = loss_fn(leaf, mb, cfg, sac=sac, compute_dtype=cd)
+            gs = torch.autograd.grad(mb_loss, flat, allow_unused=True, materialize_grads=True)
+            gs = [g.float() for g in gs]            # f32 gradient sums
+            acc = gs if acc is None else [a.add_(g) for a, g in zip(acc, gs)]
+            loss = loss + mb_loss.detach()
+            metrics = {k: v_.detach() for k, v_ in metrics.items()}
+            sums = metrics if sums is None else {k: sums[k] + metrics[k] for k in sums}
+        index = {id(p): i for i, p in enumerate(flat)}
+        grads = tree_map(lambda p: acc[index[id(p)]], leaf)
+        del leaf, flat, acc
+        if nmb > 1:
+            for g in leaves(grads):
+                g.div_(nmb)
+            loss = loss / nmb
+            metrics = {"ce": sums["ce"] / nmb}
+            if cfg.is_moe:
+                # counts and drops are totals over the whole global batch
+                metrics["moe_counts"] = sums["moe_counts"]
+                metrics["moe_load"] = sums["moe_counts"] / torch.clamp(
+                    sums["moe_counts"].sum(), min=1.0)
+                metrics["moe_drops"] = sums["moe_drops"]
+        else:
+            metrics = sums
+        # the paper's bf16 gradient reduction: round, then update in f32
+        for g in leaves(grads):
+            g.copy_(g.to(rd))
+
+        step = state.opt.step
+        lr = warmup_cosine(step, lr_peak=train.lr_peak, lr_min=train.lr_min,
+                           warmup_steps=train.warmup_steps, total_steps=train.total_steps)
+        clip_on = step >= train.warmup_steps if train.clip_after_warmup_only else None
+        new_params, new_opt, om = adamw_update(
+            grads, state.opt, lr=lr, beta1=train.beta1, beta2=train.beta2, eps=train.eps,
+            weight_decay=train.weight_decay, grad_clip=train.grad_clip,
+            clip_enabled=clip_on, param_dtype=pd, expert_norm=expert_norm(state.params))
+        return TrainState(new_params, new_opt), {"loss": loss, "lr": lr, **metrics, **om}
+
+    def expert_norm(params):
+        if cfg.moe is None:
+            return None
+        mask = expert_leaf_mask(params, cfg.num_layers, cfg.moe.num_experts)
+        return (mask, None) if any(mask) else None
+
+    return train_step

@@ -32,6 +32,15 @@ def test_reduced_matches_jax(name):
         dataclasses.asdict(jcfg.reduced(jcfg.get_config(name), **kw))
 
 
+@pytest.mark.parametrize("cls", ["ParallelConfig", "TrainConfig"])
+def test_train_configs_match_jax(cls):
+    from repro.configs import base as jbase
+    from repro_torch.configs import base as tbase
+    assert dataclasses.asdict(getattr(tbase, cls)()) == dataclasses.asdict(getattr(jbase, cls)())
+    with pytest.raises(ValueError, match="microbatches"):
+        tbase.ParallelConfig(microbatches=0)
+
+
 def test_registry_names_match():
     assert sorted(tcfg.ARCH_REGISTRY) == sorted(jcfg.ARCH_REGISTRY)
 
@@ -57,6 +66,7 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch.serve, repro_torch.convert, repro_torch.kernels.ops\n"
+            "import repro_torch.train, repro_torch.optim\n"
             "import chip_smoke\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
             "print('clean')")
@@ -72,12 +82,16 @@ def test_entry_points_need_a_device(monkeypatch):
     rather than quietly running on the CPU."""
     from repro_torch.models import init_cache, init_params
     from repro_torch.serve import ServeEngine
+    from repro_torch.train import init_state
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tcfg.reduced(tcfg.get_config("mula-7b-a1b"), d_model=64, vocab=128)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_cache(cfg, 2, 16)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_state(cfg, tcfg.TrainConfig())
+    assert init_state(cfg, tcfg.TrainConfig(), device="cpu").opt.step.item() == 0
     params = init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ServeEngine(params, cfg, num_slots=2, max_len=16)
@@ -89,18 +103,28 @@ def test_cuda_launchers_refuse_cpu_tensors():
     """The CUDA launchers validate before touching the library: a CPU
     tensor or a wrong dtype raises (the ops wrappers send CPU tensors to
     the plain versions before ever reaching them)."""
-    from repro_torch.kernels.combine import combine_cuda
+    from repro_torch.kernels.combine import combine_bwd_cuda, combine_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    from repro_torch.kernels.gmm import gmm_cuda
-    from repro_torch.kernels.swiglu import swiglu_cuda
+    from repro_torch.kernels.gmm import gmm_cuda, tgmm_cuda
+    from repro_torch.kernels.swiglu import swiglu_bwd_cuda, swiglu_cuda
     x = torch.zeros(16, 8, dtype=torch.bfloat16)
+    gs = torch.tensor([16, 0], dtype=torch.int32)
+    w = torch.zeros(2, 8, 8, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        gmm_cuda(x, torch.zeros(2, 8, 8, dtype=torch.bfloat16),
-                 torch.tensor([16, 0], dtype=torch.int32))
+        gmm_cuda(x, w, gs)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        gmm_cuda(x, w, gs, trans_rhs=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tgmm_cuda(x, x, gs)
     with pytest.raises(ValueError, match="CUDA tensor"):
         swiglu_cuda(x, x)
     with pytest.raises(ValueError, match="CUDA tensor"):
-        combine_cuda(torch.zeros(2, 2, 8, dtype=torch.bfloat16), x[:2, :2])
+        swiglu_bwd_cuda(x, x, x)
+    rows = torch.zeros(2, 2, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        combine_cuda(rows, x[:2, :2])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        combine_bwd_cuda(rows, x[:2, :2], x[:2])
     q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention_cuda(q, q, q)
@@ -120,7 +144,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_key_covers_every_source():
     from repro_torch.kernels import _build
     names = {p.name for p in _build.sources()}
-    assert {"gmm.cu", "swiglu.cu", "combine.cu", "flash_attention.cu",
+    assert {"gmm.cu", "tgmm.cu", "swiglu.cu", "combine.cu", "flash_attention.cu",
             "common.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert _build.library_path().name == _build.LIB_NAME

@@ -8,7 +8,8 @@ runs on a machine without it:
 Without a CUDA device every test skips (the kernels have no CPU mode; the
 CPU tests hold the plain versions against the JAX package). Tolerances: max
 |err| <= 1e-2 * max|plain| (bf16 output rounding, another summation order);
-SwiGLU within one bf16 ulp of the plain value."""
+SwiGLU within one bf16 ulp of the plain value; the backward kernels within
+2e-2 * max|plain| (their bf16 inputs are themselves rounded products)."""
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -41,6 +42,101 @@ def test_gmm_kernel_on_card(cuda):
     assert ops.launches["gmm"] == before + 1
     _close(out, ref.gmm_ref(x.float(), w.float(), gs))
     assert (out[96:] == 0).all()
+
+
+@pytest.mark.parametrize("sizes", [[32, 0, 48, 16, 0], [0, 0, 0, 96, 0], [16] * 5])
+def test_gmm_transposed_and_tgmm_on_card(cuda, sizes):
+    """dx = gmm(dy, w^T) without a transposed copy, and dW = tgmm(x, dy),
+    with empty groups and rows past the total."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    M, K, N = 160, 264, 136
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    total = sum(sizes)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    dy = torch.randn(M, N, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(5, K, N, generator=g, device=cuda) / 16).bfloat16()
+    before = dict(ops.launches)
+    dx = ops.gmm_transposed(dy, w, gs)
+    dw = ops.tgmm(x, dy, gs)
+    torch.cuda.synchronize()
+    assert ops.launches["gmm"] == before["gmm"] + 1
+    assert ops.launches["tgmm"] == before["tgmm"] + 1
+    _close(dx, ref.gmm_ref(dy.float(), w.float().transpose(1, 2), gs))
+    assert (dx[total:] == 0).all()
+    plain = ref.tgmm_ref(x.float(), dy.float(), gs, 5)
+    _close(dw, plain)
+    assert dw.dtype == torch.bfloat16 and tuple(dw.shape) == (5, K, N)
+    empty = torch.tensor([s == 0 for s in sizes], device=cuda)
+    assert (dw[empty] == 0).all()
+
+
+def test_autograd_functions_on_card(cuda):
+    """Gradients of gmm, fused_swiglu and combine through the kernels
+    against autograd of the plain versions on the same bf16 inputs."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    M, K, N, T, k = 128, 64, 96, 16, 8
+    gs = torch.tensor([32, 0, 64, 16], dtype=torch.int32, device=cuda)
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=cuda).bfloat16()
+
+    x, w, dy = rnd(M, K), rnd(4, K, N) / 8, rnd(M, N)
+    gate, up, dh = rnd(M, N) * 3, rnd(M, N), rnd(M, N)
+    rows, wts, dout = rnd(T, k, N), torch.rand(T, k, generator=g, device=cuda).bfloat16(), rnd(T, N)
+    cases = [(ops.gmm, lambda a, b: ref.gmm_ref(a, b, gs), (x, w), dy),
+             (ops.fused_swiglu, ref.swiglu_ref, (gate, up), dh),
+             (ops.combine, ref.combine_ref, (rows, wts), dout)]
+    for fn, plain, args, cot in cases:
+        ka = [a.clone().requires_grad_() for a in args]
+        pa = [a.float().requires_grad_() for a in args]
+        if fn is ops.gmm:
+            kg = torch.autograd.grad(fn(*ka, gs), ka, cot)
+        else:
+            kg = torch.autograd.grad(fn(*ka), ka, cot)
+        pg = torch.autograd.grad(plain(*pa), pa, cot.float())
+        for a, b in zip(kg, pg):
+            assert a.dtype == torch.bfloat16
+            _close(a, b, rel=2e-2)
+
+
+def test_backward_kernels_on_card(cuda):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    rows = torch.randn(33, 8, 264, generator=g, device=cuda).bfloat16()
+    w = torch.rand(33, 8, generator=g, device=cuda).bfloat16()
+    dout = torch.randn(33, 264, generator=g, device=cuda).bfloat16()
+    before = dict(ops.launches)
+    drows, dw = ops.combine_bwd(rows, w, dout)
+    pd, pw = ref.combine_bwd_ref(rows.float(), w.float(), dout.float())
+    _close(drows, pd)
+    _close(dw, pw)
+    assert dw.dtype == torch.float32 and drows.dtype == torch.bfloat16
+    a = (3 * torch.randn(257, 100, generator=g, device=cuda)).bfloat16()
+    b = torch.randn(257, 100, generator=g, device=cuda).bfloat16()
+    d = torch.randn(257, 100, generator=g, device=cuda).bfloat16()
+    dg, du = ops.swiglu_bwd(a, b, d)
+    pg, pu = ref.swiglu_bwd_ref(a.float(), b.float(), d.float())
+    _close(dg, pg)
+    _close(du, pu)
+    torch.cuda.synchronize()
+    assert ops.launches["combine_bwd"] == before["combine_bwd"] + 1
+    assert ops.launches["swiglu_bwd"] == before["swiglu_bwd"] + 1
+
+
+def test_backward_kernels_check_their_operands(cuda):
+    from repro_torch.kernels.combine import combine_bwd_cuda
+    from repro_torch.kernels.gmm import tgmm_cuda
+    from repro_torch.kernels.swiglu import swiglu_bwd_cuda
+    x = torch.zeros(32, 16, dtype=torch.bfloat16, device=cuda)
+    gs = torch.tensor([16, 16], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tgmm_cuda(x.float(), x, gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        tgmm_cuda(x.t(), x[:16], gs)
+    with pytest.raises(ValueError, match="contiguous"):
+        swiglu_bwd_cuda(x, x, torch.zeros(16, 32, dtype=torch.bfloat16, device=cuda).t())
+    rows = torch.zeros(4, 17, 16, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="K <="):
+        combine_bwd_cuda(rows, torch.zeros(4, 17, dtype=torch.bfloat16, device=cuda), x[:4])
 
 
 def test_swiglu_kernel_on_card(cuda):
@@ -136,4 +232,5 @@ def test_engine_on_card_launch_counts(cuda):
     fwd = eng.prefills + eng.decode_steps
     assert ops.launches == {"gmm": 3 * cfg.num_layers * fwd, "swiglu": cfg.num_layers * fwd,
                             "combine": cfg.num_layers * fwd,
-                            "flash_attention": cfg.num_layers * eng.prefills}
+                            "flash_attention": cfg.num_layers * eng.prefills,
+                            "tgmm": 0, "swiglu_bwd": 0, "combine_bwd": 0}

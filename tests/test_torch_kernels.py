@@ -1,7 +1,9 @@
 """PyTorch port, kernel by kernel: on the CPU each wrapper of
 ``repro_torch.kernels.ops`` runs its plain version, held here against the
 JAX package's Pallas kernel (interpret mode) on the same numpy inputs, in
-float32 at atol = rtol = 1e-4. The CUDA kernels themselves are held
+float32 at atol = rtol = 1e-4: forward, the backward kernels' plain
+versions, and each ``autograd.Function``'s gradients against ``jax.vjp``
+of the JAX wrapper's custom VJP. The CUDA kernels themselves are held
 against the plain versions on the card by tests/test_torch_cuda.py and
 ``chip_smoke.py``."""
 import numpy as np
@@ -9,8 +11,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.kernels import gmm as jgmm  # noqa: E402
+from repro.kernels import combine as jcombine  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.parallel.plan import KernelPlan, use_kernel_plan  # noqa: E402
@@ -103,7 +108,101 @@ def test_slot_decode_attention_matches_jax(ring):
 
 def test_cpu_wrappers_count_no_launches():
     ops.reset_launches()
-    x = torch.ones(8, 16)
-    ops.fused_swiglu(x, x)
-    ops.gmm(x, torch.ones(1, 16, 8), torch.tensor([8], dtype=torch.int32))
+    x = torch.ones(8, 16, requires_grad=True)
+    w = torch.ones(1, 16, 16, requires_grad=True)
+    y = ops.gmm(ops.fused_swiglu(x, x), w, torch.tensor([8], dtype=torch.int32))
+    ops.combine(y.reshape(4, 2, 16), torch.ones(4, 2)).sum().backward()
+    assert set(ops.launches) == {"gmm", "tgmm", "swiglu", "swiglu_bwd", "combine",
+                                 "combine_bwd", "flash_attention"}
     assert all(n == 0 for n in ops.launches.values())
+
+
+@pytest.mark.parametrize("sizes", [
+    [16, 0, 8, 24],          # an empty group, rows past the total
+    [0, 0, 32, 0],           # one group only
+    [8, 8, 8, 8, 8, 8],      # every row covered
+])
+def test_tgmm_ref_matches_jax(sizes):
+    """tgmm_ref against the Pallas tgmm kernel (groups that have rows; the
+    kernel leaves empty groups unwritten) and against the JAX oracle (every
+    group; empty ones are zero)."""
+    rng = np.random.default_rng(5)
+    M, K, N = 48, 64, 32
+    gs = np.array(sizes, np.int32)
+    G, total = len(sizes), int(gs.sum())
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    dy = rng.standard_normal((M, N)).astype(np.float32)
+    xm, dym = x.copy(), dy.copy()
+    xm[total:] = 0                       # the JAX wrapper masks rows past the total
+    dym[total:] = 0
+    gids = jops._tile_group_ids(jnp.asarray(gs), M // 8, 8)
+    pallas = np.asarray(jgmm.tgmm_pallas(jnp.asarray(xm), jnp.asarray(dym), gids, G,
+                                         tile_m=8, tile_k=32, tile_n=16, interpret=True))
+    oracle = np.asarray(jref.tgmm_ref(jnp.asarray(x), jnp.asarray(dy), jnp.asarray(gs), G))
+    out = ref.tgmm_ref(_t(x), _t(dy), _t(gs), G).numpy()
+    np.testing.assert_allclose(out, oracle, **TOL)
+    np.testing.assert_allclose(out[gs > 0], pallas[gs > 0], **TOL)
+    assert np.all(out[gs == 0] == 0)
+
+
+def test_combine_bwd_ref_matches_jax():
+    rng = np.random.default_rng(6)
+    rows = rng.standard_normal((24, 4, 40)).astype(np.float32)
+    w = rng.random((24, 4)).astype(np.float32)
+    dout = rng.standard_normal((24, 40)).astype(np.float32)
+    jd, jw = jcombine.combine_bwd_pallas(jnp.asarray(rows), jnp.asarray(w), jnp.asarray(dout),
+                                         tile_t=8, tile_d=8, interpret=True)
+    td, tw = ref.combine_bwd_ref(_t(rows), _t(w), _t(dout))
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), **TOL)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), **TOL)
+    assert tw.dtype == torch.float32
+
+
+def _vjp_case(jfn, tfn, args, cot):
+    """Output and input gradients of the JAX custom-VJP wrapper and the
+    port's autograd.Function on the same inputs and cotangent."""
+    with use_kernel_plan(PLAN):
+        jout, vjp = jax.vjp(jfn, *map(jnp.asarray, args))
+        jgrads = vjp(jnp.asarray(cot))
+    targs = [_t(a).requires_grad_() for a in args]
+    tout = tfn(*targs)
+    tgrads = torch.autograd.grad(tout, targs, _t(cot))
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout), **TOL)
+    for i, (tg, jg) in enumerate(zip(tgrads, jgrads)):
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **TOL, err_msg=f"grad {i}")
+
+
+@pytest.mark.parametrize("sizes", [[16, 0, 8, 24], [8, 8, 8, 8, 8, 8]])
+def test_gmm_grads_match_jax(sizes):
+    rng = np.random.default_rng(7)
+    M, K, N = 48, 40, 24
+    gs = np.array(sizes, np.int32)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w = rng.standard_normal((len(sizes), K, N)).astype(np.float32)
+    dy = rng.standard_normal((M, N)).astype(np.float32)
+    with use_kernel_plan(PLAN):
+        jout, vjp = jax.vjp(lambda a, b: jops.gmm(a, b, jnp.asarray(gs)),
+                            jnp.asarray(x), jnp.asarray(w))
+        jdx, jdw = vjp(jnp.asarray(dy))
+    tx, tw = _t(x).requires_grad_(), _t(w).requires_grad_()
+    tout = ops.gmm(tx, tw, _t(gs))
+    tdx, tdw = torch.autograd.grad(tout, (tx, tw), _t(dy))
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout), **TOL)
+    np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), **TOL)
+    np.testing.assert_allclose(tdw.numpy(), np.asarray(jdw), **TOL)
+
+
+def test_swiglu_grads_match_jax():
+    rng = np.random.default_rng(8)
+    g = (3 * rng.standard_normal((32, 48))).astype(np.float32)
+    u = rng.standard_normal((32, 48)).astype(np.float32)
+    _vjp_case(jops.fused_swiglu, ops.fused_swiglu, (g, u),
+              rng.standard_normal((32, 48)).astype(np.float32))
+
+
+def test_combine_grads_match_jax():
+    rng = np.random.default_rng(9)
+    rows = rng.standard_normal((24, 4, 40)).astype(np.float32)
+    w = rng.random((24, 4)).astype(np.float32)
+    _vjp_case(jops.combine, ops.combine, (rows, w),
+              rng.standard_normal((24, 40)).astype(np.float32))

@@ -1,6 +1,7 @@
 """PyTorch port, model layers against the JAX package on the same numpy
 inputs (float32, atol = rtol = 1e-4): norms, RoPE, prefill attention
-through the flash path, cached decode attention (full and ring caches),
+through the flash path, training attention through the blockwise path
+(forward and gradients), cached decode attention (full and ring caches),
 MLPs."""
 import dataclasses
 
@@ -71,6 +72,47 @@ def test_prefill_attention_matches_jax(name, window):
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
     np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **TOL)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+
+
+@pytest.mark.parametrize("S,nh,nkv,window", [
+    (40, 4, 4, 0),           # causal, Sq not a multiple of the block
+    (37, 4, 2, 8),           # GQA + sliding window: whole kv blocks skipped
+    (16, 2, 1, 0),           # one block
+])
+def test_blockwise_attention_and_grads_match_jax(S, nh, nkv, window):
+    rng = np.random.default_rng(5)
+    hd = 16
+    q, k, v, cot = (rng.standard_normal((2, S, n, hd)).astype(np.float32)
+                    for n in (nh, nkv, nkv, nh))
+
+    def jfn(q, k, v):
+        return JL._blockwise_attention(q, k, v, causal=True, window=window,
+                                       q_block=8, kv_block=8)
+
+    jout, vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v)))
+    jgrads = vjp(jnp.asarray(cot))
+    tq, tk, tv = (_t(a).requires_grad_() for a in (q, k, v))
+    tout = TL.blockwise_attention(tq, tk, tv, causal=True, window=window,
+                                  q_block=8, kv_block=8)
+    tgrads = torch.autograd.grad(tout, (tq, tk, tv), _t(cot))
+    np.testing.assert_allclose(tout.detach().numpy(), np.asarray(jout), **TOL)
+    for name, tg, jg in zip("qkv", tgrads, jgrads):
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), **TOL, err_msg=f"d{name}")
+
+
+def test_training_attention_matches_jax():
+    """``attention(impl='blockwise')`` against the JAX attention under
+    ``attn_impl='blockwise'``, and against the flash path's output."""
+    jc, tc = _cfgs("mixtral-8x7b", 6)
+    p = JL.init_attention(jax.random.PRNGKey(1), jc)
+    x = np.random.default_rng(3).standard_normal((2, 13, 64)).astype(np.float32)
+    with use_kernel_plan(KernelPlan(backend="pallas", attn_impl="blockwise", interpret=True)):
+        jout = JL.attention(p, jnp.asarray(x), jc)
+    tout = TL.attention(_tree(p), _t(x), tc, impl="blockwise")
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **TOL)
+    np.testing.assert_allclose(TL.attention(_tree(p), _t(x), tc).numpy(), tout.numpy(), **TOL)
+    with pytest.raises(ValueError, match="impl"):
+        TL.attention(_tree(p), _t(x), tc, impl="xla")
 
 
 @pytest.mark.parametrize("window,positions", [
