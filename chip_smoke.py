@@ -9,7 +9,7 @@ Phases, each printing JSON lines:
   device     the card (nvidia-smi name and power limit) and the time to
              build the CUDA kernels from ``src/repro_torch/csrc``;
   kernels    each kernel against its plain PyTorch version on the card, at
-             the serving and training paths' shapes, with its time, the
+             the serving, training and hybrid paths' shapes, with its time, the
              plain version's, one PyTorch library call's where there is
              one, and its bound;
   reference  a small MoE model served through the CUDA kernels agrees with
@@ -25,7 +25,17 @@ Phases, each printing JSON lines:
              weights from seed 0, fp32 params and AdamW state, bf16
              compute) takes 6 steps on one fixed batch of 2 x 2 x 2048
              tokens; asserts finite metrics, a falling loss, clip_scale
-             <= 1 and the exact launch count of every kernel of the path.
+             <= 1 and the exact launch count of every kernel of the path;
+  hybrid_reference  a small hybrid (Mamba-2) model's prefill step and
+             stepped decode on the card (bf16, through the kernels) agree
+             with the CPU (float32, plain versions);
+  hybrid_serve  full-width, full-depth Zamba2-7B in bf16 (random weights
+             from seed 0): make_prefill_step over (2, 4096) and (1, 1000)
+             batches; 8 prompts of 128 tokens stepped through
+             make_serve_step, then 64 greedy tokens; the forward prefill
+             against the stepped decode at the last prompt position; exact
+             launch counts (81 SSD and 13 flash launches per prefill, none
+             per decode step); one profiled prefill and decode step.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object listing the kernels, and
@@ -53,6 +63,7 @@ BF16_TENSOR_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 MULA = "mula-7b-a1b"
+ZAMBA = "zamba2-7b"
 DEV = "cuda"
 
 
@@ -245,6 +256,59 @@ def kernel_cases(cfg) -> list[dict]:
             library=lib,
             bytes=2 * (2 * S * nh * hd + 2 * S * nkv * hd),
             flops=4.0 * int(mask.sum()) * nh * hd, peak=BF16_TENSOR_FLOPS, tol="rel"))
+    return cases + hybrid_kernel_cases(gen)
+
+
+def hybrid_kernel_cases(gen) -> list[dict]:
+    """The hybrid prefill's kernel calls at full-width Zamba2-7B: the SSD
+    intra-chunk stage of one Mamba-2 layer for a 4096-token prompt (x, B
+    and C read in place from one (1, 4096, 7296) activation, as
+    ``mamba2_block`` hands them over) and for a 1000-token prompt (padded to
+    1024 by ``_ssd_chunked``, so contiguous), and the shared block's flash
+    attention at head dim 112 over 4096 tokens."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.ssm import mamba2_dims
+
+    cfg = get_config(ZAMBA)
+    _, di, H, P, N, _ = mamba2_dims(cfg)
+    L = cfg.ssm.chunk
+    A = -torch.arange(1, H + 1, dtype=torch.float32, device=DEV)   # -exp(A_log) at init
+    cases = []
+    for S in (4096, 1000):
+        xbc = torch.randn((1, S, di + 2 * N), generator=gen, device=DEV).bfloat16()
+        dt = F.softplus(torch.randn((1, S, H), generator=gen, device=DEV) - 3.0)
+        x, Bm, Cm = xbc[..., :di].reshape(1, S, H, P), xbc[..., di:di + N], xbc[..., di + N:]
+        pad = -S % L
+        if pad:                                   # as _ssd_chunked pads: dt = 0 steps
+            x, dt, Bm, Cm = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad)) for t in (x, dt, Bm, Cm))
+        C = (S + pad) // L
+        args = (x.reshape(1, C, L, H, P), dt.reshape(1, C, L, H), Bm.reshape(1, C, L, N),
+                Cm.reshape(1, C, L, N), A)
+        pairs = C * H * L * (L + 1) // 2          # causal (i, j) pairs over every (c, h)
+        cases.append(dict(
+            kernel="ssd_intra_chunk",
+            case=f"S={S} B=1 C={C} L={L} H={H} P={P} N={N}" + (" padded" if pad else ""),
+            args=args, fn=ops.ssd_intra_chunk, plain=ref.ssd_intra_chunk_ref, library=None,
+            library_note="none: no single PyTorch call computes it",
+            bytes=2 * C * L * H * P + 4 * C * L * H + 2 * 2 * C * L * N + 4 * H
+            + 4 * (C * L * H * P + C * H * P * N + C * H),
+            flops=2.0 * pairs * (N + P) + 2.0 * C * H * L * P * N,
+            peak=BF16_TENSOR_FLOPS, tol="rel"))
+    S, nh, hd = 4096, cfg.num_heads, cfg.head_dim
+    q, k, v = (torch.randn((1, S, nh, hd), generator=gen, device=DEV).bfloat16()
+               for _ in range(3))
+    cases.append(dict(
+        kernel="flash_attention", case=f"B=1 Sq={S} Skv={S} nh={nh} nkv={nh} hd={hd} causal",
+        args=(q, k, v), fn=lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+        plain=lambda q, k, v: ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                                      causal=True),
+        library=lambda q, k, v: F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True),
+        bytes=2 * 4 * S * nh * hd, flops=4.0 * (S * (S + 1) // 2) * nh * hd,
+        peak=BF16_TENSOR_FLOPS, tol="rel"))
     return cases
 
 
@@ -542,7 +606,7 @@ def expected_train_launches(num_layers: int, microbatches: int, steps: int) -> d
     swiglu_bwd and one combine_bwd. Attention is the plain blockwise path."""
     n = num_layers * microbatches * steps
     return {"gmm": 9 * n, "tgmm": 3 * n, "swiglu": 2 * n, "swiglu_bwd": n,
-            "combine": 2 * n, "combine_bwd": n, "flash_attention": 0}
+            "combine": 2 * n, "combine_bwd": n, "flash_attention": 0, "ssd_intra_chunk": 0}
 
 
 def phase_train() -> dict:
@@ -681,7 +745,7 @@ def phase_serve() -> dict:
               "swiglu": cfg.num_layers * (prefills + steps),
               "combine": cfg.num_layers * (prefills + steps),
               "flash_attention": cfg.num_layers * prefills,
-              "tgmm": 0, "swiglu_bwd": 0, "combine_bwd": 0}
+              "tgmm": 0, "swiglu_bwd": 0, "combine_bwd": 0, "ssd_intra_chunk": 0}
     if launches != expect:
         raise AssertionError(f"kernel launches {launches} != expected {expect}")
 
@@ -754,6 +818,219 @@ def _profile_serving(engine, prompts) -> dict:
 
 
 # ----------------------------------------------------------------------------
+# hybrid (Mamba-2) serving: a small model against the CPU, then full width
+# ----------------------------------------------------------------------------
+
+def _hybrid_small_cfg():
+    """Reduced Zamba2-7B with 2 groups of 3 Mamba-2 layers and 1 remaining
+    layer (d_model 256, 4 heads of 64, SSM heads of 32, d_state 16, chunk
+    16): ``reduced`` alone keeps a shared block every 2 layers."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    return dataclasses.replace(reduced(get_config(ZAMBA), layers=7), shared_attn_every=3)
+
+
+def phase_hybrid_reference() -> dict:
+    """The reduced hybrid model from the same bf16 weights on the card (bf16,
+    through the kernels) and on the CPU (float32, plain versions): the
+    prefill step's last logits over 2 prompts of 45 tokens (not a multiple
+    of the chunk), then the prompts stepped through the serve step, as a
+    recurrent arch prefills, and 4 greedy steps fed the CPU's tokens."""
+    import torch
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    cfg = _hybrid_small_cfg()
+    p_gpu = init_params(cfg, seed=0, device=DEV, dtype=torch.bfloat16)
+
+    def to_cpu(t):
+        return {k: to_cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.float().cpu()
+
+    p_cpu = to_cpu(p_gpu)
+    P, new = 45, 4
+    toks = torch.randint(0, cfg.vocab_size, (2, P), generator=torch.Generator().manual_seed(0))
+    sides = {"gpu": (p_gpu, DEV, torch.bfloat16), "cpu": (p_cpu, "cpu", torch.float32)}
+    last = {k: make_prefill_step(cfg, compute_dtype=dt, device=dev)(p, {"tokens": toks})
+            .float().cpu() for k, (p, dev, dt) in sides.items()}
+    errs = [float((last["gpu"] - last["cpu"]).abs().max() / last["cpu"].abs().max())]
+    steps = {k: make_serve_step(cfg, compute_dtype=dt, device=dev)
+             for k, (p, dev, dt) in sides.items()}
+    caches = {k: init_cache(cfg, 2, P + new, device=dev, dtype=dt)
+              for k, (p, dev, dt) in sides.items()}
+    logits = {}
+    for t in range(P):
+        for k, (p, _, _) in sides.items():
+            logits[k], caches[k] = steps[k](p, toks[:, t:t + 1], caches[k], t)
+    agree, total = 0, 0
+    for i in range(new + 1):
+        lg, lc = logits["gpu"][:, 0].float().cpu(), logits["cpu"][:, 0]
+        errs.append(float((lg - lc).abs().max() / lc.abs().max()))
+        g_tok, c_tok = lg[:, :cfg.vocab_size].argmax(-1), lc[:, :cfg.vocab_size].argmax(-1)
+        agree += int((g_tok == c_tok).sum())
+        total += g_tok.numel()
+        if i == new:
+            break
+        for k, (p, _, _) in sides.items():
+            logits[k], caches[k] = steps[k](p, c_tok[:, None], caches[k], P + i)
+    h_err = float((caches["gpu"]["groups"]["h"].cpu() - caches["cpu"]["groups"]["h"]).abs().max()
+                  / caches["cpu"]["groups"]["h"].abs().max())
+    tol = 3e-2
+    row = {"config": cfg.name, "layers": cfg.num_layers, "shared_attn_every": 3,
+           "prompt": P, "rel_logit_err": errs, "tolerance": tol,
+           "greedy_agreement": f"{agree}/{total}", "ssm_state_rel_err": h_err}
+    emit("hybrid_reference", **row)
+    if not max(errs) <= tol:
+        raise AssertionError(f"hybrid_reference: logits differ by {max(errs)} of max|ref| > {tol}")
+    return row
+
+
+HYBRID_PROMPTS, HYBRID_PROMPT_LEN, HYBRID_NEW = 8, 128, 64
+# The forward prefill against the stepped decode at full depth, both bf16 on
+# the card: the two paths round on their own (other GEMM shapes, so other
+# bf16 roundings of dt, x, B, C) through 81 Mamba-2 layers and 13 shared
+# blocks. hybrid_reference holds each path to the f32 CPU path within 3e-2
+# over 7 layers and 2 shared blocks; 94 blocks stack ~10x as many roundings,
+# so ~3x the error of two such paths, ~0.1. 0.25 leaves room above that and
+# stays far below the O(1) that a wrong state carry or chunk boundary
+# gives. Near-ties of random-weight logits can swap a top-1, so the decode's
+# top-1 token must be among the forward's top 5; exact agreement is reported.
+IDENTITY_TOL = 0.25
+IDENTITY_TOPK = 5
+
+
+def expected_hybrid_launches(prefills: int) -> dict:
+    """Per prefill call of full-depth Zamba2-7B: one SSD intra-chunk launch
+    per Mamba-2 layer and one flash launch per application of the shared
+    block; a decode step launches none of the port's kernels."""
+    from repro_torch.kernels import ops
+    out = dict.fromkeys(ops.launches, 0)
+    out.update(ssd_intra_chunk=81 * prefills, flash_attention=13 * prefills)
+    return out
+
+
+def phase_hybrid_serve() -> dict:
+    """Full-width, full-depth Zamba2-7B in bf16 (random weights from seed
+    0): (a) make_prefill_step over a (2, 4096) and a (1, 1000) batch; (b)
+    8 prompts of 128 tokens stepped through make_serve_step, then 64
+    greedy tokens; (c) the forward prefill of the same prompts against the
+    stepped decode at position 127; (d) exact launch counts; (e) one
+    profiled prefill and one profiled decode step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache, init_params, padded_vocab
+    from repro_torch.train import make_prefill_step, make_serve_step
+    from repro_torch.tree import leaves
+
+    cfg = get_config(ZAMBA)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=DEV, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    prefill = make_prefill_step(cfg, device=DEV)
+    serve = make_serve_step(cfg, device=DEV)
+    gen = torch.Generator().manual_seed(0)
+    batches = {"2x4096": torch.randint(0, cfg.vocab_size, (2, 4096), generator=gen),
+               "1x1000": torch.randint(0, cfg.vocab_size, (1, 1000), generator=gen)}
+    prompts = torch.randint(0, cfg.vocab_size, (HYBRID_PROMPTS, HYBRID_PROMPT_LEN),
+                            generator=gen)
+    for b in batches.values():                     # warm-up (first cuBLAS use), not counted
+        prefill(params, {"tokens": b})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    ops.reset_launches()
+    n_prefill = 0
+    prefill_ms, per_call = {}, None
+    for name, b in batches.items():
+        times = []
+        for _ in range(3):
+            before = dict(ops.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = prefill(params, {"tokens": b})
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            n_prefill += 1
+            per_call = {k: ops.launches[k] - before[k] for k in before}
+            if per_call != expected_hybrid_launches(1):
+                raise AssertionError(f"hybrid prefill {name}: launches {per_call}")
+            if not torch.isfinite(last.float()).all() or tuple(last.shape) != (
+                    b.shape[0], padded_vocab(cfg)):
+                raise AssertionError(f"hybrid prefill {name}: bad logits {tuple(last.shape)}")
+        prefill_ms[name] = times
+    prefill_peak = torch.cuda.max_memory_allocated()
+
+    # (b) step the prompts, then generate greedily
+    torch.cuda.reset_peak_memory_stats()
+    B, P = HYBRID_PROMPTS, HYBRID_PROMPT_LEN
+    cache = init_cache(cfg, B, P + HYBRID_NEW, device=DEV, dtype=torch.bfloat16)
+    step_ms, gen_tokens = [], []
+    before = dict(ops.launches)
+    for t in range(P):
+        logits, cache = serve(params, prompts[:, t:t + 1], cache, t)
+    stepped_last = logits[:, 0].float()
+    if {k: ops.launches[k] - before[k] for k in before} != expected_hybrid_launches(0):
+        raise AssertionError(f"hybrid decode launched kernels: {ops.launches}")
+    tok = stepped_last[:, :cfg.vocab_size].argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter()
+    for i in range(HYBRID_NEW):
+        gen_tokens.append(tok[:, 0])
+        t0 = time.perf_counter()
+        logits, cache = serve(params, tok, cache, P + i)
+        tok = logits[:, 0, :cfg.vocab_size].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    gen_s = time.perf_counter() - t_gen
+    decode_peak = torch.cuda.max_memory_allocated()
+    out = torch.stack(gen_tokens, 1).cpu()
+    if not ((out >= 0) & (out < cfg.vocab_size)).all():
+        raise AssertionError("hybrid decode: token ids out of range")
+
+    # (c) the forward prefill of the same prompts against the stepped decode
+    fwd_last = prefill(params, {"tokens": prompts}).float()
+    n_prefill += 1
+    rel = float((fwd_last - stepped_last).abs().max() / fwd_last.abs().max())
+    top1_fwd = fwd_last[:, :cfg.vocab_size].argmax(-1)
+    top1_dec = stepped_last[:, :cfg.vocab_size].argmax(-1)
+    topk_fwd = fwd_last[:, :cfg.vocab_size].topk(IDENTITY_TOPK, -1).indices
+    in_topk = bool((topk_fwd == top1_dec[:, None]).any(-1).all())
+    launches = dict(ops.launches)
+    expect = expected_hybrid_launches(n_prefill)
+    if launches != expect:
+        raise AssertionError(f"hybrid: kernel launches {launches} != expected {expect}")
+
+    # (e) where the time goes
+    profile_prefill = _profile_window(lambda: prefill(params, {"tokens": batches["2x4096"]}))
+    profile_decode = _profile_window(lambda: serve(params, tok, cache, P + HYBRID_NEW - 1))
+
+    pf = {k: statistics.median(v) for k, v in prefill_ms.items()}
+    row = {"model": cfg.name, "params": n_params, "param_init_s": init_s,
+           "prefill_ms": prefill_ms, "prefill_ms_median": pf,
+           "prefill_tokens_per_s": {k: batches[k].numel() / pf[k] * 1e3 for k in pf},
+           "prefill_max_memory_allocated_bytes": prefill_peak,
+           "prompts": B, "prompt_len": P, "new_tokens_each": HYBRID_NEW,
+           "decode_step_ms_median": statistics.median(step_ms),
+           "output_tokens_per_s": B * HYBRID_NEW / gen_s,
+           "decode_max_memory_allocated_bytes": decode_peak,
+           "identity_rel_logit_err": rel, "identity_tolerance": IDENTITY_TOL,
+           "identity_top1_agreement": f"{int((top1_fwd == top1_dec).sum())}/{B}",
+           f"identity_decode_top1_in_forward_top{IDENTITY_TOPK}": in_topk,
+           "launches": launches, "expected_launches": expect,
+           "launches_per_prefill": per_call,
+           "profile_prefill_2x4096": profile_prefill, "profile_decode_step_8": profile_decode}
+    emit("hybrid_serve", **row)
+    if not rel <= IDENTITY_TOL or not in_topk:
+        raise AssertionError(f"hybrid: forward vs stepped decode rel err {rel} (tol "
+                             f"{IDENTITY_TOL}), decode top-1 in forward top-{IDENTITY_TOPK}: "
+                             f"{in_topk}")
+    return row
+
+
+# ----------------------------------------------------------------------------
 
 SOURCES = {"gmm": "src/repro_torch/csrc/gmm.cu",
            "tgmm": "src/repro_torch/csrc/tgmm.cu",
@@ -761,19 +1038,22 @@ SOURCES = {"gmm": "src/repro_torch/csrc/gmm.cu",
            "swiglu_bwd": "src/repro_torch/csrc/swiglu.cu",
            "combine": "src/repro_torch/csrc/combine.cu",
            "combine_bwd": "src/repro_torch/csrc/combine.cu",
-           "flash_attention": "src/repro_torch/csrc/flash_attention.cu"}
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "ssd_intra_chunk": "src/repro_torch/csrc/ssd.cu"}
 REPLACES = {"gmm": "src/repro/kernels/gmm.py:40",
             "tgmm": "src/repro/kernels/gmm.py:98",
             "swiglu": "src/repro/kernels/swiglu.py:21",
             "swiglu_bwd": "src/repro/kernels/ops.py:253",
             "combine": "src/repro/kernels/combine.py:26",
             "combine_bwd": "src/repro/kernels/combine.py:58",
-            "flash_attention": "src/repro/kernels/flash_attention.py:67"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:67",
+            "ssd_intra_chunk": "src/repro/kernels/ssd.py:54"}
 # the case whose numbers head the summary line: the training path's for the
-# kernels it runs, the 512-token prefill for flash (serving only)
+# kernels it runs, the 512-token prefill for flash (serving only), the
+# 4096-token prompt for the SSD stage
 HEADLINE = {"gmm": "train gate", "tgmm": "train gate M", "swiglu": "train",
             "swiglu_bwd": "train", "combine": "train", "combine_bwd": "train",
-            "flash_attention": "Sq=512 "}
+            "flash_attention": "Sq=512 ", "ssd_intra_chunk": "S=4096 "}
 
 
 def main(argv=None) -> int:
@@ -808,16 +1088,19 @@ def main(argv=None) -> int:
     phase_train_reference()
     serve = phase_serve()
     train = phase_train()
+    phase_hybrid_reference()
+    hybrid = phase_hybrid_serve()
 
     summary = []
     for name in SOURCES:
         rows = [r for r in kernel_rows if r["kernel"] == name]
         head = next((r for r in rows if HEADLINE[name] in r["case"]), rows[0])
-        by_path = {"serve": serve["launches"][name], "train": train["launches"][name]}
+        by_path = {"serve": serve["launches"][name], "train": train["launches"][name],
+                   "hybrid": hybrid["launches"][name]}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": by_path["train"] or by_path["serve"],
+            "launches": by_path["train"] or by_path["serve"] or by_path["hybrid"],
             "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],

@@ -36,6 +36,10 @@ constexpr int BQ = 64;
 constexpr int BKV = 64;
 constexpr int THREADS = 128;
 
+// Instantiated for hd 64, 112 (Zamba2's shared attention) and 128. Every
+// tile start stays 32-byte aligned and the strides meet WMMA's ldm rules
+// (a multiple of 8 bf16 / 4 f32): at hd 112, LDQ = 120 and LDO = 116; a row
+// is 14 16-byte vectors and a head starts every 224 bytes.
 template <int HD>
 struct Smem {
   static constexpr int LDQ = HD + 8;   // bf16 tiles Q, K, V
@@ -233,7 +237,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int Sq
 }  // namespace
 
 // q (B, Sq, nh, hd), k/v (B, Skv, nkv, hd), out (B, Sq, nh, hd): bf16 on the
-// device, contiguous, 16-byte aligned; hd in {64, 128}; nh % nkv == 0.
+// device, contiguous, 16-byte aligned; hd in {64, 112, 128}; nh % nkv == 0.
 REPRO_API int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                     int B, int Sq, int Skv, int nh, int nkv, int hd, int causal,
                                     int window, float scale, void* stream) {
@@ -241,6 +245,7 @@ REPRO_API int repro_flash_attention(const void* q, const void* k, const void* v,
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd == 128) return launch<128>(q, k, v, out, B, Sq, Skv, nh, nkv, causal, window, scale, s);
+  if (hd == 112) return launch<112>(q, k, v, out, B, Sq, Skv, nh, nkv, causal, window, scale, s);
   if (hd == 64) return launch<64>(q, k, v, out, B, Sq, Skv, nh, nkv, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -6,6 +6,7 @@ launchers, plain PyTorch versions and public wrappers.
   swiglu.py           fused SwiGLU launcher            (csrc/swiglu.cu)
   combine.py          weighted combine launcher        (csrc/combine.cu)
   flash_attention.py  flash attention launcher         (csrc/flash_attention.cu)
+  ssd.py              SSD intra-chunk launcher         (csrc/ssd.cu)
   ops.py              public wrappers + launch counts
   _build.py           nvcc build + ctypes loading
 """

@@ -42,6 +42,9 @@ _SIGNATURES = {
     "repro_combine_bwd": ([_P, _P, _P, _P, _P, _I, _I, _I, _P], _I),
     "repro_flash_attention": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                ctypes.c_float, _P], _I),
+    "repro_ssd_intra_chunk": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, _P],
+                              _I),
 }
 
 

@@ -13,13 +13,13 @@ import torch
 
 from ._build import check_launch, check_operand, library, stream_ptr
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 112, 128)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int = 0) -> torch.Tensor:
     """q (B, Sq, nh, hd), k/v (B, Skv, nkv, hd), bf16 on a CUDA device,
-    hd in (64, 128), nh % nkv == 0 -> (B, Sq, nh, hd) bf16."""
+    hd in HEAD_DIMS, nh % nkv == 0 -> (B, Sq, nh, hd) bf16."""
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         check_operand(t, f"flash_attention {name}", 4)
     B, Sq, nh, hd = q.shape

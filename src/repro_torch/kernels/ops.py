@@ -12,6 +12,9 @@
 * ``flash_attention(q, k, v)``     causal / sliding-window attention,
                                    forward only (training attention is the
                                    plain blockwise path of ``models/layers``).
+* ``ssd_intra_chunk(x, dt, B, C, A)``  Mamba-2 SSD intra-chunk stage,
+                                   forward only (it raises on a tensor that
+                                   requires grad, on either device).
 
 The first three are ``torch.autograd.Function``s, as the JAX package's
 are ``jax.custom_vjp``s. Their backward kernels are callable on their
@@ -32,10 +35,11 @@ from . import ref
 from .combine import combine_bwd_cuda, combine_cuda
 from .flash_attention import flash_attention_cuda
 from .gmm import BLOCK_M, gmm_cuda, tgmm_cuda
+from .ssd import ssd_intra_chunk_cuda
 from .swiglu import swiglu_bwd_cuda, swiglu_cuda
 
 launches = {"gmm": 0, "tgmm": 0, "swiglu": 0, "swiglu_bwd": 0, "combine": 0,
-            "combine_bwd": 0, "flash_attention": 0}
+            "combine_bwd": 0, "flash_attention": 0, "ssd_intra_chunk": 0}
 
 
 def reset_launches() -> None:
@@ -185,4 +189,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)
     launches["flash_attention"] += 1
+    return out
+
+
+def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+                    A: torch.Tensor):
+    """x (B, C, L, H, P), dt (B, C, L, H), Bm/Cm (B, C, L, N), A (H,) ->
+    (y_diag (B, C, L, H, P), states (B, C, H, P, N), cdecay (B, C, H)), all
+    float32 (see ``ref.ssd_intra_chunk_ref``). Forward only, as the JAX
+    package's kernel is: it raises while autograd records and an input
+    requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, Bm, Cm, A)):
+        raise NotImplementedError(
+            "ssd_intra_chunk is forward only (the JAX package trains Mamba-2 through "
+            "its plain scan); call it under torch.no_grad() or on tensors that do not "
+            "require grad")
+    if _on_cpu(x):
+        return ref.ssd_intra_chunk_ref(x, dt, Bm, Cm, A)
+    out = ssd_intra_chunk_cuda(x, dt, Bm, Cm, A)
+    launches["ssd_intra_chunk"] += 1
     return out

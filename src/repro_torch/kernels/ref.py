@@ -144,3 +144,27 @@ def slot_decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bngs,bsnh->bngh", p, v_cache.float())
     return o.reshape(B, nh, hd).to(q.dtype)
+
+
+def ssd_intra_chunk_ref(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
+                        Cm: torch.Tensor, A: torch.Tensor):
+    """Mamba-2 SSD intra-chunk stage, per (batch, chunk, head), in float32
+    whatever the input dtype (the JAX package's ``_ssd_chunked`` intra-chunk
+    part). x (B, C, L, H, P); dt (B, C, L, H); Bm/Cm (B, C, L, N); A (H,)
+    negative. ``la = cumsum(dt * A)`` along the chunk; returns y_diag (B, C,
+    L, H, P) ``= ((C B^T) o tril(exp(la_i - la_j))) (dt x)``, states (B, C,
+    H, P, N) ``= (exp(la_L - la) dt x)^T B`` and cdecay (B, C, H) ``=
+    exp(la_L)``. Above the diagonal the decay is selected away, never
+    multiplied by a 0/1 mask: its exponent is positive there and may be inf."""
+    x, dt, Bm, Cm = x.float(), dt.float(), Bm.float(), Cm.float()
+    L = x.shape[2]
+    la = torch.cumsum(dt * A.float(), dim=2)                           # (B,C,L,H)
+    seg = la[:, :, :, None] - la[:, :, None, :]                        # (B,C,L,L,H)
+    causal = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    decay = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    cb = torch.einsum("bcin,bcjn->bcij", Cm, Bm)                       # (B,C,L,L)
+    dtx = dt[..., None] * x                                            # (B,C,L,H,P)
+    y = torch.einsum("bcijh,bcjhp->bcihp", cb[..., None] * decay, dtx)
+    w = torch.exp(la[:, :, -1:, :] - la)                               # (B,C,L,H)
+    states = torch.einsum("bcjhp,bcjn->bchpn", w[..., None] * dtx, Bm)
+    return y, states, torch.exp(la[:, :, -1, :])

@@ -1,12 +1,18 @@
-"""Model builder (``arch_type`` dense and moe): params, the training
-forward and loss (with selective activation checkpointing), KV caches, one
-decode step and prefill into cache slots. Port of the JAX package's
+"""Model builder (``arch_type`` dense, moe and hybrid): params, the
+training forward and loss (with selective activation checkpointing), caches,
+one decode step and prefill into cache slots. Port of the JAX package's
 ``models/model.py``.
 
 Parameters keep the JAX package's pytree layout — a nested dict whose
 ``layers`` leaves are stacked with a leading layer dim — so a JAX parameter
 tree converts leaf for leaf (``repro_torch.convert``). Where the JAX model
 scans over the stacked layers, the port loops over them in Python.
+
+The hybrid (Zamba2) stack is ``groups`` of ``shared_attn_every`` Mamba-2
+layers (params stacked (n_group, every, ...)), each group followed by one
+application of the ``shared`` attention+MLP block, then the ``rem``
+remaining Mamba-2 layers. It is served only: its SSD kernel has no
+backward, as the JAX package's has none, so ``loss_fn`` refuses it.
 """
 from __future__ import annotations
 
@@ -16,11 +22,14 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import moe as moe_lib
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.tree import tree_map
 
 from . import layers as L
+from . import ssm as S
 
 VOCAB_ALIGN = 256
-ARCHS = ("dense", "moe")
+ARCHS = ("dense", "moe", "hybrid")
+KV_ARCHS = ("dense", "moe")      # attention-KV archs: prefill into cache slots
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -52,6 +61,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
          "final_norm": L.init_norm(cfg.norm, d, num_layers=0, device=dev)}
     if not cfg.tie_embeddings:
         p["head"] = L.init_embedding(vp, d, **kw)
+    if cfg.arch_type == "hybrid":
+        return _init_hybrid(p, cfg, kw)
     layers = {"ln1": L.init_norm(cfg.norm, d, num_layers=n, device=dev),
               "attn": L.init_attention(cfg, num_layers=n, **kw),
               "ln2": L.init_norm(cfg.norm, d, num_layers=n, device=dev)}
@@ -60,6 +71,34 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
     else:
         layers["mlp"] = L.init_mlp(d, cfg.d_ff, cfg.mlp_activation, num_layers=n, **kw)
     p["layers"] = layers
+    return p
+
+
+def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    """(n_group, every, rem): groups of ``every`` Mamba-2 layers, each
+    followed by the shared block, then ``rem`` Mamba-2 layers."""
+    every = cfg.shared_attn_every
+    n_group = cfg.num_layers // every
+    return n_group, every, cfg.num_layers - n_group * every
+
+
+def _init_ssm_layers(cfg, n: int, kw: dict) -> dict:
+    return {"ln": L.init_norm(cfg.norm, cfg.d_model, num_layers=n, device=kw["device"]),
+            "mixer": S.init_mamba2(cfg, num_layers=n, **kw)}
+
+
+def _init_hybrid(p: dict, cfg: ModelConfig, kw: dict) -> dict:
+    n_group, every, rem = hybrid_layout(cfg)
+    d = cfg.d_model
+    p["groups"] = tree_map(lambda t: t.reshape(n_group, every, *t.shape[1:]),
+                           _init_ssm_layers(cfg, n_group * every, kw))
+    if rem:
+        p["rem"] = _init_ssm_layers(cfg, rem, kw)
+    shared = {"ln1": L.init_norm(cfg.norm, d, num_layers=1, device=kw["device"]),
+              "attn": L.init_attention(cfg, num_layers=1, **kw),
+              "ln2": L.init_norm(cfg.norm, d, num_layers=1, device=kw["device"]),
+              "mlp": L.init_mlp(d, cfg.d_ff, cfg.mlp_activation, num_layers=1, **kw)}
+    p["shared"] = tree_map(lambda t: t[0], shared)
     return p
 
 
@@ -81,9 +120,21 @@ def unstack_layers(tree, n: int) -> list:
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device: DeviceLike = None,
                dtype: torch.dtype = torch.bfloat16) -> dict:
     """Per-layer stacked KV caches: {"kv": {"k", "v"}} each
-    (L, batch, S, nkv, hd), S = max_len (or the window, for ring caches)."""
+    (L, batch, S, nkv, hd), S = max_len (or the window, for ring caches).
+    Hybrid: {"groups": Mamba-2 state {"conv", "h"} stacked flat over the
+    n_group * every grouped layers, "shared_kv": one KV cache per
+    application of the shared block (n_group, ...), and "rem" when there
+    are remaining layers}; the Mamba-2 state is float32 whatever ``dtype``."""
     _check_arch(cfg)
     dev = resolve_device(device)
+    if cfg.arch_type == "hybrid":
+        n_group, every, rem = hybrid_layout(cfg)
+        c = {"groups": S.init_mamba2_cache(cfg, batch, num_layers=n_group * every, device=dev),
+             "shared_kv": L.init_kv_cache(cfg, batch, max_len, num_layers=n_group, device=dev,
+                                          dtype=dtype)}
+        if rem:
+            c["rem"] = S.init_mamba2_cache(cfg, batch, num_layers=rem, device=dev)
+        return c
     return {"kv": L.init_kv_cache(cfg, batch, max_len, num_layers=cfg.num_layers,
                                   device=dev, dtype=dtype)}
 
@@ -105,13 +156,52 @@ def _logits(params, h, cfg):
     return L.unembed(head, h)
 
 
+def _ssm_block(lp, h, cfg):
+    return h + S.mamba2_block(lp["mixer"], L.apply_norm(lp["ln"], h, cfg.norm), cfg)
+
+
+def _ssm_decode(lp, h, cache, i: int, cfg):
+    """One Mamba-2 layer's decode step on row ``i`` of a stacked cache."""
+    c = {"conv": cache["conv"][i], "h": cache["h"][i]}
+    y, _ = S.mamba2_decode_step(lp["mixer"], L.apply_norm(lp["ln"], h, cfg.norm), c, cfg)
+    return h + y
+
+
+def _hybrid_layers(params, cfg) -> tuple[list, list]:
+    """The per-layer param dicts: a list of ``every`` per group, and the
+    remaining layers'."""
+    n_group, every, rem = hybrid_layout(cfg)
+    groups = [unstack_layers(gp, every) for gp in unstack_layers(params["groups"], n_group)]
+    return groups, unstack_layers(params["rem"], rem) if rem else []
+
+
+def _hybrid_decode(params, h, cache, index, cfg):
+    sp = params["shared"]
+    kv = cache["shared_kv"]
+    groups, rem = _hybrid_layers(params, cfg)
+    for g, layers in enumerate(groups):
+        for j, lp in enumerate(layers):
+            h = _ssm_decode(lp, h, cache["groups"], g * len(layers) + j, cfg)
+        h = h + L.decode_attention(sp["attn"], L.apply_norm(sp["ln1"], h, cfg.norm),
+                                   {"k": kv["k"][g], "v": kv["v"][g]}, index, cfg)
+        h = h + L.apply_mlp(sp["mlp"], L.apply_norm(sp["ln2"], h, cfg.norm),
+                            cfg.mlp_activation)
+    for i, lp in enumerate(rem):
+        h = _ssm_decode(lp, h, cache["rem"], i, cfg)
+    return h
+
+
 def decode_step(params, tokens, cache: dict, index, cfg: ModelConfig, *,
                 compute_dtype: torch.dtype = torch.bfloat16):
     """One decode step. tokens: (B, 1) int; index: scalar position or (B,)
     per-row positions (continuous batching). The cache is updated in place.
-    Returns (logits (B, 1, V_pad), cache)."""
+    Returns (logits (B, 1, V_pad), cache). Hybrid: the Mamba-2 layers step
+    their state, the shared block attends over its group's KV cache; no
+    kernel of the port runs (the JAX package's decode step is plain too)."""
     _check_arch(cfg)
     h = L.embed(params["embed"], tokens, compute_dtype)
+    if cfg.arch_type == "hybrid":
+        return _logits(params, _hybrid_decode(params, h, cache, index, cfg), cfg), cache
     kv = cache["kv"]
     for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         a = L.decode_attention(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm),
@@ -133,8 +223,13 @@ def prefill_with_cache(params, tokens, cache: dict, slots, lengths, cfg: ModelCo
     saves a read-back from the device.
 
     Returns (last_logits (B', V_pad) at position length-1 of each row, cache).
+    Attention-KV archs only (dense, moe), as in the JAX package; a hybrid
+    model prefills by stepping ``decode_step`` over the prompt.
     """
-    _check_arch(cfg)
+    if cfg.arch_type not in KV_ARCHS:
+        raise NotImplementedError(
+            f"prefill_with_cache supports attention-KV archs {KV_ARCHS}, not "
+            f"{cfg.arch_type!r}; step decode_step over the prompt instead")
     dev = tokens.device
     kv = cache["kv"]
     W = kv["k"].shape[2]
@@ -199,15 +294,15 @@ def block_remat(fn, sac: str):
 # training forward
 # ----------------------------------------------------------------------------
 
-def _dense_block(lp, h, cfg, sac: str):
-    attn = _sac(lambda q, x: L.attention(q, x, cfg, impl="blockwise"), "attn", sac)
+def _dense_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise"):
+    attn = _sac(lambda q, x: L.attention(q, x, cfg, impl=attn_impl), "attn", sac)
     mlp = _sac(lambda q, x: L.apply_mlp(q, x, cfg.mlp_activation), "mlp", sac)
     h = h + attn(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm))
     return h + mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm))
 
 
-def _moe_block(lp, h, cfg, sac: str):
-    attn = _sac(lambda q, x: L.attention(q, x, cfg, impl="blockwise"), "attn", sac)
+def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise"):
+    attn = _sac(lambda q, x: L.attention(q, x, cfg, impl=attn_impl), "attn", sac)
     moe = _sac(lambda q, x: moe_lib.sparse_moe_block(q, x, cfg), "moe", sac)
     h = h + attn(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm))
     mo, aux, z, stats = moe(lp["moe"], L.apply_norm(lp["ln2"], h, cfg.norm))
@@ -215,18 +310,30 @@ def _moe_block(lp, h, cfg, sac: str):
 
 
 def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
-            compute_dtype: torch.dtype = torch.bfloat16):
-    """Training forward. batch["tokens"]: (B, S) int. Returns (logits (B,
-    S, V_pad), aux) with aux = {"moe_aux", "moe_z"} summed over layers and,
-    for MoE, "moe_stats" (routing telemetry summed over layers), as the JAX
-    package's ``_scan_layers_aux``. Attention is the blockwise path."""
+            compute_dtype: torch.dtype = torch.bfloat16, attn_impl: str = "blockwise"):
+    """The forward over whole sequences. batch["tokens"]: (B, S) int.
+    Returns (logits (B, S, V_pad), aux) with aux = {"moe_aux", "moe_z"}
+    summed over layers and, for MoE, "moe_stats" (routing telemetry summed
+    over layers), as the JAX package's ``_scan_layers_aux``. ``attn_impl``
+    as in ``layers.attention``: 'blockwise' (training; the default) or
+    'flash' (the forward-only kernel; prefill). Hybrid runs its Mamba-2
+    layers and the shared block after each group, without remat."""
     _check_arch(cfg)
     h = L.embed(params["embed"], batch["tokens"], compute_dtype)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     aux = {"moe_aux": zero, "moe_z": zero}
+    if cfg.arch_type == "hybrid":
+        groups, rem = _hybrid_layers(params, cfg)
+        for layers in groups:
+            for lp in layers:
+                h = _ssm_block(lp, h, cfg)
+            h = _dense_block(params["shared"], h, cfg, "", attn_impl)
+        for lp in rem:
+            h = _ssm_block(lp, h, cfg)
+        return _logits(params, h, cfg), aux
     layers = unstack_layers(params["layers"], cfg.num_layers)
     if cfg.arch_type == "moe":
-        block = block_remat(lambda lp, x: _moe_block(lp, x, cfg, sac), sac)
+        block = block_remat(lambda lp, x: _moe_block(lp, x, cfg, sac, attn_impl), sac)
         counts = torch.zeros(cfg.moe.num_experts, dtype=torch.float32, device=h.device)
         drops = zero
         for lp in layers:
@@ -236,7 +343,7 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
             counts, drops = counts + st.counts, drops + st.drops
         aux["moe_stats"] = moe_lib.MoeStats(counts, drops)
     else:
-        block = block_remat(lambda lp, x: _dense_block(lp, x, cfg, sac), sac)
+        block = block_remat(lambda lp, x: _dense_block(lp, x, cfg, sac, attn_impl), sac)
         for lp in layers:
             h = block(lp, h)
     return _logits(params, h, cfg), aux
@@ -265,7 +372,11 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     averaged over layers, times its coefficient). Returns (loss, metrics):
     ce, moe_aux, moe_z, ntok and, for MoE, moe_counts (per-layer mean of
     the routed pairs per expert), moe_load (its share) and moe_drops
-    (summed over layers)."""
+    (summed over layers). Hybrid models are not trained by the port."""
+    if cfg.arch_type == "hybrid":
+        raise NotImplementedError(
+            "training a hybrid model is not ported: its SSD kernel is forward only "
+            "(the JAX package trains Mamba-2 through its plain scan)")
     logits, aux = forward(params, batch, cfg, sac=sac, compute_dtype=compute_dtype)
     ce, ntok = masked_ce(logits, batch["labels"], cfg)
     total = ce

@@ -1,4 +1,6 @@
-"""Training on one device: ``init_state`` and ``make_train_step``."""
-from .trainer import TrainState, init_state, make_train_step
+"""Training on one device (``init_state``, ``make_train_step``) and the
+serving lowerings (``make_prefill_step``, ``make_serve_step``)."""
+from .trainer import TrainState, init_state, make_prefill_step, make_serve_step, make_train_step
 
-__all__ = ["TrainState", "init_state", "make_train_step"]
+__all__ = ["TrainState", "init_state", "make_prefill_step", "make_serve_step",
+           "make_train_step"]

@@ -1,6 +1,7 @@
-"""The training step on one device: port of the JAX package's
-``train/trainer.py`` (``TrainState``, ``init_state``, ``make_train_step``)
-without a mesh.
+"""The training step on one device, and the serving lowerings: port of
+the JAX package's ``train/trainer.py`` (``TrainState``, ``init_state``,
+``make_train_step``, ``make_prefill_step``, ``make_serve_step``) without a
+mesh.
 
 The paper's recipe (§2.1): bf16 forward and backward on fp32 params
 (cast inside the layers), gradient accumulation over microbatches in f32,
@@ -21,10 +22,12 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
-from repro_torch.device import DeviceLike
-from repro_torch.models.model import init_params, loss_fn
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import (decode_step, forward, init_params, loss_fn,
+                                      prefill_with_cache)
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update, expert_leaf_mask,
                                warmup_cosine)
+from repro_torch.serve.engine import dropless_cfg, make_decode_fn
 from repro_torch.tree import leaves, tree_map
 
 
@@ -128,3 +131,74 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         return (mask, None) if any(mask) else None
 
     return train_step
+
+
+def _on(dev: torch.device, params: dict, what: str) -> None:
+    table = params["embed"]["table"]
+    if table.device.type != dev.type:
+        raise ValueError(f"{what}: params live on {table.device}, the step runs on {dev}")
+
+
+def make_prefill_step(cfg: ModelConfig, *, compute_dtype: torch.dtype = torch.bfloat16,
+                      into_cache: bool = False, device: DeviceLike = None):
+    """``into_cache=False``: the prefill lowering, ``prefill_step(params,
+    batch) -> last-position logits (B, V_pad)``: the forward over
+    batch["tokens"] (B, S) with flash attention (any arch; the hybrid
+    model's Mamba-2 layers run the SSD kernel). ``into_cache=True``: the
+    serve engine's admission lowering, ``prefill_step(params, tokens, cache,
+    slots, lengths) -> (last_logits, cache)`` through
+    ``models.prefill_with_cache`` on the dropless config (attention-KV archs
+    only). Runs on ``cuda`` unless ``device`` says otherwise; token inputs
+    are moved there, params must already live there."""
+    dev = resolve_device(device)
+    if into_cache:
+        scfg = dropless_cfg(cfg)
+
+        def prefill_into_cache(params, tokens, cache, slots, lengths):
+            _on(dev, params, "prefill_step")
+            with torch.no_grad():
+                return prefill_with_cache(params, tokens.to(dev), cache, slots, lengths, scfg,
+                                          compute_dtype=compute_dtype)
+
+        return prefill_into_cache
+
+    def prefill_step(params, batch: dict):
+        _on(dev, params, "prefill_step")
+        with torch.no_grad():
+            logits, _ = forward(params, {"tokens": batch["tokens"].to(dev)}, cfg, sac="",
+                                compute_dtype=compute_dtype, attn_impl="flash")
+            return logits[:, -1]
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, *, compute_dtype: torch.dtype = torch.bfloat16,
+                    sample: bool = False, device: DeviceLike = None):
+    """``serve_step(params, tokens, cache, index) -> (logits (B, 1, V_pad),
+    cache)``: one ``decode_step``; ``index`` is a scalar (lockstep batch)
+    or (B,) per-row positions. The cache is updated in place. A hybrid
+    model prefills by stepping it over the prompt. With ``sample=True``
+    returns the serve engine's decode function (``serve.make_decode_fn``:
+    ``(params, tokens, cache, positions, seeds, temperature, top_k, top_p)
+    -> (next_tokens, cache)``). Runs on ``cuda`` unless ``device`` says
+    otherwise."""
+    dev = resolve_device(device)
+    if sample:
+        decode_fn = make_decode_fn(cfg, compute_dtype=compute_dtype)
+
+        def sample_step(params, tokens, cache, *args):
+            _on(dev, params, "serve_step")
+            with torch.no_grad():
+                return decode_fn(params, tokens.to(dev), cache, *args)
+
+        return sample_step
+
+    def serve_step(params, tokens, cache, index):
+        _on(dev, params, "serve_step")
+        if torch.is_tensor(index):
+            index = index.to(dev)
+        with torch.no_grad():
+            return decode_step(params, tokens.to(dev), cache, index, cfg,
+                               compute_dtype=compute_dtype)
+
+    return serve_step

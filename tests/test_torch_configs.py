@@ -128,6 +128,11 @@ def test_cuda_launchers_refuse_cpu_tensors():
     q = torch.zeros(1, 4, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA tensor"):
         flash_attention_cuda(q, q, q)
+    from repro_torch.kernels.ssd import ssd_intra_chunk_cuda
+    xs = torch.zeros(1, 1, 16, 2, 32, dtype=torch.bfloat16)
+    bc = torch.zeros(1, 1, 16, 16, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ssd_intra_chunk_cuda(xs, torch.zeros(1, 1, 16, 2), bc, bc, torch.zeros(2))
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -144,7 +149,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 def test_build_key_covers_every_source():
     from repro_torch.kernels import _build
     names = {p.name for p in _build.sources()}
-    assert {"gmm.cu", "tgmm.cu", "swiglu.cu", "combine.cu", "flash_attention.cu",
+    assert {"gmm.cu", "tgmm.cu", "swiglu.cu", "combine.cu", "flash_attention.cu", "ssd.cu",
             "common.cuh"} <= names
     assert _build.source_hash() == _build.source_hash()
     assert _build.library_path().name == _build.LIB_NAME

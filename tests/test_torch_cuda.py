@@ -158,7 +158,8 @@ def test_combine_kernel_on_card(cuda):
 
 
 @pytest.mark.parametrize("S,nh,nkv,hd,window", [(128, 4, 4, 128, 0), (100, 4, 2, 64, 0),
-                                                (200, 4, 1, 128, 48)])
+                                                (200, 4, 1, 128, 48), (300, 4, 4, 112, 0),
+                                                (130, 4, 2, 112, 64)])
 def test_flash_kernel_on_card(cuda, S, nh, nkv, hd, window):
     g = torch.Generator(device=cuda).manual_seed(3)
     q = torch.randn(2, S, nh, hd, generator=g, device=cuda).bfloat16()
@@ -167,6 +168,73 @@ def test_flash_kernel_on_card(cuda, S, nh, nkv, hd, window):
     out = ops.flash_attention(q, k, v, causal=True, window=window)
     _close(out, ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True,
                                         window=window))
+
+
+def _ssd_inputs(cuda, B, C, L, H, P, N, seed, dt_scale=1.0, a_scale=1.0):
+    """x, B and C as column slices of one (B, C*L, H*P + 2N) activation,
+    as ``mamba2_block`` hands them over; dt > 0 and A < 0 in float32."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    xbc = torch.randn(B, C * L, H * P + 2 * N, generator=g, device=cuda).bfloat16()
+    x = xbc[..., :H * P].reshape(B, C, L, H, P)
+    Bm = xbc[..., H * P:H * P + N].reshape(B, C, L, N)
+    Cm = xbc[..., H * P + N:].reshape(B, C, L, N)
+    dt = torch.nn.functional.softplus(torch.randn(B, C, L, H, generator=g, device=cuda)) * dt_scale
+    A = -torch.exp(torch.randn(H, generator=g, device=cuda)) * a_scale
+    return x, dt, Bm, Cm, A
+
+
+@pytest.mark.parametrize("B,C,L,H,P,N,dt_scale,a_scale", [
+    (2, 2, 256, 4, 64, 64, 1.0, 1.0),      # Zamba2's chunk and head shape
+    (1, 3, 40, 3, 32, 16, 1.0, 1.0),       # L not a multiple of 16 (padded in the block)
+    (1, 2, 16, 16, 32, 16, 1.0, 1.0),      # the reduced hybrid model's shape
+    (1, 1, 256, 4, 64, 64, 8.0, 8.0)])     # la falls by ~hundreds: exp overflows above i = j
+def test_ssd_kernel_on_card(cuda, B, C, L, H, P, N, dt_scale, a_scale):
+    """The kernel reads x, B and C in place from strided views; y, states
+    and cdecay against the plain version in float32 from the same inputs."""
+    x, dt, Bm, Cm, A = _ssd_inputs(cuda, B, C, L, H, P, N, seed=7, dt_scale=dt_scale,
+                                   a_scale=a_scale)
+    before = ops.launches["ssd_intra_chunk"]
+    outs = ops.ssd_intra_chunk(x, dt, Bm, Cm, A)
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_intra_chunk"] == before + 1
+    plains = ref.ssd_intra_chunk_ref(x.float(), dt, Bm.float(), Cm.float(), A)
+    for out, plain in zip(outs, plains):
+        assert out.dtype == torch.float32 and out.shape == plain.shape
+        assert torch.isfinite(out).all()
+        _close(out, plain)
+
+
+def test_ssd_chunked_on_card_matches_cpu(cuda):
+    """The whole chunked scan (kernel + inter-chunk recurrence) with a
+    prompt that is not a multiple of the chunk and an initial state, on the
+    card in bf16 against the CPU plain path in float32."""
+    from repro_torch.models.ssm import _ssd_chunked
+    B, S, H, P, N = 2, 1000, 4, 64, 64
+    x, dt, Bm, Cm, A = _ssd_inputs(cuda, B, 1, S, H, P, N, seed=8)
+    x, dt, Bm, Cm = x[:, 0], dt[:, 0], Bm[:, 0], Cm[:, 0]
+    h0 = torch.randn(B, H, P, N, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda)
+    before = ops.launches["ssd_intra_chunk"]
+    y, h = _ssd_chunked(x, dt, Bm, Cm, A, 256, h0=h0)
+    assert ops.launches["ssd_intra_chunk"] == before + 1
+    cpu = [t.float().cpu() for t in (x, dt, Bm, Cm, A, h0)]
+    yc, hc = _ssd_chunked(*cpu[:5], 256, h0=cpu[5])
+    assert y.shape == (B, S, H, P)
+    _close(y.cpu(), yc)
+    _close(h.cpu(), hc)
+
+
+def test_ssd_kernel_refuses_grad_and_bad_operands(cuda):
+    from repro_torch.kernels.ssd import ssd_intra_chunk_cuda
+    x, dt, Bm, Cm, A = _ssd_inputs(cuda, 1, 1, 32, 2, 32, 16, seed=1)
+    with pytest.raises(NotImplementedError, match="forward only"):
+        ops.ssd_intra_chunk(x, dt.requires_grad_(), Bm, Cm, A)
+    dt = dt.detach()
+    with pytest.raises(TypeError, match="bfloat16"):
+        ssd_intra_chunk_cuda(x.float(), dt, Bm, Cm, A)
+    heads_apart = torch.zeros(1, 1, 32, 32, 2, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="one stride"):
+        ssd_intra_chunk_cuda(heads_apart.transpose(3, 4), dt, Bm, Cm, A)
 
 
 def test_kernels_refuse_other_dtypes_on_card(cuda):
@@ -233,4 +301,42 @@ def test_engine_on_card_launch_counts(cuda):
     assert ops.launches == {"gmm": 3 * cfg.num_layers * fwd, "swiglu": cfg.num_layers * fwd,
                             "combine": cfg.num_layers * fwd,
                             "flash_attention": cfg.num_layers * eng.prefills,
-                            "tgmm": 0, "swiglu_bwd": 0, "combine_bwd": 0}
+                            "tgmm": 0, "swiglu_bwd": 0, "combine_bwd": 0, "ssd_intra_chunk": 0}
+
+
+def test_small_hybrid_on_card_matches_cpu(cuda):
+    """Reduced Zamba2-7B (2 groups of 3 Mamba-2 layers and 1 more, chunk
+    16): the prefill step over 37 tokens (not a multiple of the chunk) and
+    the prompt stepped through the serve step, on the card (bf16, through
+    the SSD and flash kernels) against the CPU plain path (float32) from
+    the same weights: logits within 3e-2 of max|ref|, and exact launch
+    counts (one SSD launch per Mamba-2 layer and one flash launch per
+    shared block in the prefill, none in a decode step)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.train import make_prefill_step, make_serve_step
+    cfg = dataclasses.replace(reduced(get_config("zamba2-7b"), layers=7), shared_attn_every=3)
+    pg = init_params(cfg, seed=0, device=cuda, dtype=torch.bfloat16)
+
+    def cpu(t):
+        return {k: cpu(v) for k, v in t.items()} if isinstance(t, dict) else t.float().cpu()
+
+    pc = cpu(pg)
+    toks = torch.randint(0, cfg.vocab_size, (2, 37), generator=torch.Generator().manual_seed(0))
+    ops.reset_launches()
+    lg = make_prefill_step(cfg, device=cuda)(pg, {"tokens": toks})
+    assert ops.launches["ssd_intra_chunk"] == 7 and ops.launches["flash_attention"] == 2
+    lc = make_prefill_step(cfg, compute_dtype=torch.float32, device="cpu")(pc, {"tokens": toks})
+    assert (lg.float().cpu() - lc).abs().max() <= 3e-2 * lc.abs().max()
+    sg = make_serve_step(cfg, device=cuda)
+    sc = make_serve_step(cfg, compute_dtype=torch.float32, device="cpu")
+    cg = init_cache(cfg, 2, 40, device=cuda, dtype=torch.bfloat16)
+    cc = init_cache(cfg, 2, 40, device="cpu", dtype=torch.float32)
+    ops.reset_launches()
+    for t in range(37):
+        dg, cg = sg(pg, toks[:, t:t + 1], cg, t)
+        dc, cc = sc(pc, toks[:, t:t + 1], cc, t)
+    assert all(n == 0 for n in ops.launches.values())
+    assert (dg.float().cpu() - dc).abs().max() <= 3e-2 * dc.abs().max()

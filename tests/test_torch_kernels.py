@@ -112,8 +112,10 @@ def test_cpu_wrappers_count_no_launches():
     w = torch.ones(1, 16, 16, requires_grad=True)
     y = ops.gmm(ops.fused_swiglu(x, x), w, torch.tensor([8], dtype=torch.int32))
     ops.combine(y.reshape(4, 2, 16), torch.ones(4, 2)).sum().backward()
+    ops.ssd_intra_chunk(torch.ones(1, 1, 4, 2, 8), torch.ones(1, 1, 4, 2), torch.ones(1, 1, 4, 8),
+                        torch.ones(1, 1, 4, 8), -torch.ones(2))
     assert set(ops.launches) == {"gmm", "tgmm", "swiglu", "swiglu_bwd", "combine",
-                                 "combine_bwd", "flash_attention"}
+                                 "combine_bwd", "flash_attention", "ssd_intra_chunk"}
     assert all(n == 0 for n in ops.launches.values())
 
 
