@@ -9,9 +9,9 @@ Phases, each printing JSON lines:
   device     the card (nvidia-smi name and power limit) and the time to
              build the CUDA kernels from ``src/repro_torch/csrc``;
   kernels    each kernel against its plain PyTorch version on the card, at
-             the serving, training and hybrid paths' shapes, with its time, the
-             plain version's, one PyTorch library call's where there is
-             one, and its bound;
+             the serving, training, hybrid and expert-parallel paths' shapes,
+             with its time, the plain version's, one PyTorch library call's
+             where there is one, and its bound;
   reference  a small MoE model served through the CUDA kernels agrees with
              the same model run on the CPU through the plain versions;
   train_reference  one training step of a small MoE model on the card
@@ -35,7 +35,20 @@ Phases, each printing JSON lines:
              make_serve_step, then 64 greedy tokens; the forward prefill
              against the stepped decode at the last prompt position; exact
              launch counts (81 SSD and 13 flash launches per prefill, none
-             per decode step); one profiled prefill and decode step.
+             per decode step); one profiled prefill and decode step;
+  ep_reference  expert parallelism (EP) on 4 ranks, processes that share
+             the card over gloo: a small MoE block's output and input
+             gradient against the same block in one process on the card, and
+             one EP training step against the single-process CPU float32
+             step from the same state, in loss and gradient norm;
+  ep_train   full-width Mula-7B-A1B cut to 4 of its 16 layers, EP = 4 (16
+             experts per rank, one 2048-token sequence per rank), 6 steps on
+             one fixed batch; asserts on every rank finite metrics, a falling
+             loss, clip_scale <= 1, the same metrics as the other ranks, the
+             global routed-pair count and the exact launch count of every
+             kernel. The four ranks time-share one card and gloo carries
+             their collectives through host memory: the step time is no EP
+             speed.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object listing the kernels, and
@@ -65,6 +78,7 @@ FP32_FLOPS = 67e12
 MULA = "mula-7b-a1b"
 ZAMBA = "zamba2-7b"
 DEV = "cuda"
+EP_RANKS, EP_SEQ, EP_STEPS = 4, 2048, 6
 
 
 def emit(phase: str, **fields) -> None:
@@ -141,18 +155,20 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str
 # kernels against their plain versions
 # ----------------------------------------------------------------------------
 
-def _routing_groups(T: int, m, gen, experts: int = 0):
+def _routing_groups(T: int, m, gen, experts: int = 0, offset: int = 0, local: int = 0):
     """Group sizes of one MoE dispatch of T tokens with random top-k
     routing over the first ``experts`` experts (all if 0), the pool sized
-    from the MoE config ``m`` as the model sizes it."""
+    from the MoE config ``m`` as the model sizes it; with ``local``, one EP
+    rank's dispatch of the experts ``[offset, offset + local)``."""
     import torch
     from repro_torch.core import moe
     from repro_torch.kernels import ops
     idx = torch.rand((T, experts or m.num_experts), generator=gen, device=DEV).topk(
         m.experts_per_token, dim=-1).indices
-    rows = moe.dispatch_pool_rows(T, m)
+    rows = moe.dispatch_pool_rows(T, m, local_experts=local)
     plan = moe.make_dispatch_plan(idx, num_experts=m.num_experts, pool_rows=rows,
-                                  align=ops.gmm_align())
+                                  align=ops.gmm_align(), expert_offset=offset,
+                                  local_experts=local)
     return plan.group_sizes, rows
 
 
@@ -233,6 +249,9 @@ def kernel_cases(cfg) -> list[dict]:
             tol="rel"))
 
     cases += train_kernel_cases(cfg, gen, randn)
+    EL = E // EP_RANKS
+    cases += train_kernel_cases(cfg, gen, randn, tokens=EP_RANKS * EP_SEQ,
+                                offset=(EP_RANKS - 1) * EL, local=EL)
 
     nh, hd = cfg.num_heads, cfg.head_dim
     for S, nkv, window in ((512, nh, 0), (500, nh, 0), (1000, nh // 4, 256)):
@@ -256,7 +275,7 @@ def kernel_cases(cfg) -> list[dict]:
             library=lib,
             bytes=2 * (2 * S * nh * hd + 2 * S * nkv * hd),
             flops=4.0 * int(mask.sum()) * nh * hd, peak=BF16_TENSOR_FLOPS, tol="rel"))
-    return cases + hybrid_kernel_cases(gen)
+    return cases + hybrid_kernel_cases(gen) + token_counts_cases(cfg, gen)
 
 
 def hybrid_kernel_cases(gen) -> list[dict]:
@@ -312,27 +331,73 @@ def hybrid_kernel_cases(gen) -> list[dict]:
     return cases
 
 
+def token_counts_cases(cfg, gen) -> list[dict]:
+    """The Stage 2 histogram at the paths' shapes, int64 ids from top-8
+    routing as the router emits them: a decode step (8 tokens, all 64
+    experts local), a 1000-token prefill, and EP's gathered ids (4 ranks x
+    2048 tokens x 8 = 65,536 ids) counted for ranks 1 and 3 (16 local
+    experts from offsets 16 and 48), plus every id one expert (all the
+    atomics on one bin). Exact equality. The yardstick is the port's former
+    Stage 2, one ``scatter_add_`` into zeros on the masked, shifted ids."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    E, K = cfg.moe.num_experts, cfg.moe.experts_per_token
+
+    def routed(T):
+        return torch.rand((T, E), generator=gen, device=DEV).topk(K, dim=-1).indices.reshape(-1)
+
+    ep = routed(EP_RANKS * EP_SEQ)
+    cases = []
+    for name, ids, el, off in (("decode T=8", routed(8), E, 0),
+                               ("prefill T=1000", routed(1000), E, 0),
+                               (f"EP F={ep.numel()} EL={E // EP_RANKS} offset=16", ep,
+                                E // EP_RANKS, 16),
+                               (f"EP F={ep.numel()} EL={E // EP_RANKS} offset=48", ep,
+                                E // EP_RANKS, 48),
+                               (f"one expert F={ep.numel()} EL={E // EP_RANKS} offset=16",
+                                torch.full_like(ep, 21), E // EP_RANKS, 16)):
+        local = ids - off
+        key = torch.where((local >= 0) & (local < el), local, el)
+        cases.append(dict(
+            kernel="token_counts", case=f"{name} (int64 ids)", args=(ids,),
+            fn=lambda i, el=el, off=off: ops.token_counts(i, el, off),
+            plain=lambda i, el=el, off=off: ref.token_counts_ref(i, el, off),
+            library=lambda k, one, el=el: torch.zeros(el + 1, dtype=torch.int32,
+                                                      device=DEV).scatter_add_(0, k, one),
+            library_args=(key, torch.ones_like(key, dtype=torch.int32)),
+            library_note="torch.zeros(EL + 1).scatter_add_ on the precomputed masked, "
+                         "shifted ids (the port's former Stage 2 histogram)",
+            bytes=8 * ids.numel() + 4 * el, flops=0.0, peak=BF16_TENSOR_FLOPS, tol="exact"))
+    return cases
+
+
 TRAIN_TOKENS = 2 * 2048          # tokens per microbatch of the train phase
 
 
-def train_kernel_cases(cfg, gen, randn) -> list[dict]:
+def train_kernel_cases(cfg, gen, randn, *, tokens: int = TRAIN_TOKENS, offset: int = 0,
+                       local: int = 0) -> list[dict]:
     """The training step's kernel calls at its shapes: 4096 tokens per
     microbatch, the capacity pool of ``dispatch_pool_rows(4096)`` rows (the
     model's own capacity factor, so some pairs are dropped as in training),
     gmm forward and its transposed-rhs input gradient for both weight
     shapes, tgmm for both (and with empty groups), the combine and SwiGLU
-    backward kernels."""
+    backward kernels. With ``local``, the same calls at ep_train's shapes:
+    one EP rank's ``local`` experts from ``offset`` among ``tokens``
+    gathered tokens (cases named "ep ...")."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
 
     m = cfg.moe
     d, f = cfg.d_model, m.d_ff_expert
-    E, K, T = m.num_experts, m.experts_per_token, TRAIN_TOKENS
+    K, T = m.experts_per_token, tokens
+    E = local or m.num_experts                 # the experts this dispatch holds
+    path = "ep" if local else "train"
     w_gate = randn(E, d, f, scale=d ** -0.5)
     w_down = randn(E, f, d, scale=f ** -0.5)
     cases = []
-    gs, rows = _routing_groups(T, m, gen)
+    gs, rows = _routing_groups(T, m, gen, offset=offset, local=local)
     total, active = int(gs.sum()), int((gs > 0).sum())
     for proj, w in (("gate", w_gate), ("down", w_down)):
         kin, nout = w.shape[1], w.shape[2]
@@ -342,7 +407,7 @@ def train_kernel_cases(cfg, gen, randn) -> list[dict]:
             lambda x, w, gs: torch._grouped_mm(x, w, offs=_offs(gs)), (x, w, gs), plain,
             rows_of=lambda y, n=total: y[:n])
         cases.append(dict(
-            kernel="gmm", case=f"train {proj} M={rows} K={kin} N={nout} rows={total}",
+            kernel="gmm", case=f"{path} {proj} M={rows} K={kin} N={nout} rows={total}",
             args=(x, w, gs), fn=ops.gmm, plain=lambda x, w, gs: ref.gmm_ref(x.float(),
                                                                           w.float(), gs),
             library=lib, library_note=note,
@@ -356,16 +421,18 @@ def train_kernel_cases(cfg, gen, randn) -> list[dict]:
             (dy, w, gs), plain, rows_of=lambda y, n=total: y[:n],
             what="torch._grouped_mm(dy, w.transpose(1, 2))")
         cases.append(dict(
-            kernel="gmm", case=f"train dx {proj} (transposed rhs) M={rows} K={nout} N={kin} "
+            kernel="gmm", case=f"{path} dx {proj} (transposed rhs) M={rows} K={nout} N={kin} "
                                f"rows={total}",
             args=(dy, w, gs), fn=lambda dy, w, gs: ops.gmm_transposed(dy, w, gs),
             plain=lambda dy, w, gs: ref.gmm_ref(dy.float(), w.float().transpose(1, 2), gs),
             library=lib, library_note=note,
             bytes=2 * (total * nout + active * kin * nout + rows * kin),
             flops=2.0 * total * kin * nout, peak=BF16_TENSOR_FLOPS, tol="rel"))
-    # dW[g] = x_g^T dy_g for both projections, and with 8 of 64 experts empty
+    # dW[g] = x_g^T dy_g for both projections, and with the last 8 experts of
+    # the model (the last 8 groups of this dispatch) empty
     groups = [("gate", gs, total, rows, d, f), ("down", gs, total, rows, f, d)]
-    gs_e, rows_e = _routing_groups(T, m, gen, experts=E - 8)
+    gs_e, rows_e = _routing_groups(T, m, gen, experts=m.num_experts - 8, offset=offset,
+                                   local=local)
     groups.append(("gate, 8 groups empty", gs_e, int(gs_e.sum()), rows_e, d, f))
     for proj, g_s, tot, M, kin, nout in groups:
         x, dy = randn(M, kin), randn(M, nout)
@@ -374,7 +441,7 @@ def train_kernel_cases(cfg, gen, randn) -> list[dict]:
             lambda x, dy, g_s: torch._grouped_mm(x.t(), dy, offs=_offs(g_s)), (x, dy, g_s),
             plain, what="torch._grouped_mm(x.t(), dy, offs) (2-D x 2-D)")
         cases.append(dict(
-            kernel="tgmm", case=f"train {proj} M={M} K={kin} N={nout} rows={tot}",
+            kernel="tgmm", case=f"{path} {proj} M={M} K={kin} N={nout} rows={tot}",
             args=(x, dy, g_s), fn=ops.tgmm,
             plain=lambda x, dy, g_s: ref.tgmm_ref(x.float(), dy.float(), g_s, E),
             library=lib, library_note=note,
@@ -382,13 +449,13 @@ def train_kernel_cases(cfg, gen, randn) -> list[dict]:
             flops=2.0 * tot * kin * nout, peak=BF16_TENSOR_FLOPS, tol="rel"))
     wts = torch.softmax(torch.randn((T, K), generator=gen, device=DEV), -1).to(torch.bfloat16)
     cases.append(dict(
-        kernel="combine", case=f"train T={T} K={K} D={d}", args=(randn(T, K, d), wts),
+        kernel="combine", case=f"{path} T={T} K={K} D={d}", args=(randn(T, K, d), wts),
         fn=ops.combine, plain=lambda r, w: ref.combine_ref(r.float(), w.float()),
         library=lambda r, w: torch.einsum("tkd,tk->td", r, w),
         bytes=2 * (T * K * d + T * K + T * d), flops=2.0 * T * K * d, peak=FP32_FLOPS,
         tol="rel"))
     cases.append(dict(
-        kernel="combine_bwd", case=f"train T={T} K={K} D={d}",
+        kernel="combine_bwd", case=f"{path} T={T} K={K} D={d}",
         args=(randn(T, K, d), wts, randn(T, d)), fn=ops.combine_bwd,
         plain=lambda r, w, g: ref.combine_bwd_ref(r.float(), w.float(), g.float()),
         library=lambda r, w, g: (w[..., None] * g[:, None, :],
@@ -399,12 +466,12 @@ def train_kernel_cases(cfg, gen, randn) -> list[dict]:
         peak=FP32_FLOPS, tol="rel"))
     g, u, dh = randn(rows, f, scale=3.0), randn(rows, f), randn(rows, f)
     cases.append(dict(
-        kernel="swiglu", case=f"train M={rows} N={f}", args=(g, u),
+        kernel="swiglu", case=f"{path} M={rows} N={f}", args=(g, u),
         fn=ops.fused_swiglu, plain=lambda g, u: ref.swiglu_ref(g.float(), u.float()),
         library=lambda g, u: F.silu(g) * u,
         bytes=3 * 2 * rows * f, flops=5.0 * rows * f, peak=FP32_FLOPS, tol="1ulp"))
     cases.append(dict(
-        kernel="swiglu_bwd", case=f"train M={rows} N={f}", args=(g, u, dh),
+        kernel="swiglu_bwd", case=f"{path} M={rows} N={f}", args=(g, u, dh),
         fn=ops.swiglu_bwd,
         plain=lambda g, u, d: ref.swiglu_bwd_ref(g.float(), u.float(), d.float()),
         library=lambda g, u, d: (torch.ops.aten.silu_backward(d * u, g), d * F.silu(g)),
@@ -445,6 +512,9 @@ def phase_kernels(cfg) -> list[dict]:
                 err, ulps = _ulp_check(out, plain)
                 ok = ulps <= 1.0
                 tol_txt = f"<= 1 bf16 ulp of the plain value (got {ulps:.3f} ulp)"
+            elif c["tol"] == "exact":
+                err = float((out.long() - plain.long()).abs().max())
+                ok, tol_txt = out.dtype == plain.dtype and err == 0, "exact equality"
             else:
                 err = float((out.float() - plain).abs().max())
                 tol = 1e-2 * float(plain.abs().max())
@@ -460,7 +530,8 @@ def phase_kernels(cfg) -> list[dict]:
                "tolerance": tol_txt, "ms": graph_ms(c["fn"], args),
                "eager_ms": time_ms(c["fn"], args),
                "plain_ms": time_ms(c["plain"], args, iters=3, warmup=1),
-               "library_ms": graph_ms(c["library"], args) if c["library"] else None,
+               "library_ms": (graph_ms(c["library"], c.get("library_args", args))
+                              if c["library"] else None),
                "bound_ms": b_ms, "bound_by": b_by, "bytes": c["bytes"], "flops": c["flops"]}
         if c.get("library_note"):
             row["library_note"] = c["library_note"]
@@ -600,13 +671,15 @@ TRAIN_STEPS = 6
 
 
 def expected_train_launches(num_layers: int, microbatches: int, steps: int) -> dict:
-    """Launches per training run under block remat. Per layer and
-    microbatch: forward gmm x3, SwiGLU, combine; the backward recomputes
-    that forward, then gmm x3 for dx (transposed rhs), tgmm x3 for dW, one
-    swiglu_bwd and one combine_bwd. Attention is the plain blockwise path."""
+    """Launches per training run (per rank under EP) under block remat. Per
+    layer and microbatch: forward token_counts, gmm x3, SwiGLU, combine; the
+    backward recomputes that forward, then gmm x3 for dx (transposed rhs),
+    tgmm x3 for dW, one swiglu_bwd and one combine_bwd. Attention is the
+    plain blockwise path."""
     n = num_layers * microbatches * steps
     return {"gmm": 9 * n, "tgmm": 3 * n, "swiglu": 2 * n, "swiglu_bwd": n,
-            "combine": 2 * n, "combine_bwd": n, "flash_attention": 0, "ssd_intra_chunk": 0}
+            "combine": 2 * n, "combine_bwd": n, "flash_attention": 0, "ssd_intra_chunk": 0,
+            "token_counts": 2 * n}
 
 
 def phase_train() -> dict:
@@ -744,6 +817,7 @@ def phase_serve() -> dict:
     expect = {"gmm": 3 * cfg.num_layers * (prefills + steps),
               "swiglu": cfg.num_layers * (prefills + steps),
               "combine": cfg.num_layers * (prefills + steps),
+              "token_counts": cfg.num_layers * (prefills + steps),
               "flash_attention": cfg.num_layers * prefills,
               "tgmm": 0, "swiglu_bwd": 0, "combine_bwd": 0, "ssd_intra_chunk": 0}
     if launches != expect:
@@ -771,10 +845,12 @@ def phase_serve() -> dict:
     return row
 
 
-def _profile_window(run) -> dict:
+def _profile_window(run, host_prefixes: tuple = ()) -> dict:
     """torch.profiler over ``run()``: the host's wall time, the device's
     busy time (sum of its kernel and copy times; one stream, so they do not
-    overlap), the idle share, and the ten device kernels that took longest."""
+    overlap), the idle share, and the ten device kernels that took longest;
+    with ``host_prefixes``, also the host events whose names start with one
+    of them, summed by name (the collectives under EP)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -785,16 +861,23 @@ def _profile_window(run) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, list[float]] = {}
+    host: dict[str, list[float]] = {}
     for e in prof.events():
+        ms = e.time_range.elapsed_us() / 1e3
         if e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+            by_name.setdefault(e.name, []).append(ms)
+        elif host_prefixes and e.name.startswith(host_prefixes):
+            host.setdefault(e.name, []).append(ms)
     busy = sum(sum(v) for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
-    return {"wall_ms": wall_ms,
-            "device_busy_ms": busy if by_name else None,
-            "device_idle_share": 1 - busy / wall_ms if by_name else None,
-            "top_device_kernels": [{"name": n[:100], "ms": sum(v), "calls": len(v)}
-                                   for n, v in top]}
+    out = {"wall_ms": wall_ms,
+           "device_busy_ms": busy if by_name else None,
+           "device_idle_share": 1 - busy / wall_ms if by_name else None,
+           "top_device_kernels": [{"name": n[:100], "ms": sum(v), "calls": len(v)}
+                                  for n, v in top]}
+    if host_prefixes:
+        out["host_events"] = {n: {"ms": sum(v), "calls": len(v)} for n, v in host.items()}
+    return out
 
 
 def _profile_serving(engine, prompts) -> dict:
@@ -1031,6 +1114,243 @@ def phase_hybrid_serve() -> dict:
 
 
 # ----------------------------------------------------------------------------
+# expert parallelism: EP_RANKS processes share the card over gloo
+# ----------------------------------------------------------------------------
+
+def _ep_small_cfg():
+    """Reduced Mula-7B-A1B (2 layers, d_model 256) with 16 experts top-8,
+    dropless, forced uniform routing: bf16 noise cannot flip an expert
+    choice, and with 128 * 8 routed pairs per rank a multiple of 16 each
+    rank's local routing is the single-process routing of its tokens."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    cfg = reduced(get_config(MULA), d_model=256, max_experts=16)
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, forced_uniform_routing=True, dispatch="dropless"))
+
+
+def _ep_block_inputs(cfg, device):
+    """Layer 0's MoE params of ``init_params(seed 0)`` in bf16, and x and a
+    cotangent (EP_RANKS, 128, d) from a seeded generator."""
+    import torch
+    from repro_torch.models import init_params
+    moe = init_params(cfg, seed=0, device=device, dtype=torch.bfloat16)["layers"]["moe"]
+    p = {k: v[0] for k, v in moe.items()}
+    gen = torch.Generator().manual_seed(1)
+    x, ct = (torch.randn((EP_RANKS, 128, cfg.d_model), generator=gen).bfloat16().to(device)
+             for _ in range(2))
+    return p, x, ct
+
+
+def _ep_block_grad(p, x, ct, cfg, group=None):
+    """The block's output and the gradient of sum(out * ct) w.r.t. x."""
+    import torch
+    from repro_torch.core.moe import sparse_moe_block
+    x = x.detach().requires_grad_()
+    out, _, _, _ = sparse_moe_block(p, x, cfg, ep_group=group)
+    gx, = torch.autograd.grad((out.float() * ct.float()).sum(), [x])
+    return out.detach(), gx
+
+
+def _ep_reference_rank(group, t_cfg):
+    """One rank of ep_reference: its rows of the small block's output and
+    input gradient, then one EP training step from init_state(seed 0)."""
+    import torch
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import expert_shard
+    from repro_torch.train import init_state, make_train_step
+    cfg = _ep_small_cfg()
+    p, x, ct = _ep_block_inputs(cfg, group.device)
+    p = expert_shard({"moe": p}, group.rank, group.world)["moe"]
+    r = group.rank
+    out, gx = _ep_block_grad(p, x[r:r + 1], ct[r:r + 1], cfg, group)
+    state = init_state(cfg, t_cfg, seed=0, ep_group=group)
+    batch = _fixed_batch(cfg.vocab_size, t_cfg.global_batch, t_cfg.seq_len, group.device)
+    n = t_cfg.global_batch // group.world
+    ops.reset_launches()
+    _, m = make_train_step(cfg, ParallelConfig(microbatches=1), t_cfg, ep_group=group)(
+        state, {k: v[r * n:(r + 1) * n] for k, v in batch.items()})
+    torch.cuda.synchronize()
+    return {"out": out, "gx": gx, "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "launches": dict(ops.launches)}
+
+
+def phase_ep_reference() -> dict:
+    """EP_RANKS ranks on the card over gloo: (a) the small MoE block's
+    output and input gradient, bf16 through the kernels, against the same
+    block in this process on the card (rel 3e-2 of max|ref|: each rank's
+    partial output is rounded to bf16 and the partials are summed in bf16,
+    where one process rounds once after an f32 combine); (b) one EP
+    training step (bf16 compute and gradient reduction) against one step
+    of the CPU float32 path from the same init_state(seed 0), with
+    EP_RANKS microbatches so that each is one rank's rows (the tolerances
+    of train_reference: loss rel 1e-2, grad_norm rel 3e-2)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ParallelConfig, TrainConfig
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel import spawn
+    from repro_torch.train import TrainState, init_state, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = _ep_small_cfg()
+    p, x, ct = _ep_block_inputs(cfg, DEV)
+    out_ref, gx_ref = _ep_block_grad(p, x, ct, cfg)
+    t_gpu = TrainConfig(seq_len=128, global_batch=EP_RANKS, warmup_steps=2, total_steps=100)
+    t_cpu = dataclasses.replace(t_gpu, compute_dtype="float32", grad_reduce_dtype="float32")
+    params = tree_map(lambda t: t.detach().cpu(), init_state(cfg, t_gpu, seed=0, device=DEV).params)
+    batch = _fixed_batch(cfg.vocab_size, t_gpu.global_batch, t_gpu.seq_len, "cpu")
+    _, m_cpu = make_train_step(cfg, ParallelConfig(microbatches=EP_RANKS), t_cpu)(
+        TrainState(params, adamw_init(params)), batch)
+    del p
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(_ep_reference_rank, EP_RANKS, args=(t_gpu,), backend="gloo", device=DEV,
+                  timeout_s=300)
+    wall = time.perf_counter() - t0
+
+    def rel(a, b):
+        return float((a.float() - b.float()).abs().max() / b.float().abs().max())
+
+    out_err = rel(torch.cat([r["out"] for r in ranks]), out_ref.cpu())
+    gx_err = rel(torch.cat([r["gx"] for r in ranks]), gx_ref.cpu())
+    step_rel = {k: abs(ranks[0][k] - float(m_cpu[k])) / abs(float(m_cpu[k]))
+                for k in ("loss", "grad_norm")}
+    tol = {"block": 3e-2, "loss": 1e-2, "grad_norm": 3e-2}
+    expect = expected_train_launches(cfg.num_layers, 1, 1)
+    row = {"config": cfg.name, "ranks": EP_RANKS, "backend": "gloo", "experts_per_rank":
+           cfg.moe.num_experts // EP_RANKS, "block_out_rel_err": out_err,
+           "block_grad_x_rel_err": gx_err, "loss_ep": [r["loss"] for r in ranks],
+           "loss_cpu": float(m_cpu["loss"]), "grad_norm_ep": [r["grad_norm"] for r in ranks],
+           "grad_norm_cpu": float(m_cpu["grad_norm"]), "step_rel_err": step_rel,
+           "tolerance": tol, "launches_per_rank": [r["launches"] for r in ranks],
+           "expected_launches": expect, "wall_s": wall}
+    emit("ep_reference", **row)
+    if not (out_err <= tol["block"] and gx_err <= tol["block"]):
+        raise AssertionError(f"ep_reference: EP block differs: out {out_err}, grad x {gx_err}")
+    bad = {k: v for k, v in step_rel.items() if not v <= tol[k]}
+    if bad:
+        raise AssertionError(f"ep_reference: EP step differs from the CPU step: {bad}")
+    if any(r["launches"] != expect for r in ranks):
+        raise AssertionError(f"ep_reference: launches {row['launches_per_rank']} != {expect}")
+    if len({(r["loss"], r["grad_norm"]) for r in ranks}) != 1:
+        raise AssertionError("ep_reference: ranks disagree on the step's metrics")
+    return row
+
+
+def _ep_train_rank(group, steps):
+    """One rank of ep_train: its share of init_state(seed 0) and its row
+    of the fixed batch; ``steps`` steps; what the parent asserts."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ParallelConfig, TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.sharding import replicated_leaves
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(MULA), num_layers=4)
+    train = TrainConfig(seq_len=EP_SEQ, global_batch=EP_RANKS, warmup_steps=2, total_steps=100)
+    par = ParallelConfig(microbatches=1, remat_policy="block")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, train, seed=0, ep_group=group)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = _fixed_batch(cfg.vocab_size, train.global_batch, train.seq_len, group.device)
+    r = group.rank
+    mine = {k: v[r:r + 1] for k, v in batch.items()}
+    step = make_train_step(cfg, par, train, ep_group=group)
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    history, counts = [], None
+    ops.reset_launches()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, mine)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        history.append({**{k: float(m[k]) for k in keys}, "step_ms": ms})
+        counts = m["moe_counts"]
+    launches = dict(ops.launches)
+    # one more step, profiled on rank 0 (every rank must take it: lockstep)
+    profile = None
+    if r == 0:
+        profile = _profile_window(lambda: step(state, mine), host_prefixes=("gloo:", "c10d::"))
+    else:
+        step(state, mine)
+        torch.cuda.synchronize()
+    rep = [t for t, k in zip(leaves(state.params), replicated_leaves(state.params)) if k]
+    return {"history": history, "moe_counts": counts, "launches": launches, "profile": profile,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "init_s": init_s,
+            "params_held": sum(t.numel() for t in leaves(state.params)),
+            "replicated_checksum": float(sum(t.double().sum() for t in rep)),
+            "backend": group.backend, "device": str(group.device)}
+
+
+def phase_ep_train() -> dict:
+    """Full-width Mula-7B-A1B, 4 of its 16 layers, EP_RANKS ranks on the
+    card over gloo, EP_STEPS steps on the fixed batch (one sequence of
+    EP_SEQ tokens per rank, EP_RANKS * EP_SEQ gathered tokens per MoE
+    call, the config's own capacity dispatch), microbatches 1, block
+    remat."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import spawn
+
+    cfg = get_config(MULA)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(_ep_train_rank, EP_RANKS, args=(EP_STEPS,), backend="gloo", device=DEV,
+                  timeout_s=600)
+    wall = time.perf_counter() - t0
+    expect = expected_train_launches(4, 1, EP_STEPS)
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    routed = EP_RANKS * EP_SEQ * cfg.moe.experts_per_token
+    for i, r in enumerate(ranks):
+        h = r["history"]
+        if not all(math.isfinite(s[k]) for s in h for k in keys):
+            raise AssertionError(f"ep_train rank {i}: non-finite metrics {h}")
+        if not h[-1]["loss"] < h[0]["loss"]:
+            raise AssertionError(f"ep_train rank {i}: loss did not fall: {[s['loss'] for s in h]}")
+        if not all(s["clip_scale"] <= 1.0 for s in h):
+            raise AssertionError(f"ep_train rank {i}: clip_scale above 1")
+        if [{k: s[k] for k in keys} for s in h] != [{k: s[k] for k in keys}
+                                                   for s in ranks[0]["history"]]:
+            raise AssertionError(f"ep_train: rank {i}'s metrics differ from rank 0's")
+        if not torch.equal(r["moe_counts"], ranks[0]["moe_counts"]) or float(
+                r["moe_counts"].sum()) != routed:
+            raise AssertionError(f"ep_train rank {i}: moe_counts sum "
+                                 f"{float(r['moe_counts'].sum())} != {routed} routed pairs")
+        if r["replicated_checksum"] != ranks[0]["replicated_checksum"]:
+            raise AssertionError(f"ep_train rank {i}: replicated params differ from rank 0's")
+        if r["launches"] != expect:
+            raise AssertionError(f"ep_train rank {i}: launches {r['launches']} != {expect}")
+    step_ms = [statistics.median(s["step_ms"] for s in r["history"][1:]) for r in ranks]
+    row = {"model": cfg.name, "layers": 4, "ranks": EP_RANKS, "backend": ranks[0]["backend"],
+           "device": ranks[0]["device"], "experts_per_rank": cfg.moe.num_experts // EP_RANKS,
+           "seq_per_rank": 1, "seq_len": EP_SEQ, "gathered_tokens_per_moe_call":
+           EP_RANKS * EP_SEQ, "dispatch": cfg.moe.dispatch, "steps": EP_STEPS,
+           "losses": [s["loss"] for s in ranks[0]["history"]],
+           "clip_scales": [s["clip_scale"] for s in ranks[0]["history"]],
+           "step_ms_by_rank": [[s["step_ms"] for s in r["history"]] for r in ranks],
+           "step_ms_median_by_rank": step_ms,
+           "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+           "params_held_by_rank": [r["params_held"] for r in ranks],
+           "init_s_by_rank": [r["init_s"] for r in ranks],
+           "launches_per_rank": ranks[0]["launches"], "expected_launches": expect, "wall_s": wall,
+           "profile_step_rank0": ranks[0]["profile"],
+           "note": "4 ranks time-share one card; gloo carries the collectives through host "
+                   "memory itself (the port host-stages none of them): the step time is "
+                   "not an EP speed"}
+    emit("ep_train", **row)
+    return row
+
+
+# ----------------------------------------------------------------------------
 
 SOURCES = {"gmm": "src/repro_torch/csrc/gmm.cu",
            "tgmm": "src/repro_torch/csrc/tgmm.cu",
@@ -1039,7 +1359,8 @@ SOURCES = {"gmm": "src/repro_torch/csrc/gmm.cu",
            "combine": "src/repro_torch/csrc/combine.cu",
            "combine_bwd": "src/repro_torch/csrc/combine.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-           "ssd_intra_chunk": "src/repro_torch/csrc/ssd.cu"}
+           "ssd_intra_chunk": "src/repro_torch/csrc/ssd.cu",
+           "token_counts": "src/repro_torch/csrc/token_counts.cu"}
 REPLACES = {"gmm": "src/repro/kernels/gmm.py:40",
             "tgmm": "src/repro/kernels/gmm.py:98",
             "swiglu": "src/repro/kernels/swiglu.py:21",
@@ -1047,13 +1368,15 @@ REPLACES = {"gmm": "src/repro/kernels/gmm.py:40",
             "combine": "src/repro/kernels/combine.py:26",
             "combine_bwd": "src/repro/kernels/combine.py:58",
             "flash_attention": "src/repro/kernels/flash_attention.py:67",
-            "ssd_intra_chunk": "src/repro/kernels/ssd.py:54"}
+            "ssd_intra_chunk": "src/repro/kernels/ssd.py:54",
+            "token_counts": "src/repro/kernels/moe_dispatch.py:34"}
 # the case whose numbers head the summary line: the training path's for the
 # kernels it runs, the 512-token prefill for flash (serving only), the
-# 4096-token prompt for the SSD stage
+# 4096-token prompt for the SSD stage, EP's gathered ids for the histogram
 HEADLINE = {"gmm": "train gate", "tgmm": "train gate M", "swiglu": "train",
             "swiglu_bwd": "train", "combine": "train", "combine_bwd": "train",
-            "flash_attention": "Sq=512 ", "ssd_intra_chunk": "S=4096 "}
+            "flash_attention": "Sq=512 ", "ssd_intra_chunk": "S=4096 ",
+            "token_counts": "EP F=65536 EL=16 offset=16"}
 
 
 def main(argv=None) -> int:
@@ -1090,13 +1413,16 @@ def main(argv=None) -> int:
     train = phase_train()
     phase_hybrid_reference()
     hybrid = phase_hybrid_serve()
+    phase_ep_reference()
+    ep_train = phase_ep_train()
 
     summary = []
     for name in SOURCES:
         rows = [r for r in kernel_rows if r["kernel"] == name]
         head = next((r for r in rows if HEADLINE[name] in r["case"]), rows[0])
         by_path = {"serve": serve["launches"][name], "train": train["launches"][name],
-                   "hybrid": hybrid["launches"][name]}
+                   "hybrid": hybrid["launches"][name],
+                   "ep_train": ep_train["launches_per_rank"][name]}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

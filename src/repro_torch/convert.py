@@ -6,7 +6,9 @@ the JAX side — this package never imports JAX) and returns the port's
 parameter dict: the same nested layout, leaves as tensors.
 ``opt_state_from_jax`` does the same for an ``AdamWState``. Tests use them
 to start both packages from the same weights and optimizer state, since
-JAX's PRNG is not reproduced.
+JAX's PRNG is not reproduced. Under expert parallelism each rank takes its
+share: ``parallel.expert_shard(params, rank, world)`` of the params and
+``opt_state_shard(opt, rank, world)`` of the AdamW state.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import padded_vocab
 from repro_torch.optim import AdamWState
+from repro_torch.parallel.sharding import expert_shard
 
 
 def _tensors(node, dev, dtype):
@@ -43,3 +46,10 @@ def opt_state_from_jax(opt, *, device: DeviceLike = None) -> AdamWState:
     dev = resolve_device(device)
     step = torch.tensor(int(np.asarray(opt.step)), dtype=torch.int32, device=dev)
     return AdamWState(step, *(_tensors(t, dev, torch.float32) for t in (opt.master, opt.m, opt.v)))
+
+
+def opt_state_shard(opt: AdamWState, rank: int, world: int) -> AdamWState:
+    """Rank ``rank``'s share of an AdamW state: its slices of the expert
+    stacks in the master weights and both moments (``expert_shard``), the
+    rest and the step as they are."""
+    return AdamWState(opt.step, *(expert_shard(t, rank, world) for t in (opt.master, opt.m, opt.v)))

@@ -1,11 +1,20 @@
-"""Sparse MoE block on one device — the paper's §3.1 stages 2-5, port of the
-JAX package's ``core/moe.py`` (meshless paths only).
+"""Sparse MoE block — the paper's §3.1 five stages, port of the JAX
+package's ``core/moe.py``.
 
 * ``moe_naive``          every expert computes every token; the test oracle.
-* ``_moe_dense``         route -> sort-based dispatch into a slot pool ->
+* ``_moe_dense``         route -> Stage 2 histogram (the ``token_counts``
+                         kernel) -> sort-based dispatch into a slot pool ->
                          grouped expert FFN -> weighted combine, through the
                          kernel wrappers of ``kernels/ops.py`` (grouped
                          matmul, fused SwiGLU, combine).
+* ``moe_fsmoe_ep``       paper Algorithm 1 under expert parallelism over an
+                         ``EPGroup`` (``torch.distributed``): route the
+                         rank's tokens, all-gather tokens and routing
+                         (Stage 1), Stages 2-5 on the gathered tokens with
+                         the rank's slice of the experts, reduce-scatter
+                         back to the rank's tokens. The allgather Stage 1
+                         only: the all-to-all variant, expert-TP and an
+                         expert placement raise.
 
 The port has one grouped-FFN backend, the kernel one: the JAX package's
 'xla' (uniform capacity) and 'ragged' lowerings are XLA layouts of the same
@@ -25,12 +34,14 @@ losses are plain PyTorch.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.ep import (EPGroup, all_gather_tokens, all_reduce_sum,
+                                     reduce_scatter_tokens)
 
 from .router import RouterOut, histogram, route
 
@@ -94,12 +105,12 @@ def moe_naive(p, x, moe_cfg) -> tuple[torch.Tensor, RouterOut]:
 # ----------------------------------------------------------------------------
 
 class DispatchPlan(NamedTuple):
-    slot: torch.Tensor         # (T*K,) destination pool row (pool_rows = dropped)
-    valid: torch.Tensor        # (T*K,) bool — False = dropped
-    counts: torch.Tensor       # (E,) tokens routed per expert
-    group_sizes: torch.Tensor  # (E,) int32 aligned pool group sizes
+    slot: torch.Tensor         # (T*K,) destination pool row (pool_rows: dropped, non-local)
+    valid: torch.Tensor        # (T*K,) bool — False = dropped or non-local
+    counts: torch.Tensor       # (EL,) tokens routed per local expert
+    group_sizes: torch.Tensor  # (EL,) int32 aligned pool group sizes
     pool_rows: int             # static pool size
-    drops: torch.Tensor        # () dropped (over-capacity) pairs
+    drops: torch.Tensor        # () dropped (over-capacity) local pairs
 
 
 class MoeStats(NamedTuple):
@@ -109,63 +120,76 @@ class MoeStats(NamedTuple):
 
 
 def make_dispatch_plan(indices: torch.Tensor, *, num_experts: int, pool_rows: int,
-                       align: int = 8) -> DispatchPlan:
-    """Sort-based index generation (paper Stage 3). indices: (T, K) expert
-    ids. Each expert's group is its count rounded up to ``align`` rows;
-    the groups share the pool in expert order, and pairs past the pool's
-    end are dropped."""
+                       align: int = 8, expert_offset: int = 0,
+                       local_experts: int = 0) -> DispatchPlan:
+    """Stages 2 and 3: the histogram, then sort-based index generation.
+    indices: (T, K) global expert ids. Only the ``EL = local_experts or
+    num_experts`` experts ``[expert_offset, expert_offset + EL)`` are
+    dispatched (EP rank r: offset r * EL); other ids sort to the sentinel
+    key EL and are masked. Each expert's group is its count rounded up to
+    ``align`` rows; the groups share the pool in expert order, and pairs past
+    the pool's end are dropped."""
     T, K = indices.shape
     dev = indices.device
-    E = num_experts
-    key = indices.reshape(-1).long()
+    EL = local_experts or num_experts
+    counts = ops.token_counts(indices, EL, expert_offset).long()   # Stage 2 histogram
+    local = indices.reshape(-1).long() - expert_offset
+    key = torch.where((local >= 0) & (local < EL), local, EL)      # non-local -> sentinel
     order = torch.argsort(key, stable=True)
     sorted_key = key[order]
 
-    counts = histogram(key, E)                                  # Stage 2 histogram
     gs_aligned = (counts + align - 1) // align * align
     cum = torch.clamp(torch.cumsum(gs_aligned, 0), max=pool_rows)
     offsets = torch.cat([torch.zeros(1, dtype=cum.dtype, device=dev), cum])
     group_sizes = offsets[1:] - offsets[:-1]
 
-    # position of each sorted element within its expert group
-    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                        torch.cumsum(counts, 0)[:-1]])
+    # position of each sorted element within its expert group. The sentinel
+    # group (T*K - sum(counts) pairs) starts at sum(counts), the last entry of
+    # ``starts``; its own size is never needed, so the kernel's local counts
+    # are the whole histogram
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(counts, 0)])
     pos_sorted = torch.arange(T * K, device=dev) - starts[sorted_key]
 
-    slot_sorted = offsets[sorted_key] + pos_sorted
-    valid_sorted = pos_sorted < group_sizes[sorted_key]
+    safe_key = torch.clamp(sorted_key, max=EL - 1)
+    slot_sorted = offsets[safe_key] + pos_sorted
+    valid_sorted = (sorted_key < EL) & (pos_sorted < group_sizes[safe_key])
     slot_sorted = torch.where(valid_sorted, slot_sorted, torch.full_like(slot_sorted, pool_rows))
 
     slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
     valid = torch.empty_like(valid_sorted).scatter_(0, order, valid_sorted)
-    drops = T * K - valid_sorted.sum()
+    drops = counts.sum() - valid_sorted.sum()
     return DispatchPlan(slot, valid, counts, group_sizes.to(torch.int32), int(pool_rows),
                         drops)
 
 
-def pool_size(tokens: int, top_k: int, num_experts: int, capacity_factor: float,
-              align: int = 8) -> int:
-    """Static slot-pool rows: ``capacity_factor`` times the routed pairs,
-    plus one alignment's slack per expert."""
-    expected = tokens * top_k
-    return round_up(int(math.ceil(capacity_factor * expected)) + align * num_experts, align)
+def pool_size(tokens: int, top_k: int, num_experts: int, local_experts: int,
+              capacity_factor: float, align: int = 8) -> int:
+    """Static slot-pool rows of one EP shard (``local_experts`` of the
+    ``num_experts``): ``capacity_factor`` times its expected share of the
+    routed pairs, plus one alignment's slack per local expert."""
+    expected = tokens * top_k * local_experts / num_experts
+    return round_up(int(math.ceil(capacity_factor * expected)) + align * local_experts, align)
 
 
-def dropless_pool_rows(tokens: int, top_k: int, num_experts: int, align: int = 8) -> int:
-    """Pool rows guaranteeing zero drops for any routing: even if one expert
-    receives every pair its aligned group fits, and ``align * E`` absorbs
-    the per-group alignment padding."""
-    return round_up(tokens * top_k, align) + align * num_experts
+def dropless_pool_rows(tokens: int, top_k: int, local_experts: int, align: int = 8) -> int:
+    """Pool rows guaranteeing zero drops for any routing: even if one local
+    expert receives every pair its aligned group fits, and ``align * EL``
+    absorbs the per-group alignment padding."""
+    return round_up(tokens * top_k, align) + align * local_experts
 
 
-def dispatch_pool_rows(tokens: int, moe_cfg, *, dropless: bool = False) -> int:
-    """Pool rows of one dispatch of ``tokens`` tokens, with groups aligned
-    to the gmm kernel's row tile: the dropless bound, or the capacity pool
-    rounded up to a multiple of ``E * align``."""
+def dispatch_pool_rows(tokens: int, moe_cfg, *, dropless: bool = False,
+                       local_experts: int = 0) -> int:
+    """Pool rows of one dispatch of ``tokens`` (gathered, under EP) tokens
+    among ``EL = local_experts or E`` experts, with groups aligned to the gmm
+    kernel's row tile: the dropless bound, or the capacity pool rounded up to
+    a multiple of ``EL * align``."""
     K, E, align = moe_cfg.experts_per_token, moe_cfg.num_experts, ops.gmm_align()
+    EL = local_experts or E
     if dropless:
-        return dropless_pool_rows(tokens, K, E, align=align)
-    return round_up(pool_size(tokens, K, E, moe_cfg.capacity_factor, align=align), E * align)
+        return dropless_pool_rows(tokens, K, EL, align=align)
+    return round_up(pool_size(tokens, K, E, EL, moe_cfg.capacity_factor, align=align),
+                    EL * align)
 
 
 # ----------------------------------------------------------------------------
@@ -186,14 +210,20 @@ def grouped_ffn(gate_w, up_w, down_w, pool_x, group_sizes):
 # ----------------------------------------------------------------------------
 
 def dispatch_compute_combine(gate_w, up_w, down_w, x, r: RouterOut, moe_cfg, *,
+                             expert_offset: int = 0, local_experts: int = 0,
                              dropless: bool = False):
-    """x: (T, d) tokens. Returns (out (T, d), plan). ``dropless``: size the
-    pool for the worst-case routing instead of by the capacity factor."""
+    """x: (T, d) tokens (the gathered tokens under EP); the expert weights
+    are the slice of ``local_experts`` experts from ``expert_offset`` (all
+    of them by default). Returns (out (T, d), plan): under EP a partial
+    output, the local experts' share. ``dropless``: size the pool for the
+    worst-case routing instead of by the capacity factor."""
     T, d = x.shape
     K = moe_cfg.experts_per_token
-    rows = dispatch_pool_rows(T, moe_cfg, dropless=dropless)
+    EL = local_experts or moe_cfg.num_experts
+    rows = dispatch_pool_rows(T, moe_cfg, dropless=dropless, local_experts=EL)
     plan = make_dispatch_plan(r.indices, num_experts=moe_cfg.num_experts, pool_rows=rows,
-                              align=ops.gmm_align())
+                              align=ops.gmm_align(), expert_offset=expert_offset,
+                              local_experts=EL)
 
     # inverse map: pool row -> source token; dropped pairs land in the
     # extra row ``rows`` and are cut off (the JAX scatter's mode="drop")
@@ -213,28 +243,102 @@ def dispatch_compute_combine(gate_w, up_w, down_w, x, r: RouterOut, moe_cfg, *,
     return out, plan
 
 
-def _moe_dense(p, x, moe_cfg, *, dropless: bool = False):
-    """Route, dispatch, compute, combine. Returns (out, router_out, MoeStats)."""
+def _moe_dense(p, x, moe_cfg, *, dropless: bool = False, ep_group: Optional[EPGroup] = None):
+    """Route, dispatch, compute, combine. Returns (out, router_out, MoeStats).
+    With ``ep_group`` (the dense fallback under EP: every rank holds every
+    expert and runs its own tokens) the aux and z losses and the stats are
+    those of the global batch."""
+    reduce = None
+    if ep_group is not None:
+        def reduce(t):
+            return all_reduce_sum(t, ep_group)
     r = route(x, p["router"], num_experts=moe_cfg.num_experts,
               top_k=moe_cfg.experts_per_token,
-              forced_uniform=moe_cfg.forced_uniform_routing)
+              forced_uniform=moe_cfg.forced_uniform_routing, reduce=reduce)
     out, plan = dispatch_compute_combine(p["gate"], p["up"], p["down"], x, r, moe_cfg,
                                          dropless=dropless)
     if moe_cfg.num_shared_experts:
         out = out + _shared_expert(p, x)
     stats = MoeStats(plan.counts.float(), plan.drops.float())
+    if reduce is not None:
+        tot = reduce(torch.cat([stats.counts, stats.drops[None]]))
+        stats = MoeStats(tot[:-1], tot[-1])
     return out, r, stats
 
 
-def sparse_moe_block(p, x, cfg):
-    """x: (B, S, d) -> (out (B, S, d), aux_loss, z_loss, MoeStats)."""
+# ----------------------------------------------------------------------------
+# fsmoe under EP: paper Algorithm 1 over a torch.distributed group
+# ----------------------------------------------------------------------------
+
+def uses_ep(moe_cfg, world: int) -> bool:
+    """Whether an EP group of ``world`` ranks splits the expert stacks and
+    the block runs ``moe_fsmoe_ep``: the fsmoe path with E divisible by the
+    group (the JAX package's ``sparse_moe_block`` rule). Otherwise every
+    rank keeps every expert and runs the dense path on its own tokens."""
+    return moe_cfg.moe_impl == "fsmoe" and moe_cfg.num_experts % world == 0
+
+
+def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False):
+    """Paper Algorithm 1 under EP, the allgather Stage 1. x: (T, d), the
+    rank's tokens; ``p`` holds the router and shared experts whole and the
+    rank's slice of the expert stacks (EL = E / world experts from rank *
+    EL). Returns (out (T, d), aux, z, MoeStats): aux and z averaged over the
+    ranks, the stats global."""
+    E, world = moe_cfg.num_experts, group.world
+    EL = E // world
+    if moe_cfg.stage1 != "allgather":
+        raise NotImplementedError(f"stage1={moe_cfg.stage1!r}: the port runs the allgather "
+                                  "Stage 1 only (the all-to-all dispatch is not ported)")
+    if moe_cfg.etp_shard_map:
+        raise NotImplementedError("expert-TP (etp_shard_map) is not ported")
+    if E % world or p["gate"].shape[0] != EL:
+        raise ValueError(f"EP over {world} ranks needs E % world == 0 and the rank's "
+                         f"{EL}-expert slice; got E={E}, stack {tuple(p['gate'].shape)}")
+    # the router is replicated: each rank routes its own tokens
+    r = route(x, p["router"], num_experts=E, top_k=moe_cfg.experts_per_token,
+              forced_uniform=moe_cfg.forced_uniform_routing)
+    # Stage 1: all-gather the tokens and their routing, in rank order
+    r_g = RouterOut(all_gather_tokens(r.weights, group), all_gather_tokens(r.indices, group),
+                    r.aux_loss, r.z_loss)
+    x_g = all_gather_tokens(x, group)
+    # Stages 2-5 on the rank's experts; then the Stage-5 tail: the partial
+    # outputs summed over ranks, each rank keeping its own tokens' rows
+    out_partial, plan = dispatch_compute_combine(
+        p["gate"], p["up"], p["down"], x_g, r_g, moe_cfg, expert_offset=group.rank * EL,
+        local_experts=EL, dropless=dropless)
+    out = reduce_scatter_tokens(out_partial, group)
+    if moe_cfg.num_shared_experts:
+        out = out + _shared_expert(p, x)
+    # aux and z averaged over the ranks, the drops (each rank's own experts')
+    # summed; the local counts gathered in rank order, which is expert order
+    aux, z, drops = all_reduce_sum(torch.stack([r.aux_loss, r.z_loss, plan.drops.float()]),
+                                   group).unbind()
+    stats = MoeStats(all_gather_tokens(plan.counts.float(), group), drops)
+    return out, aux / world, z / world, stats
+
+
+def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None):
+    """x: (B, S, d) -> (out (B, S, d), aux_loss, z_loss, MoeStats). With
+    ``ep_group``, x is the rank's share of the batch: the block runs
+    ``moe_fsmoe_ep`` when ``uses_ep`` says so, else the dense path with
+    whole expert stacks; either way aux, z and the stats are global."""
     B, S, d = x.shape
     m = cfg.moe
     xt = x.reshape(B * S, d)
+    dropless = m.dispatch == "dropless"
     if m.moe_impl == "naive":
+        if ep_group is not None:
+            raise NotImplementedError("moe_impl='naive' is the single-device oracle; "
+                                      "it does not run under EP")
         out, r = moe_naive(p, xt, m)
         stats = MoeStats(histogram(r.indices, m.num_experts).float(),
                          torch.zeros((), device=x.device))
         return out.reshape(B, S, d), r.aux_loss, r.z_loss, stats
-    out, r, stats = _moe_dense(p, xt, m, dropless=m.dispatch == "dropless")
+    if ep_group is not None and uses_ep(m, ep_group.world):
+        out, aux, z, stats = moe_fsmoe_ep(p, xt, m, ep_group, dropless=dropless)
+        return out.reshape(B, S, d), aux, z, stats
+    if p["gate"].shape[0] != m.num_experts:
+        raise ValueError(f"the dense path needs every expert; the stack holds "
+                         f"{p['gate'].shape[0]} of {m.num_experts}")
+    out, r, stats = _moe_dense(p, xt, m, dropless=dropless, ep_group=ep_group)
     return out.reshape(B, S, d), r.aux_loss, r.z_loss, stats

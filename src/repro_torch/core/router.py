@@ -25,8 +25,11 @@ class RouterOut(NamedTuple):
 
 
 def route(x: torch.Tensor, router_w: torch.Tensor, *, num_experts: int, top_k: int,
-          forced_uniform: bool = False) -> RouterOut:
-    """x: (T, d); router_w: (d, E)."""
+          forced_uniform: bool = False, reduce=None) -> RouterOut:
+    """x: (T, d); router_w: (d, E). ``reduce``: a differentiable sum over
+    the ranks that split the batch (EP's dense fallback); the aux and z
+    losses are then those of the global batch, as the JAX package's
+    auto-sharded path computes them."""
     T = x.shape[0]
     logits = (x @ router_w.to(x.dtype)).float()                 # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -43,8 +46,16 @@ def route(x: torch.Tensor, router_w: torch.Tensor, *, num_experts: int, top_k: i
         weights, indices = torch.topk(probs, top_k, dim=-1)
 
     # load-balance auxiliary loss: E * sum_e f_e * p_e  (Switch/OLMoE form)
-    f = histogram(indices, num_experts).float() / (T * top_k)
-    p = probs.mean(dim=0)
+    lse2 = torch.square(torch.logsumexp(logits, dim=-1))
+    if reduce is None:
+        f = histogram(indices, num_experts).float() / (T * top_k)
+        p = probs.mean(dim=0)
+        z = torch.mean(lse2)
+    else:
+        n = torch.full((1,), float(T), device=x.device)
+        tot = reduce(torch.cat([histogram(indices, num_experts).float(), probs.sum(0),
+                                lse2.sum()[None], n]))
+        E, n = num_experts, tot[-1]
+        f, p, z = tot[:E] / (n * top_k), tot[E:2 * E] / n, tot[2 * E] / n
     aux = num_experts * torch.sum(f * p)
-    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
     return RouterOut(weights, indices, aux, z)

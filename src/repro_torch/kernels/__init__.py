@@ -7,6 +7,7 @@ launchers, plain PyTorch versions and public wrappers.
   combine.py          weighted combine launcher        (csrc/combine.cu)
   flash_attention.py  flash attention launcher         (csrc/flash_attention.cu)
   ssd.py              SSD intra-chunk launcher         (csrc/ssd.cu)
+  token_counts.py     Stage-2 histogram launcher       (csrc/token_counts.cu)
   ops.py              public wrappers + launch counts
   _build.py           nvcc build + ctypes loading
 """

@@ -45,6 +45,7 @@ _SIGNATURES = {
     "repro_ssd_intra_chunk": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, _P],
                               _I),
+    "repro_token_counts": ([_P, ctypes.c_longlong, ctypes.c_longlong, _I, _P, _P], _I),
 }
 
 

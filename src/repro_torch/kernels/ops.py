@@ -15,6 +15,9 @@
 * ``ssd_intra_chunk(x, dt, B, C, A)``  Mamba-2 SSD intra-chunk stage,
                                    forward only (it raises on a tensor that
                                    requires grad, on either device).
+* ``token_counts(ids, num_local, offset)``  paper Stage 2: the histogram of
+                                   routed expert ids over one rank's local
+                                   range; integers, no gradient.
 
 The first three are ``torch.autograd.Function``s, as the JAX package's
 are ``jax.custom_vjp``s. Their backward kernels are callable on their
@@ -37,9 +40,10 @@ from .flash_attention import flash_attention_cuda
 from .gmm import BLOCK_M, gmm_cuda, tgmm_cuda
 from .ssd import ssd_intra_chunk_cuda
 from .swiglu import swiglu_bwd_cuda, swiglu_cuda
+from .token_counts import token_counts_cuda
 
 launches = {"gmm": 0, "tgmm": 0, "swiglu": 0, "swiglu_bwd": 0, "combine": 0,
-            "combine_bwd": 0, "flash_attention": 0, "ssd_intra_chunk": 0}
+            "combine_bwd": 0, "flash_attention": 0, "ssd_intra_chunk": 0, "token_counts": 0}
 
 
 def reset_launches() -> None:
@@ -208,4 +212,15 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: tor
         return ref.ssd_intra_chunk_ref(x, dt, Bm, Cm, A)
     out = ssd_intra_chunk_cuda(x, dt, Bm, Cm, A)
     launches["ssd_intra_chunk"] += 1
+    return out
+
+
+def token_counts(ids: torch.Tensor, num_local: int, offset: int = 0) -> torch.Tensor:
+    """ids: int64 expert ids of any shape -> (num_local,) int32
+    counts of the ids in ``[offset, offset + num_local)`` (paper Stage 2)."""
+    flat = ids.reshape(-1)
+    if _on_cpu(flat):
+        return ref.token_counts_ref(flat, num_local, offset)
+    out = token_counts_cuda(flat, num_local, offset)
+    launches["token_counts"] += 1
     return out

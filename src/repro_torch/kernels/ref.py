@@ -69,6 +69,16 @@ def swiglu_bwd_ref(gate: torch.Tensor, up: torch.Tensor,
     return (d * up.float() * dsilu).to(gate.dtype), (d * silu).to(up.dtype)
 
 
+def token_counts_ref(ids: torch.Tensor, num_local: int, offset: int) -> torch.Tensor:
+    """Stage-2 histogram: (num_local,) int32 counts of the flat ids in
+    ``[offset, offset + num_local)``; other ids count nowhere. Each id is
+    compared with every local expert and the matches summed, the one-hot
+    reduction the Pallas kernel does per tile."""
+    local = ids.reshape(-1).long() - offset
+    bins = torch.arange(num_local, device=ids.device)
+    return (local[:, None] == bins[None, :]).sum(0, dtype=torch.int32)
+
+
 def combine_ref(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """rows (T, K, D), weights (T, K) -> (T, D):
     ``out[t] = sum_k weights[t, k] * rows[t, k]``, accumulated in float32."""

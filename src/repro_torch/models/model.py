@@ -22,6 +22,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import moe as moe_lib
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.parallel.ep import all_reduce_sum
 from repro_torch.tree import tree_map
 
 from . import layers as L
@@ -280,13 +281,14 @@ def _sac(fn, name: str, policy: str):
 
 
 def block_remat(fn, sac: str):
-    """Whole-block remat: 'block' saves only the block's inputs. The JAX
-    package's 'block_sc' (also save the outputs of the collectives) has no
-    meaning on one device and is not ported."""
+    """Whole-block remat: 'block' saves only the block's inputs; under EP
+    the recompute runs the block's collectives again, on every rank in the
+    same order. The JAX package's 'block_sc' (also save the outputs of the
+    collectives) is not ported."""
     modes = set(sac.split(",")) if sac else set()
     if "block_sc" in modes:
-        raise NotImplementedError("remat policy 'block_sc' saves collective outputs; "
-                                  "the port trains on one device and has none")
+        raise NotImplementedError("remat policy 'block_sc' (save the collectives' outputs) "
+                                  "is not ported")
     return _remat(fn) if "block" in modes else fn
 
 
@@ -301,17 +303,22 @@ def _dense_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise"):
     return h + mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm))
 
 
-def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise"):
+def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", ep_group=None):
     attn = _sac(lambda q, x: L.attention(q, x, cfg, impl=attn_impl), "attn", sac)
-    moe = _sac(lambda q, x: moe_lib.sparse_moe_block(q, x, cfg), "moe", sac)
+    moe = _sac(lambda q, x: moe_lib.sparse_moe_block(q, x, cfg, ep_group=ep_group), "moe",
+               sac)
     h = h + attn(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm))
     mo, aux, z, stats = moe(lp["moe"], L.apply_norm(lp["ln2"], h, cfg.norm))
     return h + mo, aux, z, stats
 
 
 def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
-            compute_dtype: torch.dtype = torch.bfloat16, attn_impl: str = "blockwise"):
-    """The forward over whole sequences. batch["tokens"]: (B, S) int.
+            compute_dtype: torch.dtype = torch.bfloat16, attn_impl: str = "blockwise",
+            ep_group=None):
+    """The forward over whole sequences. batch["tokens"]: (B, S) int; under
+    an EP group (``parallel.EPGroup``) the rank's rows, with the rank's
+    share of the params (``parallel.expert_shard``); the MoE blocks then
+    communicate and their aux and stats are global.
     Returns (logits (B, S, V_pad), aux) with aux = {"moe_aux", "moe_z"}
     summed over layers and, for MoE, "moe_stats" (routing telemetry summed
     over layers), as the JAX package's ``_scan_layers_aux``. ``attn_impl``
@@ -333,7 +340,7 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
         return _logits(params, h, cfg), aux
     layers = unstack_layers(params["layers"], cfg.num_layers)
     if cfg.arch_type == "moe":
-        block = block_remat(lambda lp, x: _moe_block(lp, x, cfg, sac, attn_impl), sac)
+        block = block_remat(lambda lp, x: _moe_block(lp, x, cfg, sac, attn_impl, ep_group), sac)
         counts = torch.zeros(cfg.moe.num_experts, dtype=torch.float32, device=h.device)
         drops = zero
         for lp in layers:
@@ -349,9 +356,9 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     return _logits(params, h, cfg), aux
 
 
-def masked_ce(logits, labels, cfg: ModelConfig):
-    """Masked next-token CE over padded-vocab logits (labels < 0 are
-    masked). Returns (ce, ntok)."""
+def masked_nll(logits, labels, cfg: ModelConfig):
+    """Summed next-token NLL over padded-vocab logits and the count of
+    unmasked labels (labels < 0 are masked)."""
     vp = padded_vocab(cfg)
     logits = logits.float()
     if vp != cfg.vocab_size:     # mask padded vocab columns out of the lse
@@ -362,28 +369,55 @@ def masked_ce(logits, labels, cfg: ModelConfig):
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, safe[..., None].long())[..., 0]
     nll = torch.where(mask, lse - ll, torch.zeros_like(lse))
-    ntok = torch.clamp(mask.sum(), min=1)
-    return nll.sum() / ntok, ntok
+    return nll.sum(), mask.sum()
+
+
+def masked_ce(logits, labels, cfg: ModelConfig):
+    """Masked next-token CE over padded-vocab logits (labels < 0 are
+    masked). Returns (ce, ntok)."""
+    nll, n = masked_nll(logits, labels, cfg)
+    ntok = torch.clamp(n, min=1)
+    return nll / ntok, ntok
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
-            compute_dtype: torch.dtype = torch.bfloat16):
+            compute_dtype: torch.dtype = torch.bfloat16, ep_group=None):
     """Next-token cross entropy plus the MoE aux and z losses (each
     averaged over layers, times its coefficient). Returns (loss, metrics):
     ce, moe_aux, moe_z, ntok and, for MoE, moe_counts (per-layer mean of
     the routed pairs per expert), moe_load (its share) and moe_drops
-    (summed over layers). Hybrid models are not trained by the port."""
+    (summed over layers). Hybrid models are not trained by the port.
+
+    Under an EP group the batch is the rank's rows and the first value is
+    the rank's *share* of the global loss (its NLL sum over the global
+    token count, plus the averaged aux and z losses over the group size):
+    the shares sum to the global loss, whose gradient the ranks' gradients
+    sum to. The metrics are global, the same on every rank, and carry the
+    global loss as "loss"."""
     if cfg.arch_type == "hybrid":
         raise NotImplementedError(
             "training a hybrid model is not ported: its SSD kernel is forward only "
             "(the JAX package trains Mamba-2 through its plain scan)")
-    logits, aux = forward(params, batch, cfg, sac=sac, compute_dtype=compute_dtype)
-    ce, ntok = masked_ce(logits, batch["labels"], cfg)
-    total = ce
+    logits, aux = forward(params, batch, cfg, sac=sac, compute_dtype=compute_dtype,
+                          ep_group=ep_group)
     nl = max(cfg.num_layers, 1)
+    router = []
     if cfg.is_moe:
-        total = total + cfg.moe.router_aux_coef * aux["moe_aux"] / cfg.num_layers
-        total = total + cfg.moe.router_z_coef * aux["moe_z"] / cfg.num_layers
+        router = [cfg.moe.router_aux_coef * aux["moe_aux"] / cfg.num_layers,
+                  cfg.moe.router_z_coef * aux["moe_z"] / cfg.num_layers]
+    if ep_group is None:
+        ce, ntok = masked_ce(logits, batch["labels"], cfg)
+        total = ce
+        for term in router:
+            total = total + term
+    else:
+        nll, n = masked_nll(logits, batch["labels"], cfg)
+        tot = all_reduce_sum(torch.stack([nll.detach(), n.float()]), ep_group)
+        ntok = torch.clamp(tot[1], min=1)
+        ce = tot[0] / ntok
+        total = nll / ntok
+        for term in router:
+            total = total + term / ep_group.world
     metrics = {"ce": ce, "moe_aux": aux["moe_aux"] / nl, "moe_z": aux["moe_z"] / nl,
                "ntok": ntok}
     if "moe_stats" in aux:
@@ -392,4 +426,8 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
         metrics["moe_counts"] = counts
         metrics["moe_load"] = counts / torch.clamp(counts.sum(), min=1.0)
         metrics["moe_drops"] = st.drops
+    if ep_group is not None:
+        metrics["loss"] = ce
+        for term in router:
+            metrics["loss"] = metrics["loss"] + term.detach()
     return total, metrics

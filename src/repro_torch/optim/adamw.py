@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.parallel.ep import all_gather_tokens
 from repro_torch.tree import leaves, leaves_with_path, tree_map
 
 
@@ -42,7 +43,8 @@ def adamw_init(params) -> AdamWState:
 
 def is_expert_stack(path: str, shape, num_layers: int, num_experts: int) -> bool:
     """True for the routed expert stacks ``layers/moe/{gate,up,down}`` with
-    a leading (L, E, ...): never the router, never shared experts."""
+    a leading (L, E, ...): never the router, never shared experts. Under EP
+    pass the rank's count of experts (its stacks hold E / world)."""
     if "moe" not in path or "shared" in path:
         return False
     leaf = path.rsplit("/", 1)[-1]
@@ -58,24 +60,32 @@ def expert_leaf_mask(tree, num_layers: int, num_experts: int) -> tuple:
                  for path, leaf in leaves_with_path(tree))
 
 
-def expert_slice_sumsq(g: torch.Tensor, inv=None) -> torch.Tensor:
+def expert_slice_sumsq(g: torch.Tensor, inv=None, group=None) -> torch.Tensor:
     """Squared sum of an (L, E, ...) expert-stack gradient with a canonical
     association: per-(layer, expert) slice sums first, reordered to global
     expert ids when ``inv`` (the (L, E) id -> position map of a placement)
-    is given, then one (L, E) sum."""
+    is given, then one (L, E) sum. With an EP ``group`` ``g`` is the rank's
+    (L, E / world, ...) slice: the slice sums of all ranks are gathered in
+    rank (= expert) order first, so every expert counts once and the sum
+    associates as on one device."""
     s = torch.sum(torch.square(g.float()), dim=tuple(range(2, g.ndim)))
+    if group is not None:
+        s = all_gather_tokens(s.T.contiguous(), group).T.contiguous()
     if inv is not None:
         s = torch.gather(s, 1, inv.long())
     return torch.sum(s)
 
 
-def global_norm(grads, *, expert_norm=None) -> torch.Tensor:
+def global_norm(grads, *, expert_norm=None, group=None) -> torch.Tensor:
     """Global L2 norm of a gradient tree. ``expert_norm``, when given, is a
     ``(mask, inv)`` pair: leaves flagged in ``mask`` contribute through
-    ``expert_slice_sumsq``; ``None`` keeps the plain whole-leaf sums."""
+    ``expert_slice_sumsq``; ``None`` keeps the plain whole-leaf sums. With
+    an EP ``group`` the flagged leaves are the rank's expert slices and
+    are gathered over the group; every other leaf is the same on every
+    rank and counts once."""
     mask = expert_norm[0] if expert_norm is not None else ()
     inv = expert_norm[1] if expert_norm is not None else None
-    sums = [expert_slice_sumsq(g, inv) if i < len(mask) and mask[i]
+    sums = [expert_slice_sumsq(g, inv, group) if i < len(mask) and mask[i]
             else torch.sum(torch.square(g.float()))
             for i, g in enumerate(leaves(grads))]
     return torch.sqrt(torch.sum(torch.stack(sums)))
@@ -114,12 +124,14 @@ def _slices(t: torch.Tensor) -> list:
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, *, lr, beta1=0.9, beta2=0.99, eps=1e-8,
                  weight_decay=0.1, grad_clip=1.0, clip_enabled=None,
-                 param_dtype=torch.float32, expert_norm=None):
+                 param_dtype=torch.float32, expert_norm=None, group=None):
     """One optimizer step; ``lr`` and ``clip_enabled`` may be tensors. The
-    state's master, m and v are updated in place. Returns (new_params in
-    ``param_dtype``, new_state, metrics {grad_norm, clip_scale})."""
+    state's master, m and v are updated in place. ``group``: the EP group
+    whose ranks hold the slices of the leaves flagged in ``expert_norm``
+    (``global_norm``). Returns (new_params in ``param_dtype``, new_state,
+    metrics {grad_norm, clip_scale})."""
     step = state.step + 1
-    gnorm = global_norm(grads, expert_norm=expert_norm)
+    gnorm = global_norm(grads, expert_norm=expert_norm, group=group)
     scale = clip_scale(gnorm, grad_clip, clip_enabled)
     t = step.to(torch.float32)
     bc1 = 1.0 - beta1 ** t

@@ -1,0 +1,137 @@
+"""The expert-parallel (EP) process group and its collectives: the port's
+counterpart of the ``shard_map`` EP axis of the JAX package's
+``core/moe.py::moe_fsmoe_ep``.
+
+Each rank runs the same program on its share of the batch. Its loss is its
+*share* of the global loss (the global loss is the sum of the shares), so
+every collective's backward is its adjoint under that sum:
+
+* ``all_gather_tokens``      (n, ...) -> (world * n, ...) in rank order
+                             (``all_gather(tiled=True)``); backward: a
+                             reduce-scatter (sum) of the gradient.
+* ``reduce_scatter_tokens``  (world * n, ...) -> (n, ...), rank r's block of
+                             the sum over ranks (``psum_scatter``); backward:
+                             an all-gather.
+* ``all_reduce_sum``         the sum over ranks, held by every rank
+                             (``psum``); backward: the sum over ranks of the
+                             gradients.
+
+The same module runs over ``nccl`` (one card per rank) or ``gloo`` (CPU
+ranks, or several ranks sharing one card). PyTorch 2.11's gloo takes CUDA
+tensors for all three collectives in every dtype the port sends (it copies
+them through host memory itself), so this module copies none of them to the
+host. A collective that fails raises.
+"""
+from __future__ import annotations
+
+import datetime
+from dataclasses import dataclass
+from typing import Any
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import DeviceLike, resolve_device
+
+@dataclass(frozen=True)
+class EPGroup:
+    """One rank's view of the EP group."""
+    group: Any               # torch.distributed ProcessGroup
+    rank: int
+    world: int
+    device: torch.device
+    backend: str
+
+
+def init_ep_group(world: int, rank: int, *, backend: str, init_method: str,
+                  device: DeviceLike = None, timeout_s: float = 600.0) -> EPGroup:
+    """Join the default process group as ``rank`` of ``world`` and return the
+    EP group over all of it. ``init_method``: a rendezvous URL
+    (``file://...`` or ``tcp://host:port``). The rank runs on ``cuda`` unless
+    ``device`` says otherwise; a bare ``cuda`` is ``cuda:rank`` under nccl
+    (one card per rank) and ``cuda:0`` under gloo (ranks sharing one card).
+    A collective that waits longer than ``timeout_s`` raises."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:
+            dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    return EPGroup(dist.group.WORLD, rank, world, dev, backend)
+
+
+# ----------------------------------------------------------------------------
+# collectives
+# ----------------------------------------------------------------------------
+
+def _all_gather(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+    parts = [torch.empty_like(x) for _ in range(g.world)]
+    dist.all_gather(parts, x.contiguous(), group=g.group)
+    return torch.cat(parts)
+
+
+def _reduce_scatter(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+    if x.shape[0] % g.world:
+        raise ValueError(f"reduce-scatter of {x.shape[0]} rows over {g.world} ranks")
+    chunks = list(x.contiguous().chunk(g.world))
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, group=g.group)
+    return out
+
+
+def _all_reduce(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=g.group)
+    return out
+
+
+class _AllGatherTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _all_gather(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _reduce_scatter(dy, ctx.g), None
+
+
+class _ReduceScatterTokens(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _reduce_scatter(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _all_gather(dy, ctx.g), None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return _all_reduce(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _all_reduce(dy, ctx.g), None
+
+
+def all_gather_tokens(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+    """(n, ...) on every rank -> (world * n, ...), the ranks' blocks in rank
+    order. Backward: reduce-scatter (sum)."""
+    return _AllGatherTokens.apply(x, g)
+
+
+def reduce_scatter_tokens(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+    """(world * n, ...) on every rank -> (n, ...): block ``rank`` of the sum
+    over ranks. Backward: all-gather."""
+    return _ReduceScatterTokens.apply(x, g)
+
+
+def all_reduce_sum(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+    """The sum of ``x`` over ranks, on every rank. Backward: the sum over
+    ranks of the gradients (each rank's loss is its share of the total)."""
+    return _AllReduceSum.apply(x, g)

@@ -300,6 +300,7 @@ def test_engine_on_card_launch_counts(cuda):
     fwd = eng.prefills + eng.decode_steps
     assert ops.launches == {"gmm": 3 * cfg.num_layers * fwd, "swiglu": cfg.num_layers * fwd,
                             "combine": cfg.num_layers * fwd,
+                            "token_counts": cfg.num_layers * fwd,
                             "flash_attention": cfg.num_layers * eng.prefills,
                             "tgmm": 0, "swiglu_bwd": 0, "combine_bwd": 0, "ssd_intra_chunk": 0}
 
@@ -340,3 +341,74 @@ def test_small_hybrid_on_card_matches_cpu(cuda):
         dc, cc = sc(pc, toks[:, t:t + 1], cc, t)
     assert all(n == 0 for n in ops.launches.values())
     assert (dg.float().cpu() - dc).abs().max() <= 3e-2 * dc.abs().max()
+
+
+@pytest.mark.parametrize("F,num_local,offset,ids", [
+    (1, 1, 0, "random"), (7, 4, 2, "random"), (65536, 16, 16, "random"),
+    (65536, 16, 48, "random"), (65536, 16, 16, "one"), (100_003, 240, 0, "random"),
+    (1 << 20, 240, 0, "one"), (4099, 12288, 0, "random"), (4099, 16, 300, "random")])
+def test_token_counts_kernel_on_card(cuda, F, num_local, offset, ids):
+    """Exact equality with the plain version, int64 ids: every id one expert
+    (all the atomics on one bin), the most bins the kernel takes, a range
+    past every id, lengths that are no multiple of a block."""
+    from repro_torch.kernels.token_counts import MAX_LOCAL
+    assert MAX_LOCAL >= 240
+    g = torch.Generator(device=cuda).manual_seed(F)
+    t = (torch.full((F,), offset + num_local // 2, device=cuda) if ids == "one" else
+         torch.randint(0, 256, (F,), generator=g, device=cuda))
+    before = ops.launches["token_counts"]
+    out = ops.token_counts(t, num_local, offset)
+    torch.cuda.synchronize()
+    assert ops.launches["token_counts"] == before + 1
+    assert out.dtype == torch.int32
+    assert torch.equal(out, ref.token_counts_ref(t, num_local, offset))
+
+
+def test_token_counts_kernel_checks_its_operands(cuda):
+    from repro_torch.kernels.token_counts import token_counts_cuda
+    ids = torch.zeros(8, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="int64"):
+        token_counts_cuda(ids.float(), 4, 0)
+    with pytest.raises(TypeError, match="int64"):
+        token_counts_cuda(ids.int(), 4, 0)
+    with pytest.raises(ValueError, match="num_local"):
+        token_counts_cuda(ids, 0, 0)
+    with pytest.raises(ValueError, match="1-D"):
+        token_counts_cuda(ids.reshape(2, 4), 4, 0)
+
+
+def test_ep_block_on_card_matches_one_process(cuda):
+    """Two EP ranks that share the card over gloo (parallel.spawn): the MoE
+    block's output and the gradients of x, the router (summed over the
+    ranks) and each rank's expert slice, bf16 through the kernels, against
+    the same block in one process on the card; 3e-2 of max|ref| (each rank
+    rounds its partial output to bf16 and the partials are summed in bf16).
+    Forced uniform routing with 64 * 8 pairs per rank, a multiple of the 16
+    experts: each rank routes its tokens as one process would."""
+    import dataclasses
+
+    import torch_ep_ranks as ranks
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.moe import init_moe_block, sparse_moe_block
+    from repro_torch.parallel import spawn
+    cfg = reduced(get_config("mula-7b-a1b"), d_model=256, max_experts=16)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, forced_uniform_routing=True, dispatch="dropless"))
+    gen = torch.Generator().manual_seed(0)
+    p = {k: v[0] for k, v in init_moe_block(cfg, num_layers=1, generator=gen, device="cpu",
+                                             dtype=torch.bfloat16).items()}
+    x, ct = (torch.randn((2, 64, 256), generator=gen).bfloat16() for _ in range(2))
+    res = spawn(ranks.block_rank, 2, args=(cfg, p, x, ct), backend="gloo", device="cuda",
+                timeout_s=300)
+    pc = {k: v.to(cuda).requires_grad_() for k, v in p.items()}
+    xc = x.to(cuda).requires_grad_()
+    out, aux, z, _ = sparse_moe_block(pc, xc, cfg)
+    loss = (out * ct.to(cuda)).sum() + ranks.AUX * aux + ranks.Z * z
+    grads = dict(zip(("x", "router", "gate", "up", "down"),
+                     torch.autograd.grad(loss, [xc] + [pc[k] for k in
+                                                      ("router", "gate", "up", "down")])))
+    _close(torch.cat([r["out"] for r in res]).to(cuda), out.float(), 3e-2)
+    _close(torch.cat([r["grads"]["x"] for r in res]).to(cuda), grads["x"].float(), 3e-2)
+    _close(sum(r["grads"]["router"] for r in res).to(cuda), grads["router"].float(), 3e-2)
+    for k in ("gate", "up", "down"):
+        _close(torch.cat([r["grads"][k] for r in res]).to(cuda), grads[k].float(), 3e-2)

@@ -114,8 +114,10 @@ def test_cpu_wrappers_count_no_launches():
     ops.combine(y.reshape(4, 2, 16), torch.ones(4, 2)).sum().backward()
     ops.ssd_intra_chunk(torch.ones(1, 1, 4, 2, 8), torch.ones(1, 1, 4, 2), torch.ones(1, 1, 4, 8),
                         torch.ones(1, 1, 4, 8), -torch.ones(2))
+    assert ops.token_counts(torch.tensor([[0, 3], [3, 9]]), 4).tolist() == [1, 0, 0, 2]
     assert set(ops.launches) == {"gmm", "tgmm", "swiglu", "swiglu_bwd", "combine",
-                                 "combine_bwd", "flash_attention", "ssd_intra_chunk"}
+                                 "combine_bwd", "flash_attention", "ssd_intra_chunk",
+                                 "token_counts"}
     assert all(n == 0 for n in ops.launches.values())
 
 
@@ -208,3 +210,17 @@ def test_combine_grads_match_jax():
     w = rng.random((24, 4)).astype(np.float32)
     _vjp_case(jops.combine, ops.combine, (rows, w),
               rng.standard_normal((24, 40)).astype(np.float32))
+
+
+@pytest.mark.parametrize("num_local", [1, 4, 16, 64, 240])
+@pytest.mark.parametrize("F", [1, 7, 1000, 4099])
+def test_token_counts_matches_jax(F, num_local):
+    """Exact equality with the Pallas histogram over ids in [0, 256), at
+    offsets inside the id range, where the local range ends at its top, and
+    beyond it (no id counts); int64 ids as the router emits them."""
+    ids = np.random.default_rng(F * 1000 + num_local).integers(0, 256, size=F).astype(np.int32)
+    for offset in sorted({0, 16, 256 - min(num_local, 256), 300}):
+        expect = np.asarray(jops.token_counts(jnp.asarray(ids), num_local, offset))
+        got = ops.token_counts(_t(ids).to(torch.int64), num_local, offset)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), expect, err_msg=f"offset {offset}")

@@ -68,9 +68,14 @@ def test_dispatch_plan_matches_jax(pool_rows, align):
 
 
 def test_pool_sizes_match_jax():
-    for T, K, E, cf, align in [(8, 8, 64, 8.0, 16), (512, 8, 64, 8.0, 16), (5, 2, 4, 1.25, 8)]:
-        assert tmoe.pool_size(T, K, E, cf, align) == jmoe.pool_size(T, K, E, E, cf, align)
+    """One device (EL = E) and one EP shard of EL experts over the gathered
+    tokens."""
+    for T, K, E, EL, cf, align in [(8, 8, 64, 64, 8.0, 16), (512, 8, 64, 64, 8.0, 16),
+                                   (5, 2, 4, 4, 1.25, 8), (8192, 8, 64, 16, 1.25, 16),
+                                   (37, 4, 16, 4, 1.0, 16)]:
+        assert tmoe.pool_size(T, K, E, EL, cf, align) == jmoe.pool_size(T, K, E, EL, cf, align)
     assert tmoe.dropless_pool_rows(37, 8, 64, 16) == jmoe.dropless_pool_rows(37, 8, 64, 16)
+    assert tmoe.dropless_pool_rows(8192, 8, 16, 16) == jmoe.dropless_pool_rows(8192, 8, 16, 16)
 
 
 def _moe_setup(name, **moe_kw):

@@ -1,0 +1,67 @@
+"""The rank functions of the expert-parallel tests (tests/test_torch_ep.py
+and tests/test_torch_cuda.py), run by ``repro_torch.parallel.spawn`` in
+processes of their own. This module imports torch and the port only: each
+rank imports it, and a rank needs no JAX."""
+import torch
+
+from repro_torch.configs import ParallelConfig
+from repro_torch.convert import opt_state_shard
+from repro_torch.core import moe as tmoe
+from repro_torch.models import loss_fn
+from repro_torch.parallel import expert_shard
+from repro_torch.train import TrainState, make_train_step
+from repro_torch.tree import leaves_with_path
+
+AUX, Z = 0.5, 0.1            # loss weights of the block test's aux and z terms
+KEYS = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_counts", "moe_drops")
+
+
+def block_rank(group, tc, tp, x, ct):
+    """One rank, on its device: its share of the block's params and of x
+    (B, S, d); the block's outputs and the gradients of its share of the
+    loss sum(out * ct) + AUX * aux + Z * z."""
+    rank, world, dev = group.rank, group.world, group.device
+    x, ct = x.to(dev), ct.to(dev)
+    p = {k: v.to(dev).clone().requires_grad_()
+         for k, v in expert_shard({"moe": tp}, rank, world)["moe"].items()}
+    rows = slice(rank * x.shape[0] // world, (rank + 1) * x.shape[0] // world)
+    xl = x[rows].clone().requires_grad_()
+    out, aux, z, st = tmoe.sparse_moe_block(p, xl, tc, ep_group=group)
+    loss = (out * ct[rows]).sum() + (AUX * aux + Z * z) / world
+    grads = torch.autograd.grad(loss, [xl] + [p[k] for k in ("router", "gate", "up", "down")])
+    return {"out": out, "aux": aux, "z": z, "counts": st.counts, "drops": st.drops,
+            "grads": dict(zip(("x", "router", "gate", "up", "down"), grads))}
+
+
+def train_rank(group, tc, train, nmb, params, opt, batches):
+    """One rank: its share of the params and AdamW state, ``nmb``
+    microbatches per step, one step per batch on its rows; the metrics and
+    the state after the steps."""
+    rank, world = group.rank, group.world
+    state = TrainState(expert_shard(params, rank, world), opt_state_shard(opt, rank, world))
+    step = make_train_step(tc, ParallelConfig(microbatches=nmb), train, ep_group=group)
+    metrics = []
+    for b in batches:
+        n = b["tokens"].shape[0] // world
+        state, m = step(state, {k: v[rank * n:(rank + 1) * n] for k, v in b.items()})
+        metrics.append({k: m[k] for k in KEYS})
+    return {"metrics": metrics, "params": dict(leaves_with_path(state.params)),
+            "m": dict(leaves_with_path(state.opt.m)), "v": dict(leaves_with_path(state.opt.v)),
+            "step": int(state.opt.step)}
+
+
+def loss_rank(group, tc, params, batch):
+    """One rank: ``loss_fn`` on its rows; its share and the metrics."""
+    n = batch["tokens"].shape[0] // group.world
+    rows = slice(group.rank * n, (group.rank + 1) * n)
+    share, m = loss_fn(expert_shard(params, group.rank, group.world),
+                       {k: v[rows] for k, v in batch.items()}, tc, compute_dtype=torch.float32,
+                       ep_group=group)
+    return {"share": share, **m}
+
+
+def fail_on_rank_1(group):
+    """Rank 1 raises; rank 0 waits for it in a barrier."""
+    if group.rank == 1:
+        raise ValueError("rank 1 stops")
+    torch.distributed.barrier()
