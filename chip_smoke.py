@@ -143,6 +143,24 @@ def time_ms(fn, args: tuple, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, args: tuple, calls: int = 20, rounds: int = 5) -> float:
+    """Host time to enqueue one call of ``fn(*args)`` (the wrapper's checks,
+    any tensor-map encoding and the launch): the median over ``rounds`` of
+    ``calls`` back-to-back calls that do not wait for the device, each round
+    synchronised after (the host's clock is shared and noisy)."""
+    import torch
+    fn(*args)
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per_call)
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
     """Least time for the work on the card: the larger of bytes over the
     memory rate and operations over the peak rate of their type."""
@@ -275,7 +293,64 @@ def kernel_cases(cfg) -> list[dict]:
             library=lib,
             bytes=2 * (2 * S * nh * hd + 2 * S * nkv * hd),
             flops=4.0 * int(mask.sum()) * nh * hd, peak=BF16_TENSOR_FLOPS, tol="rel"))
-    return cases + hybrid_kernel_cases(gen) + token_counts_cases(cfg, gen)
+    return (cases + edge_kernel_cases(cfg, gen, randn) + hybrid_kernel_cases(gen)
+            + token_counts_cases(cfg, gen))
+
+
+def edge_kernel_cases(cfg, gen, randn) -> list[dict]:
+    """The edges of the gmm and flash kernels' tiling, at the model's
+    widths: gmm in both modes with group sizes that are not multiples of its
+    128-row tile (16, 48, 80, 144, empty groups between them) and a total
+    below M, and with one group holding every row; the rows past the total
+    must come out exactly 0 though the output's memory held NaN before the
+    call. Flash at hd 64, with Sq = 37 (shorter than one tile), MQA (nkv =
+    1), and B = 2 with a ragged S, so that a batch boundary falls inside a
+    tile (one case with 128-row query tiles)."""
+    import torch
+    from repro_torch.kernels import ops, ref
+
+    d, f = cfg.d_model, cfg.moe.d_ff_expert
+    cases = []
+    for name, sizes, M in (("ragged", [16, 0, 48, 80, 0, 144, 0], 400),
+                           ("one group", [0, 1024, 0], 1024)):
+        G, total = len(sizes), sum(sizes)
+        gs = torch.tensor(sizes, dtype=torch.int32, device=DEV)
+        w = randn(G, d, f, scale=d ** -0.5)
+        active = sum(1 for n in sizes if n)
+        for mode in ("fwd", "dx"):
+            x = randn(M, d if mode == "fwd" else f)
+            nout = f if mode == "fwd" else d
+            if mode == "fwd":
+                fn = ops.gmm
+                plain = lambda x, w, gs: ref.gmm_ref(x.float(), w.float(), gs)  # noqa: E731
+            else:
+                fn = ops.gmm_transposed
+                plain = lambda x, w, gs: ref.gmm_ref(  # noqa: E731
+                    x.float(), w.float().transpose(1, 2), gs)
+            cases.append(dict(
+                kernel="gmm", case=f"edge {mode} {name} sizes={sizes} M={M} K={x.shape[1]} "
+                                   f"N={nout}",
+                args=(x, w, gs), fn=fn, plain=plain, library=None,
+                library_note="edge case: no yardstick timed",
+                zero_rows_from=total, out_shape=(M, nout),
+                bytes=2 * (total * x.shape[1] + active * d * f + M * nout),
+                flops=2.0 * total * d * f, peak=BF16_TENSOR_FLOPS, tol="rel"))
+    nh = cfg.num_heads
+    for B, S, heads, nkv, hd in ((1, 37, nh, nh, 128), (1, 512, nh, 1, 128),
+                                 (2, 500, nh, 4, 64), (2, 1000, 32, 32, 112)):
+        qp = torch.arange(S, device=DEV)[:, None]
+        pairs = int((qp >= torch.arange(S, device=DEV)[None, :]).sum())
+        cases.append(dict(
+            kernel="flash_attention",
+            case=f"edge B={B} Sq={S} Skv={S} nh={heads} nkv={nkv} hd={hd} causal",
+            args=(randn(B, S, heads, hd), randn(B, S, nkv, hd), randn(B, S, nkv, hd)),
+            fn=lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+            plain=lambda q, k, v: ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                                          causal=True),
+            library=None, library_note="edge case: no yardstick timed",
+            bytes=2 * B * (2 * S * heads * hd + 2 * S * nkv * hd),
+            flops=4.0 * B * pairs * heads * hd, peak=BF16_TENSOR_FLOPS, tol="rel"))
+    return cases
 
 
 def hybrid_kernel_cases(gen) -> list[dict]:
@@ -493,15 +568,21 @@ def _ulp_check(out, plain) -> tuple[float, float]:
 
 def phase_kernels(cfg) -> list[dict]:
     """Each kernel against its plain version on the same inputs, then its
-    device time (CUDA graph, inputs cold in L2), its eager time, the plain
-    version's time and the library call's (CUDA graph, cold)."""
+    device time (CUDA graph, inputs cold in L2), its eager time, the host's
+    time to enqueue one call, the plain version's time and the library
+    call's (CUDA graph, cold)."""
     import torch
     results = []
     for c in kernel_cases(cfg):
         args = c["args"]
+        if "zero_rows_from" in c:   # the output's memory holds NaN before the call
+            dirty = torch.full(c["out_shape"], float("nan"), dtype=torch.bfloat16, device=DEV)
+            del dirty
         outs = c["fn"](*args)
         plains = c["plain"](*args)
         torch.cuda.synchronize()
+        if "zero_rows_from" in c and not bool((outs[c["zero_rows_from"]:] == 0).all()):
+            raise AssertionError(f"{c['kernel']} {c['case']}: rows past the total not 0")
         if torch.is_tensor(outs):
             outs, plains = (outs,), (plains,)
         errs, tols = [], []
@@ -528,7 +609,7 @@ def phase_kernels(cfg) -> list[dict]:
         b_ms, b_by = bound_ms(c["bytes"], c["flops"], c["peak"])
         row = {"kernel": c["kernel"], "case": c["case"], "max_abs_err": err,
                "tolerance": tol_txt, "ms": graph_ms(c["fn"], args),
-               "eager_ms": time_ms(c["fn"], args),
+               "eager_ms": time_ms(c["fn"], args), "host_us": host_us(c["fn"], args),
                "plain_ms": time_ms(c["plain"], args, iters=3, warmup=1),
                "library_ms": (graph_ms(c["library"], c.get("library_args", args))
                               if c["library"] else None),

@@ -8,184 +8,274 @@
 //
 // The transposed mode is the input gradient dx = dy @ w^T: the JAX wrapper
 // materialises swapaxes(w, 1, 2) (a 268 MB copy of each expert stack of
-// Mula-7B-A1B per backward); here the B tile is read from w as stored,
-// 16 bytes at a time along K, and fed to the tensor cores as a col_major
-// fragment, so no transposed copy is made.
+// Mula-7B-A1B per backward); here the B tile is read from w as stored, so no
+// transposed copy is made: the forward B tile (K rows of N) is the MN-major
+// operand of wgmma, the transposed one (N rows of K) its K-major operand.
 //
-// Rows are grouped by expert and every group is padded to a multiple of
-// BM rows by the dispatch (core/moe.py aligns to kernels.ops.gmm_align()),
-// so each BM-row tile belongs to exactly one group. Rows past
-// sum(group_sizes) are written as zeros, as the JAX wrapper masks them.
+// Rows are grouped by expert. The dispatch pads every group to a multiple
+// of 16 rows (kernels.ops.gmm_align(); core/moe.py sizes the capacity pool
+// with it), but this kernel's row tile is decoupled from that alignment:
+// a group is cut into tiles of TILE_M rows from its own start, the last one
+// ragged. A tile's A load may bring in rows of the next group; they are
+// multiplied and discarded, and only the rows inside the group are stored.
+// Rows past sum(group_sizes) are written as exact zeros (SwiGLU reads them,
+// and the pool gather's backward multiplies their gradient by 0) by the
+// spare row tiles of the grid, never by a memset of the whole output.
 //
-// What bounds it on an H100: at a decode step the pool holds a handful of
-// rows per expert, so the kernel is bound by the bytes of expert weights it
-// must stream (up to G*K*N*2 bytes, e.g. 268 MB for Mula-7B-A1B's gate
-// projection, >= 80 us at 3.35 TB/s). At a 512-token prefill each expert
-// sees ~64 rows and the work is still below the card's ops:byte ridge.
-// The design follows that: BM is small (16, one tensor-core tile), so a
-// decode step reads each active expert's weights once and wastes little
-// compute on padding rows; a block whose tile starts at or past the total
-// writes zeros and exits without touching the weights, which matters
-// because the capacity pool is mostly padding. Each block finds its own
-// group with a warp prefix sum over group_sizes (the TPU kernel's scalar
-// prefetched tile->group map has no counterpart: blocks run in any order).
-// Tensor cores through WMMA (bf16 x bf16 -> f32), tiles staged in shared
-// memory; no TMA/wgmma pipeline yet.
-#include <mma.h>
-
+// What bounds it on an H100: at training shapes (~512 rows per expert, K and
+// N 1024-2048) the work is ~2*rows*K*N flops against the expert weights and
+// rows read once, above the card's ~295 ops/byte ridge: it is bound by the
+// tensor cores, which only wgmma drives at full rate. At a decode step each
+// active expert holds a few rows and the kernel is bound by streaming its
+// weights (up to G*K*N*2 bytes).
+//
+// Design: one block computes a TILE_M x BN output tile (128 x 256) of one
+// group. One producer warp keeps a ring of STAGES (4) shared-memory stages
+// full by TMA (A: a 2-D map over (M, K), box 128 x 64; B: a 3-D map over the
+// weight stack, four boxes of 64 K-rows x 64 columns (forward) or one box of
+// 256 N-rows x 64 (transposed)), all 128-byte swizzled, tracked by full and
+// empty mbarriers. Two consumer warpgroups (64 rows each) run wgmma
+// m64n256k16 on the stages that have arrived, keeping one k-step of
+// products in flight, f32 accumulators in registers (154 a thread, no
+// spill; one block an SM). A warpgroup whose 64 rows all lie past its
+// group's end skips the products. The 256-wide tile halves the shared-memory
+// reads of A per flop against a 128-wide one, and measured faster than it at
+// every main-path shape, decode included (PERF.md).
+// A block finds its (group, first row) from its tile index with a warp
+// prefix sum over ceil(group_sizes[g] / TILE_M); the grid is sized from
+// shapes alone (ceil(M / TILE_M) + G row tiles), so the host never reads
+// group_sizes and the call can be captured in a CUDA graph.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
 using repro::bf16;
+namespace hp = repro::hopper;
 
-constexpr int BM = 16;    // rows per tile == group alignment (gmm_align)
-constexpr int BN = 128;   // output columns per block (4 warps x 32)
-constexpr int BK = 64;    // reduction depth per shared-memory stage
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDA = BK + 8;   // padded leading dims (multiples of 8 elements)
-constexpr int LDB = BN + 8;
-constexpr int LDBT = BK + 8;  // transposed B tile: BN rows of BK
-constexpr int SB_ELEMS = BK * LDB > BN * LDBT ? BK * LDB : BN * LDBT;
-constexpr int LDC = BN + 4;
+constexpr int ALIGN_M = 16;   // group alignment the dispatch honours (gmm_align)
+constexpr int WG_M = 64;      // rows per consumer warpgroup (wgmma M)
+constexpr int CONSUMERS = 2;  // consumer warpgroups
+constexpr int TILE_M = WG_M * CONSUMERS;
+constexpr int BN = 256;       // output columns per block (wgmma N)
+constexpr int BK = 64;        // reduction depth per stage: one 128-byte swizzle row
+constexpr int STAGES = 4;
+constexpr int THREADS = CONSUMERS * 128 + 32;   // + one producer warp
+constexpr int A_BYTES = TILE_M * BK * 2;
+constexpr int B_BYTES = BK * BN * 2;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024 + 128;   // + alignment, barriers
 
 template <bool TRANS>
-__global__ void __launch_bounds__(THREADS)
-gmm_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ rhs,
-           const int* __restrict__ group_sizes, bf16* __restrict__ out,
-           int M, int K, int N, int G) {
-  __shared__ __align__(128) bf16 sA[BM * LDA];
-  __shared__ __align__(128) bf16 sB[SB_ELEMS];
-  __shared__ __align__(128) float sC[BM * LDC];
-  __shared__ int s_gid, s_total;
+__global__ void __launch_bounds__(THREADS, 1)
+gmm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
+           const int* __restrict__ group_sizes, bf16* __restrict__ out, int M, int N, int G,
+           int k_steps) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hp::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+  int* info = reinterpret_cast<int*>(empty + STAGES);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+  const int n0 = blockIdx.x * BN;
+  const int idx = blockIdx.y;   // row tile index
 
-  // Group of this tile: first g with m0 < cumsum(group_sizes)[g].
   if (warp == 0) {
-    int base = 0;
-    int gid = -1;
+    // The group whose tiles hold tile idx: first g with idx < sum_{<=g} tiles.
+    int tile_base = 0, row_base = 0, gid = -1, m0 = 0, m_end = 0;
     for (int g0 = 0; g0 < G; g0 += 32) {
       const int g = g0 + lane;
-      int v = g < G ? group_sizes[g] : 0;
+      const int sz = g < G ? group_sizes[g] : 0;
+      const int t = (sz + TILE_M - 1) / TILE_M;
+      int ti = t, ri = sz;   // inclusive prefix sums over the 32 groups
 #pragma unroll
       for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(repro::kFullMask, v, o);
-        if (lane >= o) v += t;
+        const int a = __shfl_up_sync(repro::kFullMask, ti, o);
+        const int b = __shfl_up_sync(repro::kFullMask, ri, o);
+        if (lane >= o) {
+          ti += a;
+          ri += b;
+        }
       }
-      const int end = base + v;
-      const unsigned hit = __ballot_sync(repro::kFullMask, g < G && m0 < end);
-      if (gid < 0 && hit) gid = g0 + __ffs(hit) - 1;
-      base = __shfl_sync(repro::kFullMask, end, 31);
+      const unsigned hit = __ballot_sync(repro::kFullMask, g < G && idx < tile_base + ti);
+      if (gid < 0 && hit) {
+        const int src = __ffs(hit) - 1;
+        const int t_before = tile_base + __shfl_sync(repro::kFullMask, ti - t, src);
+        const int g_start = row_base + __shfl_sync(repro::kFullMask, ri - sz, src);
+        gid = g0 + src;
+        m0 = g_start + (idx - t_before) * TILE_M;
+        m_end = g_start + __shfl_sync(repro::kFullMask, sz, src);
+      }
+      tile_base += __shfl_sync(repro::kFullMask, ti, 31);
+      row_base += __shfl_sync(repro::kFullMask, ri, 31);
     }
     if (lane == 0) {
-      s_gid = gid;
-      s_total = base;
+      info[0] = gid;
+      info[1] = m0;
+      info[2] = min(m_end, M);
+      info[3] = row_base;    // total routed rows
+      info[4] = tile_base;   // row tiles in use
     }
+  } else if (tid == 32) {
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(&full[s], 1);
+      hp::mbar_init(&empty[s], CONSUMERS);
+    }
+    hp::mbar_fence_init();
   }
   __syncthreads();
-  const int gid = s_gid;
-  constexpr int VN = BN / 8;  // 16-byte vectors per output row of the tile
+  const int gid = info[0];
+  const int m0 = info[1];
+  const int m_end = info[2];
 
-  if (gid < 0 || m0 >= s_total) {
-    for (int i = tid; i < BM * VN; i += THREADS) {
-      const int r = i / VN, c = (i % VN) * 8;
-      if (n0 + c < N) repro::store_vec8(out + (size_t)(m0 + r) * N + n0 + c, repro::zero_vec8());
+  if (gid < 0) {
+    // A spare row tile: zero its share of the rows past the total.
+    const int r0 = info[3] + (idx - info[4]) * TILE_M;
+    const int r1 = min(r0 + TILE_M, M);
+    constexpr int VN = BN / 8;
+    for (int i = tid; i < TILE_M * VN; i += THREADS) {
+      const int r = r0 + i / VN, c = n0 + (i % VN) * 8;
+      if (r < r1 && c < N) repro::store_vec8(out + (size_t)r * N + c, repro::zero_vec8());
     }
     return;
   }
 
-  const bf16* A = lhs + (size_t)m0 * K;
-  const bf16* B = rhs + (size_t)gid * K * N;   // (K, N), or (N, K) if TRANS
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.0f);
-  wmma::fill_fragment(acc[1], 0.0f);
-
-  constexpr int VK = BK / 8;
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    for (int i = tid; i < BM * VK; i += THREADS) {
-      const int r = i / VK, c = (i % VK) * 8;
-      uint4 v = repro::zero_vec8();
-      if (k0 + c < K) v = repro::load_vec8(A + (size_t)r * K + k0 + c);
-      repro::store_vec8(&sA[r * LDA + c], v);
-    }
-    if (TRANS) {
-      // sB holds the tile as BN rows of BK (n-major): B^T as stored
-      for (int i = tid; i < BN * VK; i += THREADS) {
-        const int r = i / VK, c = (i % VK) * 8;
-        uint4 v = repro::zero_vec8();
-        if (n0 + r < N && k0 + c < K) v = repro::load_vec8(B + (size_t)(n0 + r) * K + k0 + c);
-        repro::store_vec8(&sB[r * LDBT + c], v);
-      }
-    } else {
-      for (int i = tid; i < BK * VN; i += THREADS) {
-        const int r = i / VN, c = (i % VN) * 8;
-        uint4 v = repro::zero_vec8();
-        if (k0 + r < K && n0 + c < N) v = repro::load_vec8(B + (size_t)(k0 + r) * N + n0 + c);
-        repro::store_vec8(&sB[r * LDB + c], v);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
+  if (warp == CONSUMERS * 4) {
+    // Producer: one thread issues every TMA load of the ring.
+    if (lane == 0) {
+      hp::tma_prefetch_map(&map_a);
+      hp::tma_prefetch_map(&map_b);
+      for (int ks = 0; ks < k_steps; ++ks) {
+        const int s = ks % STAGES;
+        const int round = ks / STAGES;
+        if (round > 0) hp::mbar_wait(&empty[s], (round - 1) & 1);
+        unsigned char* a = smem + s * STAGE_BYTES;
+        unsigned char* b = a + A_BYTES;
+        hp::mbar_arrive_expect_tx(&full[s], STAGE_BYTES);
+        hp::tma_load_2d(a, &map_a, &full[s], ks * BK, m0);
         if (TRANS) {
-          // element (k, n) of the B tile sits at sB[n * LDBT + k]
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-          wmma::load_matrix_sync(b, sB + (warp * 32 + j * 16) * LDBT + kk, LDBT);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
-        } else {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, sB + kk * LDB + warp * 32 + j * 16, LDB);
-          wmma::mma_sync(acc[j], a, b, acc[j]);
+          hp::tma_load_3d(b, &map_b, &full[s], ks * BK, n0, gid);
+        } else {   // BN / 64 column blocks of 64 K rows each
+          for (int c = 0; c < BN / 64; ++c)
+            hp::tma_load_3d(b + c * BK * 128, &map_b, &full[s], n0 + 64 * c, ks * BK, gid);
         }
       }
     }
-    __syncthreads();
+    return;
   }
 
+  // Consumers: warpgroup wg owns rows [m0 + 64 wg, m0 + 64 wg + 64) of the
+  // tile; one whose rows all lie past the group's end only recycles stages.
+  const int wg = warp >> 2;
+  const bool active = m0 + wg * WG_M < m_end;
+  float acc[BN / 2];
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(sC + warp * 32 + j * 16, acc[j], LDC, wmma::mem_row_major);
-  __syncthreads();
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
-  for (int i = tid; i < BM * VN; i += THREADS) {
-    const int r = i / VN, c = (i % VN) * 8;
-    if (n0 + c < N)
-      repro::store_vec8(out + (size_t)(m0 + r) * N + n0 + c, repro::pack8(&sC[r * LDC + c]));
+  for (int ks = 0; ks < k_steps; ++ks) {
+    const int s = ks % STAGES;
+    hp::mbar_wait(&full[s], (ks / STAGES) & 1);
+    if (active) {
+      const unsigned char* a = smem + s * STAGE_BYTES + wg * (WG_M * 128);
+      const unsigned char* b = smem + s * STAGE_BYTES + A_BYTES;
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t da = hp::sw128_desc(a + kk * 32);
+        if (TRANS)   // BN rows of 64 K: advance 32 bytes per 16 K
+          hp::wgmma_ss_n256<0>(acc, da, hp::sw128_desc(b + kk * 32), 1);
+        else         // 64 K rows of 64 columns, column blocks BK * 128 bytes apart
+          hp::wgmma_ss_n256<1>(acc, da, hp::sw128_desc(b + kk * 2048, BK * 128), 1);
+      }
+      hp::wgmma_commit();
+      // The previous stage's products are done once at most this one is pending.
+      hp::wgmma_wait<1>();
+      hp::fence_regs(acc);
+    }
+    if (ks > 0 && (warp & 3) == 0 && lane == 0) hp::mbar_arrive(&empty[(ks - 1) % STAGES]);
   }
+  hp::wgmma_wait<0>();
+  hp::fence_regs(acc);
+  if (!active) return;
+
+  // Epilogue: only rows inside the group (the next group's tile owns the rest).
+  const int r = m0 + wg * WG_M + (warp & 3) * 16 + (lane >> 2);
+  const int c0 = n0 + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = c0 + 8 * j;
+    if (c < N) {
+      if (r < m_end)
+        *reinterpret_cast<uint32_t*>(out + (size_t)r * N + c) =
+            hp::pack_bf16x2(acc[4 * j], acc[4 * j + 1]);
+      if (r + 8 < m_end)
+        *reinterpret_cast<uint32_t*>(out + (size_t)(r + 8) * N + c) =
+            hp::pack_bf16x2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
+template <bool TRANS>
+int launch(const void* lhs, const void* rhs, const int* group_sizes, bf16* out, int M, int K,
+           int N, int G, cudaStream_t stream) {
+  CUtensorMap map_a, map_b;
+  const uint64_t dims_a[2] = {(uint64_t)K, (uint64_t)M};
+  const uint64_t strides_a[1] = {(uint64_t)K * 2};
+  const uint32_t box_a[2] = {BK, TILE_M};
+  int err = repro::hopper::encode_bf16_map(&map_a, lhs, 2, dims_a, strides_a, box_a);
+  if (err) return err;
+  if (TRANS) {   // rhs (G, N, K): K-major boxes of BN rows x 64
+    const uint64_t dims[3] = {(uint64_t)K, (uint64_t)N, (uint64_t)G};
+    const uint64_t strides[2] = {(uint64_t)K * 2, (uint64_t)N * K * 2};
+    const uint32_t box[3] = {BK, BN, 1};
+    err = repro::hopper::encode_bf16_map(&map_b, rhs, 3, dims, strides, box);
+  } else {       // rhs (G, K, N): MN-major boxes of 64 rows (K) x 64 columns (N)
+    const uint64_t dims[3] = {(uint64_t)N, (uint64_t)K, (uint64_t)G};
+    const uint64_t strides[2] = {(uint64_t)N * 2, (uint64_t)K * N * 2};
+    const uint32_t box[3] = {64, BK, 1};
+    err = repro::hopper::encode_bf16_map(&map_b, rhs, 3, dims, strides, box);
+  }
+  if (err) return err;
+  // per call: the attribute belongs to the current device's context
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gmm_kernel<TRANS>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long row_tiles = (M + TILE_M - 1) / TILE_M + (long long)G;
+  if (row_tiles > 65535) return (int)cudaErrorInvalidConfiguration;
+  dim3 grid((N + BN - 1) / BN, (unsigned)row_tiles);
+  gmm_kernel<TRANS><<<grid, THREADS, SMEM_BYTES, stream>>>(map_a, map_b, group_sizes, out, M, N,
+                                                          G, (K + BK - 1) / BK);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-REPRO_API int repro_gmm_block_m() { return BM; }
+REPRO_API int repro_gmm_block_m() { return ALIGN_M; }
+
+REPRO_API int repro_gmm_tile_m() { return TILE_M; }
 
 // lhs (M, K), rhs (G, K, N) -- or (G, N, K) with trans_rhs -- group_sizes
-// (G,) int32, out (M, N); all on the device, bf16, contiguous, 16-byte
-// aligned. Requires M % BM == 0, K % 8 == 0, N % 8 == 0 and every group
-// size a multiple of BM.
+// (G,) int32 with sum <= M, out (M, N); all on the device, bf16,
+// contiguous, 16-byte aligned. Requires M % 16 == 0 (the dispatch's
+// alignment), K % 8 == 0 and N % 8 == 0. Launches ceil(N / 128) x
+// (ceil(M / TILE_M) + G) blocks.
 REPRO_API int repro_gmm(const void* lhs, const void* rhs, const void* group_sizes, void* out,
                         int M, int K, int N, int G, int trans_rhs, void* stream) {
-  if (M % BM != 0 || K % 8 != 0 || N % 8 != 0 || G < 1) return (int)cudaErrorInvalidValue;
+  if (M % ALIGN_M != 0 || K % 8 != 0 || N % 8 != 0 || G < 1 || K < 1)
+    return (int)cudaErrorInvalidValue;
   if (M == 0 || N == 0) return (int)cudaSuccess;
-  dim3 grid(M / BM, (N + BN - 1) / BN);
-  auto kernel = trans_rhs ? gmm_kernel<true> : gmm_kernel<false>;
-  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(lhs), static_cast<const bf16*>(rhs),
-      static_cast<const int*>(group_sizes), static_cast<bf16*>(out), M, K, N, G);
-  return (int)cudaGetLastError();
+  const int* gs = static_cast<const int*>(group_sizes);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return trans_rhs ? launch<true>(lhs, rhs, gs, o, M, K, N, G, s)
+                   : launch<false>(lhs, rhs, gs, o, M, K, N, G, s);
 }
 
 REPRO_API const char* repro_error_string(int err) {
+  if (err >= repro::hopper::kEncodeError)
+    return "cuTensorMapEncodeTiled refused the tensor map (CUresult = code - 100000)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

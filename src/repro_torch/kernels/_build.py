@@ -32,6 +32,7 @@ _I = ctypes.c_int
 # C entry point -> (argument types, return type)
 _SIGNATURES = {
     "repro_gmm_block_m": ([], _I),
+    "repro_gmm_tile_m": ([], _I),
     "repro_error_string": ([_I], ctypes.c_char_p),
     "repro_gmm": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "repro_tgmm": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
@@ -136,19 +137,28 @@ def check_launch(err: int, kernel: str) -> None:
 
 
 def check_operand(t, name: str, ndim: int, dtype=None) -> None:
-    """Validate a tensor handed to a kernel: on a CUDA device, of the
-    kernel's dtype (bf16 unless given), contiguous, 16-byte aligned."""
-    dtype = dtype or torch.bfloat16
-    if t.device.type != "cuda":
-        raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
-    if t.ndim != ndim:
-        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name}: data must be 16-byte aligned")
+    """Validate a tensor handed to a kernel: of the kernel's dtype (bf16
+    unless given), rank, contiguous, 16-byte aligned, on a CUDA device."""
+    check_operands((t, name, ndim, dtype))
+
+
+def check_operands(*specs) -> None:
+    """``check_operand`` over several ``(tensor, name, ndim, dtype)``
+    operands, the device of each checked after every other property of all
+    of them, so that a fault of type or layout shows on any device."""
+    for t, name, ndim, dtype in specs:
+        dtype = dtype or torch.bfloat16
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
+        if t.ndim != ndim:
+            raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
+    for t, name, _, _ in specs:
+        if t.device.type != "cuda":
+            raise ValueError(f"{name}: expected a CUDA tensor, got device {t.device}")
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

@@ -170,6 +170,88 @@ def test_flash_kernel_on_card(cuda, S, nh, nkv, hd, window):
                                         window=window))
 
 
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("sizes,M", [
+    ([16, 0, 48, 80, 0, 144], 320),   # ragged against the 128-row tile, empty groups, tail
+    ([0, 320, 0], 320),               # one group holds every row
+    ([0, 0, 16, 0], 64),              # one 16-row group, most of M past the total
+])
+def test_gmm_row_tiles_on_card(cuda, sizes, M, trans):
+    """The wgmma row tile against the 16-row group alignment: tiles cut
+    from each group's start, rows of the next group loaded and discarded,
+    ragged K (264) and N (136) through TMA's zero fill, and rows past the
+    total exactly zero though the output's memory held NaN before."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    K, N = 264, 136
+    G = len(sizes)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    total = sum(sizes)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(G, K, N, generator=g, device=cuda) / 16).bfloat16()
+    lhs = torch.randn(M, N, generator=g, device=cuda).bfloat16() if trans else x
+    dirty = torch.full((M, K if trans else N), float("nan"), dtype=torch.bfloat16, device=cuda)
+    del dirty                       # the caching allocator hands this block to the call
+    out = ops.gmm_transposed(lhs, w, gs) if trans else ops.gmm(lhs, w, gs)
+    torch.cuda.synchronize()
+    plain = ref.gmm_ref(lhs.float(), w.float().transpose(1, 2) if trans else w.float(), gs)
+    assert torch.isfinite(out[:total].float()).all()
+    _close(out[:total], plain[:total])
+    assert (out[total:] == 0).all()
+
+
+@pytest.mark.parametrize("B,Sq,Skv,nh,nkv,hd,window", [
+    (2, 100, 100, 4, 4, 64, 0),       # hd 64, B = 2 with a batch boundary inside a tile
+    (1, 37, 37, 4, 1, 128, 0),        # Sq shorter than one tile, MQA
+    (2, 37, 37, 4, 2, 112, 0),        # hd 112 (zero-filled columns 112-127), ragged
+    (2, 500, 500, 8, 1, 112, 64),     # MQA with a window
+    (2, 1000, 1000, 32, 8, 112, 0),   # 128-row query tiles (two consumer warpgroups), GQA
+    (2, 1000, 1000, 32, 32, 128, 256),  # 128-row query tiles with a window
+    (1, 300, 300, 16, 2, 64, 0),
+])
+def test_flash_tiles_on_card(cuda, B, Sq, Skv, nh, nkv, hd, window):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q = torch.randn(B, Sq, nh, hd, generator=g, device=cuda).bfloat16()
+    k = torch.randn(B, Skv, nkv, hd, generator=g, device=cuda).bfloat16()
+    v = torch.randn(B, Skv, nkv, hd, generator=g, device=cuda).bfloat16()
+    before = ops.launches["flash_attention"]
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + 1
+    _close(out, ref.flash_attention_ref(q.float(), k.float(), v.float(), causal=True,
+                                        window=window))
+
+
+def test_tma_kernels_in_a_fresh_thread_on_card(cuda):
+    """gmm (both modes) and flash called from a thread that has made no CUDA
+    call yet, as autograd's backward thread may be: the tensor-map encoder
+    needs a current context, which the kernels make current themselves."""
+    import threading
+    g = torch.Generator(device=cuda).manual_seed(13)
+    gs = torch.tensor([32, 0, 64, 16], dtype=torch.int32, device=cuda)
+    x = torch.randn(128, 64, generator=g, device=cuda).bfloat16()
+    w = (torch.randn(4, 64, 96, generator=g, device=cuda) / 8).bfloat16()
+    dy = torch.randn(128, 96, generator=g, device=cuda).bfloat16()
+    q = torch.randn(1, 100, 4, 64, generator=g, device=cuda).bfloat16()
+    results = {}
+
+    def run():
+        try:
+            results["out"] = (ops.gmm(x, w, gs), ops.gmm_transposed(dy, w, gs),
+                              ops.flash_attention(q, q, q))
+        except Exception as e:   # noqa: BLE001 -- reported by the main thread
+            results["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "error" not in results, results.get("error")
+    torch.cuda.synchronize()
+    out, dx, attn = results["out"]
+    _close(out, ref.gmm_ref(x.float(), w.float(), gs))
+    _close(dx, ref.gmm_ref(dy.float(), w.float().transpose(1, 2), gs))
+    _close(attn, ref.flash_attention_ref(q.float(), q.float(), q.float()))
+
+
 def _ssd_inputs(cuda, B, C, L, H, P, N, seed, dt_scale=1.0, a_scale=1.0):
     """x, B and C as column slices of one (B, C*L, H*P + 2N) activation,
     as ``mamba2_block`` hands them over; dt > 0 and A < 0 in float32."""

@@ -50,8 +50,144 @@ def test_gmm_matches_jax(sizes):
 
 
 def test_gmm_align_is_the_kernel_tile():
-    from repro_torch.kernels.gmm import BLOCK_M
+    """The group alignment the dispatch honours is the kernel's BLOCK_M,
+    16 rows; the kernel's wgmma row tile (TILE_M) is decoupled from it."""
+    from repro_torch.kernels.gmm import BLOCK_M, TILE_M
     assert ops.gmm_align() == BLOCK_M == 16
+    assert TILE_M % BLOCK_M == 0
+
+
+def test_gmm_align_and_pool_rows_unchanged():
+    """The redesigned kernel leaves the dispatch as it was: alignment 16 and
+    the pool rows of the train (4096 tokens), EP (8192 gathered tokens, 16
+    local experts) and dropless decode (8 tokens) dispatches of Mula-7B-A1B."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import moe
+    m = get_config("mula-7b-a1b").moe
+    assert ops.gmm_align() == 16
+    assert moe.dispatch_pool_rows(4096, m) == 41984
+    assert moe.dispatch_pool_rows(8192, m, local_experts=16) == 20736
+    assert moe.dispatch_pool_rows(8, m, dropless=True) == 1088
+
+
+def _gmm_tile_map(sizes, M):
+    """The gmm kernel's tile arithmetic (csrc/gmm.cu), mirrored in numpy:
+    how often each row is stored by its group's tile, and zeroed by a spare
+    tile, over the ``row_tiles(M, G)`` row tiles of the grid."""
+    from repro_torch.kernels.gmm import TILE_M, row_tiles
+    sizes = np.asarray(sizes, np.int64)
+    G = len(sizes)
+    starts = np.concatenate([[0], np.cumsum(sizes)])
+    tstarts = np.concatenate([[0], np.cumsum(-(-sizes // TILE_M))])
+    total, used = int(starts[-1]), int(tstarts[-1])
+    stored, zeroed = np.zeros(M, np.int64), np.zeros(M, np.int64)
+    for idx in range(row_tiles(M, G)):
+        g = int(np.searchsorted(tstarts[1:], idx, side="right"))
+        if g < G:                            # rows [m0, group end) of the tile
+            m0 = starts[g] + (idx - tstarts[g]) * TILE_M
+            stored[m0:min(m0 + TILE_M, starts[g + 1], M)] += 1
+        else:                                # a spare tile: its share of the tail
+            r0 = total + (idx - used) * TILE_M
+            zeroed[r0:min(r0 + TILE_M, M)] += 1
+    return stored, zeroed, total, used
+
+
+def _routed_sizes(rng, T, E, K, pool, align=16):
+    """Group sizes of a random top-K dispatch, each aligned up, cut to the pool."""
+    counts = np.bincount(rng.random((T, E)).argsort(1)[:, :K].ravel(), minlength=E)
+    sizes = -(-counts // align) * align
+    while sizes.sum() > pool:                # capacity: drop from the largest
+        sizes[sizes.argmax()] -= align
+    return sizes.tolist()
+
+
+@pytest.mark.parametrize("case", [f"random-{i}" for i in range(16)]
+                         + ["train", "ep", "decode", "empty", "one-group"])
+def test_gmm_grid_covers_the_groups(case):
+    """The static grid bound, ceil(M / TILE_M) + G row tiles, holds every
+    group's ceil(size / TILE_M) tiles, and its spare tiles zero exactly the
+    rows past the total: every row is written once, by its group's tile or
+    as a zero, for random group sizes (multiples of 16, zeros, totals below
+    M) and the paths' dispatches."""
+    from repro_torch.kernels.gmm import TILE_M, row_tiles
+    rng = np.random.default_rng(int(case.split("-")[1]) if case.startswith("random")
+                                else sum(map(ord, case)))
+    if case == "train":
+        sizes, M = _routed_sizes(rng, 4096, 64, 8, 41984), 41984
+    elif case == "ep":
+        sizes, M = _routed_sizes(rng, 8192, 64, 8, 20736)[48:], 20736
+    elif case == "decode":
+        sizes, M = _routed_sizes(rng, 8, 64, 8, 1088), 1088
+    elif case == "empty":
+        sizes, M = [0] * 7, 64
+    elif case == "one-group":
+        sizes, M = [0, 4096, 0], 4096
+    else:
+        G = int(rng.integers(1, 80))
+        sizes = (16 * rng.integers(0, 40, G) * (rng.random(G) < 0.7)).tolist()
+        M = sum(sizes) + 16 * int(rng.integers(0, 30))
+        M = max(M, 16)
+    stored, zeroed, total, used = _gmm_tile_map(sizes, M)
+    assert used <= row_tiles(M, len(sizes))
+    assert (stored[:total] == 1).all() and (stored[total:] == 0).all()
+    assert (zeroed[:total] == 0).all() and (zeroed[total:] == 1).all()
+    assert row_tiles(M, len(sizes)) * TILE_M >= M
+
+
+def _bf(*shape, dtype=torch.bfloat16):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("args,kw,err,match", [
+    ((_bf(24, 64), _bf(2, 64, 64), torch.tensor([16, 8], dtype=torch.int32)), {},
+     ValueError, "M % 16"),
+    ((_bf(16, 12), _bf(1, 12, 16), torch.tensor([16], dtype=torch.int32)), {},
+     ValueError, "multiples of 8"),
+    ((_bf(16, 64), _bf(2, 32, 16), torch.tensor([16, 0], dtype=torch.int32)), {},
+     ValueError, "disagree"),
+    ((_bf(16, 64), _bf(2, 64, 16), torch.tensor([16, 0], dtype=torch.int32)),
+     {"trans_rhs": True}, ValueError, "disagree"),
+    ((_bf(16, 64), _bf(64, 16), torch.tensor([16], dtype=torch.int32)), {},
+     ValueError, "takes lhs"),
+    ((_bf(16, 64, dtype=torch.float32), _bf(1, 64, 16), torch.tensor([16], dtype=torch.int32)),
+     {}, TypeError, "bfloat16"),
+    ((_bf(16, 64), _bf(1, 64, 16), torch.tensor([16])), {}, TypeError, "int32"),
+    ((_bf(64, 16).t(), _bf(1, 64, 16), torch.tensor([16], dtype=torch.int32)), {},
+     ValueError, "contiguous"),
+    ((_bf(16 * 64 + 1)[1:].view(16, 64), _bf(1, 64, 16), torch.tensor([16], dtype=torch.int32)),
+     {}, ValueError, "16-byte aligned"),
+    ((_bf(16, 64), _bf(1, 64, 16), torch.tensor([16], dtype=torch.int32)), {},
+     ValueError, "CUDA tensor"),
+])
+def test_gmm_wrapper_rejects_before_launch(args, kw, err, match):
+    """gmm_cuda checks shapes, alignment, dtype, layout and device before it
+    builds or launches anything (there is no nvcc here: reaching the
+    library would fail otherwise)."""
+    from repro_torch.kernels.gmm import gmm_cuda
+    before = dict(ops.launches)
+    with pytest.raises(err, match=match):
+        gmm_cuda(*args, **kw)
+    assert ops.launches == before
+
+
+@pytest.mark.parametrize("q,k,v,err,match", [
+    (_bf(1, 8, 4, 96), _bf(1, 8, 4, 96), _bf(1, 8, 4, 96), ValueError, "hd in"),
+    (_bf(1, 8, 4, 64), _bf(1, 8, 3, 64), _bf(1, 8, 3, 64), ValueError, "nh % nkv"),
+    (_bf(1, 8, 4, 64), _bf(1, 8, 4, 64), _bf(1, 9, 4, 64), ValueError, "disagree"),
+    (_bf(1, 8, 4, 64), _bf(2, 8, 4, 64), _bf(2, 8, 4, 64), ValueError, "disagree"),
+    (_bf(8, 4, 64), _bf(1, 8, 4, 64), _bf(1, 8, 4, 64), ValueError, "disagree"),
+    (_bf(1, 8, 4, 64, dtype=torch.float16), _bf(1, 8, 4, 64), _bf(1, 8, 4, 64),
+     TypeError, "bfloat16"),
+    (_bf(1, 4, 8, 64).transpose(1, 2), _bf(1, 8, 4, 64), _bf(1, 8, 4, 64),
+     ValueError, "contiguous"),
+    (_bf(1, 8, 4, 64), _bf(1, 8, 4, 64), _bf(1, 8, 4, 64), ValueError, "CUDA tensor"),
+])
+def test_flash_wrapper_rejects_before_launch(q, k, v, err, match):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    before = dict(ops.launches)
+    with pytest.raises(err, match=match):
+        flash_attention_cuda(q, k, v)
+    assert ops.launches == before
 
 
 def test_swiglu_matches_jax():
