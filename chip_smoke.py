@@ -33,9 +33,11 @@ Phases, each printing JSON lines:
              from seed 0): make_prefill_step over (2, 4096) and (1, 1000)
              batches; 8 prompts of 128 tokens stepped through
              make_serve_step, then 64 greedy tokens; the forward prefill
-             against the stepped decode at the last prompt position; exact
-             launch counts (81 SSD and 13 flash launches per prefill, none
-             per decode step); one profiled prefill and decode step;
+             against the stepped decode at the last prompt position, also
+             for the first 7, 20 and 40 Mamba-2 layers of the same weights
+             (a ``hybrid_depth`` line); exact launch counts (81 SSD and 13
+             flash launches per prefill, none per decode step); one
+             profiled prefill and decode step;
   ep_reference  expert parallelism (EP) on 4 ranks, processes that share
              the card over gloo: a small MoE block's output and input
              gradient against the same block in one process on the card, and
@@ -926,10 +928,17 @@ def phase_serve() -> dict:
     return row
 
 
+# the CUDA kernels of csrc/ by function name, for the profiles' totals
+PORT_KERNELS = ("gmm_kernel", "tgmm_kernel", "swiglu_kernel", "swiglu_bwd_kernel",
+                "combine_kernel", "combine_bwd_kernel", "flash_fwd_kernel",
+                "ssd_intra_chunk_kernel", "token_counts_kernel")
+
+
 def _profile_window(run, host_prefixes: tuple = ()) -> dict:
     """torch.profiler over ``run()``: the host's wall time, the device's
     busy time (sum of its kernel and copy times; one stream, so they do not
-    overlap), the idle share, and the ten device kernels that took longest;
+    overlap), the idle share, the ten device kernels that took longest and
+    the total time and calls of each of the port's own kernels;
     with ``host_prefixes``, also the host events whose names start with one
     of them, summed by name (the collectives under EP)."""
     import torch
@@ -951,11 +960,19 @@ def _profile_window(run, host_prefixes: tuple = ()) -> dict:
             host.setdefault(e.name, []).append(ms)
     busy = sum(sum(v) for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
+    port: dict[str, dict] = {}
+    for n, v in by_name.items():
+        for k in PORT_KERNELS:
+            if f"::{k}(" in n or f"::{k}<" in n:
+                e = port.setdefault(k, {"ms": 0.0, "calls": 0})
+                e["ms"] += sum(v)
+                e["calls"] += len(v)
     out = {"wall_ms": wall_ms,
            "device_busy_ms": busy if by_name else None,
            "device_idle_share": 1 - busy / wall_ms if by_name else None,
            "top_device_kernels": [{"name": n[:100], "ms": sum(v), "calls": len(v)}
-                                  for n, v in top]}
+                                  for n, v in top],
+           "port_kernels": port}
     if host_prefixes:
         out["host_events"] = {n: {"ms": sum(v), "calls": len(v)} for n, v in host.items()}
     return out
@@ -1062,6 +1079,43 @@ IDENTITY_TOL = 0.25
 IDENTITY_TOPK = 5
 
 
+HYBRID_DEPTHS = (7, 20, 40)   # and all 81: the full model's own comparison
+
+
+def _identity_by_depth(params, cfg, prompts, prefill, serve) -> dict:
+    """The forward prefill against the stepped decode (relative to
+    max|logit|) for the first d Mamba-2 layers of the loaded weights, d in
+    ``HYBRID_DEPTHS``: the groups cut to d // every and the next d % every
+    layers as the remainder, views of the same tensors. bf16 rounding grows
+    the gap smoothly with depth; a fault in the state carry jumps."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import init_cache
+    from repro_torch.models.model import hybrid_layout
+    from repro_torch.train import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_map
+
+    out = {}
+    _, every, _ = hybrid_layout(cfg)
+    B, P = prompts.shape
+    for d in HYBRID_DEPTHS:
+        n_g, r = divmod(d, every)
+        cut = dataclasses.replace(cfg, num_layers=d)
+        p = {k: v for k, v in params.items() if k not in ("groups", "rem")}
+        p["groups"] = tree_map(lambda t, n=n_g: t[:n], params["groups"])
+        if r:
+            p["rem"] = tree_map(lambda t, n=n_g, r=r: t[n, :r], params["groups"])
+        fwd = make_prefill_step(cut, device=DEV)(p, {"tokens": prompts}).float()
+        step = make_serve_step(cut, device=DEV)
+        cache = init_cache(cut, B, P, device=DEV, dtype=torch.bfloat16)
+        for t in range(P):
+            logits, cache = step(p, prompts[:, t:t + 1], cache, t)
+        dec = logits[:, 0].float()
+        out[str(d)] = float((fwd - dec).abs().max() / fwd.abs().max())
+    return out
+
+
 def expected_hybrid_launches(prefills: int) -> dict:
     """Per prefill call of full-depth Zamba2-7B: one SSD intra-chunk launch
     per Mamba-2 layer and one flash launch per application of the shared
@@ -1166,6 +1220,11 @@ def phase_hybrid_serve() -> dict:
     expect = expected_hybrid_launches(n_prefill)
     if launches != expect:
         raise AssertionError(f"hybrid: kernel launches {launches} != expected {expect}")
+    depth = _identity_by_depth(params, cfg, prompts, prefill, serve)
+    depth[str(cfg.num_layers)] = rel
+    emit("hybrid_depth", mamba_layers=list(depth), identity_rel_logit_err=depth,
+         note="forward prefill against stepped decode at the last prompt position, the "
+              "first d Mamba-2 layers of the same weights (bf16 on the card)")
 
     # (e) where the time goes
     profile_prefill = _profile_window(lambda: prefill(params, {"tokens": batches["2x4096"]}))
@@ -1181,6 +1240,7 @@ def phase_hybrid_serve() -> dict:
            "output_tokens_per_s": B * HYBRID_NEW / gen_s,
            "decode_max_memory_allocated_bytes": decode_peak,
            "identity_rel_logit_err": rel, "identity_tolerance": IDENTITY_TOL,
+           "identity_rel_logit_err_by_depth": depth,
            "identity_top1_agreement": f"{int((top1_fwd == top1_dec).sum())}/{B}",
            f"identity_decode_top1_in_forward_top{IDENTITY_TOPK}": in_topk,
            "launches": launches, "expected_launches": expect,

@@ -1,14 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (gmm.cu, flash_attention.cu), written in raw PTX:
+// (gmm.cu, tgmm.cu, flash_attention.cu, ssd.cu), written in raw PTX:
 //
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a parity wait;
 //   * TMA tile loads (cp.async.bulk.tensor) in 2 to 4 dimensions, completing
-//     on an mbarrier;
+//     on an mbarrier, and 3-D tile stores tracked by bulk groups; the
+//     async-proxy fence and named barriers;
 //   * wgmma shared-memory descriptors for the 128-byte swizzle that TMA
 //     writes, wgmma fence / commit / wait, and the m64nNk16 bf16 -> f32
 //     instructions used here, with B from shared memory and A from shared
-//     memory (ss: N = 64, 256) or registers (rs: N = 64, 128);
+//     memory (ss: N = 64, 256; A K-major or MN-major) or registers (rs:
+//     N = 64, 128);
 //   * the host-side tensor-map encoder. cuTensorMapEncodeTiled is not part
 //     of the runtime API; it is looked up through cudaGetDriverEntryPoint,
 //     so the library links against the runtime only (no -lcuda).
@@ -120,6 +122,42 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Shared-memory writes of this thread made by ordinary stores become visible
+// to the async proxy (wgmma operand reads, TMA stores) after this fence.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// A barrier over `threads` threads (a multiple of 32) under id 1..15; id 0
+// is __syncthreads'.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// TMA tile store: the box at src (laid out as a load of the same map would
+// write it) to coordinates {c0, c1, c2} of the map; elements outside the
+// tensor's extent are not written. Completion is tracked per thread by bulk
+// groups: commit, then wait until the reads of shared memory are done.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N committed bulk groups of this thread still read
+// shared memory.
+template <int N>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -177,7 +215,9 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // instruction below, accumulate = 0 writes D = A * B instead of adding.
 
 // D (64 x 64, f32, 32 per thread) += A (64 x 16, shared) * B (16 x 64, shared).
-template <int TRANS_B>
+// TRANS_A = 1 takes an MN-major A (its 64 rows contiguous along a 128-byte
+// swizzle row, the reduction across rows), as TRANS_B does for B.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                               int accumulate) {
   asm volatile(
@@ -186,14 +226,14 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a, ui
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11,"
       " %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23,"
       " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, %35;\n}\n"
+      "%32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D (64 x 64, f32) += A (64 x 16, bf16 in registers: 4 x b32 a thread) * B (shared).
@@ -247,7 +287,7 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 }
 
 // D (64 x 256, f32, 128 per thread) += A (64 x 16, shared) * B (16 x 256, shared).
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
                                               int accumulate) {
   asm volatile(
@@ -264,7 +304,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, 
       " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107,"
       " %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119,"
       " %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n}\n"
+      "%128, %129, p, 1, 1, %132, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -287,7 +327,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a, 
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 }  // namespace hopper

@@ -14,243 +14,266 @@
 //   all f32.
 //
 // x, B and C are addressed by a row stride per position, so the column
-// slices of the (B, S, d_inner + 2N) xBC activation are read in place.
+// slices of the (B, S, d_inner + 2N) xBC activation are read in place: the
+// tensor maps are {P, H, L, B*C} for x and {N, L, B*C} for B and C, with
+// the row stride as the position's stride (Zamba2: 14,592 bytes).
 //
-// What bounds it on an H100: at Zamba2's L = 256, P = N = 64 a block does
-// ~10.5 MFLOP (C B^T and the decayed product over the causal half, plus
-// the states) against ~112 KB of its own traffic (x in, the f32 y and
-// states out; B and C are shared by the chunk's heads): on the tensor
-// cores it is bound by bytes, on the f32 CUDA cores by operations. The
-// design keeps the (L, L) score matrix out of memory altogether: at L = 256
-// it is 256 KB in f32, more than a block's 227 KB of shared memory. One
-// block of 8 warps owns one (b, c, h); B, C, dt*x and exp(la_L - la)*dt*x
-// for the whole chunk sit in shared memory (~165 KB).
-// Each warp walks 16-row query tiles (tiles t and T-1-t pair up, so the
-// causal work is even) and, for each key tile at or below the diagonal,
-// forms S = (C_i B_j^T) o exp(la_i - la_j) 16 x 16 at a time and adds
-// S (dt x)_j into a 16 x P accumulator: causal attention without a softmax.
-// The states are one more product over the chunk's rows.
+// What bounds it on an H100: bytes. At Zamba2-7B's L = 256, H = 112, P = N
+// = 64 a 4096-token prompt needs ~11 GFLOP (~0.011 ms on the tensor cores)
+// against ~208 MB (0.062 ms at 3.35 TB/s), most of it the f32 outputs (y
+// alone is 117 MB). So the products stay out of the way and the stores are
+// whole 32-byte sectors.
 //
-// Precision: the products run on the tensor cores (WMMA, bf16 operands,
-// f32 accumulation). C B^T takes the bf16 inputs as they are, so it is
-// exact up to summation order. The decayed scores S, dt*x and
-// exp(la_L - la)*dt*x are f32 values rounded to bf16 (relative error
-// <= 2^-9 each) before their products, as flash attention rounds its
-// probabilities. la, the decay factors and every sum are f32.
+// Design: one block of two warpgroups per (b, c, group of HG = 2 heads).
+// C B^T does not depend on the head, only the decay does, so it is formed
+// once for the group. TMA brings the chunk's B, C and the group's x into shared
+// memory (128-byte swizzled, one mbarrier per 64-row tile, so the products
+// of the first tiles start while the later ones land). Each warpgroup takes
+// 64-row query tiles, paired (0, 3) and (1, 2) so the causal work is even;
+// per key tile j <= i:
+//   G = C_i B_j^T        wgmma m64n64k16, both operands K-major, f32 in
+//                        registers; once for all HG heads;
+//   S_h = G o exp(la_i - la_j) dt_j, formed in registers only where j <= i
+//                        (above the diagonal the exponent is positive and
+//                        can overflow: inf * 0 would be NaN), packed to bf16
+//                        as wgmma's register A operand (the accumulator's
+//                        layout is the A layout);
+//   y_h += S_h x_h[j]    wgmma m64n64k16 rs, x MN-major.
+// y leaves the registers as float2 stores: a quad writes 32 contiguous
+// bytes of a row. Then x is scaled in place to exp(la_L - la) dt x (bf16)
+// and states = (that)^T B is one more product per head, A and B both
+// MN-major (A with wgmma's transpose bit).
 //
-// The decay exp(la_i - la_j) is formed only for j <= i: la falls along the
-// chunk (dt > 0, A < 0), so above the diagonal the exponent is positive and
-// can overflow, and inf * 0 would be NaN. Rows past L (L padded to a
-// multiple of 16 inside the block) have dt = 0 and x = B = C = 0, and are
-// never written.
-#include <mma.h>
-
+// Precision: the products run on the tensor cores (bf16 operands, f32
+// accumulation). C B^T takes the bf16 inputs as they are, so it is exact up
+// to summation order. S (decay and dt applied in f32) and the scaled x are
+// rounded to bf16 (relative error <= 2^-9 each) before their products, as
+// flash attention rounds its probabilities. la, the decay factors and every
+// sum are f32. Rows past L load as zeros (TMA's fill past the chunk's
+// extent), have dt = 0 and are never written; P = 32 and N < 64 load their
+// missing columns as zeros too.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace nvcuda;
-using repro::bf16;
+namespace hp = repro::hopper;
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_L = THREADS;      // the la scan gives each thread one row
-constexpr int SCR_LDF = 20;         // per-warp 16 x 16 f32 scratch
-constexpr int SCR_LDH = 24;         // per-warp 16 x 16 bf16 scratch
-constexpr size_t SCR_F_BYTES = sizeof(float) * 16 * SCR_LDF;
-constexpr size_t SCR_BYTES = SCR_F_BYTES + sizeof(bf16) * 16 * SCR_LDH;
-constexpr size_t MAX_SMEM = 232448;
+constexpr int TILE = 64;                 // positions per tile: wgmma M and the key tile
+constexpr int MAX_L = 256;
+constexpr int MAX_T = MAX_L / TILE;
+constexpr int THREADS = 256;             // two warpgroups; the la scan gives each thread one row
+constexpr int BOX = TILE * 128;          // one 64-position x 64-column tile, 8 KB
+constexpr float LOG2E = 1.4426950408889634f;
+// Heads per block. 2 measured faster than 4 (PERF.md): at 4 the kernel
+// takes 255 registers, 192 KB of shared memory and half as many blocks.
+constexpr int HG = 2;
 
-__host__ __device__ inline size_t align128(size_t v) { return (v + 127) & ~size_t(127); }
+// Shared memory: B, C and the heads' x as 64-row tiles, then f32 arrays.
+constexpr int B_OFF = 0;
+constexpr int C_OFF = MAX_T * BOX;
+constexpr int X_OFF = 2 * MAX_T * BOX;              // HG heads x MAX_T tiles
+constexpr int LA_OFF = X_OFF + HG * MAX_T * BOX;    // la * log2(e), [HG][MAX_L]
+constexpr int DT_OFF = LA_OFF + HG * MAX_L * 4;     // dt, [HG][MAX_L]
+constexpr int SUM_OFF = DT_OFF + HG * MAX_L * 4;    // per-warp scan totals
+constexpr int BAR_OFF = SUM_OFF + (THREADS / 32) * HG * 4;
+constexpr int SMEM_BYTES = BAR_OFF + MAX_T * 8 + 1024;   // + alignment
 
-// Dynamic shared memory of one block for LP (L padded to 16) rows.
-struct Layout {
-  int ldn, ldp;
-  size_t b_off, c_off, x_off, xw_off, la_off, dt_off, scr_off, bytes;
-};
-
-__host__ __device__ inline Layout make_layout(int LP, int N, int P) {
-  Layout s;
-  s.ldn = N + 8;
-  s.ldp = P + 8;
-  s.b_off = 0;
-  s.c_off = align128(s.b_off + sizeof(bf16) * LP * s.ldn);
-  s.x_off = align128(s.c_off + sizeof(bf16) * LP * s.ldn);
-  s.xw_off = align128(s.x_off + sizeof(bf16) * LP * s.ldp);
-  s.la_off = align128(s.xw_off + sizeof(bf16) * LP * s.ldp);
-  s.dt_off = align128(s.la_off + sizeof(float) * LP);
-  s.scr_off = align128(s.dt_off + sizeof(float) * LP);
-  s.bytes = s.scr_off + WARPS * SCR_BYTES;
-  return s;
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-template <int P>
 __global__ void __launch_bounds__(THREADS, 1)
-ssd_intra_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
-                       const bf16* __restrict__ bm, const bf16* __restrict__ cm,
+ssd_intra_chunk_kernel(const __grid_constant__ CUtensorMap map_x,
+                       const __grid_constant__ CUtensorMap map_b,
+                       const __grid_constant__ CUtensorMap map_c, const float* __restrict__ dt,
                        const float* __restrict__ A, float* __restrict__ y,
-                       float* __restrict__ states, float* __restrict__ cdecay, int C, int L,
-                       int H, int N, long long x_rs, long long b_rs, long long c_rs) {
-  const int h = blockIdx.x;
-  const int c = blockIdx.y;
-  const int b = blockIdx.z;
-  const int LP = (L + 15) & ~15;
-  const Layout s = make_layout(LP, N, P);
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sB = reinterpret_cast<bf16*>(smem + s.b_off);
-  bf16* sC = reinterpret_cast<bf16*>(smem + s.c_off);
-  bf16* sX = reinterpret_cast<bf16*>(smem + s.x_off);
-  bf16* sXw = reinterpret_cast<bf16*>(smem + s.xw_off);
-  float* sla = reinterpret_cast<float*>(smem + s.la_off);
-  float* sdt = reinterpret_cast<float*>(smem + s.dt_off);
-  __shared__ float warp_sum[WARPS];
+                       float* __restrict__ states, float* __restrict__ cdecay, int L, int H,
+                       int P, int N) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hp::smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* sB = smem + B_OFF;
+  unsigned char* sC = smem + C_OFF;
+  unsigned char* sX = smem + X_OFF;
+  float* lal = reinterpret_cast<float*>(smem + LA_OFF);
+  float* sdt = reinterpret_cast<float*>(smem + DT_OFF);
+  float* wsum = reinterpret_cast<float*>(smem + SUM_OFF);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
 
+  const int h0 = blockIdx.x * HG;
+  const int bc = blockIdx.z * gridDim.y + blockIdx.y;   // b * C + c
+  const int T = (L + TILE - 1) / TILE;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const long long row0 = ((long long)b * C + c) * L;   // first position of the chunk
 
-  // 1. la = cumsum(dt * A[h]): a block-wide inclusive scan, one row a thread.
-  const float dt_r = tid < L ? dt[(row0 + tid) * H + h] : 0.f;
-  float v = dt_r * A[h];
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(repro::kFullMask, v, o);
-    if (lane >= o) v += t;
-  }
-  if (lane == 31) warp_sum[warp] = v;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) v += warp_sum[w];
-  if (tid < LP) {
-    sla[tid] = v;
-    sdt[tid] = dt_r;
+  if (tid == 0) {
+    for (int t = 0; t < T; ++t) hp::mbar_init(&bar[t], 1);
+    hp::mbar_fence_init();
   }
   __syncthreads();
-  const float la_last = sla[L - 1];
-
-  // 2. Stage B and C as given, and dt*x and exp(la_L - la)*dt*x rounded to bf16.
-  const int NV = N / 8;
-  for (int i = tid; i < LP * NV; i += THREADS) {
-    const int r = i / NV, col = (i % NV) * 8;
-    uint4 bv = repro::zero_vec8();
-    uint4 cv = repro::zero_vec8();
-    if (r < L) {
-      bv = repro::load_vec8(bm + (row0 + r) * b_rs + col);
-      cv = repro::load_vec8(cm + (row0 + r) * c_rs + col);
+  if (tid == 0) {
+    for (int t = 0; t < T; ++t) {   // heads past H load as zeros
+      hp::mbar_arrive_expect_tx(&bar[t], (2 + HG) * BOX);
+      hp::tma_load_3d(sB + t * BOX, &map_b, &bar[t], 0, t * TILE, bc);
+      hp::tma_load_3d(sC + t * BOX, &map_c, &bar[t], 0, t * TILE, bc);
+      for (int h = 0; h < HG; ++h)
+        hp::tma_load_4d(sX + (h * MAX_T + t) * BOX, &map_x, &bar[t], 0, h0 + h, t * TILE, bc);
     }
-    repro::store_vec8(&sB[r * s.ldn + col], bv);
-    repro::store_vec8(&sC[r * s.ldn + col], cv);
   }
-  constexpr int PV = P / 8;
-  for (int i = tid; i < LP * PV; i += THREADS) {
-    const int r = i / PV, col = (i % PV) * 8;
-    float f[8], g[8];
-    if (r < L) {
-      repro::unpack8(repro::load_vec8(x + (row0 + r) * x_rs + (long long)h * P + col), f);
-    } else {
+
+  // 1. la = cumsum(dt * A[h]) for the group's heads: a block-wide inclusive
+  //    scan, one position a thread (positions past L have dt = 0).
+  float v[HG], d[HG];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) f[j] = 0.f;
-    }
-    const float d = sdt[r];
-    const float w = expf(la_last - sla[r]);   // <= 1: la falls along the chunk
+  for (int h = 0; h < HG; ++h) {
+    const bool ok = tid < L && h0 + h < H;
+    d[h] = ok ? dt[((long long)bc * L + tid) * H + h0 + h] : 0.f;
+    v[h] = ok ? d[h] * A[h0 + h] : 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      f[j] *= d;
-      g[j] = w * f[j];
+    for (int o = 1; o < 32; o <<= 1) {
+      const float t = __shfl_up_sync(repro::kFullMask, v[h], o);
+      if (lane >= o) v[h] += t;
     }
-    repro::store_vec8(&sX[r * s.ldp + col], repro::pack8(f));
-    repro::store_vec8(&sXw[r * s.ldp + col], repro::pack8(g));
+    if (lane == 31) wsum[warp * HG + h] = v[h];
   }
   __syncthreads();
-
-  float* scr_f = reinterpret_cast<float*>(smem + s.scr_off + warp * SCR_BYTES);
-  bf16* scr_h = reinterpret_cast<bf16*>(smem + s.scr_off + warp * SCR_BYTES + SCR_F_BYTES);
-
-  // 3. y_diag, one 16-row query tile at a time per warp.
-  const int T = LP / 16;
-  const int er = lane >> 1;          // the lane's row of a 16 x 16 tile
-  const int ec = (lane & 1) * 8;     // and its first of 8 columns
-  for (int base = 0; base < T; base += 2 * WARPS) {
-    for (int k = 0; k < 2; ++k) {
-      const int qt = base + (k == 0 ? warp : 2 * WARPS - 1 - warp);
-      if (qt >= T) continue;
-      const int i0 = qt * 16;
-      const float la_i = sla[i0 + er];
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[P / 16];
 #pragma unroll
-      for (int n = 0; n < P / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+  for (int h = 0; h < HG; ++h) {
+    for (int w = 0; w < warp; ++w) v[h] += wsum[w * HG + h];
+    lal[h * MAX_L + tid] = v[h] * LOG2E;
+    sdt[h * MAX_L + tid] = d[h];
+  }
+  __syncthreads();
+  if (tid < HG && h0 + tid < H)
+    cdecay[(long long)bc * H + h0 + tid] = exp2f(lal[tid * MAX_L + L - 1]);
 
-      for (int kt = 0; kt <= qt; ++kt) {
-        const int j0 = kt * 16;
-        // C_i B_j^T (16 x 16); B_j^T is B_j read as a column-major operand
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> cb;
-        wmma::fill_fragment(cb, 0.0f);
-        for (int kk = 0; kk < N; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> ca;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-          wmma::load_matrix_sync(ca, sC + i0 * s.ldn + kk, s.ldn);
-          wmma::load_matrix_sync(bt, sB + j0 * s.ldn + kk, s.ldn);
-          wmma::mma_sync(cb, ca, bt, cb);
-        }
-        wmma::store_matrix_sync(scr_f, cb, SCR_LDF, wmma::mem_row_major);
-        __syncwarp();
-        // S = cb o exp(la_i - la_j), the exponent formed only where j <= i
-        float sv[8];
+  // 2. y_diag, one 64-row query tile at a time per warpgroup.
+  const int wg = warp >> 2;
+  const int r_in = (warp & 3) * 16 + (lane >> 2);   // this thread's rows: r_in, r_in + 8
+  const int q4 = 2 * (lane & 3);                    // and its first column of each 8
+  // query tiles: (0, 3) and (1, 2) at T = 4, (0, 2) and (1) at T = 3
+  const int n_tiles = T <= 2 ? (wg < T ? 1 : 0) : (T - 1 - wg > wg ? 2 : 1);
+  for (int qi = 0; qi < n_tiles; ++qi) {
+    const int i = qi == 0 ? wg : T - 1 - wg;
+    const int r0 = i * TILE + r_in, r1 = r0 + 8;
+    float acc[HG][32];   // written first by a product with scale-d = 0 (j = 0)
+    float la0[HG], la1[HG];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          const int j = j0 + ec + e;
-          float val = 0.f;
-          if (j <= i0 + er) val = scr_f[er * SCR_LDF + ec + e] * __expf(la_i - sla[j]);
-          sv[e] = val;
-        }
-        repro::store_vec8(scr_h + er * SCR_LDH + ec, repro::pack8(sv));
-        __syncwarp();
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> sa;
-        wmma::load_matrix_sync(sa, scr_h, SCR_LDH);
+    for (int h = 0; h < HG; ++h) {
+      la0[h] = lal[h * MAX_L + r0];
+      la1[h] = lal[h * MAX_L + r1];
+    }
+    hp::mbar_wait(&bar[i], 0);
+    for (int j = 0; j <= i; ++j) {
+      hp::mbar_wait(&bar[j], 0);
+      float g[32];
+      hp::wgmma_fence();
 #pragma unroll
-        for (int n = 0; n < P / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> xb;
-          wmma::load_matrix_sync(xb, sX + j0 * s.ldp + n * 16, s.ldp);
-          wmma::mma_sync(acc[n], sa, xb, acc[n]);
-        }
-        __syncwarp();   // scr_f / scr_h are rewritten by the next key tile
-      }
-
-      // rows < L of y[b, c, i0:i0+16, h, :], through the scratch tile
+      for (int kk = 0; kk < 4; ++kk)   // 16 state columns = 32 bytes along the row
+        hp::wgmma_ss_n64<0>(g, hp::sw128_desc(sC + i * BOX + kk * 32),
+                            hp::sw128_desc(sB + j * BOX + kk * 32), kk > 0);
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(g);
+      const bool diag = j == i;
 #pragma unroll
-      for (int n = 0; n < P / 16; ++n) {
-        wmma::store_matrix_sync(scr_f, acc[n], SCR_LDF, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 64; e += 32) {
-          const int rr = e >> 2, cc = (e & 3) * 4;
-          if (i0 + rr < L) {
-            *reinterpret_cast<float4*>(y + ((row0 + i0 + rr) * H + h) * P + n * 16 + cc) =
-                *reinterpret_cast<const float4*>(scr_f + rr * SCR_LDF + cc);
+      for (int h = 0; h < HG; ++h) {
+        // S_h in the accumulator's layout, packed to bf16 pairs as the A
+        // operand: k16 step kk holds the 8-column chunks 2kk and 2kk + 1.
+        uint32_t pa[4][4];
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          float sv[4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = j * TILE + 8 * jj + q4 + e;
+            const float lc = lal[h * MAX_L + col];
+            const float dc = sdt[h * MAX_L + col];
+            sv[e] = !diag || col <= r0 ? g[4 * jj + e] * ex2(la0[h] - lc) * dc : 0.f;
+            sv[2 + e] = !diag || col <= r1 ? g[4 * jj + 2 + e] * ex2(la1[h] - lc) * dc : 0.f;
           }
+          pa[jj / 2][2 * (jj % 2)] = hp::pack_bf16x2(sv[0], sv[1]);
+          pa[jj / 2][2 * (jj % 2) + 1] = hp::pack_bf16x2(sv[2], sv[3]);
         }
-        __syncwarp();
+        const unsigned char* xj = sX + (h * MAX_T + j) * BOX;
+        hp::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)   // 16 key positions = 2048 bytes
+          hp::wgmma_rs_n64<1>(acc[h], pa[kk], hp::sw128_desc(xj + kk * 2048, BOX),
+                              j > 0 || kk > 0);
+        hp::wgmma_commit();
+        hp::wgmma_wait<0>();
+        hp::fence_regs(acc[h]);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < HG; ++h) {
+      if (h0 + h >= H) continue;
+      float* y0 = y + (((long long)bc * L + r0) * H + h0 + h) * P;
+      float* y1 = y0 + (long long)8 * H * P;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int p = 8 * jj + q4;
+        if (p < P) {
+          if (r0 < L) *reinterpret_cast<float2*>(y0 + p) = make_float2(acc[h][4 * jj], acc[h][4 * jj + 1]);
+          if (r1 < L)
+            *reinterpret_cast<float2*>(y1 + p) = make_float2(acc[h][4 * jj + 2], acc[h][4 * jj + 3]);
+        }
       }
     }
   }
 
-  // 4. states = (w dt x)^T B: (P x LP)(LP x N), one 16 x 16 output tile per
-  //    warp at a time; (w dt x)^T is sXw read as a column-major operand.
-  float* st = states + (((long long)b * C + c) * H + h) * P * N;
-  const int NT = N / 16;
-  for (int t = warp; t < (P / 16) * NT; t += WARPS) {
-    const int pt = t / NT, nt = t % NT;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int j0 = 0; j0 < LP; j0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> xa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bb;
-      wmma::load_matrix_sync(xa, sXw + j0 * s.ldp + pt * 16, s.ldp);
-      wmma::load_matrix_sync(bb, sB + j0 * s.ldn + nt * 16, s.ldn);
-      wmma::mma_sync(acc, xa, bb, acc);
+  // 3. Scale x in place to exp(la_L - la) dt x, rounded to bf16: row `tid`
+  //    of every head (the swizzle keeps a row's bytes within its row).
+  for (int t = 0; t < T; ++t) hp::mbar_wait(&bar[t], 0);
+  __syncthreads();   // every y product has read x
+  if (tid < T * TILE) {
+#pragma unroll
+    for (int h = 0; h < HG; ++h) {
+      const float w = exp2f(lal[h * MAX_L + L - 1] - lal[h * MAX_L + tid]) * sdt[h * MAX_L + tid];
+      unsigned char* rowp = sX + (h * MAX_T + tid / TILE) * BOX + (tid % TILE) * 128;
+#pragma unroll
+      for (int ch = 0; ch < 8; ++ch) {
+        float f[8];
+        repro::unpack8(*reinterpret_cast<const uint4*>(rowp + ch * 16), f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] *= w;
+        *reinterpret_cast<uint4*>(rowp + ch * 16) = repro::pack8(f);
+      }
     }
-    wmma::store_matrix_sync(st + pt * 16 * N + nt * 16, acc, N, wmma::mem_row_major);
   }
-  if (tid == 0) cdecay[((long long)b * C + c) * H + h] = expf(la_last);
+  hp::fence_proxy_async();
+  __syncthreads();
+
+  // 4. states = (scaled x)^T B: (P x L)(L x N) per head, the heads split
+  //    between the warpgroups; 16 positions = 2048 bytes per k16 step.
+  for (int h = wg; h < HG; h += 2) {
+    if (h0 + h >= H) break;
+    float acc[32];
+#pragma unroll
+    for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+    const unsigned char* xh = sX + h * MAX_T * BOX;
+    hp::wgmma_fence();
+    for (int kk = 0; kk < T * TILE / 16; ++kk)
+      hp::wgmma_ss_n64<1, 1>(acc, hp::sw128_desc(xh + kk * 2048, BOX),
+                             hp::sw128_desc(sB + kk * 2048, BOX), 1);
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(acc);
+    float* st = states + ((long long)bc * H + h0 + h) * P * N;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int n = 8 * jj + q4;
+      if (n < N) {
+        if (r_in < P) *reinterpret_cast<float2*>(st + r_in * N + n) = make_float2(acc[4 * jj], acc[4 * jj + 1]);
+        if (r_in + 8 < P)
+          *reinterpret_cast<float2*>(st + (r_in + 8) * N + n) = make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+      }
+    }
+  }
 }
 
 }  // namespace
@@ -258,27 +281,40 @@ ssd_intra_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
 // x (B, C, L, H, P) bf16, position (b, c, l) at row ((b*C + c)*L + l) of
 // stride x_rs elements; B/C (B, C, L, N) bf16 likewise with b_rs / c_rs;
 // rows 16-byte aligned. dt (B, C, L, H) and A (H,) f32, contiguous. y, states,
-// cdecay: contiguous f32 outputs. L <= 256, N a multiple of 16, P 32 or 64.
+// cdecay: contiguous f32 outputs. L <= 256, N a multiple of 16 up to 64, P 32
+// or 64.
 REPRO_API int repro_ssd_intra_chunk(const void* x, const void* dt, const void* bm,
                                     const void* cm, const void* A, void* y, void* states,
                                     void* cdecay, int B, int C, int L, int H, int P, int N,
                                     long long x_rs, long long b_rs, long long c_rs,
                                     void* stream) {
-  if (L < 1 || L > MAX_L || N < 16 || N % 16 != 0 || (P != 32 && P != 64)) {
+  if (L < 1 || L > MAX_L || N < 16 || N > 64 || N % 16 != 0 || (P != 32 && P != 64))
     return (int)cudaErrorInvalidValue;
-  }
   if (B == 0 || C == 0 || H == 0) return (int)cudaSuccess;
   if (B > 65535 || C > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = make_layout((L + 15) & ~15, N, P).bytes;
-  if (smem + sizeof(float) * WARPS > MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kernel = P == 64 ? &ssd_intra_chunk_kernel<64> : &ssd_intra_chunk_kernel<32>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(H, C, B);
-  kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(dt), static_cast<const bf16*>(bm),
-      static_cast<const bf16*>(cm), static_cast<const float*>(A), static_cast<float*>(y),
-      static_cast<float*>(states), static_cast<float*>(cdecay), C, L, H, N, x_rs, b_rs, c_rs);
+  namespace hp = repro::hopper;
+  const uint64_t chunks = (uint64_t)B * C;
+  CUtensorMap mx, mb, mc;
+  const uint64_t dx[4] = {(uint64_t)P, (uint64_t)H, (uint64_t)L, chunks};
+  const uint64_t sx[3] = {(uint64_t)P * 2, (uint64_t)x_rs * 2, (uint64_t)x_rs * 2 * L};
+  const uint32_t bx[4] = {64, 1, TILE, 1};
+  int err = hp::encode_bf16_map(&mx, x, 4, dx, sx, bx);
+  const uint64_t dn[3] = {(uint64_t)N, (uint64_t)L, chunks};
+  const uint32_t bn[3] = {64, TILE, 1};
+  const uint64_t sb[2] = {(uint64_t)b_rs * 2, (uint64_t)b_rs * 2 * L};
+  const uint64_t sc[2] = {(uint64_t)c_rs * 2, (uint64_t)c_rs * 2 * L};
+  if (!err) err = hp::encode_bf16_map(&mb, bm, 3, dn, sb, bn);
+  if (!err) err = hp::encode_bf16_map(&mc, cm, 3, dn, sc, bn);
+  if (err) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // per call: the attribute belongs to the current device's context
+  const cudaError_t attr = cudaFuncSetAttribute(
+      ssd_intra_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  dim3 grid((H + HG - 1) / HG, C, B);
+  ssd_intra_chunk_kernel<<<grid, THREADS, SMEM_BYTES, s>>>(
+      mx, mb, mc, static_cast<const float*>(dt), static_cast<const float*>(A),
+      static_cast<float*>(y), static_cast<float*>(states), static_cast<float*>(cdecay), L, H, P,
+      N);
   return (int)cudaGetLastError();
 }

@@ -10,8 +10,10 @@
                                    backward through the fused
                                    ``combine_bwd`` kernel.
 * ``flash_attention(q, k, v)``     causal / sliding-window attention,
-                                   forward only (training attention is the
-                                   plain blockwise path of ``models/layers``).
+                                   forward only (it raises on a tensor that
+                                   requires grad, on either device; training
+                                   attention is the plain blockwise path of
+                                   ``models/layers``).
 * ``ssd_intra_chunk(x, dt, B, C, A)``  Mamba-2 SSD intra-chunk stage,
                                    forward only (it raises on a tensor that
                                    requires grad, on either device).
@@ -188,7 +190,15 @@ def combine(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, Sq, nh, hd); k/v (B, Skv, nkv, hd) -> (B, Sq, nh, hd)."""
+    """q (B, Sq, nh, hd); k/v (B, Skv, nkv, hd) -> (B, Sq, nh, hd).
+    Forward only, as the JAX package's kernel is: it raises while autograd
+    records and an input requires grad, on either device (on the card the
+    kernel's output would carry no gradient)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention is forward only (the JAX package has no flash backward); "
+            "train through impl=\"blockwise\", or call it under torch.no_grad() or on "
+            "tensors that do not require grad")
     if _on_cpu(q):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     out = flash_attention_cuda(q, k, v, causal=causal, window=window)

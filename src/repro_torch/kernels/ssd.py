@@ -17,6 +17,7 @@ from ._build import check_launch, library, stream_ptr
 
 HEAD_DIMS = (32, 64)
 MAX_CHUNK = 256
+MAX_STATE = 64   # d_state: one 64-column tile of B and C
 
 
 def _row_stride(t: torch.Tensor, name: str, inner: tuple[int, ...]) -> int:
@@ -53,7 +54,8 @@ def ssd_intra_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
                          Cm: torch.Tensor, A: torch.Tensor):
     """x (B, C, L, H, P) bf16, dt (B, C, L, H) f32, Bm/Cm (B, C, L, N) bf16,
     A (H,) f32, on a CUDA device -> (y (B, C, L, H, P), states (B, C, H, P,
-    N), cdecay (B, C, H)), f32. L <= 256, P in (32, 64), N % 16 == 0; dt
+    N), cdecay (B, C, H)), f32. L <= 256, P in (32, 64), N % 16 == 0 and
+    N <= 64; dt
     and A contiguous; x, Bm and Cm may be row-strided views."""
     for t, name, nd, dty in ((x, "x", 5, torch.bfloat16), (dt, "dt", 4, torch.float32),
                              (Bm, "B", 4, torch.bfloat16), (Cm, "C", 4, torch.bfloat16),
@@ -66,9 +68,10 @@ def ssd_intra_chunk_cuda(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor,
         raise ValueError(f"ssd_intra_chunk shapes disagree: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, B {tuple(Bm.shape)}, C {tuple(Cm.shape)}, "
                          f"A {tuple(A.shape)}")
-    if P not in HEAD_DIMS or N % 16 or not 1 <= L <= MAX_CHUNK:
-        raise ValueError(f"ssd_intra_chunk needs P in {HEAD_DIMS}, N % 16 == 0 and "
-                         f"1 <= L <= {MAX_CHUNK}; got P={P} N={N} L={L}")
+    if P not in HEAD_DIMS or N % 16 or not 16 <= N <= MAX_STATE or not 1 <= L <= MAX_CHUNK:
+        raise ValueError(f"ssd_intra_chunk needs P in {HEAD_DIMS}, N % 16 == 0 with "
+                         f"16 <= N <= {MAX_STATE}, and 1 <= L <= {MAX_CHUNK}; got P={P} N={N} "
+                         f"L={L}")
     if not (dt.is_contiguous() and A.is_contiguous()):
         raise ValueError("ssd_intra_chunk dt and A must be contiguous")
     x_rs = _row_stride(x, "x", (H, P))

@@ -70,6 +70,38 @@ def test_gmm_transposed_and_tgmm_on_card(cuda, sizes):
     assert (dw[empty] == 0).all()
 
 
+@pytest.mark.parametrize("sizes,M,K,N", [
+    ([13, 0, 51, 7, 0], 80, 264, 136),     # sizes not multiples of 16; ragged K and N
+    ([400, 16], 432, 128, 256),             # a group of 7 stages of 64 rows (> one ring)
+    ([100, 60], 160, 128, 256),             # the last stage borrows rows of the next group
+    ([80, 48, 0], 128, 192, 264),           # ... at a multiple of 16 (48 rows of the next group)
+    ([64, 0, 128, 48], 256, 2048, 1024),    # 256 tiles: the persistent walk wraps the SMs
+    ([0, 0, 0], 48, 64, 64),                # no rows at all
+])
+def test_tgmm_groups_on_card(cuda, sizes, M, K, N):
+    """dW = tgmm(x, dy) on the TMA + wgmma kernel: rows of the next group
+    in a group's last stage must not be added, rows past the total (NaN
+    here) are never read, empty groups are exact zeros."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    gs = torch.tensor(sizes, dtype=torch.int32, device=cuda)
+    total = sum(sizes)
+    x = torch.randn(M, K, generator=g, device=cuda).bfloat16()
+    dy = torch.randn(M, N, generator=g, device=cuda).bfloat16()
+    x[total:] = float("nan")
+    dy[total:] = float("nan")
+    before = ops.launches["tgmm"]
+    dw = ops.tgmm(x, dy, gs)
+    torch.cuda.synchronize()
+    assert ops.launches["tgmm"] == before + 1
+    assert dw.dtype == torch.bfloat16 and tuple(dw.shape) == (len(sizes), K, N)
+    assert torch.isfinite(dw.float()).all()
+    plain = ref.tgmm_ref(x.float(), dy.float(), gs, len(sizes))
+    if total:
+        _close(dw, plain)
+    empty = torch.tensor([n == 0 for n in sizes], device=cuda)
+    assert (dw[empty] == 0).all()
+
+
 def test_autograd_functions_on_card(cuda):
     """Gradients of gmm, fused_swiglu and combine through the kernels
     against autograd of the plain versions on the same bf16 inputs."""
@@ -252,6 +284,52 @@ def test_tma_kernels_in_a_fresh_thread_on_card(cuda):
     _close(attn, ref.flash_attention_ref(q.float(), q.float(), q.float()))
 
 
+def test_tgmm_and_ssd_in_a_fresh_thread_on_card(cuda):
+    """tgmm (which autograd's backward thread runs) and the SSD kernel
+    called from a thread that has made no CUDA call yet: both encode tensor
+    maps, which needs a current context."""
+    import threading
+    g = torch.Generator(device=cuda).manual_seed(22)
+    gs = torch.tensor([32, 0, 64, 16], dtype=torch.int32, device=cuda)
+    x = torch.randn(128, 64, generator=g, device=cuda).bfloat16()
+    dy = torch.randn(128, 96, generator=g, device=cuda).bfloat16()
+    sx, sdt, sb, sc, sa = _ssd_inputs(cuda, 1, 2, 64, 4, 64, 64, seed=23)
+    results = {}
+
+    def run():
+        try:
+            results["out"] = (ops.tgmm(x, dy, gs), ops.ssd_intra_chunk(sx, sdt, sb, sc, sa))
+        except Exception as e:   # noqa: BLE001 -- reported by the main thread
+            results["error"] = e
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert "error" not in results, results.get("error")
+    torch.cuda.synchronize()
+    dw, ssd = results["out"]
+    _close(dw, ref.tgmm_ref(x.float(), dy.float(), gs, 4))
+    for out, plain in zip(ssd, ref.ssd_intra_chunk_ref(sx.float(), sdt, sb.float(), sc.float(),
+                                                       sa)):
+        _close(out, plain)
+
+
+def test_flash_refuses_grad_on_card(cuda):
+    """On a CUDA tensor that requires grad the flash op raises instead of
+    returning an output with no gradient; under no_grad it launches."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    q, k, v = (torch.randn(1, 64, 4, 64, generator=g, device=cuda).bfloat16() for _ in range(3))
+    before = ops.launches["flash_attention"]
+    with pytest.raises(NotImplementedError, match="blockwise"):
+        ops.flash_attention(q.requires_grad_(), k, v)
+    assert ops.launches["flash_attention"] == before
+    with torch.no_grad():
+        out = ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == before + 1 and out.grad_fn is None
+    _close(out, ref.flash_attention_ref(q.detach().float(), k.float(), v.float()))
+
+
 def _ssd_inputs(cuda, B, C, L, H, P, N, seed, dt_scale=1.0, a_scale=1.0):
     """x, B and C as column slices of one (B, C*L, H*P + 2N) activation,
     as ``mamba2_block`` hands them over; dt > 0 and A < 0 in float32."""
@@ -275,6 +353,31 @@ def test_ssd_kernel_on_card(cuda, B, C, L, H, P, N, dt_scale, a_scale):
     and cdecay against the plain version in float32 from the same inputs."""
     x, dt, Bm, Cm, A = _ssd_inputs(cuda, B, C, L, H, P, N, seed=7, dt_scale=dt_scale,
                                    a_scale=a_scale)
+    before = ops.launches["ssd_intra_chunk"]
+    outs = ops.ssd_intra_chunk(x, dt, Bm, Cm, A)
+    torch.cuda.synchronize()
+    assert ops.launches["ssd_intra_chunk"] == before + 1
+    plains = ref.ssd_intra_chunk_ref(x.float(), dt, Bm.float(), Cm.float(), A)
+    for out, plain in zip(outs, plains):
+        assert out.dtype == torch.float32 and out.shape == plain.shape
+        assert torch.isfinite(out).all()
+        _close(out, plain)
+
+
+@pytest.mark.parametrize("B,C,L,H,P,N,dt_scale,a_scale", [
+    (1, 2, 256, 6, 64, 64, 1.0, 1.0),      # H not a multiple of the head group
+    (2, 1, 256, 5, 64, 64, 1.0, 1.0),      # ... one head in the last group
+    (1, 3, 80, 4, 64, 64, 1.0, 1.0),       # L not a multiple of the 64-row tile
+    (1, 2, 192, 3, 32, 32, 1.0, 1.0),      # three query tiles; P, N below the 64-column tile
+    (1, 2, 256, 4, 64, 64, 40.0, 40.0),    # the decay underflows to 0 off the diagonal
+])
+def test_ssd_wgmma_tiles_on_card(cuda, B, C, L, H, P, N, dt_scale, a_scale):
+    """The head-group tiling of the wgmma kernel, x, B and C read in place
+    from column slices of one xBC activation; outputs finite and within
+    1e-2 of max|plain| of the float32 plain version."""
+    x, dt, Bm, Cm, A = _ssd_inputs(cuda, B, C, L, H, P, N, seed=25, dt_scale=dt_scale,
+                                   a_scale=a_scale)
+    assert x.stride(2) == H * P + 2 * N        # read in place, not copied
     before = ops.launches["ssd_intra_chunk"]
     outs = ops.ssd_intra_chunk(x, dt, Bm, Cm, A)
     torch.cuda.synchronize()
