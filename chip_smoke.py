@@ -3,6 +3,10 @@
 H100: the quickest proof that the port builds, is right, serves and trains.
 
     python3 chip_smoke.py                      # all phases, one card
+    python3 chip_smoke.py --compare PARENT     # serve and train phases of the
+                                               # checkout at PARENT and of this
+                                               # one, in turns (parent, this,
+                                               # this, parent)
 
 Phases, each printing JSON lines:
 
@@ -11,7 +15,11 @@ Phases, each printing JSON lines:
   kernels    each kernel against its plain PyTorch version on the card, at
              the serving, training, hybrid and expert-parallel paths' shapes,
              with its time, the plain version's, one PyTorch library call's
-             where there is one, and its bound;
+             where there is one, and its bound (the MoE dispatch plan also
+             with the host's time to enqueue it and the plain chain, and
+             its one-block and three-launch paths); the pool gathers'
+             backward (gathers and a combine) against the scatter-adds it
+             replaced;
   reference  a small MoE model served through the CUDA kernels agrees with
              the same model run on the CPU through the plain versions;
   train_reference  one training step of a small MoE model on the card
@@ -20,7 +28,8 @@ Phases, each printing JSON lines:
   serve      full-width, full-depth Mula-7B-A1B in bf16 (random weights
              from seed 0) serves 16 requests on 8 slots; asserts the
              results and that every kernel of the path was launched the
-             expected number of times;
+             expected number of times; a ``serve_launches`` line gives the
+             device launches per decode step and layer;
   train      full-width Mula-7B-A1B cut to 4 of its 16 layers (random
              weights from seed 0, fp32 params and AdamW state, bf16
              compute) takes 6 steps on one fixed batch of 2 x 2 x 2048
@@ -50,7 +59,10 @@ Phases, each printing JSON lines:
              global routed-pair count and the exact launch count of every
              kernel. The four ranks time-share one card and gloo carries
              their collectives through host memory: the step time is no EP
-             speed.
+             speed;
+  launches   the device launches of one dispatch plan at each kernel case's
+             shape (at most 3) and of one MoE block at a decode step, each
+             captured in a CUDA graph and counted there.
 
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object listing the kernels, and
@@ -296,7 +308,7 @@ def kernel_cases(cfg) -> list[dict]:
             bytes=2 * (2 * S * nh * hd + 2 * S * nkv * hd),
             flops=4.0 * int(mask.sum()) * nh * hd, peak=BF16_TENSOR_FLOPS, tol="rel"))
     return (cases + edge_kernel_cases(cfg, gen, randn) + hybrid_kernel_cases(gen)
-            + token_counts_cases(cfg, gen))
+            + token_counts_cases(cfg, gen) + dispatch_plan_cases(cfg, gen))
 
 
 def edge_kernel_cases(cfg, gen, randn) -> list[dict]:
@@ -449,6 +461,66 @@ def token_counts_cases(cfg, gen) -> list[dict]:
     return cases
 
 
+def dispatch_plan_cases(cfg, gen) -> list[dict]:
+    """MoE Stages 2 and 3 at the paths' shapes, int64 ids from top-8 routing
+    as the router emits them, in the pools the model sizes: a decode step (8
+    tokens, 64 pairs) and prefills of 128, 512 and 1000 tokens in serving's
+    dropless pool, a train microbatch (4096 tokens, 32,768 pairs) in the
+    capacity pool, and EP's gathered ids (65,536 pairs) for ranks 1 and 3
+    (16 local experts from offsets 16 and 48). Exact equality of every
+    output; the host's time to enqueue the plan and the plain chain (the
+    sort-based index generation the kernel replaces); the kernel's one-block
+    and three-launch paths timed on the same inputs (``variants``: the
+    wrapper picks by ``SINGLE_BLOCK_MAX``). No single PyTorch call computes
+    the plan."""
+    import torch
+    from repro_torch.core import moe
+    from repro_torch.kernels import dispatch_plan as dp
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serve.engine import dropless_cfg
+
+    m = cfg.moe
+    E, K, align = m.num_experts, m.experts_per_token, ops.gmm_align()
+    EL = E // EP_RANKS
+
+    def routed(T):
+        return torch.rand((T, E), generator=gen, device=DEV).topk(K, dim=-1).indices
+
+    def forced(single, el, off, rows):
+        def call(i):
+            saved = dp.SINGLE_BLOCK_MAX
+            dp.SINGLE_BLOCK_MAX = 1 << 31 if single else 0
+            try:
+                return ops.dispatch_plan(i, el, off, rows, align)
+            finally:
+                dp.SINGLE_BLOCK_MAX = saved
+        return call
+
+    ep = routed(EP_RANKS * EP_SEQ)
+    serve_m = dropless_cfg(cfg).moe
+    shapes = [(f"decode T={T}" if T == 8 else f"prefill T={T}", routed(T), E, 0,
+               moe.dispatch_pool_rows(T, serve_m)) for T in (8, 128, 512, 1000)]
+    shapes += [(f"train F={TRAIN_TOKENS * K}", routed(TRAIN_TOKENS), E, 0,
+                moe.dispatch_pool_rows(TRAIN_TOKENS, m))]
+    shapes += [(f"EP F={ep.numel()} offset={off}", ep, EL, off,
+                moe.dispatch_pool_rows(EP_RANKS * EP_SEQ, m, local_experts=EL))
+               for off in (16, 48)]
+    cases = []
+    for name, ids, el, off, rows in shapes:
+        F = ids.numel()
+        cases.append(dict(
+            kernel="dispatch_plan", case=f"{name} EL={el} pool={rows} (int64 ids)", args=(ids,),
+            fn=lambda i, el=el, off=off, rows=rows: ops.dispatch_plan(i, el, off, rows, align),
+            plain=lambda i, el=el, off=off, rows=rows: ref.dispatch_plan_ref(
+                i.reshape(-1), el, off, rows, align),
+            library=None, library_note="none: no single PyTorch call computes the plan",
+            plain_host=True, variants={"one_block": forced(True, el, off, rows),
+                                       "three_launches": forced(False, el, off, rows)},
+            bytes=8 * F + 9 * F + 12 * el + 8 + 9 * rows, flops=0.0, peak=BF16_TENSOR_FLOPS,
+            tol="exact"))
+    return cases
+
+
 TRAIN_TOKENS = 2 * 2048          # tokens per microbatch of the train phase
 
 
@@ -541,6 +613,7 @@ def train_kernel_cases(cfg, gen, randn, *, tokens: int = TRAIN_TOKENS, offset: i
                      "einsum('tkd,td->tk', rows, dout)",
         bytes=2 * (2 * T * K * d + T * K + T * d) + 4 * T * K, flops=3.0 * T * K * d,
         peak=FP32_FLOPS, tol="rel"))
+    cases.append(_pool_gathers_bwd_case(m, d, T, gen, randn, path, offset, local))
     g, u, dh = randn(rows, f, scale=3.0), randn(rows, f), randn(rows, f)
     cases.append(dict(
         kernel="swiglu", case=f"{path} M={rows} N={f}", args=(g, u),
@@ -556,6 +629,48 @@ def train_kernel_cases(cfg, gen, randn, *, tokens: int = TRAIN_TOKENS, offset: i
                      "dout * silu(gate)",
         bytes=5 * 2 * rows * f, flops=12.0 * rows * f, peak=FP32_FLOPS, tol="rel"))
     return cases
+
+
+def _pool_gathers_bwd_case(m, d, T, gen, randn, path, offset, local) -> dict:
+    """The backward of the gathers into the slot pool and out of it (plain
+    PyTorch around one combine launch: ``moe.pool_gather_backward`` and
+    ``combine_gather_backward``) for one dispatch of T tokens, against the
+    indexing ops' backward it replaced (the yardstick: two
+    ``index_put_(accumulate=True)``, a sort-based scatter-add, in bf16) and
+    the same scatter-adds in float32 (the plain version)."""
+    import torch
+    from repro_torch.core import moe
+    from repro_torch.kernels import ops
+
+    K = m.experts_per_token
+    ids = torch.rand((T, m.num_experts), generator=gen, device=DEV).topk(K, dim=-1).indices
+    rows = moe.dispatch_pool_rows(T, m, local_experts=local)
+    plan = moe.make_dispatch_plan(ids, num_experts=m.num_experts, pool_rows=rows,
+                                  align=ops.gmm_align(), expert_offset=offset,
+                                  local_experts=local)
+    safe = torch.clamp(plan.slot, max=rows - 1)
+    inv_token = plan.inv_pair // K
+
+    def gathers(d_pool, d_yk):
+        return (moe.pool_gather_backward(d_pool, safe, plan.valid, K),
+                moe.combine_gather_backward(d_yk, plan.inv_pair, plan.pool_valid))
+
+    def scatters(d_pool, d_yk):
+        dx = torch.zeros((T, d), dtype=d_pool.dtype, device=DEV).index_put_(
+            (inv_token,), d_pool * plan.pool_valid[:, None].to(d_pool.dtype), accumulate=True)
+        dp = torch.zeros((rows, d), dtype=d_yk.dtype, device=DEV).index_put_(
+            (safe,), d_yk * plan.valid[:, None].to(d_yk.dtype), accumulate=True)
+        return dx, dp
+
+    pairs = int(plan.valid.sum())
+    return dict(
+        kernel="pool_gathers_bwd", case=f"{path} T={T} K={K} D={d} pool={rows} pairs={pairs}",
+        args=(randn(rows, d), randn(T * K, d)), fn=gathers,
+        plain=lambda dp, dy: scatters(dp.float(), dy.float()), library=scatters,
+        library_note="the indexing ops' backward it replaced: 2 index_put_(accumulate=True) "
+                     "and their masks, bf16",
+        bytes=2 * (2 * pairs * d + T * d + rows * d) + 8 * (T * K + rows) + T * K + rows,
+        flops=2.0 * pairs * d, peak=FP32_FLOPS, tol="rel")
 
 
 def _ulp_check(out, plain) -> tuple[float, float]:
@@ -618,6 +733,14 @@ def phase_kernels(cfg) -> list[dict]:
                "bound_ms": b_ms, "bound_by": b_by, "bytes": c["bytes"], "flops": c["flops"]}
         if c.get("library_note"):
             row["library_note"] = c["library_note"]
+        if c.get("plain_host"):
+            row["plain_host_us"] = host_us(c["plain"], args, calls=5, rounds=3)
+        if c.get("variants"):
+            plains = c["plain"](*args)
+            for name, fn in c["variants"].items():
+                if not all(torch.equal(a, b) for a, b in zip(fn(*args), plains)):
+                    raise AssertionError(f"{c['kernel']} {c['case']}: {name} differs")
+            row["variant_ms"] = {name: graph_ms(fn, args) for name, fn in c["variants"].items()}
         emit("kernels", **row)
         results.append(row)
     return results
@@ -755,14 +878,16 @@ TRAIN_STEPS = 6
 
 def expected_train_launches(num_layers: int, microbatches: int, steps: int) -> dict:
     """Launches per training run (per rank under EP) under block remat. Per
-    layer and microbatch: forward token_counts, gmm x3, SwiGLU, combine; the
-    backward recomputes that forward, then gmm x3 for dx (transposed rhs),
-    tgmm x3 for dW, one swiglu_bwd and one combine_bwd. Attention is the
-    plain blockwise path."""
+    layer and microbatch: forward token_counts (the router's aux histogram),
+    dispatch_plan, gmm x3, SwiGLU, combine; the backward recomputes that
+    forward, then gmm x3 for dx (transposed rhs), tgmm x3 for dW, one
+    swiglu_bwd, one combine_bwd and one combine (the token gather's
+    backward, which sums each token's pool rows). Attention is the plain
+    blockwise path."""
     n = num_layers * microbatches * steps
     return {"gmm": 9 * n, "tgmm": 3 * n, "swiglu": 2 * n, "swiglu_bwd": n,
-            "combine": 2 * n, "combine_bwd": n, "flash_attention": 0, "ssd_intra_chunk": 0,
-            "token_counts": 2 * n}
+            "combine": 3 * n, "combine_bwd": n, "flash_attention": 0, "ssd_intra_chunk": 0,
+            "token_counts": 2 * n, "dispatch_plan": 2 * n}
 
 
 def phase_train() -> dict:
@@ -900,7 +1025,7 @@ def phase_serve() -> dict:
     expect = {"gmm": 3 * cfg.num_layers * (prefills + steps),
               "swiglu": cfg.num_layers * (prefills + steps),
               "combine": cfg.num_layers * (prefills + steps),
-              "token_counts": cfg.num_layers * (prefills + steps),
+              "dispatch_plan": cfg.num_layers * (prefills + steps), "token_counts": 0,
               "flash_attention": cfg.num_layers * prefills,
               "tgmm": 0, "swiglu_bwd": 0, "combine_bwd": 0, "ssd_intra_chunk": 0}
     if launches != expect:
@@ -914,6 +1039,10 @@ def phase_serve() -> dict:
     if alone[0] != alone[1]:
         raise AssertionError("a greedy request served alone twice gave different tokens")
     profiles = _profile_serving(engine, prompts)
+    decode_events = profiles["profile_decode_3_steps"]["device_events"]
+    emit("serve_launches", decode_steps=3, layers=cfg.num_layers,
+         device_events_decode_window=decode_events,
+         device_launches_per_step_per_layer=decode_events / (3 * cfg.num_layers))
 
     n_tok = sum(len(results[r].tokens) for r in rids)
     row = {"model": cfg.name, "params": n_params, "param_init_s": init_s,
@@ -931,7 +1060,8 @@ def phase_serve() -> dict:
 # the CUDA kernels of csrc/ by function name, for the profiles' totals
 PORT_KERNELS = ("gmm_kernel", "tgmm_kernel", "swiglu_kernel", "swiglu_bwd_kernel",
                 "combine_kernel", "combine_bwd_kernel", "flash_fwd_kernel",
-                "ssd_intra_chunk_kernel", "token_counts_kernel")
+                "ssd_intra_chunk_kernel", "token_counts_kernel", "plan_single_kernel",
+                "plan_count_kernel", "plan_scan_kernel", "plan_rank_kernel")
 
 
 def _profile_window(run, host_prefixes: tuple = ()) -> dict:
@@ -969,6 +1099,7 @@ def _profile_window(run, host_prefixes: tuple = ()) -> dict:
                 e["calls"] += len(v)
     out = {"wall_ms": wall_ms,
            "device_busy_ms": busy if by_name else None,
+           "device_events": sum(len(v) for v in by_name.values()),
            "device_idle_share": 1 - busy / wall_ms if by_name else None,
            "top_device_kernels": [{"name": n[:100], "ms": sum(v), "calls": len(v)}
                                   for n, v in top],
@@ -1492,6 +1623,148 @@ def phase_ep_train() -> dict:
 
 
 # ----------------------------------------------------------------------------
+# device launches, counted by the profiler after every timed phase
+# ----------------------------------------------------------------------------
+
+def _moe_block_decode(cfg, device):
+    """One MoE block of the model's widths (random weights from seed 0, one
+    layer) and a decode step's 8 tokens, as serving runs it: dropless, no
+    grad, no aux where the block takes ``aux``. Returns a call."""
+    import inspect
+
+    import torch
+    from repro_torch.core.moe import init_moe_block, sparse_moe_block
+    from repro_torch.serve.engine import dropless_cfg
+    scfg = dropless_cfg(cfg)
+    gen = torch.Generator(device=device).manual_seed(0)
+    p = {k: v[0] for k, v in init_moe_block(scfg, num_layers=1, generator=gen, device=device,
+                                             dtype=torch.bfloat16).items()}
+    x = torch.randn((8, 1, cfg.d_model), generator=gen, device=device).bfloat16()
+    kw = {"aux": False} if "aux" in inspect.signature(sparse_moe_block).parameters else {}
+
+    def block():
+        with torch.no_grad():
+            sparse_moe_block(p, x, scfg, **kw)
+
+    block()
+    return block
+
+
+def graph_launches(fn) -> int:
+    """Device launches (kernel, memset and copy nodes) of one call of
+    ``fn()``, captured in a CUDA graph (a capture fails on a host sync) and
+    counted in the graph's DOT dump. The profiler's device events lose some
+    launches of short windows on the card, a graph does not."""
+    import re
+    import tempfile
+    import warnings
+
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)      # keep the graph for the dump
+    graph.enable_debug_mode()
+    with torch.cuda.graph(graph):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp, warnings.catch_warnings():
+        warnings.simplefilter("ignore")            # the dump's own DEBUG notices
+        dot = Path(tmp) / "graph.dot"
+        graph.debug_dump(str(dot))
+        text = dot.read_text()
+    del graph
+    return len(re.findall(r'^"graph_\d+_node_\d+"\s*\[', text, flags=re.M))
+
+
+def phase_launches(cfg) -> dict:
+    """The device launches of one dispatch plan at each kernel case's shape
+    (at most 3: the plan must not grow into a chain again) and of one MoE
+    block at a decode step's 8 tokens, each call captured in a CUDA graph."""
+    import torch
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    plans = {c["case"]: graph_launches(lambda c=c: c["fn"](*c["args"]))
+             for c in dispatch_plan_cases(cfg, gen)}
+    row = {"dispatch_plan_device_launches": plans,
+           "moe_block_decode_device_launches": graph_launches(_moe_block_decode(cfg, DEV))}
+    emit("launches", **row)
+    bad = {k: v for k, v in plans.items() if not 1 <= v <= 3}
+    if bad:
+        raise AssertionError(f"dispatch_plan: device launches per plan {bad}, not 1 to 3")
+    return row
+
+
+# ----------------------------------------------------------------------------
+# parent against change: --compare runs the serve and train phases of two
+# trees in turns, each side in its own process (--side)
+# ----------------------------------------------------------------------------
+
+def _side(root: str) -> None:
+    """One side of ``--compare``: the serve and train phases of the
+    chip_smoke.py under ``root`` (with that tree's ``src/`` and launch
+    expectations), profiled by this file's ``_profile_window``; the tokens
+    of the serve run; the host time to enqueue one ``make_dispatch_plan``
+    at a decode step's and a train microbatch's shapes; the device launches
+    of one MoE block at a decode step. Prints a ``side`` line."""
+    import importlib.util
+
+    sys.path.insert(0, str(Path(root) / "src"))
+    spec = importlib.util.spec_from_file_location("smoke_under_test",
+                                                  Path(root) / "chip_smoke.py")
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other._profile_window = _profile_window
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import moe
+    from repro_torch.kernels import _build, ops
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import dropless_cfg
+
+    _build.library()
+    runs = []
+    engine_run = ServeEngine.run
+
+    def run(self):
+        res = engine_run(self)
+        runs.append({int(k): v.tokens for k, v in res.items()})
+        return res
+
+    ServeEngine.run = run
+    cfg = get_config(MULA)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    plan_us = {}
+    for name, T, m in (("decode", 8, dropless_cfg(cfg).moe), ("train", TRAIN_TOKENS, cfg.moe)):
+        ids = torch.rand((T, cfg.moe.num_experts), generator=gen, device=DEV).topk(
+            cfg.moe.experts_per_token, dim=-1).indices
+        rows = moe.dispatch_pool_rows(T, m)
+        plan_us[name] = host_us(lambda i, rows=rows: moe.make_dispatch_plan(
+            i, num_experts=cfg.moe.num_experts, pool_rows=rows, align=ops.gmm_align()), (ids,))
+    serve = other.phase_serve()
+    moe_launches = graph_launches(_moe_block_decode(cfg, DEV))
+    torch.cuda.empty_cache()
+    train = other.phase_train()
+    emit("side", root=str(root), nvidia_smi=nvidia_smi(), host_us_make_dispatch_plan=plan_us,
+         moe_block_decode_device_launches=moe_launches, serve_tokens=runs[1],
+         serve={k: serve[k] for k in ("decode_step_ms_median", "tokens_per_s", "wall_s",
+                                      "profile_decode_3_steps", "profile_prefill_1024")},
+         train={k: train[k] for k in ("losses", "step_ms_median", "tokens_per_s",
+                                      "profile_step")})
+
+
+def compare(parent: str) -> int:
+    """The parent tree's and this tree's sides in turns: parent, this, this,
+    parent, each in its own process on the card."""
+    for root in (parent, ROOT, ROOT, parent):
+        subprocess.run([sys.executable, str(Path(__file__).resolve()), "--side", str(root)],
+                       check=True, timeout=900)
+    print(nvidia_smi(), flush=True)
+    return 0
+
+
+# ----------------------------------------------------------------------------
 
 SOURCES = {"gmm": "src/repro_torch/csrc/gmm.cu",
            "tgmm": "src/repro_torch/csrc/tgmm.cu",
@@ -1501,7 +1774,8 @@ SOURCES = {"gmm": "src/repro_torch/csrc/gmm.cu",
            "combine_bwd": "src/repro_torch/csrc/combine.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
            "ssd_intra_chunk": "src/repro_torch/csrc/ssd.cu",
-           "token_counts": "src/repro_torch/csrc/token_counts.cu"}
+           "token_counts": "src/repro_torch/csrc/token_counts.cu",
+           "dispatch_plan": "src/repro_torch/csrc/dispatch_plan.cu"}
 REPLACES = {"gmm": "src/repro/kernels/gmm.py:40",
             "tgmm": "src/repro/kernels/gmm.py:98",
             "swiglu": "src/repro/kernels/swiglu.py:21",
@@ -1510,19 +1784,26 @@ REPLACES = {"gmm": "src/repro/kernels/gmm.py:40",
             "combine_bwd": "src/repro/kernels/combine.py:58",
             "flash_attention": "src/repro/kernels/flash_attention.py:67",
             "ssd_intra_chunk": "src/repro/kernels/ssd.py:54",
-            "token_counts": "src/repro/kernels/moe_dispatch.py:34"}
+            "token_counts": "src/repro/kernels/moe_dispatch.py:34",
+            "dispatch_plan": "src/repro/kernels/moe_dispatch.py:34 with "
+                             "src/repro/core/moe.py:171"}
 # the case whose numbers head the summary line: the training path's for the
 # kernels it runs, the 512-token prefill for flash (serving only), the
-# 4096-token prompt for the SSD stage, EP's gathered ids for the histogram
+# 4096-token prompt for the SSD stage, EP's gathered ids for the histogram,
+# a train microbatch for the dispatch plan
 HEADLINE = {"gmm": "train gate", "tgmm": "train gate M", "swiglu": "train",
             "swiglu_bwd": "train", "combine": "train", "combine_bwd": "train",
             "flash_attention": "Sq=512 ", "ssd_intra_chunk": "S=4096 ",
-            "token_counts": "EP F=65536 EL=16 offset=16"}
+            "token_counts": "EP F=65536 EL=16 offset=16", "dispatch_plan": "train F=32768"}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.parse_args(argv)
+    ap.add_argument("--compare", metavar="PARENT_ROOT",
+                    help="instead of the smoke run: the serve and train phases of the "
+                         "checkout at PARENT_ROOT and of this one, in turns")
+    ap.add_argument("--side", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
@@ -1532,6 +1813,11 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from the repository",
               file=sys.stderr)
         return 2
+    if args.side:
+        _side(args.side)
+        return 0
+    if args.compare:
+        return compare(args.compare)
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import get_config
     from repro_torch.kernels import _build
@@ -1556,6 +1842,7 @@ def main(argv=None) -> int:
     hybrid = phase_hybrid_serve()
     phase_ep_reference()
     ep_train = phase_ep_train()
+    phase_launches(get_config(MULA))
 
     summary = []
     for name in SOURCES:
@@ -1572,6 +1859,7 @@ def main(argv=None) -> int:
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "host_us": head["host_us"], "plain_host_us": head.get("plain_host_us"),
             "case": head["case"],
             "cases": [{k: r[k] for k in ("case", "ms", "plain_ms", "library_ms", "bound_ms",
                                          "bound_by", "max_abs_err")} for r in rows]})

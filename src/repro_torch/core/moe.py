@@ -2,11 +2,12 @@
 package's ``core/moe.py``.
 
 * ``moe_naive``          every expert computes every token; the test oracle.
-* ``_moe_dense``         route -> Stage 2 histogram (the ``token_counts``
-                         kernel) -> sort-based dispatch into a slot pool ->
-                         grouped expert FFN -> weighted combine, through the
-                         kernel wrappers of ``kernels/ops.py`` (grouped
-                         matmul, fused SwiGLU, combine).
+* ``_moe_dense``         route -> Stages 2 and 3, the histogram and the
+                         dispatch plan (the ``dispatch_plan`` kernel) ->
+                         gather into a slot pool -> grouped expert FFN ->
+                         weighted combine, through the kernel wrappers of
+                         ``kernels/ops.py`` (dispatch plan, grouped matmul,
+                         fused SwiGLU, combine).
 * ``moe_fsmoe_ep``       paper Algorithm 1 under expert parallelism over an
                          ``EPGroup`` (``torch.distributed``): route the
                          rank's tokens, all-gather tokens and routing
@@ -26,10 +27,13 @@ Everything stays on the device: no step of the dispatch reads a value back
 to the host.
 
 The block is differentiable end to end: the gathers into the pool and back
-out of it are indexing ops (their backward scatter-adds), the grouped FFN
-and the combine are ``autograd.Function``s over the kernels, the combine
-weights carry the gradient into the router, and the router's aux and z
-losses are plain PyTorch.
+out of it are ``autograd.Function``s whose backward is a gather too (each
+pool row belongs to one (token, k) pair, so the plan's inverse map turns
+the scatter-add into a gather, and a token's rows are summed by the
+combine kernel), the grouped FFN and the combine are ``autograd.Function``s
+over the kernels, the combine weights carry the gradient into the router,
+and the router's aux and z losses are plain PyTorch around the Stage 2
+histogram kernel.
 """
 from __future__ import annotations
 
@@ -43,7 +47,7 @@ from repro_torch.kernels import ops
 from repro_torch.parallel.ep import (EPGroup, all_gather_tokens, all_reduce_sum,
                                      reduce_scatter_tokens)
 
-from .router import RouterOut, histogram, route
+from .router import RouterOut, route
 
 
 def round_up(x: int, m: int) -> int:
@@ -85,10 +89,10 @@ def _shared_expert(p, x):
 # naive baseline (every expert computes every token)
 # ----------------------------------------------------------------------------
 
-def moe_naive(p, x, moe_cfg) -> tuple[torch.Tensor, RouterOut]:
+def moe_naive(p, x, moe_cfg, *, aux: bool = True) -> tuple[torch.Tensor, RouterOut]:
     r = route(x, p["router"], num_experts=moe_cfg.num_experts,
               top_k=moe_cfg.experts_per_token,
-              forced_uniform=moe_cfg.forced_uniform_routing)
+              forced_uniform=moe_cfg.forced_uniform_routing, aux=aux)
     gate, up, down = (p[k].to(x.dtype) for k in ("gate", "up", "down"))
     h = F.silu(torch.einsum("td,edf->etf", x, gate)) * torch.einsum("td,edf->etf", x, up)
     ys = torch.einsum("etf,efd->etd", h, down)                     # (E, T, d)
@@ -111,6 +115,8 @@ class DispatchPlan(NamedTuple):
     group_sizes: torch.Tensor  # (EL,) int32 aligned pool group sizes
     pool_rows: int             # static pool size
     drops: torch.Tensor        # () dropped (over-capacity) local pairs
+    inv_pair: torch.Tensor     # (pool_rows,) the (token, k) pair filling each row (0: none)
+    pool_valid: torch.Tensor   # (pool_rows,) bool — True = a pair fills the row
 
 
 class MoeStats(NamedTuple):
@@ -122,44 +128,20 @@ class MoeStats(NamedTuple):
 def make_dispatch_plan(indices: torch.Tensor, *, num_experts: int, pool_rows: int,
                        align: int = 8, expert_offset: int = 0,
                        local_experts: int = 0) -> DispatchPlan:
-    """Stages 2 and 3: the histogram, then sort-based index generation.
-    indices: (T, K) global expert ids. Only the ``EL = local_experts or
-    num_experts`` experts ``[expert_offset, expert_offset + EL)`` are
-    dispatched (EP rank r: offset r * EL); other ids sort to the sentinel
-    key EL and are masked. Each expert's group is its count rounded up to
-    ``align`` rows; the groups share the pool in expert order, and pairs past
-    the pool's end are dropped."""
-    T, K = indices.shape
-    dev = indices.device
+    """Stages 2 and 3: the histogram, then the index generation, in one
+    kernel on the card (``ops.dispatch_plan``; ``ref.dispatch_plan_ref``,
+    the JAX package's sort-based chain, on the CPU). indices: (T, K) global
+    expert ids. Only the ``EL = local_experts or num_experts`` experts
+    ``[expert_offset, expert_offset + EL)`` are dispatched (EP rank r:
+    offset r * EL); other ids sort to the sentinel key EL and are masked.
+    Each expert's group is its count rounded up to ``align`` rows; the
+    groups share the pool in expert order, and pairs past the pool's end
+    are dropped. The plan also holds the inverse map, pool row -> pair."""
     EL = local_experts or num_experts
-    counts = ops.token_counts(indices, EL, expert_offset).long()   # Stage 2 histogram
-    local = indices.reshape(-1).long() - expert_offset
-    key = torch.where((local >= 0) & (local < EL), local, EL)      # non-local -> sentinel
-    order = torch.argsort(key, stable=True)
-    sorted_key = key[order]
-
-    gs_aligned = (counts + align - 1) // align * align
-    cum = torch.clamp(torch.cumsum(gs_aligned, 0), max=pool_rows)
-    offsets = torch.cat([torch.zeros(1, dtype=cum.dtype, device=dev), cum])
-    group_sizes = offsets[1:] - offsets[:-1]
-
-    # position of each sorted element within its expert group. The sentinel
-    # group (T*K - sum(counts) pairs) starts at sum(counts), the last entry of
-    # ``starts``; its own size is never needed, so the kernel's local counts
-    # are the whole histogram
-    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(counts, 0)])
-    pos_sorted = torch.arange(T * K, device=dev) - starts[sorted_key]
-
-    safe_key = torch.clamp(sorted_key, max=EL - 1)
-    slot_sorted = offsets[safe_key] + pos_sorted
-    valid_sorted = (sorted_key < EL) & (pos_sorted < group_sizes[safe_key])
-    slot_sorted = torch.where(valid_sorted, slot_sorted, torch.full_like(slot_sorted, pool_rows))
-
-    slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
-    valid = torch.empty_like(valid_sorted).scatter_(0, order, valid_sorted)
-    drops = counts.sum() - valid_sorted.sum()
-    return DispatchPlan(slot, valid, counts, group_sizes.to(torch.int32), int(pool_rows),
-                        drops)
+    slot, valid, counts, group_sizes, drops, inv_pair, pool_valid = ops.dispatch_plan(
+        indices, EL, expert_offset, pool_rows, align)
+    return DispatchPlan(slot, valid, counts, group_sizes, int(pool_rows), drops, inv_pair,
+                        pool_valid)
 
 
 def pool_size(tokens: int, top_k: int, num_experts: int, local_experts: int,
@@ -206,6 +188,63 @@ def grouped_ffn(gate_w, up_w, down_w, pool_x, group_sizes):
 
 
 # ----------------------------------------------------------------------------
+# the gathers into the slot pool and back out of it
+# ----------------------------------------------------------------------------
+
+def pool_gather_backward(d_pool: torch.Tensor, safe_slot: torch.Tensor, valid: torch.Tensor,
+                         top_k: int) -> torch.Tensor:
+    """The token gradient of the gather into the pool: ``dx[t] = sum_k
+    valid[t, k] * d_pool[safe_slot[t, k]]``, each pair's row gathered and a
+    token's K rows summed by the combine kernel with 0/1 weights (not a
+    scatter-add: each valid pool row belongs to one pair)."""
+    T = valid.shape[0] // top_k
+    rows = d_pool[safe_slot].reshape(T, top_k, d_pool.shape[1])
+    return ops.combine(rows, valid.reshape(T, top_k).to(d_pool.dtype))
+
+
+def combine_gather_backward(d_yk: torch.Tensor, inv_pair: torch.Tensor,
+                            pool_valid: torch.Tensor) -> torch.Tensor:
+    """The pool gradient of the gather out of the pool: ``d_pool[row] =
+    d_yk[inv_pair[row]] * pool_valid[row]``, each valid row the gradient of
+    the one pair that fills it, 0 for a row no pair fills."""
+    return d_yk[inv_pair] * pool_valid[:, None].to(d_yk.dtype)
+
+
+class _PoolGather(torch.autograd.Function):
+    """pool_x = x[inv_pair // K] * pool_valid: each pool row is the token of
+    the one (token, k) pair that fills it (0 for a row no pair fills).
+    Backward: ``pool_gather_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, inv_pair, pool_valid, safe_slot, valid, top_k):
+        ctx.save_for_backward(safe_slot, valid)
+        ctx.top_k = top_k
+        return x[inv_pair // top_k] * pool_valid[:, None].to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, d_pool):
+        safe_slot, valid = ctx.saved_tensors
+        dx = pool_gather_backward(d_pool, safe_slot, valid, ctx.top_k)
+        return dx, None, None, None, None, None
+
+
+class _CombineGather(torch.autograd.Function):
+    """yk = pool_y[safe_slot] * valid: each (token, k) pair's row of the
+    expert outputs (0 for a dropped or non-local pair). Backward:
+    ``combine_gather_backward``."""
+
+    @staticmethod
+    def forward(ctx, pool_y, safe_slot, valid, inv_pair, pool_valid):
+        ctx.save_for_backward(inv_pair, pool_valid)
+        return pool_y[safe_slot] * valid[:, None].to(pool_y.dtype)
+
+    @staticmethod
+    def backward(ctx, d_yk):
+        inv_pair, pool_valid = ctx.saved_tensors
+        return combine_gather_backward(d_yk, inv_pair, pool_valid), None, None, None, None
+
+
+# ----------------------------------------------------------------------------
 # Stages 2-5 on one device
 # ----------------------------------------------------------------------------
 
@@ -225,40 +264,38 @@ def dispatch_compute_combine(gate_w, up_w, down_w, x, r: RouterOut, moe_cfg, *,
                               align=ops.gmm_align(), expert_offset=expert_offset,
                               local_experts=EL)
 
-    # inverse map: pool row -> source token; dropped pairs land in the
-    # extra row ``rows`` and are cut off (the JAX scatter's mode="drop")
-    tok_flat = torch.arange(T * K, device=x.device) // K
-    inv_token = torch.zeros(rows + 1, dtype=torch.int64, device=x.device)
-    inv_token[plan.slot] = tok_flat
-    pool_valid = torch.zeros(rows + 1, dtype=torch.bool, device=x.device)
-    pool_valid[plan.slot] = plan.valid
-    pool_x = x[inv_token[:rows]] * pool_valid[:rows, None].to(x.dtype)
+    # dropped and non-local pairs read the last row, masked to 0
+    safe_slot = torch.clamp(plan.slot, max=rows - 1)
+    pool_x = _PoolGather.apply(x, plan.inv_pair, plan.pool_valid, safe_slot, plan.valid, K)
 
     pool_y = grouped_ffn(gate_w, up_w, down_w, pool_x, plan.group_sizes)
 
     # Stage 5: weighted combine
-    safe_slot = torch.clamp(plan.slot, max=rows - 1)
-    yk = (pool_y[safe_slot] * plan.valid[:, None].to(pool_y.dtype)).reshape(T, K, d)
+    yk = _CombineGather.apply(pool_y, safe_slot, plan.valid, plan.inv_pair,
+                              plan.pool_valid).reshape(T, K, d)
     out = ops.combine(yk, r.weights.to(pool_y.dtype))
     return out, plan
 
 
-def _moe_dense(p, x, moe_cfg, *, dropless: bool = False, ep_group: Optional[EPGroup] = None):
+def _moe_dense(p, x, moe_cfg, *, dropless: bool = False, ep_group: Optional[EPGroup] = None,
+               aux: bool = True):
     """Route, dispatch, compute, combine. Returns (out, router_out, MoeStats).
     With ``ep_group`` (the dense fallback under EP: every rank holds every
     expert and runs its own tokens) the aux and z losses and the stats are
-    those of the global batch."""
+    those of the global batch. ``aux=False``: no aux, z or stats (None)."""
     reduce = None
     if ep_group is not None:
         def reduce(t):
             return all_reduce_sum(t, ep_group)
     r = route(x, p["router"], num_experts=moe_cfg.num_experts,
               top_k=moe_cfg.experts_per_token,
-              forced_uniform=moe_cfg.forced_uniform_routing, reduce=reduce)
+              forced_uniform=moe_cfg.forced_uniform_routing, reduce=reduce, aux=aux)
     out, plan = dispatch_compute_combine(p["gate"], p["up"], p["down"], x, r, moe_cfg,
                                          dropless=dropless)
     if moe_cfg.num_shared_experts:
         out = out + _shared_expert(p, x)
+    if not aux:
+        return out, r, None
     stats = MoeStats(plan.counts.float(), plan.drops.float())
     if reduce is not None:
         tot = reduce(torch.cat([stats.counts, stats.drops[None]]))
@@ -317,11 +354,13 @@ def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False):
     return out, aux / world, z / world, stats
 
 
-def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None):
+def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None, aux: bool = True):
     """x: (B, S, d) -> (out (B, S, d), aux_loss, z_loss, MoeStats). With
     ``ep_group``, x is the rank's share of the batch: the block runs
     ``moe_fsmoe_ep`` when ``uses_ep`` says so, else the dense path with
-    whole expert stacks; either way aux, z and the stats are global."""
+    whole expert stacks; either way aux, z and the stats are global.
+    ``aux=False`` (serving, which discards them; one device): the aux and z
+    losses and the stats are not computed, and are None."""
     B, S, d = x.shape
     m = cfg.moe
     xt = x.reshape(B * S, d)
@@ -330,15 +369,20 @@ def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None):
         if ep_group is not None:
             raise NotImplementedError("moe_impl='naive' is the single-device oracle; "
                                       "it does not run under EP")
-        out, r = moe_naive(p, xt, m)
-        stats = MoeStats(histogram(r.indices, m.num_experts).float(),
+        out, r = moe_naive(p, xt, m, aux=aux)
+        if not aux:
+            return out.reshape(B, S, d), None, None, None
+        stats = MoeStats(ops.token_counts(r.indices, m.num_experts).float(),
                          torch.zeros((), device=x.device))
         return out.reshape(B, S, d), r.aux_loss, r.z_loss, stats
+    if ep_group is not None and not aux:
+        raise ValueError("aux=False is for one device: under EP the aux and z losses "
+                         "and the stats are reduced over the ranks")
     if ep_group is not None and uses_ep(m, ep_group.world):
         out, aux, z, stats = moe_fsmoe_ep(p, xt, m, ep_group, dropless=dropless)
         return out.reshape(B, S, d), aux, z, stats
     if p["gate"].shape[0] != m.num_experts:
         raise ValueError(f"the dense path needs every expert; the stack holds "
                          f"{p['gate'].shape[0]} of {m.num_experts}")
-    out, r, stats = _moe_dense(p, xt, m, dropless=dropless, ep_group=ep_group)
+    out, r, stats = _moe_dense(p, xt, m, dropless=dropless, ep_group=ep_group, aux=aux)
     return out.reshape(B, S, d), r.aux_loss, r.z_loss, stats

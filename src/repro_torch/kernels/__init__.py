@@ -8,6 +8,7 @@ launchers, plain PyTorch versions and public wrappers.
   flash_attention.py  flash attention launcher         (csrc/flash_attention.cu)
   ssd.py              SSD intra-chunk launcher         (csrc/ssd.cu)
   token_counts.py     Stage-2 histogram launcher       (csrc/token_counts.cu)
+  dispatch_plan.py    Stages 2-3 dispatch plan launcher (csrc/dispatch_plan.cu)
   ops.py              public wrappers + launch counts
   _build.py           nvcc build + ctypes loading
 """

@@ -47,6 +47,9 @@ _SIGNATURES = {
                                ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong, _P],
                               _I),
     "repro_token_counts": ([_P, ctypes.c_longlong, ctypes.c_longlong, _I, _P, _P], _I),
+    "repro_dispatch_plan_max_local": ([], _I),
+    "repro_dispatch_plan": ([_P, ctypes.c_longlong, ctypes.c_longlong, _I, ctypes.c_longlong, _I,
+                             _I, _I, _P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P], _I),
 }
 
 

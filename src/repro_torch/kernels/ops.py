@@ -20,6 +20,12 @@
 * ``token_counts(ids, num_local, offset)``  paper Stage 2: the histogram of
                                    routed expert ids over one rank's local
                                    range; integers, no gradient.
+* ``dispatch_plan(ids, num_local, offset, pool_rows, align)``  paper
+                                   Stages 2 and 3 in one kernel: the
+                                   histogram, the count-aligned pool
+                                   groups, each pair's slot and validity
+                                   and the inverse pool map; integers, no
+                                   gradient.
 
 The first three are ``torch.autograd.Function``s, as the JAX package's
 are ``jax.custom_vjp``s. Their backward kernels are callable on their
@@ -38,6 +44,7 @@ import torch
 
 from . import ref
 from .combine import combine_bwd_cuda, combine_cuda
+from .dispatch_plan import dispatch_plan_cuda
 from .flash_attention import flash_attention_cuda
 from .gmm import BLOCK_M, gmm_cuda, tgmm_cuda
 from .ssd import ssd_intra_chunk_cuda
@@ -45,7 +52,8 @@ from .swiglu import swiglu_bwd_cuda, swiglu_cuda
 from .token_counts import token_counts_cuda
 
 launches = {"gmm": 0, "tgmm": 0, "swiglu": 0, "swiglu_bwd": 0, "combine": 0,
-            "combine_bwd": 0, "flash_attention": 0, "ssd_intra_chunk": 0, "token_counts": 0}
+            "combine_bwd": 0, "flash_attention": 0, "ssd_intra_chunk": 0, "token_counts": 0,
+            "dispatch_plan": 0}
 
 
 def reset_launches() -> None:
@@ -233,4 +241,20 @@ def token_counts(ids: torch.Tensor, num_local: int, offset: int = 0) -> torch.Te
         return ref.token_counts_ref(flat, num_local, offset)
     out = token_counts_cuda(flat, num_local, offset)
     launches["token_counts"] += 1
+    return out
+
+
+def dispatch_plan(ids: torch.Tensor, num_local: int, offset: int, pool_rows: int, align: int):
+    """ids: int64 expert ids of the (token, k) pairs, any shape, in flat
+    order -> (slot, valid, counts, group_sizes, drops, inv_pair,
+    pool_valid) of the dispatch of the experts ``[offset, offset +
+    num_local)`` into a pool of ``pool_rows`` rows with groups aligned to
+    ``align`` rows (``ref.dispatch_plan_ref`` defines each). One count of
+    ``launches`` per plan (one kernel launch up to
+    ``dispatch_plan.SINGLE_BLOCK_MAX`` pairs, three above)."""
+    flat = ids.reshape(-1)
+    if _on_cpu(flat):
+        return ref.dispatch_plan_ref(flat, num_local, offset, pool_rows, align)
+    out = dispatch_plan_cuda(flat, num_local, offset, pool_rows, align)
+    launches["dispatch_plan"] += 1
     return out

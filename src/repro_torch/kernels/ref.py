@@ -79,6 +79,60 @@ def token_counts_ref(ids: torch.Tensor, num_local: int, offset: int) -> torch.Te
     return (local[:, None] == bins[None, :]).sum(0, dtype=torch.int32)
 
 
+def dispatch_plan_ref(ids: torch.Tensor, num_local: int, offset: int, pool_rows: int,
+                      align: int):
+    """MoE Stages 2 and 3: the histogram, then sort-based index generation,
+    and the inverse map of the slot pool. ``ids``: the (F,) flat expert ids
+    of the (token, k) pairs in flat order. Only ids in ``[offset, offset +
+    num_local)`` are dispatched; the others sort to the sentinel key
+    ``num_local`` and are masked. Each local expert's group is its count
+    rounded up to ``align`` rows; the groups share the pool in expert order
+    (the running sum clamped at ``pool_rows``), and a pair whose stable rank
+    among its expert's pairs reaches its group's size is dropped. Returns
+
+    * ``slot`` (F,) int64: the pair's pool row, ``pool_rows`` if dropped or
+      non-local; ``valid`` (F,) bool;
+    * ``counts`` (num_local,) int64; ``group_sizes`` (num_local,) int32;
+      ``drops`` () int64: local pairs that are not valid;
+    * ``inv_pair`` (pool_rows,) int64: the pair that fills each row, 0 for a
+      row no pair fills; ``pool_valid`` (pool_rows,) bool: the filled rows.
+    """
+    EL, F, dev = num_local, ids.numel(), ids.device
+    counts = token_counts_ref(ids, EL, offset).long()
+    local = ids.reshape(-1).long() - offset
+    key = torch.where((local >= 0) & (local < EL), local, EL)      # non-local -> sentinel
+    order = torch.argsort(key, stable=True)
+    sorted_key = key[order]
+
+    gs_aligned = (counts + align - 1) // align * align
+    cum = torch.clamp(torch.cumsum(gs_aligned, 0), max=pool_rows)
+    offsets = torch.cat([torch.zeros(1, dtype=cum.dtype, device=dev), cum])
+    group_sizes = offsets[1:] - offsets[:-1]
+
+    # position of each sorted pair within its expert group. The sentinel
+    # group starts at sum(counts), the last entry of ``starts``
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), torch.cumsum(counts, 0)])
+    pos_sorted = torch.arange(F, device=dev) - starts[sorted_key]
+
+    safe_key = torch.clamp(sorted_key, max=EL - 1)
+    slot_sorted = offsets[safe_key] + pos_sorted
+    valid_sorted = (sorted_key < EL) & (pos_sorted < group_sizes[safe_key])
+    slot_sorted = torch.where(valid_sorted, slot_sorted, torch.full_like(slot_sorted, pool_rows))
+
+    slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
+    valid = torch.empty_like(valid_sorted).scatter_(0, order, valid_sorted)
+    drops = counts.sum() - valid_sorted.sum()
+
+    # inverse map: pool row -> pair; the dropped and non-local pairs land in
+    # the extra row ``pool_rows``, which is cut off
+    inv_pair = torch.zeros(pool_rows + 1, dtype=torch.int64, device=dev)
+    inv_pair[slot] = torch.arange(F, device=dev)
+    pool_valid = torch.zeros(pool_rows + 1, dtype=torch.bool, device=dev)
+    pool_valid[slot] = valid
+    return (slot, valid, counts, group_sizes.to(torch.int32), drops, inv_pair[:pool_rows],
+            pool_valid[:pool_rows])
+
+
 def combine_ref(rows: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """rows (T, K, D), weights (T, K) -> (T, D):
     ``out[t] = sum_k weights[t, k] * rows[t, k]``, accumulated in float32."""

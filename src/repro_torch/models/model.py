@@ -146,7 +146,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device: DeviceLike
 
 def _ffn(lp, x2, cfg):
     if cfg.arch_type == "moe":
-        out, _, _, _ = moe_lib.sparse_moe_block(lp["moe"], x2, cfg)
+        # serving discards the router's aux and z losses and the stats
+        out, _, _, _ = moe_lib.sparse_moe_block(lp["moe"], x2, cfg, aux=False)
         return out
     return L.apply_mlp(lp["mlp"], x2, cfg.mlp_activation)
 

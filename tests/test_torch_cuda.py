@@ -485,7 +485,7 @@ def test_engine_on_card_launch_counts(cuda):
     fwd = eng.prefills + eng.decode_steps
     assert ops.launches == {"gmm": 3 * cfg.num_layers * fwd, "swiglu": cfg.num_layers * fwd,
                             "combine": cfg.num_layers * fwd,
-                            "token_counts": cfg.num_layers * fwd,
+                            "dispatch_plan": cfg.num_layers * fwd, "token_counts": 0,
                             "flash_attention": cfg.num_layers * eng.prefills,
                             "tgmm": 0, "swiglu_bwd": 0, "combine_bwd": 0, "ssd_intra_chunk": 0}
 
@@ -560,6 +560,110 @@ def test_token_counts_kernel_checks_its_operands(cuda):
         token_counts_cuda(ids, 0, 0)
     with pytest.raises(ValueError, match="1-D"):
         token_counts_cuda(ids.reshape(2, 4), 4, 0)
+
+
+def _plan_ids(kind, F, E, K, gen, device):
+    """F int64 expert ids in flat (token, k) order: top-K routing of
+    ceil(F / K) tokens cut to F, uniform random ids, every id one expert, or
+    forced uniform routing."""
+    T = -(-F // K)
+    if kind == "topk":
+        return torch.rand((T, E), generator=gen, device=device).topk(K, dim=-1).indices.reshape(
+            -1)[:F].contiguous()
+    if kind == "random":
+        return torch.randint(0, E, (F,), generator=gen, device=device)
+    if kind == "one":
+        return torch.full((F,), 21 % E, dtype=torch.int64, device=device)
+    return torch.arange(F, device=device) % E
+
+
+@pytest.mark.parametrize("F,E,EL,offset,kind,rows,shows", [
+    (1, 64, 64, 0, "random", "capacity", ""),
+    (64, 64, 64, 0, "topk", "capacity", ""),          # a decode step of 8 tokens
+    (64, 64, 64, 0, "one", 32, "drops"),              # one expert over a small pool
+    (8000, 64, 64, 0, "topk", "dropless", ""),        # a 1000-token prefill
+    (8000, 64, 64, 0, "fur", "capacity", ""),         # FUR: every group full at once
+    (2048, 1024, 1024, 0, "random", 1024, "drops"),   # one block, the most experts
+    (2049, 64, 64, 0, "topk", "capacity", ""),        # the first plan of three launches
+    (8191, 1024, 1024, 0, "random", 2048, "drops"),   # three launches, the most experts
+    (32768, 64, 64, 0, "topk", "capacity", ""),       # a train microbatch
+    (32768, 64, 64, 0, "one", "capacity", ""),        # every pair on one expert
+    (65536, 64, 16, 16, "topk", "capacity", ""),      # EP's gathered ids, rank 1 of 4
+    (65536, 64, 16, 48, "topk", "capacity", ""),      # ... rank 3 of 4
+    (65536, 64, 16, 16, "fur", "capacity", ""),
+    (100003, 1024, 1024, 0, "random", "capacity", ""),  # the most experts, F % 32 != 0
+    (100003, 256, 240, 16, "random", 4096, "empty groups"),  # late experts get 0 rows
+])
+def test_dispatch_plan_kernel_on_card(cuda, F, E, EL, offset, kind, rows, shows):
+    """Every output bit-equal to the plain version (run on the CPU), two
+    runs bit-equal, one launch count per plan. ``shows``: what the case
+    must exercise (drops; local experts with pairs but no rows)."""
+    from repro_torch.core.moe import dropless_pool_rows, pool_size, round_up
+    from repro_torch.kernels._build import library
+    from repro_torch.kernels.dispatch_plan import MAX_LOCAL
+    assert MAX_LOCAL == library().repro_dispatch_plan_max_local()
+    K, align = 8, ops.gmm_align()
+    T = -(-F // K)
+    if rows == "capacity":
+        rows = round_up(pool_size(T, K, E, EL, 1.25, align), EL * align)
+    elif rows == "dropless":
+        rows = dropless_pool_rows(T, K, EL, align)
+    ids = _plan_ids(kind, F, E, K, torch.Generator(device=cuda).manual_seed(F), cuda)
+    before = ops.launches["dispatch_plan"]
+    out = ops.dispatch_plan(ids, EL, offset, rows, align)
+    again = ops.dispatch_plan(ids, EL, offset, rows, align)
+    torch.cuda.synchronize()
+    assert ops.launches["dispatch_plan"] == before + 2
+    plain = ref.dispatch_plan_ref(ids.cpu(), EL, offset, rows, align)
+    names = ("slot", "valid", "counts", "group_sizes", "drops", "inv_pair", "pool_valid")
+    for name, a, b, p in zip(names, out, again, plain):
+        assert a.dtype == p.dtype and a.shape == p.shape, name
+        assert torch.equal(a.cpu(), p), name
+        assert torch.equal(a, b), name
+    if shows:
+        assert int(plain[4]) > 0
+    if shows == "empty groups":
+        assert int(plain[3][-1]) == 0 < int(plain[2][-1])
+
+
+def test_dispatch_plan_on_card_never_runs_the_plain_chain(cuda, monkeypatch):
+    """make_dispatch_plan on a CUDA tensor launches the kernel (the plain
+    version is not reached) and raises where the kernel refuses."""
+    from repro_torch.core.moe import make_dispatch_plan
+
+    def refuse(*_):
+        raise AssertionError("the plain chain ran on a CUDA tensor")
+
+    monkeypatch.setattr(ref, "dispatch_plan_ref", refuse)
+    ids = torch.randint(0, 64, (512, 8), device=cuda)
+    before = ops.launches["dispatch_plan"]
+    plan = make_dispatch_plan(ids, num_experts=64, pool_rows=6144, align=16)
+    torch.cuda.synchronize()
+    assert ops.launches["dispatch_plan"] == before + 1
+    assert int(plan.valid.sum()) == 4096 and int(plan.pool_valid.sum()) == 4096
+    with pytest.raises(ValueError, match="num_local"):
+        make_dispatch_plan(torch.randint(0, 2048, (4, 8), device=cuda), num_experts=2048,
+                           pool_rows=64, align=16)
+    assert ops.launches["dispatch_plan"] == before + 1
+
+
+def test_dispatch_plan_kernel_checks_its_operands(cuda):
+    from repro_torch.kernels.dispatch_plan import dispatch_plan_cuda
+    ids = torch.zeros(8, dtype=torch.int64, device=cuda)
+    with pytest.raises(TypeError, match="int64"):
+        dispatch_plan_cuda(ids.float(), 4, 0, 16, 8)
+    with pytest.raises(TypeError, match="int64"):
+        dispatch_plan_cuda(ids.int(), 4, 0, 16, 8)
+    with pytest.raises(ValueError, match="num_local"):
+        dispatch_plan_cuda(ids, 0, 0, 16, 8)
+    with pytest.raises(ValueError, match="num_local"):
+        dispatch_plan_cuda(ids, 1025, 0, 16, 8)
+    with pytest.raises(ValueError, match="align"):
+        dispatch_plan_cuda(ids, 4, 0, 16, 0)
+    with pytest.raises(ValueError, match="1-D"):
+        dispatch_plan_cuda(ids.reshape(2, 4), 4, 0, 16, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        dispatch_plan_cuda(ids.cpu(), 4, 0, 16, 8)
 
 
 def test_ep_block_on_card_matches_one_process(cuda):

@@ -251,9 +251,11 @@ def test_cpu_wrappers_count_no_launches():
     ops.ssd_intra_chunk(torch.ones(1, 1, 4, 2, 8), torch.ones(1, 1, 4, 2), torch.ones(1, 1, 4, 8),
                         torch.ones(1, 1, 4, 8), -torch.ones(2))
     assert ops.token_counts(torch.tensor([[0, 3], [3, 9]]), 4).tolist() == [1, 0, 0, 2]
+    slot, *_ = ops.dispatch_plan(torch.tensor([[0, 3], [3, 9]]), 4, 0, 16, 8)
+    assert slot.tolist() == [0, 8, 9, 16]
     assert set(ops.launches) == {"gmm", "tgmm", "swiglu", "swiglu_bwd", "combine",
                                  "combine_bwd", "flash_attention", "ssd_intra_chunk",
-                                 "token_counts"}
+                                 "token_counts", "dispatch_plan"}
     assert all(n == 0 for n in ops.launches.values())
 
 
