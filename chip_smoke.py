@@ -60,6 +60,23 @@ Phases, each printing JSON lines:
              kernel. The four ranks time-share one card and gloo carries
              their collectives through host memory: the step time is no EP
              speed;
+  launcher_dense  full-width, full-depth Mula-1B (16 layers, d_model 2048,
+             d_ff 8192, the byte vocab padded to 512; random weights from
+             seed 0, fp32 state, bf16 compute) trained by the launcher
+             (``repro_torch.launch.train.run``) on the synthetic corpus for 6
+             steps of 4 x 2048 tokens with a checkpoint at step 3, then the
+             same call again, which resumes from it and trains steps 4 and 5:
+             asserts their losses and grad norms bit-identical to the first
+             run's, a falling loss and finite metrics; step ms, tokens/s,
+             peak memory, checkpoint GB, save and restore ms, the host's RSS
+             peak, free disk before the save, one profiled step. Needs ~22
+             GB of free disk in ``build/`` (deleted at the end);
+  launcher_ft  a 2-layer, d_model 512 Mula-7B-A1B through the MoE kernels
+             (bf16) trained by the launcher for 18 steps, once clean and once
+             with a hard failure injected at step 7 and a soft (NaN) one at
+             step 12: two relaunches and node swaps, both checkpoint slots
+             valid at steps 10 and 15, a history bit-identical to the clean
+             run's and the exact launch count of every kernel of the path;
   launches   the device launches of one dispatch plan at each kernel case's
              shape (at most 3) and of one MoE block at a decode step, each
              captured in a CUDA graph and counted there.
@@ -73,11 +90,16 @@ it and a CUDA device; it imports nothing of JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
+import resource
+import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -93,6 +115,19 @@ MULA = "mula-7b-a1b"
 ZAMBA = "zamba2-7b"
 DEV = "cuda"
 EP_RANKS, EP_SEQ, EP_STEPS = 4, 2048, 6
+# the launcher phases' runs (``repro_torch.launch.train.run`` keywords) and
+# their directory, git-ignored, inside the checkout
+LAUNCH_DIR = ROOT / "build" / "launcher"
+DENSE_ARCH, FT_ARCH = "mula-1b", MULA
+# lr 1e-4: the launcher's default 1e-3 (sized for the reduced models) after
+# its 5-step warmup sent full-width Mula-1B's loss from 5.98 to 12.51 by step
+# 4 (grad norm 57, unclipped in warmup); the paper's 4e-4 follows a
+# 2,500-step warmup
+DENSE_RUN = dict(scale="full", steps=6, batch=4, seq=2048, ckpt_interval=3, lr=1e-4,
+                 compute_dtype="bfloat16", log_every=1)
+FT_RUN = dict(scale="smoke", d_model=512, layers=2, steps=18, batch=4, seq=256,
+              ckpt_interval=5, compute_dtype="bfloat16", log_every=100)
+FT_INJECT = dict(inject_hard_at=7, inject_soft_at=12)
 
 
 def emit(phase: str, **fields) -> None:
@@ -284,6 +319,9 @@ def kernel_cases(cfg) -> list[dict]:
     EL = E // EP_RANKS
     cases += train_kernel_cases(cfg, gen, randn, tokens=EP_RANKS * EP_SEQ,
                                 offset=(EP_RANKS - 1) * EL, local=EL)
+    cases += train_kernel_cases(launcher_ft_cfg(), gen, randn,
+                                tokens=FT_RUN["batch"] * FT_RUN["seq"], path="launcher_ft",
+                                empty=2)
 
     nh, hd = cfg.num_heads, cfg.head_dim
     for S, nkv, window in ((512, nh, 0), (500, nh, 0), (1000, nh // 4, 256)):
@@ -437,8 +475,13 @@ def token_counts_cases(cfg, gen) -> list[dict]:
         return torch.rand((T, E), generator=gen, device=DEV).topk(K, dim=-1).indices.reshape(-1)
 
     ep = routed(EP_RANKS * EP_SEQ)
+    ft = launcher_ft_cfg().moe
+    ft_T = FT_RUN["batch"] * FT_RUN["seq"]
+    ft_ids = torch.rand((ft_T, ft.num_experts), generator=gen, device=DEV).topk(
+        ft.experts_per_token, dim=-1).indices.reshape(-1)
     cases = []
-    for name, ids, el, off in (("decode T=8", routed(8), E, 0),
+    for name, ids, el, off in ((f"launcher_ft T={ft_T}", ft_ids, ft.num_experts, 0),
+                               ("decode T=8", routed(8), E, 0),
                                ("prefill T=1000", routed(1000), E, 0),
                                (f"EP F={ep.numel()} EL={E // EP_RANKS} offset=16", ep,
                                 E // EP_RANKS, 16),
@@ -505,6 +548,12 @@ def dispatch_plan_cases(cfg, gen) -> list[dict]:
     shapes += [(f"EP F={ep.numel()} offset={off}", ep, EL, off,
                 moe.dispatch_pool_rows(EP_RANKS * EP_SEQ, m, local_experts=EL))
                for off in (16, 48)]
+    ft = launcher_ft_cfg().moe
+    ft_T = FT_RUN["batch"] * FT_RUN["seq"]
+    shapes += [(f"launcher_ft F={ft_T * ft.experts_per_token}",
+                torch.rand((ft_T, ft.num_experts), generator=gen, device=DEV).topk(
+                    ft.experts_per_token, dim=-1).indices, ft.num_experts, 0,
+                moe.dispatch_pool_rows(ft_T, ft))]
     cases = []
     for name, ids, el, off, rows in shapes:
         F = ids.numel()
@@ -525,7 +574,7 @@ TRAIN_TOKENS = 2 * 2048          # tokens per microbatch of the train phase
 
 
 def train_kernel_cases(cfg, gen, randn, *, tokens: int = TRAIN_TOKENS, offset: int = 0,
-                       local: int = 0) -> list[dict]:
+                       local: int = 0, path: str = "", empty: int = 8) -> list[dict]:
     """The training step's kernel calls at its shapes: 4096 tokens per
     microbatch, the capacity pool of ``dispatch_pool_rows(4096)`` rows (the
     model's own capacity factor, so some pairs are dropped as in training),
@@ -533,7 +582,9 @@ def train_kernel_cases(cfg, gen, randn, *, tokens: int = TRAIN_TOKENS, offset: i
     shapes, tgmm for both (and with empty groups), the combine and SwiGLU
     backward kernels. With ``local``, the same calls at ep_train's shapes:
     one EP rank's ``local`` experts from ``offset`` among ``tokens``
-    gathered tokens (cases named "ep ...")."""
+    gathered tokens (cases named "ep ..."). ``path`` names the cases
+    otherwise; ``empty``: how many of the model's last experts the tgmm case
+    with empty groups leaves without rows."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -542,7 +593,7 @@ def train_kernel_cases(cfg, gen, randn, *, tokens: int = TRAIN_TOKENS, offset: i
     d, f = cfg.d_model, m.d_ff_expert
     K, T = m.experts_per_token, tokens
     E = local or m.num_experts                 # the experts this dispatch holds
-    path = "ep" if local else "train"
+    path = path or ("ep" if local else "train")
     w_gate = randn(E, d, f, scale=d ** -0.5)
     w_down = randn(E, f, d, scale=f ** -0.5)
     cases = []
@@ -577,12 +628,12 @@ def train_kernel_cases(cfg, gen, randn, *, tokens: int = TRAIN_TOKENS, offset: i
             library=lib, library_note=note,
             bytes=2 * (total * nout + active * kin * nout + rows * kin),
             flops=2.0 * total * kin * nout, peak=BF16_TENSOR_FLOPS, tol="rel"))
-    # dW[g] = x_g^T dy_g for both projections, and with the last 8 experts of
-    # the model (the last 8 groups of this dispatch) empty
+    # dW[g] = x_g^T dy_g for both projections, and with the last ``empty``
+    # experts of the model (the last groups of this dispatch) empty
     groups = [("gate", gs, total, rows, d, f), ("down", gs, total, rows, f, d)]
-    gs_e, rows_e = _routing_groups(T, m, gen, experts=m.num_experts - 8, offset=offset,
+    gs_e, rows_e = _routing_groups(T, m, gen, experts=m.num_experts - empty, offset=offset,
                                    local=local)
-    groups.append(("gate, 8 groups empty", gs_e, int(gs_e.sum()), rows_e, d, f))
+    groups.append((f"gate, {empty} groups empty", gs_e, int(gs_e.sum()), rows_e, d, f))
     for proj, g_s, tot, M, kin, nout in groups:
         x, dy = randn(M, kin), randn(M, nout)
         plain = ref.tgmm_ref(x.float(), dy.float(), g_s, E)
@@ -1064,11 +1115,32 @@ PORT_KERNELS = ("gmm_kernel", "tgmm_kernel", "swiglu_kernel", "swiglu_bwd_kernel
                 "plan_count_kernel", "plan_scan_kernel", "plan_rank_kernel")
 
 
+def _kernel_kind(name: str) -> str:
+    """A device event's kind, from its name: the port's own kernels, GEMMs
+    in float32 (SIMT / FFMA: no tensor cores) or on tensor cores (cuBLAS's
+    ``nvjet`` kernels among them), PyTorch's elementwise, reduction and
+    indexing kernels, copies and fills."""
+    if any(f"::{k}(" in name or f"::{k}<" in name for k in PORT_KERNELS):
+        return "port_kernels"
+    low = name.lower()
+    if any(w in low for w in ("gemm", "xmma", "cutlass", "wgmma", "nvjet")):
+        return "gemm_f32" if any(w in low for w in ("sgemm", "ffma", "f32f32_f32f32")) \
+            else "gemm_tensor_core"
+    for kind, words in (("index", ("index", "gather", "scatter")),
+                        ("elementwise", ("elementwise",)), ("reduce", ("reduce",)),
+                        ("copy_fill", ("memcpy", "memset", "copy", "fill"))):
+        if any(w in low for w in words):
+            return kind
+    return "other"
+
+
 def _profile_window(run, host_prefixes: tuple = ()) -> dict:
     """torch.profiler over ``run()``: the host's wall time, the device's
     busy time (sum of its kernel and copy times; one stream, so they do not
-    overlap), the idle share, the ten device kernels that took longest and
-    the total time and calls of each of the port's own kernels;
+    overlap), the idle share, the ten device kernels that took longest,
+    the device time by kind of kernel (``_kernel_kind``, with each kind's
+    longest kernel by name) and the total time
+    and calls of each of the port's own kernels;
     with ``host_prefixes``, also the host events whose names start with one
     of them, summed by name (the collectives under EP)."""
     import torch
@@ -1091,7 +1163,12 @@ def _profile_window(run, host_prefixes: tuple = ()) -> dict:
     busy = sum(sum(v) for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
     port: dict[str, dict] = {}
+    kinds: dict[str, dict] = {}
     for n, v in by_name.items():
+        e = kinds.setdefault(_kernel_kind(n), {"ms": 0.0, "calls": 0, "top": ("", 0.0)})
+        e["ms"] += sum(v)
+        e["calls"] += len(v)
+        e["top"] = max(e["top"], (n[:80], sum(v)), key=lambda t: t[1])
         for k in PORT_KERNELS:
             if f"::{k}(" in n or f"::{k}<" in n:
                 e = port.setdefault(k, {"ms": 0.0, "calls": 0})
@@ -1103,6 +1180,7 @@ def _profile_window(run, host_prefixes: tuple = ()) -> dict:
            "device_idle_share": 1 - busy / wall_ms if by_name else None,
            "top_device_kernels": [{"name": n[:100], "ms": sum(v), "calls": len(v)}
                                   for n, v in top],
+           "device_ms_by_kind": dict(sorted(kinds.items(), key=lambda kv: -kv[1]["ms"])),
            "port_kernels": port}
     if host_prefixes:
         out["host_events"] = {n: {"ms": sum(v), "calls": len(v)} for n, v in host.items()}
@@ -1623,6 +1701,258 @@ def phase_ep_train() -> dict:
 
 
 # ----------------------------------------------------------------------------
+# the training launcher: full-depth dense Mula-1B, and fault tolerance through
+# the MoE kernels
+# ----------------------------------------------------------------------------
+
+def launcher_ft_cfg():
+    """The model ``run(FT_ARCH, **FT_RUN)`` builds (a reduced config with the
+    byte vocabulary)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import ByteTokenizer
+    return reduced(get_config(FT_ARCH), layers=FT_RUN["layers"], d_model=FT_RUN["d_model"],
+                   vocab=ByteTokenizer.VOCAB)
+
+
+class _RssPeak:
+    """The process's resident set, sampled every 10 ms on a thread: its
+    largest value while the ``with`` block runs (the kernel's own peak,
+    ``ru_maxrss``, covers the whole process's life)."""
+
+    def __enter__(self):
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    @staticmethod
+    def _rss() -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, self._rss())
+        return False
+
+
+@contextlib.contextmanager
+def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
+    """Time what ``repro_torch.launch.train.run`` does without changing it:
+    each batch's move to the device and each train step (synchronized
+    before and after: the launcher syncs after the step anyway), each full
+    and model-only save and each restore, and the free disk before a save.
+    The step call numbered ``profile_call`` (from 0, counted over every run
+    inside the block) is profiled instead of timed. With ``need_disk`` a
+    save that the disk cannot hold whole fails before it writes."""
+    import torch
+    from repro_torch.checkpoint import checkpointer
+    from repro_torch.launch import train as launch
+    from repro_torch.tree import keyed_leaves, leaves
+
+    rec = {"step_ms": [], "h2d_ms": [], "save_ms": [], "save_model_only_ms": [],
+           "restore_ms": [], "disk_free_before_save": [], "profile": None}
+    made, mover = launch.make_train_step, launch._batch_mover
+    calls = [0]
+
+    def batch_mover(*a, **k):
+        move = mover(*a, **k)
+
+        def timed(b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = move(b)
+            torch.cuda.synchronize()
+            rec["h2d_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def make_train_step(*a, **k):
+        fn = made(*a, **k)
+
+        def timed(state, batch):
+            i, calls[0] = calls[0], calls[0] + 1
+            if i == profile_call:
+                out = []
+                rec["profile"] = _profile_window(lambda: out.append(fn(state, batch)))
+                return out[0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(state, batch)
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def timer(name, fn, before=None):
+        def wrapped(self, *a, **k):
+            if before is not None:
+                before(self, *a)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *a, **k)
+            torch.cuda.synchronize()
+            rec[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapped
+
+    def check_disk(ck, state, step):
+        free = shutil.disk_usage(ck.root).free
+        rec["disk_free_before_save"].append(free)
+        full = sum(t.numel() * t.element_size() for _, t in keyed_leaves(state))
+        model = sum(t.numel() * t.element_size() for t in leaves(state.params))
+        if need_disk and free < full + model:
+            raise AssertionError(f"launcher_dense: {free / 1e9:.2f} GB free in {ck.root}, the "
+                                 f"checkpoint needs {full / 1e9:.2f} GB and the model-only one "
+                                 f"{model / 1e9:.2f} GB")
+
+    cls = checkpointer.Checkpointer
+    saved = {n: getattr(cls, n) for n in ("save", "save_model_only", "restore")}
+    launch.make_train_step, launch._batch_mover = make_train_step, batch_mover
+    cls.save = timer("save_ms", saved["save"], check_disk)
+    cls.save_model_only = timer("save_model_only_ms", saved["save_model_only"])
+    cls.restore = timer("restore_ms", saved["restore"])
+    try:
+        yield rec
+    finally:
+        launch.make_train_step, launch._batch_mover = made, mover
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+
+def _finite(history) -> bool:
+    return all(math.isfinite(v) for h in history for k, v in h.items() if k != "step")
+
+
+def phase_launcher_dense() -> dict:
+    """Mula-1B at full width and depth through the launcher: ``run(DENSE_ARCH,
+    **DENSE_RUN)`` (6 steps, a checkpoint after step 3), then the same call
+    in the same directory, which resumes at step 4; steps 4 and 5 must
+    agree bit for bit. The second run's last step is profiled."""
+    import gc
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+
+    cfg = get_config(DENSE_ARCH)
+    out = LAUNCH_DIR / "dense"
+    shutil.rmtree(out, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with _RssPeak() as rss, _launcher_probe(profile_call=7, need_disk=True) as rec:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            first = run(DENSE_ARCH, out=str(out), **DENSE_RUN)
+            wall_first = time.perf_counter() - t0
+            peak_mem = torch.cuda.max_memory_allocated()
+            gc.collect()
+            t0 = time.perf_counter()
+            second = run(DENSE_ARCH, out=str(out), **DENSE_RUN)
+            wall_second = time.perf_counter() - t0
+            launches = dict(ops.launches)
+        sizes = {"full_ckpt_bytes": sum(f.stat().st_size for f in (out / "ckpt").glob(
+                     "ckpt-*/state.npz")),
+                 "model_only_ckpt_bytes": sum(f.stat().st_size for f in (out / "ckpt").glob(
+                     "model-*.npz"))}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    keys = ("loss", "grad_norm", "lr")
+    resumed = {h["step"]: {k: h[k] for k in keys} for h in second}
+    straight = {h["step"]: {k: h[k] for k in keys} for h in first[4:]}
+    step_ms = rec["step_ms"][1:6]          # the first run's steps 1-5
+    tokens = DENSE_RUN["batch"] * DENSE_RUN["seq"]
+    row = {"model": DENSE_ARCH, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "run": DENSE_RUN, "losses": [h["loss"] for h in first],
+           "grad_norms": [h["grad_norm"] for h in first], "resumed_steps": resumed,
+           "step_ms": rec["step_ms"], "step_ms_median_steps_1_5": statistics.median(step_ms),
+           "h2d_ms_per_batch": rec["h2d_ms"],
+           "tokens_per_s": tokens / statistics.median(step_ms) * 1e3,
+           "max_memory_allocated_bytes": peak_mem, **sizes,
+           "save_ms": rec["save_ms"], "save_model_only_ms": rec["save_model_only_ms"],
+           "restore_ms": rec["restore_ms"], "disk_free_before_save": rec["disk_free_before_save"],
+           "host_rss_start_bytes": rss.start, "host_rss_peak_bytes": rss.peak,
+           "host_ru_maxrss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+           "wall_s": [wall_first, wall_second], "launches": launches,
+           "profile_step_5_resumed": rec["profile"]}
+    emit("launcher_dense", **row)
+    if [h["step"] for h in first] != list(range(6)) or sorted(resumed) != [4, 5]:
+        raise AssertionError(f"launcher_dense: steps {[h['step'] for h in first]} then "
+                             f"{sorted(resumed)}, not 0-5 then 4-5")
+    if resumed != straight:
+        raise AssertionError(f"launcher_dense: resumed steps {resumed} differ from the "
+                             f"uninterrupted run's {straight}")
+    if not (_finite(first) and first[-1]["loss"] < first[0]["loss"]):
+        raise AssertionError(f"launcher_dense: losses {row['losses']} not finite and falling")
+    if any(launches.values()):
+        raise AssertionError(f"launcher_dense: the dense path launched kernels {launches}")
+    if not (sizes["full_ckpt_bytes"] and sizes["model_only_ckpt_bytes"]):
+        raise AssertionError(f"launcher_dense: checkpoint files missing: {sizes}")
+    return row
+
+
+def phase_launcher_ft() -> dict:
+    """``run(FT_ARCH, **FT_RUN)`` clean, then with a hard failure at step 7
+    and a soft one at step 12 (FT_INJECT): the clean run takes 18 steps,
+    the faulty one 21 (step 6 again after the restore from step 5, steps
+    11 and 12 after the restore from step 10)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+
+    shutil.rmtree(LAUNCH_DIR / "ft", ignore_errors=True)
+    runs, launches = {}, {}
+    try:
+        with _launcher_probe() as rec:
+            for name, kw in (("clean", {}), ("faulty", FT_INJECT)):
+                ops.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                runs[name] = run(FT_ARCH, out=str(LAUNCH_DIR / "ft" / name), **FT_RUN, **kw)
+                runs[name + "_wall_s"] = time.perf_counter() - t0
+                launches[name] = dict(ops.launches)
+        manifests = [json.loads((LAUNCH_DIR / "ft" / "faulty" / "ckpt" / slot /
+                                 "MANIFEST.json").read_text()) for slot in ("ckpt-1", "ckpt-2")]
+    finally:
+        shutil.rmtree(LAUNCH_DIR / "ft", ignore_errors=True)
+    clean, faulty = runs["clean"], runs["faulty"]
+    layers = FT_RUN["layers"]
+    expect = {"clean": expected_train_launches(layers, 1, FT_RUN["steps"]),
+              "faulty": expected_train_launches(layers, 1, FT_RUN["steps"] + 3)}
+    row = {"model": launcher_ft_cfg().name, "run": FT_RUN, "inject": FT_INJECT,
+           "losses": [h["loss"] for h in clean], "moe_drops": [h["moe_drops"] for h in clean],
+           "relaunches": faulty.relaunches, "replaced": faulty.replaced,
+           "slot_steps": sorted(m["step"] for m in manifests if m.get("valid")),
+           "history_bit_identical": list(faulty) == list(clean),
+           "step_ms_median": statistics.median(rec["step_ms"]),
+           "h2d_ms_median": statistics.median(rec["h2d_ms"]), "save_ms": rec["save_ms"],
+           "restore_ms": rec["restore_ms"], "wall_s": [runs["clean_wall_s"],
+                                                       runs["faulty_wall_s"]],
+           "launches": launches, "expected_launches": expect}
+    emit("launcher_ft", **row)
+    if clean.relaunches != 0 or faulty.relaunches != 2 or faulty.replaced != [(0, 2), (1, 3)]:
+        raise AssertionError(f"launcher_ft: relaunches {clean.relaunches} / "
+                             f"{faulty.relaunches}, node swaps {faulty.replaced}")
+    if row["slot_steps"] != [10, 15]:
+        raise AssertionError(f"launcher_ft: valid slots at {row['slot_steps']}, not 10 and 15")
+    if not row["history_bit_identical"] or [h["step"] for h in faulty] != list(range(18)):
+        raise AssertionError("launcher_ft: the faulty run's history differs from the clean one")
+    if not (_finite(clean) and clean[-1]["loss"] < clean[0]["loss"]):
+        raise AssertionError(f"launcher_ft: losses {row['losses']} not finite and falling")
+    if launches != expect:
+        raise AssertionError(f"launcher_ft: kernel launches {launches} != expected {expect}")
+    return row
+
+
+# ----------------------------------------------------------------------------
 # device launches, counted by the profiler after every timed phase
 # ----------------------------------------------------------------------------
 
@@ -1842,6 +2172,8 @@ def main(argv=None) -> int:
     hybrid = phase_hybrid_serve()
     phase_ep_reference()
     ep_train = phase_ep_train()
+    dense = phase_launcher_dense()
+    ft = phase_launcher_ft()
     phase_launches(get_config(MULA))
 
     summary = []
@@ -1850,7 +2182,9 @@ def main(argv=None) -> int:
         head = next((r for r in rows if HEADLINE[name] in r["case"]), rows[0])
         by_path = {"serve": serve["launches"][name], "train": train["launches"][name],
                    "hybrid": hybrid["launches"][name],
-                   "ep_train": ep_train["launches_per_rank"][name]}
+                   "ep_train": ep_train["launches_per_rank"][name],
+                   "launcher_dense": dense["launches"][name],
+                   "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name]}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

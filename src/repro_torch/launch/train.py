@@ -1,0 +1,386 @@
+"""End-to-end training launcher on one device: port of the JAX package's
+``launch/train.py`` for one GPU.
+
+Wires together the data pipeline (tokenize/shuffle/shard + mmap loader),
+the model, AdamW, block remat, dual + model-only checkpointing, and the
+paper §4 failure-handling loop (NaN monitor + buffer-node ClusterManager)
+as the main loop. It writes what the JAX launcher writes (``data/``,
+``ckpt/``, ``history.json``, ``summary.json``), in the same formats: a run
+of either package resumes from the other's checkpoints.
+
+Usage (on the card; ``--device cpu`` runs the plain PyTorch path):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
+      --scale smoke --steps 100 --batch 8 --seq 128 --out runs/mula7b \
+      --compute-dtype bfloat16
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mula-1b \
+      --scale full --steps 6 --batch 4 --seq 2048 --ckpt-interval 3 \
+      --compute-dtype bfloat16 --out runs/mula1b
+
+``compute_dtype`` is ``TrainConfig.compute_dtype``; its default here is the
+float32 the JAX launcher fixes. The MoE kernels on the card take bf16, so
+an MoE model on the card runs with ``bfloat16``.
+
+Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
+item that ports them: ``mesh``, ``parallel``, ``pp_schedule``, ``pp_impl``,
+``rebalance*`` (§1 item 5), ``opt_shard`` other than 'none' and
+``opt_overlap`` other than 'off' (§1 item 3), ``kernel_tiles`` (§1 item 7),
+and the hybrid (§1 item 4), ssm, vlm and audio archs (§1 item 6).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import ParallelConfig, TrainConfig, get_config, reduced
+from repro_torch.data import ByteTokenizer, ShardedDataLoader, preprocess_corpus
+from repro_torch.device import resolve_device
+from repro_torch.ft import (ClusterManager, NaNMonitor, NodeFailure, restore_into,
+                            run_with_failure_handling)
+from repro_torch.models.model import padded_vocab
+from repro_torch.train import init_state, make_train_step
+from repro_torch.tree import keyed_leaves, leaves
+
+
+class RunResult(list):
+    """History list (one dict per executed step, in step order) plus
+    fault-tolerance bookkeeping from the launcher loop."""
+    relaunches: int = 0
+    replaced: list = ()
+
+
+def synthetic_corpus(n_files: int = 4, docs_per_file: int = 64,
+                     seed: int = 0):
+    """Procedural text corpus: Zipf-ish word soup with structure, so the
+    loss curve has signal (byte-level models learn digraph statistics)."""
+    rng = np.random.default_rng(seed)
+    words = ["the", "model", "expert", "router", "token", "aurora", "tile",
+             "pipeline", "gradient", "optimizer", "state", "shard", "mixture",
+             "attention", "scan", "chunk", "loss", "batch", "step", "node"]
+    probs = 1.0 / np.arange(1, len(words) + 1)
+    probs /= probs.sum()
+    files = []
+    for _ in range(n_files):
+        docs = []
+        for _ in range(docs_per_file):
+            n = int(rng.integers(30, 120))
+            docs.append(" ".join(rng.choice(words, size=n, p=probs)) + ".")
+        files.append(docs)
+    return files
+
+
+def prepare_data(out_dir: str, *, context: int, seed: int = 0,
+                 n_files: int = 4, docs_per_file: int = 256):
+    data_dir = os.path.join(out_dir, "data")
+    if not os.path.exists(os.path.join(data_dir, "meta.json")):
+        preprocess_corpus(synthetic_corpus(n_files, docs_per_file, seed),
+                          data_dir, context=context, seed=seed)
+    return data_dir
+
+
+def _env_int(name: str):
+    v = os.environ.get(name)
+    return int(v) if v else None
+
+
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP.md §1 {item})")
+
+
+def _check_supported(cfg, *, mesh, parallel, opt_shard, opt_overlap, pp_schedule, pp_impl,
+                     kernel_tiles, rebalance, rebalance_force_at) -> None:
+    if mesh is not None or parallel is not None:
+        _refuse("a device mesh (--mesh / --parallel)", "item 5, the rest of multi-GPU")
+    if opt_shard not in (None, "none"):
+        _refuse(f"optimizer-state sharding {opt_shard!r}", "item 3, SO/EPSO")
+    if opt_overlap not in (None, "off"):
+        _refuse(f"the optimizer overlap {opt_overlap!r}", "item 3, SO/EPSO")
+    if pp_schedule is not None or pp_impl is not None:
+        _refuse("pipeline parallelism (--pp-schedule / --pp-impl)", "item 5, the PP executors")
+    if kernel_tiles is not None:
+        _refuse("kernel tile selection (--kernel-tiles)", "item 7, autotuning")
+    if rebalance is not None or rebalance_force_at is not None:
+        _refuse("expert rebalancing (--rebalance)", "item 5, expert placement")
+    if cfg.arch_type == "hybrid":
+        _refuse("training a hybrid (Mamba-2) model", "item 4, hybrid training")
+    if cfg.arch_type not in ("dense", "moe"):
+        _refuse(f"arch_type {cfg.arch_type!r}", "item 6, the rest of the zoo")
+
+
+def _batch_mover(batch: int, seq: int, dev: torch.device):
+    """numpy batch -> int64 tensors on ``dev``. On the card through pinned
+    host buffers, copied with ``non_blocking``. Reusing the buffers is safe:
+    the next batch is written only after the step's metrics reached the
+    host, which orders after this copy on the stream."""
+    if dev.type != "cuda":
+        return lambda b: {k: torch.from_numpy(a).long() for k, a in b.items()}
+    pinned = {k: torch.empty((batch, seq), dtype=torch.int64, pin_memory=True)
+              for k in ("tokens", "labels")}
+
+    def move(b: dict) -> dict:
+        out = {}
+        for k, a in b.items():
+            pinned[k].copy_(torch.from_numpy(a))
+            out[k] = pinned[k].to(dev, non_blocking=True)
+        return out
+
+    return move
+
+
+def run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int = 8,
+        seq: int = 128, out: str = "runs/default", lr: float = 1e-3,
+        moe_impl: str = None, fur: bool = False, ckpt_interval: int = 50,
+        microbatches: int = 1, sac: str = "block", seed: int = 0,
+        log_every: int = 10, d_model: int = 256, layers: int = 2,
+        d_ff: int = 0, moe_dff: int = 0, mesh: str = None,
+        parallel: str = None,
+        opt_shard: str = None, opt_overlap: str = None,
+        pp_schedule: str = None,
+        pp_impl: str = None, moe_dispatch: str = None,
+        kernel_tiles: str = None,
+        rebalance: str = None, rebalance_force_at: int = None,
+        n_buffer: int = 2,
+        inject_hard_at: int = None, inject_soft_at: int = None,
+        max_relaunches: int = 8, device=None,
+        compute_dtype: str = "float32") -> RunResult:
+    """Train ``arch`` for ``steps`` steps, resuming from ``out/ckpt`` when it
+    holds a valid checkpoint; the JAX launcher's ``run`` with two more
+    keywords: ``device`` (``cuda`` unless given) and ``compute_dtype``.
+
+    The state restored on a relaunch is written into the live tensors,
+    since the optimizer updates them in place. With no checkpoint yet, a
+    fresh run's fallback rebuilds the initial state deterministically
+    (``init_state`` from ``seed``) into them; a resumed run's fallback is
+    the checkpoint it resumed from, which the newest valid slot always
+    holds or supersedes, so its fallback only raises if both slots were
+    lost."""
+    cfg = get_config(arch)
+    if scale == "smoke":
+        cfg = reduced(cfg, layers=layers, d_model=d_model,
+                      vocab=ByteTokenizer.VOCAB)
+    else:
+        cfg = dataclasses.replace(cfg, vocab_size=ByteTokenizer.VOCAB)
+    if d_ff:
+        cfg = dataclasses.replace(cfg, d_ff=d_ff)
+    if cfg.moe is not None and (moe_impl or fur or moe_dff):
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, moe_impl=moe_impl or cfg.moe.moe_impl,
+            forced_uniform_routing=fur,
+            d_ff_expert=moe_dff or cfg.moe.d_ff_expert))
+    _check_supported(cfg, mesh=mesh, parallel=parallel, opt_shard=opt_shard,
+                     opt_overlap=opt_overlap, pp_schedule=pp_schedule, pp_impl=pp_impl,
+                     kernel_tiles=kernel_tiles, rebalance=rebalance,
+                     rebalance_force_at=rebalance_force_at)
+    if moe_dispatch is not None and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dispatch=moe_dispatch))
+    dev = resolve_device(device)
+    os.makedirs(out, exist_ok=True)
+
+    data_dir = prepare_data(out, context=seq, seed=seed)
+    loader = ShardedDataLoader(data_dir, global_batch=batch)
+
+    train = TrainConfig(param_dtype="float32", compute_dtype=compute_dtype,
+                        grad_reduce_dtype="float32", lr_peak=lr,
+                        lr_min=lr / 10, warmup_steps=max(steps // 20, 5),
+                        total_steps=steps, seq_len=seq, global_batch=batch,
+                        seed=seed)
+    par = ParallelConfig(microbatches=microbatches, remat_policy=sac,
+                         optimizer_sharding="none", opt_overlap="off",
+                         moe_dispatch=moe_dispatch)
+    state = init_state(cfg, train, seed=seed, device=dev)
+    step_fn = make_train_step(cfg, par, train)
+
+    inject_hard_at = inject_hard_at if inject_hard_at is not None \
+        else _env_int("REPRO_INJECT_HARD_AT")
+    inject_soft_at = inject_soft_at if inject_soft_at is not None \
+        else _env_int("REPRO_INJECT_SOFT_AT")
+    # failure-injection demos checkpoint often enough that the injected
+    # failure has something newer than step 0 to restore; explicit intervals
+    # on ordinary runs are honored as-is
+    if (inject_hard_at is not None or inject_soft_at is not None) \
+            and ckpt_interval >= steps:
+        ckpt_interval = max(1, steps // 4)
+        print(f"injection requested: ckpt interval clamped to {ckpt_interval}")
+    ckpt = Checkpointer(os.path.join(out, "ckpt"), interval=ckpt_interval)
+    n_devices = 1
+    cluster = ClusterManager(n_active=max(2, n_devices), n_buffer=n_buffer)
+
+    # resume if a valid checkpoint exists (written into the live state)
+    restored, ck_step = ckpt.restore(state)
+    start = 0
+    if restored is not None:
+        state, start = restored, ck_step + 1   # ckpt holds post-step state
+        print(f"resumed from step {start}")
+    # the loop consumes the loader's iterator; point it at the first step to
+    # run so a resumed run replays the exact batch sequence an uninterrupted
+    # one would have seen (never batch 0 again)
+    loader.load_state_dict({"step": start})
+    batches = iter(loader)
+    to_device = _batch_mover(batch, seq, dev)
+
+    def fallback(live):
+        if start:
+            raise RuntimeError(f"no valid checkpoint left in {ckpt.root}: the run resumed "
+                               f"from step {start} and cannot restart from there")
+        return restore_into(live, dict(keyed_leaves(init_state(cfg, train, seed=seed,
+                                                               device=dev))))
+
+    nparams = sum(t.numel() for t in leaves(state.params))
+    print(f"arch={cfg.name} params={nparams/1e6:.1f}M "
+          f"vocab={padded_vocab(cfg)} plan=single opt_shard=none opt_overlap=off pp=1")
+    print(f"device={dev} compute_dtype={compute_dtype}")
+
+    injected = {"hard": False, "soft": False}
+    history = {}          # keyed by step: replays after restore overwrite
+    t0 = time.time()
+
+    def train_one_step(state, step):
+        if step == inject_hard_at and not injected["hard"]:
+            injected["hard"] = True
+            print(f"  !! injected HARD failure on node 0 @ step {step}")
+            raise NodeFailure(cluster.active[0].node_id, "hard")
+        state, metrics = step_fn(state, to_device(next(batches)))
+        # one host sync per step: every fetched metric (and the MoE
+        # telemetry) travels in one float64 tensor, which holds each float32
+        # value exactly
+        names = ["loss", "lr", "grad_norm"] + (["moe_drops"] if "moe_drops" in metrics else [])
+        parts = [torch.stack([torch.as_tensor(metrics[k], device=dev).reshape(())
+                              .to(torch.float64) for k in names])]
+        if "moe_load" in metrics:
+            parts.append(metrics["moe_load"].reshape(-1).to(torch.float64))
+        vals = torch.cat(parts).cpu().numpy()
+        will_log = step % log_every == 0 or step == steps - 1
+        loss, lr_v, gnorm = (float(v) for v in vals[:3])
+        per_rank = [loss]
+        if step == inject_soft_at and not injected["soft"]:
+            injected["soft"] = True
+            print(f"  !! injected SOFT failure (NaN) on node 1 @ step {step}")
+            per_rank = [loss, float("nan")]
+        history[step] = {"step": step, "loss": loss, "lr": lr_v, "grad_norm": gnorm}
+        moe_line = ""
+        if "moe_drops" in metrics:     # per-expert routing telemetry
+            drops = float(vals[3])
+            load = vals[4:]
+            history[step]["moe_drops"] = drops
+            history[step]["moe_load_max"] = float(load.max()) if load.size \
+                else 0.0
+            moe_line = (f" drops {drops:.0f} "
+                        f"load_max {history[step]['moe_load_max']:.3f}")
+        if will_log:
+            dt = time.time() - t0
+            print(f"step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
+                  f"lr {lr_v:.2e}{moe_line} ({dt:.1f}s)")
+        return state, {"loss": loss, "per_rank_losses": per_rank,
+                       "per_rank_grad_norms": [gnorm]}
+
+    def on_relaunch(state, failure, step):
+        # rewind the batch stream to the restore point: the iterator re-reads
+        # the shared step cursor on every next(), so this re-points it
+        loader.load_state_dict({"step": step})
+        return state
+
+    state, end_step, relaunches = run_with_failure_handling(
+        train_one_step, state=state, checkpointer=ckpt, cluster=cluster,
+        num_steps=steps, monitor=NaNMonitor(), start_step=start,
+        max_relaunches=max_relaunches, on_relaunch=on_relaunch, fallback=fallback)
+
+    result = RunResult(history[s] for s in sorted(history))
+    result.relaunches = relaunches
+    result.replaced = list(cluster.replaced)
+    with open(os.path.join(out, "history.json"), "w") as f:
+        json.dump(list(result), f)
+    summary = {"arch": cfg.name, "steps": end_step, "mesh": None,
+               "parallel": None, "opt_shard": "none", "opt_overlap": "off",
+               "pp_stages": 1,
+               "moe_dispatch": cfg.moe.dispatch if cfg.moe is not None
+               else None,
+               "pp_schedule": None, "pp_impl": None,
+               "relaunches": relaunches,
+               "replaced": result.replaced,
+               "rebalance": None, "rebalances": 0, "final_imbalance": None,
+               "final_loss": result[-1]["loss"] if result else None}
+    with open(os.path.join(out, "summary.json"), "w") as f:
+        json.dump(summary, f)
+    if relaunches:
+        print(f"completed with {relaunches} relaunch(es); node swaps: "
+              f"{result.replaced}")
+    return result
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="mula-1b")
+    ap.add_argument("--scale", default="smoke", choices=["smoke", "full"])
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--out", default="runs/default")
+    ap.add_argument("--moe-impl", default=None,
+                    choices=[None, "naive", "dense_capacity", "fsmoe"])
+    ap.add_argument("--fur", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--sac", default="block")
+    ap.add_argument("--d-model", type=int, default=256)
+    ap.add_argument("--layers", type=int, default=2)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-interval", type=int, default=50)
+    ap.add_argument("--device", default=None,
+                    help="torch device; default cuda ('cpu' runs the plain PyTorch path)")
+    ap.add_argument("--compute-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="forward/backward dtype (TrainConfig.compute_dtype); the MoE "
+                         "kernels on the card take bfloat16")
+    ap.add_argument("--moe-dispatch", default=None,
+                    choices=["capacity", "dropless"],
+                    help="MoE token dispatch: 'capacity' or 'dropless' (overrides "
+                         "MoEConfig.dispatch)")
+    # the JAX launcher's options that the port does not run yet: each
+    # raises NotImplementedError naming its ROADMAP.md item
+    ap.add_argument("--parallel", default=None)
+    ap.add_argument("--mesh", default=None)
+    ap.add_argument("--opt-shard", default=None, choices=["none", "so", "epso"])
+    ap.add_argument("--opt-overlap", default=None, choices=["auto", "off", "ring", "xla"])
+    ap.add_argument("--pp-schedule", default=None, choices=["gpipe", "1f1b"])
+    ap.add_argument("--pp-impl", default=None, choices=["shardmap", "masked"])
+    ap.add_argument("--kernel-tiles", default=None)
+    ap.add_argument("--rebalance", default=None)
+    ap.add_argument("--rebalance-force-at", type=int, default=None)
+    ap.add_argument("--log-every", type=int, default=10,
+                    help="print the step line (loss/gnorm/lr + MoE routing "
+                         "telemetry: drops, max expert load) every N steps")
+    ap.add_argument("--n-buffer", type=int, default=2,
+                    help="buffer nodes for hard-failure replacement")
+    ap.add_argument("--inject-hard-at", type=int, default=None,
+                    help="inject one hard node failure at this step "
+                         "(also REPRO_INJECT_HARD_AT)")
+    ap.add_argument("--inject-soft-at", type=int, default=None,
+                    help="inject one soft (NaN) failure at this step "
+                         "(also REPRO_INJECT_SOFT_AT)")
+    args = ap.parse_args(argv)
+    run(args.arch, scale=args.scale, steps=args.steps, batch=args.batch,
+        seq=args.seq, out=args.out, lr=args.lr, moe_impl=args.moe_impl,
+        fur=args.fur, microbatches=args.microbatches, sac=args.sac,
+        d_model=args.d_model, layers=args.layers, seed=args.seed,
+        ckpt_interval=args.ckpt_interval, mesh=args.mesh,
+        parallel=args.parallel,
+        opt_shard=args.opt_shard, opt_overlap=args.opt_overlap,
+        pp_schedule=args.pp_schedule,
+        pp_impl=args.pp_impl, moe_dispatch=args.moe_dispatch,
+        kernel_tiles=args.kernel_tiles,
+        rebalance=args.rebalance,
+        rebalance_force_at=args.rebalance_force_at,
+        log_every=args.log_every, n_buffer=args.n_buffer,
+        inject_hard_at=args.inject_hard_at,
+        inject_soft_at=args.inject_soft_at,
+        device=args.device, compute_dtype=args.compute_dtype)
+
+
+if __name__ == "__main__":
+    main()

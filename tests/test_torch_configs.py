@@ -67,6 +67,8 @@ def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch.serve, repro_torch.convert, repro_torch.kernels.ops\n"
             "import repro_torch.train, repro_torch.optim, repro_torch.parallel\n"
+            "import repro_torch.data, repro_torch.ft, repro_torch.checkpoint\n"
+            "import repro_torch.launch.train\n"
             "import chip_smoke\n"
             "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
             "print('clean')")

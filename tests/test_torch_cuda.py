@@ -701,3 +701,48 @@ def test_ep_block_on_card_matches_one_process(cuda):
     _close(sum(r["grads"]["router"] for r in res).to(cuda), grads["router"].float(), 3e-2)
     for k in ("gate", "up", "down"):
         _close(torch.cat([r["grads"][k] for r in res]).to(cuda), grads[k].float(), 3e-2)
+
+
+def test_train_state_checkpoint_in_place_on_card(cuda, tmp_path):
+    """A CUDA TrainState after one bf16 step through the kernels: saved
+    (each leaf moved to the host as it is written), then restored into a
+    state of other values in place, bit for bit, every tensor kept and the
+    float32 params still the master weights."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ParallelConfig, TrainConfig, get_config, reduced
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import keyed_leaves, leaves
+    cfg = reduced(get_config("mula-7b-a1b"), d_model=256)
+    train = TrainConfig(seq_len=64, global_batch=2, warmup_steps=1, total_steps=10)
+    state = init_state(cfg, train, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=torch.Generator().manual_seed(0))
+    batch = {"tokens": toks[:, :-1].to(cuda), "labels": toks[:, 1:].to(cuda)}
+    state, _ = make_train_step(cfg, ParallelConfig(), train)(state, batch)
+    ck = Checkpointer(str(tmp_path))
+    ck.save(state, 1)
+    other = init_state(cfg, train, seed=1, device=cuda)
+    ptrs = [t.data_ptr() for _, t in keyed_leaves(other)]
+    restored, step = ck.restore(other)
+    assert step == 1 and restored is other
+    assert [t.data_ptr() for _, t in keyed_leaves(restored)] == ptrs
+    for (k, a), (_, b) in zip(keyed_leaves(restored), keyed_leaves(state)):
+        assert a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b), k
+    assert all(p.data_ptr() == m.data_ptr()
+               for p, m in zip(leaves(restored.params), leaves(restored.opt.master)))
+
+
+@pytest.mark.parametrize("arch", ["mula-7b-a1b", "mula-1b"])
+def test_launcher_fault_injection_on_card(cuda, tmp_path, arch):
+    """run(device="cuda") in bf16 with a hard failure at step 7 and a soft
+    one at step 12: two relaunches, and a history bit-identical to the
+    clean run's (the MoE model through the kernels)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+    kw = dict(steps=18, batch=4, seq=64, d_model=256, ckpt_interval=5, log_every=100,
+              device="cuda", compute_dtype="bfloat16")
+    ops.reset_launches()
+    clean = run(arch, out=str(tmp_path / "clean"), **kw)
+    faulty = run(arch, out=str(tmp_path / "faulty"), inject_hard_at=7, inject_soft_at=12, **kw)
+    assert faulty.relaunches == 2 and len(faulty.replaced) == 2
+    assert list(faulty) == list(clean)
+    assert (ops.launches["gmm"] > 0) == (arch == "mula-7b-a1b")

@@ -1,0 +1,181 @@
+"""PyTorch port, the one-device training launcher (``repro_torch.launch.
+train.run``) against the JAX package's ``repro.launch.train.run``, the
+whole slice: data pipeline, model, AdamW, dual + model-only checkpoints
+and the failure-handling loop.
+
+Checkpoints interoperate. A JAX run of 10 steps checkpoints at step 5; its
+directory is copied, and JAX resumes steps 6-9 in one copy, the port
+(``device="cpu"``, float32) in the other; then the reverse (the port
+writes, JAX resumes). Losses, grad norms and lrs agree at atol = rtol =
+1e-4. Mula-7B-A1B runs dropless on both sides: the JAX launcher's default
+MoE backend gives every expert a uniform capacity (pool rows / E), the
+port's kernel path ragged groups, so under capacity dispatch they drop
+different pairs once an expert overflows. The JAX launcher runs 7 times in
+this file (about 5 s each)."""
+import json
+import shutil
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.launch import train as jlaunch  # noqa: E402
+from repro_torch.launch import train as tlaunch  # noqa: E402
+
+KW = dict(steps=10, ckpt_interval=5, d_model=64, batch=4, seq=32, log_every=100)
+ARCHS = {"mula-1b": {}, "mula-7b-a1b": {"moe_dispatch": "dropless"}}
+TOL = dict(atol=1e-4, rtol=1e-4)
+FT = dict(steps=18, batch=4, seq=32, d_model=64, ckpt_interval=5, log_every=100)
+
+
+def _port(arch, out, **kw):
+    return tlaunch.run(arch, out=str(out), device="cpu", **{**KW, **ARCHS[arch], **kw})
+
+
+def _jax(arch, out, **kw):
+    return jlaunch.run(arch, out=str(out), **{**KW, **ARCHS[arch], **kw})
+
+
+def _close(got, ref):
+    assert [h["step"] for h in got] == [h["step"] for h in ref]
+    for g, r in zip(got, ref):
+        assert sorted(g) == sorted(r), g["step"]
+        for k in r:
+            np.testing.assert_allclose(g[k], r[k], **TOL, err_msg=f"step {r['step']} {k}")
+
+
+@pytest.fixture(scope="module", params=list(ARCHS))
+def runs(request, tmp_path_factory):
+    """One arch's runs: JAX 10 steps, resumed from step 6 by JAX and by the
+    port in copies of its directory; the port 10 steps, resumed by JAX."""
+    arch = request.param
+    root = tmp_path_factory.mktemp(arch)
+    out = {"arch": arch, "root": root, "jax": _jax(arch, root / "jax")}
+    for side, fn in (("jax_resumed", _jax), ("port_resumed", _port)):
+        shutil.copytree(root / "jax", root / side)
+        out[side] = fn(arch, root / side)
+    out["port"] = _port(arch, root / "port")
+    shutil.copytree(root / "port", root / "port_then_jax")
+    out["port_then_jax"] = _jax(arch, root / "port_then_jax")
+    return out
+
+
+def test_jax_checkpoint_resumes_in_port(runs):
+    assert [h["step"] for h in runs["port_resumed"]] == [6, 7, 8, 9]
+    _close(runs["port_resumed"], runs["jax_resumed"])
+
+
+def test_port_checkpoint_resumes_in_jax(runs):
+    assert [h["step"] for h in runs["port_then_jax"]] == [6, 7, 8, 9]
+    _close(runs["port_then_jax"], runs["port"][6:])
+    # the port's own init differs (JAX's PRNG is not reproduced); the schedule not
+    np.testing.assert_allclose([h["lr"] for h in runs["port"]], [h["lr"] for h in runs["jax"]],
+                               **TOL)
+    assert runs["port"][-1]["loss"] < runs["port"][0]["loss"]
+
+
+def test_outputs_match_jax(runs):
+    """The same data bytes, the same summary.json fields and history.json
+    records, the same checkpoint files (keys, shapes, dtypes)."""
+    root = runs["root"]
+    for f in (root / "jax" / "data").iterdir():
+        assert (root / "port" / "data" / f.name).read_bytes() == f.read_bytes(), f.name
+    sj, st = (json.loads((root / d / "summary.json").read_text())
+              for d in ("jax_resumed", "port_resumed"))
+    assert {k: v for k, v in st.items() if k != "final_loss"} == \
+        {k: v for k, v in sj.items() if k != "final_loss"}
+    np.testing.assert_allclose(st["final_loss"], sj["final_loss"], **TOL)
+    hj, ht = (json.loads((root / d / "history.json").read_text())
+              for d in ("jax_resumed", "port_resumed"))
+    _close(ht, hj)
+    for rel in ("ckpt/ckpt-1/state.npz", "ckpt/model-00000005.npz"):
+        with np.load(root / "jax" / rel) as a, np.load(root / "port" / rel) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                assert (a[k].shape, a[k].dtype) == (b[k].shape, b[k].dtype), k
+
+
+def test_fault_injection_matches_uninterrupted(tmp_path):
+    """A hard failure at step 7 and a soft (NaN) one at step 12: two
+    relaunches, the node swaps of the JAX run's, both slots valid at steps
+    10 and 15, and a history bit-identical to the clean run's."""
+    clean = tlaunch.run("mula-1b", out=str(tmp_path / "clean"), device="cpu", **FT)
+    faulty = tlaunch.run("mula-1b", out=str(tmp_path / "faulty"), device="cpu",
+                         inject_hard_at=7, inject_soft_at=12, **FT)
+    ref = jlaunch.run("mula-1b", out=str(tmp_path / "jax"), inject_hard_at=7,
+                      inject_soft_at=12, **FT)
+    assert clean.relaunches == 0 and faulty.relaunches == ref.relaunches == 2
+    assert faulty.replaced == ref.replaced and len(faulty.replaced) == 2
+    steps = set()
+    for slot in ("ckpt-1", "ckpt-2"):
+        m = json.loads((tmp_path / "faulty" / "ckpt" / slot / "MANIFEST.json").read_text())
+        assert m["valid"]
+        steps.add(m["step"])
+    assert steps == {10, 15}
+    assert list(faulty) == list(clean)                    # every field, bit for bit
+    assert [h["step"] for h in faulty] == list(range(18))
+    summary = json.loads((tmp_path / "faulty" / "summary.json").read_text())
+    assert summary["relaunches"] == 2 and summary["steps"] == 18
+    assert summary["replaced"] == [list(p) for p in ref.replaced]
+
+
+def test_failure_before_first_checkpoint_restarts_from_init(tmp_path, monkeypatch):
+    """A hard failure at step 1, before the first checkpoint (step 5): the
+    fallback rebuilds the initial state into the live tensors, so the run
+    equals the clean one. The failure step comes from REPRO_INJECT_HARD_AT."""
+    kw = dict(steps=6, batch=4, seq=32, d_model=64, ckpt_interval=5, log_every=100)
+    clean = tlaunch.run("mula-7b-a1b", out=str(tmp_path / "clean"), device="cpu", **kw)
+    monkeypatch.setenv("REPRO_INJECT_HARD_AT", "1")
+    faulty = tlaunch.run("mula-7b-a1b", out=str(tmp_path / "faulty"), device="cpu", **kw)
+    assert faulty.relaunches == 1 and list(faulty) == list(clean)
+
+
+def test_injection_clamps_the_checkpoint_interval(tmp_path, capsys):
+    res = tlaunch.run("mula-1b", out=str(tmp_path), device="cpu", steps=8, batch=2, seq=16,
+                      d_model=64, ckpt_interval=50, inject_soft_at=5, log_every=100)
+    assert "ckpt interval clamped to 2" in capsys.readouterr().out
+    assert res.relaunches == 1 and [h["step"] for h in res] == list(range(8))
+
+
+def test_resume_continues_where_the_checkpoint_left_off(tmp_path):
+    out = str(tmp_path / "run")
+    kw = dict(batch=4, seq=64, ckpt_interval=5, d_model=64, log_every=100, device="cpu")
+    first = tlaunch.run("mula-1b", steps=10, out=out, **kw)
+    second = tlaunch.run("mula-1b", steps=14, out=out, **kw)
+    assert [h["step"] for h in second] == list(range(6, 14))
+    # step 6 runs on the restored state, bit for bit; its lr follows the 14-step schedule
+    assert (second[0]["loss"], second[0]["grad_norm"]) == (first[6]["loss"],
+                                                           first[6]["grad_norm"])
+    assert second[0]["lr"] != first[6]["lr"]
+    assert np.isfinite([h["loss"] for h in second]).all()
+
+
+@pytest.mark.parametrize("kw", [
+    {"mesh": "4,2"}, {"parallel": "dp=2,ep=2"}, {"opt_shard": "epso"}, {"opt_shard": "so"},
+    {"opt_overlap": "ring"}, {"opt_overlap": "auto"}, {"pp_schedule": "1f1b"},
+    {"pp_impl": "masked"}, {"kernel_tiles": "auto"}, {"rebalance": "50:1.25"},
+    {"rebalance_force_at": 3}, {"arch": "zamba2-7b"}, {"arch": "phi-3-vision-4.2b"},
+    {"arch": "seamless-m4t-medium"}, {"arch": "falcon-mamba-7b"}],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_unsupported_arguments_raise(tmp_path, kw):
+    kw = dict(kw)
+    arch = kw.pop("arch", "mula-7b-a1b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item"):
+        tlaunch.run(arch, out=str(tmp_path / "run"), device="cpu", steps=2, **kw)
+    assert not (tmp_path / "run").exists()                # refused before any work
+
+
+def test_cli_runs_on_the_cpu(tmp_path, capsys):
+    tlaunch.main(["--arch", "mula-1b", "--device", "cpu", "--steps", "4", "--batch", "2",
+                  "--seq", "32", "--d-model", "64", "--out", str(tmp_path)])
+    printed = capsys.readouterr().out
+    assert "arch=mula-1b-smoke" in printed and "device=cpu compute_dtype=float32" in printed
+    hist = json.loads((tmp_path / "history.json").read_text())
+    assert [h["step"] for h in hist] == [0, 1, 2, 3]
+
+
+def test_runs_on_cuda_unless_told_otherwise(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tlaunch.run("mula-1b", out=str(tmp_path), steps=2)

@@ -65,3 +65,13 @@ def fail_on_rank_1(group):
     if group.rank == 1:
         raise ValueError("rank 1 stops")
     torch.distributed.barrier()
+
+
+def broadcast_rank(group, params):
+    """Rank r's share of ``params`` with r added to every leaf, then
+    ``checkpoint.broadcast_params`` over the group."""
+    from repro_torch.checkpoint import broadcast_params
+    from repro_torch.tree import tree_map
+    mine = tree_map(lambda t: t.clone() + group.rank,
+                    expert_shard(params, group.rank, group.world))
+    return broadcast_params(mine, group)
