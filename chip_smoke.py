@@ -13,7 +13,8 @@ Phases, each printing JSON lines:
   device     the card (nvidia-smi name and power limit) and the time to
              build the CUDA kernels from ``src/repro_torch/csrc``;
   kernels    each kernel against its plain PyTorch version on the card, at
-             the serving, training, hybrid and expert-parallel paths' shapes,
+             the serving, training, hybrid, expert-parallel and epso_train
+             paths' shapes,
              with its time, the plain version's, one PyTorch library call's
              where there is one, and its bound (the MoE dispatch plan also
              with the host's time to enqueue it and the plain chain, and
@@ -60,6 +61,20 @@ Phases, each printing JSON lines:
              kernel. The four ranks time-share one card and gloo carries
              their collectives through host memory: the step time is no EP
              speed;
+  epso_train the paper's sharded optimizer: full-width Mula-7B-A1B cut to
+             2 of its 16 layers on a dp = 2 x ep = 2 grid of 4 ranks sharing
+             the card over gloo (32 experts and one 2048-token row a rank,
+             4096 gathered tokens per MoE call), 6 steps from init_state(seed
+             0) in each of ('none', 'off'), ('so', 'off'), ('epso', 'ring')
+             and ('epso', 'xla'); asserts on every rank and in every mode
+             finite metrics, a falling loss, clip_scale <= 1, the same metrics
+             as rank 0, replicated params equal on every rank and expert
+             slices on both 'data' replicas, step 0's loss identical in every
+             mode and later ones within 1 % of 'none''s, the measured state
+             bytes per rank exactly ``state_bytes_per_device`` and the exact
+             launch count of every kernel; prints step ms and peak memory per
+             rank and mode, the update plan's buckets and the host ms of the
+             collectives (no speed: the ranks time-share one card);
   launcher_dense  full-width, full-depth Mula-1B (16 layers, d_model 2048,
              d_ff 8192, the byte vocab padded to 512; random weights from
              seed 0, fp32 state, bf16 compute) trained by the launcher
@@ -115,6 +130,12 @@ MULA = "mula-7b-a1b"
 ZAMBA = "zamba2-7b"
 DEV = "cuda"
 EP_RANKS, EP_SEQ, EP_STEPS = 4, 2048, 6
+# epso_train: the sharded optimizer on a dp x ep grid of ranks sharing the card
+EPSO_DP, EPSO_EP, EPSO_LAYERS, EPSO_STEPS = 2, 2, 2, 6
+EPSO_RUNS = (("none", "off"), ("so", "off"), ("epso", "ring"), ("epso", "xla"))
+# per-rank fp32 master + m + v bytes of full-width Mula-7B-A1B at 2 layers on
+# the 2 x 2 grid (optim.epso.state_bytes_per_device; every leaf divides)
+EPSO_STATE_BYTES = {"none": 7_716_593_664, "so": 3_858_296_832, "epso": 3_137_107_968}
 # the launcher phases' runs (``repro_torch.launch.train.run`` keywords) and
 # their directory, git-ignored, inside the checkout
 LAUNCH_DIR = ROOT / "build" / "launcher"
@@ -319,6 +340,10 @@ def kernel_cases(cfg) -> list[dict]:
     EL = E // EP_RANKS
     cases += train_kernel_cases(cfg, gen, randn, tokens=EP_RANKS * EP_SEQ,
                                 offset=(EP_RANKS - 1) * EL, local=EL)
+    # epso_train: rank (d, 1) of the 2 x 2 grid, 32 experts from offset 32
+    ELG = E // EPSO_EP
+    cases += train_kernel_cases(cfg, gen, randn, tokens=EPSO_EP * EP_SEQ, offset=ELG,
+                                local=ELG, path="epso")
     cases += train_kernel_cases(launcher_ft_cfg(), gen, randn,
                                 tokens=FT_RUN["batch"] * FT_RUN["seq"], path="launcher_ft",
                                 empty=2)
@@ -461,7 +486,9 @@ def hybrid_kernel_cases(gen) -> list[dict]:
 def token_counts_cases(cfg, gen) -> list[dict]:
     """The Stage 2 histogram at the paths' shapes, int64 ids from top-8
     routing as the router emits them: a decode step (8 tokens, all 64
-    experts local), a 1000-token prefill, and EP's gathered ids (4 ranks x
+    experts local), a 1000-token prefill, epso_train's gathered ids (2
+    ranks x 2048 tokens x 8, 32 local experts from offset 32), and EP's
+    gathered ids (4 ranks x
     2048 tokens x 8 = 65,536 ids) counted for ranks 1 and 3 (16 local
     experts from offsets 16 and 48), plus every id one expert (all the
     atomics on one bin). Exact equality. The yardstick is the port's former
@@ -475,12 +502,15 @@ def token_counts_cases(cfg, gen) -> list[dict]:
         return torch.rand((T, E), generator=gen, device=DEV).topk(K, dim=-1).indices.reshape(-1)
 
     ep = routed(EP_RANKS * EP_SEQ)
+    epso = routed(EPSO_EP * EP_SEQ)
     ft = launcher_ft_cfg().moe
     ft_T = FT_RUN["batch"] * FT_RUN["seq"]
     ft_ids = torch.rand((ft_T, ft.num_experts), generator=gen, device=DEV).topk(
         ft.experts_per_token, dim=-1).indices.reshape(-1)
     cases = []
     for name, ids, el, off in ((f"launcher_ft T={ft_T}", ft_ids, ft.num_experts, 0),
+                               (f"epso F={epso.numel()} EL={E // EPSO_EP} offset={E // EPSO_EP}",
+                                epso, E // EPSO_EP, E // EPSO_EP),
                                ("decode T=8", routed(8), E, 0),
                                ("prefill T=1000", routed(1000), E, 0),
                                (f"EP F={ep.numel()} EL={E // EP_RANKS} offset=16", ep,
@@ -509,8 +539,9 @@ def dispatch_plan_cases(cfg, gen) -> list[dict]:
     as the router emits them, in the pools the model sizes: a decode step (8
     tokens, 64 pairs) and prefills of 128, 512 and 1000 tokens in serving's
     dropless pool, a train microbatch (4096 tokens, 32,768 pairs) in the
-    capacity pool, and EP's gathered ids (65,536 pairs) for ranks 1 and 3
-    (16 local experts from offsets 16 and 48). Exact equality of every
+    capacity pool, EP's gathered ids (65,536 pairs) for ranks 1 and 3
+    (16 local experts from offsets 16 and 48) and epso_train's (32,768
+    pairs, 32 local experts from offset 32). Exact equality of every
     output; the host's time to enqueue the plan and the plain chain (the
     sort-based index generation the kernel replaces); the kernel's one-block
     and three-launch paths timed on the same inputs (``variants``: the
@@ -548,6 +579,9 @@ def dispatch_plan_cases(cfg, gen) -> list[dict]:
     shapes += [(f"EP F={ep.numel()} offset={off}", ep, EL, off,
                 moe.dispatch_pool_rows(EP_RANKS * EP_SEQ, m, local_experts=EL))
                for off in (16, 48)]
+    ELG = E // EPSO_EP
+    shapes += [(f"epso F={EPSO_EP * EP_SEQ * K} offset={ELG}", routed(EPSO_EP * EP_SEQ), ELG,
+                ELG, moe.dispatch_pool_rows(EPSO_EP * EP_SEQ, m, local_experts=ELG))]
     ft = launcher_ft_cfg().moe
     ft_T = FT_RUN["batch"] * FT_RUN["seq"]
     shapes += [(f"launcher_ft F={ft_T * ft.experts_per_token}",
@@ -580,9 +614,9 @@ def train_kernel_cases(cfg, gen, randn, *, tokens: int = TRAIN_TOKENS, offset: i
     model's own capacity factor, so some pairs are dropped as in training),
     gmm forward and its transposed-rhs input gradient for both weight
     shapes, tgmm for both (and with empty groups), the combine and SwiGLU
-    backward kernels. With ``local``, the same calls at ep_train's shapes:
-    one EP rank's ``local`` experts from ``offset`` among ``tokens``
-    gathered tokens (cases named "ep ..."). ``path`` names the cases
+    backward kernels. With ``local``, the same calls at ep_train's (or
+    epso_train's) shapes: one EP rank's ``local`` experts from ``offset``
+    among ``tokens`` gathered tokens (cases named "ep ..." or ``path``). ``path`` names the cases
     otherwise; ``empty``: how many of the model's last experts the tgmm case
     with empty groups leaves without rows."""
     import torch
@@ -1142,7 +1176,9 @@ def _profile_window(run, host_prefixes: tuple = ()) -> dict:
     longest kernel by name) and the total time
     and calls of each of the port's own kernels;
     with ``host_prefixes``, also the host events whose names start with one
-    of them, summed by name (the collectives under EP)."""
+    of them, summed by name (the collectives under EP). The spans gloo
+    records on the device timeline for its collectives on CUDA tensors are
+    listed apart (``gloo_device_spans``), not counted as busy."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1154,9 +1190,14 @@ def _profile_window(run, host_prefixes: tuple = ()) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, list[float]] = {}
     host: dict[str, list[float]] = {}
+    gloo_on_device: dict[str, list[float]] = {}
     for e in prof.events():
         ms = e.time_range.elapsed_us() / 1e3
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name.startswith("gloo:"):
+            # gloo's CUDA work records its collective's span on the device
+            # timeline: a wait, not a kernel; kept out of the busy time
+            gloo_on_device.setdefault(e.name, []).append(ms)
+        elif e.device_type == DeviceType.CUDA:
             by_name.setdefault(e.name, []).append(ms)
         elif host_prefixes and e.name.startswith(host_prefixes):
             host.setdefault(e.name, []).append(ms)
@@ -1184,6 +1225,9 @@ def _profile_window(run, host_prefixes: tuple = ()) -> dict:
            "port_kernels": port}
     if host_prefixes:
         out["host_events"] = {n: {"ms": sum(v), "calls": len(v)} for n, v in host.items()}
+    if gloo_on_device:
+        out["gloo_device_spans"] = {n: {"ms": sum(v), "calls": len(v)}
+                                    for n, v in gloo_on_device.items()}
     return out
 
 
@@ -1701,6 +1745,182 @@ def phase_ep_train() -> dict:
 
 
 # ----------------------------------------------------------------------------
+# the sharded optimizer (SO / EPSO) on a dp x ep grid
+# ----------------------------------------------------------------------------
+
+def _checksums(tree) -> dict:
+    """Per leaf, its float64 sum and sum of squares: equal leaves on two
+    ranks give equal pairs."""
+    from repro_torch.tree import leaves_with_path
+    return {path: (float(t.double().sum()), float(t.double().square().sum()))
+            for path, t in leaves_with_path(tree)}
+
+
+def _epso_train_rank(grid, steps):
+    """One rank of epso_train: for each (mode, overlap) of EPSO_RUNS its
+    share of init_state(seed 0) on the grid, its row of the fixed batch,
+    ``steps`` steps and one more profiled on rank 0; what the parent
+    asserts and prints."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ParallelConfig, TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import DEFAULT_BUCKET_BYTES, state_bytes_per_device
+    from repro_torch.parallel.sharding import param_placements
+    from repro_torch.train import init_state, make_train_step, opt_layout
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(MULA), num_layers=EPSO_LAYERS)
+    world, r = grid.world.world, grid.world.rank
+    train = TrainConfig(seq_len=EP_SEQ, global_batch=world, warmup_steps=2, total_steps=100)
+    batch = _fixed_batch(cfg.vocab_size, train.global_batch, train.seq_len, grid.world.device)
+    mine = {k: v[r:r + 1] for k, v in batch.items()}
+    shapes = init_params(cfg, device="meta")
+    sizes = grid.axis_sizes
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    out = {}
+    for mode, overlap in EPSO_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state = init_state(cfg, train, seed=0, grid=grid, opt_sharding_mode=mode)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        par = ParallelConfig(microbatches=1, remat_policy="block", opt_overlap=overlap)
+        step = make_train_step(cfg, par, train, opt_sharding_mode=mode, grid=grid)
+        held = sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m, state.opt.v)
+                   for t in leaves(tree))
+        plan = None
+        if mode != "none":
+            p, _ = opt_layout(cfg, grid, mode, max_bucket_bytes=0 if overlap == "off"
+                              else DEFAULT_BUCKET_BYTES)
+            gathered = [b for b in p.buckets if b.axes]
+            plan = {"buckets": len(p.buckets), "gathered_buckets": len(gathered),
+                    "gathered_elems": sum(b.elems for b in gathered),
+                    "gathered_bytes_f32": 4 * sum(b.elems for b in gathered),
+                    "largest_bucket_elems": max(b.elems for b in p.buckets),
+                    "axes": list(p.axes)}
+        history = []
+        ops.reset_launches()
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, mine)
+            torch.cuda.synchronize()
+            history.append({**{k: float(m[k]) for k in keys},
+                            "step_ms": (time.perf_counter() - t0) * 1e3})
+        launches = dict(ops.launches)
+        sums = _checksums(state.params)
+        # one more step, profiled on rank 0 (every rank takes it: lockstep)
+        profile = None
+        if r == 0:
+            profile = _profile_window(lambda: step(state, mine),
+                                      host_prefixes=("gloo:", "c10d::"))
+        else:
+            step(state, mine)
+            torch.cuda.synchronize()
+        out[f"{mode}/{overlap}"] = {
+            "history": history, "launches": launches, "checksums": sums, "profile": profile,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "init_s": init_s,
+            "state_bytes": held, "plan": plan,
+            "state_bytes_expected": state_bytes_per_device(
+                shapes, param_placements(shapes, sizes), sizes, mode)}
+        del state, step, m
+    return {"runs": out, "coords": grid.coords, "backend": grid.world.backend,
+            "device": str(grid.world.device)}
+
+
+def phase_epso_train() -> dict:
+    """Full-width Mula-7B-A1B, EPSO_LAYERS of its 16 layers, on an EPSO_DP x
+    EPSO_EP grid of ranks sharing the card over gloo, in each of
+    EPSO_RUNS: EPSO_STEPS steps on the fixed batch (one EP_SEQ-token row a
+    rank), microbatches 1, block remat, the config's capacity dispatch."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.parallel import spawn
+
+    cfg = get_config(MULA)
+    world = EPSO_DP * EPSO_EP
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(_epso_train_rank, world, args=(EPSO_STEPS,), backend="gloo", device=DEV,
+                  timeout_s=900, grid=(EPSO_DP, EPSO_EP))
+    wall = time.perf_counter() - t0
+    expect = expected_train_launches(EPSO_LAYERS, 1, EPSO_STEPS)
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    names = [f"{mode}/{ov}" for mode, ov in EPSO_RUNS]
+    base = [s["loss"] for s in ranks[0]["runs"][names[0]]["history"]]
+    for name, (mode, _) in zip(names, EPSO_RUNS):
+        for i, rk in enumerate(ranks):
+            run = rk["runs"][name]
+            h = run["history"]
+            where = f"epso_train {name} rank {i}"
+            if not all(math.isfinite(s[k]) for s in h for k in keys):
+                raise AssertionError(f"{where}: non-finite metrics {h}")
+            if not h[-1]["loss"] < h[0]["loss"]:
+                raise AssertionError(f"{where}: loss did not fall: {[s['loss'] for s in h]}")
+            if not all(s["clip_scale"] <= 1.0 for s in h):
+                raise AssertionError(f"{where}: clip_scale above 1")
+            if [{k: s[k] for k in keys} for s in h] != [
+                    {k: s[k] for k in keys} for s in ranks[0]["runs"][name]["history"]]:
+                raise AssertionError(f"{where}: metrics differ from rank 0's")
+            if h[0]["loss"] != base[0]:
+                raise AssertionError(f"{where}: step 0 loss {h[0]['loss']} != 'none''s {base[0]}")
+            rel = [abs(s["loss"] - b) / abs(b) for s, b in zip(h, base)]
+            if max(rel) > 0.01:
+                raise AssertionError(f"{where}: losses off 'none''s by {rel} (> 1 %)")
+            if not run["state_bytes"] == run["state_bytes_expected"] == EPSO_STATE_BYTES[mode]:
+                raise AssertionError(f"{where}: state bytes {run['state_bytes']} measured, "
+                                     f"{run['state_bytes_expected']} planned, "
+                                     f"{EPSO_STATE_BYTES[mode]} expected")
+            if run["launches"] != expect:
+                raise AssertionError(f"{where}: launches {run['launches']} != {expect}")
+            # replicated leaves equal on every rank, an expert slice on the
+            # ranks holding it (the same 'ep' coordinate)
+            twin = next(o for o in ranks if o["coords"]["ep"] == rk["coords"]["ep"]
+                        and o is not rk)["runs"][name]["checksums"]
+            for path, cs in run["checksums"].items():
+                other = twin if "/moe/" in path and path.rsplit("/", 1)[-1] in (
+                    "gate", "up", "down") else ranks[0]["runs"][name]["checksums"]
+                if cs != other[path]:
+                    raise AssertionError(f"{where}: params {path} differ across ranks")
+    runs = {}
+    for name in names:
+        r0 = ranks[0]["runs"][name]
+        runs[name] = {
+            "losses": [s["loss"] for s in r0["history"]],
+            "grad_norms": [s["grad_norm"] for s in r0["history"]],
+            "clip_scales": [s["clip_scale"] for s in r0["history"]],
+            "loss_rel_to_none": [abs(s["loss"] - b) / abs(b)
+                                 for s, b in zip(r0["history"], base)],
+            "step_ms_by_rank": [[s["step_ms"] for s in rk["runs"][name]["history"]]
+                                for rk in ranks],
+            "step_ms_median_by_rank": [statistics.median(
+                s["step_ms"] for s in rk["runs"][name]["history"][1:]) for rk in ranks],
+            "peak_bytes_by_rank": [rk["runs"][name]["peak_bytes"] for rk in ranks],
+            "init_s_by_rank": [rk["runs"][name]["init_s"] for rk in ranks],
+            "state_bytes_per_rank": r0["state_bytes"], "plan": r0["plan"],
+            "collectives_host_ms_rank0": sum(
+                v["ms"] for n, v in r0["profile"]["host_events"].items()
+                if n.startswith("gloo:")),
+            "profile_step_rank0": r0["profile"]}
+    row = {"model": cfg.name, "layers": EPSO_LAYERS, "grid": {"data": EPSO_DP, "ep": EPSO_EP},
+           "ranks": world, "backend": ranks[0]["backend"], "device": ranks[0]["device"],
+           "experts_per_rank": cfg.moe.num_experts // EPSO_EP, "seq_per_rank": 1,
+           "seq_len": EP_SEQ, "gathered_tokens_per_moe_call": EPSO_EP * EP_SEQ,
+           "dispatch": cfg.moe.dispatch, "steps": EPSO_STEPS, "runs": runs,
+           "launches_per_rank": ranks[0]["runs"][names[0]]["launches"],
+           "expected_launches": expect, "wall_s": wall,
+           "note": "4 ranks time-share one card; gloo carries the collectives through host "
+                   "memory (the ring's point-to-point exchanges through pinned host "
+                   "buffers, explicitly): no step time here is an EP, DP or EPSO speed"}
+    emit("epso_train", **row)
+    return row
+
+
+# ----------------------------------------------------------------------------
 # the training launcher: full-depth dense Mula-1B, and fault tolerance through
 # the MoE kernels
 # ----------------------------------------------------------------------------
@@ -2172,6 +2392,7 @@ def main(argv=None) -> int:
     hybrid = phase_hybrid_serve()
     phase_ep_reference()
     ep_train = phase_ep_train()
+    epso = phase_epso_train()
     dense = phase_launcher_dense()
     ft = phase_launcher_ft()
     phase_launches(get_config(MULA))
@@ -2183,6 +2404,7 @@ def main(argv=None) -> int:
         by_path = {"serve": serve["launches"][name], "train": train["launches"][name],
                    "hybrid": hybrid["launches"][name],
                    "ep_train": ep_train["launches_per_rank"][name],
+                   "epso_train": epso["launches_per_rank"][name],
                    "launcher_dense": dense["launches"][name],
                    "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name]}
         summary.append({

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.optim.epso import refuse_sharded_state
 from repro_torch.tree import assign, keyed_leaves, leaves
 
 CHECKSUM_BYTES = 4096
@@ -179,7 +180,10 @@ class Checkpointer:
 
     def save(self, state, step: int, *, fail_after_write: bool = False):
         """Write a full checkpoint into the *older* of the two slots.
-        ``fail_after_write`` simulates a mid-checkpoint failure (tests)."""
+        ``fail_after_write`` simulates a mid-checkpoint failure (tests). A
+        state whose optimizer is sharded (SO/EPSO) raises
+        ``NotImplementedError``."""
+        refuse_sharded_state(state, "Checkpointer.save")
         slot = self._oldest_slot()
         tmp = slot + ".tmp"
         if os.path.exists(tmp):
@@ -202,7 +206,9 @@ class Checkpointer:
 
     def restore(self, template):
         """Restore the newest *valid* slot into ``template`` in place.
-        Returns (template, step) or (None, -1)."""
+        Returns (template, step) or (None, -1). A template whose optimizer
+        is sharded (SO/EPSO) raises ``NotImplementedError``."""
+        refuse_sharded_state(template, "Checkpointer.restore")
         best, best_step = None, -1
         for slot in self.slots:
             s = self._slot_step(slot)

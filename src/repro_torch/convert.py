@@ -8,7 +8,10 @@ parameter dict: the same nested layout, leaves as tensors.
 to start both packages from the same weights and optimizer state, since
 JAX's PRNG is not reproduced. Under expert parallelism each rank takes its
 share: ``parallel.expert_shard(params, rank, world)`` of the params and
-``opt_state_shard(opt, rank, world)`` of the AdamW state.
+``opt_state_shard(opt, rank, world)`` of the AdamW state. On a dp x ep grid
+with a sharded optimizer (SO/EPSO), ``opt_state_for_rank`` cuts a rank's
+shards of the full state and ``opt_state_from_ranks`` puts the ranks'
+shards back together into full numpy arrays.
 """
 from __future__ import annotations
 
@@ -17,9 +20,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import padded_vocab
+from repro_torch.models.model import init_params, padded_vocab
 from repro_torch.optim import AdamWState
-from repro_torch.parallel.sharding import expert_shard
+from repro_torch.optim.epso import optimizer_state_specs
+from repro_torch.optim.overlap import shard_index
+from repro_torch.parallel.sharding import expert_shard, param_placements
+from repro_torch.tree import leaves, leaves_with_path, tree_map
 
 
 def _tensors(node, dev, dtype):
@@ -53,3 +59,73 @@ def opt_state_shard(opt: AdamWState, rank: int, world: int) -> AdamWState:
     stacks in the master weights and both moments (``expert_shard``), the
     rest and the step as they are."""
     return AdamWState(opt.step, *(expert_shard(t, rank, world) for t in (opt.master, opt.m, opt.v)))
+
+
+def _grid_specs(cfg: ModelConfig, dp: int, ep: int, mode: str):
+    sizes = {a: n for a, n in (("data", dp), ("ep", ep)) if n > 1}
+    shapes = init_params(cfg, device="meta")
+    return shapes, optimizer_state_specs(shapes, param_placements(shapes, sizes), sizes,
+                                         mode), sizes
+
+
+def _tile_slices(spec, shape, coords: dict, sizes: dict) -> tuple:
+    """The slices of a global leaf a rank's state holds: each dim cut by
+    its axes, major-to-minor (GSPMD's tiling of a tuple spec)."""
+    out = []
+    for d, axes in enumerate(spec):
+        n = 1
+        for a in axes:
+            n *= sizes[a]
+        blk = shape[d] // n
+        k = shard_index(axes, coords, sizes)
+        out.append(slice(k * blk, (k + 1) * blk))
+    return tuple(out)
+
+
+def _coords(rank: int, ep: int) -> dict:
+    return {"data": rank // ep, "ep": rank % ep}
+
+
+def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, rank: int,
+                       mode: str, device: DeviceLike = None) -> AdamWState:
+    """Rank ``rank``'s state on a dp x ep grid (rank = d * ep + e) under
+    ``opt_sharding_mode`` ``mode``, from a full AdamW state: the JAX
+    package's with numpy leaves (converted by ``opt_state_from_jax`` onto
+    ``device``) or the port's. Each of master, m and v is cut by its state
+    placement (``optim.epso.optimizer_state_specs`` of the port's param
+    placements), as copies; the step is kept. The shards equal what
+    ``train.init_state`` cuts on that rank from the same full state."""
+    if not torch.is_tensor(leaves(opt.master)[0]):
+        opt = opt_state_from_jax(opt, device=device)
+    shapes, specs, sizes = _grid_specs(cfg, dp, ep, mode)
+    coords = _coords(rank, ep)
+
+    def cut(tree):
+        return tree_map(lambda t, spec: t[_tile_slices(spec, t.shape, coords, sizes)].clone(),
+                        tree, specs)
+    return AdamWState(opt.step, *(cut(t) for t in (opt.master, opt.m, opt.v)))
+
+
+def opt_state_from_ranks(states: list, cfg: ModelConfig, *, dp: int, ep: int,
+                         mode: str) -> dict:
+    """The inverse of ``opt_state_for_rank``: the ranks' states (in rank
+    order) put back together into full float32 numpy arrays, ``{"master",
+    "m", "v"}`` each a dict of leaves by path ('layers/moe/gate'), and
+    ``"step"``. Ranks that hold the same tile must agree on it exactly."""
+    shapes, specs, sizes = _grid_specs(cfg, dp, ep, mode)
+    out = {"step": int(states[0].step)}
+    for what in ("master", "m", "v"):
+        full = {path: np.full(tuple(leaf.shape), np.nan, dtype=np.float32)
+                for path, leaf in leaves_with_path(shapes)}
+        for rank, st in enumerate(states):
+            coords = _coords(rank, ep)
+            for (path, shard), spec in zip(leaves_with_path(getattr(st, what)), leaves(specs)):
+                sl = _tile_slices(spec, full[path].shape, coords, sizes)
+                tile = shard.detach().cpu().float().numpy()
+                seen = full[path][sl]
+                if not np.isnan(seen).all() and not np.array_equal(seen, tile):
+                    raise ValueError(f"{what} {path}: rank {rank}'s tile differs from "
+                                     f"another rank's copy")
+                full[path][sl] = tile
+        out[what] = full
+    return out

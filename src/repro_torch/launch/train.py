@@ -21,10 +21,12 @@ float32 the JAX launcher fixes. The MoE kernels on the card take bf16, so
 an MoE model on the card runs with ``bfloat16``.
 
 Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
-item that ports them: ``mesh``, ``parallel``, ``pp_schedule``, ``pp_impl``,
-``rebalance*`` (§1 item 5), ``opt_shard`` other than 'none' and
-``opt_overlap`` other than 'off' (§1 item 3), ``kernel_tiles`` (§1 item 7),
-and the hybrid (§1 item 4), ssm, vlm and audio archs (§1 item 6).
+item that ports them: ``mesh``, ``parallel``, ``opt_shard`` other than
+'none' and ``opt_overlap`` other than 'off' (§1 item 3, the multi-rank
+launcher: the trainer runs SO/EPSO on a ``parallel.ProcessGrid``, the
+launcher does not start one yet), ``pp_schedule``, ``pp_impl``,
+``rebalance*`` (§1 item 5), ``kernel_tiles`` (§1 item 7), and the hybrid
+(§1 item 4), ssm, vlm and audio archs (§1 item 6).
 """
 from __future__ import annotations
 
@@ -96,11 +98,13 @@ def _refuse(what: str, item: str) -> None:
 def _check_supported(cfg, *, mesh, parallel, opt_shard, opt_overlap, pp_schedule, pp_impl,
                      kernel_tiles, rebalance, rebalance_force_at) -> None:
     if mesh is not None or parallel is not None:
-        _refuse("a device mesh (--mesh / --parallel)", "item 5, the rest of multi-GPU")
+        _refuse("a device mesh (--mesh / --parallel)", "item 3, the multi-rank launcher")
     if opt_shard not in (None, "none"):
-        _refuse(f"optimizer-state sharding {opt_shard!r}", "item 3, SO/EPSO")
+        _refuse(f"optimizer-state sharding {opt_shard!r} in the launcher",
+                "item 3, the multi-rank launcher")
     if opt_overlap not in (None, "off"):
-        _refuse(f"the optimizer overlap {opt_overlap!r}", "item 3, SO/EPSO")
+        _refuse(f"the optimizer overlap {opt_overlap!r} in the launcher",
+                "item 3, the multi-rank launcher")
     if pp_schedule is not None or pp_impl is not None:
         _refuse("pipeline parallelism (--pp-schedule / --pp-impl)", "item 5, the PP executors")
     if kernel_tiles is not None:

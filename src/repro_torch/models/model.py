@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import moe as moe_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.parallel.ep import all_reduce_sum
+from repro_torch.parallel.grid import as_grid
 from repro_torch.tree import tree_map
 
 from . import layers as L
@@ -52,10 +53,11 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
     """Random parameters made on ``device`` from a ``torch.Generator``
     seeded with ``seed``, with the JAX package's init scales (the values
     differ: JAX's PRNG is not reproduced; tests load JAX parameters through
-    ``convert.params_from_jax`` instead)."""
+    ``convert.params_from_jax`` instead). ``device="meta"`` gives the shapes
+    alone, as ``jax.eval_shape`` does."""
     _check_arch(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev).manual_seed(seed)
     n, d, vp = cfg.num_layers, cfg.d_model, padded_vocab(cfg)
     kw = dict(generator=gen, device=dev, dtype=dtype)
     p = {"embed": L.init_embedding(vp, d, **kw),
@@ -389,46 +391,60 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     the routed pairs per expert), moe_load (its share) and moe_drops
     (summed over layers). Hybrid models are not trained by the port.
 
-    Under an EP group the batch is the rank's rows and the first value is
-    the rank's *share* of the global loss (its NLL sum over the global
-    token count, plus the averaged aux and z losses over the group size):
-    the shares sum to the global loss, whose gradient the ranks' gradients
-    sum to. The metrics are global, the same on every rank, and carry the
-    global loss as "loss"."""
+    ``ep_group``: an ``EPGroup`` or a ``ProcessGrid`` (``parallel.grid``;
+    an ``EPGroup`` is the dp = 1 grid). On a grid the batch is the rank's
+    rows and the first value is the rank's *share* of the global loss (its
+    NLL sum over the world's token count, plus the router terms over the
+    world size): the shares sum to the global loss, whose gradient the
+    ranks' gradients sum to. The MoE blocks' collectives run over the
+    rank's 'ep' group, whose aux and z are their mean over its ranks; the
+    metrics are global (the MoE terms also summed over 'data'), the same on
+    every rank, and carry the global loss as "loss"."""
     if cfg.arch_type == "hybrid":
         raise NotImplementedError(
             "training a hybrid model is not ported: its SSD kernel is forward only "
             "(the JAX package trains Mamba-2 through its plain scan)")
+    grid = as_grid(ep_group)
     logits, aux = forward(params, batch, cfg, sac=sac, compute_dtype=compute_dtype,
-                          ep_group=ep_group)
+                          ep_group=grid.ep if grid is not None else None)
     nl = max(cfg.num_layers, 1)
     router = []
     if cfg.is_moe:
         router = [cfg.moe.router_aux_coef * aux["moe_aux"] / cfg.num_layers,
                   cfg.moe.router_z_coef * aux["moe_z"] / cfg.num_layers]
-    if ep_group is None:
+    if grid is None:
         ce, ntok = masked_ce(logits, batch["labels"], cfg)
         total = ce
         for term in router:
             total = total + term
     else:
         nll, n = masked_nll(logits, batch["labels"], cfg)
-        tot = all_reduce_sum(torch.stack([nll.detach(), n.float()]), ep_group)
+        tot = all_reduce_sum(torch.stack([nll.detach(), n.float()]), grid.world)
         ntok = torch.clamp(tot[1], min=1)
         ce = tot[0] / ntok
         total = nll / ntok
         for term in router:
-            total = total + term / ep_group.world
-    metrics = {"ce": ce, "moe_aux": aux["moe_aux"] / nl, "moe_z": aux["moe_z"] / nl,
-               "ntok": ntok}
-    if "moe_stats" in aux:
-        st = aux["moe_stats"]
+            total = total + term / grid.world.world
+    moe_aux, moe_z = aux["moe_aux"].detach(), aux["moe_z"].detach()
+    st = aux.get("moe_stats")
+    if grid is not None and grid.data.world > 1 and cfg.is_moe:
+        # each 'ep' group's terms cover its replica's rows: mean (aux, z)
+        # and sum (counts, drops) over the replicas
+        dp = grid.data.world
+        vec = all_reduce_sum(torch.cat([torch.stack([moe_aux / dp, moe_z / dp]),
+                                        st.counts.detach(), st.drops.detach()[None]]),
+                             grid.data)
+        moe_aux, moe_z = vec[0], vec[1]
+        st = type(st)(vec[2:-1], vec[-1])
+    metrics = {"ce": ce, "moe_aux": moe_aux / nl, "moe_z": moe_z / nl, "ntok": ntok}
+    if st is not None:
         counts = st.counts / nl
         metrics["moe_counts"] = counts
         metrics["moe_load"] = counts / torch.clamp(counts.sum(), min=1.0)
         metrics["moe_drops"] = st.drops
-    if ep_group is not None:
+    if grid is not None:
         metrics["loss"] = ce
-        for term in router:
-            metrics["loss"] = metrics["loss"] + term.detach()
+        if cfg.is_moe:
+            metrics["loss"] = (ce + cfg.moe.router_aux_coef * moe_aux / cfg.num_layers
+                               + cfg.moe.router_z_coef * moe_z / cfg.num_layers)
     return total, metrics

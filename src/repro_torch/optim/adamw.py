@@ -121,6 +121,14 @@ def _slices(t: torch.Tensor) -> list:
     return list(t) if t.ndim >= 3 else [t]
 
 
+def adamw_leaf_(g, master, m, v, **hyper) -> None:
+    """``adamw_leaf`` written into ``master``, ``m`` and ``v`` in place, one
+    slice of a stacked leaf at a time (to bound the temporaries)."""
+    for gs, mas, ms, vs in zip(_slices(g), _slices(master), _slices(m), _slices(v)):
+        for dst, src in zip((mas, ms, vs), adamw_leaf(gs, mas, ms, vs, **hyper)):
+            dst.copy_(src)
+
+
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, *, lr, beta1=0.9, beta2=0.99, eps=1e-8,
                  weight_decay=0.1, grad_clip=1.0, clip_enabled=None,
@@ -138,11 +146,8 @@ def adamw_update(grads, state: AdamWState, *, lr, beta1=0.9, beta2=0.99, eps=1e-
     bc2 = 1.0 - beta2 ** t
     for g, ma, m, v in zip(leaves(grads), leaves(state.master), leaves(state.m),
                            leaves(state.v)):
-        for gs, mas, ms, vs in zip(_slices(g), _slices(ma), _slices(m), _slices(v)):
-            new = adamw_leaf(gs, mas, ms, vs, scale=scale, lr=lr, bc1=bc1, bc2=bc2,
-                             beta1=beta1, beta2=beta2, eps=eps, weight_decay=weight_decay)
-            for dst, src in zip((mas, ms, vs), new):
-                dst.copy_(src)
+        adamw_leaf_(g, ma, m, v, scale=scale, lr=lr, bc1=bc1, bc2=bc2, beta1=beta1,
+                    beta2=beta2, eps=eps, weight_decay=weight_decay)
     new_params = tree_map(lambda ma: ma.to(param_dtype), state.master)
     return new_params, AdamWState(step, state.master, state.m, state.v), \
         {"grad_norm": gnorm, "clip_scale": scale}

@@ -20,7 +20,9 @@ The same module runs over ``nccl`` (one card per rank) or ``gloo`` (CPU
 ranks, or several ranks sharing one card). PyTorch 2.11's gloo takes CUDA
 tensors for all three collectives in every dtype the port sends (it copies
 them through host memory itself), so this module copies none of them to the
-host. A collective that fails raises.
+host. A collective that fails raises. A group of one rank (an axis of
+size 1 of a ``parallel.ProcessGrid``) has no process group: its collectives
+are the identity and call nothing.
 """
 from __future__ import annotations
 
@@ -66,12 +68,16 @@ def init_ep_group(world: int, rank: int, *, backend: str, init_method: str,
 # ----------------------------------------------------------------------------
 
 def _all_gather(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+    if g.world == 1:
+        return x
     parts = [torch.empty_like(x) for _ in range(g.world)]
     dist.all_gather(parts, x.contiguous(), group=g.group)
     return torch.cat(parts)
 
 
 def _reduce_scatter(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+    if g.world == 1:
+        return x
     if x.shape[0] % g.world:
         raise ValueError(f"reduce-scatter of {x.shape[0]} rows over {g.world} ranks")
     chunks = list(x.contiguous().chunk(g.world))
@@ -82,7 +88,8 @@ def _reduce_scatter(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
 
 def _all_reduce(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
     out = x.contiguous().clone()
-    dist.all_reduce(out, group=g.group)
+    if g.world > 1:
+        dist.all_reduce(out, group=g.group)
     return out
 
 

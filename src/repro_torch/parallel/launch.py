@@ -3,12 +3,12 @@
 ``spawn(fn, world, ...)`` starts ``world`` processes with the ``spawn``
 start method. They meet through a ``FileStore`` in a fresh temporary
 directory, so no TCP port is taken and runs side by side cannot collide.
-Each rank calls ``fn(group, *args)`` with its ``EPGroup`` and its own copy
-of ``args``, and sends back the result, every tensor in it moved to the
-host. The parent waits at most
-``timeout_s`` in all: when a rank fails, dies or the time runs out, it kills
-every rank and raises, so a collective that hangs becomes an error, not a
-lost run.
+Each rank calls ``fn(group, *args)`` with its ``EPGroup`` (or, given
+``grid=(dp, ep)``, its ``ProcessGrid``) and its own copy of ``args``, and
+sends back the result, every tensor in it moved to the host. The parent
+waits at most ``timeout_s`` in all: when a rank fails, dies or the time
+runs out, it kills every rank and raises, so a collective that hangs
+becomes an error, not a lost run.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ import traceback
 import torch
 
 from .ep import init_ep_group
+from .grid import init_grid
 
 
 def _to_host(obj):
@@ -31,18 +32,23 @@ def _to_host(obj):
         return obj.detach().cpu()
     if isinstance(obj, dict):
         return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):      # a NamedTuple
+        return type(obj)(*(_to_host(v) for v in obj))
     if isinstance(obj, (list, tuple)):
         return type(obj)(_to_host(v) for v in obj)
     return obj
 
 
-def _rank_main(fn, rank, world, backend, device, init_method, args_path, timeout_s, results):
+def _rank_main(fn, rank, world, backend, device, init_method, args_path, timeout_s, grid,
+               results):
     import torch.distributed as dist
     try:
         if device is not None and torch.device(device).type == "cpu":
             torch.set_num_threads(1)     # world ranks share the host's cores
         group = init_ep_group(world, rank, backend=backend, init_method=init_method,
                               device=device, timeout_s=timeout_s)
+        if grid is not None:
+            group = init_grid(group, *grid)
         with open(args_path, "rb") as f:
             args = pickle.load(f)
         out = _to_host(fn(group, *args))
@@ -65,11 +71,12 @@ def _kill(procs) -> None:
 
 
 def spawn(fn, world: int, *, args: tuple = (), backend: str = "gloo", device=None,
-          timeout_s: float = 120.0) -> list:
+          timeout_s: float = 120.0, grid: tuple = None) -> list:
     """Run ``fn(group, *args)`` on ranks 0..world-1, one process each, and
     return their results in rank order. ``fn`` must be importable by name
     (a module-level function) and its results picklable. ``device``: as in
-    ``init_ep_group`` (``cuda`` unless given). Raises ``RuntimeError`` with
+    ``init_ep_group`` (``cuda`` unless given). ``grid``: (dp, ep) with
+    dp * ep == world, to hand ``fn`` the rank's ``ProcessGrid``. Raises ``RuntimeError`` with
     the rank's traceback when a rank fails or exits without a result, and
     ``TimeoutError`` after ``timeout_s``; every rank is killed first."""
     ctx = mp.get_context("spawn")
@@ -84,7 +91,7 @@ def spawn(fn, world: int, *, args: tuple = (), backend: str = "gloo", device=Non
     args_path = os.path.join(tmp, "args.pkl")
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, rank, world, backend, device, init_method, args_path,
-                               timeout_s, results))
+                               timeout_s, grid, results))
              for rank in range(world)]
     deadline = time.monotonic() + timeout_s
     got: dict[int, object] = {}

@@ -8,6 +8,12 @@ by ``world`` stays whole, as the JAX rule leaves it unsplit.
 The JAX package also splits ``embed/table`` and ``head/table`` on the vocab
 over the model axis; that is a memory layout of its compiler, not part of
 the math, and the port keeps them replicated.
+
+On a ``ProcessGrid`` the same layout is data, ``param_placements``: per
+leaf, per dim, the tuple of grid axes that split it (the port's form of a
+JAX ``PartitionSpec``, every dim listed, ``()`` for a whole dim). The
+sharded optimizer (``optim.epso``) takes placements as input, so its
+parity tests can feed it the JAX package's own ``param_specs``.
 """
 from __future__ import annotations
 
@@ -26,9 +32,10 @@ def is_expert_stack_path(path: str) -> bool:
 def _expert_axis(path: str, leaf, world: int):
     """The axis of E to split, or None: axis 1 of a model's (L, E, d, f)
     stack, axis 0 of one block's (E, d, f)."""
-    if not is_expert_stack_path(path) or leaf.ndim not in (3, 4):
+    ndim = len(leaf.shape)
+    if not is_expert_stack_path(path) or ndim not in (3, 4):
         return None
-    ax = leaf.ndim - 3
+    ax = ndim - 3
     return ax if leaf.shape[ax] % world == 0 else None
 
 
@@ -45,6 +52,24 @@ def expert_shard(params: dict, rank: int, world: int) -> dict:
             return node
         el = node.shape[ax] // world
         return node.narrow(ax, rank * el, el)
+    return walk(params, "")
+
+
+def param_placements(params: dict, axis_sizes: dict) -> dict:
+    """The placement of each leaf of a *global* parameter tree (any leaves
+    with ``.shape``) on a grid with ``axis_sizes`` (its axes of size > 1):
+    an expert stack's E dim on ('ep',) where 'ep' is an axis and divides it,
+    every other dim and leaf whole."""
+    n = axis_sizes.get("ep", 1)
+
+    def walk(node, prefix):
+        if isinstance(node, dict):
+            return {k: walk(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
+        place = [()] * len(node.shape)
+        ax = _expert_axis(prefix, node, n) if n > 1 else None
+        if ax is not None:
+            place[ax] = ("ep",)
+        return tuple(place)
     return walk(params, "")
 
 

@@ -1,5 +1,5 @@
-"""The training step, on one device or expert-parallel over an EP group,
-and the serving lowerings: port of the JAX package's ``train/trainer.py``
+"""The training step, on one device or over a dp x ep process grid, and the
+serving lowerings: port of the JAX package's ``train/trainer.py``
 (``TrainState``, ``init_state``, ``make_train_step``,
 ``make_prefill_step``, ``make_serve_step``).
 
@@ -10,19 +10,29 @@ would, warmup + cosine LR, global-norm clipping only after warmup, AdamW on
 fp32 master weights. The MoE expert stacks take their grad-norm share per
 (layer, expert) slice, as the JAX step does.
 
-Expert parallelism (``ep_group``, a ``parallel.EPGroup``; the layout of the
-JAX package's ``ep`` role): each rank holds its slice of the expert stacks
-and a whole copy of every other leaf, and takes its rows of the batch. It
-backpropagates its share of the global loss (``models.loss_fn``); the
-replicated leaves' gradients, rounded to ``grad_reduce_dtype``, are summed
-over the ranks in that dtype, while the expert slices' gradients arrive
-whole through the collectives' backward. The grad norm counts each expert
-slice and each replicated leaf once, so every rank takes the same step.
+Data and expert parallelism (``grid``, a ``parallel.ProcessGrid``, the
+layout of the JAX plan mesh ('data', 'ep'); an ``ep_group`` alone is the
+dp = 1 grid): rank (d, e) holds expert slice e of the expert stacks and a
+whole copy of every other leaf, and takes its rows of the batch. It
+backpropagates its share of the global loss (``models.loss_fn``); the MoE
+blocks' collectives run over its 'ep' group. The optimizer state is placed
+by ``opt_sharding_mode`` (paper §3.2, ``optim.epso``):
 
-Not ported, and raising ``NotImplementedError``: pipeline stages, a
-sharded optimizer state (``opt_sharding_mode`` other than 'none'), an
-optimizer overlap ('ring' or 'xla'), an expert placement; under EP also the
-all-to-all Stage 1 and expert-TP (``core.moe.moe_fsmoe_ep``).
+* 'none': master, m and v as the params (float32 params share the master's
+  tensors). The replicated leaves' gradients, rounded to
+  ``grad_reduce_dtype``, are summed over the world in that dtype, the
+  expert slices' over 'data' (their sum over 'ep' arrives through the
+  collectives' backward); the grad norm counts each expert slice and each
+  replicated leaf once, so every rank takes the same step;
+* 'so' / 'epso': each rank's master, m and v hold its shard of each leaf,
+  and the params are separate tensors. The gradients are reduce-scattered
+  onto the shards, AdamW runs on them, and the updated shards are gathered
+  back into the params, bucket by bucket (``optim.overlap``, with
+  ``ParallelConfig.opt_overlap`` 'off', 'ring', 'xla' or 'auto').
+
+Not ported, and raising ``NotImplementedError``: pipeline stages and an
+expert placement; under EP also the all-to-all Stage 1 and expert-TP
+(``core.moe.moe_fsmoe_ep``).
 """
 from __future__ import annotations
 
@@ -38,64 +48,121 @@ from repro_torch.models.model import (decode_step, forward, init_params, loss_fn
 from repro_torch.core.moe import uses_ep
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update, expert_leaf_mask,
                                warmup_cosine)
+from repro_torch.optim.epso import (DEFAULT_BUCKET_BYTES, UpdatePlan, optimizer_state_specs,
+                                    plan_update_buckets)
+from repro_torch.optim.overlap import overlapped_adamw_update, resolve_opt_overlap, shard_of
 from repro_torch.parallel.ep import EPGroup, all_reduce_sum
-from repro_torch.parallel.sharding import expert_shard, replicated_leaves
+from repro_torch.parallel.grid import ProcessGrid, as_grid
+from repro_torch.parallel.sharding import expert_shard, param_placements, replicated_leaves
 from repro_torch.serve.engine import dropless_cfg, make_decode_fn
 from repro_torch.tree import leaves, tree_map
+
+OPT_SHARDING_MODES = ("none", "so", "epso")
 
 
 class TrainState(NamedTuple):
     params: dict          # params in TrainConfig.param_dtype
-    opt: AdamWState       # fp32 master + moments
+    opt: AdamWState       # fp32 master + moments (under SO/EPSO the rank's shards)
 
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def _shards_experts(cfg: ModelConfig, ep_group: Optional[EPGroup]) -> bool:
-    """Whether ``ep_group`` splits this model's expert stacks."""
-    return ep_group is not None and cfg.is_moe and uses_ep(cfg.moe, ep_group.world)
+def _grid(ep_group, grid) -> Optional[ProcessGrid]:
+    if ep_group is not None and grid is not None:
+        raise ValueError("pass an ep_group or a grid, not both")
+    return as_grid(ep_group if grid is None else grid)
+
+
+def _shards_experts(cfg: ModelConfig, grid: Optional[ProcessGrid]) -> bool:
+    """Whether the grid's 'ep' axis splits this model's expert stacks."""
+    return (grid is not None and grid.ep.world > 1 and cfg.is_moe
+            and uses_ep(cfg.moe, grid.ep.world))
+
+
+def _opt_mode(mode: Optional[str]) -> str:
+    mode = "none" if mode is None else mode
+    if mode not in OPT_SHARDING_MODES:
+        raise ValueError(f"opt_sharding_mode must be one of {OPT_SHARDING_MODES}, got {mode!r}")
+    return mode
+
+
+def opt_layout(cfg: ModelConfig, grid: Optional[ProcessGrid], mode: str, *,
+               max_bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> tuple[UpdatePlan, list]:
+    """The SO/EPSO layout of ``cfg``'s parameters on ``grid``: the update
+    plan and each leaf's state placement (leaf order), from the global
+    shapes (``init_params`` on the meta device) and the port's param
+    placements. Without a grid every state is whole."""
+    shapes = init_params(cfg, device="meta")
+    sizes = grid.axis_sizes if grid is not None else {}
+    place = param_placements(shapes, sizes)
+    plan = plan_update_buckets(shapes, place, sizes, mode, max_bucket_bytes=max_bucket_bytes)
+    return plan, leaves(optimizer_state_specs(shapes, place, sizes, mode))
+
+
+def _cut(tree: dict, plan: UpdatePlan, grid: ProcessGrid) -> dict:
+    """Copies of this rank's SO/EPSO shards of a param-local tree."""
+    by_index = {lf.index: lf for b in plan.buckets for lf in b.leaves}
+    order = {id(t): i for i, t in enumerate(leaves(tree))}
+    return tree_map(lambda t: shard_of(t, by_index[order[id(t)]], grid.coords,
+                                       grid.axis_sizes), tree)
 
 
 def init_state(cfg: ModelConfig, train: TrainConfig, *, seed: int = 0,
-               device: DeviceLike = None, ep_group: Optional[EPGroup] = None) -> TrainState:
+               device: DeviceLike = None, ep_group: Optional[EPGroup] = None,
+               grid: Optional[ProcessGrid] = None,
+               opt_sharding_mode: Optional[str] = None) -> TrainState:
     """Random params (``init_params`` from ``seed``) and a fresh AdamW
-    state, on ``cuda`` unless ``device`` says otherwise (under EP, the
-    group's device). With ``ep_group``: the rank's share of the state that
-    ``init_state(cfg, train, seed=seed)`` gives on one process."""
-    if device is None and ep_group is not None:
-        device = ep_group.device
+    state, on ``cuda`` unless ``device`` says otherwise (on a grid, its
+    device). On a grid (or an ``ep_group``): the rank's share of the state
+    that ``init_state(cfg, train, seed=seed)`` gives on one process, its
+    optimizer state cut by ``opt_sharding_mode`` (None: 'none')."""
+    grid = _grid(ep_group, grid)
+    mode = _opt_mode(opt_sharding_mode)
+    if device is None and grid is not None:
+        device = grid.world.device
     params = init_params(cfg, seed=seed, device=device)
-    if _shards_experts(cfg, ep_group):
+    if _shards_experts(cfg, grid):
         # copy the rank's expert slices, so that the whole stacks are freed
         params = tree_map(lambda s, t: s.clone() if s.shape != t.shape else s,
-                          expert_shard(params, ep_group.rank, ep_group.world), params)
-    opt = adamw_init(params)
+                          expert_shard(params, grid.ep.rank, grid.ep.world), params)
     pd = _dtype(train.param_dtype)
-    return TrainState(tree_map(lambda p: p.to(pd), params), opt)
+    if mode == "none" or grid is None:
+        return TrainState(tree_map(lambda p: p.to(pd), params), adamw_init(params))
+    plan, _ = opt_layout(cfg, grid, mode)
+    master = _cut(tree_map(lambda p: p.detach().to(torch.float32), params), plan, grid)
+    opt = AdamWState(torch.zeros((), dtype=torch.int32, device=params["embed"]["table"].device),
+                     master, tree_map(torch.zeros_like, master),
+                     tree_map(torch.zeros_like, master))
+    # the params no longer share the master's tensors: each step writes the
+    # gathered update into them
+    return TrainState(tree_map(lambda p: p.to(pd, copy=True), params), opt)
 
 
 def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConfig, *,
                     opt_sharding_mode: Optional[str] = None, placement=None,
-                    ep_group: Optional[EPGroup] = None):
+                    ep_group: Optional[EPGroup] = None, grid: Optional[ProcessGrid] = None):
     """Build ``train_step(state, batch) -> (state, metrics)``. batch:
-    {"tokens", "labels"}, each (global_batch, seq) int, or under
-    ``ep_group`` the rank's rows of it (every rank the same count); labels
-    < 0 are masked. The step updates the optimizer state in place and
-    returns the new state; metrics are device tensors, under EP the same on
-    every rank: loss, lr, ce, grad_norm, clip_scale and, for MoE,
-    moe_counts (every expert), moe_load and moe_drops (with one microbatch
-    also moe_aux, moe_z and ntok, as in the JAX step)."""
+    {"tokens", "labels"}, each (global_batch, seq) int, or on a grid (or
+    ``ep_group``) the rank's rows of it (every rank the same count); labels
+    < 0 are masked. The step updates the state in place and returns it;
+    metrics are device tensors, on a grid the same on every rank: loss, lr,
+    ce, grad_norm, clip_scale and, for MoE, moe_counts (every expert),
+    moe_load and moe_drops (with one microbatch also moe_aux, moe_z and
+    ntok, as in the JAX step). ``opt_sharding_mode``: 'none' (None),
+    'so' or 'epso', the layout ``init_state`` gave the state; the SO/EPSO
+    collectives are scheduled by ``parallel.opt_overlap``
+    (``optim.overlap.resolve_opt_overlap``). The update plan is built here,
+    once."""
     if parallel.pp_stages > 1:
-        raise NotImplementedError("pipeline parallelism needs a mesh; the port's "
-                                  "trainer runs on one device")
-    if opt_sharding_mode not in (None, "none"):
-        raise NotImplementedError(f"optimizer sharding {opt_sharding_mode!r} needs a mesh")
-    if parallel.opt_overlap in ("ring", "xla"):
-        raise NotImplementedError(f"optimizer overlap {parallel.opt_overlap!r} needs a mesh")
+        raise NotImplementedError("pipeline parallelism is not ported")
     if placement is not None:
         raise NotImplementedError("expert placement is not ported")
+    grid = _grid(ep_group, grid)
+    mode = _opt_mode(opt_sharding_mode)
+    ov_impl = resolve_opt_overlap(parallel.opt_overlap, mode,
+                                  grid.axis_sizes if grid is not None else None)
     if (parallel.moe_dispatch is not None and cfg.moe is not None
             and cfg.moe.dispatch != parallel.moe_dispatch):
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -105,7 +172,13 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     rd = _dtype(train.grad_reduce_dtype)
     nmb = parallel.microbatches
     sac = parallel.remat_policy
-    sharded = _shards_experts(cfg, ep_group)
+    sharded = _shards_experts(cfg, grid)
+    sharded_opt = mode != "none" and grid is not None
+    if sharded_opt:
+        # 'off': the same sharded math with every leaf its own bucket
+        plan, state_specs = opt_layout(cfg, grid, mode,
+                                       max_bucket_bytes=0 if ov_impl == "off" else
+                                       DEFAULT_BUCKET_BYTES)
 
     def train_step(state: TrainState, batch: dict):
         if batch["tokens"].shape[0] % nmb:
@@ -117,13 +190,12 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         loss = torch.zeros((), device=batch["tokens"].device)
         acc = sums = None
         for mb in mbs:
-            mb_loss, metrics = loss_fn(leaf, mb, cfg, sac=sac, compute_dtype=cd,
-                                       ep_group=ep_group)
+            mb_loss, metrics = loss_fn(leaf, mb, cfg, sac=sac, compute_dtype=cd, ep_group=grid)
             gs = torch.autograd.grad(mb_loss, flat, allow_unused=True, materialize_grads=True)
             gs = [g.float() for g in gs]            # f32 gradient sums
             acc = gs if acc is None else [a.add_(g) for a, g in zip(acc, gs)]
-            # under EP mb_loss is the rank's share; metrics carry the global loss
-            loss = loss + (metrics.pop("loss") if ep_group is not None else mb_loss.detach())
+            # on a grid mb_loss is the rank's share; metrics carry the global loss
+            loss = loss + (metrics.pop("loss") if grid is not None else mb_loss.detach())
             metrics = {k: v_.detach() for k, v_ in metrics.items()}
             sums = metrics if sums is None else {k: sums[k] + metrics[k] for k in sums}
         index = {id(p): i for i, p in enumerate(flat)}
@@ -142,40 +214,60 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
                 metrics["moe_drops"] = sums["moe_drops"]
         else:
             metrics = sums
-        # the paper's bf16 gradient reduction: round, then update in f32
+        state, om = update(state, grads)
+        return state, {"loss": loss, **metrics, **om}
+
+    def update(state: TrainState, grads: dict):
+        """The optimizer tail on the rank's gradients (f32, not yet summed
+        over the ranks): the paper's bf16 gradient reduction (round, sum
+        over the ranks in ``grad_reduce_dtype``, update in f32), LR, clip,
+        AdamW in the state's layout. Returns (state, {lr, grad_norm,
+        clip_scale})."""
         for g in leaves(grads):
             g.copy_(g.to(rd))
-        if ep_group is not None:
-            _sum_replicated(grads, rd, ep_group)
-
         step = state.opt.step
         lr = warmup_cosine(step, lr_peak=train.lr_peak, lr_min=train.lr_min,
                            warmup_steps=train.warmup_steps, total_steps=train.total_steps)
         clip_on = step >= train.warmup_steps if train.clip_after_warmup_only else None
+        hyper = dict(lr=lr, beta1=train.beta1, beta2=train.beta2, eps=train.eps,
+                     weight_decay=train.weight_decay, grad_clip=train.grad_clip,
+                     clip_enabled=clip_on, expert_norm=expert_norm(state.params))
+        if sharded_opt:
+            new_opt, om = overlapped_adamw_update(
+                leaves(grads), state.opt, leaves(state.params), plan=plan, grid=grid,
+                impl=ov_impl, state_specs=state_specs, grad_reduce_dtype=rd, **hyper)
+            return TrainState(state.params, new_opt), {"lr": lr, **om}
+        if grid is not None:
+            _sum_gradients(grads, rd, grid)
         new_params, new_opt, om = adamw_update(
-            grads, state.opt, lr=lr, beta1=train.beta1, beta2=train.beta2, eps=train.eps,
-            weight_decay=train.weight_decay, grad_clip=train.grad_clip,
-            clip_enabled=clip_on, param_dtype=pd, expert_norm=expert_norm(state.params),
-            group=ep_group if sharded else None)
-        return TrainState(new_params, new_opt), {"loss": loss, "lr": lr, **metrics, **om}
+            grads, state.opt, param_dtype=pd, group=grid.ep if sharded else None, **hyper)
+        return TrainState(new_params, new_opt), {"lr": lr, **om}
 
     def expert_norm(params):
         if cfg.moe is None:
             return None
-        held = cfg.moe.num_experts // ep_group.world if sharded else cfg.moe.num_experts
+        held = cfg.moe.num_experts // grid.ep.world if sharded else cfg.moe.num_experts
         mask = expert_leaf_mask(params, cfg.num_layers, held)
         return (mask, None) if any(mask) else None
 
-    def _sum_replicated(grads, dtype, group):
-        """Sum the replicated leaves' gradients over the ranks, in ``dtype``,
-        as one flat buffer (one collective)."""
-        keep = replicated_leaves(grads) if sharded else (True,) * len(leaves(grads))
-        rep = [g for g, k in zip(leaves(grads), keep) if k]
-        flat = torch.cat([g.reshape(-1).to(dtype) for g in rep])
-        flat = all_reduce_sum(flat, group)
-        for g, part in zip(rep, flat.split([g.numel() for g in rep])):
-            g.copy_(part.view_as(g))
+    def _sum_gradients(grads, dtype, grid):
+        """Sum the gradients over the ranks that hold the same leaf, in
+        ``dtype``, one flat buffer per group: the replicated leaves' over
+        the world, the expert slices' over 'data'."""
+        rep = replicated_leaves(grads) if sharded else (True,) * len(leaves(grads))
+        for keep, group in ((True, grid.world), (False, grid.data)):
+            gs = [g for g, k in zip(leaves(grads), rep) if k == keep]
+            if not gs or group.world == 1:
+                continue
+            flat = torch.cat([g.reshape(-1).to(dtype) for g in gs])
+            flat = all_reduce_sum(flat, group)
+            for g, part in zip(gs, flat.split([g.numel() for g in gs])):
+                g.copy_(part.view_as(g))
 
+    # the optimizer tail alone, and the overlap impl it runs, for callers
+    # that drive or record the update (the card tests, chip_smoke)
+    train_step.update = update
+    train_step.opt_overlap_impl = ov_impl
     return train_step
 
 

@@ -703,6 +703,40 @@ def test_ep_block_on_card_matches_one_process(cuda):
         _close(torch.cat([r["grads"][k] for r in res]).to(cuda), grads[k].float(), 3e-2)
 
 
+def _sharded_update_runs(device):
+    """``torch_ep_ranks.sharded_update_rank`` on a dp = 2 x ep = 2 grid of
+    ranks over gloo on ``device``, reduced Mula-7B-A1B (16 experts), bf16
+    compute, clipping off: 'none', 'so'/'off', 'epso'/'ring', 'epso'/'xla'."""
+    import torch_ep_ranks as ranks
+    from repro_torch.configs import TrainConfig, get_config, reduced
+    from repro_torch.parallel import spawn
+    cfg = reduced(get_config("mula-7b-a1b"), d_model=256, vocab=512, max_experts=16)
+    train = TrainConfig(seq_len=64, global_batch=4, grad_clip=0.0)
+    toks = torch.randint(0, 512, (4, 65), generator=torch.Generator().manual_seed(0))
+    runs = [("none", "off"), ("so", "off"), ("epso", "ring"), ("epso", "xla")]
+    res = spawn(ranks.sharded_update_rank, 4,
+                args=(cfg, train, runs, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}),
+                backend="gloo", device=device, timeout_s=300, grid=(2, 2))
+    return runs, res
+
+
+def test_sharded_update_on_card_matches_none_bit_for_bit(cuda):
+    """On the card (4 ranks sharing it over gloo), one SO/EPSO update of
+    exactly summable gradients equals the 'none' update bit for bit when
+    clipping is off (AdamW is elementwise; only the layout and the
+    collectives differ), on every rank; after two more train steps 'ring'
+    and 'xla' hold identical params (the gathers only move data)."""
+    runs, res = _sharded_update_runs("cuda")
+    for rank, r in enumerate(res):
+        base = r[runs[0]]["update"]
+        for run in runs[1:]:
+            for path, t in r[run]["update"].items():
+                assert torch.equal(t, base[path]), (run, rank, path)
+        assert r[runs[2]]["impl"] == "ring" and r[runs[3]]["impl"] == "xla"
+        for path, t in r[runs[2]]["steps"].items():
+            assert torch.equal(t, r[runs[3]]["steps"][path]), (rank, path)
+
+
 def test_train_state_checkpoint_in_place_on_card(cuda, tmp_path):
     """A CUDA TrainState after one bf16 step through the kernels: saved
     (each leaf moved to the host as it is written), then restored into a

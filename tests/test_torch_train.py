@@ -124,10 +124,15 @@ def test_train_steps_match_jax(name, microbatches):
 
 
 def test_train_step_rejects_mesh_features():
+    """Pipeline stages raise. Without a grid a sharded optimizer mode places
+    every state whole (the JAX step off-mesh), and an overlap impl, which
+    needs a grid with update axes, raises ValueError as the JAX step's does;
+    SO/EPSO on a grid: tests/test_torch_overlap.py."""
     _, tc = _cfgs("mula-7b-a1b")
     with pytest.raises(NotImplementedError, match="pipeline"):
         make_train_step(tc, ParallelConfig(pp_stages=2), TrainConfig())
-    with pytest.raises(NotImplementedError, match="optimizer sharding"):
-        make_train_step(tc, ParallelConfig(), TrainConfig(), opt_sharding_mode="epso")
-    with pytest.raises(NotImplementedError, match="overlap"):
-        make_train_step(tc, ParallelConfig(opt_overlap="ring"), TrainConfig())
+    assert callable(make_train_step(tc, ParallelConfig(), TrainConfig(),
+                                    opt_sharding_mode="epso"))
+    with pytest.raises(ValueError, match="grid"):
+        make_train_step(tc, ParallelConfig(opt_overlap="ring"), TrainConfig(),
+                        opt_sharding_mode="epso")

@@ -75,3 +75,73 @@ def broadcast_rank(group, params):
     mine = tree_map(lambda t: t.clone() + group.rank,
                     expert_shard(params, group.rank, group.world))
     return broadcast_params(mine, group)
+
+
+def grid_train_rank(grid, tc, train, params, opt, batches, runs):
+    """One rank of a dp x ep grid: for each (mode, overlap) of ``runs``, from
+    the same full params and AdamW state, the rank's share (its expert
+    slices; its optimizer shards under 'so'/'epso'), one step per batch on
+    its rows; per run the metrics, params, state and the state's bytes
+    measured against ``state_bytes_per_device``."""
+    from repro_torch.convert import opt_state_for_rank
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.parallel.sharding import param_placements
+    from repro_torch.tree import leaves, tree_map
+
+    rank = grid.world.rank
+    dp, ep = grid.sizes["data"], grid.sizes["ep"]
+    shapes = init_params(tc, device="meta")
+    out = {}
+    for mode, overlap in runs:
+        mine = tree_map(torch.clone, expert_shard(params, grid.ep.rank, grid.ep.world))
+        st = opt_state_for_rank(opt, tc, dp=dp, ep=ep, rank=rank, mode=mode)
+        state = TrainState(mine, st)
+        step = make_train_step(tc, ParallelConfig(opt_overlap=overlap), train,
+                               opt_sharding_mode=mode, grid=grid)
+        metrics = []
+        for b in batches:
+            n = b["tokens"].shape[0] // grid.world.world
+            state, m = step(state, {k: v[rank * n:(rank + 1) * n] for k, v in b.items()})
+            metrics.append({k: m[k] for k in KEYS if k in m})
+        held = sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m, state.opt.v)
+                   for t in leaves(tree))
+        sizes = grid.axis_sizes
+        out[(mode, overlap)] = {
+            "metrics": metrics, "params": dict(leaves_with_path(state.params)),
+            "opt": state.opt, "state_bytes": held,
+            "state_bytes_expected": state_bytes_per_device(
+                shapes, param_placements(shapes, sizes), sizes, mode)}
+    return out
+
+
+def _exact_grad(p, rank):
+    """A gradient whose sum over four ranks is exact in bf16 and f32, in any
+    order: multiples of 1/16 of at most 12/16, times rank + 1."""
+    k = torch.arange(p.numel(), device=p.device) % 7 - 3
+    return (k.float() / 16 * (rank + 1)).view(p.shape)
+
+
+def sharded_update_rank(grid, tc, train, runs, batch):
+    """One rank of a grid: for each (mode, overlap) of ``runs``, from
+    init_state(seed 0), one optimizer update (``train_step.update``) of
+    exactly summable gradients (``_exact_grad``), then two train steps on
+    the rank's row of ``batch``; the params after each."""
+    from repro_torch.tree import tree_map
+    from repro_torch.train import init_state
+    rank = grid.world.rank
+    dev = grid.world.device
+    rows = {k: v[rank:rank + 1].to(dev) for k, v in batch.items()}
+    out = {}
+    for mode, overlap in runs:
+        state = init_state(tc, train, seed=0, grid=grid, opt_sharding_mode=mode)
+        step = make_train_step(tc, ParallelConfig(opt_overlap=overlap), train,
+                               opt_sharding_mode=mode, grid=grid)
+        state, om = step.update(state, tree_map(lambda p: _exact_grad(p, rank), state.params))
+        once = {k: v.clone() for k, v in leaves_with_path(state.params)}
+        for _ in range(2):
+            state, m = step(state, rows)
+        out[(mode, overlap)] = {"update": once, "grad_norm": om["grad_norm"],
+                                "steps": dict(leaves_with_path(state.params)),
+                                "loss": m["loss"], "impl": step.opt_overlap_impl}
+    return out
