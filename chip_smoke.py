@@ -92,6 +92,20 @@ Phases, each printing JSON lines:
              step 12: two relaunches and node swaps, both checkpoint slots
              valid at steps 10 and 15, a history bit-identical to the clean
              run's and the exact launch count of every kernel of the path;
+  launcher_grid_dense  launcher_dense's run through the multi-rank
+             launcher, ``parallel='dp=4'``, ``opt_shard='so'``: four ranks
+             share the card over gloo, one 2048-token row each, then the
+             same call resumes from step 3. Asserts resumed steps 4-5
+             bit-identical, losses finite, falling and within 1 % of
+             launcher_dense's, the checkpoint's members (whole arrays)
+             those of launcher_dense, the MANIFEST's plan layout, and each
+             rank's state bytes exactly ``state_bytes_per_device``;
+  launcher_grid_ft  launcher_ft's runs on a dp = 2 x ep = 2 grid under
+             EPSO: on every rank two relaunches with the node swaps, valid
+             slots at steps 10 and 15, the clean run's history, the exact
+             launch count of every kernel; losses finite, falling, within
+             0.1 % of launcher_ft's for steps 0-2 and 5 % after; then 4 steps
+             of the same plan through ``python -m repro_torch.launch.train``;
   launches   the device launches of one dispatch plan at each kernel case's
              shape (at most 3) and of one MoE block at a decode step, each
              captured in a CUDA graph and counted there.
@@ -149,6 +163,13 @@ DENSE_RUN = dict(scale="full", steps=6, batch=4, seq=2048, ckpt_interval=3, lr=1
 FT_RUN = dict(scale="smoke", d_model=512, layers=2, steps=18, batch=4, seq=256,
               ckpt_interval=5, compute_dtype="bfloat16", log_every=100)
 FT_INJECT = dict(inject_hard_at=7, inject_soft_at=12)
+# the multi-rank launcher: the same runs on a grid of 4 ranks sharing the card
+GRID_DENSE_RUN = dict(DENSE_RUN, parallel="dp=4", opt_shard="so")
+GRID_FT_DP, GRID_FT_EP = 2, 2
+GRID_FT_RUN = dict(FT_RUN, parallel=f"dp={GRID_FT_DP},ep={GRID_FT_EP}", opt_shard="epso")
+# one MoE call of launcher_grid_ft on one rank: its ep group's rows, gathered
+GRID_FT_TOKENS = GRID_FT_EP * FT_RUN["batch"] // (GRID_FT_DP * GRID_FT_EP) * FT_RUN["seq"]
+GRID_DENSE_LAYOUT = {"axes": [["data", 4]], "opt_shard": "so", "fsdp": False}
 
 
 def emit(phase: str, **fields) -> None:
@@ -347,6 +368,10 @@ def kernel_cases(cfg) -> list[dict]:
     cases += train_kernel_cases(launcher_ft_cfg(), gen, randn,
                                 tokens=FT_RUN["batch"] * FT_RUN["seq"], path="launcher_ft",
                                 empty=2)
+    # launcher_grid_ft: rank (d, 1) of the 2 x 2 grid, 2 experts from offset 2
+    ftl = launcher_ft_cfg().moe.num_experts // GRID_FT_EP
+    cases += train_kernel_cases(launcher_ft_cfg(), gen, randn, tokens=GRID_FT_TOKENS,
+                                offset=ftl, local=ftl, path="launcher_grid_ft", empty=1)
 
     nh, hd = cfg.num_heads, cfg.head_dim
     for S, nkv, window in ((512, nh, 0), (500, nh, 0), (1000, nh // 4, 256)):
@@ -486,7 +511,9 @@ def hybrid_kernel_cases(gen) -> list[dict]:
 def token_counts_cases(cfg, gen) -> list[dict]:
     """The Stage 2 histogram at the paths' shapes, int64 ids from top-8
     routing as the router emits them: a decode step (8 tokens, all 64
-    experts local), a 1000-token prefill, epso_train's gathered ids (2
+    experts local), a 1000-token prefill, launcher_ft's (1024 tokens, all
+    4 experts) and launcher_grid_ft's (512 gathered tokens, 2 local experts
+    from offset 2) ids, epso_train's gathered ids (2
     ranks x 2048 tokens x 8, 32 local experts from offset 32), and EP's
     gathered ids (4 ranks x
     2048 tokens x 8 = 65,536 ids) counted for ranks 1 and 3 (16 local
@@ -507,8 +534,13 @@ def token_counts_cases(cfg, gen) -> list[dict]:
     ft_T = FT_RUN["batch"] * FT_RUN["seq"]
     ft_ids = torch.rand((ft_T, ft.num_experts), generator=gen, device=DEV).topk(
         ft.experts_per_token, dim=-1).indices.reshape(-1)
+    ftl = ft.num_experts // GRID_FT_EP
+    grid_ids = torch.rand((GRID_FT_TOKENS, ft.num_experts), generator=gen, device=DEV).topk(
+        ft.experts_per_token, dim=-1).indices.reshape(-1)
     cases = []
     for name, ids, el, off in ((f"launcher_ft T={ft_T}", ft_ids, ft.num_experts, 0),
+                               (f"launcher_grid_ft F={grid_ids.numel()} EL={ftl} offset={ftl}",
+                                grid_ids, ftl, ftl),
                                (f"epso F={epso.numel()} EL={E // EPSO_EP} offset={E // EPSO_EP}",
                                 epso, E // EPSO_EP, E // EPSO_EP),
                                ("decode T=8", routed(8), E, 0),
@@ -540,8 +572,10 @@ def dispatch_plan_cases(cfg, gen) -> list[dict]:
     tokens, 64 pairs) and prefills of 128, 512 and 1000 tokens in serving's
     dropless pool, a train microbatch (4096 tokens, 32,768 pairs) in the
     capacity pool, EP's gathered ids (65,536 pairs) for ranks 1 and 3
-    (16 local experts from offsets 16 and 48) and epso_train's (32,768
-    pairs, 32 local experts from offset 32). Exact equality of every
+    (16 local experts from offsets 16 and 48), epso_train's (32,768
+    pairs, 32 local experts from offset 32), launcher_ft's (2048 pairs, 4
+    experts) and launcher_grid_ft's (1024 pairs, 2 local experts from
+    offset 2). Exact equality of every
     output; the host's time to enqueue the plan and the plain chain (the
     sort-based index generation the kernel replaces); the kernel's one-block
     and three-launch paths timed on the same inputs (``variants``: the
@@ -588,6 +622,11 @@ def dispatch_plan_cases(cfg, gen) -> list[dict]:
                 torch.rand((ft_T, ft.num_experts), generator=gen, device=DEV).topk(
                     ft.experts_per_token, dim=-1).indices, ft.num_experts, 0,
                 moe.dispatch_pool_rows(ft_T, ft))]
+    ftl = ft.num_experts // GRID_FT_EP
+    shapes += [(f"launcher_grid_ft F={GRID_FT_TOKENS * ft.experts_per_token} offset={ftl}",
+                torch.rand((GRID_FT_TOKENS, ft.num_experts), generator=gen, device=DEV).topk(
+                    ft.experts_per_token, dim=-1).indices, ftl, ftl,
+                moe.dispatch_pool_rows(GRID_FT_TOKENS, ft, local_experts=ftl))]
     cases = []
     for name, ids, el, off, rows in shapes:
         F = ids.numel()
@@ -1977,7 +2016,8 @@ def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
     from repro_torch.tree import keyed_leaves, leaves
 
     rec = {"step_ms": [], "h2d_ms": [], "save_ms": [], "save_model_only_ms": [],
-           "restore_ms": [], "disk_free_before_save": [], "profile": None}
+           "restore_ms": [], "disk_free_before_save": [], "profile": None,
+           "state_bytes": None}
     made, mover = launch.make_train_step, launch._batch_mover
     calls = [0]
 
@@ -1998,6 +2038,9 @@ def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
 
         def timed(state, batch):
             i, calls[0] = calls[0], calls[0] + 1
+            if rec["state_bytes"] is None:      # the fp32 master, m and v this rank holds
+                rec["state_bytes"] = sum(t.numel() * t.element_size() for tree in (
+                    state.opt.master, state.opt.m, state.opt.v) for t in leaves(tree))
             if i == profile_call:
                 out = []
                 rec["profile"] = _profile_window(lambda: out.append(fn(state, batch)))
@@ -2083,6 +2126,7 @@ def phase_launcher_dense() -> dict:
                      "ckpt-*/state.npz")),
                  "model_only_ckpt_bytes": sum(f.stat().st_size for f in (out / "ckpt").glob(
                      "model-*.npz"))}
+        members = _npz_members(next((out / "ckpt").glob("ckpt-*/state.npz")))
     finally:
         shutil.rmtree(out, ignore_errors=True)
     keys = ("loss", "grad_norm", "lr")
@@ -2116,7 +2160,7 @@ def phase_launcher_dense() -> dict:
         raise AssertionError(f"launcher_dense: the dense path launched kernels {launches}")
     if not (sizes["full_ckpt_bytes"] and sizes["model_only_ckpt_bytes"]):
         raise AssertionError(f"launcher_dense: checkpoint files missing: {sizes}")
-    return row
+    return {**row, "ckpt_members": members}
 
 
 def phase_launcher_ft() -> dict:
@@ -2169,6 +2213,224 @@ def phase_launcher_ft() -> dict:
         raise AssertionError(f"launcher_ft: losses {row['losses']} not finite and falling")
     if launches != expect:
         raise AssertionError(f"launcher_ft: kernel launches {launches} != expected {expect}")
+    return row
+
+
+def _npz_members(path) -> dict:
+    """{member key: [shape, dtype]} of an npz file, from the headers only."""
+    import zipfile
+
+    import numpy as np
+    out = {}
+    with zipfile.ZipFile(path) as zf:
+        for name in zf.namelist():
+            with zf.open(name) as f:
+                read = {(1, 0): np.lib.format.read_array_header_1_0,
+                        (2, 0): np.lib.format.read_array_header_2_0}[np.lib.format.read_magic(f)]
+                shape, _, dtype = read(f)
+            out[name[:-len(".npy")]] = [list(shape), str(dtype)]
+    return out
+
+
+def _launcher_grid_rank(grid, spec):
+    """One rank of a launcher run on a grid: the launcher's own rank body
+    (``launch.train._rank_main``) under ``_launcher_probe``, with this
+    rank's kernel launches counted from 0 around it."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+
+    torch.cuda.reset_peak_memory_stats()
+    with _launcher_probe() as rec:
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        result = launch._rank_main(grid, spec)
+        wall = time.perf_counter() - t0
+        launches = dict(ops.launches)
+    return {"result": result, "rec": rec, "launches": launches, "wall_s": wall,
+            "peak_bytes": torch.cuda.max_memory_allocated(), "coords": grid.coords}
+
+
+def _launch_grid(name: str, arch: str, run_kw: dict) -> tuple:
+    """``launch.train.prepare_run(arch, **run_kw)`` in this process, then its
+    ranks through ``launch.train.launch_ranks`` with ``_launcher_grid_rank``
+    as the rank body; the run's spec, the ranks' results and the wall time.
+    Every rank must see the same history."""
+    import torch
+    from repro_torch.launch import train as launch
+    torch.cuda.empty_cache()
+    spec = launch.prepare_run(arch, **run_kw)
+    t0 = time.perf_counter()
+    ranks = launch.launch_ranks(spec, _launcher_grid_rank)
+    wall = time.perf_counter() - t0
+    for i, r in enumerate(ranks):
+        if list(r["result"]) != list(ranks[0]["result"]):
+            raise AssertionError(f"{name}: rank {i}'s history differs from rank 0's")
+    return spec, ranks, wall
+
+
+def phase_launcher_grid_dense(dense: dict) -> dict:
+    """Full-depth Mula-1B through the multi-rank launcher: launcher_dense's
+    run (GRID_DENSE_RUN) with ``parallel='dp=4'`` and ``opt_shard='so'``,
+    four ranks sharing the card over gloo, one 2048-token row each; then the
+    same call, which resumes from the step-3 checkpoint. Steps 4-5 must
+    agree bit for bit, the losses within 1 % of launcher_dense's (same seed),
+    the checkpoint hold launcher_dense's members (whole arrays) and the
+    plan's layout, each rank exactly its planned state bytes."""
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.parallel.sharding import param_placements
+
+    out = LAUNCH_DIR / "grid_dense"
+    shutil.rmtree(out, ignore_errors=True)
+    try:
+        spec, first, wall_first = _launch_grid("launcher_grid_dense", DENSE_ARCH,
+                                               dict(GRID_DENSE_RUN, out=str(out)))
+        _, second, wall_second = _launch_grid("launcher_grid_dense", DENSE_ARCH,
+                                              dict(GRID_DENSE_RUN, out=str(out)))
+        ckpt = next((out / "ckpt").glob("ckpt-*/state.npz"))
+        members = _npz_members(ckpt)
+        manifest = json.loads((ckpt.parent / "MANIFEST.json").read_text())
+        sizes = {"full_ckpt_bytes": ckpt.stat().st_size,
+                 "model_only_ckpt_bytes": sum(f.stat().st_size for f in (out / "ckpt").glob(
+                     "model-*.npz"))}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    cfg = spec.cfg
+    shapes = init_params(cfg, device="meta")
+    want_bytes = state_bytes_per_device(shapes, param_placements(shapes, {"data": 4}),
+                                        {"data": 4}, "so")
+    hist, again = first[0]["result"], second[0]["result"]
+    keys = ("loss", "grad_norm", "lr")
+    resumed = {h["step"]: {k: h[k] for k in keys} for h in again}
+    straight = {h["step"]: {k: h[k] for k in keys} for h in hist[4:]}
+    losses = [h["loss"] for h in hist]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, dense["losses"])]
+    row = {"model": DENSE_ARCH, "layers": cfg.num_layers, "run": GRID_DENSE_RUN,
+           "ranks": len(first), "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
+           "loss_rel_to_launcher_dense": rel, "resumed_steps": resumed,
+           "step_ms_by_rank": [r["rec"]["step_ms"] for r in first],
+           "step_ms_median_steps_1_5_by_rank": [statistics.median(r["rec"]["step_ms"][1:6])
+                                                for r in first],
+           "peak_bytes_by_rank": [r["peak_bytes"] for r in first],
+           "peak_bytes_by_rank_resumed": [r["peak_bytes"] for r in second],
+           "state_bytes_by_rank": [r["rec"]["state_bytes"] for r in first],
+           "state_bytes_expected": want_bytes,
+           "save_ms_by_rank": [r["rec"]["save_ms"] for r in first],
+           "save_model_only_ms_by_rank": [r["rec"]["save_model_only_ms"] for r in first],
+           "restore_ms_by_rank": [r["rec"]["restore_ms"] for r in second],
+           "h2d_ms_rank0": first[0]["rec"]["h2d_ms"], **sizes,
+           "ckpt_gb": sizes["full_ckpt_bytes"] / 1e9, "manifest_plan": manifest.get("plan"),
+           "wall_s": [wall_first, wall_second],
+           "launches_per_rank": first[0]["launches"],
+           "note": "4 ranks time-share one card; gloo carries the gradient reduce-scatter, "
+                   "the param gather and the checkpoint tiles through host memory: no step "
+                   "time here is a DP speed"}
+    emit("launcher_grid_dense", **row)
+    if [h["step"] for h in hist] != list(range(6)) or sorted(resumed) != [4, 5]:
+        raise AssertionError(f"launcher_grid_dense: steps {[h['step'] for h in hist]} then "
+                             f"{sorted(resumed)}, not 0-5 then 4-5")
+    if resumed != straight:
+        raise AssertionError(f"launcher_grid_dense: resumed steps {resumed} differ from the "
+                             f"uninterrupted run's {straight}")
+    if not (_finite(hist) and losses[-1] < losses[0]):
+        raise AssertionError(f"launcher_grid_dense: losses {losses} not finite and falling")
+    if len(rel) != 6 or max(rel) > 0.01:
+        raise AssertionError(f"launcher_grid_dense: losses off launcher_dense's by {rel} (> 1 %)")
+    if members != dense["ckpt_members"]:
+        raise AssertionError("launcher_grid_dense: the checkpoint's members differ from "
+                             "launcher_dense's (keys, whole shapes, dtypes)")
+    if (manifest.get("plan") or {}).get("layout") != GRID_DENSE_LAYOUT:
+        raise AssertionError(f"launcher_grid_dense: MANIFEST plan {manifest.get('plan')}")
+    if any(r["rec"]["state_bytes"] != want_bytes for r in first + second):
+        raise AssertionError(f"launcher_grid_dense: state bytes {row['state_bytes_by_rank']}, "
+                             f"planned {want_bytes}")
+    if any(any(r["launches"].values()) for r in first + second):
+        raise AssertionError("launcher_grid_dense: the dense path launched kernels")
+    return row
+
+
+def phase_launcher_grid_ft(ft: dict) -> dict:
+    """launcher_ft's runs on a dp = 2 x ep = 2 grid under EPSO
+    (GRID_FT_RUN): clean, then with FT_INJECT; every rank relaunches twice
+    and ends with the clean run's history, and launches exactly the kernels
+    of 18 and 21 steps. The losses are held to launcher_ft's (``ft``, same
+    seed and data): within 0.1 % for steps 0-2, where the warmup's small
+    steps leave both runs' params nearly the same, so the losses compare
+    the forward and the first updates through this grid's kernel shapes;
+    within 5 % after, where bf16 rounding in another order (one row per
+    rank, the experts split over 'ep') compounds step by step. Then the
+    same plan through the command line, 4 steps in a subprocess."""
+    out = LAUNCH_DIR / "grid_ft"
+    shutil.rmtree(out, ignore_errors=True)
+    runs = {}
+    try:
+        for name, kw in (("clean", {}), ("faulty", FT_INJECT)):
+            runs[name] = _launch_grid("launcher_grid_ft", FT_ARCH,
+                                      dict(GRID_FT_RUN, out=str(out / name), **kw))[1:]
+        manifests = [json.loads((out / "faulty" / "ckpt" / slot / "MANIFEST.json").read_text())
+                     for slot in ("ckpt-1", "ckpt-2")]
+        cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch", FT_ARCH,
+               "--parallel", GRID_FT_RUN["parallel"], "--opt-shard", "epso", "--d-model",
+               str(FT_RUN["d_model"]), "--layers", str(FT_RUN["layers"]), "--steps", "4",
+               "--batch", str(FT_RUN["batch"]), "--seq", str(FT_RUN["seq"]),
+               "--compute-dtype", FT_RUN["compute_dtype"], "--out", str(out / "cli")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cli, capture_output=True, text=True, timeout=600, cwd=str(ROOT),
+                              env={**os.environ, "PYTHONPATH": str(SRC)})
+        cli_wall = time.perf_counter() - t0
+        cli_out = {"rc": proc.returncode, "wall_s": cli_wall,
+                   "stdout_tail": proc.stdout[-1500:], "stderr_tail": proc.stderr[-1500:]}
+        if proc.returncode == 0:
+            cli_out["history"] = json.loads((out / "cli" / "history.json").read_text())
+            cli_out["summary"] = json.loads((out / "cli" / "summary.json").read_text())
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    (clean, clean_wall), (faulty, faulty_wall) = runs["clean"], runs["faulty"]
+    layers = FT_RUN["layers"]
+    expect = {"clean": expected_train_launches(layers, 1, FT_RUN["steps"]),
+              "faulty": expected_train_launches(layers, 1, FT_RUN["steps"] + 3)}
+    c0, f0 = clean[0]["result"], faulty[0]["result"]
+    losses = [h["loss"] for h in c0]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, ft["losses"])]
+    row = {"model": launcher_ft_cfg().name, "run": GRID_FT_RUN, "inject": FT_INJECT,
+           "ranks": len(clean), "losses": losses, "loss_rel_to_launcher_ft": rel,
+           "relaunches_by_rank": [r["result"].relaunches for r in faulty],
+           "replaced_by_rank": [r["result"].replaced for r in faulty],
+           "slot_steps": sorted(m["step"] for m in manifests if m.get("valid")),
+           "history_bit_identical": list(f0) == list(c0),
+           "step_ms_median_by_rank": [statistics.median(r["rec"]["step_ms"]) for r in clean],
+           "save_ms_rank0": faulty[0]["rec"]["save_ms"],
+           "restore_ms_rank0": faulty[0]["rec"]["restore_ms"],
+           "peak_bytes_by_rank": [r["peak_bytes"] for r in clean + faulty],
+           "wall_s": [clean_wall, faulty_wall],
+           "launches_per_rank": {"clean": clean[0]["launches"], "faulty": faulty[0]["launches"]},
+           "expected_launches": expect, "cli": cli_out}
+    emit("launcher_grid_ft", **row)
+    for i, (c, f) in enumerate(zip(clean, faulty)):
+        where = f"launcher_grid_ft rank {i}"
+        if c["result"].relaunches != 0 or f["result"].relaunches != 2 or \
+                f["result"].replaced != [(0, 4), (1, 5)]:
+            raise AssertionError(f"{where}: relaunches {c['result'].relaunches} / "
+                                 f"{f['result'].relaunches}, node swaps {f['result'].replaced}")
+        if list(f["result"]) != list(c["result"]) or \
+                [h["step"] for h in f["result"]] != list(range(FT_RUN["steps"])):
+            raise AssertionError(f"{where}: the faulty run's history differs from the clean one")
+        if {"clean": c["launches"], "faulty": f["launches"]} != expect:
+            raise AssertionError(f"{where}: kernel launches {c['launches']} / "
+                                 f"{f['launches']} != expected {expect}")
+    if row["slot_steps"] != [10, 15]:
+        raise AssertionError(f"launcher_grid_ft: valid slots at {row['slot_steps']}, not 10, 15")
+    if not (_finite(c0) and c0[-1]["loss"] < c0[0]["loss"]):
+        raise AssertionError(f"launcher_grid_ft: losses {row['losses']} not finite and falling")
+    if len(rel) != FT_RUN["steps"] or max(rel[:3]) > 1e-3 or max(rel) > 0.05:
+        raise AssertionError(f"launcher_grid_ft: losses off launcher_ft's by {rel} (> 0.1 % "
+                             f"in steps 0-2 or > 5 %)")
+    summary = cli_out.get("summary") or {}
+    if cli_out["rc"] != 0 or [h["step"] for h in cli_out["history"]] != [0, 1, 2, 3] or \
+            not _finite(cli_out["history"]) or (summary.get("parallel"), summary.get(
+                "opt_overlap"), summary.get("steps")) != ("dp=2,ep=2,opt=epso", "ring", 4):
+        raise AssertionError(f"launcher_grid_ft: the command line run failed: {cli_out}")
     return row
 
 
@@ -2395,6 +2657,8 @@ def main(argv=None) -> int:
     epso = phase_epso_train()
     dense = phase_launcher_dense()
     ft = phase_launcher_ft()
+    grid_dense = phase_launcher_grid_dense(dense)
+    grid_ft = phase_launcher_grid_ft(ft)
     phase_launches(get_config(MULA))
 
     summary = []
@@ -2406,7 +2670,10 @@ def main(argv=None) -> int:
                    "ep_train": ep_train["launches_per_rank"][name],
                    "epso_train": epso["launches_per_rank"][name],
                    "launcher_dense": dense["launches"][name],
-                   "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name]}
+                   "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name],
+                   "launcher_grid_dense": grid_dense["launches_per_rank"][name],
+                   "launcher_grid_ft": grid_ft["launches_per_rank"]["clean"][name]
+                   + grid_ft["launches_per_rank"]["faulty"][name]}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

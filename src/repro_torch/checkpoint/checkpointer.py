@@ -32,11 +32,27 @@ Where the port differs, PyTorch and the card force it:
   their tensors with the master weights (``optim.adamw_init``) go on
   sharing them; such a shared tensor is read from the file once.
 * A MANIFEST with an expert placement raises ``NotImplementedError``
-  (placement is not ported); a plan in the MANIFEST is ignored, as the JAX
-  package ignores it without a live plan.
+  (placement is not ported). With a ``plan`` (``parallel.ResolvedPlan``)
+  the MANIFEST carries its spec and layout, and ``restore`` refuses a
+  checkpoint written under another layout unless ``on_plan_mismatch=
+  'reshard'``, as the JAX package does.
+
+On a dp x ep process grid (``grid=``, the rank's ``parallel.ProcessGrid``;
+every rank makes the same calls) the files are still the JAX package's:
+whole arrays. A rank holds a tile of each leaf (``parallel.sharding.
+tile_slices`` of the ``layout=`` the caller passes, ``train.state_layout``:
+expert slices over 'ep', SO/EPSO state shards). On save, leaf by leaf, the first
+rank holding each distinct tile sends it to rank 0, which assembles the leaf
+on the host and writes the member: the host holds one leaf at a time. On
+restore rank 0 alone reads each member once and sends every rank its tile
+(paper §4, "Model Broadcasting"), which the rank writes into its live
+tensors in place. The traffic goes through host tensors over the grid's
+gloo process group; the other ranks wait for rank 0's writes at a barrier,
+inside the group's timeout (``init_ep_group(timeout_s=)``).
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -48,7 +64,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.optim.epso import refuse_sharded_state
+from repro_torch.parallel.grid import rank_coords
+from repro_torch.parallel.sharding import tile_slices
 from repro_torch.tree import assign, keyed_leaves, leaves
 
 CHECKSUM_BYTES = 4096
@@ -58,12 +75,16 @@ CHECKSUM_BYTES = 4096
 # tree <-> flat npz
 # ---------------------------------------------------------------------------
 
+def _refuse_bf16(key: str, leaf) -> None:
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        raise ValueError(f"{key}: a bfloat16 leaf cannot be checkpointed (numpy has no "
+                         f"bfloat16, and the JAX package reads none back); keep the "
+                         f"state in float32")
+
+
 def _host(key: str, leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise ValueError(f"{key}: a bfloat16 leaf cannot be checkpointed (numpy has no "
-                             f"bfloat16, and the JAX package reads none back); keep the "
-                             f"state in float32")
+        _refuse_bf16(key, leaf)
         return leaf.detach().contiguous().cpu().numpy()
     return np.ascontiguousarray(leaf)
 
@@ -72,14 +93,19 @@ def _npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def _write_npz(path: str, tree) -> dict:
+def _write_npz(path, tree, tiles=None) -> dict:
     """``np.savez(path, **flat)`` member by member: each leaf is moved to the
-    host, written and dropped. Returns {key: the leaf's first bytes}."""
+    host, written and dropped. Returns {key: the leaf's first bytes}. With
+    ``tiles`` (a grid's ``_Tiles``) each leaf is first gathered whole on
+    rank 0, the only rank that writes (the others pass ``path=None``)."""
     heads = {}
-    with zipfile.ZipFile(_npz_path(path), mode="w", compression=zipfile.ZIP_STORED,
-                         allowZip64=True) as zf:
+    with contextlib.ExitStack() as stack:
+        zf = None if path is None else stack.enter_context(zipfile.ZipFile(
+            _npz_path(path), mode="w", compression=zipfile.ZIP_STORED, allowZip64=True))
         for key, leaf in keyed_leaves(tree):
-            arr = _host(key, leaf)
+            arr = _host(key, leaf) if tiles is None else tiles.gather(key, leaf)
+            if zf is None:
+                continue
             with zf.open(key + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, arr, allow_pickle=False)
             heads[key] = arr.reshape(-1).view(np.uint8)[:CHECKSUM_BYTES].copy()
@@ -90,21 +116,137 @@ def save_pytree(tree, path: str):
     _write_npz(path, tree)
 
 
-def load_pytree(template, path: str):
+def _on_writer(tiles, fn):
+    """``fn()`` on the rank that reads and writes the files (the only one
+    without a grid); its result, or the error it raised, on every rank."""
+    return fn() if tiles is None else tiles.agree(fn)
+
+
+def load_pytree(template, path, tiles=None):
     """Write the npz at ``path`` into ``template``'s leaves in place and
-    return ``template``. A missing key or another shape raises."""
+    return ``template``. A missing key or another shape raises. With
+    ``tiles`` rank 0 reads the file (the others pass ``path=None``) and
+    sends each rank its tiles."""
+    keys = keyed_leaves(template)
+
+    def check():
+        with np.load(_npz_path(path)) as data:
+            missing = [k for k, _ in keys if k not in data.files]
+        if missing:
+            raise KeyError(f"{path}: no leaf {missing[0]}")
+    _on_writer(tiles, check)
     shared = set()
-    with np.load(_npz_path(path)) as data:
-        for key, leaf in keyed_leaves(template):
-            if key not in data.files:
-                raise KeyError(f"{path}: no leaf {key}")
+    with contextlib.ExitStack() as stack:
+        data = None if path is None else stack.enter_context(np.load(_npz_path(path)))
+        for key, leaf in keys:
             if isinstance(leaf, torch.Tensor):
                 ident = (leaf.data_ptr(), leaf.dtype, tuple(leaf.shape), leaf.stride())
                 if ident in shared:
                     continue            # an f32 param that is its master weight
                 shared.add(ident)
-            assign(leaf, data[key], key)
+            if tiles is None:
+                assign(leaf, data[key], key)
+            else:
+                tiles.scatter(key, leaf, data)
     return template
+
+
+class _Tiles:
+    """A grid's checkpoint traffic: which rank holds which tile of each
+    leaf (``layout``: ``train.state_layout``, keyed by the files' keys),
+    moved through host tensors
+    between the ranks and rank 0, the one rank that writes and reads the
+    files. Every rank makes the same calls in the same order."""
+
+    def __init__(self, grid, layout: dict):
+        if grid.world.backend != "gloo":
+            raise NotImplementedError(
+                f"checkpoints of a grid on the {grid.world.backend!r} backend: the tiles go "
+                f"through host tensors over gloo (ROADMAP.md §1 item 5, NCCL with one card per "
+                f"rank)")
+        self.group, self.rank = grid.world.group, grid.world.rank
+        self.sizes = grid.axis_sizes
+        self.coords = [rank_coords(r, grid.sizes) for r in range(grid.world.world)]
+        self.layout = layout
+
+    def _tiles(self, key: str) -> tuple:
+        shape, place = self.layout[key]
+        return shape, [tile_slices(place, shape, c, self.sizes) for c in self.coords]
+
+    def _check(self, key: str, leaf, want) -> None:
+        _refuse_bf16(key, leaf)
+        if tuple(leaf.shape) != tuple(want):
+            raise ValueError(f"{key}: this rank holds {tuple(leaf.shape)}, the plan's layout "
+                             f"gives it a tile of {tuple(want)}")
+
+    @staticmethod
+    def _shape(sl) -> tuple:
+        return tuple(s.stop - s.start for s in sl)
+
+    def agree(self, fn):
+        """``fn()`` run on rank 0; its result, or the error it raised, on
+        every rank."""
+        out = [None]
+        if self.rank == 0:
+            try:
+                out = [(True, fn())]
+            except (OSError, KeyError, ValueError, NotImplementedError) as e:
+                out = [(False, e)]
+        dist.broadcast_object_list(out, src=0, group=self.group)
+        ok, val = out[0]
+        if not ok:
+            raise val
+        return val
+
+    def gather(self, key: str, leaf):
+        """The whole leaf as a numpy array on rank 0 (None elsewhere): each
+        distinct tile sent once, by the first rank holding it."""
+        shape, tiles = self._tiles(key)
+        self._check(key, leaf, self._shape(tiles[self.rank]))
+        spans = [tuple((s.start, s.stop) for s in sl) for sl in tiles]
+        owner = {span: spans.index(span) for span in spans}     # tile -> first holder
+        if self.rank != 0:
+            if owner[spans[self.rank]] == self.rank:
+                dist.send(torch.from_numpy(_host(key, leaf)), dst=0, group=self.group)
+            return None
+        local = _host(key, leaf)
+        if len(owner) == 1:
+            return local                    # every rank holds the whole leaf
+        full = np.empty(shape, dtype=local.dtype)
+        for r in owner.values():
+            if r == 0:
+                full[tiles[0]] = local
+                continue
+            buf = np.empty(self._shape(tiles[r]), dtype=local.dtype)
+            dist.recv(torch.from_numpy(buf), src=r, group=self.group)
+            full[tiles[r]] = buf
+        return full
+
+    def scatter(self, key: str, leaf, data) -> None:
+        """Rank 0's member ``data[key]`` (read there only) into every rank's
+        tile ``leaf``, in place."""
+        shape, tiles = self._tiles(key)
+        self._check(key, leaf, self._shape(tiles[self.rank]))
+        if self.rank == 0:
+            arr = data[key]
+            if tuple(arr.shape) != tuple(shape):
+                raise ValueError(f"{key}: the file holds {arr.shape}, the plan's layout "
+                                 f"{tuple(shape)}")
+        whole = all(self._shape(sl) == tuple(shape) for sl in tiles)
+        if whole:
+            buf = torch.from_numpy(np.require(arr, requirements="C")).to(leaf.dtype) \
+                if self.rank == 0 \
+                else torch.empty(tuple(shape), dtype=leaf.dtype)
+            dist.broadcast(buf, src=0, group=self.group)
+        elif self.rank == 0:
+            for r, sl in enumerate(tiles[1:], start=1):
+                dist.send(torch.from_numpy(np.require(arr[sl], requirements="C")).to(leaf.dtype),
+                          dst=r, group=self.group)
+            buf = torch.from_numpy(np.require(arr[tiles[0]], requirements="C"))
+        else:
+            buf = torch.empty(tuple(leaf.shape), dtype=leaf.dtype)
+            dist.recv(buf, src=0, group=self.group)
+        assign(leaf, buf, key)
 
 
 def _checksum(d: dict) -> str:
@@ -144,15 +286,45 @@ def broadcast_params(params, group=None):
 # ---------------------------------------------------------------------------
 
 class Checkpointer:
-    """Dual + model-only checkpointing of a state on one device."""
+    """Dual + model-only checkpointing of a state on one device or, with
+    ``grid``, of each rank's tiles of it (whole arrays in the files).
 
-    def __init__(self, root: str, *, interval: int = 1000, model_only_interval: int = 0):
+    ``plan`` (a ``parallel.ResolvedPlan``): its spec and axis layout go into
+    each MANIFEST, and ``restore`` refuses a checkpoint written under another
+    layout unless ``on_plan_mismatch='reshard'`` (the files hold whole
+    arrays, so the live layout's tiles are cut from them either way). A
+    ``grid`` of more than one rank needs the ``layout`` of the state's
+    tiles on it (``train.state_layout`` of the live plan), and a ``plan``
+    given with it must be the grid's."""
+
+    def __init__(self, root: str, *, interval: int = 1000, model_only_interval: int = 0,
+                 plan=None, on_plan_mismatch: str = "error", grid=None, layout=None):
+        if on_plan_mismatch not in ("error", "reshard"):
+            raise ValueError("on_plan_mismatch must be 'error' or 'reshard',"
+                             f" got {on_plan_mismatch!r}")
         self.root = root
         self.interval = interval
         self.model_only_interval = model_only_interval or interval
+        self.plan = plan
+        self.on_plan_mismatch = on_plan_mismatch
+        self._tiles = None
+        if grid is not None and grid.world.world > 1:
+            if layout is None:
+                raise ValueError("a Checkpointer on a grid needs the layout of the ranks' "
+                                 "tiles (layout=train.state_layout(...))")
+            if plan is not None and plan.grid != (grid.sizes["data"], grid.sizes["ep"]):
+                raise ValueError(f"plan '{plan.spec()}' is a {plan.grid} grid, the ranks a "
+                                 f"{grid.sizes} one")
+            self._tiles = _Tiles(grid, layout)
+        self._writer = self._tiles is None or self._tiles.rank == 0
         os.makedirs(root, exist_ok=True)
         self.slots = [os.path.join(root, "ckpt-1"),
                       os.path.join(root, "ckpt-2")]
+
+    def _done(self) -> None:
+        """On a grid, every rank returns once rank 0 has written."""
+        if self._tiles is not None:
+            dist.barrier(group=self._tiles.group)
 
     # ---- dual full checkpoints -------------------------------------------
     def _slot_manifest(self, slot: str):
@@ -180,35 +352,33 @@ class Checkpointer:
 
     def save(self, state, step: int, *, fail_after_write: bool = False):
         """Write a full checkpoint into the *older* of the two slots.
-        ``fail_after_write`` simulates a mid-checkpoint failure (tests). A
-        state whose optimizer is sharded (SO/EPSO) raises
-        ``NotImplementedError``."""
-        refuse_sharded_state(state, "Checkpointer.save")
-        slot = self._oldest_slot()
+        ``fail_after_write`` simulates a mid-checkpoint failure (tests)."""
+        slot = _on_writer(self._tiles, self._oldest_slot)
         tmp = slot + ".tmp"
-        if os.path.exists(tmp):
-            shutil.rmtree(tmp)
-        os.makedirs(tmp)
-        heads = _write_npz(os.path.join(tmp, "state.npz"), state)
-        if fail_after_write:      # crash before the manifest => slot invalid
+        if self._writer:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        heads = _write_npz(os.path.join(tmp, "state.npz") if self._writer else None, state,
+                           self._tiles)
+        if self._writer:
+            if not fail_after_write:   # a crash before the manifest leaves the slot invalid
+                man = {"step": step, "valid": True, "time": time.time(),
+                       "checksum": _checksum(heads)}
+                if self.plan is not None:
+                    man["plan"] = {"spec": self.plan.spec(),
+                                   "layout": self.plan.layout_signature()}
+                with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
+                    json.dump(man, f)
             if os.path.exists(slot):
                 shutil.rmtree(slot)
             os.rename(tmp, slot)
-            return slot
-        man = {"step": step, "valid": True, "time": time.time(),
-               "checksum": _checksum(heads)}
-        with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
-            json.dump(man, f)
-        if os.path.exists(slot):
-            shutil.rmtree(slot)
-        os.rename(tmp, slot)
+        self._done()
         return slot
 
-    def restore(self, template):
-        """Restore the newest *valid* slot into ``template`` in place.
-        Returns (template, step) or (None, -1). A template whose optimizer
-        is sharded (SO/EPSO) raises ``NotImplementedError``."""
-        refuse_sharded_state(template, "Checkpointer.restore")
+    def _newest(self):
+        """(slot, step) of the newest valid slot, or (None, -1), after the
+        manifest's checks."""
         best, best_step = None, -1
         for slot in self.slots:
             s = self._slot_step(slot)
@@ -216,16 +386,49 @@ class Checkpointer:
                 best, best_step = slot, s
         if best is None:
             return None, -1
-        if (self._slot_manifest(best) or {}).get("placement") is not None:
+        manifest = self._slot_manifest(best) or {}
+        if manifest.get("placement") is not None:
             raise NotImplementedError(
                 f"checkpoint {best} was written under an expert placement; the port "
                 f"has no expert placement yet (ROADMAP.md §1 item 5)")
-        return load_pytree(template, os.path.join(best, "state.npz")), best_step
+        self._check_plan(manifest, best)
+        return best, best_step
+
+    def restore(self, template):
+        """Restore the newest *valid* slot into ``template`` in place (on a
+        grid, each rank's tiles into its own template). Returns (template,
+        step) or (None, -1)."""
+        best, best_step = _on_writer(self._tiles, self._newest)
+        if best is None:
+            return None, -1
+        path = os.path.join(best, "state.npz") if self._writer else None
+        return load_pytree(template, path, self._tiles), best_step
+
+    def _check_plan(self, manifest: dict, slot: str) -> None:
+        saved = manifest.get("plan")
+        if saved is None or self.plan is None:
+            return                       # legacy checkpoint or legacy caller
+        live = {"spec": self.plan.spec(),
+                "layout": self.plan.layout_signature()}
+        if saved["layout"] == live["layout"]:
+            return
+        if self.on_plan_mismatch == "reshard":
+            print(f"checkpoint {slot}: re-planning "
+                  f"'{saved.get('spec')}' -> '{live['spec']}' "
+                  f"(explicit on_plan_mismatch='reshard')")
+            return
+        raise ValueError(
+            f"checkpoint {slot} was written under plan "
+            f"'{saved.get('spec')}' (layout {saved['layout']}) but this run "
+            f"is planned as '{live['spec']}' (layout {live['layout']}); "
+            f"refusing to silently reshard — restart with the saved plan, "
+            f"or pass on_plan_mismatch='reshard' to re-plan explicitly")
 
     # ---- persistent model-only checkpoints --------------------------------
     def save_model_only(self, params, step: int):
         path = os.path.join(self.root, f"model-{step:08d}.npz")
-        save_pytree(params, path)
+        _write_npz(path if self._writer else None, params, self._tiles)
+        self._done()
         return path
 
     def list_model_only(self):
@@ -238,7 +441,7 @@ class Checkpointer:
         (paper: 'training can be restarted from just the model
         parameters')."""
         path = os.path.join(self.root, f"model-{step:08d}.npz")
-        return load_pytree(template, path)
+        return load_pytree(template, path if self._writer else None, self._tiles)
 
     # ---- hooks --------------------------------------------------------------
     def maybe_save(self, state, params, step: int):

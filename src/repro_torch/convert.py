@@ -23,8 +23,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import init_params, padded_vocab
 from repro_torch.optim import AdamWState
 from repro_torch.optim.epso import optimizer_state_specs
-from repro_torch.optim.overlap import shard_index
-from repro_torch.parallel.sharding import expert_shard, param_placements
+from repro_torch.parallel.grid import rank_coords
+from repro_torch.parallel.sharding import expert_shard, param_placements, tile_slices
 from repro_torch.tree import leaves, leaves_with_path, tree_map
 
 
@@ -65,25 +65,7 @@ def _grid_specs(cfg: ModelConfig, dp: int, ep: int, mode: str):
     sizes = {a: n for a, n in (("data", dp), ("ep", ep)) if n > 1}
     shapes = init_params(cfg, device="meta")
     return shapes, optimizer_state_specs(shapes, param_placements(shapes, sizes), sizes,
-                                         mode), sizes
-
-
-def _tile_slices(spec, shape, coords: dict, sizes: dict) -> tuple:
-    """The slices of a global leaf a rank's state holds: each dim cut by
-    its axes, major-to-minor (GSPMD's tiling of a tuple spec)."""
-    out = []
-    for d, axes in enumerate(spec):
-        n = 1
-        for a in axes:
-            n *= sizes[a]
-        blk = shape[d] // n
-        k = shard_index(axes, coords, sizes)
-        out.append(slice(k * blk, (k + 1) * blk))
-    return tuple(out)
-
-
-def _coords(rank: int, ep: int) -> dict:
-    return {"data": rank // ep, "ep": rank % ep}
+                                         mode), {"data": dp, "ep": ep}
 
 
 def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, rank: int,
@@ -97,11 +79,11 @@ def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, r
     ``train.init_state`` cuts on that rank from the same full state."""
     if not torch.is_tensor(leaves(opt.master)[0]):
         opt = opt_state_from_jax(opt, device=device)
-    shapes, specs, sizes = _grid_specs(cfg, dp, ep, mode)
-    coords = _coords(rank, ep)
+    _, specs, sizes = _grid_specs(cfg, dp, ep, mode)
+    coords = rank_coords(rank, sizes)
 
     def cut(tree):
-        return tree_map(lambda t, spec: t[_tile_slices(spec, t.shape, coords, sizes)].clone(),
+        return tree_map(lambda t, spec: t[tile_slices(spec, t.shape, coords, sizes)].clone(),
                         tree, specs)
     return AdamWState(opt.step, *(cut(t) for t in (opt.master, opt.m, opt.v)))
 
@@ -118,9 +100,9 @@ def opt_state_from_ranks(states: list, cfg: ModelConfig, *, dp: int, ep: int,
         full = {path: np.full(tuple(leaf.shape), np.nan, dtype=np.float32)
                 for path, leaf in leaves_with_path(shapes)}
         for rank, st in enumerate(states):
-            coords = _coords(rank, ep)
+            coords = rank_coords(rank, sizes)
             for (path, shard), spec in zip(leaves_with_path(getattr(st, what)), leaves(specs)):
-                sl = _tile_slices(spec, full[path].shape, coords, sizes)
+                sl = tile_slices(spec, full[path].shape, coords, sizes)
                 tile = shard.detach().cpu().float().numpy()
                 seen = full[path][sl]
                 if not np.isnan(seen).all() and not np.array_equal(seen, tile):

@@ -30,7 +30,6 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.optim.epso import refuse_sharded_state
 from repro_torch.tree import assign, keyed_leaves
 
 
@@ -126,12 +125,16 @@ def run_with_failure_handling(train_one_step, *, state, checkpointer,
     ``start_step`` into the live state's leaves: a restart must not keep
     partial updates, or the replayed steps would be applied twice. Without
     a ``fallback`` the loop takes a host copy of ``state`` here, before the
-    first step (``snapshot``), and writes it back (``restore_into``). A
-    state whose optimizer is sharded (SO/EPSO) raises ``NotImplementedError``
-    (the checkpoints hold whole arrays).
+    first step (``snapshot``), and writes it back (``restore_into``).
+
+    On a dp x ep grid every rank runs this loop on its own shards of the
+    state with a grid ``Checkpointer``: the steps, checkpoints and restores
+    are collective, so a failure must reach every rank at the same step
+    (the launcher injects it on every rank; the metrics the monitor checks
+    are the same on every rank), and each rank's ``snapshot`` and
+    ``fallback`` hold only its own shards.
     Returns (state, step_reached, relaunches).
     """
-    refuse_sharded_state(state, "the failure-handling loop")
     monitor = monitor or NaNMonitor()
     if fallback is None:
         initial = snapshot(state)

@@ -1,12 +1,20 @@
-"""End-to-end training launcher on one device: port of the JAX package's
-``launch/train.py`` for one GPU.
+"""End-to-end training launcher, on one device or on a dp x ep grid of
+ranks: port of the JAX package's ``launch/train.py``.
 
 Wires together the data pipeline (tokenize/shuffle/shard + mmap loader),
-the model, AdamW, block remat, dual + model-only checkpointing, and the
-paper §4 failure-handling loop (NaN monitor + buffer-node ClusterManager)
-as the main loop. It writes what the JAX launcher writes (``data/``,
-``ckpt/``, ``history.json``, ``summary.json``), in the same formats: a run
-of either package resumes from the other's checkpoints.
+the model, AdamW (with SO/EPSO state sharding on a grid), block remat, dual
++ model-only checkpointing, and the paper §4 failure-handling loop (NaN
+monitor + buffer-node ClusterManager) as the main loop. It writes what the
+JAX launcher writes (``data/``, ``ckpt/``, ``history.json``,
+``summary.json``), in the same formats: a run of either package resumes
+from the other's checkpoints, whatever plan wrote them (the files hold
+whole arrays).
+
+A ``--parallel`` plan (``parallel.ParallelPlan``; or the legacy ``--mesh``)
+of more than one rank runs on the port's ('data', 'ep') grid: the launching
+process prepares the data, then starts one process a rank
+(``parallel.spawn``, gloo; on the card the ranks share it), each running
+``_rank_main`` on its rows of every batch; rank 0 writes the outputs.
 
 Usage (on the card; ``--device cpu`` runs the plain PyTorch path):
   PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
@@ -15,18 +23,19 @@ Usage (on the card; ``--device cpu`` runs the plain PyTorch path):
   PYTHONPATH=src python -m repro_torch.launch.train --arch mula-1b \
       --scale full --steps 6 --batch 4 --seq 2048 --ckpt-interval 3 \
       --compute-dtype bfloat16 --out runs/mula1b
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
+      --parallel dp=2,ep=2 --opt-shard epso --steps 20 --batch 4 --seq 32 \
+      --d-model 64 --device cpu --out runs/grid       # 4 CPU ranks
 
 ``compute_dtype`` is ``TrainConfig.compute_dtype``; its default here is the
 float32 the JAX launcher fixes. The MoE kernels on the card take bf16, so
 an MoE model on the card runs with ``bfloat16``.
 
 Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
-item that ports them: ``mesh``, ``parallel``, ``opt_shard`` other than
-'none' and ``opt_overlap`` other than 'off' (§1 item 3, the multi-rank
-launcher: the trainer runs SO/EPSO on a ``parallel.ProcessGrid``, the
-launcher does not start one yet), ``pp_schedule``, ``pp_impl``,
-``rebalance*`` (§1 item 5), ``kernel_tiles`` (§1 item 7), and the hybrid
-(§1 item 4), ssm, vlm and audio archs (§1 item 6).
+item that ports them: plans with pp, tp or pod axes, ``fsdp`` or
+``rebalance=``, ``pp_schedule``, ``pp_impl``, ``rebalance*`` (§1 item 5),
+``kernel_tiles`` and ``tiles=`` (§1 item 7), and the hybrid (§1 item 4),
+ssm, vlm and audio archs (§1 item 6).
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ import dataclasses
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -45,8 +55,11 @@ from repro_torch.data import ByteTokenizer, ShardedDataLoader, preprocess_corpus
 from repro_torch.device import resolve_device
 from repro_torch.ft import (ClusterManager, NaNMonitor, NodeFailure, restore_into,
                             run_with_failure_handling)
-from repro_torch.models.model import padded_vocab
-from repro_torch.train import init_state, make_train_step
+from repro_torch.models.model import init_params, padded_vocab
+from repro_torch.optim.overlap import resolve_opt_overlap
+from repro_torch.parallel import ParallelPlan, ResolvedPlan, spawn
+from repro_torch.parallel.plan import refuse
+from repro_torch.train import init_state, make_train_step, state_layout
 from repro_torch.tree import keyed_leaves, leaves
 
 
@@ -91,30 +104,18 @@ def _env_int(name: str):
     return int(v) if v else None
 
 
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP.md §1 {item})")
-
-
-def _check_supported(cfg, *, mesh, parallel, opt_shard, opt_overlap, pp_schedule, pp_impl,
-                     kernel_tiles, rebalance, rebalance_force_at) -> None:
-    if mesh is not None or parallel is not None:
-        _refuse("a device mesh (--mesh / --parallel)", "item 3, the multi-rank launcher")
-    if opt_shard not in (None, "none"):
-        _refuse(f"optimizer-state sharding {opt_shard!r} in the launcher",
-                "item 3, the multi-rank launcher")
-    if opt_overlap not in (None, "off"):
-        _refuse(f"the optimizer overlap {opt_overlap!r} in the launcher",
-                "item 3, the multi-rank launcher")
+def _check_supported(cfg, *, pp_schedule, pp_impl, kernel_tiles, rebalance,
+                     rebalance_force_at) -> None:
     if pp_schedule is not None or pp_impl is not None:
-        _refuse("pipeline parallelism (--pp-schedule / --pp-impl)", "item 5, the PP executors")
+        refuse("pipeline parallelism (--pp-schedule / --pp-impl)", "item 5, the PP executors")
     if kernel_tiles is not None:
-        _refuse("kernel tile selection (--kernel-tiles)", "item 7, autotuning")
+        refuse("kernel tile selection (--kernel-tiles)", "item 7, autotuning")
     if rebalance is not None or rebalance_force_at is not None:
-        _refuse("expert rebalancing (--rebalance)", "item 5, expert placement")
+        refuse("expert rebalancing (--rebalance)", "item 5, expert placement")
     if cfg.arch_type == "hybrid":
-        _refuse("training a hybrid (Mamba-2) model", "item 4, hybrid training")
+        refuse("training a hybrid (Mamba-2) model", "item 4, hybrid training")
     if cfg.arch_type not in ("dense", "moe"):
-        _refuse(f"arch_type {cfg.arch_type!r}", "item 6, the rest of the zoo")
+        refuse(f"arch_type {cfg.arch_type!r}", "item 6, the rest of the zoo")
 
 
 def _batch_mover(batch: int, seq: int, dev: torch.device):
@@ -137,33 +138,63 @@ def _batch_mover(batch: int, seq: int, dev: torch.device):
     return move
 
 
-def run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int = 8,
-        seq: int = 128, out: str = "runs/default", lr: float = 1e-3,
-        moe_impl: str = None, fur: bool = False, ckpt_interval: int = 50,
-        microbatches: int = 1, sac: str = "block", seed: int = 0,
-        log_every: int = 10, d_model: int = 256, layers: int = 2,
-        d_ff: int = 0, moe_dff: int = 0, mesh: str = None,
-        parallel: str = None,
-        opt_shard: str = None, opt_overlap: str = None,
-        pp_schedule: str = None,
-        pp_impl: str = None, moe_dispatch: str = None,
-        kernel_tiles: str = None,
-        rebalance: str = None, rebalance_force_at: int = None,
-        n_buffer: int = 2,
-        inject_hard_at: int = None, inject_soft_at: int = None,
-        max_relaunches: int = 8, device=None,
-        compute_dtype: str = "float32") -> RunResult:
-    """Train ``arch`` for ``steps`` steps, resuming from ``out/ckpt`` when it
-    holds a valid checkpoint; the JAX launcher's ``run`` with two more
-    keywords: ``device`` (``cuda`` unless given) and ``compute_dtype``.
+@dataclasses.dataclass(frozen=True)
+class RunSpec:
+    """Everything a rank of a run needs, resolved once by ``prepare_run`` in
+    the launching process (and pickled to the ranks)."""
+    cfg: object                 # ModelConfig
+    train: TrainConfig
+    par: ParallelConfig
+    plan: Optional[ResolvedPlan]
+    mesh: Optional[str]         # the legacy --mesh spec, as given
+    opt_overlap: str            # resolved: 'off' | 'ring' | 'xla'
+    out: str
+    ckpt_interval: int
+    log_every: int
+    n_buffer: int
+    max_relaunches: int
+    inject_hard_at: Optional[int]
+    inject_soft_at: Optional[int]
+    device: torch.device
 
-    The state restored on a relaunch is written into the live tensors,
-    since the optimizer updates them in place. With no checkpoint yet, a
-    fresh run's fallback rebuilds the initial state deterministically
-    (``init_state`` from ``seed``) into them; a resumed run's fallback is
-    the checkpoint it resumed from, which the newest valid slot always
-    holds or supersedes, so its fallback only raises if both slots were
-    lost."""
+    @property
+    def world(self) -> int:
+        return self.plan.world if self.plan is not None else 1
+
+
+def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int = 8,
+                seq: int = 128, out: str = "runs/default", lr: float = 1e-3,
+                moe_impl: str = None, fur: bool = False, ckpt_interval: int = 50,
+                microbatches: int = 1, sac: str = "block", seed: int = 0,
+                log_every: int = 10, d_model: int = 256, layers: int = 2,
+                d_ff: int = 0, moe_dff: int = 0, mesh: str = None,
+                parallel: str = None,
+                opt_shard: str = None, opt_overlap: str = None,
+                pp_schedule: str = None,
+                pp_impl: str = None, moe_dispatch: str = None,
+                kernel_tiles: str = None,
+                rebalance: str = None, rebalance_force_at: int = None,
+                n_buffer: int = 2,
+                inject_hard_at: int = None, inject_soft_at: int = None,
+                max_relaunches: int = 8, device=None,
+                compute_dtype: str = "float32") -> RunSpec:
+    """The JAX launcher's ``run`` keywords, checked and resolved before any
+    work: the model config, the ParallelPlan (``parallel``, or the legacy
+    ``mesh``; ``opt_shard``, ``opt_overlap`` and ``moe_dispatch`` override
+    the spec), the train and parallel configs and the overlap the step will
+    run. Two more keywords: ``device`` (``cuda`` unless given) and
+    ``compute_dtype``. Raises ``ValueError`` on inconsistent arguments and
+    ``NotImplementedError`` naming its ``ROADMAP.md`` item for what the
+    port does not run."""
+    # opt_shard: None = not passed (the --parallel spec's opt= applies); an
+    # explicit value, the default 'none' included, overrides the spec
+    if opt_shard not in (None, "none") and not (mesh or parallel):
+        raise ValueError(f"--opt-shard {opt_shard} needs --parallel (or the "
+                         f"legacy --mesh): optimizer-state sharding is a "
+                         f"placement over mesh axes")
+    if mesh and parallel:
+        raise ValueError("--mesh and --parallel are mutually exclusive "
+                         "(--mesh is the legacy spelling of --parallel)")
     cfg = get_config(arch)
     if scale == "smoke":
         cfg = reduced(cfg, layers=layers, d_model=d_model,
@@ -177,18 +208,39 @@ def run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int = 8,
             cfg.moe, moe_impl=moe_impl or cfg.moe.moe_impl,
             forced_uniform_routing=fur,
             d_ff_expert=moe_dff or cfg.moe.d_ff_expert))
-    _check_supported(cfg, mesh=mesh, parallel=parallel, opt_shard=opt_shard,
-                     opt_overlap=opt_overlap, pp_schedule=pp_schedule, pp_impl=pp_impl,
-                     kernel_tiles=kernel_tiles, rebalance=rebalance,
-                     rebalance_force_at=rebalance_force_at)
-    if moe_dispatch is not None and cfg.moe is not None:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, dispatch=moe_dispatch))
-    dev = resolve_device(device)
-    os.makedirs(out, exist_ok=True)
+    _check_supported(cfg, pp_schedule=pp_schedule, pp_impl=pp_impl, kernel_tiles=kernel_tiles,
+                     rebalance=rebalance, rebalance_force_at=rebalance_force_at)
 
-    data_dir = prepare_data(out, context=seq, seed=seed)
-    loader = ShardedDataLoader(data_dir, global_batch=batch)
+    # ---- the ParallelPlan: --parallel spec, or the legacy --mesh shim ----
+    if parallel:
+        pplan = ParallelPlan.parse(parallel)
+        if opt_shard is not None:               # CLI flag overrides the spec
+            pplan = dataclasses.replace(pplan, opt_shard=opt_shard)
+    elif mesh:
+        pplan = ParallelPlan.from_legacy(mesh, cfg=cfg, opt_shard=opt_shard or "none")
+    else:
+        pplan = None
+    if pplan is not None:
+        if opt_overlap is not None:
+            pplan = dataclasses.replace(pplan, opt_overlap=opt_overlap)
+        if moe_dispatch is not None:
+            pplan = dataclasses.replace(pplan, moe_dispatch=moe_dispatch)
+        cfg = pplan.apply_to_model(cfg)
+        opt_shard = pplan.opt_shard
+        if microbatches == 1 and pplan.microbatches > 1:
+            microbatches = pplan.microbatches   # spec-supplied mb=
+        pplan = dataclasses.replace(pplan, microbatches=microbatches)
+    else:
+        if moe_dispatch is not None and cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, dispatch=moe_dispatch))
+        opt_shard = opt_shard or "none"
+    plan = pplan.resolve(cfg, global_batch=batch) if pplan is not None else None
+    world = plan.world if plan is not None else 1
+    if (batch // world) % microbatches:
+        raise ValueError(f"a rank's {batch // world} of the batch's {batch} rows do not split "
+                         f"into {microbatches} microbatches")
+    dev = resolve_device(device)
 
     train = TrainConfig(param_dtype="float32", compute_dtype=compute_dtype,
                         grad_reduce_dtype="float32", lr_peak=lr,
@@ -196,10 +248,12 @@ def run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int = 8,
                         total_steps=steps, seq_len=seq, global_batch=batch,
                         seed=seed)
     par = ParallelConfig(microbatches=microbatches, remat_policy=sac,
-                         optimizer_sharding="none", opt_overlap="off",
-                         moe_dispatch=moe_dispatch)
-    state = init_state(cfg, train, seed=seed, device=dev)
-    step_fn = make_train_step(cfg, par, train)
+                         optimizer_sharding=opt_shard,
+                         opt_overlap=pplan.opt_overlap if pplan is not None else opt_overlap,
+                         moe_dispatch=pplan.moe_dispatch if pplan is not None else moe_dispatch)
+    # resolved up front so the header and summary record what the step runs
+    ov_impl = resolve_opt_overlap(par.opt_overlap, opt_shard,
+                                  plan.axis_sizes if plan is not None else None)
 
     inject_hard_at = inject_hard_at if inject_hard_at is not None \
         else _env_int("REPRO_INJECT_HARD_AT")
@@ -212,45 +266,112 @@ def run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int = 8,
             and ckpt_interval >= steps:
         ckpt_interval = max(1, steps // 4)
         print(f"injection requested: ckpt interval clamped to {ckpt_interval}")
-    ckpt = Checkpointer(os.path.join(out, "ckpt"), interval=ckpt_interval)
-    n_devices = 1
-    cluster = ClusterManager(n_active=max(2, n_devices), n_buffer=n_buffer)
+    return RunSpec(cfg=cfg, train=train, par=par, plan=plan, mesh=mesh, opt_overlap=ov_impl,
+                   out=out, ckpt_interval=ckpt_interval, log_every=log_every,
+                   n_buffer=n_buffer, max_relaunches=max_relaunches,
+                   inject_hard_at=inject_hard_at, inject_soft_at=inject_soft_at, device=dev)
+
+
+def run(arch: str, **kw) -> RunResult:
+    """Train ``arch`` for ``steps`` steps, resuming from ``out/ckpt`` when it
+    holds a valid checkpoint: the JAX launcher's ``run`` (keywords:
+    ``prepare_run``). A plan of more than one rank trains on its dp x ep
+    grid, one process a rank; the result is rank 0's."""
+    return launch_ranks(prepare_run(arch, **kw))[0]
+
+
+def launch_ranks(spec: RunSpec, rank_fn=None) -> list:
+    """Prepare the data once, then run ``rank_fn(grid, spec)`` (default
+    ``_rank_main``) on every rank of the plan: in this process for one rank
+    (``grid`` None), else one process a rank over gloo
+    (``parallel.spawn(..., grid=(dp, ep))``, no deadline: a collective that
+    hangs raises after the group's timeout). The ranks' results, in rank
+    order."""
+    rank_fn = rank_fn or _rank_main
+    os.makedirs(spec.out, exist_ok=True)
+    prepare_data(spec.out, context=spec.train.seq_len, seed=spec.train.seed)
+    if spec.world == 1:
+        return [rank_fn(None, spec)]
+    return spawn(rank_fn, spec.world, args=(spec,), backend="gloo", device=spec.device,
+                 timeout_s=None, grid=spec.plan.grid)
+
+
+def _rank_main(grid, spec: RunSpec) -> RunResult:
+    """One rank of a run (the whole run without a ``grid``): the state's
+    shards on this rank, its rows of every global batch (rank r of w takes
+    rows [r B / w, (r + 1) B / w)), the failure-handling loop with grid
+    checkpoints. Every rank takes the same steps, failures and restores;
+    rank 0 prints and writes ``history.json`` and ``summary.json``.
+
+    The state restored on a relaunch is written into the live tensors,
+    since the optimizer updates them in place. With no checkpoint yet, a
+    fresh run's fallback rebuilds the initial state deterministically
+    (``init_state`` from ``seed``) into them; a resumed run's fallback is
+    the checkpoint it resumed from, which the newest valid slot always
+    holds or supersedes, so its fallback only raises if both slots were
+    lost."""
+    cfg, train, steps, mode = spec.cfg, spec.train, spec.train.total_steps, \
+        spec.par.optimizer_sharding
+    rank = grid.world.rank if grid is not None else 0
+    lead = rank == 0
+    dev = grid.world.device if grid is not None else spec.device
+    loader = ShardedDataLoader(os.path.join(spec.out, "data"), global_batch=train.global_batch)
+    rows = slice(rank * train.global_batch // spec.world,
+                 (rank + 1) * train.global_batch // spec.world)
+
+    def fresh_state():
+        return init_state(cfg, train, seed=train.seed, device=dev, grid=grid,
+                          opt_sharding_mode=mode)
+
+    state = fresh_state()
+    step_fn = make_train_step(cfg, spec.par, train, opt_sharding_mode=mode, grid=grid)
+    layout = state_layout(cfg, grid.axis_sizes, mode) if grid is not None else None
+    ckpt = Checkpointer(os.path.join(spec.out, "ckpt"), interval=spec.ckpt_interval,
+                        plan=spec.plan, grid=grid, layout=layout)
+    cluster = ClusterManager(n_active=max(2, spec.world), n_buffer=spec.n_buffer)
 
     # resume if a valid checkpoint exists (written into the live state)
     restored, ck_step = ckpt.restore(state)
     start = 0
     if restored is not None:
         state, start = restored, ck_step + 1   # ckpt holds post-step state
-        print(f"resumed from step {start}")
+        if lead:
+            print(f"resumed from step {start}")
     # the loop consumes the loader's iterator; point it at the first step to
     # run so a resumed run replays the exact batch sequence an uninterrupted
     # one would have seen (never batch 0 again)
     loader.load_state_dict({"step": start})
     batches = iter(loader)
-    to_device = _batch_mover(batch, seq, dev)
+    to_device = _batch_mover(rows.stop - rows.start, train.seq_len, dev)
 
     def fallback(live):
         if start:
             raise RuntimeError(f"no valid checkpoint left in {ckpt.root}: the run resumed "
                                f"from step {start} and cannot restart from there")
-        return restore_into(live, dict(keyed_leaves(init_state(cfg, train, seed=seed,
-                                                               device=dev))))
+        return restore_into(live, dict(keyed_leaves(fresh_state())))
 
-    nparams = sum(t.numel() for t in leaves(state.params))
-    print(f"arch={cfg.name} params={nparams/1e6:.1f}M "
-          f"vocab={padded_vocab(cfg)} plan=single opt_shard=none opt_overlap=off pp=1")
-    print(f"device={dev} compute_dtype={compute_dtype}")
+    if lead:
+        nparams = sum(t.numel() for t in leaves(init_params(cfg, device="meta")))
+        plan = spec.plan.spec() if spec.plan is not None else "single"
+        print(f"arch={cfg.name} params={nparams/1e6:.1f}M "
+              f"vocab={padded_vocab(cfg)} plan={plan} opt_shard={mode} "
+              f"opt_overlap={spec.opt_overlap} pp=1")
+        print(f"device={dev} compute_dtype={train.compute_dtype}"
+              + (f" ranks={spec.world}" if grid is not None else ""))
 
     injected = {"hard": False, "soft": False}
     history = {}          # keyed by step: replays after restore overwrite
     t0 = time.time()
 
     def train_one_step(state, step):
-        if step == inject_hard_at and not injected["hard"]:
+        # every rank takes the same step: an injected failure reaches all
+        if step == spec.inject_hard_at and not injected["hard"]:
             injected["hard"] = True
-            print(f"  !! injected HARD failure on node 0 @ step {step}")
+            if lead:
+                print(f"  !! injected HARD failure on node 0 @ step {step}")
             raise NodeFailure(cluster.active[0].node_id, "hard")
-        state, metrics = step_fn(state, to_device(next(batches)))
+        b = next(batches)
+        state, metrics = step_fn(state, to_device({k: a[rows] for k, a in b.items()}))
         # one host sync per step: every fetched metric (and the MoE
         # telemetry) travels in one float64 tensor, which holds each float32
         # value exactly
@@ -260,12 +381,13 @@ def run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int = 8,
         if "moe_load" in metrics:
             parts.append(metrics["moe_load"].reshape(-1).to(torch.float64))
         vals = torch.cat(parts).cpu().numpy()
-        will_log = step % log_every == 0 or step == steps - 1
+        will_log = lead and (step % spec.log_every == 0 or step == steps - 1)
         loss, lr_v, gnorm = (float(v) for v in vals[:3])
         per_rank = [loss]
-        if step == inject_soft_at and not injected["soft"]:
+        if step == spec.inject_soft_at and not injected["soft"]:
             injected["soft"] = True
-            print(f"  !! injected SOFT failure (NaN) on node 1 @ step {step}")
+            if lead:
+                print(f"  !! injected SOFT failure (NaN) on node 1 @ step {step}")
             per_rank = [loss, float("nan")]
         history[step] = {"step": step, "loss": loss, "lr": lr_v, "grad_norm": gnorm}
         moe_line = ""
@@ -293,15 +415,18 @@ def run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int = 8,
     state, end_step, relaunches = run_with_failure_handling(
         train_one_step, state=state, checkpointer=ckpt, cluster=cluster,
         num_steps=steps, monitor=NaNMonitor(), start_step=start,
-        max_relaunches=max_relaunches, on_relaunch=on_relaunch, fallback=fallback)
+        max_relaunches=spec.max_relaunches, on_relaunch=on_relaunch, fallback=fallback)
 
     result = RunResult(history[s] for s in sorted(history))
     result.relaunches = relaunches
     result.replaced = list(cluster.replaced)
-    with open(os.path.join(out, "history.json"), "w") as f:
+    if not lead:
+        return result
+    with open(os.path.join(spec.out, "history.json"), "w") as f:
         json.dump(list(result), f)
-    summary = {"arch": cfg.name, "steps": end_step, "mesh": None,
-               "parallel": None, "opt_shard": "none", "opt_overlap": "off",
+    summary = {"arch": cfg.name, "steps": end_step, "mesh": spec.mesh,
+               "parallel": str(spec.plan.plan) if spec.plan is not None else None,
+               "opt_shard": mode, "opt_overlap": spec.opt_overlap,
                "pp_stages": 1,
                "moe_dispatch": cfg.moe.dispatch if cfg.moe is not None
                else None,
@@ -310,7 +435,7 @@ def run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int = 8,
                "replaced": result.replaced,
                "rebalance": None, "rebalances": 0, "final_imbalance": None,
                "final_loss": result[-1]["loss"] if result else None}
-    with open(os.path.join(out, "summary.json"), "w") as f:
+    with open(os.path.join(spec.out, "summary.json"), "w") as f:
         json.dump(summary, f)
     if relaunches:
         print(f"completed with {relaunches} relaunch(es); node swaps: "
@@ -345,12 +470,22 @@ def main(argv=None):
                     choices=["capacity", "dropless"],
                     help="MoE token dispatch: 'capacity' or 'dropless' (overrides "
                          "MoEConfig.dispatch)")
+    ap.add_argument("--parallel", default=None,
+                    help="declarative ParallelPlan spec, e.g. 'dp=2,ep=2' or 'dp=4,opt=so'; "
+                         "the port runs the axes dp and ep (one process a rank over gloo) "
+                         "and the options opt=, overlap=, moe=, mb=")
+    ap.add_argument("--mesh", default=None,
+                    help="LEGACY device mesh: '4,2' = (data, model), translated to a "
+                         "ParallelPlan (MoE: model axis -> ep when divisible, else tp). "
+                         "Prefer --parallel")
+    ap.add_argument("--opt-shard", default=None, choices=["none", "so", "epso"],
+                    help="optimizer-state sharding (paper §3.2); overrides a --parallel "
+                         "spec's opt= option")
+    ap.add_argument("--opt-overlap", default=None, choices=["auto", "off", "ring", "xla"],
+                    help="bucketed optimizer collectives (optim/overlap): 'auto' runs the "
+                         "ring for epso on a grid; overrides a --parallel spec's overlap=")
     # the JAX launcher's options that the port does not run yet: each
     # raises NotImplementedError naming its ROADMAP.md item
-    ap.add_argument("--parallel", default=None)
-    ap.add_argument("--mesh", default=None)
-    ap.add_argument("--opt-shard", default=None, choices=["none", "so", "epso"])
-    ap.add_argument("--opt-overlap", default=None, choices=["auto", "off", "ring", "xla"])
     ap.add_argument("--pp-schedule", default=None, choices=["gpipe", "1f1b"])
     ap.add_argument("--pp-impl", default=None, choices=["shardmap", "masked"])
     ap.add_argument("--kernel-tiles", default=None)

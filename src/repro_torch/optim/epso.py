@@ -131,20 +131,6 @@ def state_bytes_per_device(params, placements, axis_sizes: dict, mode: str) -> i
     return per_dev * 12    # 4 B * (master + m + v)
 
 
-def refuse_sharded_state(state, what: str) -> None:
-    """Raise ``NotImplementedError`` for a ``TrainState`` whose optimizer is
-    sharded (SO/EPSO: some master leaf's shape differs from its param's):
-    the JAX package's checkpoint files hold whole arrays."""
-    params, opt = getattr(state, "params", None), getattr(state, "opt", None)
-    if not isinstance(params, dict) or not isinstance(getattr(opt, "master", None), dict):
-        return
-    if any(tuple(p.shape) != tuple(m.shape) for p, m in zip(leaves(params), leaves(opt.master))):
-        raise NotImplementedError(
-            f"{what}: the optimizer state is sharded (SO/EPSO); the checkpoint files hold "
-            f"whole arrays, and saving or restoring sharded state is not ported yet "
-            f"(ROADMAP.md §1 item 3, the multi-rank launcher)")
-
-
 # ---------------------------------------------------------------------------
 # bucket planner for the overlapped update (optim/overlap.py)
 # ---------------------------------------------------------------------------

@@ -39,6 +39,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.grid import ProcessGrid
+from repro_torch.parallel.sharding import shard_index
 from repro_torch.tree import leaves
 
 from .adamw import AdamWState, adamw_leaf_, clip_scale
@@ -110,14 +111,6 @@ def _rows(t: torch.Tensor, axes: tuple, leaf, axis_sizes) -> torch.Tensor:
         names.append(None)
     perm = [names.index(a) for a in axes] + [i for i, nm in enumerate(names) if nm is None]
     return t.reshape(shape).permute(perm).reshape(_prod(axis_sizes[a] for a in axes), -1)
-
-
-def shard_index(axes: tuple, coords: dict, axis_sizes: dict) -> int:
-    """This rank's row of a bucket over ``axes``: its coordinates, mesh-major."""
-    k = 0
-    for a in axes:
-        k = k * axis_sizes[a] + coords[a]
-    return k
 
 
 def shard_of(t: torch.Tensor, leaf, coords: dict, axis_sizes: dict) -> torch.Tensor:

@@ -78,6 +78,12 @@ class ProcessGrid:
         return c["data"] * self.sizes["ep"] + c["ep"]
 
 
+def rank_coords(rank: int, sizes: dict) -> dict:
+    """The coordinates ``{'data': d, 'ep': e}`` of global rank ``rank`` = d
+    * ep + e on a grid of ``sizes`` (``ProcessGrid.sizes``)."""
+    return {"data": rank // sizes["ep"], "ep": rank % sizes["ep"]}
+
+
 def init_grid(group: EPGroup, dp: int, ep: int) -> ProcessGrid:
     """Build the dp x ep grid over ``group`` (the whole world, as
     ``init_ep_group`` returns it). Every rank must call this, in the same

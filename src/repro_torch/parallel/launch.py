@@ -12,6 +12,7 @@ becomes an error, not a lost run.
 """
 from __future__ import annotations
 
+import math
 import multiprocessing as mp
 import os
 import pickle
@@ -20,6 +21,7 @@ import shutil
 import tempfile
 import time
 import traceback
+from typing import Optional
 
 import torch
 
@@ -35,7 +37,10 @@ def _to_host(obj):
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):      # a NamedTuple
         return type(obj)(*(_to_host(v) for v in obj))
     if isinstance(obj, (list, tuple)):
-        return type(obj)(_to_host(v) for v in obj)
+        out = type(obj)(_to_host(v) for v in obj)
+        if getattr(obj, "__dict__", None):      # a list subclass's attributes
+            out.__dict__.update(_to_host(vars(obj)))
+        return out
     return obj
 
 
@@ -46,7 +51,8 @@ def _rank_main(fn, rank, world, backend, device, init_method, args_path, timeout
         if device is not None and torch.device(device).type == "cpu":
             torch.set_num_threads(1)     # world ranks share the host's cores
         group = init_ep_group(world, rank, backend=backend, init_method=init_method,
-                              device=device, timeout_s=timeout_s)
+                              device=device, **({} if timeout_s is None
+                                                else {"timeout_s": timeout_s}))
         if grid is not None:
             group = init_grid(group, *grid)
         with open(args_path, "rb") as f:
@@ -71,14 +77,17 @@ def _kill(procs) -> None:
 
 
 def spawn(fn, world: int, *, args: tuple = (), backend: str = "gloo", device=None,
-          timeout_s: float = 120.0, grid: tuple = None) -> list:
+          timeout_s: Optional[float] = 120.0, grid: tuple = None) -> list:
     """Run ``fn(group, *args)`` on ranks 0..world-1, one process each, and
     return their results in rank order. ``fn`` must be importable by name
     (a module-level function) and its results picklable. ``device``: as in
     ``init_ep_group`` (``cuda`` unless given). ``grid``: (dp, ep) with
     dp * ep == world, to hand ``fn`` the rank's ``ProcessGrid``. Raises ``RuntimeError`` with
     the rank's traceback when a rank fails or exits without a result, and
-    ``TimeoutError`` after ``timeout_s``; every rank is killed first."""
+    ``TimeoutError`` after ``timeout_s``; every rank is killed first.
+    ``timeout_s`` is also each collective's timeout in the ranks;
+    ``timeout_s=None`` sets no deadline for the run (a training run), and
+    the collectives time out after ``init_ep_group``'s default."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="repro_torch_ep_")
@@ -93,7 +102,7 @@ def spawn(fn, world: int, *, args: tuple = (), backend: str = "gloo", device=Non
                          args=(fn, rank, world, backend, device, init_method, args_path,
                                timeout_s, grid, results))
              for rank in range(world)]
-    deadline = time.monotonic() + timeout_s
+    deadline = time.monotonic() + (math.inf if timeout_s is None else timeout_s)
     got: dict[int, object] = {}
     try:
         with open(args_path, "wb") as f:
@@ -121,7 +130,7 @@ def spawn(fn, world: int, *, args: tuple = (), backend: str = "gloo", device=Non
                 raise RuntimeError(f"EP rank {rank} of {world} failed:\n{out}")
             got[rank] = pickle.loads(out)
         for p in procs:
-            p.join(max(1.0, deadline - time.monotonic()))
+            p.join(max(1.0, min(deadline - time.monotonic(), 60.0)))
     finally:
         _kill(procs)
         shutil.rmtree(tmp, ignore_errors=True)

@@ -14,10 +14,13 @@ leaf, per dim, the tuple of grid axes that split it (the port's form of a
 JAX ``PartitionSpec``, every dim listed, ``()`` for a whole dim). The
 sharded optimizer (``optim.epso``) takes placements as input, so its
 parity tests can feed it the JAX package's own ``param_specs``.
+``tile_slices`` says which tile of a global leaf a rank holds under any
+placement: the expert slices (``expert_shard``), the optimizer shards
+(``convert``) and the grid checkpoints (``checkpoint``) all cut by it.
 """
 from __future__ import annotations
 
-from repro_torch.tree import leaves_with_path
+from repro_torch.tree import leaves_with_path, tree_map
 
 STACKS = ("gate", "up", "down")
 
@@ -39,20 +42,43 @@ def _expert_axis(path: str, leaf, world: int):
     return ax if leaf.shape[ax] % world == 0 else None
 
 
+def shard_index(axes: tuple, coords: dict, axis_sizes: dict) -> int:
+    """The linear index of the rank at ``coords`` over ``axes``, mesh-major
+    (major-to-minor): its tile of a dim split over ``axes``, its row of a
+    bucket gathered over them."""
+    k = 0
+    for a in axes:
+        k = k * axis_sizes[a] + coords[a]
+    return k
+
+
+def tile_slices(place, shape, coords: dict, axis_sizes: dict) -> tuple:
+    """The slices of a global leaf of ``shape`` that the rank at ``coords``
+    holds under ``place`` (per dim, the tuple of grid axes splitting it):
+    each dim cut by its axes, major-to-minor (GSPMD's tiling of a tuple
+    spec). The one statement of which tile a rank holds: the expert
+    slices, the SO/EPSO state shards (``convert``) and the checkpoints'
+    gather and scatter (``checkpoint``) all cut by it."""
+    out = []
+    for d, n in enumerate(shape):
+        axes = place[d] if d < len(place) else ()
+        parts = 1
+        for a in axes:
+            parts *= axis_sizes[a]
+        blk = n // parts
+        k = shard_index(axes, coords, axis_sizes)
+        out.append(slice(k * blk, (k + 1) * blk))
+    return tuple(out)
+
+
 def expert_shard(params: dict, rank: int, world: int) -> dict:
     """Rank ``rank``'s share of a parameter tree (or of any tree shaped like
-    it: AdamW master, moments, gradients; or of one MoE block's params):
-    each expert stack's slice of E (a view, no copy), the other leaves as
-    they are."""
-    def walk(node, prefix):
-        if isinstance(node, dict):
-            return {k: walk(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
-        ax = _expert_axis(prefix, node, world)
-        if ax is None:
-            return node
-        el = node.shape[ax] // world
-        return node.narrow(ax, rank * el, el)
-    return walk(params, "")
+    it: AdamW master, moments, gradients; or of one MoE block's params)
+    over ``world`` EP ranks: each expert stack's tile of ``param_placements``
+    (a view, no copy), the other leaves as they are."""
+    sizes = {"ep": world}
+    return tree_map(lambda t, place: t[tile_slices(place, t.shape, {"ep": rank}, sizes)]
+                    if any(place) else t, params, param_placements(params, sizes))
 
 
 def param_placements(params: dict, axis_sizes: dict) -> dict:

@@ -55,7 +55,7 @@ from repro_torch.parallel.ep import EPGroup, all_reduce_sum
 from repro_torch.parallel.grid import ProcessGrid, as_grid
 from repro_torch.parallel.sharding import expert_shard, param_placements, replicated_leaves
 from repro_torch.serve.engine import dropless_cfg, make_decode_fn
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import keyed_leaves, leaves, tree_map
 
 OPT_SHARDING_MODES = ("none", "so", "epso")
 
@@ -99,6 +99,29 @@ def opt_layout(cfg: ModelConfig, grid: Optional[ProcessGrid], mode: str, *,
     place = param_placements(shapes, sizes)
     plan = plan_update_buckets(shapes, place, sizes, mode, max_bucket_bytes=max_bucket_bytes)
     return plan, leaves(optimizer_state_specs(shapes, place, sizes, mode))
+
+
+def state_layout(cfg: ModelConfig, axis_sizes: dict, mode: Optional[str]) -> dict:
+    """``{key: (global shape, placement)}`` for every leaf of a
+    ``TrainState`` of ``cfg`` on a grid whose axes of size > 1 are
+    ``axis_sizes`` (``ProcessGrid.axis_sizes``) under ``opt_sharding_mode``
+    ``mode``, keyed as ``tree.keyed_leaves`` keys the state (the checkpoint
+    files' keys): the params as ``param_placements`` places them, master, m
+    and v by their state placement, the step whole. The params appear a
+    second time under their keys in a params tree alone (a model-only
+    checkpoint's keys). A rank holds ``parallel.sharding.tile_slices`` of
+    each global leaf. ``checkpoint.Checkpointer(layout=)`` takes it."""
+    shapes = init_params(cfg, device="meta")
+    place = param_placements(shapes, axis_sizes)
+    specs = optimizer_state_specs(shapes, place, axis_sizes, _opt_mode(mode))
+    flat = [(key, tuple(leaf.shape)) for key, leaf in keyed_leaves(shapes)]
+    out = {key: (shape, p) for (key, shape), p in zip(flat, leaves(place))}
+    out.update({".params" + key: v for key, v in list(out.items())})
+    out[".opt.step"] = ((), ())
+    for what in ("master", "m", "v"):
+        out.update({f".opt.{what}{key}": (shape, spec)
+                    for (key, shape), spec in zip(flat, leaves(specs))})
+    return out
 
 
 def _cut(tree: dict, plan: UpdatePlan, grid: ProcessGrid) -> dict:

@@ -255,3 +255,39 @@ def test_broadcast_params():
                                       leaves(mine)):
             assert torch.equal(g, m if keep else m + r), (r, path)
     assert not all(replicated_leaves(params))
+
+
+def test_plan_in_the_manifest_and_its_refusal_match_jax(tmp_path):
+    """With a plan, both packages write the same MANIFEST ``plan`` (spec and
+    layout); a checkpointer planned otherwise refuses to restore it with the
+    JAX message unless ``on_plan_mismatch='reshard'``; a bad
+    ``on_plan_mismatch`` is the JAX ValueError."""
+    from repro.parallel.plan import ParallelPlan as JPlan, ResolvedPlan as JResolved
+    from repro_torch.parallel import ParallelPlan
+    _, tc = _cfgs()
+    saved, other = "dp=2,ep=2,opt=epso", "dp=4,opt=so"
+    roots = {"jax": tmp_path / "jax", "port": tmp_path / "port"}
+    JCheckpointer(str(roots["jax"]), plan=JResolved(plan=JPlan.parse(saved))).save(
+        {"w": np.zeros(3, np.float32)}, 4)
+    Checkpointer(str(roots["port"]), plan=ParallelPlan.parse(saved).resolve(tc)).save(
+        {"w": torch.zeros(3)}, 4)
+    mj, mt = (json.loads((r / "ckpt-1" / "MANIFEST.json").read_text()) for r in roots.values())
+    assert mt["plan"] == mj["plan"]
+    errors = {}
+    for side, root in roots.items():
+        plan = ParallelPlan.parse(other).resolve(tc) if side == "port" else \
+            JResolved(plan=JPlan.parse(other))
+        ck = (Checkpointer if side == "port" else JCheckpointer)(str(root), plan=plan)
+        tmpl = {"w": torch.ones(3)} if side == "port" else {"w": np.ones(3, np.float32)}
+        with pytest.raises(ValueError) as e:
+            ck.restore(tmpl)
+        errors[side] = str(e.value).replace(str(root), "ROOT")
+        ck = (Checkpointer if side == "port" else JCheckpointer)(
+            str(root), plan=plan, on_plan_mismatch="reshard")
+        assert ck.restore(tmpl)[1] == 4
+    assert errors["port"] == errors["jax"]
+    for cls in (Checkpointer, JCheckpointer):
+        with pytest.raises(ValueError) as e:
+            cls(str(tmp_path / "x"), on_plan_mismatch="ignore")
+        errors[cls] = str(e.value)
+    assert errors[Checkpointer] == errors[JCheckpointer]

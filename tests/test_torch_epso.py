@@ -13,7 +13,7 @@ against the JAX package's, and SO training on a dp = 4 x ep = 1 grid.
   tests/test_epso.py.
 * The port's grid layout and its conversions: ``opt_state_for_rank`` and
   ``opt_state_from_ranks`` are inverse, and ``train.init_state`` cuts the
-  same shards.
+  same shards; a grid checkpoint of EP slices holds whole stacks.
 * Training: 'so' on 4 CPU ranks over gloo (reduced dense Mula-1B, float32)
   against the JAX single-device step with 4 microbatches in rank order
   (the oracle of tests/test_torch_ep.py), 3 steps from one state converted
@@ -269,25 +269,31 @@ def test_init_state_cuts_the_shards_of_the_one_process_state(dp, ep, mode):
                            one.params["layers"]["moe"]["up"][:, e * el:(e + 1) * el])
 
 
-def test_checkpoints_and_ft_loop_refuse_sharded_state(tmp_path):
-    """A state whose optimizer is sharded is refused by ``Checkpointer.save``
-    and ``restore`` and by the failure-handling loop (the checkpoint files
-    hold whole arrays); the same rank's 'none' state is saved."""
-    from repro_torch.checkpoint import Checkpointer
-    from repro_torch.ft import ClusterManager, run_with_failure_handling
+def test_grid_checkpoint_of_ep_slices_holds_whole_stacks(tmp_path):
+    """A (2, 2) grid's 'none' state (each rank holding its expert slices of
+    params, master, m and v) saved through the grid ``Checkpointer``: the
+    file holds whole (L, E, ...) stacks under the JAX keys, equal to the
+    one-process state's, and the MANIFEST the plan."""
+    import json
+    from repro_torch.parallel import ParallelPlan, spawn
+    from repro_torch.tree import keyed_leaves
+    from repro_torch.train import TrainState
     cfg = treduced(tget("mula-7b-a1b"), d_model=64, vocab=128, max_experts=8)
-    tc = TrainConfig(**F32)
-    sharded = init_state(cfg, tc, seed=0, device="cpu", grid=_view(2, 2, 1),
-                         opt_sharding_mode="so")
-    ck = Checkpointer(str(tmp_path / "ck"), interval=1)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        ck.save(sharded, 1)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        ck.restore(sharded)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        run_with_failure_handling(lambda st, i: (st, {}), state=sharded, checkpointer=ck,
-                                  cluster=ClusterManager(1, 1), num_steps=1)
-    ck.save(init_state(cfg, tc, seed=0, device="cpu", grid=_view(2, 2, 1)), 1)
+    root = tmp_path / "ck"
+    spawn(ranks.grid_checkpoint_rank, 4, args=(cfg, "dp=2,ep=2", str(root), "save"),
+          device="cpu", grid=(2, 2), timeout_s=TIMEOUT_S)
+    one = init_state(cfg, TrainConfig(param_dtype="float32"), seed=0, device="cpu")
+    one = TrainState(one.params, one.opt._replace(
+        step=torch.full_like(one.opt.step, 7), m=tree_map(lambda t: t * 0.5 + 1.0, one.opt.master),
+        v=tree_map(lambda t: t * t + 1e-3, one.opt.master)))
+    with np.load(root / "ckpt-1" / "state.npz") as f:
+        assert list(f.files) == [k for k, _ in keyed_leaves(one)]
+        for key, leaf in keyed_leaves(one):
+            np.testing.assert_array_equal(f[key], leaf.numpy(), err_msg=key)
+        assert f[".params['layers']['moe']['up']"].shape[:2] == (2, 8)
+    man = json.loads((root / "ckpt-1" / "MANIFEST.json").read_text())
+    plan = ParallelPlan.parse("dp=2,ep=2").resolve(cfg)
+    assert man["plan"] == {"spec": "dp=2,ep=2", "layout": plan.layout_signature()}
 
 
 # ----------------------------------------------------------------------------

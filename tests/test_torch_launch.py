@@ -152,8 +152,9 @@ def test_resume_continues_where_the_checkpoint_left_off(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    {"mesh": "4,2"}, {"parallel": "dp=2,ep=2"}, {"opt_shard": "epso"}, {"opt_shard": "so"},
-    {"opt_overlap": "ring"}, {"opt_overlap": "auto"}, {"pp_schedule": "1f1b"},
+    {"parallel": "dp=2,tp=2"}, {"parallel": "dp=2,pp=2"}, {"parallel": "pod=2,dp=2"},
+    {"parallel": "dp=2,fsdp"}, {"parallel": "dp=2,ep=2,rebalance=50:1.25"},
+    {"parallel": "dp=2,tiles=auto"}, {"pp_schedule": "1f1b"},
     {"pp_impl": "masked"}, {"kernel_tiles": "auto"}, {"rebalance": "50:1.25"},
     {"rebalance_force_at": 3}, {"arch": "zamba2-7b"}, {"arch": "phi-3-vision-4.2b"},
     {"arch": "seamless-m4t-medium"}, {"arch": "falcon-mamba-7b"}],
@@ -164,6 +165,22 @@ def test_unsupported_arguments_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item"):
         tlaunch.run(arch, out=str(tmp_path / "run"), device="cpu", steps=2, **kw)
     assert not (tmp_path / "run").exists()                # refused before any work
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"opt_shard": "so"}, "needs --parallel"), ({"opt_shard": "epso"}, "needs --parallel"),
+    ({"mesh": "2,2", "parallel": "dp=2,ep=2"}, "mutually exclusive"),
+    ({"opt_overlap": "ring"}, "needs opt_shard"), ({"parallel": "dp=3"}, "do not divide"),
+    ({"parallel": "dp=2,ep=3"}, "does not divide")],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()) if isinstance(kw, dict) else "")
+def test_inconsistent_arguments_raise_value_error(tmp_path, kw, match):
+    """The JAX launcher's ValueErrors: a sharded optimizer or the ring
+    without a plan, --mesh with --parallel; and a plan whose ranks do not
+    divide the batch (4 rows) or whose ep does not divide the experts."""
+    with pytest.raises(ValueError, match=match):
+        tlaunch.run("mula-7b-a1b", out=str(tmp_path / "run"), device="cpu", steps=2, batch=4,
+                    **kw)
+    assert not (tmp_path / "run").exists()
 
 
 def test_cli_runs_on_the_cpu(tmp_path, capsys):

@@ -1,0 +1,135 @@
+"""PyTorch port, ``parallel.ParallelPlan`` against the JAX package's
+``repro.parallel.plan.ParallelPlan``: the same specs parse to the same
+fields and canonical ``str``, the same bad specs raise the same
+``ValueError``, ``from_legacy`` translates the same ``--mesh`` specs, and a
+plan's checkpoint metadata (``layout_signature``, ``spec``) equals the JAX
+``ResolvedPlan``'s (which needs no mesh for either). ``resolve`` refuses,
+naming its ROADMAP.md item, what the port cannot run."""
+import dataclasses
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import get_config as jget, reduced as jreduced  # noqa: E402
+from repro.parallel.plan import ParallelPlan as JPlan, ResolvedPlan as JResolved  # noqa: E402
+from repro_torch.configs import get_config as tget, reduced as treduced  # noqa: E402
+from repro_torch.parallel import ParallelPlan, ResolvedPlan  # noqa: E402
+
+FIELDS = ("dp", "pp", "ep", "tp", "pod", "opt_shard", "opt_overlap", "pp_schedule", "pp_impl",
+          "microbatches", "fsdp", "moe_dispatch", "rebalance")
+
+SPECS = [
+    "dp=1", "dp=2", "dp=2,ep=2", "dp=4,opt=so", "ep=4,moe=dropless",
+    "dp=2,ep=2,opt=epso,overlap=ring", "dp=2,ep=2,overlap=auto", "dp=2,pp=2,ep=2",
+    "dp=2,ep=2,tp=2", "pod=2,dp=2", "dp=2,fsdp", "dp=2,fsdp=0", "dp=8,mb=4",
+    "dp=2,schedule=gpipe,impl=masked", "dp=2,ep=2,rebalance=50:1.25", "dp=2,rebalance=off",
+    "dp=2,tiles=128x512x512", "dp=2,tiles=auto", "dp=2,tiles=64x256x128",
+    " dp = 2 , ep = 2 ,", "tp=2,ep=2,dp=2,pod=2,pp=2",
+    "dp=2,microbatches=2,sched=1f1b,opt_shard=so,opt_overlap=xla,moe_dispatch=capacity",
+]
+
+BAD_SPECS = [
+    "", "dp=0", "dp=x", "foo=2", "dp=2,dp=4", "dp", "opt=bad", "overlap=nope",
+    "schedule=zz", "impl=zz", "moe=zz", "rebalance=5", "rebalance=0:1.0", "tiles=12x3",
+    "tiles=0x512x512", "dp=2,opt=so,opt_shard=epso", "mb=0",
+]
+
+
+def _tiles(jplan):
+    k = jplan.kernel
+    if k.tiles == "auto":
+        return "auto"
+    t = (k.tile_m, k.tile_k, k.tile_n)
+    return None if t == (128, 512, 512) else "x".join(map(str, t))
+
+
+@pytest.mark.parametrize("spec", SPECS)
+def test_parse_matches_jax(spec):
+    """Fields, tiles, canonical spec, round trip, derived sizes and the
+    checkpoint metadata, equal to the JAX plan's."""
+    j, t = JPlan.parse(spec), ParallelPlan.parse(spec)
+    assert {f: getattr(t, f) for f in FIELDS} == {f: getattr(j, f) for f in FIELDS}
+    assert t.tiles == _tiles(j)
+    assert str(t) == str(j)
+    assert ParallelPlan.parse(str(t)) == t
+    assert (t.num_devices, t.mesh_axes()) == (j.num_devices, j.mesh_axes())
+    assert t.rebalance_params() == j.rebalance_params()
+    jr, tr = JResolved(plan=j), ResolvedPlan(plan=t)
+    assert tr.layout_signature() == jr.layout_signature()
+    assert tr.spec() == jr.spec()
+
+
+@pytest.mark.parametrize("spec", BAD_SPECS)
+def test_bad_specs_raise_the_jax_error(spec):
+    with pytest.raises(ValueError) as je:
+        JPlan.parse(spec)
+    with pytest.raises(ValueError) as te:
+        ParallelPlan.parse(spec)
+    assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("mesh", ["8", "4,2", "2,2,2", "2,2,2,2", "2,3", "1,4"])
+@pytest.mark.parametrize("arch", ["mula-7b-a1b", "mula-1b"])
+def test_from_legacy_matches_jax(mesh, arch):
+    """MoE: the model axis becomes ep where the experts divide it, else tp;
+    dense: tp."""
+    jc, tc = jreduced(jget(arch)), treduced(tget(arch))
+    j = JPlan.from_legacy(mesh, cfg=jc, opt_shard="so", pp_schedule="gpipe")
+    t = ParallelPlan.from_legacy(mesh, cfg=tc, opt_shard="so", pp_schedule="gpipe")
+    assert str(t) == str(j)
+    assert {f: getattr(t, f) for f in FIELDS} == {f: getattr(j, f) for f in FIELDS}
+
+
+def test_bad_mesh_spec_raises_the_jax_error():
+    for mesh in ("1,2,3,4,5", "0", "2,x"):
+        with pytest.raises(ValueError) as je:
+            JPlan.from_legacy(mesh)
+        with pytest.raises(ValueError) as te:
+            ParallelPlan.from_legacy(mesh)
+        assert str(te.value) == str(je.value)
+
+
+@pytest.mark.parametrize("spec,arch,layers", [
+    ("ep=2", "mula-1b", 2), ("ep=3", "mula-7b-a1b", 2), ("pp=3", "mula-7b-a1b", 2),
+    ("tp=3", "mula-7b-a1b", 2), ("tp=3", "mula-1b", 2), ("rebalance=5:1.5", "mula-1b", 2),
+    ("pp=2,rebalance=5:1.5", "mula-7b-a1b", 2)])
+def test_validate_model_matches_jax(spec, arch, layers):
+    jc, tc = jreduced(jget(arch), layers=layers), treduced(tget(arch), layers=layers)
+    with pytest.raises((ValueError, NotImplementedError)) as je:
+        JPlan.parse(spec).validate_model(jc)
+    with pytest.raises(je.type) as te:
+        ParallelPlan.parse(spec).validate_model(tc)
+    assert str(te.value) == str(je.value)
+
+
+def test_apply_to_model_matches_jax():
+    jc, tc = jreduced(jget("mula-7b-a1b")), treduced(tget("mula-7b-a1b"))
+    for spec in ("dp=2", "dp=2,moe=dropless", "dp=2,moe=capacity"):
+        assert ParallelPlan.parse(spec).apply_to_model(tc).moe.dispatch == \
+            JPlan.parse(spec).apply_to_model(jc).moe.dispatch
+    dense = treduced(tget("mula-1b"))
+    assert ParallelPlan.parse("dp=2,moe=dropless").apply_to_model(dense) is dense
+
+
+@pytest.mark.parametrize("spec,item", [
+    ("dp=2,pp=2", "item 5"), ("dp=2,ep=2,tp=2", "item 5"), ("pod=2,dp=2", "item 5"),
+    ("dp=2,fsdp", "item 5"), ("dp=2,ep=2,rebalance=50:1.25", "item 5"),
+    ("dp=2,tiles=auto", "item 7"), ("dp=2,tiles=64x256x256", "item 7")])
+def test_resolve_refuses_what_the_port_lacks(spec, item):
+    cfg = treduced(tget("mula-7b-a1b"))
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
+        ParallelPlan.parse(spec).resolve(cfg, global_batch=8)
+
+
+def test_resolve_gives_the_grid():
+    cfg = treduced(tget("mula-7b-a1b"))
+    r = ParallelPlan.parse("dp=2,ep=2,opt=epso,tiles=128x512x512").resolve(cfg, global_batch=8)
+    assert (r.world, r.grid) == (4, (2, 2))
+    assert r.axis_sizes == {"data": 2, "ep": 2} and r.opt_shard == "epso"
+    assert ParallelPlan().resolve(cfg).world == 1 and ParallelPlan().resolve(cfg).axis_sizes == {}
+    with pytest.raises(ValueError, match="do not divide"):
+        ParallelPlan.parse("dp=2,ep=2").resolve(cfg, global_batch=6)
+    naive = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, moe_impl="naive"))
+    with pytest.raises(NotImplementedError, match="moe_impl='naive'"):
+        ParallelPlan.parse("ep=2").resolve(naive)

@@ -145,3 +145,55 @@ def sharded_update_rank(grid, tc, train, runs, batch):
                                 "steps": dict(leaves_with_path(state.params)),
                                 "loss": m["loss"], "impl": step.opt_overlap_impl}
     return out
+
+
+def run_result_rank(group):
+    """A launcher ``RunResult`` (a list with attributes) from each rank."""
+    from repro_torch.launch.train import RunResult
+    out = RunResult([{"step": group.rank}])
+    out.relaunches = 2 + group.rank
+    out.replaced = [(0, 4)]
+    return out
+
+
+def grid_checkpoint_rank(grid, tc, spec, root, action):
+    """One rank of a grid checkpoint test, on the plan ``spec`` (resolved
+    for ``tc``). ``action`` 'save': ``init_state`` (seed 0) on the plan's
+    optimizer layout, m and v and the step set to values that are a
+    function of the master weights, saved at step 5 through a grid
+    ``Checkpointer`` with its params as a model-only checkpoint; returns the
+    state. 'restore': ``init_state`` (seed 1), then a restore under the
+    default ``on_plan_mismatch`` (its error, if any, is returned) and one
+    with 'reshard', and the model-only checkpoint into fresh params (seed
+    2); returns the error, the restored state and params."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import TrainConfig
+    from repro_torch.parallel import ParallelPlan
+    from repro_torch.train import init_state, state_layout
+    from repro_torch.tree import tree_map
+
+    plan = ParallelPlan.parse(spec).resolve(tc)
+    layout = state_layout(tc, grid.axis_sizes, plan.opt_shard)
+    train = TrainConfig(param_dtype="float32")
+    if action == "save":
+        st = init_state(tc, train, seed=0, grid=grid, opt_sharding_mode=plan.opt_shard)
+        opt = st.opt._replace(step=torch.full_like(st.opt.step, 7),
+                              m=tree_map(lambda t: t * 0.5 + 1.0, st.opt.master),
+                              v=tree_map(lambda t: t * t + 1e-3, st.opt.master))
+        st = TrainState(st.params, opt)
+        ck = Checkpointer(root, plan=plan, grid=grid, layout=layout)
+        ck.save(st, 5)
+        ck.save_model_only(st.params, 5)
+        return st
+    st = init_state(tc, train, seed=1, grid=grid, opt_sharding_mode=plan.opt_shard)
+    error = None
+    try:
+        Checkpointer(root, plan=plan, grid=grid, layout=layout).restore(st)
+    except ValueError as e:
+        error = str(e)
+    ck = Checkpointer(root, plan=plan, grid=grid, layout=layout,
+                      on_plan_mismatch="reshard")
+    restored, step = ck.restore(st)
+    params = ck.restore_model_only(
+        init_state(tc, train, seed=2, grid=grid, opt_sharding_mode=plan.opt_shard).params, 5)
+    return {"error": error, "step": step, "state": restored, "model_only": params}
