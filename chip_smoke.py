@@ -48,6 +48,28 @@ Phases, each printing JSON lines:
              (a ``hybrid_depth`` line); exact launch counts (81 SSD and 13
              flash launches per prefill, none per decode step); one
              profiled prefill and decode step;
+  hybrid_train_reference  a small hybrid model's three train steps on the
+             card and on the CPU, both float32 (the same plain chunked-SSD
+             math), in loss and grad norm, no port kernel launched;
+  hybrid_train  full-width Zamba2-7B cut to 13 layers (2 groups of 6
+             Mamba-2 layers and 1 remaining; random weights from seed 0,
+             fp32 state, bf16 compute, block remat) takes 6 steps on one
+             fixed batch of 2 x 4096 tokens in 2 microbatches through the
+             plain chunked SSD: finite metrics, a falling loss, clip_scale
+             <= 1, no port kernel launched; one profiled step and the
+             device time per step of the SSD and of the shared attention;
+  ssm_serve  falcon-mamba-7b (Mamba-1) whole in bf16: the prefill lowering
+             over (2, 1024); 2 prompts of 128 tokens stepped through the
+             serve step, then 32 greedy tokens each; the forward against
+             the stepped decode at 64 and 16 layers; the device launches of
+             one decode step; no port kernel launched;
+  ssm_train  falcon-mamba-7b at full width cut to 8 layers takes 4 steps of
+             2 x 2048 tokens: finite metrics, a falling loss, clip_scale
+             <= 1, no port kernel; one step profiled on the device alone
+             (busy time, idle share, device launches);
+  launcher_ssm  reduced Zamba2-7B and falcon-mamba-7b through the launcher:
+             6 steps with a checkpoint at step 3, then a resumed run whose
+             steps 4-5 are bit-identical;
   ep_reference  expert parallelism (EP) on 4 ranks, processes that share
              the card over gloo: a small MoE block's output and input
              gradient against the same block in one process on the card, and
@@ -104,8 +126,9 @@ Phases, each printing JSON lines:
              EPSO: on every rank two relaunches with the node swaps, valid
              slots at steps 10 and 15, the clean run's history, the exact
              launch count of every kernel; losses finite, falling, within
-             0.1 % of launcher_ft's for steps 0-2 and 5 % after; then 4 steps
-             of the same plan through ``python -m repro_torch.launch.train``;
+             0.1 % of launcher_ft's for steps 0-2 and 5 % after, both runs'
+             MoE drops side by side; then 4 steps of the same plan through
+             ``python -m repro_torch.launch.train``;
   launches   the device launches of one dispatch plan at each kernel case's
              shape (at most 3) and of one MoE block at a decode step, each
              captured in a CUDA graph and counted there.
@@ -172,7 +195,12 @@ GRID_FT_TOKENS = GRID_FT_EP * FT_RUN["batch"] // (GRID_FT_DP * GRID_FT_EP) * FT_
 GRID_DENSE_LAYOUT = {"axes": [["data", 4]], "opt_shard": "so", "fsdp": False}
 
 
+T_START = time.perf_counter()
+PHASE_S: dict = {}          # seconds from the start at which each phase line was printed
+
+
 def emit(phase: str, **fields) -> None:
+    PHASE_S.setdefault(phase, time.perf_counter() - T_START)
     print(json.dumps({"phase": phase, **fields}), flush=True)
 
 
@@ -933,11 +961,20 @@ def phase_reference() -> dict:
 # training: a small model on the card against the CPU, then full width
 # ----------------------------------------------------------------------------
 
-def _fixed_batch(vocab: int, batch: int, seq: int, device) -> dict:
+def _fixed_batch(vocab: int, batch: int, seq: int, device, seed: int = 0) -> dict:
     """One batch of next-token pairs from a seeded ``torch.Generator``."""
     import torch
-    toks = torch.randint(0, vocab, (batch, seq + 1), generator=torch.Generator().manual_seed(0))
+    toks = torch.randint(0, vocab, (batch, seq + 1),
+                         generator=torch.Generator().manual_seed(seed))
     return {"tokens": toks[:, :-1].to(device), "labels": toks[:, 1:].to(device)}
+
+
+def _state_bytes(state) -> int:
+    """fp32 params share their storage with the master weights: counted once."""
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for t in {
+        t.data_ptr(): t for tree in (state.params, state.opt.master, state.opt.m, state.opt.v)
+        for t in leaves(tree)}.values())
 
 
 def phase_train_reference() -> dict:
@@ -1033,10 +1070,7 @@ def phase_train() -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in leaves(state.params))
-    # fp32 params share their storage with the master weights: count it once
-    state_bytes = sum(t.numel() * t.element_size() for t in {
-        t.data_ptr(): t for tree in (state.params, state.opt.master, state.opt.m, state.opt.v)
-        for t in leaves(tree)}.values())
+    state_bytes = _state_bytes(state)
     batch = _fixed_batch(cfg.vocab_size, train.global_batch, train.seq_len, DEV)
     step = make_train_step(cfg, par, train)
 
@@ -1207,7 +1241,7 @@ def _kernel_kind(name: str) -> str:
     return "other"
 
 
-def _profile_window(run, host_prefixes: tuple = ()) -> dict:
+def _profile_window(run, host_prefixes: tuple = (), cpu: bool = True) -> dict:
     """torch.profiler over ``run()``: the host's wall time, the device's
     busy time (sum of its kernel and copy times; one stream, so they do not
     overlap), the idle share, the ten device kernels that took longest,
@@ -1217,12 +1251,14 @@ def _profile_window(run, host_prefixes: tuple = ()) -> dict:
     with ``host_prefixes``, also the host events whose names start with one
     of them, summed by name (the collectives under EP). The spans gloo
     records on the device timeline for its collectives on CUDA tensors are
-    listed apart (``gloo_device_spans``), not counted as busy."""
+    listed apart (``gloo_device_spans``), not counted as busy. ``cpu=False``
+    records the device alone and reads the raw records (a window of
+    hundreds of thousands of small launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
@@ -1230,16 +1266,21 @@ def _profile_window(run, host_prefixes: tuple = ()) -> dict:
     by_name: dict[str, list[float]] = {}
     host: dict[str, list[float]] = {}
     gloo_on_device: dict[str, list[float]] = {}
-    for e in prof.events():
-        ms = e.time_range.elapsed_us() / 1e3
-        if e.device_type == DeviceType.CUDA and e.name.startswith("gloo:"):
+    if cpu:
+        events = [(e.name, e.device_type, e.time_range.elapsed_us() / 1e3)
+                  for e in prof.events()]
+    else:       # the raw records: building the event tree takes minutes at this size
+        events = [(e.name(), e.device_type(), e.duration_ns() / 1e6)
+                  for e in prof.profiler.kineto_results.events()]
+    for name, device_type, ms in events:
+        if device_type == DeviceType.CUDA and name.startswith("gloo:"):
             # gloo's CUDA work records its collective's span on the device
             # timeline: a wait, not a kernel; kept out of the busy time
-            gloo_on_device.setdefault(e.name, []).append(ms)
-        elif e.device_type == DeviceType.CUDA:
-            by_name.setdefault(e.name, []).append(ms)
-        elif host_prefixes and e.name.startswith(host_prefixes):
-            host.setdefault(e.name, []).append(ms)
+            gloo_on_device.setdefault(name, []).append(ms)
+        elif device_type == DeviceType.CUDA:
+            by_name.setdefault(name, []).append(ms)
+        elif host_prefixes and name.startswith(host_prefixes):
+            host.setdefault(name, []).append(ms)
     busy = sum(sum(v) for v in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:10]
     port: dict[str, dict] = {}
@@ -1544,6 +1585,486 @@ def phase_hybrid_serve() -> dict:
                              f"{IDENTITY_TOL}), decode top-1 in forward top-{IDENTITY_TOPK}: "
                              f"{in_topk}")
     return row
+
+
+# ----------------------------------------------------------------------------
+# the state-space models train: Zamba2 (hybrid) through the plain chunked SSD;
+# falcon-mamba (Mamba-1) is served and trained through its time loop
+# ----------------------------------------------------------------------------
+
+FALCON = "falcon-mamba-7b"
+# hybrid_train: Zamba2-7B at full width, 2 groups of 6 Mamba-2 layers and 1
+# remaining (the 81 layers' fp32 state and gradients, ~108 GB, exceed 80 GB)
+HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_STEPS = 13, 6
+HYBRID_TRAIN_SEQ, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_MB = 4096, 2, 2
+HYBRID_REF_SEQ, HYBRID_REF_STEPS = 200, 3          # 200: not a multiple of the chunk
+# one train step on the card (float32) against the CPU: the same plain
+# float32 math, summed in another order; three AdamW steps
+HYBRID_REF_TOL = 1e-3
+# ssm_serve: falcon-mamba-7b whole; prefill (2, 1024); 2 prompts of 128
+# tokens stepped through the serve step, then 32 greedy tokens each
+SSM_SERVE_ROWS, SSM_PREFILL_LEN, SSM_PROMPT_LEN, SSM_NEW = 2, 1024, 128, 32
+SSM_DEPTHS = (16,)            # and all 64: the forward against the stepped decode
+# ssm_train: falcon-mamba-7b at full width, 8 of 64 layers (64 need ~116 GB)
+SSM_TRAIN_LAYERS, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_STEPS = 8, 2048, 2, 4
+# launcher_ssm: both archs reduced, through the launcher as launcher_dense runs
+LAUNCHER_SSM_RUNS = {
+    ZAMBA: dict(scale="smoke", d_model=512, layers=5, steps=6, batch=4, seq=256,
+                ckpt_interval=3, compute_dtype="bfloat16", log_every=100),
+    FALCON: dict(scale="smoke", d_model=512, layers=2, steps=6, batch=4, seq=256,
+                 ckpt_interval=3, compute_dtype="bfloat16", log_every=100)}
+
+
+def _no_launches() -> dict:
+    from repro_torch.kernels import ops
+    return dict.fromkeys(ops.launches, 0)
+
+
+def phase_hybrid_train_reference() -> dict:
+    """The reduced hybrid model (``_hybrid_small_cfg``: 2 groups of 3 Mamba-2
+    layers and 1 remaining) takes ``HYBRID_REF_STEPS`` make_train_step steps
+    (2 microbatches of 2 x 200 tokens, 200 not a multiple of the 16-token
+    chunk) from the same fp32 weights and AdamW state on the card and on the
+    CPU, both in float32: the card runs the same plain chunked-SSD math as
+    the CPU (the SSD kernel is forward only) and launches no port kernel.
+    Loss and grad norm must agree within ``HYBRID_REF_TOL`` relative at
+    every step; the params' worst leaf after the steps is reported."""
+    from repro_torch.configs import ParallelConfig, TrainConfig
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import TrainState, init_state, make_train_step
+    from repro_torch.tree import leaves_with_path, tree_map
+
+    cfg = _hybrid_small_cfg()
+    train = TrainConfig(seq_len=HYBRID_REF_SEQ, global_batch=4, warmup_steps=1, total_steps=10,
+                        lr_peak=1e-3, lr_min=1e-4, compute_dtype="float32",
+                        grad_reduce_dtype="float32")
+    par = ParallelConfig(microbatches=2)
+    s_gpu = init_state(cfg, train, seed=0, device=DEV)
+    p_cpu = tree_map(lambda p: p.detach().cpu().clone(), s_gpu.params)
+    sides = {"gpu": [s_gpu, make_train_step(cfg, par, train)],
+             "cpu": [TrainState(p_cpu, adamw_init(p_cpu)), make_train_step(cfg, par, train)]}
+    keys = ("loss", "grad_norm", "clip_scale")
+    hist = {"gpu": [], "cpu": []}
+    ops.reset_launches()
+    for i in range(HYBRID_REF_STEPS):
+        for side, (state, step) in sides.items():
+            batch = _fixed_batch(cfg.vocab_size, 4, HYBRID_REF_SEQ,
+                                 DEV if side == "gpu" else "cpu", seed=i)
+            state, m = step(state, batch)
+            sides[side][0] = state
+            hist[side].append({k: float(m[k]) for k in keys})
+    launches = dict(ops.launches)
+    rel = [{k: abs(g[k] - c[k]) / abs(c[k]) for k in ("loss", "grad_norm")}
+           for g, c in zip(hist["gpu"], hist["cpu"])]
+    cpu_leaves = dict(leaves_with_path(sides["cpu"][0].params))
+    leaf_err = {k: float((t.detach().float().cpu() - cpu_leaves[k]).abs().max()
+                         / cpu_leaves[k].abs().max().clamp_min(1e-30))
+                for k, t in leaves_with_path(sides["gpu"][0].params)}
+    worst = max(leaf_err, key=leaf_err.get)
+    row = {"config": cfg.name, "layers": cfg.num_layers, "shared_attn_every": 3,
+           "seq_len": HYBRID_REF_SEQ, "microbatches": par.microbatches,
+           "steps": HYBRID_REF_STEPS, "gpu": hist["gpu"], "cpu": hist["cpu"], "rel_err": rel,
+           "tolerance": HYBRID_REF_TOL, "worst_param_leaf": worst,
+           "worst_param_leaf_rel_err": leaf_err[worst], "launches": launches}
+    emit("hybrid_train_reference", **row)
+    if launches != _no_launches():
+        raise AssertionError(f"hybrid_train_reference: training launched kernels {launches}")
+    bad = [r for r in rel if not max(r.values()) <= HYBRID_REF_TOL]
+    if bad:
+        raise AssertionError(f"hybrid_train_reference: relative errors {rel} above "
+                             f"{HYBRID_REF_TOL}")
+    if not all(math.isfinite(v) for h in hist["gpu"] for v in h.values()):
+        raise AssertionError(f"hybrid_train_reference: metrics {hist['gpu']} not finite")
+    return row
+
+
+def _hybrid_train_split(cfg, params, mb_rows: int) -> dict:
+    """Device time of the pieces a hybrid train step runs, each profiled
+    alone at the step's shapes (one microbatch of ``mb_rows`` rows): one
+    Mamba-2 layer's chunked SSD (the plain intra-chunk einsums and the
+    inter-chunk loop) forward, and forward + backward; one application of
+    the shared block's attention (projections and plain blockwise
+    attention) forward + backward. Per step, under block remat, each SSD
+    runs forward twice and backward once per layer and microbatch; the
+    shared block (no block remat) forward and backward once per
+    application and microbatch."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models.model import hybrid_layout
+
+    d, di, H, P, N, _ = S.mamba2_dims(cfg)
+    T = HYBRID_TRAIN_SEQ
+    gen = torch.Generator(device=DEV).manual_seed(0)
+
+    def rand(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(dtype).requires_grad_()
+
+    x, Bm, Cm = rand(mb_rows, T, H, P), rand(mb_rows, T, N), rand(mb_rows, T, N)
+    dt = torch.nn.functional.softplus(rand(mb_rows, T, H, dtype=torch.float32).detach() - 4.0)
+    dt.requires_grad_()
+    A = (-torch.exp(params["groups"]["mixer"]["A_log"][0, 0].detach().float())).requires_grad_()
+    gy = torch.randn((mb_rows, T, H, P), generator=gen, device=DEV)
+
+    def ssd_fwd():
+        S._ssd_chunked(x, dt, Bm, Cm, A, cfg.ssm.chunk)
+
+    def ssd_fwd_bwd():
+        y, _ = S._ssd_chunked(x, dt, Bm, Cm, A, cfg.ssm.chunk)
+        torch.autograd.grad(y, (x, dt, Bm, Cm, A), gy)
+
+    h = rand(mb_rows, T, d)
+    attn_p = {k: v.detach().requires_grad_() for k, v in params["shared"]["attn"].items()}
+    gh = torch.randn((mb_rows, T, d), generator=gen, device=DEV).bfloat16()
+
+    def attn_fwd_bwd():
+        out = L.attention(attn_p, h, cfg, impl="blockwise")
+        torch.autograd.grad(out, [h, *attn_p.values()], gh)
+
+    ssd_fwd_bwd()
+    attn_fwd_bwd()                         # warm-up: cuBLAS plans, the allocator
+    windows = {"ssd_fwd": _profile_window(ssd_fwd), "ssd_fwd_bwd": _profile_window(ssd_fwd_bwd),
+               "shared_attention_fwd_bwd": _profile_window(attn_fwd_bwd)}
+    n_group, _, _ = hybrid_layout(cfg)
+    mbs = HYBRID_TRAIN_MB
+    per_step = {"ssd": cfg.num_layers * mbs, "shared_attention": n_group * mbs}
+
+    def by_kind(*ws, scale):
+        out = {}
+        for w in ws:
+            for k, v in w["device_ms_by_kind"].items():
+                out[k] = out.get(k, 0.0) + v["ms"] * scale
+        return out
+
+    ssd = by_kind(windows["ssd_fwd"], windows["ssd_fwd_bwd"], scale=per_step["ssd"])
+    attn = by_kind(windows["shared_attention_fwd_bwd"], scale=per_step["shared_attention"])
+    return {"windows": {k: {f: w[f] for f in ("wall_ms", "device_busy_ms", "device_events",
+                                               "device_ms_by_kind")}
+                        for k, w in windows.items()},
+            "calls_per_step": per_step,
+            "ssd_ms_per_step_by_kind": ssd, "ssd_ms_per_step": sum(ssd.values()),
+            "shared_attention_ms_per_step_by_kind": attn,
+            "shared_attention_ms_per_step": sum(attn.values())}
+
+
+def phase_hybrid_train() -> dict:
+    """Zamba2-7B at full width cut to HYBRID_TRAIN_LAYERS layers (2 groups
+    of 6 Mamba-2 layers, each followed by the shared block, and 1 remaining
+    layer; random weights from seed 0, fp32 params and AdamW state, bf16
+    compute, block remat) takes 6 steps on one fixed batch of 2 x 4096
+    tokens in 2 microbatches (16 chunks of 256 per row). Asserts finite
+    metrics, a falling loss, clip_scale <= 1 and that no port kernel is
+    launched (training takes the plain intra-chunk einsums; attention the
+    plain blockwise path). One profiled step, and the SSD's and the shared
+    attention's device time per step (``_hybrid_train_split``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ParallelConfig, TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import hybrid_layout
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(ZAMBA), num_layers=HYBRID_TRAIN_LAYERS)
+    train = TrainConfig(seq_len=HYBRID_TRAIN_SEQ, global_batch=HYBRID_TRAIN_BATCH,
+                        warmup_steps=2, total_steps=100)
+    par = ParallelConfig(microbatches=HYBRID_TRAIN_MB, remat_policy="block")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, train, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(state.params))
+    batch = _fixed_batch(cfg.vocab_size, HYBRID_TRAIN_BATCH, HYBRID_TRAIN_SEQ, DEV)
+    step = make_train_step(cfg, par, train)
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr")
+    history = []
+    ops.reset_launches()
+    for i in range(HYBRID_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rec = {"step": i, **{k: float(m[k]) for k in keys},
+               "step_ms": (time.perf_counter() - t0) * 1e3}
+        history.append(rec)
+        emit("hybrid_train_step", **rec)
+    launches = dict(ops.launches)
+    peak_mem = torch.cuda.max_memory_allocated()
+    if any(not all(math.isfinite(r[k]) for k in keys) for r in history):
+        raise AssertionError(f"hybrid_train: non-finite metrics {history}")
+    if not history[-1]["loss"] < history[0]["loss"]:
+        raise AssertionError(f"hybrid_train: loss did not fall: {[r['loss'] for r in history]}")
+    if not all(r["clip_scale"] <= 1.0 for r in history):
+        raise AssertionError("hybrid_train: clip_scale above 1")
+    if launches != _no_launches():
+        raise AssertionError(f"hybrid_train: training launched kernels {launches}")
+
+    profile = _profile_window(lambda: step(state, batch))
+    split = _hybrid_train_split(cfg, state.params, HYBRID_TRAIN_BATCH // HYBRID_TRAIN_MB)
+    busy = profile["device_busy_ms"] or 0.0
+    split["rest_ms_per_step"] = busy - split["ssd_ms_per_step"] - split[
+        "shared_attention_ms_per_step"]
+    step_ms = statistics.median(r["step_ms"] for r in history[1:])
+    tokens = HYBRID_TRAIN_BATCH * HYBRID_TRAIN_SEQ
+    row = {"model": cfg.name, "layers": cfg.num_layers, "layout": hybrid_layout(cfg),
+           "params": n_params, "state_bytes": _state_bytes(state), "param_init_s": init_s,
+           "global_batch": HYBRID_TRAIN_BATCH, "seq_len": HYBRID_TRAIN_SEQ,
+           "microbatches": par.microbatches, "remat_policy": par.remat_policy,
+           "chunk": cfg.ssm.chunk, "steps": HYBRID_TRAIN_STEPS,
+           "losses": [r["loss"] for r in history], "step_ms_median": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3, "max_memory_allocated_bytes": peak_mem,
+           "launches": launches, "profile_step": profile, "busy_split": split}
+    emit("hybrid_train", **row)
+    return row
+
+
+def _ssm_cut(params, cfg, d: int):
+    """The first ``d`` layers of an ssm model's params (views) and config."""
+    import dataclasses
+
+    from repro_torch.tree import tree_map
+    p = {k: v for k, v in params.items() if k != "layers"}
+    p["layers"] = tree_map(lambda t: t[:d], params["layers"])
+    return p, dataclasses.replace(cfg, num_layers=d)
+
+
+def _ssm_identity(params, cfg, prompts) -> dict:
+    """The forward's last logits (the prefill lowering) against the same
+    prompts stepped through the serve step, relative to max|logit|, with
+    the stepped decode's top-1 among the forward's top ``IDENTITY_TOPK``."""
+    import torch
+    from repro_torch.models import init_cache
+    from repro_torch.train import make_prefill_step, make_serve_step
+    B, P = prompts.shape
+    fwd = make_prefill_step(cfg, device=DEV)(params, {"tokens": prompts}).float()
+    step = make_serve_step(cfg, device=DEV)
+    cache = init_cache(cfg, B, P, device=DEV, dtype=torch.bfloat16)
+    for t in range(P):
+        logits, cache = step(params, prompts[:, t:t + 1], cache, t)
+    dec = logits[:, 0].float()
+    v = cfg.vocab_size
+    top = fwd[:, :v].topk(IDENTITY_TOPK, -1).indices
+    return {"rel_logit_err": float((fwd - dec).abs().max() / fwd.abs().max()),
+            "top1_agreement": int((fwd[:, :v].argmax(-1) == dec[:, :v].argmax(-1)).sum()),
+            "decode_top1_in_forward_topk": bool((top == dec[:, :v].argmax(-1)[:, None])
+                                                .any(-1).all()),
+            "stepped_last_logits": dec, "cache": cache}
+
+
+def phase_ssm_serve() -> dict:
+    """falcon-mamba-7b (Mamba-1) whole, in bf16 (random weights from seed
+    0): (a) the prefill lowering over a (2, 1024) batch; (b) 2 prompts of
+    128 tokens stepped through the serve step (a recurrent arch prefills
+    so), then 32 greedy tokens each, with each step timed; (c) the forward's
+    last logits against the stepped decode at 64 layers and at the first 16
+    (views of the same weights), within ``IDENTITY_TOL`` of max|logit| and
+    the decode's top-1 among the forward's top 5 (the argument of the
+    hybrid phase: two bf16 paths, each rounding on its own); (d) no port
+    kernel launched; (e) the device launches of one decode step (a CUDA
+    graph) and one profiled decode step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params, padded_vocab
+    from repro_torch.train import make_prefill_step, make_serve_step
+    from repro_torch.tree import leaves
+
+    cfg = get_config(FALCON)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=DEV, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(params))
+    prefill = make_prefill_step(cfg, device=DEV)
+    serve = make_serve_step(cfg, device=DEV)
+    gen = torch.Generator().manual_seed(0)
+    long = torch.randint(0, cfg.vocab_size, (SSM_SERVE_ROWS, SSM_PREFILL_LEN), generator=gen)
+    prompts = torch.randint(0, cfg.vocab_size, (SSM_SERVE_ROWS, SSM_PROMPT_LEN),
+                            generator=gen).to(DEV)
+    prefill(params, {"tokens": long[:, :16]})          # warm-up (first cuBLAS use)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    prefill_ms = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        last = prefill(params, {"tokens": long})
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    if not torch.isfinite(last.float()).all() or tuple(last.shape) != (
+            SSM_SERVE_ROWS, padded_vocab(cfg)):
+        raise AssertionError(f"ssm_serve: prefill logits {tuple(last.shape)} not finite")
+    prefill_peak = torch.cuda.max_memory_allocated()
+
+    torch.cuda.reset_peak_memory_stats()
+    ident = {str(cfg.num_layers): _ssm_identity(params, cfg, prompts)}
+    cache = ident[str(cfg.num_layers)].pop("cache")
+    logits = ident[str(cfg.num_layers)].pop("stepped_last_logits")
+    tok = logits[:, :cfg.vocab_size].argmax(-1)[:, None]
+    step_ms, out = [], []
+    for i in range(SSM_NEW):
+        out.append(tok[:, 0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = serve(params, tok, cache, SSM_PROMPT_LEN + i)
+        tok = lg[:, 0, :cfg.vocab_size].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    decode_peak = torch.cuda.max_memory_allocated()
+    launches = dict(ops.launches)
+    toks = torch.stack(out, 1).cpu()
+    if not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError("ssm_serve: token ids out of range")
+    for d in SSM_DEPTHS:
+        r = _ssm_identity(*_ssm_cut(params, cfg, d), prompts)
+        ident[str(d)] = {k: v for k, v in r.items() if k not in ("cache", "stepped_last_logits")}
+    try:
+        decode_launches = graph_launches(
+            lambda: serve(params, tok, cache, SSM_PROMPT_LEN + SSM_NEW))
+    except Exception as e:                 # a capture that fails is reported, not fatal
+        decode_launches = f"graph capture failed: {e!r}"[:300]
+    profile_decode = _profile_window(lambda: serve(params, tok, cache, SSM_PROMPT_LEN + SSM_NEW))
+    pf = statistics.median(prefill_ms)
+    row = {"model": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "params": n_params, "param_init_s": init_s,
+           "prefill_shape": [SSM_SERVE_ROWS, SSM_PREFILL_LEN], "prefill_ms": prefill_ms,
+           "prefill_tokens_per_s": SSM_SERVE_ROWS * SSM_PREFILL_LEN / pf * 1e3,
+           "prefill_max_memory_allocated_bytes": prefill_peak,
+           "prompt_len": SSM_PROMPT_LEN, "new_tokens_each": SSM_NEW,
+           "decode_step_ms": step_ms, "decode_step_ms_median": statistics.median(step_ms),
+           "decode_tokens_per_s": SSM_SERVE_ROWS / statistics.median(step_ms) * 1e3,
+           "decode_max_memory_allocated_bytes": decode_peak,
+           "identity_by_depth": ident, "identity_tolerance": IDENTITY_TOL,
+           "decode_step_device_launches": decode_launches, "launches": launches,
+           "profile_decode_step": profile_decode}
+    emit("ssm_serve", **row)
+    if launches != _no_launches():
+        raise AssertionError(f"ssm_serve: the Mamba-1 path launched kernels {launches}")
+    bad = {d: r for d, r in ident.items()
+           if not (r["rel_logit_err"] <= IDENTITY_TOL and r["decode_top1_in_forward_topk"])}
+    if bad:
+        raise AssertionError(f"ssm_serve: forward against stepped decode {bad} (tol "
+                             f"{IDENTITY_TOL}, top-1 in top-{IDENTITY_TOPK})")
+    return row
+
+
+def phase_ssm_train() -> dict:
+    """falcon-mamba-7b at full width cut to SSM_TRAIN_LAYERS layers (random
+    weights from seed 0, fp32 params and AdamW state, bf16 compute, block
+    remat) takes 4 steps on one fixed batch of 2 x 2048 tokens. Asserts
+    finite metrics, a falling loss, clip_scale <= 1 and that no port kernel
+    is launched. One step profiled on the device alone: its busy time, idle
+    share and device launches (the time loop's small kernels)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ParallelConfig, TrainConfig, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(get_config(FALCON), num_layers=SSM_TRAIN_LAYERS)
+    train = TrainConfig(seq_len=SSM_TRAIN_SEQ, global_batch=SSM_TRAIN_BATCH, warmup_steps=2,
+                        total_steps=100)
+    par = ParallelConfig(microbatches=1, remat_policy="block")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = init_state(cfg, train, seed=0, device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in leaves(state.params))
+    batch = _fixed_batch(cfg.vocab_size, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ, DEV)
+    step = make_train_step(cfg, par, train)
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr")
+    history = []
+    ops.reset_launches()
+    for i in range(SSM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rec = {"step": i, **{k: float(m[k]) for k in keys},
+               "step_ms": (time.perf_counter() - t0) * 1e3}
+        history.append(rec)
+        emit("ssm_train_step", **rec)
+    launches = dict(ops.launches)
+    peak_mem = torch.cuda.max_memory_allocated()
+    if any(not all(math.isfinite(r[k]) for k in keys) for r in history):
+        raise AssertionError(f"ssm_train: non-finite metrics {history}")
+    if not history[-1]["loss"] < history[0]["loss"]:
+        raise AssertionError(f"ssm_train: loss did not fall: {[r['loss'] for r in history]}")
+    if not all(r["clip_scale"] <= 1.0 for r in history):
+        raise AssertionError("ssm_train: clip_scale above 1")
+    if launches != _no_launches():
+        raise AssertionError(f"ssm_train: training launched kernels {launches}")
+    t0 = time.perf_counter()
+    profile = _profile_window(lambda: step(state, batch), cpu=False)
+    profile_s = time.perf_counter() - t0
+    step_ms = statistics.median(r["step_ms"] for r in history[1:])
+    row = {"model": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "state_bytes": _state_bytes(state), "param_init_s": init_s,
+           "global_batch": SSM_TRAIN_BATCH, "seq_len": SSM_TRAIN_SEQ,
+           "remat_policy": par.remat_policy, "steps": SSM_TRAIN_STEPS,
+           "losses": [r["loss"] for r in history], "step_ms_median": step_ms,
+           "tokens_per_s": SSM_TRAIN_BATCH * SSM_TRAIN_SEQ / step_ms * 1e3,
+           "max_memory_allocated_bytes": peak_mem, "launches": launches,
+           "device_launches_per_step": profile["device_events"],
+           "device_launches_per_layer_and_time_step": profile["device_events"]
+           / (SSM_TRAIN_LAYERS * SSM_TRAIN_SEQ),
+           "profile_step_device_only": profile, "profile_s": profile_s}
+    emit("ssm_train", **row)
+    return row
+
+
+def phase_launcher_ssm() -> dict:
+    """Reduced Zamba2-7B (5 layers: 2 groups of 2 Mamba-2 layers and 1
+    remaining, d_model 512) and reduced falcon-mamba-7b (2 layers, d_model
+    512) through the launcher in bf16, as launcher_dense runs: 6 steps with
+    a checkpoint after step 3, then the same call again, which resumes and
+    trains steps 4 and 5; they must agree bit for bit with the first run's.
+    Losses finite and falling; no port kernel launched."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+
+    rows = {}
+    for arch, kw in LAUNCHER_SSM_RUNS.items():
+        out = LAUNCH_DIR / arch
+        shutil.rmtree(out, ignore_errors=True)
+        try:
+            with _launcher_probe() as rec:
+                ops.reset_launches()
+                t0 = time.perf_counter()
+                first = run(arch, out=str(out), **kw)
+                second = run(arch, out=str(out), **kw)
+                wall = time.perf_counter() - t0
+                launches = dict(ops.launches)
+        finally:
+            shutil.rmtree(out, ignore_errors=True)
+        keys = ("loss", "grad_norm", "lr")
+        resumed = {h["step"]: {k: h[k] for k in keys} for h in second}
+        straight = {h["step"]: {k: h[k] for k in keys} for h in first[4:]}
+        rows[arch] = {"run": kw, "losses": [h["loss"] for h in first], "resumed_steps": resumed,
+                      "step_ms": rec["step_ms"], "save_ms": rec["save_ms"],
+                      "restore_ms": rec["restore_ms"], "wall_s": wall, "launches": launches}
+        where = f"launcher_ssm {arch}"
+        if [h["step"] for h in first] != list(range(6)) or sorted(resumed) != [4, 5]:
+            raise AssertionError(f"{where}: steps {[h['step'] for h in first]} then "
+                                 f"{sorted(resumed)}, not 0-5 then 4-5")
+        if resumed != straight:
+            raise AssertionError(f"{where}: resumed steps {resumed} differ from {straight}")
+        if not (_finite(first) and first[-1]["loss"] < first[0]["loss"]):
+            raise AssertionError(f"{where}: losses {rows[arch]['losses']} not finite and "
+                                 f"falling")
+        if launches != _no_launches():
+            raise AssertionError(f"{where}: training launched kernels {launches}")
+    emit("launcher_ssm", **rows)
+    return rows
 
 
 # ----------------------------------------------------------------------------
@@ -2358,9 +2879,15 @@ def phase_launcher_grid_ft(ft: dict) -> dict:
     seed and data): within 0.1 % for steps 0-2, where the warmup's small
     steps leave both runs' params nearly the same, so the losses compare
     the forward and the first updates through this grid's kernel shapes;
-    within 5 % after, where bf16 rounding in another order (one row per
-    rank, the experts split over 'ep') compounds step by step. Then the
-    same plan through the command line, 4 steps in a subprocess."""
+    within 5 % after. The two runs' ``moe_drops`` are recorded side by
+    side: under capacity dispatch a rank's MoE call here routes its 'ep'
+    group's 512 gathered tokens against launcher_ft's 1,024, so each expert
+    gets a smaller capacity, and once routing concentrates the grid drops
+    pairs that launcher_ft keeps (measured on the card: drops from step 3
+    on here, none there, and the losses part at that step). That is the
+    reference's own EP semantics (``tests/test_torch_ep.py`` holds each
+    rank's capacity dispatch to the JAX one), not rounding. Then the same
+    plan through the command line, 4 steps in a subprocess."""
     out = LAUNCH_DIR / "grid_ft"
     shutil.rmtree(out, ignore_errors=True)
     runs = {}
@@ -2393,8 +2920,12 @@ def phase_launcher_grid_ft(ft: dict) -> dict:
     c0, f0 = clean[0]["result"], faulty[0]["result"]
     losses = [h["loss"] for h in c0]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ft["losses"])]
+    drops = [h["moe_drops"] for h in c0]
     row = {"model": launcher_ft_cfg().name, "run": GRID_FT_RUN, "inject": FT_INJECT,
            "ranks": len(clean), "losses": losses, "loss_rel_to_launcher_ft": rel,
+           "moe_drops": drops, "moe_drops_launcher_ft": ft["moe_drops"],
+           "moe_drops_differ_at_steps": [i for i, (a, b) in enumerate(zip(drops, ft["moe_drops"]))
+                                         if a != b],
            "relaunches_by_rank": [r["result"].relaunches for r in faulty],
            "replaced_by_rank": [r["result"].replaced for r in faulty],
            "slot_steps": sorted(m["step"] for m in manifests if m.get("valid")),
@@ -2652,6 +3183,11 @@ def main(argv=None) -> int:
     train = phase_train()
     phase_hybrid_reference()
     hybrid = phase_hybrid_serve()
+    phase_hybrid_train_reference()
+    hybrid_train = phase_hybrid_train()
+    ssm_serve = phase_ssm_serve()
+    ssm_train = phase_ssm_train()
+    phase_launcher_ssm()
     phase_ep_reference()
     ep_train = phase_ep_train()
     epso = phase_epso_train()
@@ -2660,6 +3196,7 @@ def main(argv=None) -> int:
     grid_dense = phase_launcher_grid_dense(dense)
     grid_ft = phase_launcher_grid_ft(ft)
     phase_launches(get_config(MULA))
+    emit("phase_times", seconds=PHASE_S, total_s=time.perf_counter() - T_START)
 
     summary = []
     for name in SOURCES:
@@ -2667,6 +3204,9 @@ def main(argv=None) -> int:
         head = next((r for r in rows if HEADLINE[name] in r["case"]), rows[0])
         by_path = {"serve": serve["launches"][name], "train": train["launches"][name],
                    "hybrid": hybrid["launches"][name],
+                   "hybrid_train": hybrid_train["launches"][name],
+                   "ssm_serve": ssm_serve["launches"][name],
+                   "ssm_train": ssm_train["launches"][name],
                    "ep_train": ep_train["launches_per_rank"][name],
                    "epso_train": epso["launches_per_rank"][name],
                    "launcher_dense": dense["launches"][name],

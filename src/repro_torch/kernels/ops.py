@@ -220,12 +220,14 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, Bm: torch.Tensor, Cm: tor
     (y_diag (B, C, L, H, P), states (B, C, H, P, N), cdecay (B, C, H)), all
     float32 (see ``ref.ssd_intra_chunk_ref``). Forward only, as the JAX
     package's kernel is: it raises while autograd records and an input
-    requires grad."""
+    requires grad. Training takes ``models.ssm._intra_chunk`` instead (the
+    JAX package's plain einsums), which ``models.ssm._ssd_chunked`` picks
+    in just that case."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, dt, Bm, Cm, A)):
         raise NotImplementedError(
             "ssd_intra_chunk is forward only (the JAX package trains Mamba-2 through "
-            "its plain scan); call it under torch.no_grad() or on tensors that do not "
-            "require grad")
+            "its plain scan, as models.ssm._ssd_chunked does under grad); call it under "
+            "torch.no_grad() or on tensors that do not require grad")
     if _on_cpu(x):
         return ref.ssd_intra_chunk_ref(x, dt, Bm, Cm, A)
     out = ssd_intra_chunk_cuda(x, dt, Bm, Cm, A)

@@ -34,8 +34,10 @@ an MoE model on the card runs with ``bfloat16``.
 Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
 item that ports them: plans with pp, tp or pod axes, ``fsdp`` or
 ``rebalance=``, ``pp_schedule``, ``pp_impl``, ``rebalance*`` (§1 item 5),
-``kernel_tiles`` and ``tiles=`` (§1 item 7), and the hybrid (§1 item 4),
-ssm, vlm and audio archs (§1 item 6).
+``kernel_tiles`` and ``tiles=`` (§1 item 7), and the vlm and audio archs
+(§1 item 6). The ssm (Mamba-1) and hybrid (Zamba2) archs train on
+tokens-only batches, as the JAX launcher feeds them; a plan with ``ep=``
+refuses them, as the JAX plan does (they have no experts).
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ from repro_torch.data import ByteTokenizer, ShardedDataLoader, preprocess_corpus
 from repro_torch.device import resolve_device
 from repro_torch.ft import (ClusterManager, NaNMonitor, NodeFailure, restore_into,
                             run_with_failure_handling)
-from repro_torch.models.model import init_params, padded_vocab
+from repro_torch.models.model import ARCHS, init_params, padded_vocab
 from repro_torch.optim.overlap import resolve_opt_overlap
 from repro_torch.parallel import ParallelPlan, ResolvedPlan, spawn
 from repro_torch.parallel.plan import refuse
@@ -112,9 +114,7 @@ def _check_supported(cfg, *, pp_schedule, pp_impl, kernel_tiles, rebalance,
         refuse("kernel tile selection (--kernel-tiles)", "item 7, autotuning")
     if rebalance is not None or rebalance_force_at is not None:
         refuse("expert rebalancing (--rebalance)", "item 5, expert placement")
-    if cfg.arch_type == "hybrid":
-        refuse("training a hybrid (Mamba-2) model", "item 4, hybrid training")
-    if cfg.arch_type not in ("dense", "moe"):
+    if cfg.arch_type not in ARCHS:
         refuse(f"arch_type {cfg.arch_type!r}", "item 6, the rest of the zoo")
 
 

@@ -1,4 +1,4 @@
-"""Model builder (``arch_type`` dense, moe and hybrid): params, the
+"""Model builder (``arch_type`` dense, moe, ssm and hybrid): params, the
 training forward and loss (with selective activation checkpointing), caches,
 one decode step and prefill into cache slots. Port of the JAX package's
 ``models/model.py``.
@@ -8,11 +8,14 @@ Parameters keep the JAX package's pytree layout — a nested dict whose
 tree converts leaf for leaf (``repro_torch.convert``). Where the JAX model
 scans over the stacked layers, the port loops over them in Python.
 
+The ssm stack (Mamba-1, falcon-mamba) is ``layers`` of ``{"ln", "mixer"}``.
 The hybrid (Zamba2) stack is ``groups`` of ``shared_attn_every`` Mamba-2
 layers (params stacked (n_group, every, ...)), each group followed by one
 application of the ``shared`` attention+MLP block, then the ``rem``
-remaining Mamba-2 layers. It is served only: its SSD kernel has no
-backward, as the JAX package's has none, so ``loss_fn`` refuses it.
+remaining Mamba-2 layers. Both train and serve. The mixer follows
+``cfg.ssm.variant`` ('mamba1' or 'mamba2'), as in the JAX package. Under
+``no_grad`` the Mamba-2 layers run the SSD kernel; in training they take
+the JAX package's plain intra-chunk math (``models.ssm``).
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from . import layers as L
 from . import ssm as S
 
 VOCAB_ALIGN = 256
-ARCHS = ("dense", "moe", "hybrid")
+ARCHS = ("dense", "moe", "ssm", "hybrid")
 KV_ARCHS = ("dense", "moe")      # attention-KV archs: prefill into cache slots
 
 
@@ -41,7 +44,8 @@ def padded_vocab(cfg: ModelConfig) -> int:
 def _check_arch(cfg: ModelConfig) -> None:
     if cfg.arch_type not in ARCHS:
         raise NotImplementedError(
-            f"the port runs arch_type {ARCHS}, not {cfg.arch_type!r}")
+            f"the port runs arch_type {ARCHS}, not {cfg.arch_type!r} (ROADMAP.md §1 item 6, "
+            f"the rest of the zoo)")
 
 
 # ----------------------------------------------------------------------------
@@ -66,6 +70,9 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device: DeviceLike = None,
         p["head"] = L.init_embedding(vp, d, **kw)
     if cfg.arch_type == "hybrid":
         return _init_hybrid(p, cfg, kw)
+    if cfg.arch_type == "ssm":
+        p["layers"] = _init_ssm_layers(cfg, n, kw)
+        return p
     layers = {"ln1": L.init_norm(cfg.norm, d, num_layers=n, device=dev),
               "attn": L.init_attention(cfg, num_layers=n, **kw),
               "ln2": L.init_norm(cfg.norm, d, num_layers=n, device=dev)}
@@ -85,9 +92,14 @@ def hybrid_layout(cfg: ModelConfig) -> tuple[int, int, int]:
     return n_group, every, cfg.num_layers - n_group * every
 
 
+def _mamba1(cfg) -> bool:
+    return cfg.ssm.variant == "mamba1"
+
+
 def _init_ssm_layers(cfg, n: int, kw: dict) -> dict:
+    mixer = S.init_mamba1 if _mamba1(cfg) else S.init_mamba2
     return {"ln": L.init_norm(cfg.norm, cfg.d_model, num_layers=n, device=kw["device"]),
-            "mixer": S.init_mamba2(cfg, num_layers=n, **kw)}
+            "mixer": mixer(cfg, num_layers=n, **kw)}
 
 
 def _init_hybrid(p: dict, cfg: ModelConfig, kw: dict) -> dict:
@@ -124,12 +136,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device: DeviceLike
                dtype: torch.dtype = torch.bfloat16) -> dict:
     """Per-layer stacked KV caches: {"kv": {"k", "v"}} each
     (L, batch, S, nkv, hd), S = max_len (or the window, for ring caches).
+    ssm: {"ssm": the mixers' state {"conv", "h"} stacked over the layers}.
     Hybrid: {"groups": Mamba-2 state {"conv", "h"} stacked flat over the
     n_group * every grouped layers, "shared_kv": one KV cache per
     application of the shared block (n_group, ...), and "rem" when there
-    are remaining layers}; the Mamba-2 state is float32 whatever ``dtype``."""
+    are remaining layers}; the SSM state is float32 whatever ``dtype``."""
     _check_arch(cfg)
     dev = resolve_device(device)
+    if cfg.arch_type == "ssm":
+        mk = S.init_mamba1_cache if _mamba1(cfg) else S.init_mamba2_cache
+        return {"ssm": mk(cfg, batch, num_layers=cfg.num_layers, device=dev)}
     if cfg.arch_type == "hybrid":
         n_group, every, rem = hybrid_layout(cfg)
         c = {"groups": S.init_mamba2_cache(cfg, batch, num_layers=n_group * every, device=dev),
@@ -160,14 +176,17 @@ def _logits(params, h, cfg):
     return L.unembed(head, h)
 
 
-def _ssm_block(lp, h, cfg):
-    return h + S.mamba2_block(lp["mixer"], L.apply_norm(lp["ln"], h, cfg.norm), cfg)
+def _ssm_block(lp, h, cfg, sac: str):
+    mixer = S.mamba1_block if _mamba1(cfg) else S.mamba2_block
+    fn = _sac(lambda q, x: mixer(q, x, cfg), "ssm", sac)
+    return h + fn(lp["mixer"], L.apply_norm(lp["ln"], h, cfg.norm))
 
 
 def _ssm_decode(lp, h, cache, i: int, cfg):
-    """One Mamba-2 layer's decode step on row ``i`` of a stacked cache."""
+    """One SSM layer's decode step on row ``i`` of a stacked cache."""
+    step = S.mamba1_decode_step if _mamba1(cfg) else S.mamba2_decode_step
     c = {"conv": cache["conv"][i], "h": cache["h"][i]}
-    y, _ = S.mamba2_decode_step(lp["mixer"], L.apply_norm(lp["ln"], h, cfg.norm), c, cfg)
+    y, _ = step(lp["mixer"], L.apply_norm(lp["ln"], h, cfg.norm), c, cfg)
     return h + y
 
 
@@ -199,13 +218,18 @@ def decode_step(params, tokens, cache: dict, index, cfg: ModelConfig, *,
                 compute_dtype: torch.dtype = torch.bfloat16):
     """One decode step. tokens: (B, 1) int; index: scalar position or (B,)
     per-row positions (continuous batching). The cache is updated in place.
-    Returns (logits (B, 1, V_pad), cache). Hybrid: the Mamba-2 layers step
-    their state, the shared block attends over its group's KV cache; no
-    kernel of the port runs (the JAX package's decode step is plain too)."""
+    Returns (logits (B, 1, V_pad), cache). ssm and hybrid: the SSM layers
+    step their state, the shared block attends over its group's KV cache;
+    no kernel of the port runs (the JAX package's decode step is plain
+    too)."""
     _check_arch(cfg)
     h = L.embed(params["embed"], tokens, compute_dtype)
     if cfg.arch_type == "hybrid":
         return _logits(params, _hybrid_decode(params, h, cache, index, cfg), cfg), cache
+    if cfg.arch_type == "ssm":
+        for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
+            h = _ssm_decode(lp, h, cache["ssm"], i, cfg)
+        return _logits(params, h, cfg), cache
     kv = cache["kv"]
     for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         a = L.decode_attention(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm),
@@ -227,8 +251,8 @@ def prefill_with_cache(params, tokens, cache: dict, slots, lengths, cfg: ModelCo
     saves a read-back from the device.
 
     Returns (last_logits (B', V_pad) at position length-1 of each row, cache).
-    Attention-KV archs only (dense, moe), as in the JAX package; a hybrid
-    model prefills by stepping ``decode_step`` over the prompt.
+    Attention-KV archs only (dense, moe), as in the JAX package; an ssm or
+    hybrid model prefills by stepping ``decode_step`` over the prompt.
     """
     if cfg.arch_type not in KV_ARCHS:
         raise NotImplementedError(
@@ -326,20 +350,27 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     summed over layers and, for MoE, "moe_stats" (routing telemetry summed
     over layers), as the JAX package's ``_scan_layers_aux``. ``attn_impl``
     as in ``layers.attention``: 'blockwise' (training; the default) or
-    'flash' (the forward-only kernel; prefill). Hybrid runs its Mamba-2
-    layers and the shared block after each group, without remat."""
+    'flash' (the forward-only kernel; prefill). ssm and hybrid: each SSM
+    layer under block remat, its mixer under the 'ssm' SAC name; the hybrid
+    model's shared block after each group takes ``sac`` but no block remat,
+    as in the JAX package."""
     _check_arch(cfg)
     h = L.embed(params["embed"], batch["tokens"], compute_dtype)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     aux = {"moe_aux": zero, "moe_z": zero}
+    ssm = block_remat(lambda lp, x: _ssm_block(lp, x, cfg, sac), sac)
+    if cfg.arch_type == "ssm":
+        for lp in unstack_layers(params["layers"], cfg.num_layers):
+            h = ssm(lp, h)
+        return _logits(params, h, cfg), aux
     if cfg.arch_type == "hybrid":
         groups, rem = _hybrid_layers(params, cfg)
         for layers in groups:
             for lp in layers:
-                h = _ssm_block(lp, h, cfg)
-            h = _dense_block(params["shared"], h, cfg, "", attn_impl)
+                h = ssm(lp, h)
+            h = _dense_block(params["shared"], h, cfg, sac, attn_impl)
         for lp in rem:
-            h = _ssm_block(lp, h, cfg)
+            h = ssm(lp, h)
         return _logits(params, h, cfg), aux
     layers = unstack_layers(params["layers"], cfg.num_layers)
     if cfg.arch_type == "moe":
@@ -389,7 +420,7 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     averaged over layers, times its coefficient). Returns (loss, metrics):
     ce, moe_aux, moe_z, ntok and, for MoE, moe_counts (per-layer mean of
     the routed pairs per expert), moe_load (its share) and moe_drops
-    (summed over layers). Hybrid models are not trained by the port.
+    (summed over layers). ssm and hybrid models have no router terms.
 
     ``ep_group``: an ``EPGroup`` or a ``ProcessGrid`` (``parallel.grid``;
     an ``EPGroup`` is the dp = 1 grid). On a grid the batch is the rank's
@@ -400,10 +431,6 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     rank's 'ep' group, whose aux and z are their mean over its ranks; the
     metrics are global (the MoE terms also summed over 'data'), the same on
     every rank, and carry the global loss as "loss"."""
-    if cfg.arch_type == "hybrid":
-        raise NotImplementedError(
-            "training a hybrid model is not ported: its SSD kernel is forward only "
-            "(the JAX package trains Mamba-2 through its plain scan)")
     grid = as_grid(ep_group)
     logits, aux = forward(params, batch, cfg, sac=sac, compute_dtype=compute_dtype,
                           ep_group=grid.ep if grid is not None else None)

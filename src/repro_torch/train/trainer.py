@@ -304,8 +304,9 @@ def make_prefill_step(cfg: ModelConfig, *, compute_dtype: torch.dtype = torch.bf
                       into_cache: bool = False, device: DeviceLike = None):
     """``into_cache=False``: the prefill lowering, ``prefill_step(params,
     batch) -> last-position logits (B, V_pad)``: the forward over
-    batch["tokens"] (B, S) with flash attention (any arch; the hybrid
-    model's Mamba-2 layers run the SSD kernel). ``into_cache=True``: the
+    batch["tokens"] (B, S) with flash attention, under ``no_grad`` (every
+    arch of ``models.model.ARCHS``: the hybrid model's Mamba-2 layers run
+    the SSD kernel, Mamba-1 layers their plain scan). ``into_cache=True``: the
     serve engine's admission lowering, ``prefill_step(params, tokens, cache,
     slots, lengths) -> (last_logits, cache)`` through
     ``models.prefill_with_cache`` on the dropless config (attention-KV archs
@@ -337,8 +338,8 @@ def make_serve_step(cfg: ModelConfig, *, compute_dtype: torch.dtype = torch.bflo
                     sample: bool = False, device: DeviceLike = None):
     """``serve_step(params, tokens, cache, index) -> (logits (B, 1, V_pad),
     cache)``: one ``decode_step``; ``index`` is a scalar (lockstep batch)
-    or (B,) per-row positions. The cache is updated in place. A hybrid
-    model prefills by stepping it over the prompt. With ``sample=True``
+    or (B,) per-row positions. The cache is updated in place. An ssm or
+    hybrid model prefills by stepping it over the prompt. With ``sample=True``
     returns the serve engine's decode function (``serve.make_decode_fn``:
     ``(params, tokens, cache, positions, seeds, temperature, top_k, top_p)
     -> (next_tokens, cache)``). Runs on ``cuda`` unless ``device`` says

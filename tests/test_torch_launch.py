@@ -10,8 +10,10 @@ writes, JAX resumes). Losses, grad norms and lrs agree at atol = rtol =
 1e-4. Mula-7B-A1B runs dropless on both sides: the JAX launcher's default
 MoE backend gives every expert a uniform capacity (pool rows / E), the
 port's kernel path ragged groups, so under capacity dispatch they drop
-different pairs once an expert overflows. The JAX launcher runs 7 times in
-this file (about 5 s each)."""
+different pairs once an expert overflows. The state-space archs run too:
+Zamba2-7B (hybrid) at 5 layers, 2 groups of 2 Mamba-2 layers and 1
+remaining layer, and falcon-mamba-7b (Mamba-1) at 2. The JAX launcher runs
+13 times in this file (5-15 s each)."""
 import json
 import shutil
 
@@ -24,7 +26,8 @@ from repro.launch import train as jlaunch  # noqa: E402
 from repro_torch.launch import train as tlaunch  # noqa: E402
 
 KW = dict(steps=10, ckpt_interval=5, d_model=64, batch=4, seq=32, log_every=100)
-ARCHS = {"mula-1b": {}, "mula-7b-a1b": {"moe_dispatch": "dropless"}}
+ARCHS = {"mula-1b": {}, "mula-7b-a1b": {"moe_dispatch": "dropless"}, "zamba2-7b": {"layers": 5},
+         "falcon-mamba-7b": {}}
 TOL = dict(atol=1e-4, rtol=1e-4)
 FT = dict(steps=18, batch=4, seq=32, d_model=64, ckpt_interval=5, log_every=100)
 
@@ -156,8 +159,8 @@ def test_resume_continues_where_the_checkpoint_left_off(tmp_path):
     {"parallel": "dp=2,fsdp"}, {"parallel": "dp=2,ep=2,rebalance=50:1.25"},
     {"parallel": "dp=2,tiles=auto"}, {"pp_schedule": "1f1b"},
     {"pp_impl": "masked"}, {"kernel_tiles": "auto"}, {"rebalance": "50:1.25"},
-    {"rebalance_force_at": 3}, {"arch": "zamba2-7b"}, {"arch": "phi-3-vision-4.2b"},
-    {"arch": "seamless-m4t-medium"}, {"arch": "falcon-mamba-7b"}],
+    {"rebalance_force_at": 3}, {"arch": "phi-3-vision-4.2b"},
+    {"arch": "seamless-m4t-medium"}],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_arguments_raise(tmp_path, kw):
     kw = dict(kw)
@@ -181,6 +184,38 @@ def test_inconsistent_arguments_raise_value_error(tmp_path, kw, match):
         tlaunch.run("mula-7b-a1b", out=str(tmp_path / "run"), device="cpu", steps=2, batch=4,
                     **kw)
     assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "falcon-mamba-7b"])
+def test_expert_parallelism_refuses_a_model_without_experts(tmp_path, arch):
+    """The JAX plan's ValueError, before any work."""
+    with pytest.raises(ValueError, match=f"plan ep=2 but {arch}-smoke has no experts"):
+        tlaunch.run(arch, out=str(tmp_path / "run"), device="cpu", steps=2, batch=4,
+                    parallel="dp=2,ep=2")
+    assert not (tmp_path / "run").exists()
+
+
+def test_hybrid_on_a_data_parallel_grid_matches_one_rank(tmp_path):
+    """Reduced Zamba2-7B on ``--parallel dp=2 --opt-shard so`` (two gloo
+    ranks: the 'so' placements and the grid checkpoints of the nested
+    ``groups`` tree) against the same run on one rank: histories at 1e-4;
+    then the grid resumes from its own step-5 checkpoint as the one-rank
+    run does from its own."""
+    kw = dict(KW, **ARCHS["zamba2-7b"])
+    one = tlaunch.run("zamba2-7b", out=str(tmp_path / "one"), device="cpu", **kw)
+    grid = tlaunch.run("zamba2-7b", out=str(tmp_path / "grid"), device="cpu",
+                       parallel="dp=2", opt_shard="so", **kw)
+    _close(grid, one)
+    for d in ("one", "grid"):
+        (tmp_path / d / "history.json").unlink()
+    resumed = tlaunch.run("zamba2-7b", out=str(tmp_path / "grid"), device="cpu",
+                          parallel="dp=2", opt_shard="so", **dict(kw, steps=12))
+    again = tlaunch.run("zamba2-7b", out=str(tmp_path / "one"), device="cpu",
+                        **dict(kw, steps=12))
+    assert [h["step"] for h in resumed] == list(range(6, 12))
+    _close(resumed, again)
+    m = json.loads((tmp_path / "grid" / "ckpt" / "ckpt-1" / "MANIFEST.json").read_text())
+    assert m["valid"]
 
 
 def test_cli_runs_on_the_cpu(tmp_path, capsys):

@@ -97,6 +97,6 @@ def test_init_params_layout_matches_jax():
 
 
 def test_unsupported_arch_raises():
-    cfg = treduced(tget("falcon-mamba-7b"), d_model=64, vocab=128)
-    with pytest.raises(NotImplementedError):
+    cfg = treduced(tget("phi-3-vision-4.2b"), d_model=64, vocab=128)
+    with pytest.raises(NotImplementedError, match="item 6"):
         tm.init_params(cfg, device="cpu")

@@ -31,6 +31,8 @@ from repro_torch.models import loss_fn as tloss_fn  # noqa: E402
 from repro_torch.train import TrainState, make_train_step  # noqa: E402
 from repro_torch.tree import leaves_with_path  # noqa: E402
 
+from torch_parity import assert_leaves_close, batch_pair  # noqa: E402
+
 PLAN = KernelPlan(backend="pallas", attn_impl="blockwise", interpret=True,
                   tile_m=ops.gmm_align(), tile_k=64, tile_n=32)
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -42,36 +44,12 @@ def _cfgs(name):
             treduced(tget(name), d_model=64, vocab=128))
 
 
-def _batch(seed, b=4, s=16, vocab=128):
-    toks = np.random.default_rng(seed).integers(0, vocab, size=(b, s + 1)).astype(np.int32)
-    toks[0, -3:] = -100                       # masked label positions
-    tokens, labels = np.maximum(toks[:, :-1], 0), toks[:, 1:]
-    return ({"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)},
-            {"tokens": torch.from_numpy(tokens).long(), "labels": torch.from_numpy(labels).long()})
-
-
-def _jleaves(tree):
-    return {jax.tree_util.keystr(p).replace("['", "").replace("']", "/").rstrip("/"):
-            np.asarray(x) for p, x in jax.tree_util.tree_leaves_with_path(tree)}
-
-
-def _assert_leaves_close(tl, jp, what):
-    """tl: {path: tensor} of the port's leaves; jp: the JAX tree."""
-    jl = _jleaves(jp)
-    assert sorted(tl) == sorted(jl), what
-    for path, leaf in tl.items():
-        ref = jl[path]
-        np.testing.assert_allclose(leaf.detach().numpy(), ref, rtol=1e-3,
-                                   atol=1e-4 * max(np.abs(ref).max(), 1e-6),
-                                   err_msg=f"{what} {path}")
-
-
 @pytest.mark.parametrize("name", ["mula-7b-a1b", "mula-1b"])
 def test_loss_and_grads_match_jax(name):
     jc, tc = _cfgs(name)
     jp = jax.tree.map(np.asarray, jinit_state(jax.random.PRNGKey(0), jc, JTrain()).params)
     tp = params_from_jax(jp, tc, device="cpu")
-    jb, tb = _batch(1)
+    jb, tb = batch_pair(1)
 
     def jloss(p):
         return jloss_fn(p, jb, jc, sac="block", compute_dtype=jnp.float32)
@@ -87,7 +65,7 @@ def test_loss_and_grads_match_jax(name):
     for k in jm:
         np.testing.assert_allclose(tm[k].detach().numpy(), np.asarray(jm[k]), **TOL,
                                    err_msg=k)
-    _assert_leaves_close(dict(zip(paths, grads)), jg, "grad")
+    assert_leaves_close(dict(zip(paths, grads)), jg, "grad")
 
 
 @pytest.mark.parametrize("name,microbatches", [("mula-7b-a1b", 1), ("mula-7b-a1b", 2),
@@ -109,7 +87,7 @@ def test_train_steps_match_jax(name, microbatches):
         tstep = make_train_step(tc, ParallelConfig(microbatches=microbatches), ttrain)
         clips = []
         for i in range(3):
-            jb, tb = _batch(10 + i)
+            jb, tb = batch_pair(10 + i)
             jstate, jm = jstep(jstate, jb)
             tstate, tm = tstep(tstate, tb)
             assert sorted(tm) == sorted(jm)
@@ -118,8 +96,8 @@ def test_train_steps_match_jax(name, microbatches):
                                            err_msg=f"step {i} {k}")
             clips.append(float(jm["clip_scale"]))
     assert clips[0] == 1.0 and clips[1] < 1.0 and clips[2] < 1.0
-    _assert_leaves_close(dict(leaves_with_path(tstate.params)), jstate.params, "params")
-    _assert_leaves_close(dict(leaves_with_path(tstate.opt.m)), jstate.opt.m, "m")
+    assert_leaves_close(dict(leaves_with_path(tstate.params)), jstate.params, "params")
+    assert_leaves_close(dict(leaves_with_path(tstate.opt.m)), jstate.opt.m, "m")
     assert int(tstate.opt.step) == int(jstate.opt.step) == 3
 
 
