@@ -63,7 +63,7 @@ Phases, each printing JSON lines:
              serve step, then 32 greedy tokens each; the forward against
              the stepped decode at 64 and 16 layers; the device launches of
              one decode step; no port kernel launched;
-  ssm_train  falcon-mamba-7b at full width cut to 8 layers takes 4 steps of
+  ssm_train  falcon-mamba-7b at full width cut to 4 layers takes 4 steps of
              2 x 2048 tokens: finite metrics, a falling loss, clip_scale
              <= 1, no port kernel; one step profiled on the device alone
              (busy time, idle share, device launches);
@@ -97,6 +97,21 @@ Phases, each printing JSON lines:
              launch count of every kernel; prints step ms and peak memory per
              rank and mode, the update plan's buckets and the host ms of the
              collectives (no speed: the ranks time-share one card);
+  placement_train  inside epso_train's ranks: the same grid in
+             'epso'/'ring' with dropless dispatch, 6 steps from
+             init_state(seed 0) unplaced; then the state after step 2 (kept
+             on the host) has its expert stacks and their master, m and v
+             moved to a fixed placement (seed 0) that sends half of every
+             rank's experts to the other EP rank
+             (``parallel.placement.apply_placement``) and takes steps 3-5
+             again; asserts every moved (layer, expert) slice equal to the
+             slice its global id held before the move, by exact sums of
+             the bits taken on each rank before and after it (no gather),
+             no drops, the routed pairs conserved, the state bytes exact
+             after the move, steps 3-5 within 2e-3 of the unplaced losses,
+             the exact launch count; prints the move's ms and the bytes a
+             rank sent (computed from the shapes), the rank imbalance of
+             steps 0-2's counts under both placements;
   launcher_dense  full-width, full-depth Mula-1B (16 layers, d_model 2048,
              d_ff 8192, the byte vocab padded to 512; random weights from
              seed 0, fp32 state, bf16 compute) trained by the launcher
@@ -114,10 +129,11 @@ Phases, each printing JSON lines:
              step 12: two relaunches and node swaps, both checkpoint slots
              valid at steps 10 and 15, a history bit-identical to the clean
              run's and the exact launch count of every kernel of the path;
-  launcher_grid_dense  launcher_dense's run through the multi-rank
+  launcher_grid_dense  launcher_dense's run (its checkpoint at step 4)
+             through the multi-rank
              launcher, ``parallel='dp=4'``, ``opt_shard='so'``: four ranks
              share the card over gloo, one 2048-token row each, then the
-             same call resumes from step 3. Asserts resumed steps 4-5
+             same call resumes from step 4. Asserts resumed step 5
              bit-identical, losses finite, falling and within 1 % of
              launcher_dense's, the checkpoint's members (whole arrays)
              those of launcher_dense, the MANIFEST's plan layout, and each
@@ -129,6 +145,13 @@ Phases, each printing JSON lines:
              0.1 % of launcher_ft's for steps 0-2 and 5 % after, both runs'
              MoE drops side by side; then 4 steps of the same plan through
              ``python -m repro_torch.launch.train``;
+  launcher_grid_rebalance  launcher_grid_ft's run with live EP
+             rebalancing (``rebalance=2:1.0``, a forced proposal after step
+             3), clean and with a hard failure after the step-5 checkpoint:
+             at least one event before step 9, the faulty run's history
+             (rank imbalances and events included) bit-identical to the
+             clean one's on every rank, the same placement in both last
+             MANIFESTs, finite losses, the exact launch count;
   launches   the device launches of one dispatch plan at each kernel case's
              shape (at most 3) and of one MoE block at a decode step, each
              captured in a CUDA graph and counted there.
@@ -173,6 +196,12 @@ EPSO_RUNS = (("none", "off"), ("so", "off"), ("epso", "ring"), ("epso", "xla"))
 # per-rank fp32 master + m + v bytes of full-width Mula-7B-A1B at 2 layers on
 # the 2 x 2 grid (optim.epso.state_bytes_per_device; every leaf divides)
 EPSO_STATE_BYTES = {"none": 7_716_593_664, "so": 3_858_296_832, "epso": 3_137_107_968}
+# placement_train (inside epso_train's ranks): 'epso'/'ring', dropless, a move
+# of the expert stacks and their states after step PLACEMENT_MOVE_AFTER to a
+# placement from seed PLACEMENT_SEED; steps after the move within
+# PLACEMENT_LOSS_TOL of the unplaced run's (top 8: the sum over ranks
+# reassociates; the size of 'so' against 'none''s drift over 6 steps)
+PLACEMENT_STEPS, PLACEMENT_MOVE_AFTER, PLACEMENT_SEED, PLACEMENT_LOSS_TOL = 6, 2, 0, 2e-3
 # the launcher phases' runs (``repro_torch.launch.train.run`` keywords) and
 # their directory, git-ignored, inside the checkout
 LAUNCH_DIR = ROOT / "build" / "launcher"
@@ -187,12 +216,22 @@ FT_RUN = dict(scale="smoke", d_model=512, layers=2, steps=18, batch=4, seq=256,
               ckpt_interval=5, compute_dtype="bfloat16", log_every=100)
 FT_INJECT = dict(inject_hard_at=7, inject_soft_at=12)
 # the multi-rank launcher: the same runs on a grid of 4 ranks sharing the card
-GRID_DENSE_RUN = dict(DENSE_RUN, parallel="dp=4", opt_shard="so")
+# the checkpoint at step 4, so that the resumed run takes one step (the
+# smoke's time limit); fewer steps would not do: full-depth Mula-1B's loss
+# falls below step 0's only at step 5
+GRID_DENSE_RUN = dict(DENSE_RUN, ckpt_interval=4, parallel="dp=4", opt_shard="so")
 GRID_FT_DP, GRID_FT_EP = 2, 2
 GRID_FT_RUN = dict(FT_RUN, parallel=f"dp={GRID_FT_DP},ep={GRID_FT_EP}", opt_shard="epso")
 # one MoE call of launcher_grid_ft on one rank: its ep group's rows, gathered
 GRID_FT_TOKENS = GRID_FT_EP * FT_RUN["batch"] // (GRID_FT_DP * GRID_FT_EP) * FT_RUN["seq"]
 GRID_DENSE_LAYOUT = {"axes": [["data", 4]], "opt_shard": "so", "fsdp": False}
+# launcher_grid_rebalance: GRID_FT_RUN with a rebalance policy (every 2 steps
+# when the rank imbalance exceeds 1.0, and a forced proposal after step 3),
+# clean and with a hard failure after the step-5 checkpoint, which the
+# windows of 2 steps end at, so that the replay sees the clean run's windows
+GRID_REB_RUN = dict(GRID_FT_RUN, parallel=f"dp={GRID_FT_DP},ep={GRID_FT_EP},rebalance=2:1.0",
+                    rebalance_force_at=3)
+GRID_REB_INJECT = dict(inject_hard_at=7)
 
 
 T_START = time.perf_counter()
@@ -1605,8 +1644,10 @@ HYBRID_REF_TOL = 1e-3
 # tokens stepped through the serve step, then 32 greedy tokens each
 SSM_SERVE_ROWS, SSM_PREFILL_LEN, SSM_PROMPT_LEN, SSM_NEW = 2, 1024, 128, 32
 SSM_DEPTHS = (16,)            # and all 64: the forward against the stepped decode
-# ssm_train: falcon-mamba-7b at full width, 8 of 64 layers (64 need ~116 GB)
-SSM_TRAIN_LAYERS, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_STEPS = 8, 2048, 2, 4
+# ssm_train: falcon-mamba-7b at full width, 4 of 64 layers (64 need ~116 GB;
+# 8 until the smoke's time limit pressed: the phase is host-bound, its time
+# goes with the layer count)
+SSM_TRAIN_LAYERS, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_STEPS = 4, 2048, 2, 4
 # launcher_ssm: both archs reduced, through the launcher as launcher_dense runs
 LAUNCHER_SSM_RUNS = {
     ZAMBA: dict(scale="smoke", d_model=512, layers=5, steps=6, batch=4, seq=256,
@@ -2389,7 +2430,151 @@ def _epso_train_rank(grid, steps):
                 shapes, param_placements(shapes, sizes), sizes, mode)}
         del state, step, m
     return {"runs": out, "coords": grid.coords, "backend": grid.world.backend,
-            "device": str(grid.world.device)}
+            "device": str(grid.world.device),
+            "placement": _placement_train_rank(grid, cfg, train, mine, PLACEMENT_STEPS)}
+
+
+def placement_row(num_experts: int, ep: int, seed: int = PLACEMENT_SEED) -> tuple:
+    """A fixed non-identity placement row from ``seed``: EP rank r keeps a
+    random half of its experts and takes a random half of rank r + 1's (mod
+    ep), in a random order within the rank."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    EL = num_experts // ep
+    own = [[int(g) for g in rng.permutation(range(r * EL, (r + 1) * EL))] for r in range(ep)]
+    half = EL // 2
+    return tuple(int(g) for r in range(ep)
+                 for g in rng.permutation(own[r][:half] + own[(r + 1) % ep][half:]))
+
+
+def _slice_sums(state, layout, grid) -> dict:
+    """Per expert stack of the state (params, master, m, v), this rank's
+    tile summed exactly on every (layer, dim-1 index): {key: {"offset": the
+    tile's first position, "other": the rank's coordinates on the axes
+    splitting the other dims, "sums": (L, n, 2) int64}}, two sums of the
+    elements' bit patterns (plain and index-weighted), so equal slices give
+    equal sums and a changed bit changes them. The offset is worked out
+    here from the layout, mesh-major, not by the port's helpers."""
+    import torch
+    from repro_torch.tree import keyed_leaves, leaves_with_path
+
+    sizes, coords = grid.axis_sizes, grid.coords
+    out = {}
+    for prefix, tree in ((".params", state.params), (".opt.master", state.opt.master),
+                         (".opt.m", state.opt.m), (".opt.v", state.opt.v)):
+        for (key, t), (path, _) in zip(keyed_leaves(tree, prefix), leaves_with_path(tree)):
+            shape, place = layout[key]
+            if "/moe/" not in f"/{path}" or "shared" in path or \
+                    path.rsplit("/", 1)[-1] not in ("gate", "up", "down"):
+                continue
+            k = 0
+            for a in place[1]:
+                k = k * sizes[a] + coords[a]
+            bits = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+            bits = bits.reshape(t.shape[0], t.shape[1], -1)
+            w = torch.arange(bits.shape[-1], device=t.device) % 1021 + 1
+            sums = torch.stack([torch.stack((b.long().sum(-1), (b.long() * w).sum(-1)), -1)
+                                for b in bits]).cpu()
+            out[key] = {"offset": k * t.shape[1], "sums": sums,
+                        "other": [(d, a, coords[a]) for d, axes in enumerate(place)
+                                  if d != 1 for a in axes]}
+    return out
+
+
+def _placement_train_rank(grid, cfg, train, mine, steps):
+    """placement_train on one rank of the epso grid: the dropless
+    'epso'/'ring' run from init_state(seed 0), ``steps`` steps unplaced;
+    then its state after step PLACEMENT_MOVE_AFTER, kept on the host, is
+    written back, moved to ``placement_row``'s placement
+    (``apply_placement``) and takes the later steps again in a step rebuilt
+    for it. Per run the metrics and launches; for the move its wall ms, the
+    bytes this rank sent (computed by ``apply_placement`` from the shapes),
+    the slice sums of the expert stacks before and after it and the state
+    bytes after it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.ft import restore_into, snapshot
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.placement import ExpertPlacement, apply_placement
+    from repro_torch.train import init_state, make_train_step, state_layout
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="dropless"))
+    mode = "epso"
+    par = ParallelConfig(microbatches=1, remat_policy="block", opt_overlap="ring")
+    layout = state_layout(cfg, grid.axis_sizes, mode)
+    L, E = cfg.num_layers, cfg.moe.num_experts
+    placed = ExpertPlacement.broadcast(placement_row(E, grid.ep.world), L)
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    cut = PLACEMENT_MOVE_AFTER + 1
+
+    def run(step, first):
+        nonlocal state
+        history = []
+        ops.reset_launches()
+        for i in range(first, steps):
+            if i == cut and first == 0:
+                kept.update(snapshot(state))
+            state, m = step(state, mine)
+            history.append({**{k: float(m[k]) for k in keys},
+                            "counts": m["moe_counts"].double().cpu().tolist()})
+        return {"history": history, "launches": dict(ops.launches)}
+
+    torch.cuda.empty_cache()
+    state, kept = init_state(cfg, train, seed=0, grid=grid, opt_sharding_mode=mode), {}
+    out = {"row": list(placed.perm[0]),
+           "unplaced": run(make_train_step(cfg, par, train, opt_sharding_mode=mode, grid=grid),
+                           0)}
+    restore_into(state, kept)
+    del kept
+    before = _slice_sums(state, layout, grid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, sent = apply_placement(state, ExpertPlacement.identity(L, E), placed, grid=grid,
+                                  layout=layout)
+    torch.cuda.synchronize()
+    move = {"ms": (time.perf_counter() - t0) * 1e3, "sent_bytes": sent,
+            "before": before, "after": _slice_sums(state, layout, grid),
+            "state_bytes": sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m,
+                                                          state.opt.v) for t in leaves(tree))}
+    out["placed"] = {**run(make_train_step(cfg, par, train, opt_sharding_mode=mode, grid=grid,
+                                           placement=placed), cut), "move": move}
+    del state
+    return out
+
+
+def _moved_slices_differ(ranks, row) -> tuple:
+    """(slices compared, those that differ) over every rank's expert stacks:
+    the sums at position ``pos`` after the move against those of global id
+    ``row[pos]`` before it, from the rank that held it with the same cut of
+    the other dims (replicas must agree)."""
+    import numpy as np
+
+    ref = {}
+    for rk in ranks:
+        for key, b in rk["placement"]["placed"]["move"]["before"].items():
+            table = ref.setdefault((key, repr(b["other"])), {})
+            for j in range(b["sums"].shape[1]):
+                got = b["sums"][:, j].numpy()
+                if b["offset"] + j in table and not np.array_equal(table[b["offset"] + j], got):
+                    raise AssertionError(f"placement_train: replicas of {key} differ before "
+                                         f"the move")
+                table[b["offset"] + j] = got
+    compared, differ = 0, []
+    for i, rk in enumerate(ranks):
+        for key, a in rk["placement"]["placed"]["move"]["after"].items():
+            table = ref[(key, repr(a["other"]))]
+            if sorted(table) != list(range(len(row))):
+                raise AssertionError(f"placement_train: {key} before the move covers "
+                                     f"{len(table)} of {len(row)} experts")
+            for j in range(a["sums"].shape[1]):
+                pos = a["offset"] + j
+                compared += a["sums"].shape[0]
+                if not np.array_equal(a["sums"][:, j].numpy(), table[row[pos]]):
+                    differ.append((i, key, pos))
+    return compared, differ
 
 
 def phase_epso_train() -> dict:
@@ -2477,6 +2662,95 @@ def phase_epso_train() -> dict:
                    "memory (the ring's point-to-point exchanges through pinned host "
                    "buffers, explicitly): no step time here is an EP, DP or EPSO speed"}
     emit("epso_train", **row)
+    return row, phase_placement_train(ranks, cfg)
+
+
+def phase_placement_train(ranks, cfg) -> dict:
+    """The placement runs of epso_train's ranks (``_placement_train_rank``):
+    full-width Mula-7B-A1B at EPSO_LAYERS layers on the EPSO_DP x EPSO_EP
+    grid, 'epso'/'ring', dropless, PLACEMENT_STEPS steps unplaced, then the
+    state after step PLACEMENT_MOVE_AFTER moved and the later steps again
+    (the placed run's earlier steps are the unplaced run's). Asserts every
+    moved (layer, expert) slice of params, master, m and v equal to its
+    source by the exact sums of its bits (``_moved_slices_differ``), no
+    drops, the state bytes exactly EPSO_STATE_BYTES['epso'] after the
+    move, the steps after it within PLACEMENT_LOSS_TOL of the unplaced
+    run's, the routed pairs conserved, the same metrics on every rank and
+    the exact launch count of every kernel."""
+    import numpy as np
+    from repro_torch.parallel.placement import imbalance
+
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    cut = PLACEMENT_MOVE_AFTER + 1
+    expect = {"unplaced": expected_train_launches(EPSO_LAYERS, 1, PLACEMENT_STEPS),
+              "placed": expected_train_launches(EPSO_LAYERS, 1, PLACEMENT_STEPS - cut)}
+    pairs = len(ranks) * EP_SEQ * cfg.moe.experts_per_token
+    compared, differ = _moved_slices_differ(ranks, ranks[0]["placement"]["row"])
+    if differ:
+        raise AssertionError(f"placement_train: {len(differ)} of {compared} moved slices "
+                             f"differ from their sources: {differ[:8]}")
+    for i, rk in enumerate(ranks):
+        pr, where = rk["placement"], f"placement_train rank {i}"
+        a, b = pr["unplaced"]["history"], pr["placed"]["history"]
+        if [{k: s[k] for k in keys} for s in b] != [
+                {k: s[k] for k in keys} for s in ranks[0]["placement"]["placed"]["history"]]:
+            raise AssertionError(f"{where}: metrics differ from rank 0's")
+        move = pr["placed"]["move"]
+        if len(move["after"]) != 12 or sorted(move["after"]) != sorted(move["before"]):
+            raise AssertionError(f"{where}: {len(move['after'])} expert stacks moved, 12 "
+                                 f"expected")
+        if move["state_bytes"] != EPSO_STATE_BYTES["epso"]:
+            raise AssertionError(f"{where}: state bytes {move['state_bytes']} after the move, "
+                                 f"{EPSO_STATE_BYTES['epso']} expected")
+        for name, h in (("unplaced", a), ("placed", b)):
+            if not all(math.isfinite(s[k]) for s in h for k in keys):
+                raise AssertionError(f"{where} {name}: non-finite metrics")
+            if any(s["moe_drops"] != 0 for s in h):
+                raise AssertionError(f"{where} {name}: dropless run dropped pairs")
+            if any(sum(s["counts"]) != pairs for s in h):
+                raise AssertionError(f"{where} {name}: routed pairs "
+                                     f"{[sum(s['counts']) for s in h]} != {pairs} a step")
+            if pr[name]["launches"] != expect[name]:
+                raise AssertionError(f"{where} {name}: launches {pr[name]['launches']} != "
+                                     f"{expect[name]}")
+        if len(b) != PLACEMENT_STEPS - cut:
+            raise AssertionError(f"{where}: {len(b)} steps after the move")
+        gap = [abs(x["loss"] - y["loss"]) for x, y in zip(a[cut:], b)]
+        if max(gap) > PLACEMENT_LOSS_TOL:
+            raise AssertionError(f"{where}: losses after the move off by {gap} "
+                                 f"(> {PLACEMENT_LOSS_TOL})")
+    r0 = ranks[0]["placement"]
+    a, b = r0["unplaced"]["history"], r0["placed"]["history"]
+    before = np.sum([s["counts"] for s in a[:cut]], axis=0)
+    row = {"model": cfg.name, "layers": EPSO_LAYERS, "grid": {"data": EPSO_DP, "ep": EPSO_EP},
+           "mode": "epso/ring", "dispatch": "dropless", "steps": PLACEMENT_STEPS,
+           "move_after_step": PLACEMENT_MOVE_AFTER, "row": r0["row"],
+           "experts_moved_per_rank": [sum(1 for g in r0["row"][e * len(r0["row"]) // EPSO_EP:
+                                                              (e + 1) * len(r0["row"]) // EPSO_EP]
+                                          if g * EPSO_EP // len(r0["row"]) != e)
+                                      for e in range(EPSO_EP)],
+           "move_ms_rank0": r0["placed"]["move"]["ms"],
+           "move_ms_by_rank": [rk["placement"]["placed"]["move"]["ms"] for rk in ranks],
+           "sent_bytes_by_rank": [rk["placement"]["placed"]["move"]["sent_bytes"]
+                                  for rk in ranks],
+           "imbalance_steps_0_2": {"identity": imbalance(before, tuple(range(len(before))),
+                                                         EPSO_EP),
+                                   "placed": imbalance(before, tuple(r0["row"]), EPSO_EP)},
+           "slices_compared": compared, "slices_differ": len(differ),
+           "state_bytes_per_rank": r0["placed"]["move"]["state_bytes"],
+           "moe_drops": [s["moe_drops"] for s in a + b],
+           "routed_pairs": [sum(s["counts"]) for s in a + b],
+           "placed_steps": list(range(cut, PLACEMENT_STEPS)),
+           "losses_unplaced": [s["loss"] for s in a], "losses_placed": [s["loss"] for s in b],
+           "loss_gap_after_move": [abs(x["loss"] - y["loss"]) for x, y in zip(a[cut:], b)],
+           "max_loss_gap_after_move": max(abs(x["loss"] - y["loss"])
+                                          for x, y in zip(a[cut:], b)),
+           "grad_norms_unplaced": [s["grad_norm"] for s in a],
+           "grad_norms_placed": [s["grad_norm"] for s in b],
+           "launches_per_rank": r0["placed"]["launches"],
+           "launches_per_rank_unplaced": r0["unplaced"]["launches"],
+           "expected_launches": expect, "tolerance": PLACEMENT_LOSS_TOL}
+    emit("placement_train", **row)
     return row
 
 
@@ -2794,7 +3068,7 @@ def phase_launcher_grid_dense(dense: dict) -> dict:
     """Full-depth Mula-1B through the multi-rank launcher: launcher_dense's
     run (GRID_DENSE_RUN) with ``parallel='dp=4'`` and ``opt_shard='so'``,
     four ranks sharing the card over gloo, one 2048-token row each; then the
-    same call, which resumes from the step-3 checkpoint. Steps 4-5 must
+    same call, which resumes from the last checkpoint. The resumed steps must
     agree bit for bit, the losses within 1 % of launcher_dense's (same seed),
     the checkpoint hold launcher_dense's members (whole arrays) and the
     plan's layout, each rank exactly its planned state bytes."""
@@ -2824,15 +3098,17 @@ def phase_launcher_grid_dense(dense: dict) -> dict:
     hist, again = first[0]["result"], second[0]["result"]
     keys = ("loss", "grad_norm", "lr")
     resumed = {h["step"]: {k: h[k] for k in keys} for h in again}
-    straight = {h["step"]: {k: h[k] for k in keys} for h in hist[4:]}
+    steps, every = GRID_DENSE_RUN["steps"], GRID_DENSE_RUN["ckpt_interval"]
+    last_ckpt = (steps - 1) // every * every
+    straight = {h["step"]: {k: h[k] for k in keys} for h in hist[last_ckpt + 1:]}
     losses = [h["loss"] for h in hist]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, dense["losses"])]
     row = {"model": DENSE_ARCH, "layers": cfg.num_layers, "run": GRID_DENSE_RUN,
            "ranks": len(first), "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
            "loss_rel_to_launcher_dense": rel, "resumed_steps": resumed,
            "step_ms_by_rank": [r["rec"]["step_ms"] for r in first],
-           "step_ms_median_steps_1_5_by_rank": [statistics.median(r["rec"]["step_ms"][1:6])
-                                                for r in first],
+           "step_ms_median_after_step_0_by_rank": [statistics.median(r["rec"]["step_ms"][1:steps])
+                                                   for r in first],
            "peak_bytes_by_rank": [r["peak_bytes"] for r in first],
            "peak_bytes_by_rank_resumed": [r["peak_bytes"] for r in second],
            "state_bytes_by_rank": [r["rec"]["state_bytes"] for r in first],
@@ -2848,15 +3124,17 @@ def phase_launcher_grid_dense(dense: dict) -> dict:
                    "the param gather and the checkpoint tiles through host memory: no step "
                    "time here is a DP speed"}
     emit("launcher_grid_dense", **row)
-    if [h["step"] for h in hist] != list(range(6)) or sorted(resumed) != [4, 5]:
+    if [h["step"] for h in hist] != list(range(steps)) or \
+            sorted(resumed) != list(range(last_ckpt + 1, steps)):
         raise AssertionError(f"launcher_grid_dense: steps {[h['step'] for h in hist]} then "
-                             f"{sorted(resumed)}, not 0-5 then 4-5")
+                             f"{sorted(resumed)}, not 0-{steps - 1} then "
+                             f"{last_ckpt + 1}-{steps - 1}")
     if resumed != straight:
         raise AssertionError(f"launcher_grid_dense: resumed steps {resumed} differ from the "
                              f"uninterrupted run's {straight}")
     if not (_finite(hist) and losses[-1] < losses[0]):
         raise AssertionError(f"launcher_grid_dense: losses {losses} not finite and falling")
-    if len(rel) != 6 or max(rel) > 0.01:
+    if len(rel) != steps or max(rel) > 0.01:
         raise AssertionError(f"launcher_grid_dense: losses off launcher_dense's by {rel} (> 1 %)")
     if members != dense["ckpt_members"]:
         raise AssertionError("launcher_grid_dense: the checkpoint's members differ from "
@@ -2962,6 +3240,82 @@ def phase_launcher_grid_ft(ft: dict) -> dict:
             not _finite(cli_out["history"]) or (summary.get("parallel"), summary.get(
                 "opt_overlap"), summary.get("steps")) != ("dp=2,ep=2,opt=epso", "ring", 4):
         raise AssertionError(f"launcher_grid_ft: the command line run failed: {cli_out}")
+    return row
+
+
+def _newest_manifest(ckpt) -> dict:
+    """The MANIFEST of the newest valid slot under ``ckpt``."""
+    mans = [json.loads((ckpt / slot / "MANIFEST.json").read_text())
+            for slot in ("ckpt-1", "ckpt-2") if (ckpt / slot / "MANIFEST.json").exists()]
+    return max((m for m in mans if m.get("valid")), key=lambda m: m["step"])
+
+
+def phase_launcher_grid_rebalance() -> dict:
+    """launcher_grid_ft's run with live EP rebalancing (GRID_REB_RUN: the
+    plan's ``rebalance=2:1.0`` and ``rebalance_force_at=3``) on the dp = 2 x
+    ep = 2 EPSO grid: clean, then with a hard failure (GRID_REB_INJECT)
+    after the step-5 checkpoint that follows the event, so that the relaunch
+    restores placed arrays and the MANIFEST's placement. Asserts at least
+    one event, the faulty run's history bit-identical to the clean one's
+    (imbalances and events included) on every rank, the same placement in
+    both runs' last MANIFEST, finite losses and the exact launch count of
+    every kernel (one more step replayed in the faulty run)."""
+    out = LAUNCH_DIR / "grid_rebalance"
+    shutil.rmtree(out, ignore_errors=True)
+    runs = {}
+    try:
+        for name, kw in (("clean", {}), ("faulty", GRID_REB_INJECT)):
+            runs[name] = _launch_grid("launcher_grid_rebalance", FT_ARCH,
+                                      dict(GRID_REB_RUN, out=str(out / name), **kw))[1:]
+            runs[name] += (_newest_manifest(out / name / "ckpt"),
+                           json.loads((out / name / "summary.json").read_text()))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    (clean, clean_wall, man_c, sum_c), (faulty, faulty_wall, man_f, sum_f) = \
+        runs["clean"], runs["faulty"]
+    layers, steps = FT_RUN["layers"], FT_RUN["steps"]
+    replayed = GRID_REB_INJECT["inject_hard_at"] - 1 - FT_RUN["ckpt_interval"]
+    expect = {"clean": expected_train_launches(layers, 1, steps),
+              "faulty": expected_train_launches(layers, 1, steps + replayed)}
+    c0, f0 = clean[0]["result"], faulty[0]["result"]
+    events = [h["step"] for h in c0 if h.get("rebalanced")]
+    row = {"model": launcher_ft_cfg().name, "run": GRID_REB_RUN, "inject": GRID_REB_INJECT,
+           "ranks": len(clean), "events_at_steps": events, "rebalances": sum_c["rebalances"],
+           "rebalances_faulty": sum_f["rebalances"],
+           "moe_imbalance": [h["moe_imbalance"] for h in c0],
+           "final_imbalance": sum_c["final_imbalance"], "losses": [h["loss"] for h in c0],
+           "moe_drops": [h["moe_drops"] for h in c0],
+           "relaunches_by_rank": [r["result"].relaunches for r in faulty],
+           "history_bit_identical": list(f0) == list(c0),
+           "manifest_step": [man_c["step"], man_f["step"]],
+           "manifest_placement": man_c.get("placement"),
+           "manifest_placement_equal": man_c.get("placement") == man_f.get("placement"),
+           "step_ms_median_by_rank": [statistics.median(r["rec"]["step_ms"]) for r in clean],
+           "restore_ms_rank0": faulty[0]["rec"]["restore_ms"],
+           "wall_s": [clean_wall, faulty_wall],
+           "launches_per_rank": {"clean": clean[0]["launches"], "faulty": faulty[0]["launches"]},
+           "expected_launches": expect}
+    emit("launcher_grid_rebalance", **row)
+    if not events or events[0] >= 9 or sum_c["rebalances"] < 1:
+        raise AssertionError(f"launcher_grid_rebalance: events at {events} (none before step 9)")
+    restored = (GRID_REB_INJECT["inject_hard_at"] - 1) // FT_RUN["ckpt_interval"] * \
+        FT_RUN["ckpt_interval"]
+    if not any(s <= restored for s in events) or man_c.get("placement") is None:
+        raise AssertionError("launcher_grid_rebalance: the relaunch restores no placed checkpoint")
+    for i, (c, f) in enumerate(zip(clean, faulty)):
+        where = f"launcher_grid_rebalance rank {i}"
+        if f["result"].relaunches != 1 or list(f["result"]) != list(c["result"]) or \
+                list(c["result"]) != list(c0):
+            raise AssertionError(f"{where}: the faulty run's history differs from the clean one "
+                                 f"(relaunches {f['result'].relaunches})")
+        if {"clean": c["launches"], "faulty": f["launches"]} != expect:
+            raise AssertionError(f"{where}: kernel launches {c['launches']} / "
+                                 f"{f['launches']} != expected {expect}")
+    if man_c["step"] != man_f["step"] or man_c.get("placement") != man_f.get("placement"):
+        raise AssertionError(f"launcher_grid_rebalance: last MANIFESTs differ: "
+                             f"{man_c} / {man_f}")
+    if not _finite(c0):
+        raise AssertionError(f"launcher_grid_rebalance: losses {row['losses']} not finite")
     return row
 
 
@@ -3190,11 +3544,12 @@ def main(argv=None) -> int:
     phase_launcher_ssm()
     phase_ep_reference()
     ep_train = phase_ep_train()
-    epso = phase_epso_train()
+    epso, placement = phase_epso_train()
     dense = phase_launcher_dense()
     ft = phase_launcher_ft()
     grid_dense = phase_launcher_grid_dense(dense)
     grid_ft = phase_launcher_grid_ft(ft)
+    grid_reb = phase_launcher_grid_rebalance()
     phase_launches(get_config(MULA))
     emit("phase_times", seconds=PHASE_S, total_s=time.perf_counter() - T_START)
 
@@ -3209,11 +3564,14 @@ def main(argv=None) -> int:
                    "ssm_train": ssm_train["launches"][name],
                    "ep_train": ep_train["launches_per_rank"][name],
                    "epso_train": epso["launches_per_rank"][name],
+                   "placement_train": placement["launches_per_rank"][name],
                    "launcher_dense": dense["launches"][name],
                    "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name],
                    "launcher_grid_dense": grid_dense["launches_per_rank"][name],
                    "launcher_grid_ft": grid_ft["launches_per_rank"]["clean"][name]
-                   + grid_ft["launches_per_rank"]["faulty"][name]}
+                   + grid_ft["launches_per_rank"]["faulty"][name],
+                   "launcher_grid_rebalance": grid_reb["launches_per_rank"]["clean"][name]
+                   + grid_reb["launches_per_rank"]["faulty"][name]}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

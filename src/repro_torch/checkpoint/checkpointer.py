@@ -31,11 +31,20 @@ Where the port differs, PyTorch and the card force it:
   second copy beside it would not fit the card. float32 params that share
   their tensors with the master weights (``optim.adamw_init``) go on
   sharing them; such a shared tensor is read from the file once.
-* A MANIFEST with an expert placement raises ``NotImplementedError``
-  (placement is not ported). With a ``plan`` (``parallel.ResolvedPlan``)
-  the MANIFEST carries its spec and layout, and ``restore`` refuses a
-  checkpoint written under another layout unless ``on_plan_mismatch=
-  'reshard'``, as the JAX package does.
+* With a ``plan`` (``parallel.ResolvedPlan``) the MANIFEST carries its
+  spec and layout, and ``restore`` refuses a checkpoint written under
+  another layout unless ``on_plan_mismatch='reshard'``, as the JAX package
+  does.
+
+Under an expert placement (``parallel.placement``) the expert stacks are
+saved in their placed order, as the JAX package saves them, and the live
+``placement`` (the launcher keeps it current) rides in the MANIFEST in the
+JAX format; ``restore`` sets ``restored_placement`` from it (None when the
+MANIFEST has none), so that the caller runs the step in the placement the
+arrays were written in. A placement changes no layout: on a grid the
+files hold the same whole arrays. Model-only files have no MANIFEST, so
+their expert stacks are written back in global-id order (the JAX package
+writes them in placed order, with no record of the placement).
 
 On a dp x ep process grid (``grid=``, the rank's ``parallel.ProcessGrid``;
 every rank makes the same calls) the files are still the JAX package's:
@@ -65,8 +74,9 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.grid import rank_coords
+from repro_torch.parallel.placement import ExpertPlacement, is_expert_stack
 from repro_torch.parallel.sharding import tile_slices
-from repro_torch.tree import assign, keyed_leaves, leaves
+from repro_torch.tree import assign, keyed_leaves, leaves, leaves_with_path
 
 CHECKSUM_BYTES = 4096
 
@@ -93,11 +103,12 @@ def _npz_path(path: str) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def _write_npz(path, tree, tiles=None) -> dict:
+def _write_npz(path, tree, tiles=None, order=None) -> dict:
     """``np.savez(path, **flat)`` member by member: each leaf is moved to the
     host, written and dropped. Returns {key: the leaf's first bytes}. With
     ``tiles`` (a grid's ``_Tiles``) each leaf is first gathered whole on
-    rank 0, the only rank that writes (the others pass ``path=None``)."""
+    rank 0, the only rank that writes (the others pass ``path=None``).
+    ``order(key, array)``: the whole array to write in its place."""
     heads = {}
     with contextlib.ExitStack() as stack:
         zf = None if path is None else stack.enter_context(zipfile.ZipFile(
@@ -106,6 +117,8 @@ def _write_npz(path, tree, tiles=None) -> dict:
             arr = _host(key, leaf) if tiles is None else tiles.gather(key, leaf)
             if zf is None:
                 continue
+            if order is not None:
+                arr = order(key, arr)
             with zf.open(key + ".npy", "w", force_zip64=True) as f:
                 np.lib.format.write_array(f, arr, allow_pickle=False)
             heads[key] = arr.reshape(-1).view(np.uint8)[:CHECKSUM_BYTES].copy()
@@ -295,7 +308,10 @@ class Checkpointer:
     arrays, so the live layout's tiles are cut from them either way). A
     ``grid`` of more than one rank needs the ``layout`` of the state's
     tiles on it (``train.state_layout`` of the live plan), and a ``plan``
-    given with it must be the grid's."""
+    given with it must be the grid's. ``placement``: the live
+    ``ExpertPlacement`` (None: identity), which its caller keeps current
+    and which goes into each MANIFEST; ``restored_placement``: the one of
+    the checkpoint ``restore`` read."""
 
     def __init__(self, root: str, *, interval: int = 1000, model_only_interval: int = 0,
                  plan=None, on_plan_mismatch: str = "error", grid=None, layout=None):
@@ -307,6 +323,8 @@ class Checkpointer:
         self.model_only_interval = model_only_interval or interval
         self.plan = plan
         self.on_plan_mismatch = on_plan_mismatch
+        self.placement = None            # live ExpertPlacement or None
+        self.restored_placement = None   # set by restore()
         self._tiles = None
         if grid is not None and grid.world.world > 1:
             if layout is None:
@@ -368,6 +386,8 @@ class Checkpointer:
                 if self.plan is not None:
                     man["plan"] = {"spec": self.plan.spec(),
                                    "layout": self.plan.layout_signature()}
+                if self.placement is not None:
+                    man["placement"] = self.placement.to_manifest()
                 with open(os.path.join(tmp, "MANIFEST.json"), "w") as f:
                     json.dump(man, f)
             if os.path.exists(slot):
@@ -377,30 +397,29 @@ class Checkpointer:
         return slot
 
     def _newest(self):
-        """(slot, step) of the newest valid slot, or (None, -1), after the
-        manifest's checks."""
+        """(slot, step, MANIFEST placement) of the newest valid slot, or
+        (None, -1, None), after the manifest's checks."""
         best, best_step = None, -1
         for slot in self.slots:
             s = self._slot_step(slot)
             if s > best_step:
                 best, best_step = slot, s
         if best is None:
-            return None, -1
+            return None, -1, None
         manifest = self._slot_manifest(best) or {}
-        if manifest.get("placement") is not None:
-            raise NotImplementedError(
-                f"checkpoint {best} was written under an expert placement; the port "
-                f"has no expert placement yet (ROADMAP.md §1 item 5)")
         self._check_plan(manifest, best)
-        return best, best_step
+        return best, best_step, manifest.get("placement")
 
     def restore(self, template):
         """Restore the newest *valid* slot into ``template`` in place (on a
-        grid, each rank's tiles into its own template). Returns (template,
-        step) or (None, -1)."""
-        best, best_step = _on_writer(self._tiles, self._newest)
+        grid, each rank's tiles into its own template) and set
+        ``restored_placement`` from its MANIFEST. Returns (template, step)
+        or (None, -1)."""
+        self.restored_placement = None
+        best, best_step, placement = _on_writer(self._tiles, self._newest)
         if best is None:
             return None, -1
+        self.restored_placement = ExpertPlacement.from_manifest(placement)
         path = os.path.join(best, "state.npz") if self._writer else None
         return load_pytree(template, path, self._tiles), best_step
 
@@ -426,10 +445,30 @@ class Checkpointer:
 
     # ---- persistent model-only checkpoints --------------------------------
     def save_model_only(self, params, step: int):
+        """The params alone, their expert stacks in global-id order whatever
+        the live placement (a model-only file has no MANIFEST to record
+        one, so its expert ``g`` is always at position ``g``)."""
         path = os.path.join(self.root, f"model-{step:08d}.npz")
-        _write_npz(path if self._writer else None, params, self._tiles)
+        _write_npz(path if self._writer else None, params, self._tiles,
+                   order=self._global_order(params))
         self._done()
         return path
+
+    def _global_order(self, params):
+        """``order`` for ``_write_npz``: each whole expert stack taken from
+        the live placement back to global-id order (``W[l, g] = W_live[l,
+        inv[l, g]]``); None without a placement."""
+        if self.placement is None:
+            return None
+        L, E = self.placement.num_layers, self.placement.num_experts
+        inv = self.placement.inverse_array()
+        paths = {k: p for (k, _), (p, _) in zip(keyed_leaves(params), leaves_with_path(params))}
+
+        def order(key, arr):
+            if not is_expert_stack(paths[key], arr.shape, L, E):
+                return arr
+            return np.take_along_axis(arr, inv.reshape(L, E, *(1,) * (arr.ndim - 2)), axis=1)
+        return order
 
     def list_model_only(self):
         return sorted(f for f in os.listdir(self.root)
@@ -437,9 +476,9 @@ class Checkpointer:
 
     def restore_model_only(self, template, step: int):
         """Params from the model-only checkpoint at ``step``, written into
-        ``template`` in place; the caller reinitializes optimizer states
-        (paper: 'training can be restarted from just the model
-        parameters')."""
+        ``template`` in place, their expert stacks in global-id order (no
+        placement); the caller reinitializes optimizer states (paper:
+        'training can be restarted from just the model parameters')."""
         path = os.path.join(self.root, f"model-{step:08d}.npz")
         return load_pytree(template, path if self._writer else None, self._tiles)
 

@@ -14,8 +14,15 @@ package's ``core/moe.py``.
                          (Stage 1), Stages 2-5 on the gathered tokens with
                          the rank's slice of the experts, reduce-scatter
                          back to the rank's tokens. The allgather Stage 1
-                         only: the all-to-all variant, expert-TP and an
-                         expert placement raise.
+                         only: the all-to-all variant and expert-TP raise.
+
+Each takes an optional ``placement``, the (E,) inverse row of an expert
+placement (``parallel.placement``: global expert id -> position), when the
+expert stacks are stored in placed order: the routed ids are translated to
+positions before the dispatch (and the naive combine), the router's output,
+aux loss and histogram stay in global ids, and the stats' counts come back
+in global order. Under EP rank r holds positions ``[r * EL, (r + 1) *
+EL)``.
 
 The port has one grouped-FFN backend, the kernel one: the JAX package's
 'xla' (uniform capacity) and 'ragged' lowerings are XLA layouts of the same
@@ -89,14 +96,17 @@ def _shared_expert(p, x):
 # naive baseline (every expert computes every token)
 # ----------------------------------------------------------------------------
 
-def moe_naive(p, x, moe_cfg, *, aux: bool = True) -> tuple[torch.Tensor, RouterOut]:
+def moe_naive(p, x, moe_cfg, *, aux: bool = True,
+              placement=None) -> tuple[torch.Tensor, RouterOut]:
     r = route(x, p["router"], num_experts=moe_cfg.num_experts,
               top_k=moe_cfg.experts_per_token,
               forced_uniform=moe_cfg.forced_uniform_routing, aux=aux)
     gate, up, down = (p[k].to(x.dtype) for k in ("gate", "up", "down"))
     h = F.silu(torch.einsum("td,edf->etf", x, gate)) * torch.einsum("td,edf->etf", x, up)
     ys = torch.einsum("etf,efd->etd", h, down)                     # (E, T, d)
-    one_hot = F.one_hot(r.indices, moe_cfg.num_experts).to(x.dtype)
+    # the stacks are in placed order; r keeps global ids
+    idx = r.indices if placement is None else placement[r.indices]
+    one_hot = F.one_hot(idx.long(), moe_cfg.num_experts).to(x.dtype)
     cw = (one_hot * r.weights[..., None].to(x.dtype)).sum(1)        # (T, E)
     out = torch.einsum("te,etd->td", cw, ys)
     if moe_cfg.num_shared_experts:
@@ -278,7 +288,7 @@ def dispatch_compute_combine(gate_w, up_w, down_w, x, r: RouterOut, moe_cfg, *,
 
 
 def _moe_dense(p, x, moe_cfg, *, dropless: bool = False, ep_group: Optional[EPGroup] = None,
-               aux: bool = True):
+               aux: bool = True, placement=None):
     """Route, dispatch, compute, combine. Returns (out, router_out, MoeStats).
     With ``ep_group`` (the dense fallback under EP: every rank holds every
     expert and runs its own tokens) the aux and z losses and the stats are
@@ -290,13 +300,16 @@ def _moe_dense(p, x, moe_cfg, *, dropless: bool = False, ep_group: Optional[EPGr
     r = route(x, p["router"], num_experts=moe_cfg.num_experts,
               top_k=moe_cfg.experts_per_token,
               forced_uniform=moe_cfg.forced_uniform_routing, reduce=reduce, aux=aux)
-    out, plan = dispatch_compute_combine(p["gate"], p["up"], p["down"], x, r, moe_cfg,
+    rd = r if placement is None else RouterOut(r.weights, placement[r.indices], r.aux_loss,
+                                               r.z_loss)
+    out, plan = dispatch_compute_combine(p["gate"], p["up"], p["down"], x, rd, moe_cfg,
                                          dropless=dropless)
     if moe_cfg.num_shared_experts:
         out = out + _shared_expert(p, x)
     if not aux:
         return out, r, None
-    stats = MoeStats(plan.counts.float(), plan.drops.float())
+    counts = plan.counts if placement is None else plan.counts[placement]
+    stats = MoeStats(counts.float(), plan.drops.float())
     if reduce is not None:
         tot = reduce(torch.cat([stats.counts, stats.drops[None]]))
         stats = MoeStats(tot[:-1], tot[-1])
@@ -315,7 +328,7 @@ def uses_ep(moe_cfg, world: int) -> bool:
     return moe_cfg.moe_impl == "fsmoe" and moe_cfg.num_experts % world == 0
 
 
-def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False):
+def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False, placement=None):
     """Paper Algorithm 1 under EP, the allgather Stage 1. x: (T, d), the
     rank's tokens; ``p`` holds the router and shared experts whole and the
     rank's slice of the expert stacks (EL = E / world experts from rank *
@@ -334,8 +347,11 @@ def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False):
     # the router is replicated: each rank routes its own tokens
     r = route(x, p["router"], num_experts=E, top_k=moe_cfg.experts_per_token,
               forced_uniform=moe_cfg.forced_uniform_routing)
+    # placed order: global ids -> positions (the aux and z losses are taken
+    # on global ids inside route)
+    idx = r.indices if placement is None else placement[r.indices]
     # Stage 1: all-gather the tokens and their routing, in rank order
-    r_g = RouterOut(all_gather_tokens(r.weights, group), all_gather_tokens(r.indices, group),
+    r_g = RouterOut(all_gather_tokens(r.weights, group), all_gather_tokens(idx, group),
                     r.aux_loss, r.z_loss)
     x_g = all_gather_tokens(x, group)
     # Stages 2-5 on the rank's experts; then the Stage-5 tail: the partial
@@ -347,31 +363,39 @@ def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False):
     if moe_cfg.num_shared_experts:
         out = out + _shared_expert(p, x)
     # aux and z averaged over the ranks, the drops (each rank's own experts')
-    # summed; the local counts gathered in rank order, which is expert order
+    # summed; the local counts gathered in rank order, which is position
+    # order, then put back in global-id order
     aux, z, drops = all_reduce_sum(torch.stack([r.aux_loss, r.z_loss, plan.drops.float()]),
                                    group).unbind()
-    stats = MoeStats(all_gather_tokens(plan.counts.float(), group), drops)
+    counts = all_gather_tokens(plan.counts.float(), group)
+    stats = MoeStats(counts if placement is None else counts[placement], drops)
     return out, aux / world, z / world, stats
 
 
-def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None, aux: bool = True):
+def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None, aux: bool = True,
+                     placement=None):
     """x: (B, S, d) -> (out (B, S, d), aux_loss, z_loss, MoeStats). With
     ``ep_group``, x is the rank's share of the batch: the block runs
     ``moe_fsmoe_ep`` when ``uses_ep`` says so, else the dense path with
     whole expert stacks; either way aux, z and the stats are global.
     ``aux=False`` (serving, which discards them; one device): the aux and z
-    losses and the stats are not computed, and are None."""
+    losses and the stats are not computed, and are None. ``placement``: the
+    (E,) inverse placement row (global id -> position) of stacks stored in
+    placed order, or None."""
     B, S, d = x.shape
     m = cfg.moe
     xt = x.reshape(B * S, d)
     dropless = m.dispatch == "dropless"
+    if placement is not None:
+        placement = placement.long()       # the dispatch plan takes int64 ids
     if m.moe_impl == "naive":
         if ep_group is not None:
             raise NotImplementedError("moe_impl='naive' is the single-device oracle; "
                                       "it does not run under EP")
-        out, r = moe_naive(p, xt, m, aux=aux)
+        out, r = moe_naive(p, xt, m, aux=aux, placement=placement)
         if not aux:
             return out.reshape(B, S, d), None, None, None
+        # from the router's global ids: free of the placement
         stats = MoeStats(ops.token_counts(r.indices, m.num_experts).float(),
                          torch.zeros((), device=x.device))
         return out.reshape(B, S, d), r.aux_loss, r.z_loss, stats
@@ -379,10 +403,12 @@ def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None, aux: bool
         raise ValueError("aux=False is for one device: under EP the aux and z losses "
                          "and the stats are reduced over the ranks")
     if ep_group is not None and uses_ep(m, ep_group.world):
-        out, aux, z, stats = moe_fsmoe_ep(p, xt, m, ep_group, dropless=dropless)
+        out, aux, z, stats = moe_fsmoe_ep(p, xt, m, ep_group, dropless=dropless,
+                                          placement=placement)
         return out.reshape(B, S, d), aux, z, stats
     if p["gate"].shape[0] != m.num_experts:
         raise ValueError(f"the dense path needs every expert; the stack holds "
                          f"{p['gate'].shape[0]} of {m.num_experts}")
-    out, r, stats = _moe_dense(p, xt, m, dropless=dropless, ep_group=ep_group, aux=aux)
+    out, r, stats = _moe_dense(p, xt, m, dropless=dropless, ep_group=ep_group, aux=aux,
+                               placement=placement)
     return out.reshape(B, S, d), r.aux_loss, r.z_loss, stats

@@ -26,14 +26,30 @@ Usage (on the card; ``--device cpu`` runs the plain PyTorch path):
   PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
       --parallel dp=2,ep=2 --opt-shard epso --steps 20 --batch 4 --seq 32 \
       --d-model 64 --device cpu --out runs/grid       # 4 CPU ranks
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
+      --parallel dp=2,ep=2,rebalance=4:1.1 --opt-shard epso --steps 12 \
+      --batch 4 --seq 32 --d-model 64 --device cpu --out runs/reb
+
+Expert rebalancing (``parallel.placement``): a plan's ``rebalance=N:thr``
+token (or ``--rebalance N:thr``, which overrides it and needs
+``--parallel``) sums each step's global ``moe_counts`` over N-step windows
+and, at a window's end, re-places the experts when the max/mean EP rank
+load exceeds ``thr`` and the greedy placement lowers it;
+``--rebalance-force-at STEP`` forces a proposal after that step. A move
+takes the expert stacks and their optimizer states across the 'ep' ranks
+(``apply_placement``), rebuilds the step in the new placement and writes
+it into the next checkpoints' MANIFEST; a resumed run, or a relaunch,
+takes the placement of the checkpoint it restored. Every rank runs the
+same controller on the same global counts, so every rank takes the same
+decision.
 
 ``compute_dtype`` is ``TrainConfig.compute_dtype``; its default here is the
 float32 the JAX launcher fixes. The MoE kernels on the card take bf16, so
 an MoE model on the card runs with ``bfloat16``.
 
 Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
-item that ports them: plans with pp, tp or pod axes, ``fsdp`` or
-``rebalance=``, ``pp_schedule``, ``pp_impl``, ``rebalance*`` (§1 item 5),
+item that ports them: plans with pp, tp or pod axes, ``fsdp``,
+``pp_schedule``, ``pp_impl`` (§1 item 5),
 ``kernel_tiles`` and ``tiles=`` (§1 item 7), and the vlm and audio archs
 (§1 item 6). The ssm (Mamba-1) and hybrid (Zamba2) archs train on
 tokens-only batches, as the JAX launcher feeds them; a plan with ``ep=``
@@ -60,6 +76,7 @@ from repro_torch.ft import (ClusterManager, NaNMonitor, NodeFailure, restore_int
 from repro_torch.models.model import ARCHS, init_params, padded_vocab
 from repro_torch.optim.overlap import resolve_opt_overlap
 from repro_torch.parallel import ParallelPlan, ResolvedPlan, spawn
+from repro_torch.parallel.placement import ExpertPlacement, RebalanceController, apply_placement
 from repro_torch.parallel.plan import refuse
 from repro_torch.train import init_state, make_train_step, state_layout
 from repro_torch.tree import keyed_leaves, leaves
@@ -106,14 +123,11 @@ def _env_int(name: str):
     return int(v) if v else None
 
 
-def _check_supported(cfg, *, pp_schedule, pp_impl, kernel_tiles, rebalance,
-                     rebalance_force_at) -> None:
+def _check_supported(cfg, *, pp_schedule, pp_impl, kernel_tiles) -> None:
     if pp_schedule is not None or pp_impl is not None:
         refuse("pipeline parallelism (--pp-schedule / --pp-impl)", "item 5, the PP executors")
     if kernel_tiles is not None:
         refuse("kernel tile selection (--kernel-tiles)", "item 7, autotuning")
-    if rebalance is not None or rebalance_force_at is not None:
-        refuse("expert rebalancing (--rebalance)", "item 5, expert placement")
     if cfg.arch_type not in ARCHS:
         refuse(f"arch_type {cfg.arch_type!r}", "item 6, the rest of the zoo")
 
@@ -156,6 +170,7 @@ class RunSpec:
     inject_hard_at: Optional[int]
     inject_soft_at: Optional[int]
     device: torch.device
+    rebalance_force_at: Optional[int] = None
 
     @property
     def world(self) -> int:
@@ -208,8 +223,7 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
             cfg.moe, moe_impl=moe_impl or cfg.moe.moe_impl,
             forced_uniform_routing=fur,
             d_ff_expert=moe_dff or cfg.moe.d_ff_expert))
-    _check_supported(cfg, pp_schedule=pp_schedule, pp_impl=pp_impl, kernel_tiles=kernel_tiles,
-                     rebalance=rebalance, rebalance_force_at=rebalance_force_at)
+    _check_supported(cfg, pp_schedule=pp_schedule, pp_impl=pp_impl, kernel_tiles=kernel_tiles)
 
     # ---- the ParallelPlan: --parallel spec, or the legacy --mesh shim ----
     if parallel:
@@ -220,6 +234,11 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
         pplan = ParallelPlan.from_legacy(mesh, cfg=cfg, opt_shard=opt_shard or "none")
     else:
         pplan = None
+    if rebalance is not None:               # the flag overrides the spec's token
+        if pplan is None:
+            raise ValueError("--rebalance needs --parallel (or --mesh): rebalancing "
+                             "re-places experts over the EP axis")
+        pplan = dataclasses.replace(pplan, rebalance=rebalance)
     if pplan is not None:
         if opt_overlap is not None:
             pplan = dataclasses.replace(pplan, opt_overlap=opt_overlap)
@@ -269,7 +288,8 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
     return RunSpec(cfg=cfg, train=train, par=par, plan=plan, mesh=mesh, opt_overlap=ov_impl,
                    out=out, ckpt_interval=ckpt_interval, log_every=log_every,
                    n_buffer=n_buffer, max_relaunches=max_relaunches,
-                   inject_hard_at=inject_hard_at, inject_soft_at=inject_soft_at, device=dev)
+                   inject_hard_at=inject_hard_at, inject_soft_at=inject_soft_at, device=dev,
+                   rebalance_force_at=rebalance_force_at)
 
 
 def run(arch: str, **kw) -> RunResult:
@@ -324,11 +344,52 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
                           opt_sharding_mode=mode)
 
     state = fresh_state()
-    step_fn = make_train_step(cfg, spec.par, train, opt_sharding_mode=mode, grid=grid)
     layout = state_layout(cfg, grid.axis_sizes, mode) if grid is not None else None
     ckpt = Checkpointer(os.path.join(spec.out, "ckpt"), interval=spec.ckpt_interval,
                         plan=spec.plan, grid=grid, layout=layout)
     cluster = ClusterManager(n_active=max(2, spec.world), n_buffer=spec.n_buffer)
+
+    # the live plan, on which the expert placement rides (``ResolvedPlan.
+    # placement``), and the step built for it: a move swaps both
+    def build_step(plan):
+        return make_train_step(cfg, spec.par, train, opt_sharding_mode=mode, grid=grid,
+                               placement=plan.placement if plan is not None else None)
+
+    live = {"plan": spec.plan, "step_fn": build_step(spec.plan)}
+    reb = spec.plan.plan.rebalance_params() if spec.plan is not None else None
+    controller = None
+    if (reb is not None or spec.rebalance_force_at is not None) and cfg.moe is not None:
+        interval, threshold = reb if reb is not None else (steps + 1, 1.0)
+        controller = RebalanceController(
+            num_layers=cfg.num_layers, num_experts=cfg.moe.num_experts,
+            ep=spec.plan.plan.ep if spec.plan is not None else 1, interval=interval,
+            threshold=threshold)
+
+    def identity():
+        return ExpertPlacement.identity(cfg.num_layers, cfg.moe.num_experts)
+
+    def live_placement():
+        plan = live["plan"]
+        return plan.placement if plan is not None and plan.placement is not None \
+            else identity()
+
+    def set_placement(placement, state=None, *, prev=None):
+        """Swap the live placement on the live plan: move the state from
+        ``prev`` when given; the step, the checkpointer's MANIFEST
+        placement and the controller's follow the plan."""
+        if live["plan"] is None:
+            raise ValueError("the checkpoint was written under an expert placement, which "
+                             "lives on a parallel plan: resume it under the plan it was "
+                             "written with (--parallel)")
+        if prev is not None:
+            state, _ = apply_placement(state, prev, placement, grid=grid, layout=layout)
+        live["plan"] = live["plan"].with_placement(
+            None if placement.is_identity else placement)
+        live["step_fn"] = build_step(live["plan"])
+        ckpt.placement = live["plan"].placement
+        if controller is not None:
+            controller.placement = live_placement()
+        return state
 
     # resume if a valid checkpoint exists (written into the live state)
     restored, ck_step = ckpt.restore(state)
@@ -337,6 +398,12 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
         state, start = restored, ck_step + 1   # ckpt holds post-step state
         if lead:
             print(f"resumed from step {start}")
+        if ckpt.restored_placement is not None:
+            # the arrays on disk are in placed order: adopt the placement
+            # without moving anything
+            set_placement(ckpt.restored_placement)
+            if lead:
+                print("resumed expert placement (non-identity) from the manifest")
     # the loop consumes the loader's iterator; point it at the first step to
     # run so a resumed run replays the exact batch sequence an uninterrupted
     # one would have seen (never batch 0 again)
@@ -371,7 +438,7 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
                 print(f"  !! injected HARD failure on node 0 @ step {step}")
             raise NodeFailure(cluster.active[0].node_id, "hard")
         b = next(batches)
-        state, metrics = step_fn(state, to_device({k: a[rows] for k, a in b.items()}))
+        state, metrics = live["step_fn"](state, to_device({k: a[rows] for k, a in b.items()}))
         # one host sync per step: every fetched metric (and the MoE
         # telemetry) travels in one float64 tensor, which holds each float32
         # value exactly
@@ -380,6 +447,9 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
                               .to(torch.float64) for k in names])]
         if "moe_load" in metrics:
             parts.append(metrics["moe_load"].reshape(-1).to(torch.float64))
+        counted = controller is not None and "moe_counts" in metrics
+        if counted:
+            parts.append(metrics["moe_counts"].reshape(-1).to(torch.float64))
         vals = torch.cat(parts).cpu().numpy()
         will_log = lead and (step % spec.log_every == 0 or step == steps - 1)
         loss, lr_v, gnorm = (float(v) for v in vals[:3])
@@ -393,12 +463,31 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
         moe_line = ""
         if "moe_drops" in metrics:     # per-expert routing telemetry
             drops = float(vals[3])
-            load = vals[4:]
+            load = vals[4:4 + metrics["moe_load"].numel()]
             history[step]["moe_drops"] = drops
             history[step]["moe_load_max"] = float(load.max()) if load.size \
                 else 0.0
             moe_line = (f" drops {drops:.0f} "
                         f"load_max {history[step]['moe_load_max']:.3f}")
+        if counted:
+            # the windowed controller on this step's global counts (the same
+            # on every rank, so every rank takes the same decision); a move
+            # leaves this step's updated state in the new placement, which
+            # the next checkpoint records
+            imb = controller.observe(vals[-cfg.moe.num_experts:])
+            history[step]["moe_imbalance"] = imb
+            moe_line += f" imb {imb:.2f}"
+            force = step == spec.rebalance_force_at
+            if controller.window_full() or force:
+                prev = live_placement()
+                new = controller.propose(force=force)
+                if new is not None:
+                    state = set_placement(new, state, prev=prev)
+                    history[step]["rebalanced"] = True
+                    if lead:
+                        print(f"step {step:5d} rebalanced expert placement (imbalance "
+                              f"{imb:.2f}, ep={controller.ep}, event "
+                              f"#{controller.rebalances})")
         if will_log:
             dt = time.time() - t0
             print(f"step {step:5d} loss {loss:.4f} gnorm {gnorm:.3f} "
@@ -410,6 +499,15 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
         # rewind the batch stream to the restore point: the iterator re-reads
         # the shared step cursor on every next(), so this re-points it
         loader.load_state_dict({"step": step})
+        if cfg.moe is not None:
+            # the restored arrays are in the placement of the checkpoint's
+            # MANIFEST (identity without one, or from the fallback), which
+            # may be older than the live one: take it without moving
+            target = ckpt.restored_placement or identity()
+            if target != live_placement():
+                set_placement(target)
+        if controller is not None:
+            controller.reset_window()        # the replayed steps count once
         return state
 
     state, end_step, relaunches = run_with_failure_handling(
@@ -433,7 +531,11 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
                "pp_schedule": None, "pp_impl": None,
                "relaunches": relaunches,
                "replaced": result.replaced,
-               "rebalance": None, "rebalances": 0, "final_imbalance": None,
+               "rebalance": spec.plan.plan.rebalance if spec.plan is not None else None,
+               "rebalances": controller.rebalances if controller is not None else 0,
+               "final_imbalance": next((history[s]["moe_imbalance"]
+                                        for s in sorted(history, reverse=True)
+                                        if "moe_imbalance" in history[s]), None),
                "final_loss": result[-1]["loss"] if result else None}
     with open(os.path.join(spec.out, "summary.json"), "w") as f:
         json.dump(summary, f)
@@ -484,13 +586,18 @@ def main(argv=None):
     ap.add_argument("--opt-overlap", default=None, choices=["auto", "off", "ring", "xla"],
                     help="bucketed optimizer collectives (optim/overlap): 'auto' runs the "
                          "ring for epso on a grid; overrides a --parallel spec's overlap=")
+    ap.add_argument("--rebalance", default=None,
+                    help="live EP rebalancing policy 'N:threshold' (or 'off'): every N steps, "
+                         "re-place the experts when the max/mean EP rank load exceeds the "
+                         "threshold; overrides a --parallel spec's rebalance= and needs "
+                         "--parallel")
+    ap.add_argument("--rebalance-force-at", type=int, default=None,
+                    help="force one rebalance proposal after this step")
     # the JAX launcher's options that the port does not run yet: each
     # raises NotImplementedError naming its ROADMAP.md item
     ap.add_argument("--pp-schedule", default=None, choices=["gpipe", "1f1b"])
     ap.add_argument("--pp-impl", default=None, choices=["shardmap", "masked"])
     ap.add_argument("--kernel-tiles", default=None)
-    ap.add_argument("--rebalance", default=None)
-    ap.add_argument("--rebalance-force-at", type=int, default=None)
     ap.add_argument("--log-every", type=int, default=10,
                     help="print the step line (loss/gnorm/lr + MoE routing "
                          "telemetry: drops, max expert load) every N steps")

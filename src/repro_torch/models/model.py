@@ -330,10 +330,11 @@ def _dense_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise"):
     return h + mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm))
 
 
-def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", ep_group=None):
+def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", ep_group=None,
+               placement=None):
     attn = _sac(lambda q, x: L.attention(q, x, cfg, impl=attn_impl), "attn", sac)
-    moe = _sac(lambda q, x: moe_lib.sparse_moe_block(q, x, cfg, ep_group=ep_group), "moe",
-               sac)
+    moe = _sac(lambda q, x: moe_lib.sparse_moe_block(q, x, cfg, ep_group=ep_group,
+                                                     placement=placement), "moe", sac)
     h = h + attn(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm))
     mo, aux, z, stats = moe(lp["moe"], L.apply_norm(lp["ln2"], h, cfg.norm))
     return h + mo, aux, z, stats
@@ -341,7 +342,7 @@ def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", ep_group=None
 
 def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
             compute_dtype: torch.dtype = torch.bfloat16, attn_impl: str = "blockwise",
-            ep_group=None):
+            ep_group=None, placement=None):
     """The forward over whole sequences. batch["tokens"]: (B, S) int; under
     an EP group (``parallel.EPGroup``) the rank's rows, with the rank's
     share of the params (``parallel.expert_shard``); the MoE blocks then
@@ -350,7 +351,10 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     summed over layers and, for MoE, "moe_stats" (routing telemetry summed
     over layers), as the JAX package's ``_scan_layers_aux``. ``attn_impl``
     as in ``layers.attention``: 'blockwise' (training; the default) or
-    'flash' (the forward-only kernel; prefill). ssm and hybrid: each SSM
+    'flash' (the forward-only kernel; prefill). ``placement``: the (L, E)
+    inverse expert-placement rows (global id -> position, one row a layer;
+    ``parallel.placement``) of MoE stacks stored in placed order, or None.
+    ssm and hybrid: each SSM
     layer under block remat, its mixer under the 'ssm' SAC name; the hybrid
     model's shared block after each group takes ``sac`` but no block remat,
     as in the JAX package."""
@@ -374,11 +378,12 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
         return _logits(params, h, cfg), aux
     layers = unstack_layers(params["layers"], cfg.num_layers)
     if cfg.arch_type == "moe":
-        block = block_remat(lambda lp, x: _moe_block(lp, x, cfg, sac, attn_impl, ep_group), sac)
+        block = block_remat(lambda lp, x, pl: _moe_block(lp, x, cfg, sac, attn_impl, ep_group,
+                                                          pl), sac)
         counts = torch.zeros(cfg.moe.num_experts, dtype=torch.float32, device=h.device)
         drops = zero
-        for lp in layers:
-            h, a, z, st = block(lp, h)
+        for i, lp in enumerate(layers):
+            h, a, z, st = block(lp, h, None if placement is None else placement[i])
             aux["moe_aux"] = aux["moe_aux"] + a
             aux["moe_z"] = aux["moe_z"] + z
             counts, drops = counts + st.counts, drops + st.drops
@@ -415,7 +420,7 @@ def masked_ce(logits, labels, cfg: ModelConfig):
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
-            compute_dtype: torch.dtype = torch.bfloat16, ep_group=None):
+            compute_dtype: torch.dtype = torch.bfloat16, ep_group=None, placement=None):
     """Next-token cross entropy plus the MoE aux and z losses (each
     averaged over layers, times its coefficient). Returns (loss, metrics):
     ce, moe_aux, moe_z, ntok and, for MoE, moe_counts (per-layer mean of
@@ -430,10 +435,11 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     ranks' gradients sum to. The MoE blocks' collectives run over the
     rank's 'ep' group, whose aux and z are their mean over its ranks; the
     metrics are global (the MoE terms also summed over 'data'), the same on
-    every rank, and carry the global loss as "loss"."""
+    every rank, and carry the global loss as "loss". ``placement``: as in
+    ``forward``; the metrics stay in global expert ids."""
     grid = as_grid(ep_group)
     logits, aux = forward(params, batch, cfg, sac=sac, compute_dtype=compute_dtype,
-                          ep_group=grid.ep if grid is not None else None)
+                          ep_group=grid.ep if grid is not None else None, placement=placement)
     nl = max(cfg.num_layers, 1)
     router = []
     if cfg.is_moe:

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.parallel.ep import all_gather_tokens
+from repro_torch.parallel.placement import is_expert_stack
 from repro_torch.tree import leaves, leaves_with_path, tree_map
 
 
@@ -39,17 +40,6 @@ def adamw_init(params) -> AdamWState:
                       tree_map(lambda p: p.detach().to(torch.float32), params),
                       tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params),
                       tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params))
-
-
-def is_expert_stack(path: str, shape, num_layers: int, num_experts: int) -> bool:
-    """True for the routed expert stacks ``layers/moe/{gate,up,down}`` with
-    a leading (L, E, ...): never the router, never shared experts. Under EP
-    pass the rank's count of experts (its stacks hold E / world)."""
-    if "moe" not in path or "shared" in path:
-        return False
-    leaf = path.rsplit("/", 1)[-1]
-    return (leaf in ("gate", "up", "down") and len(shape) >= 3
-            and shape[0] == num_layers and shape[1] == num_experts)
 
 
 def expert_leaf_mask(tree, num_layers: int, num_experts: int) -> tuple:

@@ -12,7 +12,9 @@ mismatch between grads/params and states; here each is one explicit
 * the global grad norm comes from the shards: one scalar all-reduce per
   distinct state-axis set; the expert stacks take the canonical (L, E)
   slice-sum path (gathered over the axes tiling dims 0 and 1, summed over
-  the rest, then reduced in one fixed order);
+  the rest, put in global-id order under an expert placement, then
+  reduced in one fixed order), so that the clip scale is the same
+  whichever rank holds an expert;
 * ``adamw_leaf`` runs on each shard, in place;
 * the updated master shards are cast to the param dtype and gathered, one
   buffer per bucket, over the bucket's axes, and written into the params.
@@ -38,6 +40,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch.parallel.ep import all_gather_dim
 from repro_torch.parallel.grid import ProcessGrid
 from repro_torch.parallel.sharding import shard_index
 from repro_torch.tree import leaves
@@ -220,12 +223,6 @@ class _Gather:
         return self.out
 
 
-def _gather_dim(s: torch.Tensor, dim: int, group) -> torch.Tensor:
-    parts = [torch.empty_like(s) for _ in range(group.world)]
-    dist.all_gather(parts, s.contiguous(), group=group.group)
-    return torch.cat(parts, dim=dim)
-
-
 def _all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     if group.world > 1:
         dist.all_reduce(t, group=group.group)
@@ -248,16 +245,16 @@ def overlapped_adamw_update(grads: list, state: AdamWState, params: list, *,
     rank's shards (``shard_of``), updated in place; ``params``: the
     param-local leaves in leaf order, overwritten with the gathered
     update. ``state_specs``: each leaf's state placement (leaf order).
-    ``expert_norm``: as in ``adamw.global_norm`` (the mask flags the expert
-    stacks; no placement). Returns (new_state, metrics {grad_norm,
-    clip_scale})."""
+    ``expert_norm``: as in ``adamw.global_norm``, a ``(mask, inv)`` pair
+    (the mask flags the expert stacks; ``inv``, the (L, E) id -> position
+    rows of the live expert placement, or None). A placement moves slices
+    along the expert dim only, so the plan's buckets are the same under any
+    placement. Returns (new_state, metrics {grad_norm, clip_scale})."""
     if impl not in OVERLAP_IMPLS:
         raise ValueError(f"impl must be one of {OVERLAP_IMPLS}, got {impl!r}")
     n = len(grads)
     if plan.n_leaves != n:
         raise ValueError(f"the update plan has {plan.n_leaves} leaves, the gradients {n}")
-    if expert_norm is not None and expert_norm[1] is not None:
-        raise NotImplementedError("an expert placement is not ported")
     sizes, coords = grid.axis_sizes, grid.coords
     blocking = impl == "off"
     ma, mo, vo = leaves(state.master), leaves(state.m), leaves(state.v)
@@ -294,6 +291,7 @@ def overlapped_adamw_update(grads: list, state: AdamWState, params: list, *,
 
     # 2. the global grad norm from the shards
     ex_mask = expert_norm[0] if expert_norm is not None else ()
+    inv = expert_norm[1] if expert_norm is not None else None
     norm_groups, expert_leaves = {}, []
     for bucket in plan.buckets:
         for lf in bucket.leaves:
@@ -313,11 +311,13 @@ def overlapped_adamw_update(grads: list, state: AdamWState, params: list, *,
         spec, lead = state_specs[lf.index], []
         for d in (0, 1):
             for a in reversed(spec[d] if d < len(spec) else ()):
-                s = _gather_dim(s, d, grid.group((a,)))
+                s = all_gather_dim(s, grid.group((a,)), d)
                 lead.append(a)
         trail = tuple(a for a in lf.psum_axes if a not in lead)
         if trail:
             s = _all_reduce_(s, grid.group(trail))
+        if inv is not None:
+            s = torch.gather(s, 1, inv.long())
         total = total + torch.sum(s)
     gnorm = torch.sqrt(total)
     scale = clip_scale(gnorm, grad_clip, clip_enabled)

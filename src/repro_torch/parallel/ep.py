@@ -67,12 +67,14 @@ def init_ep_group(world: int, rank: int, *, backend: str, init_method: str,
 # collectives
 # ----------------------------------------------------------------------------
 
-def _all_gather(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+def all_gather_dim(x: torch.Tensor, g: EPGroup, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``x`` concatenated on ``dim`` in rank order, on every
+    rank; not differentiable (``all_gather_tokens`` is)."""
     if g.world == 1:
         return x
     parts = [torch.empty_like(x) for _ in range(g.world)]
     dist.all_gather(parts, x.contiguous(), group=g.group)
-    return torch.cat(parts)
+    return torch.cat(parts, dim=dim)
 
 
 def _reduce_scatter(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
@@ -97,7 +99,7 @@ class _AllGatherTokens(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g):
         ctx.g = g
-        return _all_gather(x, g)
+        return all_gather_dim(x, g)
 
     @staticmethod
     def backward(ctx, dy):
@@ -112,7 +114,7 @@ class _ReduceScatterTokens(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy):
-        return _all_gather(dy, ctx.g), None
+        return all_gather_dim(dy, ctx.g), None
 
 
 class _AllReduceSum(torch.autograd.Function):

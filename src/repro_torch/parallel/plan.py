@@ -13,9 +13,10 @@ leaves out as the JAX spec does).
 returns a ``ResolvedPlan``: the process grid's sizes (``grid``: dp, ep) for
 ``parallel.spawn(..., grid=)`` and the checkpoint metadata
 (``layout_signature()``, ``spec()``) exactly as the JAX ``ResolvedPlan``
-computes them. What the port cannot run raises ``NotImplementedError``
-naming its ``ROADMAP.md`` item: pp, tp or pod axes, ``fsdp`` and
-``rebalance`` (§1 item 5), an explicit ``tiles=`` (§1 item 7).
+computes them, and the live expert placement (``placement``,
+``with_placement``) a ``rebalance=`` policy moves. What the port cannot
+run raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: pp, tp
+or pod axes and ``fsdp`` (§1 item 5), an explicit ``tiles=`` (§1 item 7).
 """
 from __future__ import annotations
 
@@ -339,9 +340,6 @@ class ParallelPlan:
                 refuse(f"{what} in a plan", "item 5, the rest of multi-GPU")
         if self.fsdp:
             refuse("fsdp (parameters sharded over 'data')", "item 5, the rest of multi-GPU")
-        if self.rebalance_params() is not None:
-            refuse(f"expert rebalancing (rebalance={self.rebalance})",
-                    "item 5, expert placement")
         if self.tiles is not None:
             refuse(f"kernel tile selection (tiles={self.tiles})", "item 7, autotuning")
         if self.ep > 1 and cfg.moe.moe_impl != "fsmoe":
@@ -361,8 +359,17 @@ class ParallelPlan:
 class ResolvedPlan:
     """A ParallelPlan checked against a model: the process grid it runs on
     (``data`` x ``ep`` ranks, ``parallel.spawn(..., grid=self.grid)``) and
-    the metadata its checkpoints carry."""
+    the metadata its checkpoints carry. ``placement``: the live
+    ``parallel.placement.ExpertPlacement`` (None: identity), which the
+    launcher keeps here and builds its step, its MANIFEST placement and its
+    controller's from; a placement changes no layout, only which expert
+    lives at which position."""
     plan: ParallelPlan
+    placement: object = None
+
+    def with_placement(self, placement) -> "ResolvedPlan":
+        """This plan with another live placement."""
+        return dataclasses.replace(self, placement=placement)
 
     @property
     def world(self) -> int:

@@ -30,9 +30,14 @@ by ``opt_sharding_mode`` (paper §3.2, ``optim.epso``):
   back into the params, bucket by bucket (``optim.overlap``, with
   ``ParallelConfig.opt_overlap`` 'off', 'ring', 'xla' or 'auto').
 
-Not ported, and raising ``NotImplementedError``: pipeline stages and an
-expert placement; under EP also the all-to-all Stage 1 and expert-TP
-(``core.moe.moe_fsmoe_ep``).
+An expert placement (``parallel.placement.ExpertPlacement``) runs the
+MoE blocks on stacks stored in placed order (``apply_placement`` moves a
+state there) and takes the expert stacks' grad-norm share in global-id
+order, so a placed step is the unplaced one's computation, its experts
+in other homes.
+
+Not ported, and raising ``NotImplementedError``: pipeline stages; under EP
+also the all-to-all Stage 1 and expert-TP (``core.moe.moe_fsmoe_ep``).
 """
 from __future__ import annotations
 
@@ -53,6 +58,7 @@ from repro_torch.optim.epso import (DEFAULT_BUCKET_BYTES, UpdatePlan, optimizer_
 from repro_torch.optim.overlap import overlapped_adamw_update, resolve_opt_overlap, shard_of
 from repro_torch.parallel.ep import EPGroup, all_reduce_sum
 from repro_torch.parallel.grid import ProcessGrid, as_grid
+from repro_torch.parallel.placement import ExpertPlacement
 from repro_torch.parallel.sharding import expert_shard, param_placements, replicated_leaves
 from repro_torch.serve.engine import dropless_cfg, make_decode_fn
 from repro_torch.tree import keyed_leaves, leaves, tree_map
@@ -177,11 +183,12 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     'so' or 'epso', the layout ``init_state`` gave the state; the SO/EPSO
     collectives are scheduled by ``parallel.opt_overlap``
     (``optim.overlap.resolve_opt_overlap``). The update plan is built here,
-    once."""
+    once. ``placement``: the ``ExpertPlacement`` the state's expert stacks
+    are stored in (None or the identity: global-id order); the metrics stay
+    in global ids."""
     if parallel.pp_stages > 1:
         raise NotImplementedError("pipeline parallelism is not ported")
-    if placement is not None:
-        raise NotImplementedError("expert placement is not ported")
+    pl_inv = _placement_rows(cfg, placement)
     grid = _grid(ep_group, grid)
     mode = _opt_mode(opt_sharding_mode)
     ov_impl = resolve_opt_overlap(parallel.opt_overlap, mode,
@@ -203,6 +210,16 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
                                        max_bucket_bytes=0 if ov_impl == "off" else
                                        DEFAULT_BUCKET_BYTES)
 
+    rows_on = {}
+
+    def placement_rows(dev):
+        """The (L, E) int64 id -> position rows on ``dev``, or None."""
+        if pl_inv is None:
+            return None
+        if dev not in rows_on:
+            rows_on[dev] = torch.as_tensor(pl_inv, dtype=torch.int64, device=dev)
+        return rows_on[dev]
+
     def train_step(state: TrainState, batch: dict):
         if batch["tokens"].shape[0] % nmb:
             raise ValueError(f"batch of {batch['tokens'].shape[0]} rows does not split "
@@ -211,9 +228,11 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         flat = leaves(leaf)
         mbs = [dict(zip(batch, vals)) for vals in zip(*(t.chunk(nmb) for t in batch.values()))]
         loss = torch.zeros((), device=batch["tokens"].device)
+        rows = placement_rows(batch["tokens"].device)
         acc = sums = None
         for mb in mbs:
-            mb_loss, metrics = loss_fn(leaf, mb, cfg, sac=sac, compute_dtype=cd, ep_group=grid)
+            mb_loss, metrics = loss_fn(leaf, mb, cfg, sac=sac, compute_dtype=cd, ep_group=grid,
+                                       placement=rows)
             gs = torch.autograd.grad(mb_loss, flat, allow_unused=True, materialize_grads=True)
             gs = [g.float() for g in gs]            # f32 gradient sums
             acc = gs if acc is None else [a.add_(g) for a, g in zip(acc, gs)]
@@ -271,7 +290,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
             return None
         held = cfg.moe.num_experts // grid.ep.world if sharded else cfg.moe.num_experts
         mask = expert_leaf_mask(params, cfg.num_layers, held)
-        return (mask, None) if any(mask) else None
+        return (mask, placement_rows(leaves(params)[0].device)) if any(mask) else None
 
     def _sum_gradients(grads, dtype, grid):
         """Sum the gradients over the ranks that hold the same leaf, in
@@ -292,6 +311,22 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     train_step.update = update
     train_step.opt_overlap_impl = ov_impl
     return train_step
+
+
+def _placement_rows(cfg: ModelConfig, placement):
+    """The (L, E) inverse rows of a non-identity ``placement`` (numpy), or
+    None; a placement that does not fit ``cfg`` raises."""
+    if placement is None:
+        return None
+    if not isinstance(placement, ExpertPlacement):
+        raise TypeError(f"placement must be an ExpertPlacement or None, got "
+                        f"{type(placement).__name__}")
+    if cfg.moe is None or (placement.num_layers, placement.num_experts) != (
+            cfg.num_layers, cfg.moe.num_experts):
+        want = (cfg.num_layers, cfg.moe.num_experts) if cfg.moe is not None else "no experts"
+        raise ValueError(f"placement of ({placement.num_layers}, {placement.num_experts}) "
+                         f"(layers, experts) for {cfg.name}: {want}")
+    return None if placement.is_identity else placement.inverse_array()
 
 
 def _on(dev: torch.device, params: dict, what: str) -> None:

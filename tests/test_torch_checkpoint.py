@@ -224,9 +224,14 @@ def test_restore_checks_keys_and_shapes(tmp_path):
         load_pytree(bad, str(tmp_path / "x.npz"))
 
 
-@pytest.mark.parametrize("extra,raises", [({"placement": {"perm": [[0, 1]]}}, True),
-                                          ({"plan": {"spec": "dp=2", "layout": []}}, False)])
-def test_manifest_placement_raises_plan_is_ignored(tmp_path, extra, raises):
+@pytest.mark.parametrize("extra,placed", [
+    ({"placement": {"num_layers": 1, "num_experts": 2, "perm": [[1, 0]]}}, True),
+    ({"plan": {"spec": "dp=2", "layout": []}}, False)])
+def test_manifest_placement_raises_plan_is_ignored(tmp_path, extra, placed):
+    """A MANIFEST's placement (the JAX format) round-trips into
+    ``restored_placement`` (it raised before expert placement was ported);
+    a plan is ignored by a Checkpointer without one."""
+    from repro_torch.parallel.placement import ExpertPlacement
     ck = Checkpointer(str(tmp_path))
     slot = ck.save(state_like(2), 4)
     man = os.path.join(slot, "MANIFEST.json")
@@ -234,11 +239,17 @@ def test_manifest_placement_raises_plan_is_ignored(tmp_path, extra, raises):
         m = json.load(f)
     with open(man, "w") as f:
         json.dump({**m, **extra}, f)
-    if raises:
-        with pytest.raises(NotImplementedError, match="placement"):
-            ck.restore(state_like())
+    restored, step = ck.restore(state_like())
+    assert step == 4
+    _equal(restored, state_like(2))
+    if placed:
+        assert ck.restored_placement == ExpertPlacement(1, 2, ((1, 0),))
+        again = Checkpointer(str(tmp_path / "again"))
+        again.placement = ck.restored_placement
+        with open(os.path.join(again.save(state_like(3), 5), "MANIFEST.json")) as f:
+            assert json.load(f)["placement"] == extra["placement"]
     else:
-        assert ck.restore(state_like())[1] == 4
+        assert ck.restored_placement is None
 
 
 def test_broadcast_params():

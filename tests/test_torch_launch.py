@@ -156,10 +156,9 @@ def test_resume_continues_where_the_checkpoint_left_off(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"parallel": "dp=2,tp=2"}, {"parallel": "dp=2,pp=2"}, {"parallel": "pod=2,dp=2"},
-    {"parallel": "dp=2,fsdp"}, {"parallel": "dp=2,ep=2,rebalance=50:1.25"},
+    {"parallel": "dp=2,fsdp"},
     {"parallel": "dp=2,tiles=auto"}, {"pp_schedule": "1f1b"},
-    {"pp_impl": "masked"}, {"kernel_tiles": "auto"}, {"rebalance": "50:1.25"},
-    {"rebalance_force_at": 3}, {"arch": "phi-3-vision-4.2b"},
+    {"pp_impl": "masked"}, {"kernel_tiles": "auto"}, {"arch": "phi-3-vision-4.2b"},
     {"arch": "seamless-m4t-medium"}],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_arguments_raise(tmp_path, kw):
@@ -168,6 +167,41 @@ def test_unsupported_arguments_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item"):
         tlaunch.run(arch, out=str(tmp_path / "run"), device="cpu", steps=2, **kw)
     assert not (tmp_path / "run").exists()                # refused before any work
+
+
+@pytest.mark.parametrize("kw", [
+    {"parallel": "dp=2,ep=2,rebalance=50:1.25"}, {"rebalance": "50:1.25"},
+    {"rebalance_force_at": 3}],
+    ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
+def test_rebalance_arguments(tmp_path, kw):
+    """The rebalance arguments, refused before expert placement was ported:
+    a plan's policy runs on its grid (no window of 50 steps fills in 2);
+    ``--rebalance`` without ``--parallel`` is the JAX launcher's ValueError,
+    raised before any work; a forced proposal on one device (ep = 1) has
+    nothing to move: the step after it is balanced, nothing is re-placed
+    and the next checkpoint has no placement."""
+    out = tmp_path / "run"
+    if "parallel" not in kw and "rebalance" in kw:
+        with pytest.raises(ValueError, match="--rebalance needs --parallel"):
+            tlaunch.run("mula-7b-a1b", out=str(out), device="cpu", steps=2, **kw)
+        assert not out.exists()
+        return
+    steps = 5 if "rebalance_force_at" in kw else 2
+    res = tlaunch.run("mula-7b-a1b", out=str(out), device="cpu", steps=steps, batch=4,
+                      seq=32, d_model=64, log_every=100, ckpt_interval=4, **kw)
+    with open(out / "summary.json") as f:
+        summary = json.load(f)
+    assert [h["step"] for h in res] == list(range(steps)) and summary["rebalances"] == 0
+    assert summary["rebalance"] == ("50:1.25" if "parallel" in kw else None)
+    assert not any(h.get("rebalanced") for h in res)
+    # one EP rank is balanced by definition
+    assert all(h["moe_imbalance"] == 1.0 if "parallel" not in kw else h["moe_imbalance"] >= 1.0
+               for h in res)
+    if "rebalance_force_at" in kw:
+        assert res[kw["rebalance_force_at"] + 1]["moe_imbalance"] == 1.0
+        manifests = [json.loads(p.read_text()) for p in out.glob("ckpt/ckpt-*/MANIFEST.json")]
+        assert [m["step"] for m in manifests if m.get("valid")] == [4]
+        assert all("placement" not in m for m in manifests)
 
 
 @pytest.mark.parametrize("kw,match", [

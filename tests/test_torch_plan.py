@@ -114,12 +114,36 @@ def test_apply_to_model_matches_jax():
 
 @pytest.mark.parametrize("spec,item", [
     ("dp=2,pp=2", "item 5"), ("dp=2,ep=2,tp=2", "item 5"), ("pod=2,dp=2", "item 5"),
-    ("dp=2,fsdp", "item 5"), ("dp=2,ep=2,rebalance=50:1.25", "item 5"),
+    ("dp=2,fsdp", "item 5"),
     ("dp=2,tiles=auto", "item 7"), ("dp=2,tiles=64x256x256", "item 7")])
 def test_resolve_refuses_what_the_port_lacks(spec, item):
     cfg = treduced(tget("mula-7b-a1b"))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         ParallelPlan.parse(spec).resolve(cfg, global_batch=8)
+
+
+@pytest.mark.parametrize("spec", ["dp=2,ep=2,rebalance=50:1.25"])
+def test_resolve_takes_rebalance(spec):
+    """A rebalance policy resolves (it was refused before expert placement
+    was ported); the live placement starts as the identity (None) and
+    ``with_placement`` swaps it, as in the JAX ``ResolvedPlan``. A model
+    without experts is refused with the JAX message."""
+    from repro_torch.parallel.placement import ExpertPlacement
+    cfg = treduced(tget("mula-7b-a1b"))
+    r = ParallelPlan.parse(spec).resolve(cfg, global_batch=8)
+    assert r.plan.rebalance_params() == (50, 1.25) and r.spec() == spec
+    assert r.placement is None and r.grid == (2, 2)
+    placed = ExpertPlacement.broadcast(tuple(reversed(range(cfg.moe.num_experts))),
+                                       cfg.num_layers)
+    moved = r.with_placement(placed)
+    assert moved.placement == placed and r.placement is None
+    assert moved.layout_signature() == r.layout_signature()
+    dense = treduced(tget("mula-1b"))
+    with pytest.raises(ValueError) as te:
+        ParallelPlan.parse("dp=2,rebalance=50:1.25").resolve(dense)
+    with pytest.raises(ValueError) as je:
+        JPlan.parse("dp=2,rebalance=50:1.25").validate_model(jreduced(jget("mula-1b")))
+    assert str(te.value) == str(je.value)
 
 
 def test_resolve_gives_the_grid():

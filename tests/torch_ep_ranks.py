@@ -197,3 +197,58 @@ def grid_checkpoint_rank(grid, tc, spec, root, action):
     params = ck.restore_model_only(
         init_state(tc, train, seed=2, grid=grid, opt_sharding_mode=plan.opt_shard).params, 5)
     return {"error": error, "step": step, "state": restored, "model_only": params}
+
+
+def placement_rank(grid, tc, train, runs, batches, rows):
+    """One rank of a grid: for each (mode, overlap) of ``runs``, from
+    init_state(seed 0), one step per batch on the rank's rows unplaced;
+    then the same from a fresh state moved (``apply_placement``) to the
+    placement of ``rows``, with the step built for it. Per run: both runs'
+    metrics, the keys of the moved params' tiles that differ from the same
+    tiles of the whole init params permuted on one process, the bytes the
+    move sent, and the keys of the leaves (params, master, m, v) where the
+    placed run's state differs from the unplaced run's moved to the same
+    placement."""
+    from repro_torch.models import init_params
+    from repro_torch.parallel.placement import (ExpertPlacement, apply_placement,
+                                                permute_expert_tree)
+    from repro_torch.parallel.sharding import tile_slices
+    from repro_torch.train import init_state, state_layout
+    from repro_torch.tree import keyed_leaves
+
+    rank, world = grid.world.rank, grid.world.world
+    L, E = tc.num_layers, tc.moe.num_experts
+    ident, placed = ExpertPlacement.identity(L, E), ExpertPlacement(L, E, rows)
+    whole = dict(keyed_leaves(permute_expert_tree(init_params(tc, seed=0, device="cpu"),
+                                                  ident.relative_to(placed), L, E), ".params"))
+    out = {}
+    for mode, overlap in runs:
+        layout = state_layout(tc, grid.axis_sizes, mode)
+
+        def run(placement, state):
+            step = make_train_step(tc, ParallelConfig(opt_overlap=overlap), train,
+                                   opt_sharding_mode=mode, grid=grid, placement=placement)
+            metrics = []
+            for b in batches:
+                n = b["tokens"].shape[0] // world
+                state, m = step(state, {k: v[rank * n:(rank + 1) * n] for k, v in b.items()})
+                metrics.append({k: m[k].clone() for k in KEYS if k in m})
+            return state, metrics
+
+        unplaced, m_unplaced = run(None, init_state(tc, train, seed=0, grid=grid,
+                                                    opt_sharding_mode=mode))
+        moved, sent = apply_placement(init_state(tc, train, seed=0, grid=grid,
+                                                 opt_sharding_mode=mode),
+                                      ident, placed, grid=grid, layout=layout)
+        tiles_differ = [key for key, t in keyed_leaves(moved.params, ".params")
+                        if not torch.equal(t, whole[key][tile_slices(
+                            layout[key][1], layout[key][0], grid.coords, grid.axis_sizes)])]
+        placed_state, m_placed = run(placed, moved)
+        apply_placement(unplaced, ident, placed, grid=grid, layout=layout)
+        state_differ = [k for (k, a), (_, b) in zip(keyed_leaves(placed_state),
+                                                    keyed_leaves(unplaced))
+                        if not torch.equal(a, b)]
+        out[(mode, overlap)] = {"unplaced": m_unplaced, "placed": m_placed,
+                                "tiles_differ": tiles_differ, "sent": sent,
+                                "state_differ": state_differ}
+    return out
