@@ -13,8 +13,9 @@ Phases, each printing JSON lines:
   device     the card (nvidia-smi name and power limit) and the time to
              build the CUDA kernels from ``src/repro_torch/csrc``;
   kernels    each kernel against its plain PyTorch version on the card, at
-             the serving, training, hybrid, expert-parallel and epso_train
-             paths' shapes,
+             the serving, training, hybrid, expert-parallel, epso_train and
+             a2a_train paths' shapes (the dispatch plan also in its
+             uniform-capacity mode),
              with its time, the plain version's, one PyTorch library call's
              where there is one, and its bound (the MoE dispatch plan also
              with the host's time to enqueue it and the plain chain, and
@@ -63,7 +64,7 @@ Phases, each printing JSON lines:
              serve step, then 32 greedy tokens each; the forward against
              the stepped decode at 64 and 16 layers; the device launches of
              one decode step; no port kernel launched;
-  ssm_train  falcon-mamba-7b at full width cut to 4 layers takes 4 steps of
+  ssm_train  falcon-mamba-7b at full width cut to 2 layers takes 4 steps of
              2 x 2048 tokens: finite metrics, a falling loss, clip_scale
              <= 1, no port kernel; one step profiled on the device alone
              (busy time, idle share, device launches);
@@ -97,6 +98,25 @@ Phases, each printing JSON lines:
              launch count of every kernel; prints step ms and peak memory per
              rank and mode, the update plan's buckets and the host ms of the
              collectives (no speed: the ranks time-share one card);
+  a2a_train  inside epso_train's ranks: the same grid in 'epso'/'ring'
+             with the all-to-all Stage 1 (``stage1='a2a'``, the dispatch
+             plan's uniform-capacity mode for the send buffers) against an
+             allgather run, both at capacity factor 2.5 (at the config's
+             1.25 both drop pairs) and peak lr 1e-4, 6 steps each: no
+             drops, the same
+             metrics on every rank, losses within 2e-3 relative, the exact
+             launch count (two dispatch plans a layer and forward); prints
+             both Stage 1s' bytes (computed) and step ms;
+  tp_train   inside epso_train's ranks, on grids re-cut from the same 4
+             processes: ep = 2 x tp = 2 in 'none' and 'epso'/'ring', ep = 1
+             x tp = 4 (expert-TP) in 'epso'/'ring', 4 dropless steps each on
+             the same fixed batch (the tp ranks of one (data, ep) share its
+             rows), without the router's aux and z terms (their EP form
+             depends on how the batch is split) at peak lr 1e-4: the same
+             loss, grad norm and counts on every rank, losses within 2e-3
+             of the same run on the 2 x 2 grid, the state bytes the EPSO
+             plan gives a rank, the exact launch count; prints peak memory
+             and step ms a rank;
   placement_train  inside epso_train's ranks: the same grid in
              'epso'/'ring' with dropless dispatch, 6 steps from
              init_state(seed 0) unplaced; then the state after step 2 (kept
@@ -129,15 +149,16 @@ Phases, each printing JSON lines:
              step 12: two relaunches and node swaps, both checkpoint slots
              valid at steps 10 and 15, a history bit-identical to the clean
              run's and the exact launch count of every kernel of the path;
-  launcher_grid_dense  launcher_dense's run (its checkpoint at step 4)
-             through the multi-rank
+  launcher_grid_dense  launcher_dense's run (its checkpoint at step 4) at
+             6 of Mula-1B's 16 layers through the multi-rank
              launcher, ``parallel='dp=4'``, ``opt_shard='so'``: four ranks
              share the card over gloo, one 2048-token row each, then the
-             same call resumes from step 4. Asserts resumed step 5
+             same call resumes from step 4; beside it the same run on one
+             rank at the same depth. Asserts resumed step 5
              bit-identical, losses finite, falling and within 1 % of
-             launcher_dense's, the checkpoint's members (whole arrays)
-             those of launcher_dense, the MANIFEST's plan layout, and each
-             rank's state bytes exactly ``state_bytes_per_device``;
+             the one-rank run's, the checkpoint's members (whole arrays)
+             those of the one-rank run, the MANIFEST's plan layout, and
+             each rank's state bytes exactly ``state_bytes_per_device``;
   launcher_grid_ft  launcher_ft's runs on a dp = 2 x ep = 2 grid under
              EPSO: on every rank two relaunches with the node swaps, valid
              slots at steps 10 and 15, the clean run's history, the exact
@@ -145,6 +166,11 @@ Phases, each printing JSON lines:
              0.1 % of launcher_ft's for steps 0-2 and 5 % after, both runs'
              MoE drops side by side; then 4 steps of the same plan through
              ``python -m repro_torch.launch.train``;
+  launcher_grid_tp  launcher_ft's run on ``parallel='dp=1,ep=2,tp=2'``
+             under EPSO, clean and with a hard failure at step 7: one
+             relaunch, a bit-identical history, the plan's layout in the
+             MANIFEST, exact launches, losses within 2e-3 of launcher_ft's
+             at the steps where neither run drops pairs;
   launcher_grid_rebalance  launcher_grid_ft's run with live EP
              rebalancing (``rebalance=2:1.0``, a forced proposal after step
              3), clean and with a hard failure after the step-5 checkpoint:
@@ -196,6 +222,29 @@ EPSO_RUNS = (("none", "off"), ("so", "off"), ("epso", "ring"), ("epso", "xla"))
 # per-rank fp32 master + m + v bytes of full-width Mula-7B-A1B at 2 layers on
 # the 2 x 2 grid (optim.epso.state_bytes_per_device; every leaf divides)
 EPSO_STATE_BYTES = {"none": 7_716_593_664, "so": 3_858_296_832, "epso": 3_137_107_968}
+# a2a_train (inside epso_train's ranks): the all-to-all Stage 1 in
+# 'epso'/'ring', EPSO_STEPS steps, losses within A2A_LOSS_TOL of an allgather
+# run at the same capacity factor A2A_CF and peak lr CMP_LR. Not the config's
+# 1.25: there the routing concentrates after step 1 and both runs drop pairs
+# (measured on the H100: the a2a 1,560-4,048 a step from step 2, the allgather
+# 1,546 at step 5). At 2.5 neither can drop whatever the routing: a send group
+# holds Cd = 20,480 >= T * K = 16,384 rows, the inner pool 40,960 >= 2 *
+# 16,384 + 32 * 127 (its alignment slack), the allgather pool 45,056 >=
+# 32,768 + 32 * 127. The peak lr of both comparisons (a2a, tp) is CMP_LR, not
+# epso_train's 4e-4: its steps clip the gradient to a fifth, and two runs'
+# bf16 difference at equal params (1.35e-5 of the loss) grew to 6.0e-3 by
+# step 5 (measured on the H100)
+A2A_CF, CMP_LR, A2A_LOSS_TOL = 2.5, 1e-4, 2e-3
+# tp_train (inside epso_train's ranks, on grids re-cut from the same 4
+# processes): (dp, ep, tp) and the (mode, overlap) runs on it, dropless,
+# without the router's aux and z terms, TP_STEPS steps each, losses within
+# TP_LOSS_TOL of the same run on the spawn's 2 x 2 grid (its 'epso'/'ring').
+# The aux and z losses are the mean of the ranks' (the reference's EP
+# semantics), so a grid that splits the batch otherwise has other ones: with
+# them the step-0 loss of ep = 2 x tp = 2 'none' was 5.4e-4 off the 2 x 2
+# run's, 3.8e-3 by step 3 (measured on the H100)
+TP_GRIDS = (((1, 2, 2), (("none", "off"), ("epso", "ring"))), ((1, 1, 4), (("epso", "ring"),)))
+TP_STEPS, TP_LOSS_TOL = 4, 2e-3
 # placement_train (inside epso_train's ranks): 'epso'/'ring', dropless, a move
 # of the expert stacks and their states after step PLACEMENT_MOVE_AFTER to a
 # placement from seed PLACEMENT_SEED; steps after the move within
@@ -220,6 +269,11 @@ FT_INJECT = dict(inject_hard_at=7, inject_soft_at=12)
 # smoke's time limit); fewer steps would not do: full-depth Mula-1B's loss
 # falls below step 0's only at step 5
 GRID_DENSE_RUN = dict(DENSE_RUN, ckpt_interval=4, parallel="dp=4", opt_shard="so")
+# launcher_grid_dense runs GRID_DENSE_LAYERS of Mula-1B's 16 layers (the
+# smoke's time limit: the save and restore of its gathered tiles
+# through gloo took ~75 s of its ~250 s at full depth), against a one-rank
+# run of the same depth
+GRID_DENSE_LAYERS = 6
 GRID_FT_DP, GRID_FT_EP = 2, 2
 GRID_FT_RUN = dict(FT_RUN, parallel=f"dp={GRID_FT_DP},ep={GRID_FT_EP}", opt_shard="epso")
 # one MoE call of launcher_grid_ft on one rank: its ep group's rows, gathered
@@ -232,6 +286,13 @@ GRID_DENSE_LAYOUT = {"axes": [["data", 4]], "opt_shard": "so", "fsdp": False}
 GRID_REB_RUN = dict(GRID_FT_RUN, parallel=f"dp={GRID_FT_DP},ep={GRID_FT_EP},rebalance=2:1.0",
                     rebalance_force_at=3)
 GRID_REB_INJECT = dict(inject_hard_at=7)
+# launcher_grid_tp: launcher_ft's run on an ep = 2 x tp = 2 grid under EPSO,
+# clean and with a hard failure at step 7 (a relaunch from step 5); losses
+# within GRID_TP_LOSS_TOL of launcher_ft's at the steps where neither drops
+GRID_TP_RUN = dict(FT_RUN, parallel="dp=1,ep=2,tp=2", opt_shard="epso")
+GRID_TP_INJECT = dict(inject_hard_at=7)
+GRID_TP_LOSS_TOL = 2e-3
+GRID_TP_LAYOUT = {"axes": [["ep", 2], ["tp", 2]], "opt_shard": "epso", "fsdp": False}
 
 
 T_START = time.perf_counter()
@@ -661,12 +722,12 @@ def dispatch_plan_cases(cfg, gen) -> list[dict]:
     def routed(T):
         return torch.rand((T, E), generator=gen, device=DEV).topk(K, dim=-1).indices
 
-    def forced(single, el, off, rows):
+    def forced(single, el, off, rows, uniform=False):
         def call(i):
             saved = dp.SINGLE_BLOCK_MAX
             dp.SINGLE_BLOCK_MAX = 1 << 31 if single else 0
             try:
-                return ops.dispatch_plan(i, el, off, rows, align)
+                return ops.dispatch_plan(i, el, off, rows, align, uniform)
             finally:
                 dp.SINGLE_BLOCK_MAX = saved
         return call
@@ -694,17 +755,33 @@ def dispatch_plan_cases(cfg, gen) -> list[dict]:
                 torch.rand((GRID_FT_TOKENS, ft.num_experts), generator=gen, device=DEV).topk(
                     ft.experts_per_token, dim=-1).indices, ftl, ftl,
                 moe.dispatch_pool_rows(GRID_FT_TOKENS, ft, local_experts=ftl))]
+    shapes = [s + (False,) for s in shapes]
+    # the all-to-all Stage 1 of epso_train's a2a mode (one EP_SEQ-token row a
+    # rank, EPSO_EP ranks): the outer plan routes a rank's pairs to their
+    # destination ranks in uniform groups of Cd rows; the inner plan takes
+    # the EPSO_EP * Cd received rows, one pair each, among the rank's ELG
+    # experts (an empty row holds the sentinel ELG)
+    Cd = moe.round_up(math.ceil(A2A_CF * EP_SEQ * K / EPSO_EP), 8)
+    shapes += [(f"a2a outer F={EP_SEQ * K} ep={EPSO_EP} Cd={Cd} uniform",
+                routed(EP_SEQ) // ELG, EPSO_EP, 0, EPSO_EP * Cd, True)]
+    fill = torch.rand((EPSO_EP * Cd,), generator=gen, device=DEV) < 0.8
+    inner = torch.where(fill, torch.randint(0, ELG, (EPSO_EP * Cd,), generator=gen, device=DEV),
+                        torch.full((EPSO_EP * Cd,), ELG, device=DEV))
+    shapes += [(f"a2a inner F={EPSO_EP * Cd} K'=1", inner[:, None], ELG, 0,
+                moe.round_up(moe.round_up(math.ceil(A2A_CF * EP_SEQ * K), 8), ELG * align),
+                False)]
     cases = []
-    for name, ids, el, off, rows in shapes:
+    for name, ids, el, off, rows, uni in shapes:
         F = ids.numel()
         cases.append(dict(
             kernel="dispatch_plan", case=f"{name} EL={el} pool={rows} (int64 ids)", args=(ids,),
-            fn=lambda i, el=el, off=off, rows=rows: ops.dispatch_plan(i, el, off, rows, align),
-            plain=lambda i, el=el, off=off, rows=rows: ref.dispatch_plan_ref(
-                i.reshape(-1), el, off, rows, align),
+            fn=lambda i, el=el, off=off, rows=rows, uni=uni: ops.dispatch_plan(
+                i, el, off, rows, align, uni),
+            plain=lambda i, el=el, off=off, rows=rows, uni=uni: ref.dispatch_plan_ref(
+                i.reshape(-1), el, off, rows, align, uni),
             library=None, library_note="none: no single PyTorch call computes the plan",
-            plain_host=True, variants={"one_block": forced(True, el, off, rows),
-                                       "three_launches": forced(False, el, off, rows)},
+            plain_host=True, variants={"one_block": forced(True, el, off, rows, uni),
+                                       "three_launches": forced(False, el, off, rows, uni)},
             bytes=8 * F + 9 * F + 12 * el + 8 + 9 * rows, flops=0.0, peak=BF16_TENSOR_FLOPS,
             tol="exact"))
     return cases
@@ -1088,6 +1165,19 @@ def expected_train_launches(num_layers: int, microbatches: int, steps: int) -> d
     return {"gmm": 9 * n, "tgmm": 3 * n, "swiglu": 2 * n, "swiglu_bwd": n,
             "combine": 3 * n, "combine_bwd": n, "flash_attention": 0, "ssd_intra_chunk": 0,
             "token_counts": 2 * n, "dispatch_plan": 2 * n}
+
+
+def expected_a2a_launches(num_layers: int, microbatches: int, steps: int) -> dict:
+    """``expected_train_launches`` under the all-to-all Stage 1: per layer
+    and microbatch two dispatch plans a forward (the uniform outer plan
+    into the send buffers, the inner plan of the received rows) and two
+    combines a forward (the inner K' = 1 weighting, the sum of a token's K
+    rows at the source), each with its combine_bwd; the backward gathers
+    of the send buffers and of the inner pool each sum with one combine."""
+    n = num_layers * microbatches * steps
+    return {"gmm": 9 * n, "tgmm": 3 * n, "swiglu": 2 * n, "swiglu_bwd": n,
+            "combine": 6 * n, "combine_bwd": 2 * n, "flash_attention": 0, "ssd_intra_chunk": 0,
+            "token_counts": 2 * n, "dispatch_plan": 4 * n}
 
 
 def phase_train() -> dict:
@@ -1644,10 +1734,10 @@ HYBRID_REF_TOL = 1e-3
 # tokens stepped through the serve step, then 32 greedy tokens each
 SSM_SERVE_ROWS, SSM_PREFILL_LEN, SSM_PROMPT_LEN, SSM_NEW = 2, 1024, 128, 32
 SSM_DEPTHS = (16,)            # and all 64: the forward against the stepped decode
-# ssm_train: falcon-mamba-7b at full width, 4 of 64 layers (64 need ~116 GB;
-# 8 until the smoke's time limit pressed: the phase is host-bound, its time
-# goes with the layer count)
-SSM_TRAIN_LAYERS, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_STEPS = 4, 2048, 2, 4
+# ssm_train: falcon-mamba-7b at full width, 2 of 64 layers (64 need ~116 GB;
+# 8, then 4, until the smoke's time limit pressed: the phase is host-bound,
+# its time goes with the layer count, ~6 s a layer and step)
+SSM_TRAIN_LAYERS, SSM_TRAIN_SEQ, SSM_TRAIN_BATCH, SSM_TRAIN_STEPS = 2, 2048, 2, 4
 # launcher_ssm: both archs reduced, through the launcher as launcher_dense runs
 LAUNCHER_SSM_RUNS = {
     ZAMBA: dict(scale="smoke", d_model=512, layers=5, steps=6, batch=4, seq=256,
@@ -2431,7 +2521,93 @@ def _epso_train_rank(grid, steps):
         del state, step, m
     return {"runs": out, "coords": grid.coords, "backend": grid.world.backend,
             "device": str(grid.world.device),
-            "placement": _placement_train_rank(grid, cfg, train, mine, PLACEMENT_STEPS)}
+            "placement": _placement_train_rank(grid, cfg, train, mine, PLACEMENT_STEPS),
+            "a2a": _a2a_train_rank(grid, cfg, train, mine, steps),
+            "tp": _tp_train_rank(grid, cfg, train, batch)}
+
+
+def _history_run(cfg, train, grid, mode, overlap, rows, steps):
+    """``steps`` steps of ``cfg`` from init_state(seed 0) on ``grid`` in
+    ``mode``/``overlap`` on the rank's ``rows``: per step the metrics, the
+    counts and the step ms; the launches, the peak memory and the state
+    bytes held."""
+    import torch
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.kernels import ops
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.tree import leaves
+
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, train, seed=0, grid=grid, opt_sharding_mode=mode)
+    par = ParallelConfig(microbatches=1, remat_policy="block", opt_overlap=overlap)
+    step = make_train_step(cfg, par, train, opt_sharding_mode=mode, grid=grid)
+    held = sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m, state.opt.v)
+               for t in leaves(tree))
+    history = []
+    ops.reset_launches()
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, rows)
+        torch.cuda.synchronize()
+        history.append({**{k: float(m[k]) for k in keys},
+                        "counts": m["moe_counts"].double().cpu().tolist(),
+                        "step_ms": (time.perf_counter() - t0) * 1e3})
+    out = {"history": history, "launches": dict(ops.launches), "state_bytes": held,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    del state, step
+    return out
+
+
+def _a2a_train_rank(grid, cfg, train, mine, steps):
+    """a2a_train on one rank of the epso grid: the all-to-all Stage 1
+    (``stage1='a2a'``) and the allgather one, both at capacity factor
+    A2A_CF and peak lr CMP_LR in 'epso'/'ring', ``steps`` steps from
+    init_state(seed 0) on the rank's row."""
+    import dataclasses
+    train = dataclasses.replace(train, lr_peak=CMP_LR, lr_min=CMP_LR / 10)
+    return {stage1: _history_run(dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, stage1=stage1, capacity_factor=A2A_CF)), train, grid, "epso", "ring", mine,
+        steps) for stage1 in ("a2a", "allgather")}
+
+
+def _tp_train_rank(grid, cfg, train, batch):
+    """tp_train on one rank: the reference run on the spawn's own grid
+    ('epso'/'ring'), then for each (dp, ep, tp) of TP_GRIDS a grid re-cut
+    from the same processes (``init_grid`` over the world), the rank's rows
+    (block d * ep + e of the batch, the same on its tp peers) and, for each
+    (mode, overlap), TP_STEPS steps from init_state(seed 0): dropless,
+    without router terms, at peak lr CMP_LR; the state bytes the EPSO plan
+    gives the rank."""
+    import dataclasses
+
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.parallel import init_grid
+    from repro_torch.train.trainer import placements
+
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch="dropless", router_aux_coef=0.0, router_z_coef=0.0))
+    train = dataclasses.replace(train, lr_peak=CMP_LR, lr_min=CMP_LR / 10)
+    shapes = init_params(cfg, device="meta")
+    r = grid.world.rank
+    out = {"reference": _history_run(cfg, train, grid, "epso", "ring",
+                                     {k: v[r:r + 1] for k, v in batch.items()}, TP_STEPS)}
+    for (dp, ep, tp), runs in TP_GRIDS:
+        g = init_grid(grid.world, dp, ep, tp)
+        n = batch["tokens"].shape[0] // (dp * ep)
+        b = g.coords["data"] * ep + g.coords["ep"]
+        rows = {k: v[b * n:(b + 1) * n] for k, v in batch.items()}
+        sizes = g.axis_sizes
+        for mode, overlap in runs:
+            run = _history_run(cfg, train, g, mode, overlap, rows, TP_STEPS)
+            run["state_bytes_expected"] = state_bytes_per_device(
+                shapes, placements(cfg, shapes, sizes), sizes, mode)
+            run["coords"] = g.coords
+            out[f"{dp}x{ep}x{tp} {mode}/{overlap}"] = run
+    return out
 
 
 def placement_row(num_experts: int, ep: int, seed: int = PLACEMENT_SEED) -> tuple:
@@ -2591,7 +2767,7 @@ def phase_epso_train() -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     ranks = spawn(_epso_train_rank, world, args=(EPSO_STEPS,), backend="gloo", device=DEV,
-                  timeout_s=900, grid=(EPSO_DP, EPSO_EP))
+                  timeout_s=1100, grid=(EPSO_DP, EPSO_EP))
     wall = time.perf_counter() - t0
     expect = expected_train_launches(EPSO_LAYERS, 1, EPSO_STEPS)
     keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
@@ -2662,7 +2838,154 @@ def phase_epso_train() -> dict:
                    "memory (the ring's point-to-point exchanges through pinned host "
                    "buffers, explicitly): no step time here is an EP, DP or EPSO speed"}
     emit("epso_train", **row)
-    return row, phase_placement_train(ranks, cfg)
+    return (row, phase_placement_train(ranks, cfg), phase_a2a_train(ranks, cfg),
+            phase_tp_train(ranks, cfg))
+
+
+def a2a_bytes(cfg, tokens: int, ep: int, cf: float) -> dict:
+    """Computed (from the shapes, not measured): the bytes one rank sends
+    to the other ranks for one MoE layer's forward, under the all-to-all
+    Stage 1 (ep - 1 of its ep send groups of Cd rows: the bf16 row, its
+    int64 expert position and f32 weight; the rows back) and under the
+    allgather (its ``tokens`` bf16 rows, int64 ids and f32 weights to each
+    of ep - 1 peers; the reduce-scatter of the bf16 partial outputs), and
+    a train step's (forward, the block remat's recompute and the backward,
+    each collective's backward the same bytes, times the layers)."""
+    import math
+    d, K = cfg.d_model, cfg.moe.experts_per_token
+    Cd = -(-math.ceil(cf * tokens * K / ep) // 8) * 8
+    a2a = (ep - 1) * Cd * (2 * d + 8 + 4) + (ep - 1) * Cd * 2 * d
+    ag = (ep - 1) * tokens * (2 * d + 12 * K) + (ep - 1) * tokens * 2 * d
+    return {"computed": True, "Cd": Cd, "a2a_bytes_per_layer_forward": a2a,
+            "allgather_bytes_per_layer_forward": ag,
+            "a2a_bytes_per_step": 3 * cfg.num_layers * a2a,
+            "allgather_bytes_per_step": 3 * cfg.num_layers * ag, "ratio": a2a / ag}
+
+
+def phase_a2a_train(ranks, cfg) -> dict:
+    """The a2a runs of epso_train's ranks (``_a2a_train_rank``): full-width
+    Mula-7B-A1B at EPSO_LAYERS layers on the EPSO_DP x EPSO_EP grid,
+    'epso'/'ring', capacity dispatch at A2A_CF and peak lr CMP_LR, against
+    the allgather 'epso'/'ring' run at the same factor and lr. Asserts no
+    drops in either, every rank the a2a run's metrics of
+    rank 0, the losses within A2A_LOSS_TOL relative at every step (the a2a
+    sums a token's K rows at the source, the allgather over the ranks:
+    another bf16 grouping), and the exact launch count: two dispatch plans
+    a layer and forward. Prints the bytes of both Stage 1s (computed) and
+    each run's step ms, on the same host."""
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    expect = expected_a2a_launches(EPSO_LAYERS, 1, EPSO_STEPS)
+    for i, rk in enumerate(ranks):
+        where = f"a2a_train rank {i}"
+        a, ref = rk["a2a"]["a2a"]["history"], rk["a2a"]["allgather"]["history"]
+        if [{k: s[k] for k in keys} for s in a] != [
+                {k: s[k] for k in keys} for s in ranks[0]["a2a"]["a2a"]["history"]]:
+            raise AssertionError(f"{where}: metrics differ from rank 0's")
+        if not all(math.isfinite(s[k]) for s in a for k in keys):
+            raise AssertionError(f"{where}: non-finite metrics")
+        if any(s["moe_drops"] != 0 for s in a + ref):
+            raise AssertionError(f"{where}: drops {[s['moe_drops'] for s in a]} (a2a), "
+                                 f"{[s['moe_drops'] for s in ref]} (allgather) at capacity "
+                                 f"factor {A2A_CF}: take a factor at which neither drops")
+        rel = [abs(x["loss"] - y["loss"]) / abs(y["loss"]) for x, y in zip(a, ref)]
+        if len(rel) != EPSO_STEPS or max(rel) > A2A_LOSS_TOL:
+            raise AssertionError(f"{where}: losses off the allgather run's by {rel} "
+                                 f"(> {A2A_LOSS_TOL})")
+        if rk["a2a"]["a2a"]["launches"] != expect:
+            raise AssertionError(f"{where}: launches {rk['a2a']['a2a']['launches']} != "
+                                 f"{expect}")
+    r0, ref0 = ranks[0]["a2a"]["a2a"], ranks[0]["a2a"]["allgather"]["history"]
+    row = {"model": cfg.name, "layers": EPSO_LAYERS, "grid": {"data": EPSO_DP, "ep": EPSO_EP},
+           "mode": "epso/ring/a2a", "capacity_factor": A2A_CF, "lr_peak": CMP_LR,
+           "steps": EPSO_STEPS,
+           "losses_a2a": [s["loss"] for s in r0["history"]],
+           "losses_allgather": [s["loss"] for s in ref0],
+           "loss_rel": [abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                        for x, y in zip(r0["history"], ref0)],
+           "grad_norms_a2a": [s["grad_norm"] for s in r0["history"]],
+           "grad_norms_allgather": [s["grad_norm"] for s in ref0],
+           "moe_drops": [s["moe_drops"] for s in r0["history"] + ref0],
+           "step_ms_by_rank_a2a": [[s["step_ms"] for s in rk["a2a"]["a2a"]["history"]]
+                                   for rk in ranks],
+           "step_ms_median_a2a": statistics.median(s["step_ms"] for s in r0["history"][1:]),
+           "step_ms_median_allgather": statistics.median(s["step_ms"] for s in ref0[1:]),
+           "peak_bytes_by_rank": [rk["a2a"]["a2a"]["peak_bytes"] for rk in ranks],
+           "stage1_bytes": a2a_bytes(cfg, EP_SEQ, EPSO_EP, A2A_CF),
+           "dispatch_plans_per_layer_forward": r0["launches"]["dispatch_plan"] / (
+               EPSO_LAYERS * EPSO_STEPS * 2),
+           "launches_per_rank": r0["launches"], "expected_launches": expect,
+           "tolerance": A2A_LOSS_TOL}
+    row["note"] = (f"4 ranks time-share one card over gloo; at ep = {EPSO_EP}, top "
+                   f"{cfg.moe.experts_per_token} and capacity factor {A2A_CF} the all-to-all "
+                   f"moves {row['stage1_bytes']['ratio']:.1f}x the allgather's bytes (computed; "
+                   f"it moves fewer only where ep > cf * K): no step time here is a speed of "
+                   f"either")
+    emit("a2a_train", **row)
+    return row
+
+
+def phase_tp_train(ranks, cfg) -> dict:
+    """The tp runs of epso_train's ranks (``_tp_train_rank``): full-width
+    Mula-7B-A1B at EPSO_LAYERS layers, the same fixed batch, dropless,
+    without router terms, at peak lr CMP_LR, on ep = 2 x tp = 2 ('none',
+    'epso'/'ring') and ep = 1 x tp = 4 (the expert-TP form, 'epso'/'ring'),
+    TP_STEPS steps each. Asserts on every rank finite metrics, no drops,
+    rank 0's loss, grad norm and counts, the losses within TP_LOSS_TOL
+    relative of the reference run (the same on the 2 x 2 grid, 'epso'/
+    'ring'), the state bytes the EPSO plan gives the rank (computed) and the
+    exact launch count; prints the peak memory and step ms a rank."""
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    ref = [s["loss"] for s in ranks[0]["tp"]["reference"]["history"]]
+    expect = expected_train_launches(EPSO_LAYERS, 1, TP_STEPS)
+    pairs = len(ranks) * EP_SEQ * cfg.moe.experts_per_token
+    runs = {}
+    for name in ranks[0]["tp"]:
+        if name == "reference":
+            continue
+        r0 = ranks[0]["tp"][name]["history"]
+        for i, rk in enumerate(ranks):
+            run, where = rk["tp"][name], f"tp_train {name} rank {i}"
+            h = run["history"]
+            if [{k: s[k] for k in ("loss", "grad_norm", "counts")} for s in h] != [
+                    {k: s[k] for k in ("loss", "grad_norm", "counts")} for s in r0]:
+                raise AssertionError(f"{where}: loss, grad norm or counts differ from rank 0's")
+            if not all(math.isfinite(s[k]) for s in h for k in keys) or \
+                    not all(s["clip_scale"] <= 1.0 for s in h):
+                raise AssertionError(f"{where}: non-finite metrics or clip_scale above 1")
+            if any(s["moe_drops"] != 0 for s in h) or any(sum(s["counts"]) != pairs for s in h):
+                raise AssertionError(f"{where}: drops or routed pairs off: "
+                                     f"{[(s['moe_drops'], sum(s['counts'])) for s in h]}")
+            rel = [abs(s["loss"] - b) / abs(b) for s, b in zip(h, ref)]
+            if len(rel) != TP_STEPS or max(rel) > TP_LOSS_TOL:
+                raise AssertionError(f"{where}: losses off the 2 x 2 dropless run's by {rel} "
+                                     f"(> {TP_LOSS_TOL})")
+            if run["state_bytes"] != run["state_bytes_expected"]:
+                raise AssertionError(f"{where}: state bytes {run['state_bytes']}, planned "
+                                     f"{run['state_bytes_expected']}")
+            if run["launches"] != expect:
+                raise AssertionError(f"{where}: launches {run['launches']} != {expect}")
+        runs[name] = {
+            "losses": [s["loss"] for s in r0],
+            "loss_rel_to_2x2": [abs(s["loss"] - b) / abs(b) for s, b in zip(r0, ref)],
+            "grad_norms": [s["grad_norm"] for s in r0],
+            "state_bytes_per_rank": ranks[0]["tp"][name]["state_bytes"],
+            "state_bytes_planned": ranks[0]["tp"][name]["state_bytes_expected"],
+            "peak_bytes_by_rank": [rk["tp"][name]["peak_bytes"] for rk in ranks],
+            "step_ms_median_by_rank": [statistics.median(s["step_ms"] for s in
+                                                         rk["tp"][name]["history"][1:])
+                                       for rk in ranks],
+            "coords_by_rank": [rk["tp"][name]["coords"] for rk in ranks]}
+    row = {"model": cfg.name, "layers": EPSO_LAYERS, "dispatch": "dropless", "steps": TP_STEPS,
+           "router_terms": False, "lr_peak": CMP_LR, "reference_losses_2x2": ref,
+           "reference_step_ms_median": statistics.median(
+               s["step_ms"] for s in ranks[0]["tp"]["reference"]["history"][1:]),
+           "runs": runs, "tolerance": TP_LOSS_TOL,
+           "launches_per_rank": ranks[0]["tp"][next(iter(runs))]["launches"],
+           "expected_launches": expect,
+           "note": "4 ranks time-share one card over gloo: the tensor-parallel all-reduces go "
+                   "through host memory; no step time here is a TP speed"}
+    emit("tp_train", **row)
+    return row
 
 
 def phase_placement_train(ranks, cfg) -> dict:
@@ -3043,18 +3366,24 @@ def _launcher_grid_rank(grid, spec):
         wall = time.perf_counter() - t0
         launches = dict(ops.launches)
     return {"result": result, "rec": rec, "launches": launches, "wall_s": wall,
-            "peak_bytes": torch.cuda.max_memory_allocated(), "coords": grid.coords}
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "coords": grid.coords if grid is not None else None}
 
 
-def _launch_grid(name: str, arch: str, run_kw: dict) -> tuple:
+def _launch_grid(name: str, arch: str, run_kw: dict, layers: int = 0) -> tuple:
     """``launch.train.prepare_run(arch, **run_kw)`` in this process, then its
     ranks through ``launch.train.launch_ranks`` with ``_launcher_grid_rank``
-    as the rank body; the run's spec, the ranks' results and the wall time.
-    Every rank must see the same history."""
+    as the rank body (in this process for a plan of one rank); the run's
+    spec, the ranks' results and the wall time. ``layers``: the model cut to
+    that many of its layers. Every rank must see the same history."""
+    import dataclasses
+
     import torch
     from repro_torch.launch import train as launch
     torch.cuda.empty_cache()
     spec = launch.prepare_run(arch, **run_kw)
+    if layers:
+        spec = dataclasses.replace(spec, cfg=dataclasses.replace(spec.cfg, num_layers=layers))
     t0 = time.perf_counter()
     ranks = launch.launch_ranks(spec, _launcher_grid_rank)
     wall = time.perf_counter() - t0
@@ -3064,25 +3393,35 @@ def _launch_grid(name: str, arch: str, run_kw: dict) -> tuple:
     return spec, ranks, wall
 
 
-def phase_launcher_grid_dense(dense: dict) -> dict:
-    """Full-depth Mula-1B through the multi-rank launcher: launcher_dense's
-    run (GRID_DENSE_RUN) with ``parallel='dp=4'`` and ``opt_shard='so'``,
-    four ranks sharing the card over gloo, one 2048-token row each; then the
-    same call, which resumes from the last checkpoint. The resumed steps must
-    agree bit for bit, the losses within 1 % of launcher_dense's (same seed),
-    the checkpoint hold launcher_dense's members (whole arrays) and the
-    plan's layout, each rank exactly its planned state bytes."""
+def phase_launcher_grid_dense() -> dict:
+    """Mula-1B at full width and GRID_DENSE_LAYERS of its 16 layers through
+    the multi-rank launcher: launcher_dense's run (GRID_DENSE_RUN) with
+    ``parallel='dp=4'`` and ``opt_shard='so'``, four ranks sharing the card
+    over gloo, one 2048-token row each; then the same call, which resumes
+    from the last checkpoint. Beside it the same run on one rank (no plan)
+    at the same depth. The resumed steps must agree bit for bit, the losses
+    within 1 % of the one-rank run's (same seed), the checkpoint hold the
+    one-rank run's members (whole arrays) and the plan's layout, each rank
+    exactly its planned state bytes."""
     from repro_torch.models import init_params
     from repro_torch.optim.epso import state_bytes_per_device
     from repro_torch.parallel.sharding import param_placements
 
-    out = LAUNCH_DIR / "grid_dense"
-    shutil.rmtree(out, ignore_errors=True)
+    out, one_out = LAUNCH_DIR / "grid_dense", LAUNCH_DIR / "grid_dense_one"
+    one_run = {k: v for k, v in GRID_DENSE_RUN.items() if k not in ("parallel", "opt_shard")}
+    for d in (out, one_out):
+        shutil.rmtree(d, ignore_errors=True)
     try:
+        _, one, wall_one = _launch_grid("launcher_grid_dense", DENSE_ARCH,
+                                        dict(one_run, out=str(one_out)), GRID_DENSE_LAYERS)
+        one_members = _npz_members(next((one_out / "ckpt").glob("ckpt-*/state.npz")))
+        shutil.rmtree(one_out, ignore_errors=True)
         spec, first, wall_first = _launch_grid("launcher_grid_dense", DENSE_ARCH,
-                                               dict(GRID_DENSE_RUN, out=str(out)))
+                                               dict(GRID_DENSE_RUN, out=str(out)),
+                                               GRID_DENSE_LAYERS)
         _, second, wall_second = _launch_grid("launcher_grid_dense", DENSE_ARCH,
-                                              dict(GRID_DENSE_RUN, out=str(out)))
+                                              dict(GRID_DENSE_RUN, out=str(out)),
+                                              GRID_DENSE_LAYERS)
         ckpt = next((out / "ckpt").glob("ckpt-*/state.npz"))
         members = _npz_members(ckpt)
         manifest = json.loads((ckpt.parent / "MANIFEST.json").read_text())
@@ -3090,7 +3429,9 @@ def phase_launcher_grid_dense(dense: dict) -> dict:
                  "model_only_ckpt_bytes": sum(f.stat().st_size for f in (out / "ckpt").glob(
                      "model-*.npz"))}
     finally:
-        shutil.rmtree(out, ignore_errors=True)
+        for d in (out, one_out):
+            shutil.rmtree(d, ignore_errors=True)
+    one_losses = [h["loss"] for h in one[0]["result"]]
     cfg = spec.cfg
     shapes = init_params(cfg, device="meta")
     want_bytes = state_bytes_per_device(shapes, param_placements(shapes, {"data": 4}),
@@ -3102,10 +3443,11 @@ def phase_launcher_grid_dense(dense: dict) -> dict:
     last_ckpt = (steps - 1) // every * every
     straight = {h["step"]: {k: h[k] for k in keys} for h in hist[last_ckpt + 1:]}
     losses = [h["loss"] for h in hist]
-    rel = [abs(a - b) / abs(b) for a, b in zip(losses, dense["losses"])]
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, one_losses)]
     row = {"model": DENSE_ARCH, "layers": cfg.num_layers, "run": GRID_DENSE_RUN,
            "ranks": len(first), "losses": losses, "grad_norms": [h["grad_norm"] for h in hist],
-           "loss_rel_to_launcher_dense": rel, "resumed_steps": resumed,
+           "losses_one_rank": one_losses, "loss_rel_to_one_rank": rel,
+           "one_rank_wall_s": wall_one, "resumed_steps": resumed,
            "step_ms_by_rank": [r["rec"]["step_ms"] for r in first],
            "step_ms_median_after_step_0_by_rank": [statistics.median(r["rec"]["step_ms"][1:steps])
                                                    for r in first],
@@ -3135,10 +3477,11 @@ def phase_launcher_grid_dense(dense: dict) -> dict:
     if not (_finite(hist) and losses[-1] < losses[0]):
         raise AssertionError(f"launcher_grid_dense: losses {losses} not finite and falling")
     if len(rel) != steps or max(rel) > 0.01:
-        raise AssertionError(f"launcher_grid_dense: losses off launcher_dense's by {rel} (> 1 %)")
-    if members != dense["ckpt_members"]:
+        raise AssertionError(f"launcher_grid_dense: losses off the one-rank run's by {rel} "
+                             f"(> 1 %)")
+    if members != one_members:
         raise AssertionError("launcher_grid_dense: the checkpoint's members differ from "
-                             "launcher_dense's (keys, whole shapes, dtypes)")
+                             "the one-rank run's (keys, whole shapes, dtypes)")
     if (manifest.get("plan") or {}).get("layout") != GRID_DENSE_LAYOUT:
         raise AssertionError(f"launcher_grid_dense: MANIFEST plan {manifest.get('plan')}")
     if any(r["rec"]["state_bytes"] != want_bytes for r in first + second):
@@ -3240,6 +3583,73 @@ def phase_launcher_grid_ft(ft: dict) -> dict:
             not _finite(cli_out["history"]) or (summary.get("parallel"), summary.get(
                 "opt_overlap"), summary.get("steps")) != ("dp=2,ep=2,opt=epso", "ring", 4):
         raise AssertionError(f"launcher_grid_ft: the command line run failed: {cli_out}")
+    return row
+
+
+def phase_launcher_grid_tp(ft: dict) -> dict:
+    """launcher_ft's runs on an ep = 2 x tp = 2 grid under EPSO
+    (GRID_TP_RUN: attention, the expert stacks' d_ff and the SO/EPSO state
+    split over 'tp'): clean, then with a hard failure at step 7 that
+    relaunches from the step-5 checkpoint. Every rank relaunches once and
+    ends with the clean run's history, bit for bit, and launches exactly
+    the kernels of 18 and 19 steps; the MANIFEST holds the plan's layout;
+    the losses are finite, fall, and lie within GRID_TP_LOSS_TOL relative
+    of launcher_ft's (same seed and data) at the steps where neither run
+    drops pairs (the capacity pools differ by design: ROADMAP.md §3, "Not
+    faults")."""
+    out = LAUNCH_DIR / "grid_tp"
+    shutil.rmtree(out, ignore_errors=True)
+    runs = {}
+    try:
+        for name, kw in (("clean", {}), ("faulty", GRID_TP_INJECT)):
+            runs[name] = _launch_grid("launcher_grid_tp", FT_ARCH,
+                                      dict(GRID_TP_RUN, out=str(out / name), **kw))[1:]
+        manifest = _newest_manifest(out / "faulty" / "ckpt")
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    (clean, clean_wall), (faulty, faulty_wall) = runs["clean"], runs["faulty"]
+    layers, steps = FT_RUN["layers"], FT_RUN["steps"]
+    expect = {"clean": expected_train_launches(layers, 1, steps),
+              "faulty": expected_train_launches(layers, 1, steps + 1)}
+    c0 = clean[0]["result"]
+    losses, drops = [h["loss"] for h in c0], [h["moe_drops"] for h in c0]
+    both_clean = [i for i, (a, b) in enumerate(zip(drops, ft["moe_drops"])) if a == 0 == b]
+    rel = {i: abs(losses[i] - ft["losses"][i]) / abs(ft["losses"][i]) for i in both_clean}
+    row = {"model": launcher_ft_cfg().name, "run": GRID_TP_RUN, "inject": GRID_TP_INJECT,
+           "ranks": len(clean), "coords_by_rank": [r["coords"] for r in clean],
+           "losses": losses, "losses_launcher_ft": ft["losses"], "moe_drops": drops,
+           "moe_drops_launcher_ft": ft["moe_drops"], "steps_without_drops": both_clean,
+           "loss_rel_to_launcher_ft": rel, "tolerance": GRID_TP_LOSS_TOL,
+           "relaunches_by_rank": [r["result"].relaunches for r in faulty],
+           "replaced_by_rank": [r["result"].replaced for r in faulty],
+           "history_bit_identical": list(faulty[0]["result"]) == list(c0),
+           "manifest_plan": manifest.get("plan"),
+           "step_ms_median_by_rank": [statistics.median(r["rec"]["step_ms"]) for r in clean],
+           "save_ms_rank0": faulty[0]["rec"]["save_ms"],
+           "restore_ms_rank0": faulty[0]["rec"]["restore_ms"],
+           "peak_bytes_by_rank": [r["peak_bytes"] for r in clean + faulty],
+           "wall_s": [clean_wall, faulty_wall],
+           "launches_per_rank": {"clean": clean[0]["launches"], "faulty": faulty[0]["launches"]},
+           "expected_launches": expect}
+    emit("launcher_grid_tp", **row)
+    for i, (c, f) in enumerate(zip(clean, faulty)):
+        where = f"launcher_grid_tp rank {i}"
+        if c["result"].relaunches != 0 or f["result"].relaunches != 1:
+            raise AssertionError(f"{where}: relaunches {c['result'].relaunches} / "
+                                 f"{f['result'].relaunches}")
+        if list(f["result"]) != list(c["result"]) or \
+                [h["step"] for h in f["result"]] != list(range(steps)):
+            raise AssertionError(f"{where}: the faulty run's history differs from the clean one")
+        if {"clean": c["launches"], "faulty": f["launches"]} != expect:
+            raise AssertionError(f"{where}: kernel launches {c['launches']} / "
+                                 f"{f['launches']} != expected {expect}")
+    if (manifest.get("plan") or {}).get("layout") != GRID_TP_LAYOUT:
+        raise AssertionError(f"launcher_grid_tp: MANIFEST plan {manifest.get('plan')}")
+    if not (_finite(c0) and c0[-1]["loss"] < c0[0]["loss"]):
+        raise AssertionError(f"launcher_grid_tp: losses {losses} not finite and falling")
+    if not both_clean or max(rel.values()) > GRID_TP_LOSS_TOL:
+        raise AssertionError(f"launcher_grid_tp: losses off launcher_ft's by {rel} at the "
+                             f"steps without drops (> {GRID_TP_LOSS_TOL})")
     return row
 
 
@@ -3544,11 +3954,12 @@ def main(argv=None) -> int:
     phase_launcher_ssm()
     phase_ep_reference()
     ep_train = phase_ep_train()
-    epso, placement = phase_epso_train()
+    epso, placement, a2a, tp = phase_epso_train()
     dense = phase_launcher_dense()
     ft = phase_launcher_ft()
-    grid_dense = phase_launcher_grid_dense(dense)
+    grid_dense = phase_launcher_grid_dense()
     grid_ft = phase_launcher_grid_ft(ft)
+    grid_tp = phase_launcher_grid_tp(ft)
     grid_reb = phase_launcher_grid_rebalance()
     phase_launches(get_config(MULA))
     emit("phase_times", seconds=PHASE_S, total_s=time.perf_counter() - T_START)
@@ -3565,13 +3976,17 @@ def main(argv=None) -> int:
                    "ep_train": ep_train["launches_per_rank"][name],
                    "epso_train": epso["launches_per_rank"][name],
                    "placement_train": placement["launches_per_rank"][name],
+                   "a2a_train": a2a["launches_per_rank"][name],
+                   "tp_train": tp["launches_per_rank"][name],
                    "launcher_dense": dense["launches"][name],
                    "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name],
                    "launcher_grid_dense": grid_dense["launches_per_rank"][name],
                    "launcher_grid_ft": grid_ft["launches_per_rank"]["clean"][name]
                    + grid_ft["launches_per_rank"]["faulty"][name],
                    "launcher_grid_rebalance": grid_reb["launches_per_rank"]["clean"][name]
-                   + grid_reb["launches_per_rank"]["faulty"][name]}
+                   + grid_reb["launches_per_rank"]["faulty"][name],
+                   "launcher_grid_tp": grid_tp["launches_per_rank"]["clean"][name]
+                   + grid_tp["launches_per_rank"]["faulty"][name]}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

@@ -46,12 +46,13 @@ files hold the same whole arrays. Model-only files have no MANIFEST, so
 their expert stacks are written back in global-id order (the JAX package
 writes them in placed order, with no record of the placement).
 
-On a dp x ep process grid (``grid=``, the rank's ``parallel.ProcessGrid``;
-every rank makes the same calls) the files are still the JAX package's:
-whole arrays. A rank holds a tile of each leaf (``parallel.sharding.
-tile_slices`` of the ``layout=`` the caller passes, ``train.state_layout``:
-expert slices over 'ep', SO/EPSO state shards). On save, leaf by leaf, the first
-rank holding each distinct tile sends it to rank 0, which assembles the leaf
+On a dp x ep x tp process grid (``grid=``, the rank's
+``parallel.ProcessGrid``; every rank makes the same calls) the files are
+still the JAX package's: whole arrays. A rank holds a tile of each leaf
+(``parallel.sharding.tile_slices`` of the ``layout=`` the caller passes,
+``train.state_layout``: expert slices over 'ep', tp shards, SO/EPSO state
+shards). On save, leaf by leaf, the first rank holding each distinct tile
+(so one of the tp replicas of a leaf 'tp' does not split) sends it to rank 0, which assembles the leaf
 on the host and writes the member: the host holds one leaf at a time. On
 restore rank 0 alone reads each member once and sends every rank its tile
 (paper §4, "Model Broadcasting"), which the rank writes into its live
@@ -330,7 +331,9 @@ class Checkpointer:
             if layout is None:
                 raise ValueError("a Checkpointer on a grid needs the layout of the ranks' "
                                  "tiles (layout=train.state_layout(...))")
-            if plan is not None and plan.grid != (grid.sizes["data"], grid.sizes["ep"]):
+            want = (grid.sizes["data"], grid.sizes["ep"]) + (
+                (grid.sizes["tp"],) if grid.sizes["tp"] > 1 else ())
+            if plan is not None and plan.grid != want:
                 raise ValueError(f"plan '{plan.spec()}' is a {plan.grid} grid, the ranks a "
                                  f"{grid.sizes} one")
             self._tiles = _Tiles(grid, layout)

@@ -8,10 +8,11 @@ parameter dict: the same nested layout, leaves as tensors.
 to start both packages from the same weights and optimizer state, since
 JAX's PRNG is not reproduced. Under expert parallelism each rank takes its
 share: ``parallel.expert_shard(params, rank, world)`` of the params and
-``opt_state_shard(opt, rank, world)`` of the AdamW state. On a dp x ep grid
-with a sharded optimizer (SO/EPSO), ``opt_state_for_rank`` cuts a rank's
-shards of the full state and ``opt_state_from_ranks`` puts the ranks'
-shards back together into full numpy arrays.
+``opt_state_shard(opt, rank, world)`` of the AdamW state. On a dp x ep (x
+tp) grid, ``params_for_rank`` cuts a rank's tiles of the params,
+``opt_state_for_rank`` its shards of the full optimizer state (any mode)
+and ``opt_state_from_ranks`` puts the ranks' shards back together into
+full numpy arrays; each cuts by ``parallel.sharding.tile_slices``.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ from repro_torch.models.model import init_params, padded_vocab
 from repro_torch.optim import AdamWState
 from repro_torch.optim.epso import optimizer_state_specs
 from repro_torch.parallel.grid import rank_coords
-from repro_torch.parallel.sharding import expert_shard, param_placements, tile_slices
+from repro_torch.parallel.sharding import expert_shard, tile_slices
+from repro_torch.train.trainer import placements
 from repro_torch.tree import leaves, leaves_with_path, tree_map
 
 
@@ -61,17 +63,29 @@ def opt_state_shard(opt: AdamWState, rank: int, world: int) -> AdamWState:
     return AdamWState(opt.step, *(expert_shard(t, rank, world) for t in (opt.master, opt.m, opt.v)))
 
 
-def _grid_specs(cfg: ModelConfig, dp: int, ep: int, mode: str):
-    sizes = {a: n for a, n in (("data", dp), ("ep", ep)) if n > 1}
+def _grid_specs(cfg: ModelConfig, dp: int, ep: int, mode: str, tp: int = 1):
+    sizes = {a: n for a, n in (("data", dp), ("ep", ep), ("tp", tp)) if n > 1}
     shapes = init_params(cfg, device="meta")
-    return shapes, optimizer_state_specs(shapes, param_placements(shapes, sizes), sizes,
-                                         mode), {"data": dp, "ep": ep}
+    place = placements(cfg, shapes, sizes)
+    return shapes, optimizer_state_specs(shapes, place, sizes, mode), \
+        {"data": dp, "ep": ep, "tp": tp}, place
+
+
+def params_for_rank(params: dict, cfg: ModelConfig, *, dp: int, ep: int, rank: int,
+                    tp: int = 1) -> dict:
+    """Copies of rank ``rank``'s tiles of a whole parameter tree on a dp x
+    ep x tp grid (rank = (d * ep + e) * tp + t): what ``train.init_state``
+    cuts there from the same whole params."""
+    _, _, sizes, place = _grid_specs(cfg, dp, ep, "none", tp)
+    coords = rank_coords(rank, sizes)
+    return tree_map(lambda t, pl: t[tile_slices(pl, t.shape, coords, sizes)].clone(),
+                    params, place)
 
 
 def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, rank: int,
-                       mode: str, device: DeviceLike = None) -> AdamWState:
-    """Rank ``rank``'s state on a dp x ep grid (rank = d * ep + e) under
-    ``opt_sharding_mode`` ``mode``, from a full AdamW state: the JAX
+                       mode: str, device: DeviceLike = None, tp: int = 1) -> AdamWState:
+    """Rank ``rank``'s state on a dp x ep x tp grid (rank = (d * ep + e) *
+    tp + t) under ``opt_sharding_mode`` ``mode``, from a full AdamW state: the JAX
     package's with numpy leaves (converted by ``opt_state_from_jax`` onto
     ``device``) or the port's. Each of master, m and v is cut by its state
     placement (``optim.epso.optimizer_state_specs`` of the port's param
@@ -79,7 +93,7 @@ def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, r
     ``train.init_state`` cuts on that rank from the same full state."""
     if not torch.is_tensor(leaves(opt.master)[0]):
         opt = opt_state_from_jax(opt, device=device)
-    _, specs, sizes = _grid_specs(cfg, dp, ep, mode)
+    _, specs, sizes, _ = _grid_specs(cfg, dp, ep, mode, tp)
     coords = rank_coords(rank, sizes)
 
     def cut(tree):
@@ -89,12 +103,12 @@ def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, r
 
 
 def opt_state_from_ranks(states: list, cfg: ModelConfig, *, dp: int, ep: int,
-                         mode: str) -> dict:
+                         mode: str, tp: int = 1) -> dict:
     """The inverse of ``opt_state_for_rank``: the ranks' states (in rank
     order) put back together into full float32 numpy arrays, ``{"master",
     "m", "v"}`` each a dict of leaves by path ('layers/moe/gate'), and
     ``"step"``. Ranks that hold the same tile must agree on it exactly."""
-    shapes, specs, sizes = _grid_specs(cfg, dp, ep, mode)
+    shapes, specs, sizes, _ = _grid_specs(cfg, dp, ep, mode, tp)
     out = {"step": int(states[0].step)}
     for what in ("master", "m", "v"):
         full = {path: np.full(tuple(leaf.shape), np.nan, dtype=np.float32)

@@ -13,8 +13,19 @@ package's ``core/moe.py``.
                          rank's tokens, all-gather tokens and routing
                          (Stage 1), Stages 2-5 on the gathered tokens with
                          the rank's slice of the experts, reduce-scatter
-                         back to the rank's tokens. The allgather Stage 1
-                         only: the all-to-all variant and expert-TP raise.
+                         back to the rank's tokens. With a 'tp' group
+                         (expert-TP) each rank holds a d_ff shard of its
+                         experts and the partial outputs are summed over
+                         'tp' before the reduce-scatter.
+* ``_fsmoe_a2a``         the all-to-all Stage 1 (``MoEConfig.stage1 =
+                         'a2a'``): each token goes only to the ranks owning
+                         its K experts, in uniform-capacity send buffers
+                         (the ``dispatch_plan`` kernel's uniform mode),
+                         and its K expert rows come back the same way.
+
+Expert-TP without EP (a 'tp' group and whole expert stacks split on d_ff,
+the JAX package's ``moe_etp_shard_map``) is the dense path on each rank's
+own tokens with its d_ff shard, the partial outputs summed over 'tp'.
 
 Each takes an optional ``placement``, the (E,) inverse row of an expert
 placement (``parallel.placement``: global expert id -> position), when the
@@ -44,6 +55,7 @@ histogram kernel.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import NamedTuple, Optional
 
@@ -52,7 +64,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.parallel.ep import (EPGroup, all_gather_tokens, all_reduce_sum,
-                                     reduce_scatter_tokens)
+                                     all_to_all_dim, all_to_all_rows, reduce_scatter_tokens,
+                                     tp_copy, tp_reduce)
 
 from .router import RouterOut, route
 
@@ -86,10 +99,13 @@ def init_moe_block(cfg, *, num_layers: int, generator: torch.Generator,
     return p
 
 
-def _shared_expert(p, x):
+def _shared_expert(p, x, tp=None):
+    """The shared experts, a dense SwiGLU MLP: under a 'tp' group its d_ff
+    is split like a dense MLP's, the partial outputs summed over 'tp'."""
     sp = p["shared"]
+    x = tp_copy(x, tp)
     h = F.silu(x @ sp["gate"].to(x.dtype)) * (x @ sp["up"].to(x.dtype))
-    return h @ sp["down"].to(x.dtype)
+    return tp_reduce(h @ sp["down"].to(x.dtype), tp)
 
 
 # ----------------------------------------------------------------------------
@@ -137,7 +153,7 @@ class MoeStats(NamedTuple):
 
 def make_dispatch_plan(indices: torch.Tensor, *, num_experts: int, pool_rows: int,
                        align: int = 8, expert_offset: int = 0,
-                       local_experts: int = 0) -> DispatchPlan:
+                       local_experts: int = 0, uniform_capacity: bool = False) -> DispatchPlan:
     """Stages 2 and 3: the histogram, then the index generation, in one
     kernel on the card (``ops.dispatch_plan``; ``ref.dispatch_plan_ref``,
     the JAX package's sort-based chain, on the CPU). indices: (T, K) global
@@ -146,10 +162,13 @@ def make_dispatch_plan(indices: torch.Tensor, *, num_experts: int, pool_rows: in
     offset r * EL); other ids sort to the sentinel key EL and are masked.
     Each expert's group is its count rounded up to ``align`` rows; the
     groups share the pool in expert order, and pairs past the pool's end
-    are dropped. The plan also holds the inverse map, pool row -> pair."""
+    are dropped. ``uniform_capacity``: every group is ``pool_rows // EL``
+    rows at offset ``g * pool_rows // EL`` instead (the all-to-all's send
+    buffers, one group per destination rank). The plan also holds the
+    inverse map, pool row -> pair."""
     EL = local_experts or num_experts
     slot, valid, counts, group_sizes, drops, inv_pair, pool_valid = ops.dispatch_plan(
-        indices, EL, expert_offset, pool_rows, align)
+        indices, EL, expert_offset, pool_rows, align, uniform_capacity)
     return DispatchPlan(slot, valid, counts, group_sizes, int(pool_rows), drops, inv_pair,
                         pool_valid)
 
@@ -260,16 +279,21 @@ class _CombineGather(torch.autograd.Function):
 
 def dispatch_compute_combine(gate_w, up_w, down_w, x, r: RouterOut, moe_cfg, *,
                              expert_offset: int = 0, local_experts: int = 0,
-                             dropless: bool = False):
+                             dropless: bool = False, pool_rows: Optional[int] = None):
     """x: (T, d) tokens (the gathered tokens under EP); the expert weights
     are the slice of ``local_experts`` experts from ``expert_offset`` (all
     of them by default). Returns (out (T, d), plan): under EP a partial
     output, the local experts' share. ``dropless``: size the pool for the
-    worst-case routing instead of by the capacity factor."""
+    worst-case routing instead of by the capacity factor. ``pool_rows``:
+    the capacity pool's rows (the all-to-all's inner dispatch gives its
+    own), rounded up to a multiple of ``EL * align``."""
     T, d = x.shape
     K = moe_cfg.experts_per_token
     EL = local_experts or moe_cfg.num_experts
-    rows = dispatch_pool_rows(T, moe_cfg, dropless=dropless, local_experts=EL)
+    if pool_rows is not None and not dropless:
+        rows = round_up(pool_rows, EL * ops.gmm_align())
+    else:
+        rows = dispatch_pool_rows(T, moe_cfg, dropless=dropless, local_experts=EL)
     plan = make_dispatch_plan(r.indices, num_experts=moe_cfg.num_experts, pool_rows=rows,
                               align=ops.gmm_align(), expert_offset=expert_offset,
                               local_experts=EL)
@@ -288,11 +312,15 @@ def dispatch_compute_combine(gate_w, up_w, down_w, x, r: RouterOut, moe_cfg, *,
 
 
 def _moe_dense(p, x, moe_cfg, *, dropless: bool = False, ep_group: Optional[EPGroup] = None,
-               aux: bool = True, placement=None):
+               aux: bool = True, placement=None, tp: Optional[EPGroup] = None):
     """Route, dispatch, compute, combine. Returns (out, router_out, MoeStats).
     With ``ep_group`` (the dense fallback under EP: every rank holds every
     expert and runs its own tokens) the aux and z losses and the stats are
-    those of the global batch. ``aux=False``: no aux, z or stats (None)."""
+    those of the global batch. With a 'tp' group ``tp`` the expert stacks
+    are the rank's d_ff shards (expert-TP without EP, the JAX package's
+    ``moe_etp_shard_map``): every tp rank dispatches the same tokens, and
+    the partial outputs are summed over 'tp'. ``aux=False``: no aux, z or
+    stats (None)."""
     reduce = None
     if ep_group is not None:
         def reduce(t):
@@ -300,12 +328,15 @@ def _moe_dense(p, x, moe_cfg, *, dropless: bool = False, ep_group: Optional[EPGr
     r = route(x, p["router"], num_experts=moe_cfg.num_experts,
               top_k=moe_cfg.experts_per_token,
               forced_uniform=moe_cfg.forced_uniform_routing, reduce=reduce, aux=aux)
-    rd = r if placement is None else RouterOut(r.weights, placement[r.indices], r.aux_loss,
-                                               r.z_loss)
-    out, plan = dispatch_compute_combine(p["gate"], p["up"], p["down"], x, rd, moe_cfg,
-                                         dropless=dropless)
+    # the expert path is a tp region: its inputs enter through tp_copy (their
+    # gradients are the shards' parts), its output leaves through tp_reduce
+    idx = r.indices if placement is None else placement[r.indices]
+    rd = RouterOut(tp_copy(r.weights, tp), idx, r.aux_loss, r.z_loss)
+    out, plan = dispatch_compute_combine(p["gate"], p["up"], p["down"], tp_copy(x, tp), rd,
+                                         moe_cfg, dropless=dropless)
+    out = tp_reduce(out, tp)
     if moe_cfg.num_shared_experts:
-        out = out + _shared_expert(p, x)
+        out = out + _shared_expert(p, x, tp)
     if not aux:
         return out, r, None
     counts = plan.counts if placement is None else plan.counts[placement]
@@ -328,70 +359,176 @@ def uses_ep(moe_cfg, world: int) -> bool:
     return moe_cfg.moe_impl == "fsmoe" and moe_cfg.num_experts % world == 0
 
 
-def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False, placement=None):
-    """Paper Algorithm 1 under EP, the allgather Stage 1. x: (T, d), the
-    rank's tokens; ``p`` holds the router and shared experts whole and the
-    rank's slice of the expert stacks (EL = E / world experts from rank *
-    EL). Returns (out (T, d), aux, z, MoeStats): aux and z averaged over the
-    ranks, the stats global."""
+def _ep_stats(plan_counts, drops, group: EPGroup, placement) -> MoeStats:
+    """The stats of one EP rank's dispatch made global over its 'ep' group
+    (the JAX ``_fsmoe_stats`` over 'ep'; 'data' is summed by the loss, and
+    'tp' ranks ran the same dispatch): the local counts gathered in rank
+    order, which is position order, then put back in global-id order; the
+    drops summed."""
+    counts = all_gather_tokens(plan_counts.float(), group)
+    return MoeStats(counts if placement is None else counts[placement], drops)
+
+
+def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False, placement=None,
+                 tp: Optional[EPGroup] = None):
+    """Paper Algorithm 1 under EP. x: (T, d), the rank's tokens; ``p`` holds
+    the router and shared experts whole and the rank's slice of the expert
+    stacks (EL = E / world experts from rank * EL). ``moe_cfg.stage1``:
+    'allgather' (the paper's) or 'a2a' (``_fsmoe_a2a``). With a 'tp' group
+    ``tp`` (expert-TP on top of EP, the allgather Stage 1 only) the slices
+    are the rank's d_ff shards and the partial outputs are summed over 'tp'
+    before the Stage 5 reduce-scatter. Returns (out (T, d), aux, z,
+    MoeStats): aux and z averaged over the ranks, the stats global."""
     E, world = moe_cfg.num_experts, group.world
     EL = E // world
-    if moe_cfg.stage1 != "allgather":
-        raise NotImplementedError(f"stage1={moe_cfg.stage1!r}: the port runs the allgather "
-                                  "Stage 1 only (the all-to-all dispatch is not ported)")
-    if moe_cfg.etp_shard_map:
-        raise NotImplementedError("expert-TP (etp_shard_map) is not ported")
+    if moe_cfg.stage1 not in ("allgather", "a2a"):
+        raise ValueError(f"stage1 must be 'allgather' or 'a2a', got {moe_cfg.stage1!r}")
     if E % world or p["gate"].shape[0] != EL:
         raise ValueError(f"EP over {world} ranks needs E % world == 0 and the rank's "
                          f"{EL}-expert slice; got E={E}, stack {tuple(p['gate'].shape)}")
-    # the router is replicated: each rank routes its own tokens
-    r = route(x, p["router"], num_experts=E, top_k=moe_cfg.experts_per_token,
-              forced_uniform=moe_cfg.forced_uniform_routing)
-    # placed order: global ids -> positions (the aux and z losses are taken
-    # on global ids inside route)
-    idx = r.indices if placement is None else placement[r.indices]
-    # Stage 1: all-gather the tokens and their routing, in rank order
-    r_g = RouterOut(all_gather_tokens(r.weights, group), all_gather_tokens(idx, group),
-                    r.aux_loss, r.z_loss)
-    x_g = all_gather_tokens(x, group)
-    # Stages 2-5 on the rank's experts; then the Stage-5 tail: the partial
-    # outputs summed over ranks, each rank keeping its own tokens' rows
-    out_partial, plan = dispatch_compute_combine(
-        p["gate"], p["up"], p["down"], x_g, r_g, moe_cfg, expert_offset=group.rank * EL,
-        local_experts=EL, dropless=dropless)
-    out = reduce_scatter_tokens(out_partial, group)
+    if moe_cfg.stage1 == "a2a":
+        if dropless:
+            raise ValueError(
+                "dispatch='dropless' does not compose with stage1='a2a': the all-to-all send "
+                "buffers are capacity-bounded by construction. Use the allgather Stage 1 "
+                "(stage1='allgather') for dropless.")
+        if tp is not None and tp.world > 1:
+            raise NotImplementedError(
+                "stage1='a2a' does not compose with expert-TP yet; use the allgather "
+                "Stage 1 for ep x tp plans")
+        out, aux, z, stats = _fsmoe_a2a(p, x, moe_cfg, group, placement=placement)
+    else:
+        # the router is replicated: each rank routes its own tokens
+        r = route(x, p["router"], num_experts=E, top_k=moe_cfg.experts_per_token,
+                  forced_uniform=moe_cfg.forced_uniform_routing)
+        # placed order: global ids -> positions (the aux and z losses are taken
+        # on global ids inside route)
+        idx = r.indices if placement is None else placement[r.indices]
+        # Stage 1: all-gather the tokens and their routing, in rank order (the
+        # expert path is a tp region under expert-TP)
+        r_g = RouterOut(all_gather_tokens(tp_copy(r.weights, tp), group),
+                        all_gather_tokens(idx, group), r.aux_loss, r.z_loss)
+        x_g = all_gather_tokens(tp_copy(x, tp), group)
+        # Stages 2-5 on the rank's experts; then the Stage-5 tail: the partial
+        # outputs summed over 'tp' and over ranks, each rank keeping its own
+        # tokens' rows
+        out_partial, plan = dispatch_compute_combine(
+            p["gate"], p["up"], p["down"], x_g, r_g, moe_cfg, expert_offset=group.rank * EL,
+            local_experts=EL, dropless=dropless)
+        out = reduce_scatter_tokens(tp_reduce(out_partial, tp), group)
+        # aux and z averaged over the ranks, the drops (each rank's own
+        # experts') summed
+        aux, z, drops = all_reduce_sum(torch.stack([r.aux_loss, r.z_loss, plan.drops.float()]),
+                                       group).unbind()
+        aux, z = aux / world, z / world
+        stats = _ep_stats(plan.counts, drops, group, placement)
     if moe_cfg.num_shared_experts:
-        out = out + _shared_expert(p, x)
-    # aux and z averaged over the ranks, the drops (each rank's own experts')
-    # summed; the local counts gathered in rank order, which is position
-    # order, then put back in global-id order
-    aux, z, drops = all_reduce_sum(torch.stack([r.aux_loss, r.z_loss, plan.drops.float()]),
+        out = out + _shared_expert(p, x, tp)
+    return out, aux, z, stats
+
+
+class _SendGather(torch.autograd.Function):
+    """send[row] = src[inv_pair[row]] * pool_valid[row] for a 1-D ``src``
+    of one value a pair (the routing weights): row ``row`` of the send
+    buffers is the pair that fills it. Backward: ``d_src[i] =
+    d_send[safe_slot[i]] * valid[i]``, a gather (each valid row belongs to
+    one pair)."""
+
+    @staticmethod
+    def forward(ctx, src, inv_pair, pool_valid, safe_slot, valid):
+        ctx.save_for_backward(safe_slot, valid)
+        return src[inv_pair] * pool_valid.to(src.dtype)
+
+    @staticmethod
+    def backward(ctx, d_send):
+        safe_slot, valid = ctx.saved_tensors
+        return d_send[safe_slot] * valid.to(d_send.dtype), None, None, None, None
+
+
+def _fsmoe_a2a(p, x, moe_cfg, group: EPGroup, *, placement=None):
+    """The all-to-all Stage 1 (the JAX package's ``_fsmoe_a2a_body``): each
+    (token, k) pair is sent only to the rank owning its expert, instead of
+    every token to every rank. Route the rank's T tokens; sort the pairs
+    by destination rank (``position // EL``) into ``ep`` uniform send
+    groups of Cd = round_up(ceil(cf * T * K / ep), 8) rows (the
+    uniform-capacity dispatch plan; pairs past Cd are dropped at the
+    source); exchange the rows, their expert positions (-1 for an empty
+    row) and their weights; dispatch the received rows among the EL local
+    experts with K' = 1 (sentinel EL for an empty row) into a pool of
+    round_up(ceil(cf * T * K), 8) rows, compute and weight them; send the
+    rows back and sum each token's K rows at the source. Its traffic a
+    rank and direction is ep * Cd rows of d against the allgather's (ep -
+    1) * T: less only where ep > cf * K. Returns (out (T, d), aux, z,
+    MoeStats): aux and z averaged over the ranks, the drops the send-side
+    plus the receive-side ones summed over the ranks, the counts those of
+    the received rows each rank dispatched, in global-id order."""
+    E, ep = moe_cfg.num_experts, group.world
+    EL, K = E // ep, moe_cfg.experts_per_token
+    T, d = x.shape
+    r = route(x, p["router"], num_experts=E, top_k=K,
+              forced_uniform=moe_cfg.forced_uniform_routing)
+    idx = r.indices if placement is None else placement[r.indices]
+
+    # the send buffers: ep groups of Cd rows, one per destination rank
+    Cd = round_up(int(math.ceil(moe_cfg.capacity_factor * T * K / ep)), 8)
+    plan = make_dispatch_plan(idx // EL, num_experts=ep, pool_rows=ep * Cd,
+                              uniform_capacity=True)
+    safe_slot = torch.clamp(plan.slot, max=ep * Cd - 1)
+    send_x = _PoolGather.apply(x, plan.inv_pair, plan.pool_valid, safe_slot, plan.valid, K)
+    send_e = torch.where(plan.pool_valid, idx.reshape(-1)[plan.inv_pair],
+                         torch.full_like(plan.inv_pair, -1))
+    send_w = _SendGather.apply(r.weights.reshape(-1).float(), plan.inv_pair, plan.pool_valid,
+                               safe_slot, plan.valid)
+
+    recv_x = all_to_all_rows(send_x, group)
+    recv_e = all_to_all_dim(send_e, group)
+    recv_w = all_to_all_rows(send_w, group)
+
+    # Stages 2-5 on the received rows, one pair each (K' = 1); an empty row
+    # takes the sentinel EL, which no local expert holds
+    local_e = torch.where(recv_e >= 0, recv_e - group.rank * EL, torch.full_like(recv_e, EL))
+    inner_cfg = dataclasses.replace(moe_cfg, experts_per_token=1)
+    inner_pool = round_up(int(math.ceil(moe_cfg.capacity_factor * T * K)), 8)
+    out_rows, inner = dispatch_compute_combine(
+        p["gate"], p["up"], p["down"], recv_x,
+        RouterOut(recv_w[:, None], local_e[:, None], r.aux_loss, r.z_loss), inner_cfg,
+        local_experts=EL, pool_rows=inner_pool)
+
+    # back to the source ranks, each token's K rows summed there
+    back = all_to_all_rows(out_rows, group)
+    yk = _CombineGather.apply(back, safe_slot, plan.valid, plan.inv_pair,
+                              plan.pool_valid).reshape(T, K, d)
+    out = ops.combine(yk, torch.ones((T, K), dtype=back.dtype, device=back.device))
+
+    aux, z, drops = all_reduce_sum(torch.stack([r.aux_loss, r.z_loss,
+                                                (plan.drops + inner.drops).float()]),
                                    group).unbind()
-    counts = all_gather_tokens(plan.counts.float(), group)
-    stats = MoeStats(counts if placement is None else counts[placement], drops)
-    return out, aux / world, z / world, stats
+    return out, aux / ep, z / ep, _ep_stats(inner.counts, drops, group, placement)
 
 
-def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None, aux: bool = True,
-                     placement=None):
+def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None,
+                     tp_group: Optional[EPGroup] = None, aux: bool = True, placement=None):
     """x: (B, S, d) -> (out (B, S, d), aux_loss, z_loss, MoeStats). With
     ``ep_group``, x is the rank's share of the batch: the block runs
     ``moe_fsmoe_ep`` when ``uses_ep`` says so, else the dense path with
-    whole expert stacks; either way aux, z and the stats are global.
-    ``aux=False`` (serving, which discards them; one device): the aux and z
-    losses and the stats are not computed, and are None. ``placement``: the
-    (E,) inverse placement row (global id -> position) of stacks stored in
-    placed order, or None."""
+    whole expert stacks; either way aux, z and the stats are global. With
+    ``tp_group`` (a 'tp' group of more than one rank) the expert stacks and
+    shared experts are the rank's d_ff shards (expert-TP), every tp rank
+    holding the same tokens. ``aux=False`` (serving, which discards them;
+    one device): the aux and z losses and the stats are not computed, and
+    are None. ``placement``: the (E,) inverse placement row (global id ->
+    position) of stacks stored in placed order, or None."""
     B, S, d = x.shape
     m = cfg.moe
     xt = x.reshape(B * S, d)
     dropless = m.dispatch == "dropless"
+    tp = tp_group if tp_group is not None and tp_group.world > 1 else None
     if placement is not None:
         placement = placement.long()       # the dispatch plan takes int64 ids
     if m.moe_impl == "naive":
-        if ep_group is not None:
+        if ep_group is not None or tp is not None:
             raise NotImplementedError("moe_impl='naive' is the single-device oracle; "
-                                      "it does not run under EP")
+                                      "it does not run under EP or TP")
         out, r = moe_naive(p, xt, m, aux=aux, placement=placement)
         if not aux:
             return out.reshape(B, S, d), None, None, None
@@ -399,16 +536,16 @@ def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None, aux: bool
         stats = MoeStats(ops.token_counts(r.indices, m.num_experts).float(),
                          torch.zeros((), device=x.device))
         return out.reshape(B, S, d), r.aux_loss, r.z_loss, stats
-    if ep_group is not None and not aux:
+    if (ep_group is not None or tp is not None) and not aux:
         raise ValueError("aux=False is for one device: under EP the aux and z losses "
                          "and the stats are reduced over the ranks")
     if ep_group is not None and uses_ep(m, ep_group.world):
         out, aux, z, stats = moe_fsmoe_ep(p, xt, m, ep_group, dropless=dropless,
-                                          placement=placement)
+                                          placement=placement, tp=tp)
         return out.reshape(B, S, d), aux, z, stats
     if p["gate"].shape[0] != m.num_experts:
         raise ValueError(f"the dense path needs every expert; the stack holds "
                          f"{p['gate'].shape[0]} of {m.num_experts}")
     out, r, stats = _moe_dense(p, xt, m, dropless=dropless, ep_group=ep_group, aux=aux,
-                               placement=placement)
+                               placement=placement, tp=tp)
     return out.reshape(B, S, d), r.aux_loss, r.z_loss, stats

@@ -1,13 +1,15 @@
 // MoE Stages 2 and 3 (paper §3.1) in one pass over the routed expert ids:
 // the histogram of the local ids, the count-aligned groups of the slot pool,
 // each (token, k) pair's stable rank among its expert's pairs, its pool slot
-// and validity, and the inverse map pool row -> pair.
+// and validity, and the inverse map pool row -> pair. A flag gives every
+// group the same capacity instead (the uniform-capacity layout of the
+// all-to-all Stage 1's send buffers: one group per destination rank).
 //
 // Replaces src/repro/kernels/moe_dispatch.py::token_counts_pallas (the
 // Stage 2 histogram) together with the sort-based index generation that
 // consumes it, src/repro/core/moe.py::make_dispatch_plan (count-aligned
-// layout), and the inverse map that dispatch_compute_combine builds by
-// scatter. The TPU sorts the keys (argsort) and counts them with a one-hot
+// and uniform-capacity layouts), and the inverse map that
+// dispatch_compute_combine builds by scatter. The TPU sorts the keys (argsort) and counts them with a one-hot
 // reduction over a sequential grid; on Hopper the sort is a counting sort:
 // the keys are small integers (at most kMaxLocal local experts), so each
 // pair's rank within its expert is a count of the earlier pairs with the
@@ -167,27 +169,30 @@ __device__ void block_exclusive_scan(long long* v, int len) {
 
 // From the per-key totals in cnt (shared, overwritten by the group sizes):
 // the counts; the groups, each count rounded up to ``align`` and laid out
-// in key order with the running sum clamped at pool_rows (offs, shared);
-// the drops, the local pairs past their group's size. Writes counts,
+// in key order with the running sum clamped at pool_rows (offs, shared),
+// or with ``uniform`` each pool_rows / num_local rows at k times that; the
+// drops, the local pairs past their group's size. Writes counts,
 // group_sizes, drops and, if given, the offsets to device memory. Starts
 // and ends with a block barrier.
 __device__ void key_phase(int* cnt, long long* offs, int num_local, long long pool_rows,
-                          int align, long long* counts, int* group_sizes, long long* drops,
-                          long long* offs_out) {
+                          int align, int uniform, long long* counts, int* group_sizes,
+                          long long* drops, long long* offs_out) {
   __shared__ unsigned long long dropped;
   __syncthreads();
   if (threadIdx.x == 0) dropped = 0;
+  const long long cap = pool_rows / num_local;
   for (int k = threadIdx.x; k < num_local; k += blockDim.x) {
     const long long c = cnt[k];
     counts[k] = c;
-    offs[k] = (c + align - 1) / align * align;
+    offs[k] = uniform ? cap : (c + align - 1) / align * align;
   }
   block_exclusive_scan(offs, num_local);
   unsigned long long mine = 0;
   for (int k = threadIdx.x; k < num_local; k += blockDim.x) {
     const long long c = cnt[k];
     const long long start = min(offs[k], pool_rows);
-    const long long g = min(offs[k] + (c + align - 1) / align * align, pool_rows) - start;
+    const long long g =
+        uniform ? cap : min(offs[k] + (c + align - 1) / align * align, pool_rows) - start;
     offs[k] = start;
     cnt[k] = (int)g;
     group_sizes[k] = (int)g;
@@ -204,7 +209,7 @@ __device__ void key_phase(int* cnt, long long* offs, int num_local, long long po
 
 __global__ void __launch_bounds__(1024)
 plan_single_kernel(const long long* __restrict__ ids, long long n, long long offset,
-                   int num_local, long long pool_rows, int align, int iters,
+                   int num_local, long long pool_rows, int align, int uniform, int iters,
                    long long* __restrict__ slot, unsigned char* __restrict__ valid,
                    long long* __restrict__ counts, int* __restrict__ group_sizes,
                    long long* __restrict__ drops, long long* __restrict__ inv_pair,
@@ -232,7 +237,8 @@ plan_single_kernel(const long long* __restrict__ ids, long long n, long long off
     }
     gsz[k] = run;
   }
-  key_phase(gsz, offs, num_local, pool_rows, align, counts, group_sizes, drops, nullptr);
+  key_phase(gsz, offs, num_local, pool_rows, align, uniform, counts, group_sizes, drops,
+            nullptr);
   warp_rank(ids, n, offset, num_local, (long long)warp * 32 * iters, iters,
             rows + warp * num_local, offs, gsz, pool_rows, slot, valid, inv_pair, pool_valid);
 }
@@ -263,7 +269,7 @@ plan_count_kernel(const long long* __restrict__ ids, long long n, long long offs
 }
 
 __global__ void __launch_bounds__(kScanThreads)
-plan_scan_kernel(long long warps, int num_local, long long pool_rows, int align,
+plan_scan_kernel(long long warps, int num_local, long long pool_rows, int align, int uniform,
                  int* __restrict__ bases, long long* __restrict__ offs_out,
                  long long* __restrict__ counts, int* __restrict__ group_sizes,
                  long long* __restrict__ drops) {
@@ -302,7 +308,8 @@ plan_scan_kernel(long long warps, int num_local, long long pool_rows, int align,
       run += c;
     }
   }
-  key_phase(cnt, offs, num_local, pool_rows, align, counts, group_sizes, drops, offs_out);
+  key_phase(cnt, offs, num_local, pool_rows, align, uniform, counts, group_sizes, drops,
+            offs_out);
 }
 
 __global__ void __launch_bounds__(kWarps * 32)
@@ -338,15 +345,16 @@ REPRO_API int repro_dispatch_plan_max_local() { return kMaxLocal; }
 // ids: n int64 expert ids of the (token, k) pairs in flat order. Outputs
 // (device memory, all overwritten): slot, inv_pair (int64), valid,
 // pool_valid (bool as bytes), counts (num_local int64), group_sizes
-// (num_local int32), drops (one int64). With ``single`` the plan is one
+// (num_local int32), drops (one int64). ``uniform``: every group holds
+// pool_rows / num_local rows (``align`` unused). With ``single`` the plan is one
 // launch of one block (``iters`` and the scratch unused); else three
 // launches over warps of 32 * iters ids each, with ``scratch`` holding
 // 2 * num_local + warps * num_local ints (the offsets as int64, then each
 // warp's row of key counts). Returns a CUDA error code (invalid value for
 // arguments out of range or a scratch too small).
 REPRO_API int repro_dispatch_plan(const long long* ids, long long n, long long offset,
-                                  int num_local, long long pool_rows, int align, int single,
-                                  int iters, int* scratch, long long scratch_ints,
+                                  int num_local, long long pool_rows, int align, int uniform,
+                                  int single, int iters, int* scratch, long long scratch_ints,
                                   long long* slot, unsigned char* valid, long long* counts,
                                   int* group_sizes, long long* drops, long long* inv_pair,
                                   unsigned char* pool_valid, void* stream) {
@@ -362,8 +370,8 @@ REPRO_API int repro_dispatch_plan(const long long* ids, long long n, long long o
     const size_t smem = sizeof(long long) * num_local + sizeof(int) * num_local
                         + sizeof(int) * (size_t)nwarps * num_local;
     plan_single_kernel<<<1, nwarps * 32, smem, s>>>(ids, n, offset, num_local, pool_rows, align,
-                                                    it, slot, valid, counts, group_sizes, drops,
-                                                    inv_pair, pool_valid);
+                                                    uniform, it, slot, valid, counts,
+                                                    group_sizes, drops, inv_pair, pool_valid);
     return (int)cudaGetLastError();
   }
   if (iters < 1 || n == 0) return (int)cudaErrorInvalidValue;
@@ -376,8 +384,8 @@ REPRO_API int repro_dispatch_plan(const long long* ids, long long n, long long o
       ids, n, offset, num_local, iters, warps, bases, pool_rows, inv_pair, pool_valid);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  plan_scan_kernel<<<1, kScanThreads, 0, s>>>(warps, num_local, pool_rows, align, bases, offs,
-                                              counts, group_sizes, drops);
+  plan_scan_kernel<<<1, kScanThreads, 0, s>>>(warps, num_local, pool_rows, align, uniform, bases,
+                                              offs, counts, group_sizes, drops);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t smem = sizeof(long long) * num_local + sizeof(int) * num_local

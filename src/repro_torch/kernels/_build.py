@@ -49,7 +49,8 @@ _SIGNATURES = {
     "repro_token_counts": ([_P, ctypes.c_longlong, ctypes.c_longlong, _I, _P, _P], _I),
     "repro_dispatch_plan_max_local": ([], _I),
     "repro_dispatch_plan": ([_P, ctypes.c_longlong, ctypes.c_longlong, _I, ctypes.c_longlong, _I,
-                             _I, _I, _P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P], _I),
+                             _I, _I, _I, _P, ctypes.c_longlong, _P, _P, _P, _P, _P, _P, _P, _P],
+                            _I),
 }
 
 

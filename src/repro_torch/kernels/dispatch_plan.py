@@ -1,5 +1,6 @@
 """MoE Stages 2 and 3 (paper §3.1) on Hopper: launcher for
-``csrc/dispatch_plan.cu``, the histogram, the count-aligned groups, each
+``csrc/dispatch_plan.cu``, the histogram, the count-aligned (or
+uniform-capacity) groups, each
 pair's stable rank, slot and validity, and the inverse pool map in at most
 three launches and no memset.
 
@@ -32,10 +33,11 @@ def _iters(n: int, num_local: int) -> int:
 
 
 def dispatch_plan_cuda(ids: torch.Tensor, num_local: int, offset: int, pool_rows: int,
-                       align: int):
+                       align: int, uniform: bool = False):
     """ids (F,) int64, contiguous, on a CUDA device -> (slot, valid, counts,
     group_sizes, drops, inv_pair, pool_valid) as ``ref.dispatch_plan_ref``
-    defines them, bit for bit."""
+    defines them, bit for bit; ``uniform``: every group ``pool_rows //
+    num_local`` rows (a flag of the same kernel)."""
     if ids.device.type != "cuda":
         raise ValueError(f"dispatch_plan ids: expected a CUDA tensor, got device {ids.device}")
     if ids.dtype != torch.int64:
@@ -63,9 +65,9 @@ def dispatch_plan_cuda(ids: torch.Tensor, num_local: int, offset: int, pool_rows
     valid, pool_valid = flags.split([n, pool_rows])
     group_sizes = torch.empty(num_local, dtype=torch.int32, device=dev)
     err = library().repro_dispatch_plan(
-        ids.data_ptr(), n, int(offset), int(num_local), int(pool_rows), int(align), int(single),
-        iters, scratch.data_ptr(), 2 * scratch64, slot.data_ptr(), valid.data_ptr(),
-        counts.data_ptr(), group_sizes.data_ptr(), drops.data_ptr(), inv_pair.data_ptr(),
+        ids.data_ptr(), n, int(offset), int(num_local), int(pool_rows), int(align),
+        int(bool(uniform)), int(single), iters, scratch.data_ptr(), 2 * scratch64,
+        slot.data_ptr(), valid.data_ptr(), counts.data_ptr(), group_sizes.data_ptr(), drops.data_ptr(), inv_pair.data_ptr(),
         pool_valid.data_ptr(), stream_ptr(dev))
     check_launch(err, "dispatch_plan")
     return slot, valid, counts, group_sizes, drops[0], inv_pair, pool_valid

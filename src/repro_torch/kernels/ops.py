@@ -20,10 +20,10 @@
 * ``token_counts(ids, num_local, offset)``  paper Stage 2: the histogram of
                                    routed expert ids over one rank's local
                                    range; integers, no gradient.
-* ``dispatch_plan(ids, num_local, offset, pool_rows, align)``  paper
-                                   Stages 2 and 3 in one kernel: the
-                                   histogram, the count-aligned pool
-                                   groups, each pair's slot and validity
+* ``dispatch_plan(ids, num_local, offset, pool_rows, align, uniform)``
+                                   paper Stages 2 and 3 in one kernel: the
+                                   histogram, the count-aligned (or
+                                   uniform-capacity) pool groups, each pair's slot and validity
                                    and the inverse pool map; integers, no
                                    gradient.
 
@@ -246,17 +246,19 @@ def token_counts(ids: torch.Tensor, num_local: int, offset: int = 0) -> torch.Te
     return out
 
 
-def dispatch_plan(ids: torch.Tensor, num_local: int, offset: int, pool_rows: int, align: int):
+def dispatch_plan(ids: torch.Tensor, num_local: int, offset: int, pool_rows: int, align: int,
+                  uniform: bool = False):
     """ids: int64 expert ids of the (token, k) pairs, any shape, in flat
     order -> (slot, valid, counts, group_sizes, drops, inv_pair,
     pool_valid) of the dispatch of the experts ``[offset, offset +
     num_local)`` into a pool of ``pool_rows`` rows with groups aligned to
-    ``align`` rows (``ref.dispatch_plan_ref`` defines each). One count of
+    ``align`` rows, or with ``uniform`` groups of ``pool_rows // num_local``
+    rows each (``ref.dispatch_plan_ref`` defines each). One count of
     ``launches`` per plan (one kernel launch up to
     ``dispatch_plan.SINGLE_BLOCK_MAX`` pairs, three above)."""
     flat = ids.reshape(-1)
     if _on_cpu(flat):
-        return ref.dispatch_plan_ref(flat, num_local, offset, pool_rows, align)
-    out = dispatch_plan_cuda(flat, num_local, offset, pool_rows, align)
+        return ref.dispatch_plan_ref(flat, num_local, offset, pool_rows, align, uniform)
+    out = dispatch_plan_cuda(flat, num_local, offset, pool_rows, align, uniform)
     launches["dispatch_plan"] += 1
     return out

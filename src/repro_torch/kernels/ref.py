@@ -80,7 +80,7 @@ def token_counts_ref(ids: torch.Tensor, num_local: int, offset: int) -> torch.Te
 
 
 def dispatch_plan_ref(ids: torch.Tensor, num_local: int, offset: int, pool_rows: int,
-                      align: int):
+                      align: int, uniform: bool = False):
     """MoE Stages 2 and 3: the histogram, then sort-based index generation,
     and the inverse map of the slot pool. ``ids``: the (F,) flat expert ids
     of the (token, k) pairs in flat order. Only ids in ``[offset, offset +
@@ -88,7 +88,10 @@ def dispatch_plan_ref(ids: torch.Tensor, num_local: int, offset: int, pool_rows:
     ``num_local`` and are masked. Each local expert's group is its count
     rounded up to ``align`` rows; the groups share the pool in expert order
     (the running sum clamped at ``pool_rows``), and a pair whose stable rank
-    among its expert's pairs reaches its group's size is dropped. Returns
+    among its expert's pairs reaches its group's size is dropped. With
+    ``uniform`` every group is ``pool_rows // num_local`` rows at offset
+    ``k * pool_rows // num_local`` whatever its count (``align`` unused):
+    the JAX package's ``uniform_capacity``. Returns
 
     * ``slot`` (F,) int64: the pair's pool row, ``pool_rows`` if dropped or
       non-local; ``valid`` (F,) bool;
@@ -104,9 +107,12 @@ def dispatch_plan_ref(ids: torch.Tensor, num_local: int, offset: int, pool_rows:
     order = torch.argsort(key, stable=True)
     sorted_key = key[order]
 
-    gs_aligned = (counts + align - 1) // align * align
-    cum = torch.clamp(torch.cumsum(gs_aligned, 0), max=pool_rows)
-    offsets = torch.cat([torch.zeros(1, dtype=cum.dtype, device=dev), cum])
+    if uniform:
+        offsets = torch.arange(EL + 1, dtype=torch.int64, device=dev) * (pool_rows // EL)
+    else:
+        gs_aligned = (counts + align - 1) // align * align
+        cum = torch.clamp(torch.cumsum(gs_aligned, 0), max=pool_rows)
+        offsets = torch.cat([torch.zeros(1, dtype=cum.dtype, device=dev), cum])
     group_sizes = offsets[1:] - offsets[:-1]
 
     # position of each sorted pair within its expert group. The sentinel

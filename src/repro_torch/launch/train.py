@@ -1,4 +1,4 @@
-"""End-to-end training launcher, on one device or on a dp x ep grid of
+"""End-to-end training launcher, on one device or on a dp x ep x tp grid of
 ranks: port of the JAX package's ``launch/train.py``.
 
 Wires together the data pipeline (tokenize/shuffle/shard + mmap loader),
@@ -11,10 +11,12 @@ from the other's checkpoints, whatever plan wrote them (the files hold
 whole arrays).
 
 A ``--parallel`` plan (``parallel.ParallelPlan``; or the legacy ``--mesh``)
-of more than one rank runs on the port's ('data', 'ep') grid: the launching
-process prepares the data, then starts one process a rank
+of more than one rank runs on the port's ('data', 'ep', 'tp') grid: the
+launching process prepares the data, then starts one process a rank
 (``parallel.spawn``, gloo; on the card the ranks share it), each running
-``_rank_main`` on its rows of every batch; rank 0 writes the outputs.
+``_rank_main`` on its rows of every batch (the tp ranks of one (data, ep)
+coordinate on the same rows, each with its shards of attention, the MLPs
+and the expert stacks); rank 0 writes the outputs.
 
 Usage (on the card; ``--device cpu`` runs the plain PyTorch path):
   PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
@@ -26,6 +28,9 @@ Usage (on the card; ``--device cpu`` runs the plain PyTorch path):
   PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
       --parallel dp=2,ep=2 --opt-shard epso --steps 20 --batch 4 --seq 32 \
       --d-model 64 --device cpu --out runs/grid       # 4 CPU ranks
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
+      --parallel dp=1,ep=2,tp=2 --opt-shard epso --steps 12 --batch 4 \
+      --seq 32 --d-model 64 --device cpu --out runs/tp  # expert-TP, 4 ranks
   PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
       --parallel dp=2,ep=2,rebalance=4:1.1 --opt-shard epso --steps 12 \
       --batch 4 --seq 32 --d-model 64 --device cpu --out runs/reb
@@ -48,10 +53,10 @@ float32 the JAX launcher fixes. The MoE kernels on the card take bf16, so
 an MoE model on the card runs with ``bfloat16``.
 
 Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
-item that ports them: plans with pp, tp or pod axes, ``fsdp``,
-``pp_schedule``, ``pp_impl`` (§1 item 5),
-``kernel_tiles`` and ``tiles=`` (§1 item 7), and the vlm and audio archs
-(§1 item 6). The ssm (Mamba-1) and hybrid (Zamba2) archs train on
+item that ports them: plans with pp or pod axes, ``fsdp``,
+``pp_schedule``, ``pp_impl`` (§1 item 5), tp for the ssm and hybrid archs
+(§1 item 5.10), ``kernel_tiles`` and ``tiles=`` (§1 item 7), and the vlm
+and audio archs (§1 item 6). The ssm (Mamba-1) and hybrid (Zamba2) archs train on
 tokens-only batches, as the JAX launcher feeds them; a plan with ``ep=``
 refuses them, as the JAX plan does (they have no experts).
 """
@@ -176,6 +181,11 @@ class RunSpec:
     def world(self) -> int:
         return self.plan.world if self.plan is not None else 1
 
+    @property
+    def batch_ranks(self) -> int:
+        """The ranks that split each batch's rows (dp x ep)."""
+        return self.plan.batch_ranks if self.plan is not None else 1
+
 
 def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int = 8,
                 seq: int = 128, out: str = "runs/default", lr: float = 1e-3,
@@ -255,7 +265,7 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
                 cfg.moe, dispatch=moe_dispatch))
         opt_shard = opt_shard or "none"
     plan = pplan.resolve(cfg, global_batch=batch) if pplan is not None else None
-    world = plan.world if plan is not None else 1
+    world = plan.batch_ranks if plan is not None else 1
     if (batch // world) % microbatches:
         raise ValueError(f"a rank's {batch // world} of the batch's {batch} rows do not split "
                          f"into {microbatches} microbatches")
@@ -304,7 +314,7 @@ def launch_ranks(spec: RunSpec, rank_fn=None) -> list:
     """Prepare the data once, then run ``rank_fn(grid, spec)`` (default
     ``_rank_main``) on every rank of the plan: in this process for one rank
     (``grid`` None), else one process a rank over gloo
-    (``parallel.spawn(..., grid=(dp, ep))``, no deadline: a collective that
+    (``parallel.spawn(..., grid=(dp, ep[, tp]))``, no deadline: a collective that
     hangs raises after the group's timeout). The ranks' results, in rank
     order."""
     rank_fn = rank_fn or _rank_main
@@ -318,8 +328,9 @@ def launch_ranks(spec: RunSpec, rank_fn=None) -> list:
 
 def _rank_main(grid, spec: RunSpec) -> RunResult:
     """One rank of a run (the whole run without a ``grid``): the state's
-    shards on this rank, its rows of every global batch (rank r of w takes
-    rows [r B / w, (r + 1) B / w)), the failure-handling loop with grid
+    shards on this rank, its rows of every global batch (the rank at (d, e)
+    of w = dp x ep takes rows [r B / w, (r + 1) B / w) with r = d * ep + e,
+    whatever its tp coordinate), the failure-handling loop with grid
     checkpoints. Every rank takes the same steps, failures and restores;
     rank 0 prints and writes ``history.json`` and ``summary.json``.
 
@@ -336,8 +347,9 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
     lead = rank == 0
     dev = grid.world.device if grid is not None else spec.device
     loader = ShardedDataLoader(os.path.join(spec.out, "data"), global_batch=train.global_batch)
-    rows = slice(rank * train.global_batch // spec.world,
-                 (rank + 1) * train.global_batch // spec.world)
+    b = grid.coords["data"] * grid.sizes["ep"] + grid.coords["ep"] if grid is not None else 0
+    rows = slice(b * train.global_batch // spec.batch_ranks,
+                 (b + 1) * train.global_batch // spec.batch_ranks)
 
     def fresh_state():
         return init_state(cfg, train, seed=train.seed, device=dev, grid=grid,

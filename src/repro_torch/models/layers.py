@@ -5,7 +5,12 @@ single-token decode), MLPs, embedding. Port of the JAX package's
 
 Parameters are plain dicts of tensors in the JAX package's layout (weights
 stored (in, out), so ``x @ w``); every function is a plain function on
-tensors. KV caches are updated in place (the JAX package returns new
+tensors. Under tensor parallelism (``tp``, a 'tp' ``EPGroup``) attention
+and the MLP take the rank's shards (``parallel.sharding``: its heads' columns
+of wq, wk, wv and rows of wo; its d_ff columns of gate, up and rows of
+down): the input enters through ``tp_copy`` and the output projection's
+partial sums leave through ``tp_reduce``. The head counts come from the
+weights' widths, so the same code runs whole weights and shards. KV caches are updated in place (the JAX package returns new
 arrays): a decode step writes one position per row instead of copying the
 cache.
 """
@@ -18,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG, slot_decode_attention_ref
+from repro_torch.parallel.ep import tp_copy, tp_reduce
 
 
 # ----------------------------------------------------------------------------
@@ -145,16 +151,19 @@ def blockwise_attention(q, k, v, *, causal: bool, window: int,
 ATTN_IMPLS = ("flash", "blockwise")
 
 
-def attention(params, x, cfg, *, impl: str = "flash", return_kv: bool = False):
+def attention(params, x, cfg, *, impl: str = "flash", return_kv: bool = False, tp=None):
     """Causal self-attention over a whole sequence from position 0. x: (B,
     S, d). ``impl`` chooses as the JAX plan's ``attn_impl`` does: 'flash'
     (the forward-only kernel; serving and prefill) or 'blockwise' (plain
     PyTorch with a backward; training). ``return_kv`` also returns the
-    post-RoPE (k, v), each (B, S, nkv, hd), for the cache."""
+    post-RoPE (k, v), each (B, S, nkv, hd), for the cache. ``tp``: the
+    'tp' group whose ranks hold head shards of the weights, or None."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"attention impl must be one of {ATTN_IMPLS}, got {impl!r}")
     B, S, d = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    nh, nkv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
+    x = tp_copy(x, tp)
     positions = torch.arange(S, device=x.device)[None, :]
     q = (x @ params["wq"].to(x.dtype)).reshape(B, S, nh, hd)
     k = (x @ params["wk"].to(x.dtype)).reshape(B, S, nkv, hd)
@@ -165,7 +174,7 @@ def attention(params, x, cfg, *, impl: str = "flash", return_kv: bool = False):
         o = ops.flash_attention(q, k, v, causal=True, window=cfg.sliding_window)
     else:
         o = blockwise_attention(q, k, v, causal=True, window=cfg.sliding_window)
-    out = o.to(x.dtype).reshape(B, S, nh * hd) @ params["wo"].to(x.dtype)
+    out = tp_reduce(o.to(x.dtype).reshape(B, S, nh * hd) @ params["wo"].to(x.dtype), tp)
     if return_kv:
         return out, (k, v)
     return out
@@ -234,13 +243,16 @@ def init_mlp(d: int, d_ff: int, activation: str, *, num_layers: int,
     return p
 
 
-def apply_mlp(params, x, activation: str):
+def apply_mlp(params, x, activation: str, tp=None):
+    """The dense MLP; ``tp``: the 'tp' group whose ranks hold d_ff shards
+    of the weights, or None."""
+    x = tp_copy(x, tp)
     up = x @ params["up"].to(x.dtype)
     if activation == "swiglu":
         h = F.silu(x @ params["gate"].to(x.dtype)) * up
     else:
         h = F.gelu(up, approximate="tanh")     # jax.nn.gelu's default
-    return h @ params["down"].to(x.dtype)
+    return tp_reduce(h @ params["down"].to(x.dtype), tp)
 
 
 # ----------------------------------------------------------------------------

@@ -26,7 +26,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import moe as moe_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.parallel.ep import all_reduce_sum
-from repro_torch.parallel.grid import as_grid
+from repro_torch.parallel.grid import BATCH_AXES, as_grid
 from repro_torch.tree import tree_map
 
 from . import layers as L
@@ -323,17 +323,17 @@ def block_remat(fn, sac: str):
 # training forward
 # ----------------------------------------------------------------------------
 
-def _dense_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise"):
-    attn = _sac(lambda q, x: L.attention(q, x, cfg, impl=attn_impl), "attn", sac)
-    mlp = _sac(lambda q, x: L.apply_mlp(q, x, cfg.mlp_activation), "mlp", sac)
+def _dense_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", tp=None):
+    attn = _sac(lambda q, x: L.attention(q, x, cfg, impl=attn_impl, tp=tp), "attn", sac)
+    mlp = _sac(lambda q, x: L.apply_mlp(q, x, cfg.mlp_activation, tp=tp), "mlp", sac)
     h = h + attn(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm))
     return h + mlp(lp["mlp"], L.apply_norm(lp["ln2"], h, cfg.norm))
 
 
 def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", ep_group=None,
-               placement=None):
-    attn = _sac(lambda q, x: L.attention(q, x, cfg, impl=attn_impl), "attn", sac)
-    moe = _sac(lambda q, x: moe_lib.sparse_moe_block(q, x, cfg, ep_group=ep_group,
+               placement=None, tp=None):
+    attn = _sac(lambda q, x: L.attention(q, x, cfg, impl=attn_impl, tp=tp), "attn", sac)
+    moe = _sac(lambda q, x: moe_lib.sparse_moe_block(q, x, cfg, ep_group=ep_group, tp_group=tp,
                                                      placement=placement), "moe", sac)
     h = h + attn(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm))
     mo, aux, z, stats = moe(lp["moe"], L.apply_norm(lp["ln2"], h, cfg.norm))
@@ -342,11 +342,14 @@ def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", ep_group=None
 
 def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
             compute_dtype: torch.dtype = torch.bfloat16, attn_impl: str = "blockwise",
-            ep_group=None, placement=None):
+            ep_group=None, placement=None, tp_group=None):
     """The forward over whole sequences. batch["tokens"]: (B, S) int; under
     an EP group (``parallel.EPGroup``) the rank's rows, with the rank's
     share of the params (``parallel.expert_shard``); the MoE blocks then
-    communicate and their aux and stats are global.
+    communicate and their aux and stats are global. Under a 'tp' group
+    ``tp_group`` (dense and moe archs) the params are the rank's shards
+    (``parallel.sharding.rank_shard``): attention, the MLPs and the expert
+    stacks run on them, every tp rank holding the same rows.
     Returns (logits (B, S, V_pad), aux) with aux = {"moe_aux", "moe_z"}
     summed over layers and, for MoE, "moe_stats" (routing telemetry summed
     over layers), as the JAX package's ``_scan_layers_aux``. ``attn_impl``
@@ -379,7 +382,7 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     layers = unstack_layers(params["layers"], cfg.num_layers)
     if cfg.arch_type == "moe":
         block = block_remat(lambda lp, x, pl: _moe_block(lp, x, cfg, sac, attn_impl, ep_group,
-                                                          pl), sac)
+                                                          pl, tp_group), sac)
         counts = torch.zeros(cfg.moe.num_experts, dtype=torch.float32, device=h.device)
         drops = zero
         for i, lp in enumerate(layers):
@@ -389,7 +392,8 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
             counts, drops = counts + st.counts, drops + st.drops
         aux["moe_stats"] = moe_lib.MoeStats(counts, drops)
     else:
-        block = block_remat(lambda lp, x: _dense_block(lp, x, cfg, sac, attn_impl), sac)
+        block = block_remat(lambda lp, x: _dense_block(lp, x, cfg, sac, attn_impl, tp_group),
+                            sac)
         for lp in layers:
             h = block(lp, h)
     return _logits(params, h, cfg), aux
@@ -430,16 +434,20 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     ``ep_group``: an ``EPGroup`` or a ``ProcessGrid`` (``parallel.grid``;
     an ``EPGroup`` is the dp = 1 grid). On a grid the batch is the rank's
     rows and the first value is the rank's *share* of the global loss (its
-    NLL sum over the world's token count, plus the router terms over the
-    world size): the shares sum to the global loss, whose gradient the
-    ranks' gradients sum to. The MoE blocks' collectives run over the
-    rank's 'ep' group, whose aux and z are their mean over its ranks; the
-    metrics are global (the MoE terms also summed over 'data'), the same on
-    every rank, and carry the global loss as "loss". ``placement``: as in
-    ``forward``; the metrics stay in global expert ids."""
+    NLL sum over the token count of the ranks splitting the batch, plus the
+    router terms over their number): over ('data', 'ep') the shares sum to
+    the global loss, whose gradient the ranks' gradients sum to. The tp
+    ranks of one (data, ep) coordinate hold the same rows and the same
+    share, each its gradient for its shards (``models.layers``). The MoE
+    blocks' collectives run over the rank's 'ep' group, whose aux and z are
+    their mean over its ranks; the metrics are global (the MoE terms also
+    summed over 'data'), the same on every rank, and carry the global loss
+    as "loss". ``placement``: as in ``forward``; the metrics stay in global
+    expert ids."""
     grid = as_grid(ep_group)
     logits, aux = forward(params, batch, cfg, sac=sac, compute_dtype=compute_dtype,
-                          ep_group=grid.ep if grid is not None else None, placement=placement)
+                          ep_group=grid.ep if grid is not None else None, placement=placement,
+                          tp_group=grid.tp if grid is not None else None)
     nl = max(cfg.num_layers, 1)
     router = []
     if cfg.is_moe:
@@ -452,12 +460,13 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
             total = total + term
     else:
         nll, n = masked_nll(logits, batch["labels"], cfg)
-        tot = all_reduce_sum(torch.stack([nll.detach(), n.float()]), grid.world)
+        rows = grid.group(BATCH_AXES)
+        tot = all_reduce_sum(torch.stack([nll.detach(), n.float()]), rows)
         ntok = torch.clamp(tot[1], min=1)
         ce = tot[0] / ntok
         total = nll / ntok
         for term in router:
-            total = total + term / grid.world.world
+            total = total + term / rows.world
     moe_aux, moe_z = aux["moe_aux"].detach(), aux["moe_z"].detach()
     st = aux.get("moe_stats")
     if grid is not None and grid.data.world > 1 and cfg.is_moe:

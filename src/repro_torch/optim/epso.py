@@ -6,7 +6,7 @@ leaf, per dim, the tuple of grid axes that split it, ``()`` for a whole
 dim, every dim listed (a JAX ``PartitionSpec`` with its trailing ``None``
 entries written out and each entry a tuple). Axis sizes come from a dict
 in mesh order, the JAX ``mesh.shape``, so that meshes with 'pod', 'model'
-or 'tp' can be planned although the port's grid has only 'data' and 'ep'.
+or 'tp' can be planned (the port's grid has 'data', 'ep' and 'tp').
 
 * ``mode='so'``   every state leaf gains the DP axes ('pod', 'data') only:
   a parameter replicated over the model-like axes keeps its states

@@ -6,9 +6,12 @@ mismatch between grads/params and states; here each is one explicit
 ``torch.distributed`` call per bucket of an ``epso.UpdatePlan``:
 
 * gradients are reduce-scattered in ``grad_reduce_dtype`` onto the state
-  shards over the bucket's axes, then summed over the grid axes the state
-  replicates and the param does not split (an all-reduce of the shard):
-  each rank receives its shard of every leaf and never the whole gradient;
+  shards over the bucket's batch axes ('data', 'ep'), then summed over the
+  batch axes the state replicates and the param does not split (an
+  all-reduce of the shard): each rank receives its shard of every leaf and
+  never the whole gradient. The 'tp' ranks hold the same rows, so a
+  gradient is never summed over 'tp': a state split over 'tp' that its
+  param does not split takes the rank's own part of the gradient;
 * the global grad norm comes from the shards: one scalar all-reduce per
   distinct state-axis set; the expert stacks take the canonical (L, E)
   slice-sum path (gathered over the axes tiling dims 0 and 1, summed over
@@ -41,7 +44,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.ep import all_gather_dim
-from repro_torch.parallel.grid import ProcessGrid
+from repro_torch.parallel.grid import BATCH_AXES, ProcessGrid
 from repro_torch.parallel.sharding import shard_index
 from repro_torch.tree import leaves
 
@@ -260,20 +263,26 @@ def overlapped_adamw_update(grads: list, state: AdamWState, params: list, *,
     ma, mo, vo = leaves(state.master), leaves(state.m), leaves(state.v)
     dev = ma[0].device
 
-    # 1. gradients onto the state shards
+    # 1. gradients onto the state shards: reduce-scattered over the bucket's
+    # batch axes, the rows of the other axes ('tp') the rank's own
     shards = [None] * n
     pending = []
     for bucket in plan.buckets:
+        red = tuple(a for a in bucket.axes if a in BATCH_AXES)
         by_rest = {}
         for lf in bucket.leaves:
-            rest = tuple(a for a in sizes if a not in lf.psum_axes)
+            rest = tuple(a for a in sizes if a in BATCH_AXES and a not in lf.psum_axes)
             by_rest.setdefault(rest, []).append(lf)
         for rest, lfs in by_rest.items():
             rows = torch.cat([_rows(grads[lf.index].to(grad_reduce_dtype), bucket.axes, lf,
                                     sizes) for lf in lfs], dim=1)
+            if red != bucket.axes:
+                rows = rows.reshape([sizes[a] for a in bucket.axes] + [-1])[
+                    tuple(slice(None) if a in red else coords[a] for a in bucket.axes)]
+                rows = rows.reshape(-1, rows.shape[-1])
             work = None
-            if bucket.axes:
-                g = grid.group(bucket.axes)
+            if red:
+                g = grid.group(red)
                 out = torch.empty(rows.shape[1], dtype=rows.dtype, device=rows.device)
                 work = dist.reduce_scatter(out, list(rows.unbind(0)), group=g.group,
                                            async_op=not blocking)

@@ -15,11 +15,25 @@ every collective's backward is its adjoint under that sum:
 * ``all_reduce_sum``         the sum over ranks, held by every rank
                              (``psum``); backward: the sum over ranks of the
                              gradients.
+* ``all_to_all_rows``        (world * C, ...) in world row blocks, block j
+                             sent to rank j; rank r receives every rank's
+                             block r, in rank order (``all_to_all``, the
+                             all-to-all Stage 1); backward: the same
+                             exchange of the gradient.
+
+Tensor parallelism (a 'tp' group whose ranks hold the same rows and split
+the weights) takes the Megatron pair, the shard_map boundaries of the JAX
+package's tp-sharded layers:
+
+* ``tp_copy``    the identity; backward: the sum over the group of the
+                 gradients (each rank's gradient is its weight shard's part);
+* ``tp_reduce``  the sum over the group of the ranks' partial outputs;
+                 backward: the identity (every rank holds the whole output).
 
 The same module runs over ``nccl`` (one card per rank) or ``gloo`` (CPU
 ranks, or several ranks sharing one card). PyTorch 2.11's gloo takes CUDA
-tensors for all three collectives in every dtype the port sends (it copies
-them through host memory itself), so this module copies none of them to the
+tensors for these collectives in every dtype the port sends (it copies them
+through host memory itself), so this module copies none of them to the
 host. A collective that fails raises. A group of one rank (an axis of
 size 1 of a ``parallel.ProcessGrid``) has no process group: its collectives
 are the identity and call nothing.
@@ -95,6 +109,19 @@ def _all_reduce(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
     return out
 
 
+def all_to_all_dim(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+    """``x``'s ``world`` row blocks exchanged: block j goes to rank j, and
+    the result holds every rank's block ``rank`` in rank order; not
+    differentiable (``all_to_all_rows`` is)."""
+    if g.world == 1:
+        return x
+    if x.shape[0] % g.world:
+        raise ValueError(f"all-to-all of {x.shape[0]} rows over {g.world} ranks")
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=g.group)
+    return out
+
+
 class _AllGatherTokens(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, g):
@@ -128,6 +155,40 @@ class _AllReduceSum(torch.autograd.Function):
         return _all_reduce(dy, ctx.g), None
 
 
+class _AllToAllRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return all_to_all_dim(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        # the exchange is its own transpose: block j of rank r came from
+        # block r of rank j, and its gradient goes back there
+        return all_to_all_dim(dy, ctx.g), None
+
+
+class _TPCopy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        ctx.g = g
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _all_reduce(dy, ctx.g), None
+
+
+class _TPReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, g):
+        return _all_reduce(x, g)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
 def all_gather_tokens(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
     """(n, ...) on every rank -> (world * n, ...), the ranks' blocks in rank
     order. Backward: reduce-scatter (sum)."""
@@ -144,3 +205,24 @@ def all_reduce_sum(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
     """The sum of ``x`` over ranks, on every rank. Backward: the sum over
     ranks of the gradients (each rank's loss is its share of the total)."""
     return _AllReduceSum.apply(x, g)
+
+
+def all_to_all_rows(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+    """(world * C, ...) on every rank, block j for rank j -> (world * C,
+    ...): block j is rank j's block ``rank``. Backward: the same exchange
+    of the gradient."""
+    return x if g.world == 1 else _AllToAllRows.apply(x, g)
+
+
+def tp_copy(x: torch.Tensor, g) -> torch.Tensor:
+    """Enter a tensor-parallel region: ``x`` as it is (every rank of the
+    'tp' group ``g`` holds it whole). Backward: the gradient summed over the
+    group. ``g`` None or of one rank: ``x`` itself."""
+    return x if g is None or g.world == 1 else _TPCopy.apply(x, g)
+
+
+def tp_reduce(x: torch.Tensor, g) -> torch.Tensor:
+    """Leave a tensor-parallel region: the ranks' partial outputs summed
+    over the 'tp' group ``g``. Backward: the identity. ``g`` None or of one
+    rank: ``x`` itself."""
+    return x if g is None or g.world == 1 else _TPReduce.apply(x, g)

@@ -4,9 +4,9 @@
 start method. They meet through a ``FileStore`` in a fresh temporary
 directory, so no TCP port is taken and runs side by side cannot collide.
 Each rank calls ``fn(group, *args)`` with its ``EPGroup`` (or, given
-``grid=(dp, ep)``, its ``ProcessGrid``) and its own copy of ``args``, and
-sends back the result, every tensor in it moved to the host. The parent
-waits at most ``timeout_s`` in all: when a rank fails, dies or the time
+``grid=(dp, ep)`` or ``(dp, ep, tp)``, its ``ProcessGrid``) and its own copy
+of ``args``, and sends back the result, every tensor in it moved to the
+host. The parent waits at most ``timeout_s`` in all: when a rank fails, dies or the time
 runs out, it kills every rank and raises, so a collective that hangs
 becomes an error, not a lost run.
 """
@@ -82,7 +82,8 @@ def spawn(fn, world: int, *, args: tuple = (), backend: str = "gloo", device=Non
     return their results in rank order. ``fn`` must be importable by name
     (a module-level function) and its results picklable. ``device``: as in
     ``init_ep_group`` (``cuda`` unless given). ``grid``: (dp, ep) with
-    dp * ep == world, to hand ``fn`` the rank's ``ProcessGrid``. Raises ``RuntimeError`` with
+    dp * ep == world, or (dp, ep, tp) with dp * ep * tp == world, to hand
+    ``fn`` the rank's ``ProcessGrid``. Raises ``RuntimeError`` with
     the rank's traceback when a rank fails or exits without a result, and
     ``TimeoutError`` after ``timeout_s``; every rank is killed first.
     ``timeout_s`` is also each collective's timeout in the ranks;

@@ -10,13 +10,18 @@ is kept as a string (``None`` for the default 128x512x512, which ``str``
 leaves out as the JAX spec does).
 
 ``plan.resolve(cfg, global_batch=)`` checks the plan against the model and
-returns a ``ResolvedPlan``: the process grid's sizes (``grid``: dp, ep) for
-``parallel.spawn(..., grid=)`` and the checkpoint metadata
+returns a ``ResolvedPlan``: the process grid's sizes (``grid``: dp, ep and,
+with tp > 1, tp) for ``parallel.spawn(..., grid=)`` and the checkpoint
+metadata
 (``layout_signature()``, ``spec()``) exactly as the JAX ``ResolvedPlan``
 computes them, and the live expert placement (``placement``,
 ``with_placement``) a ``rebalance=`` policy moves. What the port cannot
-run raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: pp, tp
-or pod axes and ``fsdp`` (§1 item 5), an explicit ``tiles=`` (§1 item 7).
+run raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: pp or
+pod axes and ``fsdp`` (§1 item 5), tp for the ssm and hybrid archs (§1
+item 5.10), an explicit ``tiles=`` (§1 item 7). The tp axis splits
+attention by whole heads, so it needs tp to divide both head counts (a
+JAX split inside a head has no local-head form here); the all-to-all
+Stage 1 refuses dropless dispatch and a tp axis, as the JAX MoE block does.
 """
 from __future__ import annotations
 
@@ -330,12 +335,11 @@ class ParallelPlan:
 
     def resolve(self, cfg, train=None, *, global_batch=None) -> "ResolvedPlan":
         """Check the plan against ``cfg`` and what the port runs, once, and
-        return the ``ResolvedPlan``. The port's grid is ('data', 'ep'):
-        rank (d, e) takes rows ``d * ep + e`` of the batch, so the batch
-        must divide over the grid's ranks."""
+        return the ``ResolvedPlan``. The port's grid is ('data', 'ep',
+        'tp'): rank (d, e, t) takes rows ``d * ep + e`` of the batch, so the
+        batch must divide over the dp * ep ranks that split it."""
         self.validate_model(cfg)
-        for n, what in ((self.pp, "pipeline parallelism (pp)"), (self.tp, "tensor parallelism (tp)"),
-                        (self.pod, "a pod axis")):
+        for n, what in ((self.pp, "pipeline parallelism (pp)"), (self.pod, "a pod axis")):
             if n > 1:
                 refuse(f"{what} in a plan", "item 5, the rest of multi-GPU")
         if self.fsdp:
@@ -346,19 +350,47 @@ class ParallelPlan:
             refuse(f"expert parallelism with moe_impl={cfg.moe.moe_impl!r} (the port splits "
                     f"the expert stacks over 'ep' on the fsmoe path only)",
                     "item 5, the rest of multi-GPU")
+        if self.tp > 1:
+            self._check_tp(cfg)
+        moe = getattr(cfg, "moe", None)
+        if moe is not None and moe.stage1 == "a2a" and self.ep > 1:
+            if moe.dispatch == "dropless":
+                raise ValueError(
+                    "dispatch='dropless' does not compose with stage1='a2a': the all-to-all "
+                    "send buffers are capacity-bounded by construction. Use the allgather "
+                    "Stage 1 (stage1='allgather') for dropless.")
+            if self.tp > 1:
+                raise NotImplementedError(
+                    "stage1='a2a' does not compose with expert-TP yet; use the allgather "
+                    "Stage 1 for ep x tp plans")
         if global_batch is None and train is not None:
             global_batch = getattr(train, "global_batch", None)
-        world = self.dp * self.ep
-        if global_batch is not None and global_batch % world:
-            raise ValueError(f"plan '{self}' has {world} ranks, which do not divide the "
-                             f"global batch of {global_batch} rows")
+        rows = self.dp * self.ep
+        if global_batch is not None and global_batch % rows:
+            raise ValueError(f"plan '{self}' splits the batch over {rows} ranks (dp x ep), "
+                             f"which do not divide the global batch of {global_batch} rows")
         return ResolvedPlan(plan=self)
+
+    def _check_tp(self, cfg) -> None:
+        """What the port's tp axis needs of the model (``resolve``)."""
+        if cfg.arch_type in ("ssm", "hybrid"):
+            refuse(f"tensor parallelism (tp) for arch_type {cfg.arch_type!r} (the SSM mixers' "
+                   f"tp split)", "item 5.10, tp for the state-space archs")
+        if cfg.num_heads % self.tp or cfg.num_kv_heads % self.tp:
+            raise NotImplementedError(
+                f"plan tp={self.tp} does not divide {cfg.name}'s {cfg.num_heads} heads and "
+                f"{cfg.num_kv_heads} kv heads: the port splits attention by whole heads (a "
+                f"JAX split inside a head has no local-head form)")
+        if getattr(cfg, "moe", None) is not None and cfg.moe.moe_impl == "naive":
+            refuse("tensor parallelism with moe_impl='naive' (the single-device oracle)",
+                   "item 5, the rest of multi-GPU")
 
 
 @dataclass(frozen=True)
 class ResolvedPlan:
     """A ParallelPlan checked against a model: the process grid it runs on
-    (``data`` x ``ep`` ranks, ``parallel.spawn(..., grid=self.grid)``) and
+    (``data`` x ``ep`` x ``tp`` ranks, ``parallel.spawn(...,
+    grid=self.grid)``) and
     the metadata its checkpoints carry. ``placement``: the live
     ``parallel.placement.ExpertPlacement`` (None: identity), which the
     launcher keeps here and builds its step, its MANIFEST placement and its
@@ -373,12 +405,20 @@ class ResolvedPlan:
 
     @property
     def world(self) -> int:
+        return self.plan.dp * self.plan.ep * self.plan.tp
+
+    @property
+    def batch_ranks(self) -> int:
+        """The ranks that split the batch's rows, dp x ep (the tp ranks of
+        one (data, ep) coordinate hold the same rows)."""
         return self.plan.dp * self.plan.ep
 
     @property
-    def grid(self) -> Tuple[int, int]:
-        """(dp, ep), the ``grid=`` of ``parallel.spawn``."""
-        return self.plan.dp, self.plan.ep
+    def grid(self) -> tuple:
+        """(dp, ep), or (dp, ep, tp) with tp > 1: the ``grid=`` of
+        ``parallel.spawn``."""
+        p = self.plan
+        return (p.dp, p.ep) + ((p.tp,) if p.tp > 1 else ())
 
     @property
     def axis_sizes(self) -> dict:

@@ -1,13 +1,21 @@
-"""The parameter layout of the ``ep`` role (the JAX package's
-``parallel/sharding.py::_param_spec`` under EP): the routed expert stacks
-``layers/moe/{gate,up,down}``, (L, E, d, f) / (L, E, f, d), are split on E
-across the ranks, rank r holding experts ``[r * E / world, (r + 1) * E /
-world)``; every other leaf is replicated. A stack whose E does not divide
-by ``world`` stays whole, as the JAX rule leaves it unsplit.
+"""The parameter layout of the ``ep`` and ``tp`` roles (the JAX package's
+``parallel/sharding.py::_param_spec`` on a plan mesh): the routed expert
+stacks ``layers/moe/{gate,up,down}``, (L, E, d, f) / (L, E, f, d), are split
+on E across the 'ep' ranks, rank r holding experts ``[r * E / ep, (r + 1) *
+E / ep)``, and on their d_ff dim across the 'tp' ranks (expert-TP). Under
+'tp' also the attention and the dense and shared-expert MLPs are split as
+Megatron splits them: wq, wk, wv and gate, up on their output columns (the
+heads, d_ff), wo and down on their input rows. Every other leaf is
+replicated. A dim that its axis does not divide stays whole, as the JAX
+rule leaves it unsplit; each rule is taken on the per-layer shape, the
+leading layer dims (``layers/``, ``rem/``: one; ``groups/``: two) never
+split.
 
 The JAX package also splits ``embed/table`` and ``head/table`` on the vocab
 over the model axis; that is a memory layout of its compiler, not part of
-the math, and the port keeps them replicated.
+the math, and the port keeps them replicated. It splits the SSM mixers'
+in and out projections over 'tp' too; the port refuses tp for the ssm and
+hybrid archs (``parallel.plan``) and keeps them whole here.
 
 On a ``ProcessGrid`` the same layout is data, ``param_placements``: per
 leaf, per dim, the tuple of grid axes that split it (the port's form of a
@@ -15,8 +23,9 @@ JAX ``PartitionSpec``, every dim listed, ``()`` for a whole dim). The
 sharded optimizer (``optim.epso``) takes placements as input, so its
 parity tests can feed it the JAX package's own ``param_specs``.
 ``tile_slices`` says which tile of a global leaf a rank holds under any
-placement: the expert slices (``expert_shard``), the optimizer shards
-(``convert``) and the grid checkpoints (``checkpoint``) all cut by it.
+placement: a rank's params (``rank_shard``), the expert slices
+(``expert_shard``), the optimizer shards (``convert``) and the grid
+checkpoints (``checkpoint``) all cut by it.
 """
 from __future__ import annotations
 
@@ -81,22 +90,61 @@ def expert_shard(params: dict, rank: int, world: int) -> dict:
                     if any(place) else t, params, param_placements(params, sizes))
 
 
-def param_placements(params: dict, axis_sizes: dict) -> dict:
+def _stacked(path: str) -> int:
+    """The leading layer dims of a leaf at ``path``."""
+    if path.startswith("groups/"):
+        return 2
+    return 1 if path.startswith(("layers/", "rem/")) else 0
+
+
+def _tp_dim(path: str, inner: tuple):
+    """The per-layer dim of a leaf that 'tp' splits, or None: the Megatron
+    split of attention and of the dense and shared MLPs, the d_ff dim of an
+    expert stack."""
+    name = path.rsplit("/", 1)[-1]
+    if is_expert_stack_path(path) and len(inner) == 3:
+        return 1 if name == "down" else 2
+    if len(inner) != 2:
+        return None
+    if name in ("wq", "wk", "wv", "up", "gate"):
+        return 1
+    if name in ("wo", "down"):
+        return 0
+    return None
+
+
+def param_placements(params: dict, axis_sizes: dict, *, split_experts: bool = True) -> dict:
     """The placement of each leaf of a *global* parameter tree (any leaves
     with ``.shape``) on a grid with ``axis_sizes`` (its axes of size > 1):
-    an expert stack's E dim on ('ep',) where 'ep' is an axis and divides it,
-    every other dim and leaf whole."""
-    n = axis_sizes.get("ep", 1)
+    an expert stack's E dim on ('ep',) where 'ep' is an axis and divides it
+    (not with ``split_experts=False``, the dense MoE path that holds every
+    expert), and with a 'tp' axis each leaf's tp dim (``_tp_dim``) on
+    ('tp',) where tp divides it; every other dim and leaf whole."""
+    n_ep = axis_sizes.get("ep", 1) if split_experts else 1
+    n_tp = axis_sizes.get("tp", 1)
 
     def walk(node, prefix):
         if isinstance(node, dict):
             return {k: walk(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
         place = [()] * len(node.shape)
-        ax = _expert_axis(prefix, node, n) if n > 1 else None
+        ax = _expert_axis(prefix, node, n_ep) if n_ep > 1 else None
         if ax is not None:
             place[ax] = ("ep",)
+        if n_tp > 1:
+            lead = _stacked(prefix)
+            dim = _tp_dim(prefix, tuple(node.shape[lead:]))
+            if dim is not None and node.shape[lead + dim] % n_tp == 0:
+                place[lead + dim] = ("tp",)
         return tuple(place)
     return walk(params, "")
+
+
+def rank_shard(params: dict, place: dict, coords: dict, axis_sizes: dict) -> dict:
+    """The tiles of a global tree (params, or any tree shaped like them)
+    that the rank at ``coords`` holds under ``place``
+    (``param_placements``): views, no copy; a whole leaf as it is."""
+    return tree_map(lambda t, pl: t[tile_slices(pl, t.shape, coords, axis_sizes)]
+                    if any(pl) else t, params, place)
 
 
 def replicated_leaves(tree: dict) -> tuple[bool, ...]:

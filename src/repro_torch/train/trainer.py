@@ -10,20 +10,24 @@ would, warmup + cosine LR, global-norm clipping only after warmup, AdamW on
 fp32 master weights. The MoE expert stacks take their grad-norm share per
 (layer, expert) slice, as the JAX step does.
 
-Data and expert parallelism (``grid``, a ``parallel.ProcessGrid``, the
-layout of the JAX plan mesh ('data', 'ep'); an ``ep_group`` alone is the
-dp = 1 grid): rank (d, e) holds expert slice e of the expert stacks and a
-whole copy of every other leaf, and takes its rows of the batch. It
-backpropagates its share of the global loss (``models.loss_fn``); the MoE
-blocks' collectives run over its 'ep' group. The optimizer state is placed
-by ``opt_sharding_mode`` (paper §3.2, ``optim.epso``):
+Data, expert and tensor parallelism (``grid``, a ``parallel.ProcessGrid``,
+the layout of the JAX plan mesh ('data', 'ep', 'tp'); an ``ep_group`` alone
+is the dp = tp = 1 grid): rank (d, e, t) holds expert slice e of the expert
+stacks, with tp > 1 its tile t of every tp-split leaf
+(``parallel.sharding.param_placements``), a whole copy of every other leaf,
+and takes rows d * ep + e of the batch. It backpropagates its share of the
+global loss (``models.loss_fn``); the MoE blocks' collectives run over its
+'ep' group, the tensor-parallel sums over its 'tp' group. The optimizer
+state is placed by ``opt_sharding_mode`` (paper §3.2, ``optim.epso``):
 
 * 'none': master, m and v as the params (float32 params share the master's
-  tensors). The replicated leaves' gradients, rounded to
-  ``grad_reduce_dtype``, are summed over the world in that dtype, the
-  expert slices' over 'data' (their sum over 'ep' arrives through the
-  collectives' backward); the grad norm counts each expert slice and each
-  replicated leaf once, so every rank takes the same step;
+  tensors). Each leaf's gradient, rounded to ``grad_reduce_dtype``, is
+  summed in that dtype over the batch axes ('data', 'ep') that do not split
+  it: a whole or tp-split leaf's over both, the expert slices' over 'data'
+  (their sum over 'ep' arrives through the collectives' backward), never
+  over 'tp', whose ranks hold the same rows. The grad norm counts each
+  distinct tile once (the squares of tp-split leaves summed over 'tp'), so
+  every rank takes the same step;
 * 'so' / 'epso': each rank's master, m and v hold its shard of each leaf,
   and the params are separate tensors. The gradients are reduce-scattered
   onto the shards, AdamW runs on them, and the updated shards are gathered
@@ -36,8 +40,9 @@ state there) and takes the expert stacks' grad-norm share in global-id
 order, so a placed step is the unplaced one's computation, its experts
 in other homes.
 
-Not ported, and raising ``NotImplementedError``: pipeline stages; under EP
-also the all-to-all Stage 1 and expert-TP (``core.moe.moe_fsmoe_ep``).
+The all-to-all Stage 1 (``MoEConfig.stage1 = 'a2a'``) and expert-TP run
+inside the MoE block (``core.moe``) and change nothing here. Not ported, and
+raising ``NotImplementedError``: pipeline stages.
 """
 from __future__ import annotations
 
@@ -57,9 +62,9 @@ from repro_torch.optim.epso import (DEFAULT_BUCKET_BYTES, UpdatePlan, optimizer_
                                     plan_update_buckets)
 from repro_torch.optim.overlap import overlapped_adamw_update, resolve_opt_overlap, shard_of
 from repro_torch.parallel.ep import EPGroup, all_reduce_sum
-from repro_torch.parallel.grid import ProcessGrid, as_grid
+from repro_torch.parallel.grid import BATCH_AXES, ProcessGrid, as_grid
 from repro_torch.parallel.placement import ExpertPlacement
-from repro_torch.parallel.sharding import expert_shard, param_placements, replicated_leaves
+from repro_torch.parallel.sharding import param_placements, rank_shard
 from repro_torch.serve.engine import dropless_cfg, make_decode_fn
 from repro_torch.tree import keyed_leaves, leaves, tree_map
 
@@ -94,6 +99,15 @@ def _opt_mode(mode: Optional[str]) -> str:
     return mode
 
 
+def placements(cfg: ModelConfig, shapes: dict, axis_sizes: dict) -> dict:
+    """``param_placements`` of ``cfg``'s global ``shapes`` on a grid with
+    ``axis_sizes``, as the step runs them: the expert stacks split over
+    'ep' only where the MoE block runs EP (``core.moe.uses_ep``; else the
+    dense path holds every expert)."""
+    split = cfg.moe is None or uses_ep(cfg.moe, axis_sizes.get("ep", 1))
+    return param_placements(shapes, axis_sizes, split_experts=split)
+
+
 def opt_layout(cfg: ModelConfig, grid: Optional[ProcessGrid], mode: str, *,
                max_bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> tuple[UpdatePlan, list]:
     """The SO/EPSO layout of ``cfg``'s parameters on ``grid``: the update
@@ -102,7 +116,7 @@ def opt_layout(cfg: ModelConfig, grid: Optional[ProcessGrid], mode: str, *,
     placements. Without a grid every state is whole."""
     shapes = init_params(cfg, device="meta")
     sizes = grid.axis_sizes if grid is not None else {}
-    place = param_placements(shapes, sizes)
+    place = placements(cfg, shapes, sizes)
     plan = plan_update_buckets(shapes, place, sizes, mode, max_bucket_bytes=max_bucket_bytes)
     return plan, leaves(optimizer_state_specs(shapes, place, sizes, mode))
 
@@ -118,7 +132,7 @@ def state_layout(cfg: ModelConfig, axis_sizes: dict, mode: Optional[str]) -> dic
     checkpoint's keys). A rank holds ``parallel.sharding.tile_slices`` of
     each global leaf. ``checkpoint.Checkpointer(layout=)`` takes it."""
     shapes = init_params(cfg, device="meta")
-    place = param_placements(shapes, axis_sizes)
+    place = placements(cfg, shapes, axis_sizes)
     specs = optimizer_state_specs(shapes, place, axis_sizes, _opt_mode(mode))
     flat = [(key, tuple(leaf.shape)) for key, leaf in keyed_leaves(shapes)]
     out = {key: (shape, p) for (key, shape), p in zip(flat, leaves(place))}
@@ -152,10 +166,13 @@ def init_state(cfg: ModelConfig, train: TrainConfig, *, seed: int = 0,
     if device is None and grid is not None:
         device = grid.world.device
     params = init_params(cfg, seed=seed, device=device)
-    if _shards_experts(cfg, grid):
-        # copy the rank's expert slices, so that the whole stacks are freed
+    if grid is not None and grid.axis_sizes:
+        # copy the rank's tiles (expert slices, tp shards), so that the whole
+        # leaves are freed
+        sizes = grid.axis_sizes
         params = tree_map(lambda s, t: s.clone() if s.shape != t.shape else s,
-                          expert_shard(params, grid.ep.rank, grid.ep.world), params)
+                          rank_shard(params, placements(cfg, params, sizes), grid.coords, sizes),
+                          params)
     pd = _dtype(train.param_dtype)
     if mode == "none" or grid is None:
         return TrainState(tree_map(lambda p: p.to(pd), params), adamw_init(params))
@@ -204,6 +221,13 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     sac = parallel.remat_policy
     sharded = _shards_experts(cfg, grid)
     sharded_opt = mode != "none" and grid is not None
+    split_axes = tp_split = None
+    if grid is not None:
+        # per leaf, the grid axes splitting it (its gradient is summed over
+        # the batch axes that do not), and whether 'tp' does
+        place = leaves(placements(cfg, init_params(cfg, device="meta"), grid.axis_sizes))
+        split_axes = [{a for e in pl for a in e} for pl in place]
+        tp_split = tuple("tp" in ax for ax in split_axes)
     if sharded_opt:
         # 'off': the same sharded math with every leaf its own bucket
         plan, state_specs = opt_layout(cfg, grid, mode,
@@ -282,7 +306,8 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         if grid is not None:
             _sum_gradients(grads, rd, grid)
         new_params, new_opt, om = adamw_update(
-            grads, state.opt, param_dtype=pd, group=grid.ep if sharded else None, **hyper)
+            grads, state.opt, param_dtype=pd, group=grid.ep if sharded else None,
+            tp=grid.tp if grid is not None else None, tp_split=tp_split, **hyper)
         return TrainState(new_params, new_opt), {"lr": lr, **om}
 
     def expert_norm(params):
@@ -293,13 +318,16 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         return (mask, placement_rows(leaves(params)[0].device)) if any(mask) else None
 
     def _sum_gradients(grads, dtype, grid):
-        """Sum the gradients over the ranks that hold the same leaf, in
-        ``dtype``, one flat buffer per group: the replicated leaves' over
-        the world, the expert slices' over 'data'."""
-        rep = replicated_leaves(grads) if sharded else (True,) * len(leaves(grads))
-        for keep, group in ((True, grid.world), (False, grid.data)):
-            gs = [g for g, k in zip(leaves(grads), rep) if k == keep]
-            if not gs or group.world == 1:
+        """Sum each gradient over the batch axes that do not split its leaf,
+        in ``dtype``, one flat buffer per set of axes: the whole and
+        tp-split leaves' over ('data', 'ep'), the expert slices' over
+        'data'."""
+        by_axes = {}
+        for g, split in zip(leaves(grads), split_axes):
+            by_axes.setdefault(tuple(a for a in BATCH_AXES if a not in split), []).append(g)
+        for axes, gs in by_axes.items():
+            group = grid.group(axes)
+            if group.world == 1:
                 continue
             flat = torch.cat([g.reshape(-1).to(dtype) for g in gs])
             flat = all_reduce_sum(flat, group)

@@ -302,3 +302,50 @@ def test_plan_in_the_manifest_and_its_refusal_match_jax(tmp_path):
             cls(str(tmp_path / "x"), on_plan_mismatch="ignore")
         errors[cls] = str(e.value)
     assert errors[Checkpointer] == errors[JCheckpointer]
+
+
+def test_tp_checkpoint_restores_on_one_rank_and_on_dp2_so(tmp_path):
+    """An ep = 2 x tp = 2 EPSO state (tp shards of attention and the expert
+    stacks' d_ff, EPSO state shards over ('ep', 'tp')) saved through the
+    grid Checkpointer holds whole arrays: it restores, resharding, on one
+    rank and into dp = 2 'so' ranks with the same full master, m, v, step
+    and params; a one-rank checkpoint restores on the tp grid, each rank
+    its tiles."""
+    from repro_torch.convert import opt_state_from_ranks, params_for_rank
+    tc = reduced(get_config("mula-7b-a1b"), d_model=64, vocab=128, max_experts=8)
+    kw = dict(device="cpu", timeout_s=120)
+    tp_root, one_root = str(tmp_path / "tp"), str(tmp_path / "one")
+    saved = spawn(ranks.grid_checkpoint_rank, 4, args=(tc, "ep=2,tp=2,opt=epso", tp_root, "save"),
+                  grid=(1, 2, 2), **kw)
+    want = opt_state_from_ranks([s.opt for s in saved], tc, dp=1, ep=2, tp=2, mode="epso")
+    assert want["step"] == 7
+    from repro_torch.parallel import as_grid
+    from repro_torch.parallel.ep import EPGroup
+    alone = as_grid(EPGroup(None, 0, 1, torch.device("cpu"), "gloo"))    # one rank, here
+    for spec, grid in (("dp=2,opt=so", (2, 1)), ("dp=1", (1, 1))):
+        back = spawn(ranks.grid_checkpoint_rank, 2, args=(tc, spec, tp_root, "restore"),
+                     grid=grid, **kw) if grid[0] > 1 else \
+            [ranks.grid_checkpoint_rank(alone, tc, spec, tp_root, "restore")]
+        got = opt_state_from_ranks([r["state"].opt for r in back], tc, dp=grid[0], ep=1,
+                                   mode="so" if grid[0] > 1 else "none")
+        for r in back:
+            assert "refusing to silently reshard" in r["error"] and r["step"] == 5
+            for what in ("state", "model_only"):
+                params = r[what].params if what == "state" else r[what]
+                for path, p in leaves_with_path(params):
+                    np.testing.assert_array_equal(p.numpy(), want["master"][path],
+                                                  err_msg=f"{spec} {what} {path}")
+        for what in ("master", "m", "v"):
+            for path, ref in want[what].items():
+                np.testing.assert_array_equal(got[what][path], ref, err_msg=f"{what} {path}")
+    one = ranks.grid_checkpoint_rank(alone, tc, "dp=1", one_root, "save")
+    back = spawn(ranks.grid_checkpoint_rank, 4, args=(tc, "ep=2,tp=2,opt=epso", one_root,
+                                                      "restore"), grid=(1, 2, 2), **kw)
+    got = opt_state_from_ranks([r["state"].opt for r in back], tc, dp=1, ep=2, tp=2, mode="epso")
+    for what in ("master", "m", "v"):
+        for path, ref in leaves_with_path(getattr(one.opt, what)):
+            np.testing.assert_array_equal(got[what][path], ref.numpy(), err_msg=f"{what} {path}")
+    for rank, r in enumerate(back):
+        tiles = params_for_rank(one.params, tc, dp=1, ep=2, tp=2, rank=rank)
+        for (path, p), (_, t) in zip(leaves_with_path(r["model_only"]), leaves_with_path(tiles)):
+            np.testing.assert_array_equal(p.numpy(), t.numpy(), err_msg=f"rank {rank} {path}")

@@ -144,12 +144,14 @@ def test_ep_shard_dispatch_matches_jax(world, dispatch):
 # (c, e) the EP MoE block over gloo
 # ----------------------------------------------------------------------------
 
-def _run_block(world, experts, ep_aux):
+def _run_block(world, experts, ep_aux, tc=None):
     """The port's EP block on ``world`` gloo ranks and the JAX dropless
     block on the concatenated tokens, with ``jax.grad`` of the same loss;
     ``ep_aux``: the JAX aux is the mean over the ranks' token blocks (the EP
-    path) rather than the global batch's (the dense fallback)."""
-    jc, tc = _cfgs(experts=experts, moe_impl="fsmoe", dispatch="dropless")
+    path) rather than the global batch's (the dense fallback). ``tc``: the
+    port's config, when not the dropless one."""
+    jc, dropless = _cfgs(experts=experts, moe_impl="fsmoe", dispatch="dropless")
+    tc = dropless if tc is None else tc
     p, tp = _block_params(jc)
     rng = np.random.default_rng(7)
     B, S, d = 8, 4, 64

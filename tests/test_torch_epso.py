@@ -317,18 +317,21 @@ def _jleaves(tree):
             np.asarray(x) for p, x in jax.tree_util.tree_leaves_with_path(tree)}
 
 
-def run_grid_against_jax(arch, dp, ep, runs, experts=None):
-    """``runs`` ((mode, overlap) pairs) on a dp x ep grid of CPU ranks
+def run_grid_against_jax(arch, dp, ep, runs, experts=None, tp=1, **moe_kw):
+    """``runs`` ((mode, overlap) pairs) on a dp x ep x tp grid of CPU ranks
     from one state converted from JAX, 3 steps, and the JAX single-device
     step with dp * ep microbatches from the same state: (JAX state, JAX
-    metrics, the ranks' results, the port's config)."""
+    metrics, the ranks' results, the port's config). ``moe_kw``: more
+    MoEConfig fields for both packages."""
     kw = {} if experts is None else dict(max_experts=experts)
     jc = jreduced(jget(arch), d_model=64, vocab=128, **kw)
     tc = treduced(tget(arch), d_model=64, vocab=128, **kw)
     if jc.moe is not None:
         import dataclasses
-        jc = dataclasses.replace(jc, moe=dataclasses.replace(jc.moe, dispatch="dropless"))
-        tc = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe, dispatch="dropless"))
+        jc = dataclasses.replace(jc, moe=dataclasses.replace(jc.moe, dispatch="dropless",
+                                                             **moe_kw))
+        tc = dataclasses.replace(tc, moe=dataclasses.replace(tc.moe, dispatch="dropless",
+                                                             **moe_kw))
     tkw = dict(seq_len=16, global_batch=4, warmup_steps=1, total_steps=10, lr_peak=1e-2,
                lr_min=1e-3, **F32)
     jtrain, ttrain = JTrain(**tkw), TrainConfig(**tkw)
@@ -349,18 +352,24 @@ def run_grid_against_jax(arch, dp, ep, runs, experts=None):
     args = (tc, ttrain, params, opt,
             [{k: torch.from_numpy(v).long() for k, v in b.items()} for b in batches], runs)
     with ThreadPoolExecutor(1) as pool:
-        fut = pool.submit(spawn, ranks.grid_train_rank, dp * ep, args=args, device="cpu",
-                          timeout_s=TIMEOUT_S, grid=(dp, ep))
+        fut = pool.submit(spawn, ranks.grid_train_rank, dp * ep * tp, args=args, device="cpu",
+                          timeout_s=TIMEOUT_S, grid=(dp, ep, tp))
         jstate, jms = oracle()
         res = fut.result()
     return jstate, jms, res, tc
 
 
-def check_against_jax(jstate, jms, res, tc, dp, ep, run):
-    """Every rank's metrics, params and the gathered master, m and v of
-    ``run`` against the JAX step's, atol = rtol = 1e-4; the state bytes
-    each rank holds equal ``state_bytes_per_device``."""
+def check_against_jax(jstate, jms, res, tc, dp, ep, run, tp=1):
+    """Every rank's metrics, params (its tiles) and the gathered master, m
+    and v of ``run`` against the JAX step's, atol = rtol = 1e-4; the state
+    bytes each rank holds equal ``state_bytes_per_device``."""
+    from repro_torch.parallel.grid import rank_coords
+    from repro_torch.parallel.sharding import tile_slices
+    from repro_torch.train.trainer import placements
+    from repro_torch.tree import leaves_with_path
     mode = run[0]
+    sizes = {a: n for a, n in (("data", dp), ("ep", ep), ("tp", tp)) if n > 1}
+    place = dict(leaves_with_path(placements(tc, init_params(tc, device="meta"), sizes)))
     for i, jm in enumerate(jms):
         for k in ranks.KEYS:
             if k not in jm:
@@ -369,17 +378,15 @@ def check_against_jax(jstate, jms, res, tc, dp, ep, run):
                 np.testing.assert_allclose(r[run]["metrics"][i][k].numpy(), np.asarray(jm[k]),
                                            **TOL, err_msg=f"{run} step {i} rank {rank} {k}")
     jp = _jleaves(jstate.params)
-    E = tc.moe.num_experts if tc.moe is not None else 0
     for rank, r in enumerate(res):
         assert r[run]["state_bytes"] == r[run]["state_bytes_expected"], (run, rank)
-        e = rank % ep
+        coords = rank_coords(rank, {"data": dp, "ep": ep, "tp": tp})
         for path, leaf in r[run]["params"].items():
-            ref = jp[path]
-            if path.split("/")[-2:] in (["moe", "gate"], ["moe", "up"], ["moe", "down"]):
-                ref = ref[:, e * E // ep:(e + 1) * E // ep]
+            ref = jp[path][tile_slices(place[path], jp[path].shape, coords, sizes)]
             np.testing.assert_allclose(leaf.numpy(), ref, **TOL,
                                        err_msg=f"{run} params rank {rank} {path}")
-    full = opt_state_from_ranks([r[run]["opt"] for r in res], tc, dp=dp, ep=ep, mode=mode)
+    full = opt_state_from_ranks([r[run]["opt"] for r in res], tc, dp=dp, ep=ep, mode=mode,
+                                tp=tp)
     assert full["step"] == 3
     for what in ("master", "m", "v"):
         jl = _jleaves(getattr(jstate.opt, what))

@@ -155,7 +155,8 @@ def test_resume_continues_where_the_checkpoint_left_off(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    {"parallel": "dp=2,tp=2"}, {"parallel": "dp=2,pp=2"}, {"parallel": "pod=2,dp=2"},
+    {"parallel": "dp=2,tp=2", "arch": "zamba2-7b"}, {"parallel": "tp=2", "arch": "falcon-mamba-7b"},
+    {"parallel": "dp=2,pp=2"}, {"parallel": "pod=2,dp=2"},
     {"parallel": "dp=2,fsdp"},
     {"parallel": "dp=2,tiles=auto"}, {"pp_schedule": "1f1b"},
     {"pp_impl": "masked"}, {"kernel_tiles": "auto"}, {"arch": "phi-3-vision-4.2b"},

@@ -4,7 +4,8 @@ ranks over gloo (one process a rank, ``parallel.spawn``).
 
 A run on a dp x ep grid of ``w`` ranks (rank r takes row r of each batch
 of 4) is the JAX one-device run with ``microbatches = w`` (the oracle of
-tests/test_torch_ep.py). The port's init is not JAX's, so the two meet
+tests/test_torch_ep.py); on an ep = 2 x tp = 2 grid the batch splits over
+the 2 ep ranks only, and the oracle takes 2 microbatches. The port's init is not JAX's, so the two meet
 through checkpoints, both ways, as in tests/test_torch_launch.py: the JAX
 run checkpoints at step 5 and the grid resumes steps 6-9 from it; the grid
 run checkpoints at step 5 and the JAX launcher resumes from it. Losses,
@@ -41,9 +42,9 @@ import torch_ep_ranks as ranks  # noqa: E402
 
 KW = dict(steps=10, ckpt_interval=5, d_model=64, batch=4, seq=32, log_every=100)
 TOL = dict(atol=1e-4, rtol=1e-4)
-# (arch, --parallel, --opt-shard): the grids (2, 2), (1, 4) and (4, 1)
+# (arch, --parallel, --opt-shard): the grids (2, 2), (1, 4), (4, 1) and (1, 2, 2)
 GRIDS = [("mula-7b-a1b", "dp=2,ep=2", "epso"), ("mula-7b-a1b", "ep=4", "none"),
-         ("mula-1b", "dp=4", "so")]
+         ("mula-1b", "dp=4", "so"), ("mula-7b-a1b", "ep=2,tp=2", "epso")]
 ARCH_KW = {"mula-1b": {}, "mula-7b-a1b": {"moe_dispatch": "dropless"}}
 
 
@@ -52,8 +53,14 @@ def _port(arch, out, parallel, opt_shard, **kw):
                        **{**KW, **ARCH_KW[arch], **kw})
 
 
-def _jax(arch, out, **kw):
-    return jlaunch.run(arch, out=str(out), microbatches=4, **{**KW, **ARCH_KW[arch], **kw})
+def _jax(arch, out, mb=4, **kw):
+    return jlaunch.run(arch, out=str(out), microbatches=mb, **{**KW, **ARCH_KW[arch], **kw})
+
+
+def _batch_ranks(parallel):
+    """The ranks of a --parallel spec that split the batch (dp x ep)."""
+    p = JPlan.parse(parallel)
+    return p.dp * p.ep
 
 
 def _close(got, ref):
@@ -77,14 +84,15 @@ def runs(request, tmp_path_factory):
     arch, parallel, opt_shard = request.param
     root = tmp_path_factory.mktemp(arch)
     out = {"arch": arch, "parallel": parallel, "opt_shard": opt_shard, "root": root}
+    mb = _batch_ranks(parallel)
     with ThreadPoolExecutor(1) as pool:
         fut = pool.submit(_port, arch, root / "grid", parallel, opt_shard)
-        out["jax"] = _jax(arch, root / "jax")
+        out["jax"] = _jax(arch, root / "jax", mb)
         out["grid"] = fut.result()
         shutil.copytree(root / "jax", root / "grid_resumed")
         shutil.copytree(root / "grid", root / "grid_then_jax")
         fut = pool.submit(_port, arch, root / "grid_resumed", parallel, opt_shard)
-        out["grid_then_jax"] = _jax(arch, root / "grid_then_jax")
+        out["grid_then_jax"] = _jax(arch, root / "grid_then_jax", mb)
         out["grid_resumed"] = fut.result()
     return out
 
@@ -143,6 +151,21 @@ def test_fault_injection_on_a_2x2_grid_matches_its_clean_run(tmp_path):
     assert list(faulty) == list(clean) and [h["step"] for h in faulty] == list(range(14))
     summary = json.loads((tmp_path / "faulty" / "summary.json").read_text())
     assert summary["relaunches"] == 2 and summary["replaced"] == [[0, 4], [1, 5]]
+
+
+def test_fault_injection_on_an_ep_tp_grid_matches_its_clean_run(tmp_path):
+    """``--parallel dp=1,ep=2,tp=2 --opt-shard epso``: a hard failure at
+    step 7 relaunches from the step-5 checkpoint, and the history is
+    bit-identical to the clean run's."""
+    kw = dict(steps=10, ckpt_interval=5)
+    with ThreadPoolExecutor(1) as pool:
+        fut = pool.submit(_port, "mula-7b-a1b", tmp_path / "clean", "dp=1,ep=2,tp=2", "epso",
+                          **kw)
+        faulty = _port("mula-7b-a1b", tmp_path / "faulty", "dp=1,ep=2,tp=2", "epso",
+                       inject_hard_at=7, **kw)
+        clean = fut.result()
+    assert clean.relaunches == 0 and faulty.relaunches == 1
+    assert list(faulty) == list(clean) and [h["step"] for h in faulty] == list(range(10))
 
 
 def test_epso_checkpoint_restores_into_so_ranks_only_when_resharding(tmp_path):

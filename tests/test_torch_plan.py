@@ -112,14 +112,54 @@ def test_apply_to_model_matches_jax():
     assert ParallelPlan.parse("dp=2,moe=dropless").apply_to_model(dense) is dense
 
 
-@pytest.mark.parametrize("spec,item", [
-    ("dp=2,pp=2", "item 5"), ("dp=2,ep=2,tp=2", "item 5"), ("pod=2,dp=2", "item 5"),
-    ("dp=2,fsdp", "item 5"),
-    ("dp=2,tiles=auto", "item 7"), ("dp=2,tiles=64x256x256", "item 7")])
-def test_resolve_refuses_what_the_port_lacks(spec, item):
-    cfg = treduced(tget("mula-7b-a1b"))
+@pytest.mark.parametrize("spec,item,arch", [
+    ("dp=2,pp=2", "item 5", "mula-7b-a1b"), ("dp=2,ep=2,tp=2,pp=2", "item 5", "mula-7b-a1b"),
+    ("pod=2,dp=2", "item 5", "mula-7b-a1b"), ("dp=2,fsdp", "item 5", "mula-7b-a1b"),
+    ("dp=2,tp=2", "item 5.10", "zamba2-7b"), ("tp=2", "item 5.10", "falcon-mamba-7b"),
+    ("dp=2,tiles=auto", "item 7", "mula-7b-a1b"),
+    ("dp=2,tiles=64x256x256", "item 7", "mula-7b-a1b")])
+def test_resolve_refuses_what_the_port_lacks(spec, item, arch):
+    """pp, pod and fsdp (item 5), tp for the state-space archs (item 5.10)
+    and explicit tiles (item 7)."""
+    cfg = treduced(tget(arch))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         ParallelPlan.parse(spec).resolve(cfg, global_batch=8)
+
+
+@pytest.mark.parametrize("spec,world,grid,sizes", [
+    ("dp=2,ep=2,tp=2", 8, (2, 2, 2), {"data": 2, "ep": 2, "tp": 2}),
+    ("ep=2,tp=2,opt=epso", 4, (1, 2, 2), {"ep": 2, "tp": 2}),
+    ("tp=4", 4, (1, 1, 4), {"tp": 4}), ("dp=2,tp=2,opt=so", 4, (2, 1, 2), {"data": 2, "tp": 2})])
+def test_resolve_takes_tp(spec, world, grid, sizes):
+    """A tp axis resolves (it was refused before tensor parallelism was
+    ported): world dp * ep * tp, the grid (dp, ep, tp) for ``spawn``, the
+    batch split over dp * ep alone, the checkpoint layout the JAX
+    ``ResolvedPlan``'s. A tp that splits a head is refused with the reason."""
+    from repro.parallel.plan import ResolvedPlan as JResolved
+    cfg = treduced(tget("mula-7b-a1b"))
+    r = ParallelPlan.parse(spec).resolve(cfg, global_batch=grid[0] * grid[1])
+    assert (r.world, r.grid, r.batch_ranks, r.axis_sizes) == (world, grid, grid[0] * grid[1],
+                                                              sizes)
+    assert r.layout_signature() == JResolved(plan=JPlan.parse(spec)).layout_signature()
+    if grid[0] * grid[1] > 1:
+        with pytest.raises(ValueError, match="do not divide"):
+            ParallelPlan.parse(spec).resolve(cfg, global_batch=grid[0] * grid[1] + 1)
+    odd = dataclasses.replace(cfg, num_heads=6, num_kv_heads=3)
+    with pytest.raises(NotImplementedError, match="splits attention by whole heads"):
+        ParallelPlan.parse(spec).resolve(odd)
+
+
+@pytest.mark.parametrize("spec,dispatch,error,match", [
+    ("ep=2", "dropless", ValueError, "does not compose with stage1='a2a'"),
+    ("ep=2,tp=2", "capacity", NotImplementedError, "does not compose with expert-TP")])
+def test_resolve_refuses_a2a_combinations(spec, dispatch, error, match):
+    """The all-to-all Stage 1 refuses dropless dispatch and a tp axis, with
+    the JAX MoE block's reasons."""
+    cfg = treduced(tget("mula-7b-a1b"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, stage1="a2a",
+                                                           dispatch=dispatch))
+    with pytest.raises(error, match=match):
+        ParallelPlan.parse(spec).resolve(cfg)
 
 
 @pytest.mark.parametrize("spec", ["dp=2,ep=2,rebalance=50:1.25"])

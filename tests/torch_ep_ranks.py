@@ -16,17 +16,18 @@ AUX, Z = 0.5, 0.1            # loss weights of the block test's aux and z terms
 KEYS = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_counts", "moe_drops")
 
 
-def block_rank(group, tc, tp, x, ct):
-    """One rank, on its device: its share of the block's params and of x
-    (B, S, d); the block's outputs and the gradients of its share of the
-    loss sum(out * ct) + AUX * aux + Z * z."""
+def block_rank(group, tc, tp, x, ct, placement=None):
+    """One rank, on its device: its share of the block's params (whole
+    stacks in the order ``placement``, the (E,) id -> position row, stores
+    them, or global order) and of x (B, S, d); the block's outputs and the
+    gradients of its share of the loss sum(out * ct) + AUX * aux + Z * z."""
     rank, world, dev = group.rank, group.world, group.device
     x, ct = x.to(dev), ct.to(dev)
     p = {k: v.to(dev).clone().requires_grad_()
          for k, v in expert_shard({"moe": tp}, rank, world)["moe"].items()}
     rows = slice(rank * x.shape[0] // world, (rank + 1) * x.shape[0] // world)
     xl = x[rows].clone().requires_grad_()
-    out, aux, z, st = tmoe.sparse_moe_block(p, xl, tc, ep_group=group)
+    out, aux, z, st = tmoe.sparse_moe_block(p, xl, tc, ep_group=group, placement=placement)
     loss = (out * ct[rows]).sum() + (AUX * aux + Z * z) / world
     grads = torch.autograd.grad(loss, [xl] + [p[k] for k in ("router", "gate", "up", "down")])
     return {"out": out, "aux": aux, "z": z, "counts": st.counts, "drops": st.drops,
@@ -77,32 +78,41 @@ def broadcast_rank(group, params):
     return broadcast_params(mine, group)
 
 
+def grid_rows(grid, b: dict) -> dict:
+    """The rows of batch ``b`` that the grid rank takes: block d * ep + e of
+    dp * ep (the tp ranks of one (data, ep) coordinate take the same)."""
+    c, s = grid.coords, grid.sizes
+    n = b["tokens"].shape[0] // (s["data"] * s["ep"])
+    i = c["data"] * s["ep"] + c["ep"]
+    return {k: v[i * n:(i + 1) * n] for k, v in b.items()}
+
+
 def grid_train_rank(grid, tc, train, params, opt, batches, runs):
-    """One rank of a dp x ep grid: for each (mode, overlap) of ``runs``, from
-    the same full params and AdamW state, the rank's share (its expert
-    slices; its optimizer shards under 'so'/'epso'), one step per batch on
-    its rows; per run the metrics, params, state and the state's bytes
-    measured against ``state_bytes_per_device``."""
-    from repro_torch.convert import opt_state_for_rank
+    """One rank of a dp x ep (x tp) grid: for each (mode, overlap) of
+    ``runs``, from the same full params and AdamW state, the rank's share
+    (its expert slices and tp shards; its optimizer shards under
+    'so'/'epso'), one step per batch on its rows; per run the metrics,
+    params, state and the state's bytes measured against
+    ``state_bytes_per_device``."""
+    from repro_torch.convert import opt_state_for_rank, params_for_rank
     from repro_torch.models import init_params
     from repro_torch.optim.epso import state_bytes_per_device
-    from repro_torch.parallel.sharding import param_placements
-    from repro_torch.tree import leaves, tree_map
+    from repro_torch.train.trainer import placements
+    from repro_torch.tree import leaves
 
     rank = grid.world.rank
-    dp, ep = grid.sizes["data"], grid.sizes["ep"]
+    dp, ep, tp = grid.sizes["data"], grid.sizes["ep"], grid.sizes["tp"]
     shapes = init_params(tc, device="meta")
     out = {}
     for mode, overlap in runs:
-        mine = tree_map(torch.clone, expert_shard(params, grid.ep.rank, grid.ep.world))
-        st = opt_state_for_rank(opt, tc, dp=dp, ep=ep, rank=rank, mode=mode)
+        mine = params_for_rank(params, tc, dp=dp, ep=ep, tp=tp, rank=rank)
+        st = opt_state_for_rank(opt, tc, dp=dp, ep=ep, tp=tp, rank=rank, mode=mode)
         state = TrainState(mine, st)
         step = make_train_step(tc, ParallelConfig(opt_overlap=overlap), train,
                                opt_sharding_mode=mode, grid=grid)
         metrics = []
         for b in batches:
-            n = b["tokens"].shape[0] // grid.world.world
-            state, m = step(state, {k: v[rank * n:(rank + 1) * n] for k, v in b.items()})
+            state, m = step(state, grid_rows(grid, b))
             metrics.append({k: m[k] for k in KEYS if k in m})
         held = sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m, state.opt.v)
                    for t in leaves(tree))
@@ -111,7 +121,7 @@ def grid_train_rank(grid, tc, train, params, opt, batches, runs):
             "metrics": metrics, "params": dict(leaves_with_path(state.params)),
             "opt": state.opt, "state_bytes": held,
             "state_bytes_expected": state_bytes_per_device(
-                shapes, param_placements(shapes, sizes), sizes, mode)}
+                shapes, placements(tc, shapes, sizes), sizes, mode)}
     return out
 
 
@@ -252,3 +262,28 @@ def placement_rank(grid, tc, train, runs, batches, rows):
                                 "tiles_differ": tiles_differ, "sent": sent,
                                 "state_differ": state_differ}
     return out
+
+
+def tp_loss_cases_rank(grid, cases):
+    """``tp_loss_rank`` for each (tc, params, batch) of ``cases``."""
+    return [tp_loss_rank(grid, *c) for c in cases]
+
+
+def tp_loss_rank(grid, tc, params, batch, compute_dtype=torch.float32):
+    """One rank of a dp x ep x tp grid: ``loss_fn`` on its rows with its
+    tiles of ``params`` (``convert.params_for_rank``); its share,
+    the metrics and the gradient of its share for each of its tiles, by
+    path."""
+    from repro_torch.convert import params_for_rank
+    from repro_torch.tree import leaves, tree_map
+    s, dev = grid.sizes, grid.world.device
+    mine = tree_map(lambda t: t.to(dev).requires_grad_(),
+                    params_for_rank(params, tc, dp=s["data"], ep=s["ep"], tp=s["tp"],
+                                    rank=grid.world.rank))
+    rows = {k: v.to(dev) for k, v in grid_rows(grid, batch).items()}
+    share, m = loss_fn(mine, rows, tc, compute_dtype=compute_dtype, ep_group=grid)
+    grads = torch.autograd.grad(share, leaves(mine), allow_unused=True, materialize_grads=True)
+    paths = [p for p, _ in leaves_with_path(mine)]
+    return {"share": share.detach(), "coords": grid.coords,
+            "metrics": {k: v.detach() for k, v in m.items()}, "grads": dict(zip(paths, grads))}
+
