@@ -45,7 +45,7 @@ Phases, each printing JSON lines:
              batches; 8 prompts of 128 tokens stepped through
              make_serve_step, then 64 greedy tokens; the forward prefill
              against the stepped decode at the last prompt position, also
-             for the first 7, 20 and 40 Mamba-2 layers of the same weights
+             for the first 7 and 20 Mamba-2 layers of the same weights
              (a ``hybrid_depth`` line); exact launch counts (81 SSD and 13
              flash launches per prefill, none per decode step); one
              profiled prefill and decode step;
@@ -77,18 +77,18 @@ Phases, each printing JSON lines:
              one EP training step against the single-process CPU float32
              step from the same state, in loss and gradient norm;
   ep_train   full-width Mula-7B-A1B cut to 4 of its 16 layers, EP = 4 (16
-             experts per rank, one 2048-token sequence per rank), 6 steps on
-             one fixed batch; asserts on every rank finite metrics, a falling
-             loss, clip_scale <= 1, the same metrics as the other ranks, the
-             global routed-pair count and the exact launch count of every
-             kernel. The four ranks time-share one card and gloo carries
-             their collectives through host memory: the step time is no EP
-             speed;
+             experts per rank, one 2048-token sequence per rank), 3 steps
+             on one fixed batch; asserts on every rank finite
+             metrics, a falling loss, clip_scale <= 1, the same metrics as the
+             other ranks, the global routed-pair count and the exact launch
+             count of every kernel. The four ranks time-share one card and
+             gloo carries their collectives through host memory: the step
+             time is no EP speed;
   epso_train the paper's sharded optimizer: full-width Mula-7B-A1B cut to
              2 of its 16 layers on a dp = 2 x ep = 2 grid of 4 ranks sharing
              the card over gloo (32 experts and one 2048-token row a rank,
-             4096 gathered tokens per MoE call), 6 steps from init_state(seed
-             0) in each of ('none', 'off'), ('so', 'off'), ('epso', 'ring')
+             4096 gathered tokens per MoE call), 3 steps from
+             init_state(seed 0) in each of ('none', 'off'), ('so', 'off'), ('epso', 'ring')
              and ('epso', 'xla'); asserts on every rank and in every mode
              finite metrics, a falling loss, clip_scale <= 1, the same metrics
              as rank 0, replicated params equal on every rank and expert
@@ -102,14 +102,14 @@ Phases, each printing JSON lines:
              with the all-to-all Stage 1 (``stage1='a2a'``, the dispatch
              plan's uniform-capacity mode for the send buffers) against an
              allgather run, both at capacity factor 2.5 (at the config's
-             1.25 both drop pairs) and peak lr 1e-4, 6 steps each: no
+             1.25 both drop pairs) and peak lr 1e-4, 3 steps each: no
              drops, the same
              metrics on every rank, losses within 2e-3 relative, the exact
              launch count (two dispatch plans a layer and forward); prints
              both Stage 1s' bytes (computed) and step ms;
   tp_train   inside epso_train's ranks, on grids re-cut from the same 4
              processes: ep = 2 x tp = 2 in 'none' and 'epso'/'ring', ep = 1
-             x tp = 4 (expert-TP) in 'epso'/'ring', 4 dropless steps each on
+             x tp = 4 (expert-TP) in 'epso'/'ring', 3 dropless steps each on
              the same fixed batch (the tp ranks of one (data, ep) share its
              rows), without the router's aux and z terms (their EP form
              depends on how the batch is split) at peak lr 1e-4: the same
@@ -132,6 +132,19 @@ Phases, each printing JSON lines:
              the exact launch count; prints the move's ms and the bytes a
              rank sent (computed from the shapes), the rank imbalance of
              steps 0-2's counts under both placements;
+  pp_train   inside epso_train's ranks, the 4 processes re-cut into dp = 1
+             x pp = 2 x ep = 2: full-width Mula-7B-A1B at 4 of its 16
+             layers (2 a stage, 32 experts a rank), 'epso'/'ring',
+             dropless, without router terms, peak lr 1e-4, 4 one-row
+             microbatches of 512 tokens a batch rank, 4 steps of 1f1b then
+             2 of gpipe: every rank the same loss, grad norm and counts, no
+             drops, the state bytes the EPSO plan gives a rank, the
+             saved-input peak of each schedule, the bytes handed between
+             the stages (through pinned host buffers), the exact launch
+             count of a stage; then the same model, rows and microbatches
+             on one rank in the parent, the grid's losses within 2e-3
+             relative of it; prints peak memory, state bytes, step ms and
+             launches a rank;
   launcher_dense  full-width, full-depth Mula-1B (16 layers, d_model 2048,
              d_ff 8192, the byte vocab padded to 512; random weights from
              seed 0, fp32 state, bf16 compute) trained by the launcher
@@ -150,7 +163,7 @@ Phases, each printing JSON lines:
              valid at steps 10 and 15, a history bit-identical to the clean
              run's and the exact launch count of every kernel of the path;
   launcher_grid_dense  launcher_dense's run (its checkpoint at step 4) at
-             6 of Mula-1B's 16 layers through the multi-rank
+             4 of Mula-1B's 16 layers through the multi-rank
              launcher, ``parallel='dp=4'``, ``opt_shard='so'``: four ranks
              share the card over gloo, one 2048-token row each, then the
              same call resumes from step 4; beside it the same run on one
@@ -178,6 +191,15 @@ Phases, each printing JSON lines:
              (rank imbalances and events included) bit-identical to the
              clean one's on every rank, the same placement in both last
              MANIFESTs, finite losses, the exact launch count;
+  launcher_grid_pp  launcher_ft's run on ``--parallel pp=2,ep=2
+             --opt-shard epso`` through the launcher's command line
+             (``launch.train.main(argv)``, in this process so that each
+             rank runs under the launcher probe) with a hard failure at
+             step 7: one relaunch on every rank, the replayed step's loss
+             and grad norm bit-identical to its first attempt's, the plan's
+             layout in the MANIFEST, finite falling losses, every rank's
+             exact launch count; then the one-rank launcher resumes steps
+             16-17 from its last checkpoint;
   launches   the device launches of one dispatch plan at each kernel case's
              shape (at most 3) and of one MoE block at a decode step, each
              captured in a CUDA graph and counted there.
@@ -215,9 +237,12 @@ FP32_FLOPS = 67e12
 MULA = "mula-7b-a1b"
 ZAMBA = "zamba2-7b"
 DEV = "cuda"
-EP_RANKS, EP_SEQ, EP_STEPS = 4, 2048, 6
+# EP_STEPS, EPSO_STEPS, TP_STEPS, GRID_DENSE_LAYERS and HYBRID_DEPTHS are cut
+# to what the smoke's time limit leaves room for beside pp_train and
+# launcher_grid_pp
+EP_RANKS, EP_SEQ, EP_STEPS = 4, 2048, 3
 # epso_train: the sharded optimizer on a dp x ep grid of ranks sharing the card
-EPSO_DP, EPSO_EP, EPSO_LAYERS, EPSO_STEPS = 2, 2, 2, 6
+EPSO_DP, EPSO_EP, EPSO_LAYERS, EPSO_STEPS = 2, 2, 2, 3
 EPSO_RUNS = (("none", "off"), ("so", "off"), ("epso", "ring"), ("epso", "xla"))
 # per-rank fp32 master + m + v bytes of full-width Mula-7B-A1B at 2 layers on
 # the 2 x 2 grid (optim.epso.state_bytes_per_device; every leaf divides)
@@ -244,7 +269,7 @@ A2A_CF, CMP_LR, A2A_LOSS_TOL = 2.5, 1e-4, 2e-3
 # them the step-0 loss of ep = 2 x tp = 2 'none' was 5.4e-4 off the 2 x 2
 # run's, 3.8e-3 by step 3 (measured on the H100)
 TP_GRIDS = (((1, 2, 2), (("none", "off"), ("epso", "ring"))), ((1, 1, 4), (("epso", "ring"),)))
-TP_STEPS, TP_LOSS_TOL = 4, 2e-3
+TP_STEPS, TP_LOSS_TOL = 3, 2e-3
 # placement_train (inside epso_train's ranks): 'epso'/'ring', dropless, a move
 # of the expert stacks and their states after step PLACEMENT_MOVE_AFTER to a
 # placement from seed PLACEMENT_SEED; steps after the move within
@@ -273,7 +298,7 @@ GRID_DENSE_RUN = dict(DENSE_RUN, ckpt_interval=4, parallel="dp=4", opt_shard="so
 # smoke's time limit: the save and restore of its gathered tiles
 # through gloo took ~75 s of its ~250 s at full depth), against a one-rank
 # run of the same depth
-GRID_DENSE_LAYERS = 6
+GRID_DENSE_LAYERS = 4
 GRID_FT_DP, GRID_FT_EP = 2, 2
 GRID_FT_RUN = dict(FT_RUN, parallel=f"dp={GRID_FT_DP},ep={GRID_FT_EP}", opt_shard="epso")
 # one MoE call of launcher_grid_ft on one rank: its ep group's rows, gathered
@@ -293,6 +318,22 @@ GRID_TP_RUN = dict(FT_RUN, parallel="dp=1,ep=2,tp=2", opt_shard="epso")
 GRID_TP_INJECT = dict(inject_hard_at=7)
 GRID_TP_LOSS_TOL = 2e-3
 GRID_TP_LAYOUT = {"axes": [["ep", 2], ["tp", 2]], "opt_shard": "epso", "fsdp": False}
+# pp_train (inside epso_train's ranks, the 4 processes re-cut as dp = 1 x pp =
+# 2 x ep = 2): full-width Mula-7B-A1B at PP_LAYERS of its 16 layers (the train
+# cell's depth), 'epso'/'ring', dropless, without router terms, PP_MB
+# microbatches of one PP_SEQ-token row a batch rank, one step per schedule of
+# PP_SCHEDULES (1f1b, then gpipe on the same state), peak lr CMP_LR; losses
+# within PP_LOSS_TOL relative of a one-rank run of the same model, rows and
+# microbatches
+PP_DP, PP_STAGES, PP_EP, PP_LAYERS, PP_MB, PP_SEQ = 1, 2, 2, 4, 4, 512
+PP_SCHEDULES = ("1f1b",) * 4 + ("gpipe",) * 2
+PP_LOSS_TOL = 2e-3
+# launcher_grid_pp: launcher_ft's run on pp = 2 x ep = 2 under EPSO through
+# ``python -m repro_torch.launch.train``, with a hard failure at step 7 (a
+# relaunch from the step-5 checkpoint); its plan's layout in the MANIFEST
+GRID_PP_RUN = dict(FT_RUN, parallel="pp=2,ep=2", opt_shard="epso")
+GRID_PP_INJECT = 7
+GRID_PP_LAYOUT = {"axes": [["pp", 2], ["ep", 2]], "opt_shard": "epso", "fsdp": False}
 
 
 T_START = time.perf_counter()
@@ -1167,6 +1208,22 @@ def expected_train_launches(num_layers: int, microbatches: int, steps: int) -> d
             "token_counts": 2 * n, "dispatch_plan": 2 * n}
 
 
+def expected_pp_launches(num_layers: int, microbatches: int, steps: int,
+                         whole_pool: bool = False) -> dict:
+    """``expected_train_launches`` of one pipeline stage of ``num_layers``
+    layers: the forward tick runs each layer's forward once more, without
+    autograd, before the backward tick's forward, remat recompute and
+    backward (three forwards in all). ``whole_pool`` (capacity dispatch
+    under EP): each forward also makes the one-device dispatch plan of the
+    gathered tokens."""
+    n = num_layers * microbatches * steps
+    out = expected_train_launches(num_layers, microbatches, steps)
+    for k, extra in (("gmm", 3), ("swiglu", 1), ("combine", 1), ("token_counts", 1),
+                     ("dispatch_plan", 1 + 3 * whole_pool)):
+        out[k] += extra * n
+    return out
+
+
 def expected_a2a_launches(num_layers: int, microbatches: int, steps: int) -> dict:
     """``expected_train_launches`` under the all-to-all Stage 1: per layer
     and microbatch two dispatch plans a forward (the uniform outer plan
@@ -1541,7 +1598,7 @@ IDENTITY_TOL = 0.25
 IDENTITY_TOPK = 5
 
 
-HYBRID_DEPTHS = (7, 20, 40)   # and all 81: the full model's own comparison
+HYBRID_DEPTHS = (7, 20)       # and all 81: the full model's own comparison
 
 
 def _identity_by_depth(params, cfg, prompts, prefill, serve) -> dict:
@@ -2523,7 +2580,8 @@ def _epso_train_rank(grid, steps):
             "device": str(grid.world.device),
             "placement": _placement_train_rank(grid, cfg, train, mine, PLACEMENT_STEPS),
             "a2a": _a2a_train_rank(grid, cfg, train, mine, steps),
-            "tp": _tp_train_rank(grid, cfg, train, batch)}
+            "tp": _tp_train_rank(grid, cfg, train, batch),
+            "pp": _pp_train_rank(grid)}
 
 
 def _history_run(cfg, train, grid, mode, overlap, rows, steps):
@@ -2571,6 +2629,89 @@ def _a2a_train_rank(grid, cfg, train, mine, steps):
     return {stage1: _history_run(dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, stage1=stage1, capacity_factor=A2A_CF)), train, grid, "epso", "ring", mine,
         steps) for stage1 in ("a2a", "allgather")}
+
+
+def pp_train_config():
+    """pp_train's model and TrainConfig: full-width Mula-7B-A1B at PP_LAYERS
+    layers, dropless, without router terms; PP_MB one-row microbatches of
+    PP_SEQ tokens a batch rank (PP_DP x PP_EP of them), peak lr CMP_LR."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    cfg = dataclasses.replace(get_config(MULA), num_layers=PP_LAYERS)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, dispatch="dropless", router_aux_coef=0.0, router_z_coef=0.0))
+    train = TrainConfig(seq_len=PP_SEQ, global_batch=PP_DP * PP_EP * PP_MB, warmup_steps=2,
+                        total_steps=100, lr_peak=CMP_LR, lr_min=CMP_LR / 10)
+    return cfg, train
+
+
+def pp_oracle_rows(batch: dict, ranks: int, n_mb: int) -> dict:
+    """``batch``'s rows reordered so that one process's microbatch m holds
+    microbatch m of each of the ``ranks`` batch ranks, in rank order: the
+    microbatches the grid's stages see."""
+    b = batch["tokens"].shape[0]
+    c = b // (ranks * n_mb)
+    idx = [r * (b // ranks) + m * c + j for m in range(n_mb) for r in range(ranks)
+           for j in range(c)]
+    return {k: v[idx] for k, v in batch.items()}
+
+
+def _pp_train_rank(grid):
+    """pp_train on one rank of epso_train's spawn: the 4 processes re-cut as
+    PP_DP x PP_STAGES x PP_EP (``init_grid`` over the world); the rank's
+    rows (block d * ep + e of the fixed batch, the same on both stages),
+    'epso'/'ring' from init_state(seed 0), one step per schedule of
+    PP_SCHEDULES; per step the metrics, step ms, bytes handed to the
+    neighbour stage and the saved-input peak; the launches, peak memory
+    and state bytes of the rank."""
+    import torch
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.parallel import init_grid
+    from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.trainer import placements
+    from repro_torch.tree import leaves
+
+    cfg, train = pp_train_config()
+    g = init_grid(grid.world, PP_DP, PP_EP, 1, PP_STAGES)
+    batch = _fixed_batch(cfg.vocab_size, train.global_batch, train.seq_len, g.world.device)
+    n = train.global_batch // (PP_DP * PP_EP)
+    r = g.coords["data"] * PP_EP + g.coords["ep"]
+    rows = {k: v[r * n:(r + 1) * n] for k, v in batch.items()}
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_state(cfg, train, seed=0, grid=g, opt_sharding_mode="epso")
+    held = sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m, state.opt.v)
+               for t in leaves(tree))
+    steps = {sched: make_train_step(cfg, ParallelConfig(
+        microbatches=PP_MB, remat_policy="block", opt_overlap="ring", pp_stages=PP_STAGES,
+        pp_schedule=sched), train, opt_sharding_mode="epso", grid=g)
+        for sched in sorted(set(PP_SCHEDULES))}
+    history = []
+    ops.reset_launches()
+    for sched in PP_SCHEDULES:
+        step = steps[sched]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, rows)
+        torch.cuda.synchronize()
+        history.append({**{k: float(m[k]) for k in keys}, "schedule": sched,
+                        "counts": m["moe_counts"].double().cpu().tolist(),
+                        "step_ms": (time.perf_counter() - t0) * 1e3,
+                        "sent_bytes": step.sent_bytes,
+                        "saved_peak": step.saved_peak[g.coords["pp"]]})
+    launches = dict(ops.launches)
+    shapes = init_params(cfg, device="meta")
+    out = {"history": history, "launches": launches, "coords": g.coords,
+           "peak_bytes": torch.cuda.max_memory_allocated(), "state_bytes": held,
+           "state_bytes_expected": state_bytes_per_device(
+               shapes, placements(cfg, shapes, g.axis_sizes), g.axis_sizes, "epso")}
+    del state, steps
+    return out
 
 
 def _tp_train_rank(grid, cfg, train, batch):
@@ -2839,7 +2980,101 @@ def phase_epso_train() -> dict:
                    "buffers, explicitly): no step time here is an EP, DP or EPSO speed"}
     emit("epso_train", **row)
     return (row, phase_placement_train(ranks, cfg), phase_a2a_train(ranks, cfg),
-            phase_tp_train(ranks, cfg))
+            phase_tp_train(ranks, cfg), phase_pp_train(ranks))
+
+
+def phase_pp_train(ranks) -> dict:
+    """The pp runs of epso_train's ranks (``_pp_train_rank``): full-width
+    Mula-7B-A1B at PP_LAYERS layers on PP_DP x PP_STAGES x PP_EP,
+    'epso'/'ring', dropless, without router terms, PP_MB microbatches, 1f1b
+    then gpipe (PP_SCHEDULES). Asserts on every rank finite metrics, a
+    falling loss, clip_scale <= 1, rank 0's loss, grad norm and counts, no
+    drops and every routed pair counted, the state bytes the EPSO plan gives
+    the rank, the saved-input peak (1f1b: at most pp on stage 0; gpipe: all
+    PP_MB), the bytes handed to the neighbour stage as computed from the
+    shapes, the exact launch count of a stage; then runs the same model,
+    rows (as the stages see them) and microbatches on one rank in this
+    process and holds the grid's losses within PP_LOSS_TOL relative of it.
+    Prints peak memory, state bytes, step ms and launches a rank."""
+    import torch
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.train import init_state, make_train_step
+
+    cfg, train = pp_train_config()
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    expect = expected_pp_launches(PP_LAYERS // PP_STAGES, PP_MB, len(PP_SCHEDULES))
+    pairs = train.global_batch * PP_SEQ * cfg.moe.experts_per_token
+    # one activation (or its gradient) of a microbatch: one row, bf16
+    act = train.global_batch // (PP_DP * PP_EP) // PP_MB * PP_SEQ * cfg.d_model * 2
+    r0 = ranks[0]["pp"]["history"]
+    for i, rk in enumerate(ranks):
+        run, where = rk["pp"], f"pp_train rank {i}"
+        h, stage = run["history"], run["coords"]["pp"]
+        if [{k: s[k] for k in ("loss", "grad_norm", "counts")} for s in h] != [
+                {k: s[k] for k in ("loss", "grad_norm", "counts")} for s in r0]:
+            raise AssertionError(f"{where}: loss, grad norm or counts differ from rank 0's")
+        if not all(math.isfinite(s[k]) for s in h for k in keys) or \
+                not all(s["clip_scale"] <= 1.0 for s in h) or not h[-1]["loss"] < h[0]["loss"]:
+            raise AssertionError(f"{where}: metrics not finite, clip_scale above 1 or the loss "
+                                 f"did not fall: {[s['loss'] for s in h]}")
+        if any(s["moe_drops"] != 0 for s in h) or any(sum(s["counts"]) != pairs for s in h):
+            raise AssertionError(f"{where}: drops or routed pairs off")
+        if run["state_bytes"] != run["state_bytes_expected"]:
+            raise AssertionError(f"{where}: state bytes {run['state_bytes']}, planned "
+                                 f"{run['state_bytes_expected']}")
+        for s in h:
+            want_peak = PP_MB if s["schedule"] == "gpipe" else PP_STAGES - stage
+            want_sent = PP_MB * act * ((stage < PP_STAGES - 1) + (stage > 0))
+            if s["saved_peak"] != want_peak or s["sent_bytes"] != want_sent:
+                raise AssertionError(f"{where}: saved-input peak {s['saved_peak']} (want "
+                                     f"{want_peak}) or bytes handed off {s['sent_bytes']} "
+                                     f"(want {want_sent}) under {s['schedule']}")
+        if run["launches"] != expect:
+            raise AssertionError(f"{where}: launches {run['launches']} != {expect}")
+    # the one-rank run: the same state, rows and microbatches in one process
+    torch.cuda.empty_cache()
+    batch = pp_oracle_rows(_fixed_batch(cfg.vocab_size, train.global_batch, train.seq_len, DEV),
+                           PP_DP * PP_EP, PP_MB)
+    state = init_state(cfg, train, seed=0, device=DEV)
+    ref = []
+    for sched in PP_SCHEDULES:
+        step = make_train_step(cfg, ParallelConfig(microbatches=PP_MB, remat_policy="block",
+                                                   pp_stages=PP_STAGES, pp_schedule=sched), train)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        ref.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "step_ms": (time.perf_counter() - t0) * 1e3})
+    del state, step
+    torch.cuda.empty_cache()
+    rel = [abs(s["loss"] - q["loss"]) / abs(q["loss"]) for s, q in zip(r0, ref)]
+    row = {"model": cfg.name, "layers": PP_LAYERS,
+           "grid": {"data": PP_DP, "pp": PP_STAGES, "ep": PP_EP}, "mode": "epso/ring",
+           "dispatch": "dropless", "router_terms": False, "lr_peak": CMP_LR,
+           "microbatches": PP_MB, "seq_len": PP_SEQ, "rows_per_batch_rank": PP_MB,
+           "schedules": list(PP_SCHEDULES), "losses": [s["loss"] for s in r0],
+           "losses_one_rank": [q["loss"] for q in ref], "loss_rel_to_one_rank": rel,
+           "grad_norms": [s["grad_norm"] for s in r0],
+           "grad_norms_one_rank": [q["grad_norm"] for q in ref], "tolerance": PP_LOSS_TOL,
+           "coords_by_rank": [rk["pp"]["coords"] for rk in ranks],
+           "step_ms_by_rank": [[s["step_ms"] for s in rk["pp"]["history"]] for rk in ranks],
+           "step_ms_one_rank": [q["step_ms"] for q in ref],
+           "peak_bytes_by_rank": [rk["pp"]["peak_bytes"] for rk in ranks],
+           "state_bytes_per_rank": [rk["pp"]["state_bytes"] for rk in ranks],
+           "handoff_bytes_per_message_computed": act,
+           "handoff_bytes_per_step_by_rank": [rk["pp"]["history"][0]["sent_bytes"]
+                                              for rk in ranks],
+           "saved_peak_by_rank": [[s["saved_peak"] for s in rk["pp"]["history"]]
+                                  for rk in ranks],
+           "launches_per_rank": ranks[0]["pp"]["launches"], "expected_launches": expect,
+           "note": "4 ranks time-share one card over gloo; the activations and their "
+                   "gradients go between stages through pinned host buffers: no step time "
+                   "here is a PP speed"}
+    emit("pp_train", **row)
+    if max(rel) > PP_LOSS_TOL:
+        raise AssertionError(f"pp_train: losses off the one-rank run's by {rel} "
+                             f"(> {PP_LOSS_TOL})")
+    return row
 
 
 def a2a_bytes(cfg, tokens: int, ep: int, cf: float) -> dict:
@@ -3135,7 +3370,7 @@ def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
 
     rec = {"step_ms": [], "h2d_ms": [], "save_ms": [], "save_model_only_ms": [],
            "restore_ms": [], "disk_free_before_save": [], "profile": None,
-           "state_bytes": None}
+           "state_bytes": None, "calls": []}
     made, mover = launch.make_train_step, launch._batch_mover
     calls = [0]
 
@@ -3168,6 +3403,8 @@ def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
             out = fn(state, batch)
             torch.cuda.synchronize()
             rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            # every call's loss and grad norm, a replayed step's attempts too
+            rec["calls"].append({k: float(out[1][k]) for k in ("loss", "grad_norm")})
             return out
         return timed
 
@@ -3653,6 +3890,107 @@ def phase_launcher_grid_tp(ft: dict) -> dict:
     return row
 
 
+def phase_launcher_grid_pp() -> dict:
+    """launcher_ft's run on a pp = 2 x ep = 2 grid under EPSO (GRID_PP_RUN:
+    one layer a stage, two one-row microbatches a rank, 1f1b) through the
+    launcher's command line, ``launch.train.main(argv)`` (the entry of
+    ``python -m repro_torch.launch.train``) in this process, each rank's
+    body under ``_launcher_probe`` (``_launcher_grid_rank``), with a hard
+    failure at step GRID_PP_INJECT: one relaunch from the step-5
+    checkpoint (the stage tiles gathered into whole arrays on save, sent
+    back on restore), the replayed step's loss and grad norm bit-identical
+    to its first attempt's on every rank, the plan's layout in the
+    MANIFEST, finite and falling losses, every rank's launches exactly a
+    stage's 19 steps. Then its last checkpoint (step 15) restores on one
+    rank: the one-rank launcher resumes steps 16 and 17 from it."""
+    from repro_torch.launch import train as launch
+
+    out = LAUNCH_DIR / "grid_pp"
+    shutil.rmtree(out, ignore_errors=True)
+    run = GRID_PP_RUN
+    argv = ["--arch", FT_ARCH, "--parallel", run["parallel"], "--opt-shard", run["opt_shard"],
+            "--d-model", str(run["d_model"]), "--layers", str(run["layers"]),
+            "--steps", str(run["steps"]), "--batch", str(run["batch"]), "--seq", str(run["seq"]),
+            "--ckpt-interval", str(run["ckpt_interval"]),
+            "--compute-dtype", run["compute_dtype"], "--inject-hard-at", str(GRID_PP_INJECT),
+            "--log-every", "100", "--out", str(out / "grid")] + \
+        (["--device", run["device"]] if "device" in run else [])
+    rank_main, real_launch = launch._rank_main, launch.launch_ranks
+    ranks = []
+
+    def keep(spec, rank_fn=None):
+        ranks.extend(real_launch(spec, rank_fn))
+        return ranks
+
+    try:
+        # the command line's own path, each rank's body under the probe
+        launch._rank_main, launch.launch_ranks = _launcher_grid_rank, keep
+        t0 = time.perf_counter()
+        launch.main(argv)
+        wall = time.perf_counter() - t0
+    finally:
+        launch._rank_main, launch.launch_ranks = rank_main, real_launch
+    try:
+        history = json.loads((out / "grid" / "history.json").read_text())
+        manifest = _newest_manifest(out / "grid" / "ckpt")
+        # its last checkpoint on one rank: resume the remaining steps here
+        t0 = time.perf_counter()
+        one = launch.run(FT_ARCH, **{k: v for k, v in run.items()
+                                     if k not in ("parallel", "opt_shard")},
+                         out=str(out / "grid"))
+        one_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    steps = run["steps"]
+    par = launch.prepare_run(FT_ARCH, **run, out=str(out / "grid")).par
+    expect = expected_pp_launches(run["layers"] // par.pp_stages, par.microbatches, steps + 1,
+                                  whole_pool=True)
+    losses = [h["loss"] for h in history]
+    # calls 0-6 are steps 0-6; the failure at step 7 restores step 5's
+    # checkpoint, so call 7 replays step 6
+    first = GRID_PP_INJECT - 1
+    row = {"model": launcher_ft_cfg().name, "run": run, "inject_hard_at": GRID_PP_INJECT,
+           "argv": argv, "wall_s": wall, "plan": str(par.pp_stages) + " stages, "
+           + par.pp_schedule + ", " + par.pp_impl + f", {par.microbatches} microbatches",
+           "ranks": len(ranks), "coords_by_rank": [r["coords"] for r in ranks],
+           "relaunches_by_rank": [r["result"].relaunches for r in ranks],
+           "replaced_by_rank": [r["result"].replaced for r in ranks],
+           "calls_by_rank": [len(r["rec"]["calls"]) for r in ranks],
+           "step6_first_attempt": ranks[0]["rec"]["calls"][first],
+           "step6_replay": ranks[0]["rec"]["calls"][first + 1],
+           "losses": losses, "moe_drops": [h.get("moe_drops") for h in history],
+           "manifest_plan": manifest.get("plan"), "last_checkpoint_step": manifest["step"],
+           "step_ms_median_by_rank": [statistics.median(r["rec"]["step_ms"]) for r in ranks],
+           "save_ms_rank0": ranks[0]["rec"]["save_ms"],
+           "restore_ms_rank0": ranks[0]["rec"]["restore_ms"],
+           "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+           "one_rank_resumed_steps": [h["step"] for h in one],
+           "one_rank_losses": [h["loss"] for h in one],
+           "grid_losses_same_steps": [losses[h["step"]] for h in one],
+           "one_rank_wall_s": one_wall, "launches_per_rank": ranks[0]["launches"],
+           "expected_launches": expect}
+    emit("launcher_grid_pp", **row)
+    for i, r in enumerate(ranks):
+        where, calls = f"launcher_grid_pp rank {i}", r["rec"]["calls"]
+        if r["result"].relaunches != 1 or [h["step"] for h in r["result"]] != list(range(steps)):
+            raise AssertionError(f"{where}: {r['result'].relaunches} relaunches, steps "
+                                 f"{[h['step'] for h in r['result']]}")
+        if len(calls) != steps + 1 or calls[first] != calls[first + 1]:
+            raise AssertionError(f"{where}: step {first}'s replay {calls[first + 1:first + 2]} "
+                                 f"differs from its first attempt {calls[first]} "
+                                 f"({len(calls)} step calls)")
+        if r["launches"] != expect:
+            raise AssertionError(f"{where}: launches {r['launches']} != {expect}")
+    if (manifest.get("plan") or {}).get("layout") != GRID_PP_LAYOUT:
+        raise AssertionError(f"launcher_grid_pp: MANIFEST plan {manifest.get('plan')}")
+    if not (_finite(history) and losses[-1] < losses[0]):
+        raise AssertionError(f"launcher_grid_pp: losses {losses} not finite and falling")
+    if [h["step"] for h in one] != list(range(manifest["step"] + 1, steps)) or not _finite(one):
+        raise AssertionError(f"launcher_grid_pp: the one-rank resume took "
+                             f"{[(h['step'], h['loss']) for h in one]}")
+    return row
+
+
 def _newest_manifest(ckpt) -> dict:
     """The MANIFEST of the newest valid slot under ``ckpt``."""
     mans = [json.loads((ckpt / slot / "MANIFEST.json").read_text())
@@ -3954,13 +4292,14 @@ def main(argv=None) -> int:
     phase_launcher_ssm()
     phase_ep_reference()
     ep_train = phase_ep_train()
-    epso, placement, a2a, tp = phase_epso_train()
+    epso, placement, a2a, tp, pp = phase_epso_train()
     dense = phase_launcher_dense()
     ft = phase_launcher_ft()
     grid_dense = phase_launcher_grid_dense()
     grid_ft = phase_launcher_grid_ft(ft)
     grid_tp = phase_launcher_grid_tp(ft)
     grid_reb = phase_launcher_grid_rebalance()
+    grid_pp = phase_launcher_grid_pp()
     phase_launches(get_config(MULA))
     emit("phase_times", seconds=PHASE_S, total_s=time.perf_counter() - T_START)
 
@@ -3978,6 +4317,7 @@ def main(argv=None) -> int:
                    "placement_train": placement["launches_per_rank"][name],
                    "a2a_train": a2a["launches_per_rank"][name],
                    "tp_train": tp["launches_per_rank"][name],
+                   "pp_train": pp["launches_per_rank"][name],
                    "launcher_dense": dense["launches"][name],
                    "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name],
                    "launcher_grid_dense": grid_dense["launches_per_rank"][name],
@@ -3986,7 +4326,8 @@ def main(argv=None) -> int:
                    "launcher_grid_rebalance": grid_reb["launches_per_rank"]["clean"][name]
                    + grid_reb["launches_per_rank"]["faulty"][name],
                    "launcher_grid_tp": grid_tp["launches_per_rank"]["clean"][name]
-                   + grid_tp["launches_per_rank"]["faulty"][name]}
+                   + grid_tp["launches_per_rank"]["faulty"][name],
+                   "launcher_grid_pp": grid_pp["launches_per_rank"][name]}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

@@ -46,12 +46,14 @@ files hold the same whole arrays. Model-only files have no MANIFEST, so
 their expert stacks are written back in global-id order (the JAX package
 writes them in placed order, with no record of the placement).
 
-On a dp x ep x tp process grid (``grid=``, the rank's
+On a dp x pp x ep x tp process grid (``grid=``, the rank's
 ``parallel.ProcessGrid``; every rank makes the same calls) the files are
 still the JAX package's: whole arrays. A rank holds a tile of each leaf
 (``parallel.sharding.tile_slices`` of the ``layout=`` the caller passes,
-``train.state_layout``: expert slices over 'ep', tp shards, SO/EPSO state
-shards). On save, leaf by leaf, the first rank holding each distinct tile
+``train.state_layout``: pipeline stages of the layer stacks over 'pp',
+expert slices over 'ep', tp shards, SO/EPSO state shards); a stage-split
+layer stack is one stage-agnostic (L, ...) array on disk, as the JAX
+checkpointer writes it, so checkpoints move across pipeline layouts. On save, leaf by leaf, the first rank holding each distinct tile
 (so one of the tp replicas of a leaf 'tp' does not split) sends it to rank 0, which assembles the leaf
 on the host and writes the member: the host holds one leaf at a time. On
 restore rank 0 alone reads each member once and sends every rank its tile
@@ -331,8 +333,7 @@ class Checkpointer:
             if layout is None:
                 raise ValueError("a Checkpointer on a grid needs the layout of the ranks' "
                                  "tiles (layout=train.state_layout(...))")
-            want = (grid.sizes["data"], grid.sizes["ep"]) + (
-                (grid.sizes["tp"],) if grid.sizes["tp"] > 1 else ())
+            want = grid.spec
             if plan is not None and plan.grid != want:
                 raise ValueError(f"plan '{plan.spec()}' is a {plan.grid} grid, the ranks a "
                                  f"{grid.sizes} one")

@@ -8,8 +8,8 @@ parameter dict: the same nested layout, leaves as tensors.
 to start both packages from the same weights and optimizer state, since
 JAX's PRNG is not reproduced. Under expert parallelism each rank takes its
 share: ``parallel.expert_shard(params, rank, world)`` of the params and
-``opt_state_shard(opt, rank, world)`` of the AdamW state. On a dp x ep (x
-tp) grid, ``params_for_rank`` cuts a rank's tiles of the params,
+``opt_state_shard(opt, rank, world)`` of the AdamW state. On a dp x pp x
+ep x tp grid, ``params_for_rank`` cuts a rank's tiles of the params,
 ``opt_state_for_rank`` its shards of the full optimizer state (any mode)
 and ``opt_state_from_ranks`` puts the ranks' shards back together into
 full numpy arrays; each cuts by ``parallel.sharding.tile_slices``.
@@ -63,29 +63,30 @@ def opt_state_shard(opt: AdamWState, rank: int, world: int) -> AdamWState:
     return AdamWState(opt.step, *(expert_shard(t, rank, world) for t in (opt.master, opt.m, opt.v)))
 
 
-def _grid_specs(cfg: ModelConfig, dp: int, ep: int, mode: str, tp: int = 1):
-    sizes = {a: n for a, n in (("data", dp), ("ep", ep), ("tp", tp)) if n > 1}
+def _grid_specs(cfg: ModelConfig, dp: int, ep: int, mode: str, tp: int = 1, pp: int = 1):
+    sizes = {a: n for a, n in (("data", dp), ("pp", pp), ("ep", ep), ("tp", tp)) if n > 1}
     shapes = init_params(cfg, device="meta")
     place = placements(cfg, shapes, sizes)
     return shapes, optimizer_state_specs(shapes, place, sizes, mode), \
-        {"data": dp, "ep": ep, "tp": tp}, place
+        {"data": dp, "pp": pp, "ep": ep, "tp": tp}, place
 
 
 def params_for_rank(params: dict, cfg: ModelConfig, *, dp: int, ep: int, rank: int,
-                    tp: int = 1) -> dict:
+                    tp: int = 1, pp: int = 1) -> dict:
     """Copies of rank ``rank``'s tiles of a whole parameter tree on a dp x
-    ep x tp grid (rank = (d * ep + e) * tp + t): what ``train.init_state``
-    cuts there from the same whole params."""
-    _, _, sizes, place = _grid_specs(cfg, dp, ep, "none", tp)
+    pp x ep x tp grid (rank = ((d * pp + p) * ep + e) * tp + t): what
+    ``train.init_state`` cuts there from the same whole params."""
+    _, _, sizes, place = _grid_specs(cfg, dp, ep, "none", tp, pp)
     coords = rank_coords(rank, sizes)
     return tree_map(lambda t, pl: t[tile_slices(pl, t.shape, coords, sizes)].clone(),
                     params, place)
 
 
 def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, rank: int,
-                       mode: str, device: DeviceLike = None, tp: int = 1) -> AdamWState:
-    """Rank ``rank``'s state on a dp x ep x tp grid (rank = (d * ep + e) *
-    tp + t) under ``opt_sharding_mode`` ``mode``, from a full AdamW state: the JAX
+                       mode: str, device: DeviceLike = None, tp: int = 1,
+                       pp: int = 1) -> AdamWState:
+    """Rank ``rank``'s state on a dp x pp x ep x tp grid (rank = ((d * pp +
+    p) * ep + e) * tp + t) under ``opt_sharding_mode`` ``mode``, from a full AdamW state: the JAX
     package's with numpy leaves (converted by ``opt_state_from_jax`` onto
     ``device``) or the port's. Each of master, m and v is cut by its state
     placement (``optim.epso.optimizer_state_specs`` of the port's param
@@ -93,7 +94,7 @@ def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, r
     ``train.init_state`` cuts on that rank from the same full state."""
     if not torch.is_tensor(leaves(opt.master)[0]):
         opt = opt_state_from_jax(opt, device=device)
-    _, specs, sizes, _ = _grid_specs(cfg, dp, ep, mode, tp)
+    _, specs, sizes, _ = _grid_specs(cfg, dp, ep, mode, tp, pp)
     coords = rank_coords(rank, sizes)
 
     def cut(tree):
@@ -103,12 +104,12 @@ def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, r
 
 
 def opt_state_from_ranks(states: list, cfg: ModelConfig, *, dp: int, ep: int,
-                         mode: str, tp: int = 1) -> dict:
+                         mode: str, tp: int = 1, pp: int = 1) -> dict:
     """The inverse of ``opt_state_for_rank``: the ranks' states (in rank
     order) put back together into full float32 numpy arrays, ``{"master",
     "m", "v"}`` each a dict of leaves by path ('layers/moe/gate'), and
     ``"step"``. Ranks that hold the same tile must agree on it exactly."""
-    shapes, specs, sizes, _ = _grid_specs(cfg, dp, ep, mode, tp)
+    shapes, specs, sizes, _ = _grid_specs(cfg, dp, ep, mode, tp, pp)
     out = {"step": int(states[0].step)}
     for what in ("master", "m", "v"):
         full = {path: np.full(tuple(leaf.shape), np.nan, dtype=np.float32)

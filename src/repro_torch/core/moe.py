@@ -370,14 +370,19 @@ def _ep_stats(plan_counts, drops, group: EPGroup, placement) -> MoeStats:
 
 
 def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False, placement=None,
-                 tp: Optional[EPGroup] = None):
+                 tp: Optional[EPGroup] = None, whole_pool: bool = False):
     """Paper Algorithm 1 under EP. x: (T, d), the rank's tokens; ``p`` holds
     the router and shared experts whole and the rank's slice of the expert
     stacks (EL = E / world experts from rank * EL). ``moe_cfg.stage1``:
     'allgather' (the paper's) or 'a2a' (``_fsmoe_a2a``). With a 'tp' group
     ``tp`` (expert-TP on top of EP, the allgather Stage 1 only) the slices
     are the rank's d_ff shards and the partial outputs are summed over 'tp'
-    before the Stage 5 reduce-scatter. Returns (out (T, d), aux, z,
+    before the Stage 5 reduce-scatter. ``whole_pool`` (capacity dispatch,
+    allgather Stage 1; a pipeline stage's MoE block): the pairs that a
+    one-device dispatch of the gathered tokens over all E experts would
+    drop are dropped, and the rank dispatches the rest with no capacity
+    bound, so the drops are the one-device pool's, not those of E / world
+    pools of E / world experts each. Returns (out (T, d), aux, z,
     MoeStats): aux and z averaged over the ranks, the stats global."""
     E, world = moe_cfg.num_experts, group.world
     EL = E // world
@@ -387,6 +392,11 @@ def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False, place
         raise ValueError(f"EP over {world} ranks needs E % world == 0 and the rank's "
                          f"{EL}-expert slice; got E={E}, stack {tuple(p['gate'].shape)}")
     if moe_cfg.stage1 == "a2a":
+        if whole_pool:
+            raise NotImplementedError(
+                "stage1='a2a' inside a pipeline stage is not ported to repro_torch yet "
+                "(ROADMAP.md §1 item 5.11): the JAX stage always runs the one-device MoE "
+                "dispatch there, never the EP shard_map")
         if dropless:
             raise ValueError(
                 "dispatch='dropless' does not compose with stage1='a2a': the all-to-all send "
@@ -409,19 +419,35 @@ def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False, place
         r_g = RouterOut(all_gather_tokens(tp_copy(r.weights, tp), group),
                         all_gather_tokens(idx, group), r.aux_loss, r.z_loss)
         x_g = all_gather_tokens(tp_copy(x, tp), group)
+        whole = None
+        if whole_pool and not dropless:
+            # the one-device plan of the gathered tokens decides the drops; its
+            # dropped pairs get the id E, which no rank holds
+            idx_g = r_g.indices
+            whole = make_dispatch_plan(idx_g, num_experts=E, align=ops.gmm_align(),
+                                       pool_rows=dispatch_pool_rows(idx_g.shape[0], moe_cfg))
+            r_g = r_g._replace(indices=torch.where(whole.valid.view_as(idx_g), idx_g,
+                                                   torch.full_like(idx_g, E)))
         # Stages 2-5 on the rank's experts; then the Stage-5 tail: the partial
         # outputs summed over 'tp' and over ranks, each rank keeping its own
         # tokens' rows
         out_partial, plan = dispatch_compute_combine(
             p["gate"], p["up"], p["down"], x_g, r_g, moe_cfg, expert_offset=group.rank * EL,
-            local_experts=EL, dropless=dropless)
+            local_experts=EL, dropless=dropless or whole is not None)
         out = reduce_scatter_tokens(tp_reduce(out_partial, tp), group)
         # aux and z averaged over the ranks, the drops (each rank's own
         # experts') summed
         aux, z, drops = all_reduce_sum(torch.stack([r.aux_loss, r.z_loss, plan.drops.float()]),
                                        group).unbind()
         aux, z = aux / world, z / world
-        stats = _ep_stats(plan.counts, drops, group, placement)
+        if whole is None:
+            stats = _ep_stats(plan.counts, drops, group, placement)
+        else:
+            # every rank made the same one-device plan: its counts (position
+            # order) and drops are global
+            counts = whole.counts.float()
+            stats = MoeStats(counts if placement is None else counts[placement],
+                             whole.drops.float())
     if moe_cfg.num_shared_experts:
         out = out + _shared_expert(p, x, tp)
     return out, aux, z, stats
@@ -507,7 +533,8 @@ def _fsmoe_a2a(p, x, moe_cfg, group: EPGroup, *, placement=None):
 
 
 def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None,
-                     tp_group: Optional[EPGroup] = None, aux: bool = True, placement=None):
+                     tp_group: Optional[EPGroup] = None, aux: bool = True, placement=None,
+                     whole_pool: bool = False):
     """x: (B, S, d) -> (out (B, S, d), aux_loss, z_loss, MoeStats). With
     ``ep_group``, x is the rank's share of the batch: the block runs
     ``moe_fsmoe_ep`` when ``uses_ep`` says so, else the dense path with
@@ -517,7 +544,9 @@ def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None,
     holding the same tokens. ``aux=False`` (serving, which discards them;
     one device): the aux and z losses and the stats are not computed, and
     are None. ``placement``: the (E,) inverse placement row (global id ->
-    position) of stacks stored in placed order, or None."""
+    position) of stacks stored in placed order, or None. ``whole_pool``:
+    under EP, the one-device capacity pool over the gathered tokens
+    (``moe_fsmoe_ep``); the dense path has it anyway."""
     B, S, d = x.shape
     m = cfg.moe
     xt = x.reshape(B * S, d)
@@ -541,7 +570,7 @@ def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None,
                          "and the stats are reduced over the ranks")
     if ep_group is not None and uses_ep(m, ep_group.world):
         out, aux, z, stats = moe_fsmoe_ep(p, xt, m, ep_group, dropless=dropless,
-                                          placement=placement, tp=tp)
+                                          placement=placement, tp=tp, whole_pool=whole_pool)
         return out.reshape(B, S, d), aux, z, stats
     if p["gate"].shape[0] != m.num_experts:
         raise ValueError(f"the dense path needs every expert; the stack holds "

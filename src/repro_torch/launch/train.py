@@ -1,4 +1,4 @@
-"""End-to-end training launcher, on one device or on a dp x ep x tp grid of
+"""End-to-end training launcher, on one device or on a dp x pp x ep x tp grid of
 ranks: port of the JAX package's ``launch/train.py``.
 
 Wires together the data pipeline (tokenize/shuffle/shard + mmap loader),
@@ -11,12 +11,18 @@ from the other's checkpoints, whatever plan wrote them (the files hold
 whole arrays).
 
 A ``--parallel`` plan (``parallel.ParallelPlan``; or the legacy ``--mesh``)
-of more than one rank runs on the port's ('data', 'ep', 'tp') grid: the
-launching process prepares the data, then starts one process a rank
+of more than one rank runs on the port's ('data', 'pp', 'ep', 'tp') grid:
+the launching process prepares the data, then starts one process a rank
 (``parallel.spawn``, gloo; on the card the ranks share it), each running
-``_rank_main`` on its rows of every batch (the tp ranks of one (data, ep)
-coordinate on the same rows, each with its shards of attention, the MLPs
-and the expert stacks); rank 0 writes the outputs.
+``_rank_main`` on its rows of every batch (the pp and tp ranks of one
+(data, ep) coordinate on the same rows, each with its pipeline stage of
+the layers and its shards of attention, the MLPs and the expert stacks);
+rank 0 writes the outputs. A pp axis pipelines each step over
+``--microbatches`` (by default 2 * pp where that divides a rank's rows,
+else pp, as the JAX launcher picks) in the ``--pp-schedule`` order;
+``--pp-impl`` 'shardmap' and 'masked' both run the port's one per-stage
+executor (``parallel.pipeline``), 'shardmap' with pp dividing the
+microbatches.
 
 Usage (on the card; ``--device cpu`` runs the plain PyTorch path):
   PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
@@ -34,6 +40,9 @@ Usage (on the card; ``--device cpu`` runs the plain PyTorch path):
   PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
       --parallel dp=2,ep=2,rebalance=4:1.1 --opt-shard epso --steps 12 \
       --batch 4 --seq 32 --d-model 64 --device cpu --out runs/reb
+  PYTHONPATH=src python -m repro_torch.launch.train --arch mula-7b-a1b \
+      --parallel pp=2,ep=2 --opt-shard epso --pp-schedule 1f1b --steps 12 \
+      --batch 4 --seq 32 --d-model 64 --device cpu --out runs/pp   # 2 stages
 
 Expert rebalancing (``parallel.placement``): a plan's ``rebalance=N:thr``
 token (or ``--rebalance N:thr``, which overrides it and needs
@@ -53,10 +62,11 @@ float32 the JAX launcher fixes. The MoE kernels on the card take bf16, so
 an MoE model on the card runs with ``bfloat16``.
 
 Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
-item that ports them: plans with pp or pod axes, ``fsdp``,
-``pp_schedule``, ``pp_impl`` (§1 item 5), tp for the ssm and hybrid archs
-(§1 item 5.10), ``kernel_tiles`` and ``tiles=`` (§1 item 7), and the vlm
-and audio archs (§1 item 6). The ssm (Mamba-1) and hybrid (Zamba2) archs train on
+item that ports them: plans with a pod axis, ``fsdp`` (§1 item 5), tp for
+the ssm and hybrid archs (§1 item 5.10), the all-to-all Stage 1 under pp
+(§1 item 5.11), ``kernel_tiles`` and ``tiles=`` (§1 item 7), and the vlm
+and audio archs (§1 item 6). A pp axis refuses the hybrid arch and
+rebalancing, as the JAX step and plan do. The ssm (Mamba-1) and hybrid (Zamba2) archs train on
 tokens-only batches, as the JAX launcher feeds them; a plan with ``ep=``
 refuses them, as the JAX plan does (they have no experts).
 """
@@ -81,6 +91,7 @@ from repro_torch.ft import (ClusterManager, NaNMonitor, NodeFailure, restore_int
 from repro_torch.models.model import ARCHS, init_params, padded_vocab
 from repro_torch.optim.overlap import resolve_opt_overlap
 from repro_torch.parallel import ParallelPlan, ResolvedPlan, spawn
+from repro_torch.parallel.pipeline import check_pp_microbatches
 from repro_torch.parallel.placement import ExpertPlacement, RebalanceController, apply_placement
 from repro_torch.parallel.plan import refuse
 from repro_torch.train import init_state, make_train_step, state_layout
@@ -128,9 +139,7 @@ def _env_int(name: str):
     return int(v) if v else None
 
 
-def _check_supported(cfg, *, pp_schedule, pp_impl, kernel_tiles) -> None:
-    if pp_schedule is not None or pp_impl is not None:
-        refuse("pipeline parallelism (--pp-schedule / --pp-impl)", "item 5, the PP executors")
+def _check_supported(cfg, *, kernel_tiles) -> None:
     if kernel_tiles is not None:
         refuse("kernel tile selection (--kernel-tiles)", "item 7, autotuning")
     if cfg.arch_type not in ARCHS:
@@ -233,17 +242,22 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
             cfg.moe, moe_impl=moe_impl or cfg.moe.moe_impl,
             forced_uniform_routing=fur,
             d_ff_expert=moe_dff or cfg.moe.d_ff_expert))
-    _check_supported(cfg, pp_schedule=pp_schedule, pp_impl=pp_impl, kernel_tiles=kernel_tiles)
+    _check_supported(cfg, kernel_tiles=kernel_tiles)
 
     # ---- the ParallelPlan: --parallel spec, or the legacy --mesh shim ----
     if parallel:
         pplan = ParallelPlan.parse(parallel)
         if opt_shard is not None:               # CLI flag overrides the spec
             pplan = dataclasses.replace(pplan, opt_shard=opt_shard)
+        if pp_schedule is not None:
+            pplan = dataclasses.replace(pplan, pp_schedule=pp_schedule)
     elif mesh:
-        pplan = ParallelPlan.from_legacy(mesh, cfg=cfg, opt_shard=opt_shard or "none")
+        pplan = ParallelPlan.from_legacy(mesh, cfg=cfg, opt_shard=opt_shard or "none",
+                                         pp_schedule=pp_schedule or "1f1b")
     else:
         pplan = None
+    if pplan is not None and pp_impl is not None:
+        pplan = dataclasses.replace(pplan, pp_impl=pp_impl)
     if rebalance is not None:               # the flag overrides the spec's token
         if pplan is None:
             raise ValueError("--rebalance needs --parallel (or --mesh): rebalancing "
@@ -258,6 +272,15 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
         opt_shard = pplan.opt_shard
         if microbatches == 1 and pplan.microbatches > 1:
             microbatches = pplan.microbatches   # spec-supplied mb=
+        if pplan.pp > 1 and microbatches == 1:
+            # the JAX launcher's default, on a rank's rows: 2 * pp if that
+            # divides them, else pp (an explicit count is kept as it is)
+            rows = batch // (pplan.dp * pplan.ep)
+            for cand in (2 * pplan.pp, pplan.pp):
+                if rows % cand == 0:
+                    microbatches = cand
+                    print(f"pp={pplan.pp}: pipeline microbatches defaulted to {microbatches}")
+                    break
         pplan = dataclasses.replace(pplan, microbatches=microbatches)
     else:
         if moe_dispatch is not None and cfg.moe is not None:
@@ -276,10 +299,14 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
                         lr_min=lr / 10, warmup_steps=max(steps // 20, 5),
                         total_steps=steps, seq_len=seq, global_batch=batch,
                         seed=seed)
-    par = ParallelConfig(microbatches=microbatches, remat_policy=sac,
-                         optimizer_sharding=opt_shard,
-                         opt_overlap=pplan.opt_overlap if pplan is not None else opt_overlap,
-                         moe_dispatch=pplan.moe_dispatch if pplan is not None else moe_dispatch)
+    if plan is not None:
+        par = plan.parallel_config(remat_policy=sac)
+        if par.pp_stages > 1 and par.pp_impl == "shardmap":
+            check_pp_microbatches(par.microbatches, par.pp_stages)
+    else:
+        par = ParallelConfig(microbatches=microbatches, remat_policy=sac,
+                             optimizer_sharding=opt_shard, opt_overlap=opt_overlap,
+                             moe_dispatch=moe_dispatch)
     # resolved up front so the header and summary record what the step runs
     ov_impl = resolve_opt_overlap(par.opt_overlap, opt_shard,
                                   plan.axis_sizes if plan is not None else None)
@@ -432,9 +459,11 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
     if lead:
         nparams = sum(t.numel() for t in leaves(init_params(cfg, device="meta")))
         plan = spec.plan.spec() if spec.plan is not None else "single"
+        pp = spec.par.pp_stages
         print(f"arch={cfg.name} params={nparams/1e6:.1f}M "
               f"vocab={padded_vocab(cfg)} plan={plan} opt_shard={mode} "
-              f"opt_overlap={spec.opt_overlap} pp=1")
+              f"opt_overlap={spec.opt_overlap} pp={pp}"
+              + (f":{spec.par.pp_schedule}:{spec.par.pp_impl}" if pp > 1 else ""))
         print(f"device={dev} compute_dtype={train.compute_dtype}"
               + (f" ranks={spec.world}" if grid is not None else ""))
 
@@ -537,10 +566,11 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
     summary = {"arch": cfg.name, "steps": end_step, "mesh": spec.mesh,
                "parallel": str(spec.plan.plan) if spec.plan is not None else None,
                "opt_shard": mode, "opt_overlap": spec.opt_overlap,
-               "pp_stages": 1,
+               "pp_stages": spec.par.pp_stages,
                "moe_dispatch": cfg.moe.dispatch if cfg.moe is not None
                else None,
-               "pp_schedule": None, "pp_impl": None,
+               "pp_schedule": spec.par.pp_schedule if spec.par.pp_stages > 1 else None,
+               "pp_impl": spec.par.pp_impl if spec.par.pp_stages > 1 else None,
                "relaunches": relaunches,
                "replaced": result.replaced,
                "rebalance": spec.plan.plan.rebalance if spec.plan is not None else None,
@@ -585,13 +615,14 @@ def main(argv=None):
                     help="MoE token dispatch: 'capacity' or 'dropless' (overrides "
                          "MoEConfig.dispatch)")
     ap.add_argument("--parallel", default=None,
-                    help="declarative ParallelPlan spec, e.g. 'dp=2,ep=2' or 'dp=4,opt=so'; "
-                         "the port runs the axes dp and ep (one process a rank over gloo) "
-                         "and the options opt=, overlap=, moe=, mb=")
+                    help="declarative ParallelPlan spec, e.g. 'dp=2,ep=2', 'dp=4,opt=so' or "
+                         "'dp=2,pp=2,ep=2'; the port runs the axes dp, pp, ep and tp (one "
+                         "process a rank over gloo) and the options opt=, overlap=, moe=, "
+                         "schedule=, impl=, rebalance=, mb=")
     ap.add_argument("--mesh", default=None,
-                    help="LEGACY device mesh: '4,2' = (data, model), translated to a "
-                         "ParallelPlan (MoE: model axis -> ep when divisible, else tp). "
-                         "Prefer --parallel")
+                    help="LEGACY device mesh: '4,2' = (data, model), '2,2,2' = (data, pp, "
+                         "model), translated to a ParallelPlan (MoE: model axis -> ep when "
+                         "divisible, else tp). Prefer --parallel")
     ap.add_argument("--opt-shard", default=None, choices=["none", "so", "epso"],
                     help="optimizer-state sharding (paper §3.2); overrides a --parallel "
                          "spec's opt= option")
@@ -605,10 +636,14 @@ def main(argv=None):
                          "--parallel")
     ap.add_argument("--rebalance-force-at", type=int, default=None,
                     help="force one rebalance proposal after this step")
-    # the JAX launcher's options that the port does not run yet: each
-    # raises NotImplementedError naming its ROADMAP.md item
-    ap.add_argument("--pp-schedule", default=None, choices=["gpipe", "1f1b"])
-    ap.add_argument("--pp-impl", default=None, choices=["shardmap", "masked"])
+    ap.add_argument("--pp-schedule", default=None, choices=["gpipe", "1f1b"],
+                    help="microbatch schedule over the plan's pp axis (paper: Mula-100B/220B "
+                         "train 1f1b); overrides a --parallel spec's schedule=")
+    ap.add_argument("--pp-impl", default=None, choices=["shardmap", "masked"],
+                    help="both run the port's per-stage executor; 'shardmap' needs pp to "
+                         "divide the microbatches, 'masked' takes any count")
+    # the JAX launcher's option that the port does not run yet: it raises
+    # NotImplementedError naming its ROADMAP.md item
     ap.add_argument("--kernel-tiles", default=None)
     ap.add_argument("--log-every", type=int, default=10,
                     help="print the step line (loss/gnorm/lr + MoE routing "

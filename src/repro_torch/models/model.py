@@ -27,7 +27,7 @@ from repro_torch.core import moe as moe_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.parallel.ep import all_reduce_sum
 from repro_torch.parallel.grid import BATCH_AXES, as_grid
-from repro_torch.tree import tree_map
+from repro_torch.tree import leaves, tree_map
 
 from . import layers as L
 from . import ssm as S
@@ -331,10 +331,11 @@ def _dense_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", tp=None):
 
 
 def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", ep_group=None,
-               placement=None, tp=None):
+               placement=None, tp=None, whole_pool: bool = False):
     attn = _sac(lambda q, x: L.attention(q, x, cfg, impl=attn_impl, tp=tp), "attn", sac)
     moe = _sac(lambda q, x: moe_lib.sparse_moe_block(q, x, cfg, ep_group=ep_group, tp_group=tp,
-                                                     placement=placement), "moe", sac)
+                                                     placement=placement, whole_pool=whole_pool),
+               "moe", sac)
     h = h + attn(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm))
     mo, aux, z, stats = moe(lp["moe"], L.apply_norm(lp["ln2"], h, cfg.norm))
     return h + mo, aux, z, stats
@@ -397,6 +398,76 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
         for lp in layers:
             h = block(lp, h)
     return _logits(params, h, cfg), aux
+
+
+# ----------------------------------------------------------------------------
+# pipeline-stage pieces (the PP train step; parallel/pipeline.py)
+# ----------------------------------------------------------------------------
+
+PP_ARCH_TYPES = ("dense", "moe", "ssm")   # uniform stacked 'layers'
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig, *,
+                 compute_dtype: torch.dtype = torch.bfloat16):
+    """Stage 0's input: the token embedding, as ``forward`` computes it."""
+    return L.embed(params["embed"], tokens, compute_dtype)
+
+
+def pipeline_stage_forward(stage_lp, h, cfg: ModelConfig, *, sac: str = "", ep_group=None,
+                           tp_group=None):
+    """Apply one pipeline stage's (L/pp, ...)-stacked layer slice to ``h``,
+    with the block functions (and block remat) ``forward`` uses, so that
+    running the pp stage slices back to back is the sequential model.
+    Returns (h, moe_aux, moe_z, MoeStats), the router terms and stats
+    summed over the stage's layers (a dense or ssm stage: zeros and
+    empty counts).
+
+    ``ep_group`` / ``tp_group``: the stage's 'ep' and 'tp' groups of a
+    ``ProcessGrid``, as in ``forward``. A MoE stage dispatches with the
+    one-device pool over the tokens it sees (``whole_pool``), as the JAX
+    stage routes each microbatch with single-device geometry (``c_align =
+    1``), never the EP shard_map's: under EP with dp = 1 the gathered
+    tokens are the whole microbatch and the drops are the one-device
+    step's."""
+    at = cfg.arch_type
+    if at not in PP_ARCH_TYPES:
+        raise ValueError(
+            f"pipeline parallelism supports arch_type in {PP_ARCH_TYPES}, "
+            f"not {at!r} (non-uniform layer stacks)")
+    n = leaves(stage_lp)[0].shape[0]
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    layers = unstack_layers(stage_lp, n)
+    if at == "ssm":
+        block = block_remat(lambda lp, x: _ssm_block(lp, x, cfg, sac), sac)
+    elif at == "dense":
+        block = block_remat(lambda lp, x: _dense_block(lp, x, cfg, sac, "blockwise", tp_group),
+                            sac)
+    if at != "moe":
+        for lp in layers:
+            h = block(lp, h)
+        return h, zero, zero, moe_lib.MoeStats(torch.zeros(0, device=h.device), zero)
+    block = block_remat(lambda lp, x: _moe_block(lp, x, cfg, sac, "blockwise", ep_group, None,
+                                                 tp_group, whole_pool=True), sac)
+    aux, z, drops = zero, zero, zero
+    counts = torch.zeros(cfg.moe.num_experts, dtype=torch.float32, device=h.device)
+    for lp in layers:
+        h, a, zz, st = block(lp, h)
+        aux, z = aux + a, z + zz
+        counts, drops = counts + st.counts, drops + st.drops
+    return h, aux, z, moe_lib.MoeStats(counts, drops)
+
+
+def lm_head_nll(params, h, labels, cfg: ModelConfig):
+    """The last stage's tail: final norm, unembed and the summed next-token
+    NLL with the count of unmasked labels (``masked_nll``), the ops
+    ``forward`` and ``loss_fn`` apply after the layer stack."""
+    return masked_nll(_logits(params, h, cfg), labels, cfg)
+
+
+def lm_head_ce(params, h, labels, cfg: ModelConfig):
+    """The last stage's tail as the masked CE (``masked_ce``)."""
+    nll, n = lm_head_nll(params, h, labels, cfg)
+    return nll / torch.clamp(n, min=1)
 
 
 def masked_nll(logits, labels, cfg: ModelConfig):

@@ -50,7 +50,8 @@ def expert_leaf_mask(tree, num_layers: int, num_experts: int) -> tuple:
                  for path, leaf in leaves_with_path(tree))
 
 
-def expert_slice_sumsq(g: torch.Tensor, inv=None, group=None, tp=None) -> torch.Tensor:
+def expert_slice_sumsq(g: torch.Tensor, inv=None, group=None, tp=None,
+                       pp=None) -> torch.Tensor:
     """Squared sum of an (L, E, ...) expert-stack gradient with a canonical
     association: per-(layer, expert) slice sums first, reordered to global
     expert ids when ``inv`` (the (L, E) id -> position map of a placement)
@@ -58,18 +59,23 @@ def expert_slice_sumsq(g: torch.Tensor, inv=None, group=None, tp=None) -> torch.
     (L, E / world, ...) slice: the slice sums of all ranks are gathered in
     rank (= expert) order first, so every expert counts once and the sum
     associates as on one device. With a 'tp' group ``tp`` ``g`` holds the
-    rank's d_ff shard: the slice sums are summed over 'tp' first."""
+    rank's d_ff shard: the slice sums are summed over 'tp' first. With a
+    'pp' group ``pp`` ``g`` holds the rank's stage of the layers: the slice
+    sums of the stages are gathered in stage (= layer) order."""
     s = torch.sum(torch.square(g.float()), dim=tuple(range(2, g.ndim)))
     if tp is not None and tp.world > 1:
         s = all_reduce_sum(s, tp)
     if group is not None:
         s = all_gather_tokens(s.T.contiguous(), group).T.contiguous()
+    if pp is not None and pp.world > 1:
+        s = all_gather_tokens(s, pp)
     if inv is not None:
         s = torch.gather(s, 1, inv.long())
     return torch.sum(s)
 
 
-def global_norm(grads, *, expert_norm=None, group=None, tp=None, tp_split=None) -> torch.Tensor:
+def global_norm(grads, *, expert_norm=None, group=None, tp=None, tp_split=None, pp=None,
+                pp_split=None) -> torch.Tensor:
     """Global L2 norm of a gradient tree. ``expert_norm``, when given, is a
     ``(mask, inv)`` pair: leaves flagged in ``mask`` contribute through
     ``expert_slice_sumsq``; ``None`` keeps the plain whole-leaf sums. With
@@ -78,20 +84,28 @@ def global_norm(grads, *, expert_norm=None, group=None, tp=None, tp_split=None) 
     rank and counts once. With a 'tp' group ``tp``, the leaves flagged in
     ``tp_split`` are the rank's tp shards: their squares are summed over
     'tp' (one all-reduce for the others, inside ``expert_slice_sumsq`` for
-    the expert stacks)."""
+    the expert stacks); with a 'pp' group ``pp`` likewise the leaves
+    flagged in ``pp_split``, the rank's stage of the layers, over 'pp'."""
     mask = expert_norm[0] if expert_norm is not None else ()
     inv = expert_norm[1] if expert_norm is not None else None
+    n = len(leaves(grads))
     if tp is None or tp.world == 1 or not tp_split:
         tp, tp_split = None, ()
-    split = [i < len(tp_split) and tp_split[i] for i in range(len(leaves(grads)))]
-    sums = [expert_slice_sumsq(g, inv, group, tp if split[i] else None)
-            if i < len(mask) and mask[i] else torch.sum(torch.square(g.float()))
+    if pp is None or pp.world == 1 or not pp_split:
+        pp, pp_split = None, ()
+    expert = [i < len(mask) and mask[i] for i in range(n)]
+    split = [i < len(tp_split) and tp_split[i] for i in range(n)]
+    staged = [i < len(pp_split) and pp_split[i] for i in range(n)]
+    sums = [expert_slice_sumsq(g, inv, group, tp if split[i] else None,
+                               pp if staged[i] else None)
+            if expert[i] else torch.sum(torch.square(g.float()))
             for i, g in enumerate(leaves(grads))]
-    shards = [i for i, sp in enumerate(split) if sp and not (i < len(mask) and mask[i])]
-    if shards:
-        tot = all_reduce_sum(torch.stack([sums[i] for i in shards]), tp)
-        for i, t in zip(shards, tot.unbind()):
-            sums[i] = t
+    for g_, flags in ((tp, split), (pp, staged)):
+        shards = [i for i, sp in enumerate(flags) if sp and not expert[i]]
+        if shards:
+            tot = all_reduce_sum(torch.stack([sums[i] for i in shards]), g_)
+            for i, t in zip(shards, tot.unbind()):
+                sums[i] = t
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -137,15 +151,17 @@ def adamw_leaf_(g, master, m, v, **hyper) -> None:
 def adamw_update(grads, state: AdamWState, *, lr, beta1=0.9, beta2=0.99, eps=1e-8,
                  weight_decay=0.1, grad_clip=1.0, clip_enabled=None,
                  param_dtype=torch.float32, expert_norm=None, group=None, tp=None,
-                 tp_split=None):
+                 tp_split=None, pp=None, pp_split=None):
     """One optimizer step; ``lr`` and ``clip_enabled`` may be tensors. The
     state's master, m and v are updated in place. ``group``: the EP group
     whose ranks hold the slices of the leaves flagged in ``expert_norm``;
     ``tp``: the 'tp' group whose ranks hold shards of the leaves flagged
-    in ``tp_split`` (``global_norm``). Returns (new_params in
+    in ``tp_split``, ``pp``: the 'pp' group whose stages hold the layers
+    of the leaves flagged in ``pp_split`` (``global_norm``). Returns (new_params in
     ``param_dtype``, new_state, metrics {grad_norm, clip_scale})."""
     step = state.step + 1
-    gnorm = global_norm(grads, expert_norm=expert_norm, group=group, tp=tp, tp_split=tp_split)
+    gnorm = global_norm(grads, expert_norm=expert_norm, group=group, tp=tp, tp_split=tp_split,
+                        pp=pp, pp_split=pp_split)
     scale = clip_scale(gnorm, grad_clip, clip_enabled)
     t = step.to(torch.float32)
     bc1 = 1.0 - beta1 ** t

@@ -7,11 +7,14 @@ mismatch between grads/params and states; here each is one explicit
 
 * gradients are reduce-scattered in ``grad_reduce_dtype`` onto the state
   shards over the bucket's batch axes ('data', 'ep'), then summed over the
-  batch axes the state replicates and the param does not split (an
-  all-reduce of the shard): each rank receives its shard of every leaf and
-  never the whole gradient. The 'tp' ranks hold the same rows, so a
-  gradient is never summed over 'tp': a state split over 'tp' that its
-  param does not split takes the rank's own part of the gradient;
+  axes of ``grid.SUM_AXES`` (the batch axes, and 'pp' for the leaves every
+  pipeline stage holds whole) the state replicates and the param does not
+  split (an all-reduce of the shard): each rank receives its shard of
+  every leaf and never the whole gradient. The 'tp' ranks hold the same
+  rows, so a gradient is never summed over 'tp': a state split over 'tp'
+  that its param does not split takes the rank's own part of the
+  gradient; SO/EPSO add no 'pp' to a state (the JAX rule), so the stage
+  tiles' states stay on their stage;
 * the global grad norm comes from the shards: one scalar all-reduce per
   distinct state-axis set; the expert stacks take the canonical (L, E)
   slice-sum path (gathered over the axes tiling dims 0 and 1, summed over
@@ -44,7 +47,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.parallel.ep import all_gather_dim
-from repro_torch.parallel.grid import BATCH_AXES, ProcessGrid
+from repro_torch.parallel.grid import SUM_AXES, ProcessGrid
 from repro_torch.parallel.sharding import shard_index
 from repro_torch.tree import leaves
 
@@ -264,14 +267,15 @@ def overlapped_adamw_update(grads: list, state: AdamWState, params: list, *,
     dev = ma[0].device
 
     # 1. gradients onto the state shards: reduce-scattered over the bucket's
-    # batch axes, the rows of the other axes ('tp') the rank's own
+    # batch axes, the rows of the other axes ('tp') the rank's own, then
+    # summed over the sum axes the state replicates
     shards = [None] * n
     pending = []
     for bucket in plan.buckets:
-        red = tuple(a for a in bucket.axes if a in BATCH_AXES)
+        red = tuple(a for a in bucket.axes if a in SUM_AXES)
         by_rest = {}
         for lf in bucket.leaves:
-            rest = tuple(a for a in sizes if a in BATCH_AXES and a not in lf.psum_axes)
+            rest = tuple(a for a in sizes if a in SUM_AXES and a not in lf.psum_axes)
             by_rest.setdefault(rest, []).append(lf)
         for rest, lfs in by_rest.items():
             rows = torch.cat([_rows(grads[lf.index].to(grad_reduce_dtype), bucket.axes, lf,

@@ -1,8 +1,9 @@
-"""Expert, data and tensor parallelism over ``torch.distributed``: the
-process group and its differentiable collectives (``ep``), the dp x ep x
-tp process grid (``grid``), the parameter layout (``sharding``), the
-declarative plan a run is launched with (``plan``), expert placement and
-live EP rebalancing (``placement``) and a process launcher for one host
+"""Expert, data, tensor and pipeline parallelism over ``torch.distributed``:
+the process group and its differentiable collectives (``ep``), the dp x pp
+x ep x tp process grid (``grid``), the parameter layout (``sharding``), the
+declarative plan a run is launched with (``plan``), the pipeline schedules
+and their executor (``pipeline``), expert placement and live EP
+rebalancing (``placement``) and a process launcher for one host
 (``launch``)."""
 from .ep import (EPGroup, all_gather_tokens, all_reduce_sum, all_to_all_rows, init_ep_group,
                  reduce_scatter_tokens, tp_copy, tp_reduce)

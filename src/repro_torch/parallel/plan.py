@@ -11,14 +11,19 @@ leaves out as the JAX spec does).
 
 ``plan.resolve(cfg, global_batch=)`` checks the plan against the model and
 returns a ``ResolvedPlan``: the process grid's sizes (``grid``: dp, ep and,
-with tp > 1, tp) for ``parallel.spawn(..., grid=)`` and the checkpoint
-metadata
+with tp > 1 or pp > 1, tp and pp; ``parallel.grid.grid_spec``) for
+``parallel.spawn(..., grid=)``, the ``ParallelConfig`` it implies
+(``parallel_config``: microbatches, the pp stages, ``pp_schedule`` and
+``pp_impl`` as the JAX plan resolves them) and the checkpoint metadata
 (``layout_signature()``, ``spec()``) exactly as the JAX ``ResolvedPlan``
 computes them, and the live expert placement (``placement``,
 ``with_placement``) a ``rebalance=`` policy moves. What the port cannot
-run raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: pp or
-pod axes and ``fsdp`` (§1 item 5), tp for the ssm and hybrid archs (§1
-item 5.10), an explicit ``tiles=`` (§1 item 7). The tp axis splits
+run raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: a pod
+axis and ``fsdp`` (§1 item 5), tp for the ssm and hybrid archs (§1 item
+5.10), the all-to-all Stage 1 inside a pipeline stage (§1 item 5.11), an
+explicit ``tiles=`` (§1 item 7). A pp axis needs a uniform layer stack
+(``models.model.PP_ARCH_TYPES``; the JAX step's ValueError) and refuses a
+``rebalance=`` policy, as the JAX plan does. The tp axis splits
 attention by whole heads, so it needs tp to divide both head counts (a
 JAX split inside a head has no local-head form here); the all-to-all
 Stage 1 refuses dropless dispatch and a tp axis, as the JAX MoE block does.
@@ -28,6 +33,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+from .grid import grid_spec
 
 # canonical axis order == mesh-major order (pod outermost, tp innermost) and
 # the mesh axis name each plan axis maps to.
@@ -339,9 +346,10 @@ class ParallelPlan:
         'tp'): rank (d, e, t) takes rows ``d * ep + e`` of the batch, so the
         batch must divide over the dp * ep ranks that split it."""
         self.validate_model(cfg)
-        for n, what in ((self.pp, "pipeline parallelism (pp)"), (self.pod, "a pod axis")):
-            if n > 1:
-                refuse(f"{what} in a plan", "item 5, the rest of multi-GPU")
+        if self.pod > 1:
+            refuse("a pod axis in a plan", "item 5, the rest of multi-GPU")
+        if self.pp > 1:
+            self._check_pp(cfg)
         if self.fsdp:
             refuse("fsdp (parameters sharded over 'data')", "item 5, the rest of multi-GPU")
         if self.tiles is not None:
@@ -371,6 +379,19 @@ class ParallelPlan:
                              f"which do not divide the global batch of {global_batch} rows")
         return ResolvedPlan(plan=self)
 
+    def _check_pp(self, cfg) -> None:
+        """What the port's pp axis needs of the model (``resolve``): the JAX
+        step's refusal of a non-uniform stack, and no all-to-all Stage 1
+        inside a stage."""
+        from repro_torch.models.model import PP_ARCH_TYPES
+        if cfg.arch_type not in PP_ARCH_TYPES:
+            raise ValueError(f"pp_stages={self.pp} needs arch_type in {PP_ARCH_TYPES}, "
+                             f"not {cfg.arch_type!r}")
+        moe = getattr(cfg, "moe", None)
+        if moe is not None and moe.stage1 == "a2a":
+            refuse("stage1='a2a' inside a pipeline stage (the JAX stage always runs the "
+                   "one-device MoE dispatch)", "item 5.11, the all-to-all Stage 1 under pp")
+
     def _check_tp(self, cfg) -> None:
         """What the port's tp axis needs of the model (``resolve``)."""
         if cfg.arch_type in ("ssm", "hybrid"):
@@ -389,7 +410,7 @@ class ParallelPlan:
 @dataclass(frozen=True)
 class ResolvedPlan:
     """A ParallelPlan checked against a model: the process grid it runs on
-    (``data`` x ``ep`` x ``tp`` ranks, ``parallel.spawn(...,
+    (``data`` x ``pp`` x ``ep`` x ``tp`` ranks, ``parallel.spawn(...,
     grid=self.grid)``) and
     the metadata its checkpoints carry. ``placement``: the live
     ``parallel.placement.ExpertPlacement`` (None: identity), which the
@@ -405,7 +426,7 @@ class ResolvedPlan:
 
     @property
     def world(self) -> int:
-        return self.plan.dp * self.plan.ep * self.plan.tp
+        return self.plan.dp * self.plan.pp * self.plan.ep * self.plan.tp
 
     @property
     def batch_ranks(self) -> int:
@@ -415,10 +436,20 @@ class ResolvedPlan:
 
     @property
     def grid(self) -> tuple:
-        """(dp, ep), or (dp, ep, tp) with tp > 1: the ``grid=`` of
-        ``parallel.spawn``."""
+        """(dp, ep), (dp, ep, tp) with tp > 1, or (dp, ep, tp, pp) with pp >
+        1: the ``grid=`` of ``parallel.spawn``."""
         p = self.plan
-        return (p.dp, p.ep) + ((p.tp,) if p.tp > 1 else ())
+        return grid_spec(p.dp, p.ep, p.tp, p.pp)
+
+    def parallel_config(self, *, remat_policy: str = "block"):
+        """The ParallelConfig this plan implies for ``make_train_step`` (the
+        JAX ``ResolvedPlan.parallel_config``)."""
+        from repro_torch.configs.base import ParallelConfig
+        p = self.plan
+        return ParallelConfig(microbatches=p.microbatches, remat_policy=remat_policy,
+                              optimizer_sharding=p.opt_shard, opt_overlap=p.opt_overlap,
+                              pp_stages=p.pp, pp_schedule=p.pp_schedule, pp_impl=p.pp_impl,
+                              moe_dispatch=p.moe_dispatch)
 
     @property
     def axis_sizes(self) -> dict:

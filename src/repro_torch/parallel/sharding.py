@@ -1,5 +1,8 @@
-"""The parameter layout of the ``ep`` and ``tp`` roles (the JAX package's
-``parallel/sharding.py::_param_spec`` on a plan mesh): the routed expert
+"""The parameter layout of the ``pp``, ``ep`` and ``tp`` roles (the JAX
+package's ``parallel/sharding.py::param_specs`` on a plan mesh): with a
+'pp' axis the leading layer dim of every ``layers/`` leaf is split across
+the pipeline stages, stage p holding layers ``[p * L / pp, (p + 1) * L /
+pp)`` (``parallel.pipeline``); the routed expert
 stacks ``layers/moe/{gate,up,down}``, (L, E, d, f) / (L, E, f, d), are split
 on E across the 'ep' ranks, rank r holding experts ``[r * E / ep, (r + 1) *
 E / ep)``, and on their d_ff dim across the 'tp' ranks (expert-TP). Under
@@ -8,8 +11,8 @@ Megatron splits them: wq, wk, wv and gate, up on their output columns (the
 heads, d_ff), wo and down on their input rows. Every other leaf is
 replicated. A dim that its axis does not divide stays whole, as the JAX
 rule leaves it unsplit; each rule is taken on the per-layer shape, the
-leading layer dims (``layers/``, ``rem/``: one; ``groups/``: two) never
-split.
+leading layer dims (``layers/``, ``rem/``: one; ``groups/``: two) split
+only by 'pp', and only that of ``layers/``.
 
 The JAX package also splits ``embed/table`` and ``head/table`` on the vocab
 over the model axis; that is a memory layout of its compiler, not part of
@@ -116,17 +119,22 @@ def _tp_dim(path: str, inner: tuple):
 def param_placements(params: dict, axis_sizes: dict, *, split_experts: bool = True) -> dict:
     """The placement of each leaf of a *global* parameter tree (any leaves
     with ``.shape``) on a grid with ``axis_sizes`` (its axes of size > 1):
-    an expert stack's E dim on ('ep',) where 'ep' is an axis and divides it
-    (not with ``split_experts=False``, the dense MoE path that holds every
-    expert), and with a 'tp' axis each leaf's tp dim (``_tp_dim``) on
-    ('tp',) where tp divides it; every other dim and leaf whole."""
+    with a 'pp' axis the leading layer dim of each ``layers/`` leaf on
+    ('pp',) where pp divides it, an expert stack's E dim on ('ep',) where
+    'ep' is an axis and divides it (not with ``split_experts=False``, the
+    dense MoE path that holds every expert), and with a 'tp' axis each
+    leaf's tp dim (``_tp_dim``) on ('tp',) where tp divides it; every other
+    dim and leaf whole."""
     n_ep = axis_sizes.get("ep", 1) if split_experts else 1
     n_tp = axis_sizes.get("tp", 1)
+    n_pp = axis_sizes.get("pp", 1)
 
     def walk(node, prefix):
         if isinstance(node, dict):
             return {k: walk(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
         place = [()] * len(node.shape)
+        if n_pp > 1 and prefix.startswith("layers/") and node.shape[0] % n_pp == 0:
+            place[0] = ("pp",)
         ax = _expert_axis(prefix, node, n_ep) if n_ep > 1 else None
         if ax is not None:
             place[ax] = ("ep",)

@@ -11,8 +11,9 @@ fp32 master weights. The MoE expert stacks take their grad-norm share per
 (layer, expert) slice, as the JAX step does.
 
 Data, expert and tensor parallelism (``grid``, a ``parallel.ProcessGrid``,
-the layout of the JAX plan mesh ('data', 'ep', 'tp'); an ``ep_group`` alone
-is the dp = tp = 1 grid): rank (d, e, t) holds expert slice e of the expert
+the layout of the JAX plan mesh ('data', 'pp', 'ep', 'tp'), its 'pp' axis
+below; an ``ep_group`` alone is the dp = pp = tp = 1 grid): rank (d, e, t)
+holds expert slice e of the expert
 stacks, with tp > 1 its tile t of every tp-split leaf
 (``parallel.sharding.param_placements``), a whole copy of every other leaf,
 and takes rows d * ep + e of the batch. It backpropagates its share of the
@@ -41,8 +42,30 @@ order, so a placed step is the unplaced one's computation, its experts
 in other homes.
 
 The all-to-all Stage 1 (``MoEConfig.stage1 = 'a2a'``) and expert-TP run
-inside the MoE block (``core.moe``) and change nothing here. Not ported, and
-raising ``NotImplementedError``: pipeline stages.
+inside the MoE block (``core.moe``) and change nothing here.
+
+Pipeline parallelism (``ParallelConfig.pp_stages`` = pp > 1, the JAX
+step's ``pp_loss_and_grads``): the batch (the rank's rows) is split into
+``microbatches`` and the ``pp_schedule`` tick table ('gpipe' or '1f1b')
+is walked by ``parallel.pipeline.run_schedule`` over the stage pieces of
+``models.model`` (``embed_tokens``, ``pipeline_stage_forward``,
+``lm_head_nll``): a forward tick saves its stage's input, the backward
+tick recomputes the stage from it under autograd. Gradients add up in
+microbatch order and are divided by the microbatch count; ce comes from
+the last stage, the router terms, counts and drops from every stage, and
+loss = ce + (aux_coef * aux + z_coef * z) / num_layers. Without a 'pp'
+axis one process runs every stage (the JAX masked executor's role, any
+microbatch count). On a grid with a 'pp' axis of pp stages rank (d, p, e,
+t) holds layers [p L / pp, (p + 1) L / pp) and the embedding, final norm
+and head whole, runs stage p's ticks alone (only stage 0 embeds, only the
+last stage runs the head), and hands activations and their gradients to
+its neighbour stages (``parallel.pipeline.StageLink``); each stage's MoE
+blocks run on its 'ep' and 'tp' groups. The gradients of the leaves every
+stage holds whole are summed over 'pp' besides the batch axes, those of
+the layer tiles never; the metrics are summed over 'pp', so every rank
+reports the same. ``pp_impl`` 'shardmap' checks that pp divides the
+microbatches on such a grid; 'masked' runs the same executor with any
+count (the JAX executors agree to about 1 ulp).
 """
 from __future__ import annotations
 
@@ -53,7 +76,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models.model import (decode_step, forward, init_params, loss_fn,
+from repro_torch.models.model import (PP_ARCH_TYPES, decode_step, embed_tokens, forward,
+                                      init_params, lm_head_nll, loss_fn, pipeline_stage_forward,
                                       prefill_with_cache)
 from repro_torch.core.moe import uses_ep
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update, expert_leaf_mask,
@@ -62,11 +86,13 @@ from repro_torch.optim.epso import (DEFAULT_BUCKET_BYTES, UpdatePlan, optimizer_
                                     plan_update_buckets)
 from repro_torch.optim.overlap import overlapped_adamw_update, resolve_opt_overlap, shard_of
 from repro_torch.parallel.ep import EPGroup, all_reduce_sum
-from repro_torch.parallel.grid import BATCH_AXES, ProcessGrid, as_grid
+from repro_torch.parallel.grid import BATCH_AXES, SUM_AXES, ProcessGrid, as_grid
+from repro_torch.parallel.pipeline import (StageLink, _check_stage_divisible,
+                                           check_pp_microbatches, run_schedule, schedule_ticks)
 from repro_torch.parallel.placement import ExpertPlacement
 from repro_torch.parallel.sharding import param_placements, rank_shard
 from repro_torch.serve.engine import dropless_cfg, make_decode_fn
-from repro_torch.tree import keyed_leaves, leaves, tree_map
+from repro_torch.tree import keyed_leaves, leaves, tree_map, unflatten
 
 OPT_SHARDING_MODES = ("none", "so", "epso")
 
@@ -202,9 +228,13 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     (``optim.overlap.resolve_opt_overlap``). The update plan is built here,
     once. ``placement``: the ``ExpertPlacement`` the state's expert stacks
     are stored in (None or the identity: global-id order); the metrics stay
-    in global ids."""
-    if parallel.pp_stages > 1:
-        raise NotImplementedError("pipeline parallelism is not ported")
+    in global ids. With ``parallel.pp_stages`` > 1 the step pipelines (the
+    module docstring; its metrics, as the JAX PP step's: loss, lr, ce,
+    grad_norm, clip_scale and, for MoE, moe_counts, moe_load, moe_drops),
+    and ``train_step.loss_and_grads(params, batch) -> (loss, metrics,
+    grads)`` is its pipelined half alone; ``train_step.saved_peak`` holds,
+    after a step, the most stage inputs each of the process's stages kept
+    saved at once."""
     pl_inv = _placement_rows(cfg, placement)
     grid = _grid(ep_group, grid)
     mode = _opt_mode(opt_sharding_mode)
@@ -221,13 +251,30 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     sac = parallel.remat_policy
     sharded = _shards_experts(cfg, grid)
     sharded_opt = mode != "none" and grid is not None
-    split_axes = tp_split = None
+    pp = parallel.pp_stages
+    gpp = grid.pp.world if grid is not None else 1    # the stages a grid splits over 'pp'
+    if pp > 1:
+        if cfg.arch_type not in PP_ARCH_TYPES:
+            raise ValueError(f"pp_stages={pp} needs arch_type in {PP_ARCH_TYPES}, "
+                             f"not {cfg.arch_type!r}")
+        if pl_inv is not None:
+            raise NotImplementedError(
+                "a non-identity expert placement is not threaded through the "
+                "pipeline executors yet (rebalance requires pp=1)")
+        _check_stage_divisible(cfg.num_layers, pp, cfg.name)
+        if parallel.pp_impl == "shardmap" and gpp > 1:
+            check_pp_microbatches(max(nmb, 1), pp)
+        ticks = schedule_ticks(parallel.pp_schedule, max(nmb, 1), pp)
+    if gpp not in (1, pp):
+        raise ValueError(f"the grid's 'pp' axis has {gpp} stages, the step pp_stages={pp}")
+    split_axes = tp_split = pp_split = None
     if grid is not None:
         # per leaf, the grid axes splitting it (its gradient is summed over
         # the batch axes that do not), and whether 'tp' does
         place = leaves(placements(cfg, init_params(cfg, device="meta"), grid.axis_sizes))
         split_axes = [{a for e in pl for a in e} for pl in place]
         tp_split = tuple("tp" in ax for ax in split_axes)
+        pp_split = tuple("pp" in ax for ax in split_axes)
     if sharded_opt:
         # 'off': the same sharded math with every leaf its own bucket
         plan, state_specs = opt_layout(cfg, grid, mode,
@@ -244,13 +291,138 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
             rows_on[dev] = torch.as_tensor(pl_inv, dtype=torch.int64, device=dev)
         return rows_on[dev]
 
-    def train_step(state: TrainState, batch: dict):
-        if batch["tokens"].shape[0] % nmb:
+    def split_mb(batch: dict, n: int) -> list:
+        """The ``n`` microbatches of a batch, row blocks in order (the PP and
+        the accumulation paths share it, so their splits cannot diverge)."""
+        if batch["tokens"].shape[0] % n:
             raise ValueError(f"batch of {batch['tokens'].shape[0]} rows does not split "
-                             f"into {nmb} microbatches")
+                             f"into {n} microbatches")
+        return [dict(zip(batch, vals)) for vals in zip(*(t.chunk(n) for t in batch.values()))]
+
+    def pp_loss_and_grads(params: dict, batch: dict):
+        """The pipelined loss, metrics and gradients (f32, the rank's own,
+        not yet summed over the ranks) of one batch."""
+        n_mb = max(nmb, 1)
+        mbs = split_mb(batch, n_mb)
+        dev = batch["tokens"].device
+        last, per = pp - 1, cfg.num_layers // pp
+        stages = [grid.pp.rank] if gpp > 1 else list(range(pp))
+        io = {k: v for k, v in params.items() if k != "layers"}
+        io_in = tree_map(lambda p: p.detach().requires_grad_(), io)
+        io_flat = leaves(io_in)
+        lay = params["layers"]
+        lay_flat = leaves(lay)
+        g_io = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in io_flat]
+        g_lay = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in lay_flat]
+        ep = grid.ep if grid is not None else None
+        tpg = grid.tp if grid is not None else None
+        rows = grid.group(BATCH_AXES) if grid is not None else None
+        n_rows = rows.world if rows is not None else 1
+        moe = cfg.is_moe
+        ca = cfg.moe.router_aux_coef if moe else 0.0
+        cz = cfg.moe.router_z_coef if moe else 0.0
+        nl = max(cfg.num_layers, 1)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        # per process, summed over its stages and the microbatches: ce, aux, z
+        # (then, for MoE, the counts and drops)
+        sums = [zero] * 3 + ([torch.zeros(cfg.moe.num_experts, device=dev), zero] if moe else [])
+        ntok = {}
+
+        def layer_rows(s):
+            return slice(None) if gpp > 1 else slice(s * per, (s + 1) * per)
+
+        def stage_tree(s, flat):
+            return unflatten(lay, [t[layer_rows(s)] for t in flat])
+
+        def run_stage(lp, h):
+            return pipeline_stage_forward(lp, h, cfg, sac=sac, ep_group=ep, tp_group=tpg)
+
+        def forward(s, m, x):
+            with torch.no_grad():
+                h = embed_tokens(io, x, cfg, compute_dtype=cd) if s == 0 else x
+                h, aux, z, st = run_stage(stage_tree(s, lay_flat), h)
+                sums[1], sums[2] = sums[1] + aux, sums[2] + z
+                if moe:
+                    sums[3], sums[4] = sums[3] + st.counts, sums[4] + st.drops
+                if s == last:
+                    nll, n = lm_head_nll(io, h, mbs[m]["labels"], cfg)
+                    if rows is not None:
+                        nll, n = all_reduce_sum(torch.stack([nll, n.float()]), rows).unbind()
+                    ntok[m] = torch.clamp(n, min=1)
+                    sums[0] = sums[0] + nll / ntok[m]
+            return h
+
+        def backward(s, m, x, dy):
+            lp_in = [t[layer_rows(s)].detach().requires_grad_() for t in lay_flat]
+            inputs = lp_in + io_flat
+            with torch.enable_grad():
+                if s == 0:
+                    h = embed_tokens(io_in, x, cfg, compute_dtype=cd)
+                else:
+                    h = x = x.detach().requires_grad_()
+                    inputs.append(x)
+                h, aux, z, _ = run_stage(unflatten(lay, lp_in), h)
+                outs, cots = [], []
+                if s == last:
+                    nll, _ = lm_head_nll(io_in, h, mbs[m]["labels"], cfg)
+                    obj = nll / ntok[m]
+                else:
+                    outs, cots, obj = [h], [dy], None
+                if moe:
+                    # the router terms; on a grid the rank's share (loss_fn)
+                    r = (ca * aux + cz * z) / nl / n_rows
+                    obj = r if obj is None else obj + r
+                if obj is not None:
+                    outs.append(obj)
+                    cots.append(None)
+                gs = torch.autograd.grad(outs, inputs, grad_outputs=cots, allow_unused=True)
+            sl = layer_rows(s)
+            accs = [a[sl] for a in g_lay] + g_io
+            for acc, g in zip(accs, gs):
+                if g is not None:           # a leaf the stage does not use
+                    acc.add_(g.float())
+            return gs[-1] if s > 0 else None
+
+        link = None
+        if gpp > 1:
+            b, sq = mbs[0]["tokens"].shape
+            link = StageLink(grid, (b, sq, cfg.d_model), cd, dev)
+        train_step.saved_peak = run_schedule(ticks, pp, stages, forward=forward,
+                                             backward=backward, link=link,
+                                             entry=lambda m: mbs[m]["tokens"])
+        train_step.sent_bytes = link.sent_bytes if link is not None else 0
+        grads = dict(unflatten(io, g_io), layers=unflatten(lay, g_lay))
+        for g in leaves(grads):
+            g.div_(n_mb)
+        vec = torch.cat([torch.stack(sums[:3])] + ([sums[3], sums[4][None]] if moe else []))
+        if grid is not None:
+            if moe and grid.data.world > 1:
+                # each replica's router terms cover its rows: their mean (aux,
+                # z) and sum (counts, drops) over 'data', as loss_fn takes them
+                dp = grid.data.world
+                moe_part = torch.cat([vec[1:3] / dp, vec[3:]])
+                vec = torch.cat([vec[:1], all_reduce_sum(moe_part, grid.data)])
+            vec = all_reduce_sum(vec, grid.pp)      # ce from the last stage, the rest summed
+        ce, aux, z = vec[0] / n_mb, vec[1] / n_mb, vec[2] / n_mb
+        loss = ce + (ca * aux + cz * z) / nl
+        metrics = {"ce": ce}
+        if moe:
+            # summed over every layer and microbatch; the per-layer mean makes
+            # the counts sum to the whole step's routed pairs
+            counts = vec[3:-1] / nl
+            metrics["moe_counts"] = counts
+            metrics["moe_load"] = counts / torch.clamp(counts.sum(), min=1.0)
+            metrics["moe_drops"] = vec[-1]
+        return loss, metrics, grads
+
+    def train_step(state: TrainState, batch: dict):
+        if pp > 1:
+            loss, metrics, grads = pp_loss_and_grads(state.params, batch)
+            state, om = update(state, grads)
+            return state, {"loss": loss, **metrics, **om}
+        mbs = split_mb(batch, nmb)
         leaf = tree_map(lambda p: p.detach().requires_grad_(), state.params)
         flat = leaves(leaf)
-        mbs = [dict(zip(batch, vals)) for vals in zip(*(t.chunk(nmb) for t in batch.values()))]
         loss = torch.zeros((), device=batch["tokens"].device)
         rows = placement_rows(batch["tokens"].device)
         acc = sums = None
@@ -264,8 +436,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
             loss = loss + (metrics.pop("loss") if grid is not None else mb_loss.detach())
             metrics = {k: v_.detach() for k, v_ in metrics.items()}
             sums = metrics if sums is None else {k: sums[k] + metrics[k] for k in sums}
-        index = {id(p): i for i, p in enumerate(flat)}
-        grads = tree_map(lambda p: acc[index[id(p)]], leaf)
+        grads = unflatten(leaf, acc)
         del leaf, flat, acc
         if nmb > 1:
             for g in leaves(grads):
@@ -307,24 +478,25 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
             _sum_gradients(grads, rd, grid)
         new_params, new_opt, om = adamw_update(
             grads, state.opt, param_dtype=pd, group=grid.ep if sharded else None,
-            tp=grid.tp if grid is not None else None, tp_split=tp_split, **hyper)
+            tp=grid.tp if grid is not None else None, tp_split=tp_split,
+            pp=grid.pp if grid is not None else None, pp_split=pp_split, **hyper)
         return TrainState(new_params, new_opt), {"lr": lr, **om}
 
     def expert_norm(params):
         if cfg.moe is None:
             return None
         held = cfg.moe.num_experts // grid.ep.world if sharded else cfg.moe.num_experts
-        mask = expert_leaf_mask(params, cfg.num_layers, held)
+        mask = expert_leaf_mask(params, cfg.num_layers // gpp, held)
         return (mask, placement_rows(leaves(params)[0].device)) if any(mask) else None
 
     def _sum_gradients(grads, dtype, grid):
-        """Sum each gradient over the batch axes that do not split its leaf,
-        in ``dtype``, one flat buffer per set of axes: the whole and
-        tp-split leaves' over ('data', 'ep'), the expert slices' over
-        'data'."""
+        """Sum each gradient over the axes of ``SUM_AXES`` that do not split
+        its leaf, in ``dtype``, one flat buffer per set of axes: the whole
+        leaves' over ('data', 'pp', 'ep'), the layer tiles' over ('data',
+        'ep'), the expert slices' over 'data'."""
         by_axes = {}
         for g, split in zip(leaves(grads), split_axes):
-            by_axes.setdefault(tuple(a for a in BATCH_AXES if a not in split), []).append(g)
+            by_axes.setdefault(tuple(a for a in SUM_AXES if a not in split), []).append(g)
         for axes, gs in by_axes.items():
             group = grid.group(axes)
             if group.world == 1:
@@ -338,6 +510,8 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     # that drive or record the update (the card tests, chip_smoke)
     train_step.update = update
     train_step.opt_overlap_impl = ov_impl
+    if pp > 1:
+        train_step.loss_and_grads = pp_loss_and_grads
     return train_step
 
 

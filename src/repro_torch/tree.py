@@ -34,6 +34,19 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def unflatten(tree, flat) -> dict:
+    """A tree shaped like ``tree`` whose leaves are ``flat``, given in
+    ``leaves`` order (sorted keys; ``tree_map`` walks insertion order)."""
+    it = iter(flat)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        return next(it)
+    return build(tree)
+
+
 def keyed_leaves(tree, prefix: str = "") -> list:
     """[(key, leaf)] in the order and with the keys of
     ``jax.tree_util.tree_flatten_with_path`` and ``keystr``: a NamedTuple's

@@ -156,10 +156,9 @@ def test_resume_continues_where_the_checkpoint_left_off(tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"parallel": "dp=2,tp=2", "arch": "zamba2-7b"}, {"parallel": "tp=2", "arch": "falcon-mamba-7b"},
-    {"parallel": "dp=2,pp=2"}, {"parallel": "pod=2,dp=2"},
+    {"parallel": "pod=2,dp=2"},
     {"parallel": "dp=2,fsdp"},
-    {"parallel": "dp=2,tiles=auto"}, {"pp_schedule": "1f1b"},
-    {"pp_impl": "masked"}, {"kernel_tiles": "auto"}, {"arch": "phi-3-vision-4.2b"},
+    {"parallel": "dp=2,tiles=auto"}, {"kernel_tiles": "auto"}, {"arch": "phi-3-vision-4.2b"},
     {"arch": "seamless-m4t-medium"}],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_unsupported_arguments_raise(tmp_path, kw):
@@ -168,6 +167,100 @@ def test_unsupported_arguments_raise(tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item"):
         tlaunch.run(arch, out=str(tmp_path / "run"), device="cpu", steps=2, **kw)
     assert not (tmp_path / "run").exists()                # refused before any work
+
+
+@pytest.mark.parametrize("kw,err,match", [
+    ({"arch": "zamba2-7b", "layers": 4}, ValueError, "needs arch_type in"),
+    ({"parallel": "pp=2,ep=2,rebalance=50:1.25"}, NotImplementedError,
+     "not threaded through the pipeline"),
+    ({"pp_impl": "shardmap", "microbatches": 3, "batch": 6}, ValueError,
+     "needs microbatches divisible by pp_stages")],
+    ids=["hybrid", "rebalance", "ragged-waves"])
+def test_pipelines_refuse_what_jax_refuses(tmp_path, kw, err, match):
+    """With a pp axis, before any work, the JAX package's errors: a
+    non-uniform (hybrid) stack, a rebalance= policy, and under
+    pp_impl='shardmap' a microbatch count pp does not divide."""
+    kw = {"parallel": "pp=2", **kw}
+    arch = kw.pop("arch", "mula-7b-a1b")
+    with pytest.raises(err, match=match):
+        tlaunch.run(arch, out=str(tmp_path / "run"), device="cpu", steps=2, **kw)
+    assert not (tmp_path / "run").exists()
+
+
+PP_KW = dict(steps=6, ckpt_interval=3, d_model=64, batch=4, seq=32, layers=4, log_every=100,
+             moe_dispatch="dropless")
+
+
+@pytest.fixture(scope="module")
+def pp_runs(tmp_path_factory):
+    """Reduced Mula-7B-A1B (4 layers, dropless) through ``--parallel pp=2``
+    (2 stages, 4 microbatches by default, 1f1b): a clean run of 6 steps and
+    one with a hard failure at step 5; and the JAX launcher's run of the
+    same plan under its masked executor, in a child process that sees two
+    CPU devices (its per-stage executor does not trace on this JAX)."""
+    import os
+    import subprocess
+    import sys
+    from repro.launch.mesh import forced_device_env
+    root = tmp_path_factory.mktemp("pp")
+    out = {"root": root}
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = forced_device_env(2)
+    env["PYTHONPATH"] = src + os.pathsep + env.get("PYTHONPATH", "")
+    args = [f"--{k.replace('_', '-')}={v}" for k, v in PP_KW.items()]
+    # the JAX run in its child process while the port's runs go on here
+    with subprocess.Popen([sys.executable, "-m", "repro.launch.train", "--arch", "mula-7b-a1b",
+                           "--parallel", "pp=2", "--pp-impl", "masked",
+                           "--out", str(root / "jax"), *args], env=env,
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT) as jax_run:
+        for name, extra in (("port", {}), ("port_ft", {"inject_hard_at": 5})):
+            out[name] = tlaunch.run("mula-7b-a1b", out=str(root / name), device="cpu",
+                                    parallel="pp=2", **PP_KW, **extra)
+        log, _ = jax_run.communicate(timeout=300)
+    assert jax_run.returncode == 0, log.decode()[-3000:]
+    with open(root / "jax" / "history.json") as f:
+        out["jax"] = json.load(f)
+    return out
+
+
+def test_pp_run_relaunches_bit_identically(pp_runs):
+    """The injected failure at step 5 restores the step-3 checkpoint of the
+    pp grid (its stage tiles gathered into whole arrays and sent back) and
+    replays steps 4-5 bit for bit; the summary records the plan's stages,
+    schedule and executor."""
+    clean, ft = pp_runs["port"], pp_runs["port_ft"]
+    assert ft.relaunches == 1 and [h["step"] for h in ft] == list(range(6))
+    assert [(h["loss"], h["grad_norm"], h["lr"]) for h in ft] == \
+        [(h["loss"], h["grad_norm"], h["lr"]) for h in clean]
+    summary = json.loads((pp_runs["root"] / "port" / "summary.json").read_text())
+    assert (summary["pp_stages"], summary["pp_schedule"], summary["pp_impl"],
+            summary["parallel"]) == (2, "1f1b", "shardmap", "pp=2,moe=dropless,mb=4")
+
+
+@pytest.mark.parametrize("reader", ["port_one_rank", "jax"])
+def test_pp_grid_checkpoint_resumes_on_one_rank_and_in_jax(pp_runs, reader, tmp_path):
+    """A copy of the pp grid run's directory resumes from its step-3
+    checkpoint (whole (L, ...) stacks on disk) on one process, in the port
+    (no plan) and in the JAX launcher, both with the same 4 microbatches:
+    steps 4-5 equal the grid run's at 1e-4."""
+    shutil.copytree(pp_runs["root"] / "port", tmp_path / "run")
+    (tmp_path / "run" / "history.json").unlink()
+    fn = jlaunch.run if reader == "jax" else tlaunch.run
+    kw = {} if reader == "jax" else {"device": "cpu"}
+    got = fn("mula-7b-a1b", out=str(tmp_path / "run"), microbatches=4, **PP_KW, **kw)
+    assert [h["step"] for h in got] == [4, 5]
+    _close(got, pp_runs["port"][4:])
+
+
+def test_jax_pp_checkpoint_resumes_on_a_port_pp_grid(pp_runs, tmp_path):
+    """The JAX launcher's pp=2 checkpoint (plan 'pp=2,impl=masked,...' in
+    its MANIFEST) restores on the port's pp=2 grid under the same plan,
+    which resumes steps 4-5 as the JAX run took them, at 1e-4."""
+    shutil.copytree(pp_runs["root"] / "jax", tmp_path / "run")
+    got = tlaunch.run("mula-7b-a1b", out=str(tmp_path / "run"), device="cpu", parallel="pp=2",
+                      pp_impl="masked", **PP_KW)
+    assert [h["step"] for h in got] == [4, 5]
+    _close(got, pp_runs["jax"][4:])
 
 
 @pytest.mark.parametrize("kw", [

@@ -150,13 +150,14 @@ def test_grid_1x4_epso_ring_matches_jax():
 
 
 def test_grid_train_step_refuses_what_is_not_ported():
-    """Pipeline stages raise NotImplementedError; a placement that is not an
-    ``ExpertPlacement`` a TypeError or a ValueError (expert placement is
-    ported: ``tests/test_torch_placement.py``); an overlap impl without a
-    sharded mode, or without a grid, a ValueError."""
+    """Pipeline stages build (pipeline parallelism is ported:
+    ``tests/test_torch_pp_train.py``, ``tests/test_torch_pp_grid.py``); a
+    placement that is not an ``ExpertPlacement`` a TypeError or a
+    ValueError (expert placement is ported: ``tests/test_torch_placement.py``);
+    an overlap impl without a sharded mode, or without a grid, a ValueError."""
     tc = treduced(tget("mula-7b-a1b"), d_model=64, vocab=128)
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        make_train_step(tc, ParallelConfig(pp_stages=2), TrainConfig(), opt_sharding_mode="epso")
+    assert callable(make_train_step(tc, ParallelConfig(pp_stages=2), TrainConfig(),
+                                    opt_sharding_mode="epso").loss_and_grads)
     with pytest.raises((TypeError, ValueError), match="placement"):
         make_train_step(tc, ParallelConfig(), TrainConfig(), placement=object())
     with pytest.raises(ValueError, match="opt_shard"):

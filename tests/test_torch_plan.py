@@ -113,14 +113,13 @@ def test_apply_to_model_matches_jax():
 
 
 @pytest.mark.parametrize("spec,item,arch", [
-    ("dp=2,pp=2", "item 5", "mula-7b-a1b"), ("dp=2,ep=2,tp=2,pp=2", "item 5", "mula-7b-a1b"),
     ("pod=2,dp=2", "item 5", "mula-7b-a1b"), ("dp=2,fsdp", "item 5", "mula-7b-a1b"),
     ("dp=2,tp=2", "item 5.10", "zamba2-7b"), ("tp=2", "item 5.10", "falcon-mamba-7b"),
     ("dp=2,tiles=auto", "item 7", "mula-7b-a1b"),
     ("dp=2,tiles=64x256x256", "item 7", "mula-7b-a1b")])
 def test_resolve_refuses_what_the_port_lacks(spec, item, arch):
-    """pp, pod and fsdp (item 5), tp for the state-space archs (item 5.10)
-    and explicit tiles (item 7)."""
+    """pod and fsdp (item 5), tp for the state-space archs (item 5.10) and
+    explicit tiles (item 7)."""
     cfg = treduced(tget(arch))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         ParallelPlan.parse(spec).resolve(cfg, global_batch=8)
@@ -197,3 +196,52 @@ def test_resolve_gives_the_grid():
     naive = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, moe_impl="naive"))
     with pytest.raises(NotImplementedError, match="moe_impl='naive'"):
         ParallelPlan.parse("ep=2").resolve(naive)
+
+
+@pytest.mark.parametrize("spec,world,grid,sizes", [
+    ("dp=2,pp=2", 4, (2, 1, 1, 2), {"data": 2, "pp": 2}),
+    ("dp=2,pp=2,ep=2,schedule=gpipe,impl=masked,mb=4", 8, (2, 2, 1, 2),
+     {"data": 2, "pp": 2, "ep": 2}),
+    ("pp=4,opt=epso", 4, (1, 1, 1, 4), {"pp": 4})])
+def test_resolve_takes_pp(spec, world, grid, sizes):
+    """A pp axis resolves (it was refused before pipeline parallelism was
+    ported): world dp * pp * ep * tp, the grid (dp, ep, tp, pp) for
+    ``spawn``, the batch split over dp * ep alone, the checkpoint layout
+    and the ParallelConfig (stages, schedule, impl, microbatches) the JAX
+    ``ResolvedPlan``'s."""
+    cfg = treduced(tget("mula-7b-a1b"), layers=4)
+    r = ParallelPlan.parse(spec).resolve(cfg, global_batch=8)
+    assert (r.world, r.grid, r.batch_ranks, r.axis_sizes) == (world, grid, grid[0] * grid[1],
+                                                              sizes)
+    j = JResolved(plan=JPlan.parse(spec))
+    assert r.layout_signature() == j.layout_signature() and r.spec() == j.spec()
+    got, want = r.parallel_config(), j.parallel_config()
+    for k in ("microbatches", "pp_stages", "pp_schedule", "pp_impl", "optimizer_sharding",
+              "opt_overlap", "moe_dispatch", "remat_policy"):
+        assert getattr(got, k) == getattr(want, k), k
+
+
+def test_resolve_refuses_what_pp_refuses():
+    """What stays refused with a pp axis: a non-uniform stack (the hybrid
+    arch, the JAX step's ValueError), a rebalance= policy (the JAX plan's
+    NotImplementedError, same text) and the all-to-all Stage 1 inside a
+    stage (the port's refusal, ROADMAP.md §1 item 5.11)."""
+    from repro.configs.base import ParallelConfig as JParallel, TrainConfig as JTrain
+    from repro.train import make_train_step as jmake_train_step
+    hyb, jhyb = (red(get("zamba2-7b"), layers=4) for get, red in ((tget, treduced),
+                                                                   (jget, jreduced)))
+    with pytest.raises(ValueError) as te:
+        ParallelPlan.parse("pp=2").resolve(hyb)
+    with pytest.raises(ValueError) as je:
+        jmake_train_step(jhyb, JParallel(pp_stages=2), JTrain())
+    assert str(te.value) == str(je.value)
+    moe, jmoe = (red(get("mula-7b-a1b"), layers=4) for get, red in ((tget, treduced),
+                                                                     (jget, jreduced)))
+    with pytest.raises(NotImplementedError) as te:
+        ParallelPlan.parse("pp=2,ep=2,rebalance=10:1.2").resolve(moe)
+    with pytest.raises(NotImplementedError) as je:
+        JPlan.parse("pp=2,ep=2,rebalance=10:1.2").validate_model(jmoe)
+    assert str(te.value) == str(je.value)
+    a2a = dataclasses.replace(moe, moe=dataclasses.replace(moe.moe, stage1="a2a"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5.11"):
+        ParallelPlan.parse("pp=2,ep=2").resolve(a2a)

@@ -1,0 +1,248 @@
+"""PyTorch port, pipeline parallelism on a process grid with a 'pp' axis
+(the per-stage executor, ``parallel.pipeline.run_schedule`` over
+``StageLink``), CPU ranks over gloo, float32, against the one-process PP
+step (``tests/test_torch_pp_train.py`` holds that one to the JAX PP step):
+
+* grids (pp=2) on 2 ranks and (dp=2, pp=2), (pp=2, ep=2), (pp=2, tp=2),
+  (pp=4) on 4, each in 'none', 'so' and 'epso', two steps of reduced
+  Mula-7B-A1B (4 layers, 8 experts, dropless, no router terms: under EP
+  and DP the aux and z are the ranks' mean, not the one-device value) from
+  one whole state: every rank's metrics equal the one-process step's at
+  atol = rtol = 1e-4 and the other ranks' exactly, and every rank's params
+  after the second step its tiles of the one-process step's. The
+  one-process step sees each microbatch as the grid does: microbatch m is
+  the ranks' microbatches m side by side (``_oracle_batch``);
+* capacity dispatch with overflowing experts on (pp=2, ep=2): dp = 1, so
+  the stage's MoE block dispatches the whole gathered microbatch in the
+  one-device pool, and the drops are the one-process step's; and on (dp=2,
+  pp=2) without overflow; with overflow on (dp=2, pp=2) each replica's
+  pool keeps the pairs the one-process step drops (the difference
+  ROADMAP.md §3 records, with this case's numbers);
+* every rank holds ``state_bytes_per_device`` bytes of optimizer state,
+  and under 1f1b stage 0 never more than pp saved stage inputs;
+* placements and state bytes of full-width Mula-7B-A1B on ('data', 'pp',
+  'ep', 'tp') meshes equal the JAX plan's ``param_specs`` and
+  ``state_bytes_per_device``, the embedding and head tables excepted (the
+  JAX plan splits them on the vocab over the model axis, the port keeps
+  them whole, ROADMAP.md §1 item 5.5).
+
+Each world size spawns once (two spawns, run side by side), every case a
+grid re-cut from the same processes (``torch_ep_ranks.pp_grid_cases_rank``).
+"""
+import dataclasses
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+from jax.sharding import AbstractMesh, AxisType  # noqa: E402
+
+from repro.configs import get_config as jget  # noqa: E402
+from repro.models import init_params as jinit_params  # noqa: E402
+from repro.optim import epso as jepso  # noqa: E402
+from repro.parallel.sharding import ShardingRules, param_specs  # noqa: E402
+from repro_torch.configs import ParallelConfig, TrainConfig  # noqa: E402
+from repro_torch.configs import get_config as tget, reduced as treduced  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
+from repro_torch.optim import adamw_init  # noqa: E402
+from repro_torch.optim import epso as tepso  # noqa: E402
+from repro_torch.parallel import spawn  # noqa: E402
+from repro_torch.parallel.sharding import tile_slices  # noqa: E402
+from repro_torch.train import init_state, make_train_step  # noqa: E402
+from repro_torch.train.trainer import placements  # noqa: E402
+from repro_torch.tree import leaves, leaves_with_path  # noqa: E402
+
+import torch_ep_ranks as ranks  # noqa: E402
+from test_torch_epso import _placements  # noqa: E402
+
+TOL = dict(atol=1e-4, rtol=1e-4)
+F32 = dict(param_dtype="float32", compute_dtype="float32", grad_reduce_dtype="float32")
+TABLES = ("embed/table", "head/table")
+MODES = ("none", "so", "epso")
+BATCH, SEQ = 8, 16
+TRAIN = TrainConfig(seq_len=SEQ, global_batch=BATCH, warmup_steps=1, total_steps=10,
+                    lr_peak=1e-2, lr_min=1e-3, **F32)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The tiny models run faster on one torch thread than on every core,
+    and the suite runs several test processes side by side (the spawned
+    ranks take one thread each already)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cfg(**moe_kw):
+    tc = treduced(tget("mula-7b-a1b"), d_model=64, vocab=128, layers=4, max_experts=8)
+    moe = {"dispatch": "dropless", "router_aux_coef": 0.0, "router_z_coef": 0.0, **moe_kw}
+    return dataclasses.replace(tc, moe=dataclasses.replace(tc.moe, **moe))
+
+
+CFGS = {"moe": _cfg(), "capacity": _cfg(dispatch="capacity", capacity_factor=0.25),
+        "roomy": _cfg(dispatch="capacity", capacity_factor=8.0)}
+# (config, (dp, pp, ep, tp), mode, schedule, microbatches)
+CASES2 = [("moe", (1, 2, 1, 1), mode, s, 4) for mode, s in zip(MODES, ("1f1b", "gpipe", "1f1b"))]
+CASES4 = [("moe", grid, mode, s, n)
+          for grid, s, n in (((2, 2, 1, 1), "1f1b", 2), ((1, 2, 2, 1), "gpipe", 4),
+                             ((1, 2, 1, 2), "1f1b", 4), ((1, 4, 1, 1), "1f1b", 4))
+          for mode in MODES] + [("capacity", (1, 2, 2, 1), "epso", "1f1b", 2),
+                                ("roomy", (2, 2, 1, 1), "so", "gpipe", 2),
+                                ("capacity", (2, 2, 1, 1), "so", "1f1b", 2)]
+
+
+def _batches(n=2):
+    out = []
+    for i in range(n):
+        t = torch.from_numpy(np.random.default_rng(40 + i).integers(0, 128, (BATCH, SEQ + 1)))
+        out.append({"tokens": t[:, :-1].long(), "labels": t[:, 1:].long()})
+    return out
+
+
+def _oracle_batch(b, w, n_mb):
+    """The rows of ``b`` reordered so that one process's microbatch m holds
+    microbatch m of each of the ``w`` ranks splitting the batch, in rank
+    order (rank r takes the r-th of w row blocks, ``grid_rows``)."""
+    B = b["tokens"].shape[0]
+    c = B // (w * n_mb)
+    idx = [r * (B // w) + m * c + j for m in range(n_mb) for r in range(w) for j in range(c)]
+    return {k: v[idx] for k, v in b.items()}
+
+
+def _oracle(case, params, batches):
+    """The one-process PP step on the grid's microbatches: per step the
+    metrics, and the final params."""
+    name, (dp, pp, ep, _), _, schedule, n_mb = case
+    tc = CFGS[name]
+    state = init_state(tc, TRAIN, seed=0, device="cpu")
+    for dst, src in zip(leaves(state.params), leaves(params)):
+        dst.copy_(src)
+    step = make_train_step(tc, ParallelConfig(microbatches=n_mb, pp_stages=pp,
+                                              pp_schedule=schedule), TRAIN)
+    metrics = []
+    for b in batches:
+        state, m = step(state, _oracle_batch(b, dp * ep, n_mb))
+        metrics.append(m)
+    return metrics, dict(leaves_with_path(state.params))
+
+
+@pytest.fixture(scope="module")
+def grid_runs():
+    params = {n: init_params(tc, seed=0, device="cpu") for n, tc in CFGS.items()}
+    opts = {n: adamw_init(p) for n, p in params.items()}      # copied into each rank
+    batches = _batches()
+    args = (CFGS, params, opts, TRAIN, batches)
+    with ThreadPoolExecutor(2) as pool:
+        futs = {w: pool.submit(spawn, ranks.pp_grid_cases_rank, w, args=args + (cases,),
+                               device="cpu", timeout_s=240)
+                for w, cases in ((2, CASES2), (4, CASES4))}
+        want = [_oracle(c, params[c[0]], batches) for c in CASES2 + CASES4]
+        got = futs[2].result(), futs[4].result()
+    res = [[r[i] for r in got[0]] for i in range(len(CASES2))] + \
+        [[r[i] for r in got[1]] for i in range(len(CASES4))]
+    return list(zip(CASES2 + CASES4, res, want))
+
+
+def _ids(case):
+    name, (dp, pp, ep, tp), mode, schedule, n = case
+    return f"{name}-dp{dp}pp{pp}ep{ep}tp{tp}-{mode}-{schedule}-mb{n}"
+
+
+def _overflows_per_replica(case):
+    """Capacity dispatch with overflow under dp > 1: each replica's stage
+    dispatches its own rows in its own pool, the one-process step the whole
+    microbatch in one (ROADMAP.md §3, "Not faults")."""
+    name, (dp, _, ep, _), _, _, _ = case
+    return name == "capacity" and dp > 1
+
+
+@pytest.mark.parametrize("index", range(len(CASES2 + CASES4)),
+                         ids=[_ids(c) for c in CASES2 + CASES4])
+def test_grid_matches_one_process_pp_step(grid_runs, index):
+    case, rank_res, (want_m, want_p) = grid_runs[index]
+    name, (dp, pp, ep, tp), mode, schedule, n_mb = case
+    if _overflows_per_replica(case):
+        # the one-process step drops pairs and each replica's pool keeps
+        # them: the losses part (the numbers ROADMAP.md §3 gives)
+        got = rank_res[0]["metrics"]
+        drops = [(float(g["moe_drops"]), float(w["moe_drops"])) for g, w in zip(got, want_m)]
+        gaps = [abs(float(g["loss"]) - float(w["loss"])) for g, w in zip(got, want_m)]
+        print(f"{_ids(case)}: drops (grid, one process) {drops}, loss gaps {gaps}")
+        assert all(g == 0 < w for g, w in drops) and all(0 < x < 1e-2 for x in gaps)
+        return
+    tc = CFGS[name]
+    sizes = {a: n for a, n in zip(("data", "pp", "ep", "tp"), (dp, pp, ep, tp)) if n > 1}
+    place = dict(leaves_with_path(placements(tc, init_params(tc, device="meta"), sizes)))
+    for r in rank_res:
+        for i, (got, want) in enumerate(zip(r["metrics"], want_m)):
+            assert sorted(got) == sorted(k for k in want if k in ranks.KEYS)
+            for k in got:
+                np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), **TOL,
+                                           err_msg=f"{_ids(case)} step {i} {k} {r['coords']}")
+                assert torch.equal(got[k], rank_res[0]["metrics"][i][k]), (k, r["coords"])
+        for path, full in want_p.items():
+            sl = tile_slices(place[path], tuple(full.shape), r["coords"], sizes)
+            np.testing.assert_allclose(r["params"][path].numpy(), full[sl].numpy(), **TOL,
+                                       err_msg=f"{_ids(case)} {path} {r['coords']}")
+        assert r["state_bytes"] == r["state_bytes_expected"], r["coords"]
+        stage = r["coords"]["pp"]
+        assert r["saved_peak"][stage] <= (pp if schedule == "1f1b" else n_mb)
+        if stage == 0:
+            assert r["saved_peak"][0] == (min(pp, n_mb) if schedule == "1f1b" else n_mb)
+        # each microbatch's activation forward (not on the last stage) and its
+        # gradient back (not on stage 0), 4 bytes an element
+        act = BATCH // (dp * ep) // n_mb * SEQ * tc.d_model * 4
+        assert r["sent_bytes"] == n_mb * act * ((stage < pp - 1) + (stage > 0))
+    if name == "capacity":
+        assert all(float(m["moe_drops"]) > 0 for m in want_m)
+
+
+def _plan_rules(cfg, dp, pp, ep, tp):
+    """The JAX rules of a ('data', 'pp', 'ep', 'tp') plan mesh, its size-1
+    axes dropped as ``ParallelPlan.mesh_axes`` drops them."""
+    axes = [(a, n) for a, n in (("data", dp), ("pp", pp), ("ep", ep), ("tp", tp)) if n > 1]
+    mesh = AbstractMesh(tuple(n for _, n in axes), tuple(a for a, _ in axes),
+                        axis_types=(AxisType.Auto,) * len(axes))
+    batch = tuple(a for a in ("data", "ep") if a in mesh.shape)
+    return ShardingRules(mesh, batch, "tp" if tp > 1 else None, "ep" if ep > 1 else None,
+                         pp_axis="pp" if pp > 1 else None, cfg=cfg), dict(mesh.shape)
+
+
+@pytest.mark.parametrize("grid", [(1, 2, 1, 1), (2, 2, 1, 1), (1, 2, 2, 1), (1, 2, 1, 2),
+                                  (1, 4, 1, 1), (2, 2, 2, 2)])
+def test_placements_and_state_bytes_match_jax_plan(grid):
+    """Full-width Mula-7B-A1B at 4 layers: every leaf's placement but the
+    tables' is the JAX plan's (the layer stacks' leading dim on 'pp'); the
+    per-rank state bytes under 'epso' are the JAX plan's, and under 'none'
+    and 'so' exceed them by exactly the tables' share the JAX plan splits
+    over the model axis ('tp', else 'ep')."""
+    dp, pp, ep, tp = grid
+    jc, tc = (dataclasses.replace(get("mula-7b-a1b"), num_layers=4) for get in (jget, tget))
+    shapes = jax.eval_shape(lambda: jinit_params(jax.random.PRNGKey(0), jc))
+    rules, sizes = _plan_rules(jc, dp, pp, ep, tp)
+    meta = init_params(tc, device="meta")
+    place = placements(tc, meta, sizes)
+    want = leaves(_placements(param_specs(shapes, rules), shapes))
+    staged = 0
+    for (path, g), w in zip(leaves_with_path(place), want):
+        if path in TABLES:
+            assert g == ((),) * len(g), path
+            continue
+        assert g == w, (grid, path, g, w)
+        staged += path.startswith("layers/") and g[0] == ("pp",)
+    assert staged == len([p for p, _ in leaves_with_path(meta) if p.startswith("layers/")])
+    tables = sum(t.numel() for path, t in leaves_with_path(meta) if path in TABLES)
+    mdl = tp if tp > 1 else ep
+    for mode in MODES:
+        got = tepso.state_bytes_per_device(meta, place, sizes, mode)
+        jwant = jepso.state_bytes_per_device(shapes, rules, mode)
+        if mode == "epso":
+            assert got == jwant, (grid, mode)
+            continue
+        share = dp if mode == "so" else 1
+        assert got - jwant == 12 * (tables // share - tables // (share * mdl)), (grid, mode)

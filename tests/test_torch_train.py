@@ -102,13 +102,20 @@ def test_train_steps_match_jax(name, microbatches):
 
 
 def test_train_step_rejects_mesh_features():
-    """Pipeline stages raise. Without a grid a sharded optimizer mode places
+    """Pipeline stages run (their parity: tests/test_torch_pp_train.py): a
+    two-stage 1f1b step of two microbatches gives a finite loss and the JAX
+    PP step's metric keys. Without a grid a sharded optimizer mode places
     every state whole (the JAX step off-mesh), and an overlap impl, which
     needs a grid with update axes, raises ValueError as the JAX step's does;
     SO/EPSO on a grid: tests/test_torch_overlap.py."""
     _, tc = _cfgs("mula-7b-a1b")
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        make_train_step(tc, ParallelConfig(pp_stages=2), TrainConfig())
+    from repro_torch.train import init_state
+    train = TrainConfig(**F32)
+    step = make_train_step(tc, ParallelConfig(pp_stages=2, microbatches=2), train)
+    _, tb = batch_pair(3)
+    _, m = step(init_state(tc, train, device="cpu"), tb)
+    assert np.isfinite(float(m["loss"])) and sorted(m) == [
+        "ce", "clip_scale", "grad_norm", "loss", "lr", "moe_counts", "moe_drops", "moe_load"]
     assert callable(make_train_step(tc, ParallelConfig(), TrainConfig(),
                                     opt_sharding_mode="epso"))
     with pytest.raises(ValueError, match="grid"):

@@ -287,3 +287,47 @@ def tp_loss_rank(grid, tc, params, batch, compute_dtype=torch.float32):
     return {"share": share.detach(), "coords": grid.coords,
             "metrics": {k: v.detach() for k, v in m.items()}, "grads": dict(zip(paths, grads))}
 
+
+
+def pp_grid_cases_rank(world, tc_by_name, params_by_name, opt_by_name, train, batches, cases):
+    """One rank of the pipeline-parallel grid tests: for each case
+    ``(name, (dp, pp, ep, tp), mode, schedule, n_mb)`` a grid re-cut from
+    the spawn's processes (``init_grid`` over the world), the rank's tiles
+    of the config ``name``'s whole params and AdamW state, one PP step per
+    batch on the rank's rows; per case the metrics of each step, the
+    rank's params, its state bytes (and what ``state_bytes_per_device``
+    gives it), its saved-input peaks and the bytes it handed to its
+    neighbour stages."""
+    from repro_torch.convert import opt_state_for_rank, params_for_rank
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.parallel import init_grid
+    from repro_torch.train.trainer import placements
+    from repro_torch.tree import leaves
+
+    out = []
+    for name, (dp, pp, ep, tp), mode, schedule, n_mb in cases:
+        tc = tc_by_name[name]
+        grid = init_grid(world, dp, ep, tp, pp)
+        rank = grid.world.rank
+        mine = params_for_rank(params_by_name[name], tc, dp=dp, ep=ep, tp=tp, pp=pp, rank=rank)
+        st = opt_state_for_rank(opt_by_name[name], tc, dp=dp, ep=ep, tp=tp, pp=pp, rank=rank,
+                                mode=mode)
+        state = TrainState(mine, st)
+        par = ParallelConfig(microbatches=n_mb, pp_stages=pp, pp_schedule=schedule)
+        step = make_train_step(tc, par, train, opt_sharding_mode=mode, grid=grid)
+        metrics = []
+        for b in batches:
+            state, m = step(state, grid_rows(grid, b))
+            metrics.append({k: m[k] for k in KEYS if k in m})
+        sizes = grid.axis_sizes
+        shapes = init_params(tc, device="meta")
+        out.append({
+            "coords": grid.coords, "metrics": metrics,
+            "params": dict(leaves_with_path(state.params)),
+            "state_bytes": sum(t.numel() * 4 for tree in (st.master, st.m, st.v)
+                               for t in leaves(tree)),
+            "state_bytes_expected": state_bytes_per_device(
+                shapes, placements(tc, shapes, sizes), sizes, mode),
+            "saved_peak": dict(step.saved_peak), "sent_bytes": step.sent_bytes})
+    return out
