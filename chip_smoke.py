@@ -13,8 +13,9 @@ Phases, each printing JSON lines:
   device     the card (nvidia-smi name and power limit) and the time to
              build the CUDA kernels from ``src/repro_torch/csrc``;
   kernels    each kernel against its plain PyTorch version on the card, at
-             the serving, training, hybrid, expert-parallel, epso_train and
-             a2a_train paths' shapes (the dispatch plan also in its
+             the serving, training, hybrid, expert-parallel, epso_train,
+             a2a_train and grid_serve (gmm at the expert-TP decode shape)
+             paths' shapes (the dispatch plan also in its
              uniform-capacity mode),
              with its time, the plain version's, one PyTorch library call's
              where there is one, and its bound (the MoE dispatch plan also
@@ -116,7 +117,12 @@ Phases, each printing JSON lines:
              loss, grad norm and counts on every rank, losses within 2e-3
              of the same run on the 2 x 2 grid, the state bytes the EPSO
              plan gives a rank, the exact launch count; prints peak memory
-             and step ms a rank;
+             and step ms a rank. On ep = 2 x tp = 2 'none' the run also
+             takes the 'block_sc' remat policy: its losses bit for bit
+             'block''s, and rank 0's profiled step fewer ``gloo:*`` events
+             by the forward collectives 'block''s recompute runs again (4 a
+             layer: attention's tp all-reduce and the Stage 1's three
+             all-gathers);
   placement_train  inside epso_train's ranks: the same grid in
              'epso'/'ring' with dropless dispatch, 6 steps from
              init_state(seed 0) unplaced; then the state after step 2 (kept
@@ -135,7 +141,8 @@ Phases, each printing JSON lines:
   pp_train   inside epso_train's ranks, the 4 processes re-cut into dp = 1
              x pp = 2 x ep = 2: full-width Mula-7B-A1B at 4 of its 16
              layers (2 a stage, 32 experts a rank), 'epso'/'ring',
-             dropless, without router terms, peak lr 1e-4, 4 one-row
+             dropless, with the router's aux and z terms (a stage takes
+             them over the whole microbatch), peak lr 1e-4, 4 one-row
              microbatches of 512 tokens a batch rank, 4 steps of 1f1b then
              2 of gpipe: every rank the same loss, grad norm and counts, no
              drops, the state bytes the EPSO plan gives a rank, the
@@ -145,6 +152,17 @@ Phases, each printing JSON lines:
              on one rank in the parent, the grid's losses within 2e-3
              relative of it; prints peak memory, state bytes, step ms and
              launches a rank;
+  grid_serve inside epso_train's ranks, the 4 processes re-cut into ep = 2
+             x tp = 2: full-width, full-depth Mula-7B-A1B in bf16 served on
+             the plan (``ServeEngine(plan=, grid=)``; 32 experts, expert
+             d_ff 512 and 8 heads a rank, each rank building its tiles one
+             leaf and layer at a time from seeds), the admission prefill
+             and one decode step through the lowerings, then 6 greedy
+             requests over 4 slots: every rank the same tokens, the exact
+             launch count of a rank; in the parent the same weights whole
+             on one rank, whose prefill and decode logits the grid's must
+             match within 5e-2 of max|logits|; prints the greedy tokens'
+             agreement with the one-rank engine, step ms and peak memory;
   launcher_dense  full-width, full-depth Mula-1B (16 layers, d_model 2048,
              d_ff 8192, the byte vocab padded to 512; random weights from
              seed 0, fp32 state, bf16 compute) trained by the launcher
@@ -320,7 +338,7 @@ GRID_TP_LOSS_TOL = 2e-3
 GRID_TP_LAYOUT = {"axes": [["ep", 2], ["tp", 2]], "opt_shard": "epso", "fsdp": False}
 # pp_train (inside epso_train's ranks, the 4 processes re-cut as dp = 1 x pp =
 # 2 x ep = 2): full-width Mula-7B-A1B at PP_LAYERS of its 16 layers (the train
-# cell's depth), 'epso'/'ring', dropless, without router terms, PP_MB
+# cell's depth), 'epso'/'ring', dropless, with router terms, PP_MB
 # microbatches of one PP_SEQ-token row a batch rank, one step per schedule of
 # PP_SCHEDULES (1f1b, then gpipe on the same state), peak lr CMP_LR; losses
 # within PP_LOSS_TOL relative of a one-rank run of the same model, rows and
@@ -328,6 +346,20 @@ GRID_TP_LAYOUT = {"axes": [["ep", 2], ["tp", 2]], "opt_shard": "epso", "fsdp": F
 PP_DP, PP_STAGES, PP_EP, PP_LAYERS, PP_MB, PP_SEQ = 1, 2, 2, 4, 4, 512
 PP_SCHEDULES = ("1f1b",) * 4 + ("gpipe",) * 2
 PP_LOSS_TOL = 2e-3
+# grid_serve (inside epso_train's ranks, the 4 processes re-cut as ep = 2 x
+# tp = 2): full-width Mula-7B-A1B at GRID_SERVE_LAYERS layers, bf16, greedy
+# requests of GRID_SERVE_PROMPTS tokens over GRID_SERVE_SLOTS slots, each
+# GRID_SERVE_NEW tokens; the lowerings' prefill (the first prompt) and first
+# decode logits within GRID_SERVE_TOL of max|logits| of one rank's
+GRID_SERVE_EP, GRID_SERVE_TP, GRID_SERVE_LAYERS = 2, 2, 16
+GRID_SERVE_PROMPTS = (37, 120, 64, 250, 90, 17)
+GRID_SERVE_SLOTS, GRID_SERVE_NEW, GRID_SERVE_MAX_LEN = 4, 16, 512
+GRID_SERVE_TOL = 5e-2
+# tp_train's 'block_sc' run saves, a layer and microbatch, the forward
+# collectives 'block''s recompute runs again (it stops at the block's last
+# saved activation, the combine's inputs): attention's tp all-reduce and the
+# Stage 1's three all-gathers
+BLOCK_SC_SAVED_PER_LAYER = 1 + 3
 # launcher_grid_pp: launcher_ft's run on pp = 2 x ep = 2 under EPSO through
 # ``python -m repro_torch.launch.train``, with a hard failure at step 7 (a
 # relaunch from the step-5 checkpoint); its plan's layout in the MANIFEST
@@ -433,17 +465,19 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str
 # kernels against their plain versions
 # ----------------------------------------------------------------------------
 
-def _routing_groups(T: int, m, gen, experts: int = 0, offset: int = 0, local: int = 0):
+def _routing_groups(T: int, m, gen, experts: int = 0, offset: int = 0, local: int = 0,
+                    dropless: bool = False):
     """Group sizes of one MoE dispatch of T tokens with random top-k
     routing over the first ``experts`` experts (all if 0), the pool sized
-    from the MoE config ``m`` as the model sizes it; with ``local``, one EP
-    rank's dispatch of the experts ``[offset, offset + local)``."""
+    from the MoE config ``m`` as the model sizes it (``dropless``: the
+    dropless pool); with ``local``, one EP rank's dispatch of the experts
+    ``[offset, offset + local)``."""
     import torch
     from repro_torch.core import moe
     from repro_torch.kernels import ops
     idx = torch.rand((T, experts or m.num_experts), generator=gen, device=DEV).topk(
         m.experts_per_token, dim=-1).indices
-    rows = moe.dispatch_pool_rows(T, m, local_experts=local)
+    rows = moe.dispatch_pool_rows(T, m, local_experts=local, dropless=dropless)
     plan = moe.make_dispatch_plan(idx, num_experts=m.num_experts, pool_rows=rows,
                                   align=ops.gmm_align(), expert_offset=offset,
                                   local_experts=local)
@@ -525,6 +559,22 @@ def kernel_cases(cfg) -> list[dict]:
             library=lambda r, w: torch.einsum("tkd,tk->td", r, w),
             bytes=2 * (T * K * d + T * K + T * d), flops=2.0 * T * K * d, peak=FP32_FLOPS,
             tol="rel"))
+
+    # grid_serve: rank (1, 1) of ep = 2 x tp = 2 at a decode step of its slots:
+    # its 32 experts' d_ff shards, K = d, N = f / tp, the dropless pool
+    els, fs = E // GRID_SERVE_EP, f // GRID_SERVE_TP
+    gs, rows = _routing_groups(GRID_SERVE_SLOTS, cfg.moe, gen, offset=els, local=els,
+                               dropless=True)
+    total, active = int(gs.sum()), int((gs > 0).sum())
+    w, x = randn(els, d, fs, scale=d ** -0.5), randn(rows, d)
+    lib, note = _grouped_mm_yardstick(
+        lambda x, w, gs: torch._grouped_mm(x, w, offs=_offs(gs)), (x, w, gs),
+        gmm_plain(x, w, gs), rows_of=lambda y, n=total: y[:n])
+    cases.append(dict(
+        kernel="gmm", case=f"ETP decode gate M={rows} K={d} N={fs} rows={total}",
+        args=(x, w, gs), fn=ops.gmm, plain=gmm_plain, library=lib, library_note=note,
+        bytes=2 * (total * d + active * d * fs + rows * fs), flops=2.0 * total * d * fs,
+        peak=BF16_TENSOR_FLOPS, tol="rel"))
 
     cases += train_kernel_cases(cfg, gen, randn)
     EL = E // EP_RANKS
@@ -2581,14 +2631,18 @@ def _epso_train_rank(grid, steps):
             "placement": _placement_train_rank(grid, cfg, train, mine, PLACEMENT_STEPS),
             "a2a": _a2a_train_rank(grid, cfg, train, mine, steps),
             "tp": _tp_train_rank(grid, cfg, train, batch),
-            "pp": _pp_train_rank(grid)}
+            "pp": _pp_train_rank(grid),
+            "serve": _grid_serve_rank(grid)}
 
 
-def _history_run(cfg, train, grid, mode, overlap, rows, steps):
+def _history_run(cfg, train, grid, mode, overlap, rows, steps, sac="block", profile=False):
     """``steps`` steps of ``cfg`` from init_state(seed 0) on ``grid`` in
-    ``mode``/``overlap`` on the rank's ``rows``: per step the metrics, the
-    counts and the step ms; the launches, the peak memory and the state
-    bytes held."""
+    ``mode``/``overlap`` under the remat policy ``sac`` on the rank's
+    ``rows``: per step the metrics, the counts and the step ms; the
+    launches, the peak memory and the state bytes held. ``profile``: one
+    more step, profiled on rank 0 (``_profile_window`` with the gloo
+    events; every rank takes it), whose loss ends the history, and that
+    step's own peak memory."""
     import torch
     from repro_torch.configs import ParallelConfig
     from repro_torch.kernels import ops
@@ -2599,7 +2653,7 @@ def _history_run(cfg, train, grid, mode, overlap, rows, steps):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = init_state(cfg, train, seed=0, grid=grid, opt_sharding_mode=mode)
-    par = ParallelConfig(microbatches=1, remat_policy="block", opt_overlap=overlap)
+    par = ParallelConfig(microbatches=1, remat_policy=sac, opt_overlap=overlap)
     step = make_train_step(cfg, par, train, opt_sharding_mode=mode, grid=grid)
     held = sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m, state.opt.v)
                for t in leaves(tree))
@@ -2615,6 +2669,20 @@ def _history_run(cfg, train, grid, mode, overlap, rows, steps):
                         "step_ms": (time.perf_counter() - t0) * 1e3})
     out = {"history": history, "launches": dict(ops.launches), "state_bytes": held,
            "peak_bytes": torch.cuda.max_memory_allocated()}
+    if profile:
+        last = {}
+
+        def one():
+            last["m"] = step(state, rows)[1]
+
+        torch.cuda.reset_peak_memory_stats()
+        if grid.world.rank == 0:
+            out["profile"] = _profile_window(one, host_prefixes=("gloo:", "c10d::"))
+        else:
+            one()
+            torch.cuda.synchronize()
+        out["profiled_loss"] = float(last["m"]["loss"])
+        out["peak_bytes_profiled"] = torch.cuda.max_memory_allocated()
     del state, step
     return out
 
@@ -2633,14 +2701,14 @@ def _a2a_train_rank(grid, cfg, train, mine, steps):
 
 def pp_train_config():
     """pp_train's model and TrainConfig: full-width Mula-7B-A1B at PP_LAYERS
-    layers, dropless, without router terms; PP_MB one-row microbatches of
-    PP_SEQ tokens a batch rank (PP_DP x PP_EP of them), peak lr CMP_LR."""
+    layers, dropless, with the config's router terms (a stage takes them
+    over the whole microbatch); PP_MB one-row microbatches of PP_SEQ tokens
+    a batch rank (PP_DP x PP_EP of them), peak lr CMP_LR."""
     import dataclasses
 
     from repro_torch.configs import TrainConfig, get_config
     cfg = dataclasses.replace(get_config(MULA), num_layers=PP_LAYERS)
-    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-        cfg.moe, dispatch="dropless", router_aux_coef=0.0, router_z_coef=0.0))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="dropless"))
     train = TrainConfig(seq_len=PP_SEQ, global_batch=PP_DP * PP_EP * PP_MB, warmup_steps=2,
                         total_steps=100, lr_peak=CMP_LR, lr_min=CMP_LR / 10)
     return cfg, train
@@ -2701,6 +2769,7 @@ def _pp_train_rank(grid):
         torch.cuda.synchronize()
         history.append({**{k: float(m[k]) for k in keys}, "schedule": sched,
                         "counts": m["moe_counts"].double().cpu().tolist(),
+                        "moe_aux": float(step.router_terms["moe_aux"]),
                         "step_ms": (time.perf_counter() - t0) * 1e3,
                         "sent_bytes": step.sent_bytes,
                         "saved_peak": step.saved_peak[g.coords["pp"]]})
@@ -2712,6 +2781,212 @@ def _pp_train_rank(grid):
                shapes, placements(cfg, shapes, g.axis_sizes), g.axis_sizes, "epso")}
     del state, steps
     return out
+
+
+def grid_serve_config():
+    """grid_serve's model: full-width Mula-7B-A1B at GRID_SERVE_LAYERS layers."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(MULA), num_layers=GRID_SERVE_LAYERS)
+
+
+def serve_tiles(cfg, axis_sizes: dict, coords: dict, device) -> dict:
+    """The tiles a rank at ``coords`` of a grid of ``axis_sizes`` ({}: one
+    rank, the whole model) holds of bf16 params made from seeds, one leaf
+    and one layer at a time, so that no rank makes a whole model: each
+    (leaf, layer) from its own generator (seeded by the leaf's path and the
+    layer), normal times 1 / sqrt(fan-in) for the weights, 0.02 for the
+    tables, ones for the norm scales, zeros for the biases."""
+    import zlib
+
+    import torch
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import tile_slices
+    from repro_torch.train.trainer import placements
+    from repro_torch.tree import leaves_with_path, unflatten
+
+    shapes = init_params(cfg, device="meta")
+    place = dict(leaves_with_path(placements(cfg, shapes, axis_sizes)))
+    sizes = {"data": 1, "pp": 1, "ep": 1, "tp": 1, **axis_sizes}
+
+    def make(path, shape, seed):
+        name = path.rsplit("/", 1)[-1]
+        if name in ("scale", "bias"):
+            return torch.full(shape, float(name == "scale"), dtype=torch.bfloat16,
+                              device=device)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        scale = 0.02 if name == "table" else shape[-2] ** -0.5
+        return torch.randn(shape, generator=gen, device=device,
+                           dtype=torch.bfloat16).mul_(scale)
+
+    out = []
+    for path, leaf in leaves_with_path(shapes):
+        full = tuple(leaf.shape)
+        sl = tile_slices(place[path], full, coords, sizes)
+        base = zlib.crc32(path.encode()) * 1000
+        if not path.startswith("layers/"):
+            out.append(make(path, full, base)[sl])
+            continue
+        tile = torch.empty(tuple(s.stop - s.start for s in sl), dtype=torch.bfloat16,
+                           device=device)
+        for i in range(full[0]):
+            tile[i] = make(path, full[1:], base + i)[sl[1:]]
+        out.append(tile)
+    return unflatten(shapes, out)
+
+
+def grid_serve_prompts(cfg) -> list:
+    """GRID_SERVE_PROMPTS' prompts, from seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, cfg.vocab_size, size=n).tolist() for n in GRID_SERVE_PROMPTS]
+
+
+def serve_run(cfg, params, *, plan=None, grid=None) -> dict:
+    """One serving run of grid_serve (on ``plan``/``grid``, or on one rank):
+    the admission prefill of the first prompt through
+    ``make_prefill_step(into_cache=True)`` and one decode step after it
+    through ``make_serve_step`` (their logits, f32 on the host), then an
+    engine over every prompt, greedy, GRID_SERVE_NEW tokens each, on
+    GRID_SERVE_SLOTS slots; the launches of the engine's run, its tokens,
+    prefills, decode steps, decode ms, wall and peak memory."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.models import init_cache
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    prompts = grid_serve_prompts(cfg)
+    tp = grid.tp.world if grid is not None else 1
+    dev = grid.world.device if grid is not None else DEV
+    toks = torch.tensor([prompts[0]], device=dev)
+    n = toks.shape[1]
+    cache = init_cache(cfg, 1, GRID_SERVE_MAX_LEN, device=dev, dtype=torch.bfloat16, tp=tp)
+    kw = dict(compute_dtype=torch.bfloat16, plan=plan, grid=grid, device=dev)
+    last, cache = make_prefill_step(cfg, into_cache=True, **kw)(params, toks, cache, [0], [n])
+    step, _ = make_serve_step(cfg, **kw)(params, last[:, :cfg.vocab_size].argmax(-1)[:, None],
+                                         cache, n)
+    out = {"prefill_logits": last[0, :cfg.vocab_size].float().cpu(),
+           "decode_logits": step[0, 0, :cfg.vocab_size].float().cpu()}
+    del cache
+    decode_ms = []
+    engine = ServeEngine(params, cfg, num_slots=GRID_SERVE_SLOTS, max_len=GRID_SERVE_MAX_LEN,
+                         cache_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, plan=plan,
+                         grid=grid, device=dev, on_decode=lambda s: decode_ms.append(s * 1e3))
+    rids = [engine.submit(p, GRID_SERVE_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.run()
+    torch.cuda.synchronize()
+    out.update(wall_s=time.perf_counter() - t0, launches=dict(ops.launches),
+               tokens=[res[r].tokens for r in rids], prefills=engine.prefills,
+               decode_steps=engine.decode_steps, decode_ms=decode_ms,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
+def _grid_serve_rank(grid):
+    """grid_serve on one rank of epso_train's spawn: the 4 processes re-cut
+    as ep = GRID_SERVE_EP x tp = GRID_SERVE_TP (``init_grid`` over the
+    world, dp = 1), the plan resolved for serving, the rank's tiles made
+    leaf by leaf (``serve_tiles``), then ``serve_run`` on the plan."""
+    import torch
+    from repro_torch.parallel import init_grid
+    from repro_torch.parallel.plan import ParallelPlan
+    from repro_torch.tree import leaves
+
+    cfg = grid_serve_config()
+    g = init_grid(grid.world, 1, GRID_SERVE_EP, GRID_SERVE_TP)
+    plan = ParallelPlan(ep=GRID_SERVE_EP, tp=GRID_SERVE_TP).resolve(cfg, serving=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = serve_tiles(cfg, g.axis_sizes, g.coords, g.world.device)
+    torch.cuda.synchronize()
+    params_s = time.perf_counter() - t0
+    out = serve_run(cfg, params, plan=plan, grid=g)
+    out.update(coords=g.coords, params_s=params_s,
+               param_bytes=sum(t.numel() * t.element_size() for t in leaves(params)))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_grid_serve(ranks) -> dict:
+    """The grid_serve runs of epso_train's ranks (``_grid_serve_rank``):
+    full-width Mula-7B-A1B at GRID_SERVE_LAYERS layers served on ep =
+    GRID_SERVE_EP x tp = GRID_SERVE_TP. Asserts every rank's tokens rank
+    0's, every request's GRID_SERVE_NEW tokens in the vocab, the exact
+    launch count of a rank (per layer and call: one dispatch plan, three
+    gmm, one SwiGLU, one combine; one flash a prefill); then the same
+    weights whole on one rank in this process (``serve_tiles`` on no grid)
+    and ``serve_run`` there: the grid's prefill and first decode logits
+    within GRID_SERVE_TOL of max|logits| of the one rank's. Prints the
+    greedy tokens' agreement with the one-rank engine (bf16: not held),
+    decode ms, peak memory and launches."""
+    import torch
+
+    cfg = grid_serve_config()
+    L = cfg.num_layers
+    r0 = ranks[0]["serve"]
+    calls = r0["prefills"] + r0["decode_steps"]
+    expect = {"gmm": 3 * L * calls, "swiglu": L * calls, "combine": L * calls,
+              "dispatch_plan": L * calls, "token_counts": 0,
+              "flash_attention": L * r0["prefills"], "tgmm": 0, "swiglu_bwd": 0,
+              "combine_bwd": 0, "ssd_intra_chunk": 0}
+    for i, rk in enumerate(ranks):
+        run, where = rk["serve"], f"grid_serve rank {i}"
+        if run["tokens"] != r0["tokens"]:
+            raise AssertionError(f"{where}: tokens differ from rank 0's")
+        if any(len(t) != GRID_SERVE_NEW or not all(0 <= x < cfg.vocab_size for x in t)
+               for t in run["tokens"]):
+            raise AssertionError(f"{where}: a request's tokens are off: {run['tokens']}")
+        if run["launches"] != expect:
+            raise AssertionError(f"{where}: launches {run['launches']} != {expect}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = serve_tiles(cfg, {}, {}, DEV)
+    torch.cuda.synchronize()
+    params_s = time.perf_counter() - t0
+    one = serve_run(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    rel = {k: float((r0[k] - one[k]).abs().max() / one[k].abs().max())
+           for k in ("prefill_logits", "decode_logits")}
+    agree = sum(a == b for g, o in zip(r0["tokens"], one["tokens"]) for a, b in zip(g, o))
+    total = GRID_SERVE_NEW * len(r0["tokens"])
+    row = {"model": cfg.name, "layers": L, "grid": {"ep": GRID_SERVE_EP, "tp": GRID_SERVE_TP},
+           "experts_per_rank": cfg.moe.num_experts // GRID_SERVE_EP,
+           "expert_d_ff_per_rank": cfg.moe.d_ff_expert // GRID_SERVE_TP,
+           "heads_per_rank": cfg.num_heads // GRID_SERVE_TP, "dtype": "bfloat16",
+           "prompt_lengths": list(GRID_SERVE_PROMPTS), "slots": GRID_SERVE_SLOTS,
+           "new_tokens_each": GRID_SERVE_NEW, "prefills": r0["prefills"],
+           "decode_steps": r0["decode_steps"], "logit_rel_err_to_one_rank": rel,
+           "tolerance": GRID_SERVE_TOL,
+           "greedy_tokens_agreeing_with_one_rank": f"{agree}/{total}",
+           "tokens_equal_on_every_rank": True,
+           "decode_ms_median_by_rank": [statistics.median(rk["serve"]["decode_ms"])
+                                        for rk in ranks],
+           "decode_ms_median_one_rank": statistics.median(one["decode_ms"]),
+           "wall_s_by_rank": [rk["serve"]["wall_s"] for rk in ranks],
+           "wall_s_one_rank": one["wall_s"],
+           "peak_bytes_by_rank": [rk["serve"]["peak_bytes"] for rk in ranks],
+           "peak_bytes_one_rank": one["peak_bytes"],
+           "param_bytes_by_rank": [rk["serve"]["param_bytes"] for rk in ranks],
+           "params_s_by_rank": [rk["serve"]["params_s"] for rk in ranks],
+           "params_s_one_rank": params_s,
+           "coords_by_rank": [rk["serve"]["coords"] for rk in ranks],
+           "launches_per_rank": r0["launches"], "expected_launches": expect,
+           "launches_one_rank": one["launches"],
+           "note": "4 ranks time-share one card over gloo (every tp and ep sum through "
+                   "host memory): no step time here is a serving speed"}
+    emit("grid_serve", **row)
+    if max(rel.values()) > GRID_SERVE_TOL:
+        raise AssertionError(f"grid_serve: logits off the one-rank run's by {rel} "
+                             f"(> {GRID_SERVE_TOL} of max|logits|)")
+    return row
 
 
 def _tp_train_rank(grid, cfg, train, batch):
@@ -2743,10 +3018,15 @@ def _tp_train_rank(grid, cfg, train, batch):
         rows = {k: v[b * n:(b + 1) * n] for k, v in batch.items()}
         sizes = g.axis_sizes
         for mode, overlap in runs:
-            run = _history_run(cfg, train, g, mode, overlap, rows, TP_STEPS)
+            # ep x tp 'none': also under 'block_sc', each with a profiled step
+            sc = (ep, tp, mode) == (2, 2, "none")
+            run = _history_run(cfg, train, g, mode, overlap, rows, TP_STEPS, profile=sc)
             run["state_bytes_expected"] = state_bytes_per_device(
                 shapes, placements(cfg, shapes, sizes), sizes, mode)
             run["coords"] = g.coords
+            if sc:
+                run["block_sc"] = _history_run(cfg, train, g, mode, overlap, rows, TP_STEPS,
+                                               sac="block_sc", profile=True)
             out[f"{dp}x{ep}x{tp} {mode}/{overlap}"] = run
     return out
 
@@ -2980,13 +3260,13 @@ def phase_epso_train() -> dict:
                    "buffers, explicitly): no step time here is an EP, DP or EPSO speed"}
     emit("epso_train", **row)
     return (row, phase_placement_train(ranks, cfg), phase_a2a_train(ranks, cfg),
-            phase_tp_train(ranks, cfg), phase_pp_train(ranks))
+            phase_tp_train(ranks, cfg), phase_pp_train(ranks), phase_grid_serve(ranks))
 
 
 def phase_pp_train(ranks) -> dict:
     """The pp runs of epso_train's ranks (``_pp_train_rank``): full-width
     Mula-7B-A1B at PP_LAYERS layers on PP_DP x PP_STAGES x PP_EP,
-    'epso'/'ring', dropless, without router terms, PP_MB microbatches, 1f1b
+    'epso'/'ring', dropless, with router terms, PP_MB microbatches, 1f1b
     then gpipe (PP_SCHEDULES). Asserts on every rank finite metrics, a
     falling loss, clip_scale <= 1, rank 0's loss, grad norm and counts, no
     drops and every routed pair counted, the state bytes the EPSO plan gives
@@ -3001,6 +3281,9 @@ def phase_pp_train(ranks) -> dict:
     from repro_torch.train import init_state, make_train_step
 
     cfg, train = pp_train_config()
+    coefs = {"aux": cfg.moe.router_aux_coef, "z": cfg.moe.router_z_coef}
+    if not min(coefs.values()) > 0:
+        raise AssertionError(f"pp_train runs with the router terms on, got {coefs}")
     keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
     expect = expected_pp_launches(PP_LAYERS // PP_STAGES, PP_MB, len(PP_SCHEDULES))
     pairs = train.global_batch * PP_SEQ * cfg.moe.experts_per_token
@@ -3044,18 +3327,21 @@ def phase_pp_train(ranks) -> dict:
         t0 = time.perf_counter()
         state, m = step(state, batch)
         ref.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "moe_aux": float(step.router_terms["moe_aux"]),
                     "step_ms": (time.perf_counter() - t0) * 1e3})
     del state, step
     torch.cuda.empty_cache()
     rel = [abs(s["loss"] - q["loss"]) / abs(q["loss"]) for s, q in zip(r0, ref)]
     row = {"model": cfg.name, "layers": PP_LAYERS,
            "grid": {"data": PP_DP, "pp": PP_STAGES, "ep": PP_EP}, "mode": "epso/ring",
-           "dispatch": "dropless", "router_terms": False, "lr_peak": CMP_LR,
+           "dispatch": "dropless", "router_coefs": coefs, "lr_peak": CMP_LR,
            "microbatches": PP_MB, "seq_len": PP_SEQ, "rows_per_batch_rank": PP_MB,
            "schedules": list(PP_SCHEDULES), "losses": [s["loss"] for s in r0],
            "losses_one_rank": [q["loss"] for q in ref], "loss_rel_to_one_rank": rel,
            "grad_norms": [s["grad_norm"] for s in r0],
            "grad_norms_one_rank": [q["grad_norm"] for q in ref], "tolerance": PP_LOSS_TOL,
+           "moe_aux": [s["moe_aux"] for s in r0],
+           "moe_aux_one_rank": [q["moe_aux"] for q in ref],
            "coords_by_rank": [rk["pp"]["coords"] for rk in ranks],
            "step_ms_by_rank": [[s["step_ms"] for s in rk["pp"]["history"]] for rk in ranks],
            "step_ms_one_rank": [q["step_ms"] for q in ref],
@@ -3199,6 +3485,13 @@ def phase_tp_train(ranks, cfg) -> dict:
                                      f"{run['state_bytes_expected']}")
             if run["launches"] != expect:
                 raise AssertionError(f"{where}: launches {run['launches']} != {expect}")
+            if "block_sc" in run:
+                sc = run["block_sc"]
+                if [s["loss"] for s in sc["history"]] + [sc["profiled_loss"]] != \
+                        [s["loss"] for s in h] + [run["profiled_loss"]]:
+                    raise AssertionError(f"{where}: 'block_sc' losses differ from 'block''s")
+                if sc["launches"] != expect:
+                    raise AssertionError(f"{where}: 'block_sc' launches {sc['launches']}")
         runs[name] = {
             "losses": [s["loss"] for s in r0],
             "loss_rel_to_2x2": [abs(s["loss"] - b) / abs(b) for s, b in zip(r0, ref)],
@@ -3210,6 +3503,8 @@ def phase_tp_train(ranks, cfg) -> dict:
                                                          rk["tp"][name]["history"][1:])
                                        for rk in ranks],
             "coords_by_rank": [rk["tp"][name]["coords"] for rk in ranks]}
+        if "block_sc" in ranks[0]["tp"][name]:
+            runs[name]["block_sc"] = _block_sc_row(ranks[0]["tp"][name], EPSO_LAYERS)
     row = {"model": cfg.name, "layers": EPSO_LAYERS, "dispatch": "dropless", "steps": TP_STEPS,
            "router_terms": False, "lr_peak": CMP_LR, "reference_losses_2x2": ref,
            "reference_step_ms_median": statistics.median(
@@ -3220,7 +3515,38 @@ def phase_tp_train(ranks, cfg) -> dict:
            "note": "4 ranks time-share one card over gloo: the tensor-parallel all-reduces go "
                    "through host memory; no step time here is a TP speed"}
     emit("tp_train", **row)
+    for name, r in runs.items():
+        sc = r.get("block_sc")
+        if sc is not None and sc["gloo_calls_saved"] != sc["gloo_calls_saved_expected"]:
+            raise AssertionError(f"tp_train {name}: 'block_sc' made {sc['gloo_calls_saved']} "
+                                 f"fewer gloo calls on rank 0 than 'block', expected "
+                                 f"{sc['gloo_calls_saved_expected']}")
     return row
+
+
+def _block_sc_row(run, layers: int) -> dict:
+    """Rank 0's profiled steps of 'block' and 'block_sc' side by side: the
+    ``gloo:*`` calls (by name) and host ms of each, and the calls saved,
+    measured and computed (BLOCK_SC_SAVED_PER_LAYER a layer of the
+    ``layers``, one microbatch)."""
+    def gloo(prof):
+        return {n: v for n, v in prof["host_events"].items() if n.startswith("gloo:")}
+
+    block, sc = gloo(run["profile"]), gloo(run["block_sc"]["profile"])
+    calls = {k: sum(v["calls"] for v in g.values()) for k, g in (("block", block),
+                                                               ("block_sc", sc))}
+    return {"losses_equal_block": True, "gloo_calls_block": calls["block"],
+            "gloo_calls_block_sc": calls["block_sc"],
+            "gloo_calls_saved": calls["block"] - calls["block_sc"],
+            "gloo_calls_saved_expected": BLOCK_SC_SAVED_PER_LAYER * layers,
+            "gloo_by_name_block": block, "gloo_by_name_block_sc": sc,
+            "gloo_host_ms_block": sum(v["ms"] for v in block.values()),
+            "gloo_host_ms_block_sc": sum(v["ms"] for v in sc.values()),
+            "profiled_step_wall_ms_block": run["profile"]["wall_ms"],
+            "profiled_step_wall_ms_block_sc": run["block_sc"]["profile"]["wall_ms"],
+            "peak_bytes_rank0_block_sc": run["block_sc"]["peak_bytes"],
+            "peak_bytes_profiled_step_block": run["peak_bytes_profiled"],
+            "peak_bytes_profiled_step_block_sc": run["block_sc"]["peak_bytes_profiled"]}
 
 
 def phase_placement_train(ranks, cfg) -> dict:
@@ -4292,7 +4618,7 @@ def main(argv=None) -> int:
     phase_launcher_ssm()
     phase_ep_reference()
     ep_train = phase_ep_train()
-    epso, placement, a2a, tp, pp = phase_epso_train()
+    epso, placement, a2a, tp, pp, grid_serve = phase_epso_train()
     dense = phase_launcher_dense()
     ft = phase_launcher_ft()
     grid_dense = phase_launcher_grid_dense()
@@ -4318,6 +4644,7 @@ def main(argv=None) -> int:
                    "a2a_train": a2a["launches_per_rank"][name],
                    "tp_train": tp["launches_per_rank"][name],
                    "pp_train": pp["launches_per_rank"][name],
+                   "grid_serve": grid_serve["launches_per_rank"][name],
                    "launcher_dense": dense["launches"][name],
                    "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name],
                    "launcher_grid_dense": grid_dense["launches_per_rank"][name],

@@ -13,6 +13,9 @@ ep x tp grid, ``params_for_rank`` cuts a rank's tiles of the params,
 ``opt_state_for_rank`` its shards of the full optimizer state (any mode)
 and ``opt_state_from_ranks`` puts the ranks' shards back together into
 full numpy arrays; each cuts by ``parallel.sharding.tile_slices``.
+``params_for_rank`` also takes the JAX package's tree itself and cuts each
+leaf before its tile goes to the rank's device: a serving grid's ranks
+(dp = pp = 1, ``serve.ServeEngine(plan=)``) take their tiles so.
 """
 from __future__ import annotations
 
@@ -72,14 +75,25 @@ def _grid_specs(cfg: ModelConfig, dp: int, ep: int, mode: str, tp: int = 1, pp: 
 
 
 def params_for_rank(params: dict, cfg: ModelConfig, *, dp: int, ep: int, rank: int,
-                    tp: int = 1, pp: int = 1) -> dict:
+                    tp: int = 1, pp: int = 1, device: DeviceLike = None,
+                    dtype: torch.dtype = None) -> dict:
     """Copies of rank ``rank``'s tiles of a whole parameter tree on a dp x
     pp x ep x tp grid (rank = ((d * pp + p) * ep + e) * tp + t): what
-    ``train.init_state`` cuts there from the same whole params."""
+    ``train.init_state`` cuts there from the same whole params. The leaves
+    are tensors or numpy arrays (the JAX package's, ``jax.tree.map(
+    np.asarray, p)``, whose tiles become float32 tensors); each leaf is cut
+    before its tile is copied, to ``device`` as ``dtype`` where given."""
     _, _, sizes, place = _grid_specs(cfg, dp, ep, "none", tp, pp)
     coords = rank_coords(rank, sizes)
-    return tree_map(lambda t, pl: t[tile_slices(pl, t.shape, coords, sizes)].clone(),
-                    params, place)
+    dev = None if device is None else resolve_device(device)
+
+    def cut(leaf, pl):
+        tile = leaf[tile_slices(pl, tuple(leaf.shape), coords, sizes)]
+        if not torch.is_tensor(tile):
+            tile = torch.from_numpy(np.array(tile, dtype=np.float32))
+        return tile.to(device=dev, dtype=dtype, copy=True)
+
+    return tree_map(cut, params, place)
 
 
 def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, rank: int,

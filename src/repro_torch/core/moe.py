@@ -63,7 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.parallel.ep import (EPGroup, all_gather_tokens, all_reduce_sum,
+from repro_torch.parallel.ep import (EPGroup, all_gather_dim, all_gather_tokens, all_reduce_sum,
                                      all_to_all_dim, all_to_all_rows, reduce_scatter_tokens,
                                      tp_copy, tp_reduce)
 
@@ -312,11 +312,16 @@ def dispatch_compute_combine(gate_w, up_w, down_w, x, r: RouterOut, moe_cfg, *,
 
 
 def _moe_dense(p, x, moe_cfg, *, dropless: bool = False, ep_group: Optional[EPGroup] = None,
-               aux: bool = True, placement=None, tp: Optional[EPGroup] = None):
+               aux: bool = True, placement=None, tp: Optional[EPGroup] = None,
+               whole_pool: bool = False):
     """Route, dispatch, compute, combine. Returns (out, router_out, MoeStats).
     With ``ep_group`` (the dense fallback under EP: every rank holds every
-    expert and runs its own tokens) the aux and z losses and the stats are
-    those of the global batch. With a 'tp' group ``tp`` the expert stacks
+    expert and runs its own tokens; or a pipeline stage's ('data', 'ep')
+    group) the aux and z losses and the stats are those of the global
+    batch. ``whole_pool`` (a pipeline stage's MoE block, with that group):
+    under capacity dispatch the pairs that a one-device dispatch of the
+    whole microbatch would drop are dropped (``_one_device_ids``), and the
+    stats are that plan's. With a 'tp' group ``tp`` the expert stacks
     are the rank's d_ff shards (expert-TP without EP, the JAX package's
     ``moe_etp_shard_map``): every tp rank dispatches the same tokens, and
     the partial outputs are summed over 'tp'. ``aux=False``: no aux, z or
@@ -331,14 +336,23 @@ def _moe_dense(p, x, moe_cfg, *, dropless: bool = False, ep_group: Optional[EPGr
     # the expert path is a tp region: its inputs enter through tp_copy (their
     # gradients are the shards' parts), its output leaves through tp_reduce
     idx = r.indices if placement is None else placement[r.indices]
+    whole = None
+    if whole_pool and ep_group is not None and not dropless:
+        idx, whole = _one_device_ids(idx, moe_cfg, ep_group)
     rd = RouterOut(tp_copy(r.weights, tp), idx, r.aux_loss, r.z_loss)
     out, plan = dispatch_compute_combine(p["gate"], p["up"], p["down"], tp_copy(x, tp), rd,
-                                         moe_cfg, dropless=dropless)
+                                         moe_cfg, dropless=dropless or whole is not None)
     out = tp_reduce(out, tp)
     if moe_cfg.num_shared_experts:
         out = out + _shared_expert(p, x, tp)
     if not aux:
         return out, r, None
+    if whole is not None:
+        # every rank made the same one-device plan: its counts and drops are
+        # the whole microbatch's
+        counts = whole.counts.float()
+        return out, r, MoeStats(counts if placement is None else counts[placement],
+                                whole.drops.float())
     counts = plan.counts if placement is None else plan.counts[placement]
     stats = MoeStats(counts.float(), plan.drops.float())
     if reduce is not None:
@@ -369,34 +383,70 @@ def _ep_stats(plan_counts, drops, group: EPGroup, placement) -> MoeStats:
     return MoeStats(counts if placement is None else counts[placement], drops)
 
 
+def _one_device_ids(ids, moe_cfg, rows: Optional[EPGroup] = None, span: int = 1):
+    """Routed ids (T, K) with the pairs that a one-device capacity dispatch
+    of the whole microbatch drops set to E, which no expert holds, and that
+    one-device plan. Without ``rows``, ``ids`` are the whole microbatch's.
+    With ``rows`` (the ranks that split the microbatch, in row order),
+    ``ids`` are the rank's own: the plan is made from the ids gathered over
+    ``rows``, and the rank keeps the ids of its block of ``span`` ranks'
+    rows (its 'ep' group's under EP, its own on the dense path)."""
+    E = moe_cfg.num_experts
+    full = ids if rows is None else all_gather_dim(ids, rows)
+    whole = make_dispatch_plan(full, num_experts=E, align=ops.gmm_align(),
+                               pool_rows=dispatch_pool_rows(full.shape[0], moe_cfg))
+    keep = whole.valid.view_as(full)
+    if rows is not None:
+        n = ids.shape[0] * span
+        lo = rows.rank // span * n
+        full, keep = full[lo:lo + n], keep[lo:lo + n]
+    return torch.where(keep, full, torch.full_like(full, E)), whole
+
+
 def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False, placement=None,
-                 tp: Optional[EPGroup] = None, whole_pool: bool = False):
+                 tp: Optional[EPGroup] = None, whole_pool: bool = False,
+                 batch: Optional[EPGroup] = None, aux: bool = True, replicated: bool = False):
     """Paper Algorithm 1 under EP. x: (T, d), the rank's tokens; ``p`` holds
     the router and shared experts whole and the rank's slice of the expert
     stacks (EL = E / world experts from rank * EL). ``moe_cfg.stage1``:
     'allgather' (the paper's) or 'a2a' (``_fsmoe_a2a``). With a 'tp' group
     ``tp`` (expert-TP on top of EP, the allgather Stage 1 only) the slices
     are the rank's d_ff shards and the partial outputs are summed over 'tp'
-    before the Stage 5 reduce-scatter. ``whole_pool`` (capacity dispatch,
-    allgather Stage 1; a pipeline stage's MoE block): the pairs that a
-    one-device dispatch of the gathered tokens over all E experts would
-    drop are dropped, and the rank dispatches the rest with no capacity
-    bound, so the drops are the one-device pool's, not those of E / world
-    pools of E / world experts each. Returns (out (T, d), aux, z,
-    MoeStats): aux and z averaged over the ranks, the stats global."""
+    before the Stage 5 reduce-scatter. Returns (out (T, d), aux, z,
+    MoeStats): aux and z averaged over the ranks, the stats global.
+
+    ``whole_pool`` (a pipeline stage's MoE block; the JAX stage runs the
+    one-device MoE over the whole microbatch): ``batch`` is the group of
+    the ranks that split the microbatch (the stage's ('data', 'ep') group,
+    in row order; default the 'ep' group). The router's aux and z and the
+    stats are those of all its tokens (``route(reduce=)``, so every rank
+    holds the same values), and under capacity dispatch the pairs that a
+    one-device dispatch of the whole microbatch would drop are dropped
+    (``_one_device_ids`` over ``batch``) and the rank dispatches the rest
+    with no capacity bound. Any ``stage1`` runs the allgather here.
+
+    ``replicated`` (serving, which passes ``aux=False``: no aux, z or
+    stats, None): every rank holds the same tokens, the whole batch.
+    Stage 1's gather is done already, so the rank dispatches every token to
+    its experts and the partial outputs are summed over 'tp' and 'ep';
+    under capacity dispatch the one-device plan of the tokens decides the
+    drops, as under ``whole_pool``, unless the capacity factor is at least
+    E / K (serving's ``serve.engine.dropless_cfg``), where no pair can drop
+    and the rank dispatches dropless. Any ``stage1`` runs the allgather
+    here too."""
     E, world = moe_cfg.num_experts, group.world
-    EL = E // world
+    EL, K = E // world, moe_cfg.experts_per_token
     if moe_cfg.stage1 not in ("allgather", "a2a"):
         raise ValueError(f"stage1 must be 'allgather' or 'a2a', got {moe_cfg.stage1!r}")
     if E % world or p["gate"].shape[0] != EL:
         raise ValueError(f"EP over {world} ranks needs E % world == 0 and the rank's "
                          f"{EL}-expert slice; got E={E}, stack {tuple(p['gate'].shape)}")
-    if moe_cfg.stage1 == "a2a":
-        if whole_pool:
-            raise NotImplementedError(
-                "stage1='a2a' inside a pipeline stage is not ported to repro_torch yet "
-                "(ROADMAP.md §1 item 5.11): the JAX stage always runs the one-device MoE "
-                "dispatch there, never the EP shard_map")
+    if not aux and not replicated:
+        raise ValueError("aux=False is for replicated rows (serving): on the ranks' own "
+                         "rows the aux and z losses and the stats are reduced over the ranks")
+    if replicated and (aux or whole_pool):
+        raise ValueError("replicated rows are serving's: pass aux=False, and no whole_pool")
+    if moe_cfg.stage1 == "a2a" and not (whole_pool or replicated):
         if dropless:
             raise ValueError(
                 "dispatch='dropless' does not compose with stage1='a2a': the all-to-all send "
@@ -406,51 +456,55 @@ def moe_fsmoe_ep(p, x, moe_cfg, group: EPGroup, *, dropless: bool = False, place
             raise NotImplementedError(
                 "stage1='a2a' does not compose with expert-TP yet; use the allgather "
                 "Stage 1 for ep x tp plans")
-        out, aux, z, stats = _fsmoe_a2a(p, x, moe_cfg, group, placement=placement)
+        out, aux_loss, z, stats = _fsmoe_a2a(p, x, moe_cfg, group, placement=placement)
     else:
-        # the router is replicated: each rank routes its own tokens
-        r = route(x, p["router"], num_experts=E, top_k=moe_cfg.experts_per_token,
-                  forced_uniform=moe_cfg.forced_uniform_routing)
-        # placed order: global ids -> positions (the aux and z losses are taken
-        # on global ids inside route)
+        rows = (batch or group) if whole_pool else None
+        reduce = None
+        if rows is not None:
+            def reduce(t):
+                return all_reduce_sum(t, rows)
+        # the router is replicated: each rank routes its own tokens (the aux
+        # and z losses are taken on global ids inside route)
+        r = route(x, p["router"], num_experts=E, top_k=K,
+                  forced_uniform=moe_cfg.forced_uniform_routing, reduce=reduce, aux=aux)
         idx = r.indices if placement is None else placement[r.indices]
         # Stage 1: all-gather the tokens and their routing, in rank order (the
-        # expert path is a tp region under expert-TP)
-        r_g = RouterOut(all_gather_tokens(tp_copy(r.weights, tp), group),
-                        all_gather_tokens(idx, group), r.aux_loss, r.z_loss)
-        x_g = all_gather_tokens(tp_copy(x, tp), group)
+        # expert path is a tp region under expert-TP); serving holds them all
+        w_g, x_g = tp_copy(r.weights, tp), tp_copy(x, tp)
+        if not replicated:
+            w_g, x_g = all_gather_tokens(w_g, group), all_gather_tokens(x_g, group)
         whole = None
-        if whole_pool and not dropless:
-            # the one-device plan of the gathered tokens decides the drops; its
-            # dropped pairs get the id E, which no rank holds
-            idx_g = r_g.indices
-            whole = make_dispatch_plan(idx_g, num_experts=E, align=ops.gmm_align(),
-                                       pool_rows=dispatch_pool_rows(idx_g.shape[0], moe_cfg))
-            r_g = r_g._replace(indices=torch.where(whole.valid.view_as(idx_g), idx_g,
-                                                   torch.full_like(idx_g, E)))
+        if replicated and moe_cfg.capacity_factor * K >= E:
+            dropless = True         # every expert's group fits its capacity
+        if (whole_pool or replicated) and not dropless:
+            # the one-device plan of the whole microbatch decides the drops
+            idx_g, whole = _one_device_ids(idx, moe_cfg, rows, span=world)
+        else:
+            idx_g = idx if replicated else all_gather_tokens(idx, group)
         # Stages 2-5 on the rank's experts; then the Stage-5 tail: the partial
         # outputs summed over 'tp' and over ranks, each rank keeping its own
-        # tokens' rows
+        # tokens' rows (serving: all of them)
         out_partial, plan = dispatch_compute_combine(
-            p["gate"], p["up"], p["down"], x_g, r_g, moe_cfg, expert_offset=group.rank * EL,
-            local_experts=EL, dropless=dropless or whole is not None)
-        out = reduce_scatter_tokens(tp_reduce(out_partial, tp), group)
-        # aux and z averaged over the ranks, the drops (each rank's own
-        # experts') summed
-        aux, z, drops = all_reduce_sum(torch.stack([r.aux_loss, r.z_loss, plan.drops.float()]),
-                                       group).unbind()
-        aux, z = aux / world, z / world
-        if whole is None:
+            p["gate"], p["up"], p["down"], x_g, RouterOut(w_g, idx_g, None, None), moe_cfg,
+            expert_offset=group.rank * EL, local_experts=EL,
+            dropless=dropless or whole is not None)
+        out = tp_reduce(out_partial, tp)
+        out = all_reduce_sum(out, group) if replicated else reduce_scatter_tokens(out, group)
+        aux_loss, z, stats = r.aux_loss, r.z_loss, None
+        if whole_pool:
+            # every rank holds the whole microbatch's aux, z and histogram;
+            # the drops are the one-device plan's
+            stats = MoeStats(r.counts, (whole if whole is not None else plan).drops.float())
+        elif aux:
+            # aux and z averaged over the ranks, the drops (each rank's own
+            # experts') summed
+            aux_loss, z, drops = all_reduce_sum(
+                torch.stack([r.aux_loss, r.z_loss, plan.drops.float()]), group).unbind()
+            aux_loss, z = aux_loss / world, z / world
             stats = _ep_stats(plan.counts, drops, group, placement)
-        else:
-            # every rank made the same one-device plan: its counts (position
-            # order) and drops are global
-            counts = whole.counts.float()
-            stats = MoeStats(counts if placement is None else counts[placement],
-                             whole.drops.float())
     if moe_cfg.num_shared_experts:
         out = out + _shared_expert(p, x, tp)
-    return out, aux, z, stats
+    return out, aux_loss, z, stats
 
 
 class _SendGather(torch.autograd.Function):
@@ -534,19 +588,24 @@ def _fsmoe_a2a(p, x, moe_cfg, group: EPGroup, *, placement=None):
 
 def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None,
                      tp_group: Optional[EPGroup] = None, aux: bool = True, placement=None,
-                     whole_pool: bool = False):
+                     whole_pool: bool = False, batch_group: Optional[EPGroup] = None,
+                     replicated: bool = False):
     """x: (B, S, d) -> (out (B, S, d), aux_loss, z_loss, MoeStats). With
     ``ep_group``, x is the rank's share of the batch: the block runs
     ``moe_fsmoe_ep`` when ``uses_ep`` says so, else the dense path with
     whole expert stacks; either way aux, z and the stats are global. With
     ``tp_group`` (a 'tp' group of more than one rank) the expert stacks and
     shared experts are the rank's d_ff shards (expert-TP), every tp rank
-    holding the same tokens. ``aux=False`` (serving, which discards them;
-    one device): the aux and z losses and the stats are not computed, and
-    are None. ``placement``: the (E,) inverse placement row (global id ->
-    position) of stacks stored in placed order, or None. ``whole_pool``:
-    under EP, the one-device capacity pool over the gathered tokens
-    (``moe_fsmoe_ep``); the dense path has it anyway."""
+    holding the same tokens. ``aux=False`` (serving, which discards them):
+    the aux and z losses and the stats are not computed, and are None; on
+    one device, or under ``ep_group`` / ``tp_group`` with ``replicated``:
+    every rank holds the same tokens, the whole batch
+    (``moe_fsmoe_ep(replicated=True)``; the allgather Stage 1 whatever
+    ``stage1`` says). ``placement``: the (E,) inverse placement row (global
+    id -> position) of stacks stored in placed order, or None.
+    ``whole_pool`` (a pipeline stage): the one-device pool and router
+    terms of the whole microbatch split over ``batch_group`` (default the
+    'ep' group), on either path (``moe_fsmoe_ep``, ``_moe_dense``)."""
     B, S, d = x.shape
     m = cfg.moe
     xt = x.reshape(B * S, d)
@@ -565,16 +624,21 @@ def sparse_moe_block(p, x, cfg, *, ep_group: Optional[EPGroup] = None,
         stats = MoeStats(ops.token_counts(r.indices, m.num_experts).float(),
                          torch.zeros((), device=x.device))
         return out.reshape(B, S, d), r.aux_loss, r.z_loss, stats
-    if (ep_group is not None or tp is not None) and not aux:
-        raise ValueError("aux=False is for one device: under EP the aux and z losses "
-                         "and the stats are reduced over the ranks")
+    if (ep_group is not None or tp is not None) and not aux and not replicated:
+        raise ValueError("aux=False under EP or TP is for replicated rows (serving): on the "
+                         "ranks' own rows the aux and z losses and the stats are reduced "
+                         "over the ranks")
     if ep_group is not None and uses_ep(m, ep_group.world):
         out, aux, z, stats = moe_fsmoe_ep(p, xt, m, ep_group, dropless=dropless,
-                                          placement=placement, tp=tp, whole_pool=whole_pool)
+                                          placement=placement, tp=tp, whole_pool=whole_pool,
+                                          batch=batch_group, aux=aux, replicated=replicated)
         return out.reshape(B, S, d), aux, z, stats
     if p["gate"].shape[0] != m.num_experts:
         raise ValueError(f"the dense path needs every expert; the stack holds "
                          f"{p['gate'].shape[0]} of {m.num_experts}")
-    out, r, stats = _moe_dense(p, xt, m, dropless=dropless, ep_group=ep_group, aux=aux,
-                               placement=placement, tp=tp)
+    # the group whose rows the router terms and stats cover: none when every
+    # rank holds the whole batch (serving)
+    rows = None if replicated else (batch_group or ep_group) if whole_pool else ep_group
+    out, r, stats = _moe_dense(p, xt, m, dropless=dropless, ep_group=rows, aux=aux,
+                               placement=placement, tp=tp, whole_pool=whole_pool)
     return out.reshape(B, S, d), r.aux_loss, r.z_loss, stats

@@ -15,6 +15,7 @@ class RouterOut(NamedTuple):
     indices: torch.Tensor             # (T, K) int64 expert ids
     aux_loss: Optional[torch.Tensor]  # () load-balance loss (OLMoE-style)
     z_loss: Optional[torch.Tensor]    # () router z-loss
+    counts: Optional[torch.Tensor] = None  # (E,) float32 routed pairs per expert
 
 
 def route(x: torch.Tensor, router_w: torch.Tensor, *, num_experts: int, top_k: int,
@@ -22,9 +23,11 @@ def route(x: torch.Tensor, router_w: torch.Tensor, *, num_experts: int, top_k: i
     """x: (T, d); router_w: (d, E). ``reduce``: a differentiable sum over
     the ranks that split the batch (EP's dense fallback); the aux and z
     losses are then those of the global batch, as the JAX package's
-    auto-sharded path computes them. ``aux=False`` (serving, which discards
-    them): the aux and z losses are not computed and are None. The expert
-    histogram of the aux loss is the Stage 2 kernel (``ops.token_counts``)."""
+    auto-sharded path computes them, and ``counts`` is the histogram summed
+    over the ranks. ``aux=False`` (serving, which discards them): the aux
+    and z losses and the histogram are not computed and are None. The
+    expert histogram of the aux loss is the Stage 2 kernel
+    (``ops.token_counts``)."""
     T = x.shape[0]
     logits = (x @ router_w.to(x.dtype)).float()                 # (T, E)
     probs = torch.softmax(logits, dim=-1)
@@ -44,14 +47,15 @@ def route(x: torch.Tensor, router_w: torch.Tensor, *, num_experts: int, top_k: i
 
     # load-balance auxiliary loss: E * sum_e f_e * p_e  (Switch/OLMoE form)
     lse2 = torch.square(torch.logsumexp(logits, dim=-1))
+    counts = ops.token_counts(indices, num_experts).float()
     if reduce is None:
-        f = ops.token_counts(indices, num_experts).float() / (T * top_k)
+        f = counts / (T * top_k)
         p = probs.mean(dim=0)
         z = torch.mean(lse2)
     else:
         n = torch.full((1,), float(T), device=x.device)
-        tot = reduce(torch.cat([ops.token_counts(indices, num_experts).float(), probs.sum(0),
-                                lse2.sum()[None], n]))
+        tot = reduce(torch.cat([counts, probs.sum(0), lse2.sum()[None], n]))
         E, n = num_experts, tot[-1]
-        f, p, z = tot[:E] / (n * top_k), tot[E:2 * E] / n, tot[2 * E] / n
-    return RouterOut(weights, indices, num_experts * torch.sum(f * p), z)
+        counts = tot[:E]
+        f, p, z = counts / (n * top_k), tot[E:2 * E] / n, tot[2 * E] / n
+    return RouterOut(weights, indices, num_experts * torch.sum(f * p), z, counts.detach())

@@ -183,23 +183,30 @@ def attention(params, x, cfg, *, impl: str = "flash", return_kv: bool = False, t
 # ---- decode with KV cache ----------------------------------------------------
 
 def init_kv_cache(cfg, batch: int, max_len: int, *, num_layers: int, device,
-                  dtype=torch.bfloat16) -> dict:
-    """Ring-buffer cache when sliding_window > 0 (window-sized), else full."""
+                  dtype=torch.bfloat16, tp: int = 1) -> dict:
+    """Ring-buffer cache when sliding_window > 0 (window-sized), else full.
+    ``tp``: the 'tp' ranks splitting the heads; the cache holds a rank's
+    ``num_kv_heads / tp`` kv heads."""
+    if cfg.num_kv_heads % tp:
+        raise ValueError(f"tp={tp} does not divide {cfg.num_kv_heads} kv heads")
     size = min(max_len, cfg.sliding_window) if cfg.sliding_window > 0 else max_len
-    shape = (num_layers, batch, size, cfg.num_kv_heads, cfg.head_dim)
+    shape = (num_layers, batch, size, cfg.num_kv_heads // tp, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attention(params, x, cache, index, cfg):
+def decode_attention(params, x, cache, index, cfg, tp=None):
     """One-token decode. x: (B, 1, d); cache: {"k", "v"} each (B, S, nkv, hd),
     written in place; index: (B,) per-row absolute positions (or a scalar).
 
     Sliding-window caches are rings indexed by ``position % window``; a
     write whose position falls outside a full cache is dropped. Returns
-    out (B, 1, d)."""
+    out (B, 1, d). ``tp``: as in ``attention``; the cache then holds the
+    rank's kv heads."""
     B, _, d = x.shape
-    nh, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    nh, nkv = params["wq"].shape[-1] // hd, params["wk"].shape[-1] // hd
+    x = tp_copy(x, tp)
     idx = torch.as_tensor(index, device=x.device).long().expand(B)
     q = (x @ params["wq"].to(x.dtype)).reshape(B, 1, nh, hd)
     k = (x @ params["wk"].to(x.dtype)).reshape(B, 1, nkv, hd)
@@ -222,7 +229,7 @@ def decode_attention(params, x, cache, index, cfg):
 
     o = slot_decode_attention_ref(q[:, 0], ck, cv, idx, ring=ring)
     o = o.reshape(B, 1, nh * hd).to(x.dtype)
-    return o @ params["wo"].to(x.dtype)
+    return tp_reduce(o @ params["wo"].to(x.dtype), tp)
 
 
 # ----------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import moe as moe_lib
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.parallel.ep import all_reduce_sum
+from repro_torch.parallel.ep import CollectiveTape, all_reduce_sum
 from repro_torch.parallel.grid import BATCH_AXES, as_grid
 from repro_torch.tree import leaves, tree_map
 
@@ -133,15 +133,20 @@ def unstack_layers(tree, n: int) -> list:
 # ----------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device: DeviceLike = None,
-               dtype: torch.dtype = torch.bfloat16) -> dict:
+               dtype: torch.dtype = torch.bfloat16, tp: int = 1) -> dict:
     """Per-layer stacked KV caches: {"kv": {"k", "v"}} each
     (L, batch, S, nkv, hd), S = max_len (or the window, for ring caches).
     ssm: {"ssm": the mixers' state {"conv", "h"} stacked over the layers}.
     Hybrid: {"groups": Mamba-2 state {"conv", "h"} stacked flat over the
     n_group * every grouped layers, "shared_kv": one KV cache per
     application of the shared block (n_group, ...), and "rem" when there
-    are remaining layers}; the SSM state is float32 whatever ``dtype``."""
+    are remaining layers}; the SSM state is float32 whatever ``dtype``.
+    ``tp``: the 'tp' ranks of a serving grid (``decode_step(grid=)``): a
+    rank's cache holds its ``num_kv_heads / tp`` kv heads (dense and moe
+    archs)."""
     _check_arch(cfg)
+    if tp > 1 and cfg.arch_type not in KV_ARCHS:
+        raise NotImplementedError(f"a tp-split cache for arch_type {cfg.arch_type!r}")
     dev = resolve_device(device)
     if cfg.arch_type == "ssm":
         mk = S.init_mamba1_cache if _mamba1(cfg) else S.init_mamba2_cache
@@ -155,19 +160,22 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, device: DeviceLike
             c["rem"] = S.init_mamba2_cache(cfg, batch, num_layers=rem, device=dev)
         return c
     return {"kv": L.init_kv_cache(cfg, batch, max_len, num_layers=cfg.num_layers,
-                                  device=dev, dtype=dtype)}
+                                  device=dev, dtype=dtype, tp=tp)}
 
 
 # ----------------------------------------------------------------------------
 # forward pieces
 # ----------------------------------------------------------------------------
 
-def _ffn(lp, x2, cfg):
+def _ffn(lp, x2, cfg, grid=None):
+    """The serving FFN; on a ``grid`` every rank holds the whole batch."""
+    ep, tp = (grid.ep, grid.tp) if grid is not None else (None, None)
     if cfg.arch_type == "moe":
         # serving discards the router's aux and z losses and the stats
-        out, _, _, _ = moe_lib.sparse_moe_block(lp["moe"], x2, cfg, aux=False)
+        out, _, _, _ = moe_lib.sparse_moe_block(lp["moe"], x2, cfg, aux=False, ep_group=ep,
+                                                tp_group=tp, replicated=grid is not None)
         return out
-    return L.apply_mlp(lp["mlp"], x2, cfg.mlp_activation)
+    return L.apply_mlp(lp["mlp"], x2, cfg.mlp_activation, tp=tp)
 
 
 def _logits(params, h, cfg):
@@ -215,14 +223,19 @@ def _hybrid_decode(params, h, cache, index, cfg):
 
 
 def decode_step(params, tokens, cache: dict, index, cfg: ModelConfig, *,
-                compute_dtype: torch.dtype = torch.bfloat16):
+                compute_dtype: torch.dtype = torch.bfloat16, grid=None):
     """One decode step. tokens: (B, 1) int; index: scalar position or (B,)
     per-row positions (continuous batching). The cache is updated in place.
     Returns (logits (B, 1, V_pad), cache). ssm and hybrid: the SSM layers
     step their state, the shared block attends over its group's KV cache;
     no kernel of the port runs (the JAX package's decode step is plain
-    too)."""
+    too). ``grid``: a serving grid, 'ep' and 'tp' axes only, checked by
+    ``serve.engine.serving_grid`` (dense and moe archs): every rank takes
+    the same tokens with its tiles of the params and a cache of its kv
+    heads (``init_cache(tp=)``), attention runs on its heads and the MoE on
+    its experts' d_ff shards, and every rank gets the whole logits."""
     _check_arch(cfg)
+    tp = grid.tp if grid is not None else None
     h = L.embed(params["embed"], tokens, compute_dtype)
     if cfg.arch_type == "hybrid":
         return _logits(params, _hybrid_decode(params, h, cache, index, cfg), cfg), cache
@@ -233,14 +246,14 @@ def decode_step(params, tokens, cache: dict, index, cfg: ModelConfig, *,
     kv = cache["kv"]
     for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         a = L.decode_attention(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm),
-                               {"k": kv["k"][i], "v": kv["v"][i]}, index, cfg)
+                               {"k": kv["k"][i], "v": kv["v"][i]}, index, cfg, tp=tp)
         h = h + a
-        h = h + _ffn(lp, L.apply_norm(lp["ln2"], h, cfg.norm), cfg)
+        h = h + _ffn(lp, L.apply_norm(lp["ln2"], h, cfg.norm), cfg, grid)
     return _logits(params, h, cfg), cache
 
 
 def prefill_with_cache(params, tokens, cache: dict, slots, lengths, cfg: ModelConfig, *,
-                       compute_dtype: torch.dtype = torch.bfloat16):
+                       compute_dtype: torch.dtype = torch.bfloat16, grid=None):
     """Prefill right-padded prompts directly into KV-cache rows.
 
     tokens: (B', P) right-padded; slots: (B',) cache rows to fill; lengths:
@@ -253,11 +266,13 @@ def prefill_with_cache(params, tokens, cache: dict, slots, lengths, cfg: ModelCo
     Returns (last_logits (B', V_pad) at position length-1 of each row, cache).
     Attention-KV archs only (dense, moe), as in the JAX package; an ssm or
     hybrid model prefills by stepping ``decode_step`` over the prompt.
+    ``grid``: as in ``decode_step``.
     """
     if cfg.arch_type not in KV_ARCHS:
         raise NotImplementedError(
             f"prefill_with_cache supports attention-KV archs {KV_ARCHS}, not "
             f"{cfg.arch_type!r}; step decode_step over the prompt instead")
+    tp = grid.tp if grid is not None else None
     dev = tokens.device
     kv = cache["kv"]
     W = kv["k"].shape[2]
@@ -279,11 +294,11 @@ def prefill_with_cache(params, tokens, cache: dict, slots, lengths, cfg: ModelCo
     h = L.embed(params["embed"], tokens, compute_dtype)
     for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         a, (k, v) = L.attention(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm), cfg,
-                                return_kv=True)
+                                return_kv=True, tp=tp)
         kv["k"][i][rows, dest] = k[b_idx, p_idx].to(kv["k"].dtype)
         kv["v"][i][rows, dest] = v[b_idx, p_idx].to(kv["v"].dtype)
         h = h + a
-        h = h + _ffn(lp, L.apply_norm(lp["ln2"], h, cfg.norm), cfg)
+        h = h + _ffn(lp, L.apply_norm(lp["ln2"], h, cfg.norm), cfg, grid)
 
     last = h[torch.arange(len(lens), device=dev), lengths - 1]             # (B', d)
     return _logits(params, last, cfg), cache
@@ -307,15 +322,29 @@ def _sac(fn, name: str, policy: str):
     return _remat(fn) if name in selected else fn
 
 
+def _remat_sc(fn):
+    def wrapped(*args):
+        tape = CollectiveTape()
+        return checkpoint(lambda *a: tape.run(fn, *a), *args, use_reentrant=False)
+    return wrapped
+
+
 def block_remat(fn, sac: str):
     """Whole-block remat: 'block' saves only the block's inputs; under EP
-    the recompute runs the block's collectives again, on every rank in the
-    same order. The JAX package's 'block_sc' (also save the outputs of the
-    collectives) is not ported."""
+    and TP the recompute runs the block's collectives again, on every rank
+    in the same order. 'block_sc' (the JAX package's: also save the
+    collectives' outputs, ``attn_proj_out`` and ``moe_out`` there) runs the
+    block under a ``parallel.ep.CollectiveTape``: the first run keeps the
+    output of every collective it calls, and the recompute takes them from
+    the tape instead of communicating, so no forward collective of the
+    block runs twice. Its math is 'block''s, bit for bit; it holds, from
+    the forward to the backward, the outputs of the collectives that the
+    recompute replays (the tape learns which from the first backward). (The port's
+    collectives are ``autograd.Function``s over ``torch.distributed``,
+    which a selective-checkpoint policy over aten ops does not see.)"""
     modes = set(sac.split(",")) if sac else set()
     if "block_sc" in modes:
-        raise NotImplementedError("remat policy 'block_sc' (save the collectives' outputs) "
-                                  "is not ported")
+        return _remat_sc(fn)
     return _remat(fn) if "block" in modes else fn
 
 
@@ -331,10 +360,14 @@ def _dense_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", tp=None):
 
 
 def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", ep_group=None,
-               placement=None, tp=None, whole_pool: bool = False):
+               placement=None, tp=None, whole_pool: bool = False, batch_group=None,
+               replicated: bool = False):
     attn = _sac(lambda q, x: L.attention(q, x, cfg, impl=attn_impl, tp=tp), "attn", sac)
     moe = _sac(lambda q, x: moe_lib.sparse_moe_block(q, x, cfg, ep_group=ep_group, tp_group=tp,
-                                                     placement=placement, whole_pool=whole_pool),
+                                                     placement=placement, whole_pool=whole_pool,
+                                                     batch_group=batch_group,
+                                                     aux=not replicated,
+                                                     replicated=replicated),
                "moe", sac)
     h = h + attn(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm))
     mo, aux, z, stats = moe(lp["moe"], L.apply_norm(lp["ln2"], h, cfg.norm))
@@ -343,7 +376,7 @@ def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", ep_group=None
 
 def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
             compute_dtype: torch.dtype = torch.bfloat16, attn_impl: str = "blockwise",
-            ep_group=None, placement=None, tp_group=None):
+            ep_group=None, placement=None, tp_group=None, replicated: bool = False):
     """The forward over whole sequences. batch["tokens"]: (B, S) int; under
     an EP group (``parallel.EPGroup``) the rank's rows, with the rank's
     share of the params (``parallel.expert_shard``); the MoE blocks then
@@ -358,6 +391,10 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     'flash' (the forward-only kernel; prefill). ``placement``: the (L, E)
     inverse expert-placement rows (global id -> position, one row a layer;
     ``parallel.placement``) of MoE stacks stored in placed order, or None.
+    ``replicated`` (serving on a grid): every rank holds the whole batch,
+    not its rows (``sparse_moe_block(replicated=True)``), and the MoE
+    blocks take no router terms or stats (aux holds zeros and no
+    "moe_stats").
     ssm and hybrid: each SSM
     layer under block remat, its mixer under the 'ssm' SAC name; the hybrid
     model's shared block after each group takes ``sac`` but no block remat,
@@ -383,15 +420,19 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     layers = unstack_layers(params["layers"], cfg.num_layers)
     if cfg.arch_type == "moe":
         block = block_remat(lambda lp, x, pl: _moe_block(lp, x, cfg, sac, attn_impl, ep_group,
-                                                          pl, tp_group), sac)
+                                                          pl, tp_group,
+                                                          replicated=replicated), sac)
         counts = torch.zeros(cfg.moe.num_experts, dtype=torch.float32, device=h.device)
         drops = zero
         for i, lp in enumerate(layers):
             h, a, z, st = block(lp, h, None if placement is None else placement[i])
+            if replicated:
+                continue
             aux["moe_aux"] = aux["moe_aux"] + a
             aux["moe_z"] = aux["moe_z"] + z
             counts, drops = counts + st.counts, drops + st.drops
-        aux["moe_stats"] = moe_lib.MoeStats(counts, drops)
+        if not replicated:
+            aux["moe_stats"] = moe_lib.MoeStats(counts, drops)
     else:
         block = block_remat(lambda lp, x: _dense_block(lp, x, cfg, sac, attn_impl, tp_group),
                             sac)
@@ -414,7 +455,7 @@ def embed_tokens(params, tokens, cfg: ModelConfig, *,
 
 
 def pipeline_stage_forward(stage_lp, h, cfg: ModelConfig, *, sac: str = "", ep_group=None,
-                           tp_group=None):
+                           tp_group=None, batch_group=None):
     """Apply one pipeline stage's (L/pp, ...)-stacked layer slice to ``h``,
     with the block functions (and block remat) ``forward`` uses, so that
     running the pp stage slices back to back is the sequential model.
@@ -423,12 +464,14 @@ def pipeline_stage_forward(stage_lp, h, cfg: ModelConfig, *, sac: str = "", ep_g
     empty counts).
 
     ``ep_group`` / ``tp_group``: the stage's 'ep' and 'tp' groups of a
-    ``ProcessGrid``, as in ``forward``. A MoE stage dispatches with the
-    one-device pool over the tokens it sees (``whole_pool``), as the JAX
-    stage routes each microbatch with single-device geometry (``c_align =
-    1``), never the EP shard_map's: under EP with dp = 1 the gathered
-    tokens are the whole microbatch and the drops are the one-device
-    step's."""
+    ``ProcessGrid``, as in ``forward``; ``batch_group``: its ('data',
+    'ep') group, the ranks that split the microbatch. A MoE stage
+    dispatches with the one-device pool of the whole microbatch and takes
+    its router terms and stats over all its tokens (``whole_pool``), as the
+    JAX stage routes each microbatch with single-device geometry (``c_align
+    = 1``), never the EP shard_map's: the drops, aux, z and counts are the
+    one-device step's, the same on every rank of the stage, with any
+    ``stage1``."""
     at = cfg.arch_type
     if at not in PP_ARCH_TYPES:
         raise ValueError(
@@ -447,7 +490,8 @@ def pipeline_stage_forward(stage_lp, h, cfg: ModelConfig, *, sac: str = "", ep_g
             h = block(lp, h)
         return h, zero, zero, moe_lib.MoeStats(torch.zeros(0, device=h.device), zero)
     block = block_remat(lambda lp, x: _moe_block(lp, x, cfg, sac, "blockwise", ep_group, None,
-                                                 tp_group, whole_pool=True), sac)
+                                                 tp_group, whole_pool=True,
+                                                 batch_group=batch_group), sac)
     aux, z, drops = zero, zero, zero
     counts = torch.zeros(cfg.moe.num_experts, dtype=torch.float32, device=h.device)
     for lp in layers:

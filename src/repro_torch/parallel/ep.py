@@ -37,9 +37,16 @@ through host memory itself), so this module copies none of them to the
 host. A collective that fails raises. A group of one rank (an axis of
 size 1 of a ``parallel.ProcessGrid``) has no process group: its collectives
 are the identity and call nothing.
+
+``CollectiveTape`` keeps the outputs of the collectives a function calls
+and hands them back, in order and with no communication, when the function
+runs again: ``models.model.block_remat``'s 'block_sc' policy runs a
+checkpointed block under one, so that its recompute does not run the
+block's collectives a second time.
 """
 from __future__ import annotations
 
+import contextvars
 import datetime
 from dataclasses import dataclass
 from typing import Any
@@ -78,6 +85,80 @@ def init_ep_group(world: int, rank: int, *, backend: str, init_method: str,
 
 
 # ----------------------------------------------------------------------------
+# the tape of a recomputed region
+# ----------------------------------------------------------------------------
+
+class CollectiveTape:
+    """The outputs of the collectives that a function's first run calls
+    (``record``), handed back in the same order by its later runs
+    (``replay``) instead of communicating: every rank runs the same
+    collectives in the same order, so a replayed run is the first one's,
+    bit for bit. Only the forward calls of a run go through it; the
+    collectives of the backward, which the autograd engine runs outside
+    the function, communicate.
+
+    A checkpoint's recompute stops once it has remade every saved tensor,
+    so it may replay only the first few outputs. The tape learns how many
+    from the first replay of a run with the same signature (the
+    collectives called and their outputs' shapes) and keeps no more than
+    that from the end of a first run to its replay; a replay that reaches
+    past what was kept communicates, as every rank does the same. It drops
+    its outputs once a replay is done."""
+
+    # signature of a first run -> the most outputs a replay of it took
+    _replayed: dict = {}
+
+    def __init__(self):
+        self.outs: list = []
+        self.sig: list = []
+        self.pos = None           # None: recording; else the next output to hand back
+        self.recorded = False
+
+    def run(self, fn, *args):
+        """``fn(*args)`` with this tape active: a first run under grad
+        records (a run without grad keeps nothing: no recompute follows it),
+        a later one replays."""
+        if not self.recorded and not torch.is_grad_enabled():
+            return fn(*args)
+        self.pos = 0 if self.recorded else None
+        token = _TAPE.set(self)
+        try:
+            return fn(*args)
+        finally:
+            _TAPE.reset(token)
+            key = tuple(self.sig)
+            if not self.recorded:
+                self.recorded = True
+                keep = CollectiveTape._replayed.get(key)
+                if keep is not None:
+                    del self.outs[keep:]
+            else:
+                CollectiveTape._replayed[key] = max(self.pos,
+                                                    CollectiveTape._replayed.get(key, 0))
+                self.outs = []
+
+    def call(self, collective, *args) -> torch.Tensor:
+        if self.pos is None:
+            out = collective(*args)
+            self.outs.append(out.detach())
+            self.sig.append((collective.__name__, tuple(out.shape), out.dtype))
+            return out
+        out = self.outs[self.pos].detach() if self.pos < len(self.outs) else collective(*args)
+        self.pos += 1
+        return out
+
+
+# the CollectiveTape active in this context (the recompute of a checkpoint
+# runs in the autograd engine's thread, and sets it there), or None
+_TAPE = contextvars.ContextVar("collective_tape", default=None)
+
+
+def _taped(collective, *args) -> torch.Tensor:
+    tape = _TAPE.get()
+    return collective(*args) if tape is None else tape.call(collective, *args)
+
+
+# ----------------------------------------------------------------------------
 # collectives
 # ----------------------------------------------------------------------------
 
@@ -86,6 +167,10 @@ def all_gather_dim(x: torch.Tensor, g: EPGroup, dim: int = 0) -> torch.Tensor:
     rank; not differentiable (``all_gather_tokens`` is)."""
     if g.world == 1:
         return x
+    return _taped(_all_gather, x, g, dim)
+
+
+def _all_gather(x: torch.Tensor, g: EPGroup, dim: int) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(g.world)]
     dist.all_gather(parts, x.contiguous(), group=g.group)
     return torch.cat(parts, dim=dim)
@@ -96,6 +181,10 @@ def _reduce_scatter(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
         return x
     if x.shape[0] % g.world:
         raise ValueError(f"reduce-scatter of {x.shape[0]} rows over {g.world} ranks")
+    return _taped(_reduce_scatter_rows, x, g)
+
+
+def _reduce_scatter_rows(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
     chunks = list(x.contiguous().chunk(g.world))
     out = torch.empty_like(chunks[0])
     dist.reduce_scatter(out, chunks, group=g.group)
@@ -103,9 +192,14 @@ def _reduce_scatter(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
 
 
 def _all_reduce(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
+    if g.world == 1:
+        return x.contiguous().clone()
+    return _taped(_all_reduce_sum, x, g)
+
+
+def _all_reduce_sum(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
     out = x.contiguous().clone()
-    if g.world > 1:
-        dist.all_reduce(out, group=g.group)
+    dist.all_reduce(out, group=g.group)
     return out
 
 
@@ -117,6 +211,10 @@ def all_to_all_dim(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
         return x
     if x.shape[0] % g.world:
         raise ValueError(f"all-to-all of {x.shape[0]} rows over {g.world} ranks")
+    return _taped(_all_to_all, x, g)
+
+
+def _all_to_all(x: torch.Tensor, g: EPGroup) -> torch.Tensor:
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=g.group)
     return out

@@ -20,13 +20,15 @@ computes them, and the live expert placement (``placement``,
 ``with_placement``) a ``rebalance=`` policy moves. What the port cannot
 run raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: a pod
 axis and ``fsdp`` (§1 item 5), tp for the ssm and hybrid archs (§1 item
-5.10), the all-to-all Stage 1 inside a pipeline stage (§1 item 5.11), an
-explicit ``tiles=`` (§1 item 7). A pp axis needs a uniform layer stack
-(``models.model.PP_ARCH_TYPES``; the JAX step's ValueError) and refuses a
-``rebalance=`` policy, as the JAX plan does. The tp axis splits
-attention by whole heads, so it needs tp to divide both head counts (a
-JAX split inside a head has no local-head form here); the all-to-all
-Stage 1 refuses dropless dispatch and a tp axis, as the JAX MoE block does.
+5.10), an explicit ``tiles=`` (§1 item 7), and in serving (``resolve(...,
+serving=True)``) a dp or pp axis (§1 item 5.7b). A pp axis needs a uniform
+layer stack (``models.model.PP_ARCH_TYPES``; the JAX step's ValueError)
+and refuses a ``rebalance=`` policy, as the JAX plan does; its stages run
+any ``stage1`` (a stage dispatches the whole microbatch as one device
+does, as the JAX stage does). The tp axis splits attention by whole heads,
+so it needs tp to divide both head counts (a JAX split inside a head has no
+local-head form here); outside pp the all-to-all Stage 1 refuses dropless
+dispatch and a tp axis, as the JAX MoE block does.
 """
 from __future__ import annotations
 
@@ -89,6 +91,10 @@ def refuse(what: str, item: str) -> None:
     """Raise the port's NotImplementedError for ``what``, naming its
     ``ROADMAP.md`` §1 ``item``."""
     raise NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP.md §1 {item})")
+
+
+# the ROADMAP.md item of serving with data replicas or pipeline stages
+SERVE_DP_PP_ITEM = "item 5.7b, dp and pp in serving"
 
 
 @dataclass(frozen=True)
@@ -340,12 +346,19 @@ class ParallelPlan:
                     f"plan tp={self.tp} does not divide {cfg.name}'s "
                     f"d_ff={cfg.d_ff}")
 
-    def resolve(self, cfg, train=None, *, global_batch=None) -> "ResolvedPlan":
+    def resolve(self, cfg, train=None, *, global_batch=None,
+                serving: bool = False) -> "ResolvedPlan":
         """Check the plan against ``cfg`` and what the port runs, once, and
-        return the ``ResolvedPlan``. The port's grid is ('data', 'ep',
-        'tp'): rank (d, e, t) takes rows ``d * ep + e`` of the batch, so the
-        batch must divide over the dp * ep ranks that split it."""
+        return the ``ResolvedPlan``. The port's grid is ('data', 'pp',
+        'ep', 'tp'): rank (d, p, e, t) takes rows ``d * ep + e`` of the
+        batch, so the batch must divide over the dp * ep ranks that split
+        it. ``serving``: the plan of a ``serve.ServeEngine`` (or of the
+        serving lowerings), whose ranks all hold the whole batch: an 'ep' x
+        'tp' grid of an attention-KV arch; the training checks of the
+        MoE Stage 1 and of the batch do not apply."""
         self.validate_model(cfg)
+        if serving:
+            self._check_serving(cfg)
         if self.pod > 1:
             refuse("a pod axis in a plan", "item 5, the rest of multi-GPU")
         if self.pp > 1:
@@ -361,7 +374,8 @@ class ParallelPlan:
         if self.tp > 1:
             self._check_tp(cfg)
         moe = getattr(cfg, "moe", None)
-        if moe is not None and moe.stage1 == "a2a" and self.ep > 1:
+        if moe is not None and moe.stage1 == "a2a" and self.ep > 1 and self.pp == 1 \
+                and not serving:
             if moe.dispatch == "dropless":
                 raise ValueError(
                     "dispatch='dropless' does not compose with stage1='a2a': the all-to-all "
@@ -374,23 +388,30 @@ class ParallelPlan:
         if global_batch is None and train is not None:
             global_batch = getattr(train, "global_batch", None)
         rows = self.dp * self.ep
-        if global_batch is not None and global_batch % rows:
+        if global_batch is not None and global_batch % rows and not serving:
             raise ValueError(f"plan '{self}' splits the batch over {rows} ranks (dp x ep), "
                              f"which do not divide the global batch of {global_batch} rows")
         return ResolvedPlan(plan=self)
 
     def _check_pp(self, cfg) -> None:
         """What the port's pp axis needs of the model (``resolve``): the JAX
-        step's refusal of a non-uniform stack, and no all-to-all Stage 1
-        inside a stage."""
+        step's refusal of a non-uniform stack."""
         from repro_torch.models.model import PP_ARCH_TYPES
         if cfg.arch_type not in PP_ARCH_TYPES:
             raise ValueError(f"pp_stages={self.pp} needs arch_type in {PP_ARCH_TYPES}, "
                              f"not {cfg.arch_type!r}")
-        moe = getattr(cfg, "moe", None)
-        if moe is not None and moe.stage1 == "a2a":
-            refuse("stage1='a2a' inside a pipeline stage (the JAX stage always runs the "
-                   "one-device MoE dispatch)", "item 5.11, the all-to-all Stage 1 under pp")
+
+    def _check_serving(self, cfg) -> None:
+        """What serving on the plan needs (``resolve(serving=True)``): the
+        attention-KV archs, as ``serve.ServeEngine`` drives, on 'ep' and
+        'tp' axes alone."""
+        from repro_torch.models.model import KV_ARCHS
+        if cfg.arch_type not in KV_ARCHS:
+            raise NotImplementedError(f"serving drives the attention-KV archs {KV_ARCHS}, "
+                                      f"not {cfg.arch_type!r}")
+        if self.dp > 1 or self.pp > 1:
+            refuse(f"serving on a plan with dp={self.dp}, pp={self.pp} (data replicas or "
+                   f"pipeline stages of a served model)", SERVE_DP_PP_ITEM)
 
     def _check_tp(self, cfg) -> None:
         """What the port's tp axis needs of the model (``resolve``)."""

@@ -19,6 +19,15 @@ Request bookkeeping (positions, generated tokens, free slots) is host-side
 Python; the cache and the per-step token batch live on the device. A
 decode step reads back one (B,) token vector; each prefill reads back its
 first token.
+
+On a plan (``plan=``, a ``parallel.plan.ResolvedPlan`` with 'ep' and 'tp'
+axes, and ``grid=``, this rank's ``parallel.ProcessGrid``; the JAX
+engine's ``plan=``) every rank runs an engine over the same requests with
+its tiles of the params (``convert.params_for_rank``): attention on its
+heads with a cache of its kv heads, the MoE on its experts' d_ff shards
+(``core.moe.moe_fsmoe_ep(replicated=True)``, dispatched as on one device),
+the whole logits and the same sampling on every rank. Each step checks
+that every rank drew the same tokens.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import decode_step, prefill_with_cache
+from repro_torch.parallel.ep import all_gather_dim
 
 from .kv_pool import SlotKVPool
 from .sampling import SamplingParams, position_generators, sample_tokens
@@ -54,17 +64,39 @@ def dropless_cfg(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, moe=dataclasses.replace(m, capacity_factor=float(need)))
 
 
-def make_decode_fn(cfg: ModelConfig, *, compute_dtype=torch.float32):
+def serving_grid(cfg: ModelConfig, plan=None, grid=None):
+    """The grid a serving call runs on (None: one device), checked: ``plan``
+    a ``ResolvedPlan`` that serving runs (``resolve(serving=True)``: 'ep'
+    and 'tp' axes, an attention-KV arch), ``grid`` this rank's
+    ``ProcessGrid`` of the plan's sizes (needed when the plan spans more
+    than one rank)."""
+    if plan is None:
+        if grid is not None:
+            raise ValueError("serving on a grid needs its plan (plan=)")
+        return None
+    plan.plan.resolve(cfg, serving=True)
+    if plan.world == 1 and grid is None:
+        return None
+    want = {"data": plan.plan.dp, "pp": plan.plan.pp, "ep": plan.plan.ep, "tp": plan.plan.tp}
+    if grid is None or grid.sizes != want:
+        raise ValueError(f"plan '{plan.spec()}' serves on a grid of {want}, got "
+                         f"{None if grid is None else grid.sizes}")
+    return grid
+
+
+def make_decode_fn(cfg: ModelConfig, *, compute_dtype=torch.float32, grid=None):
     """The engine's decode function: one token for every slot, sampled with
     per-slot params. tokens (B, 1) on the device; positions, seeds and the
-    sampling params are (B,) host sequences. Returns (next (B,), cache)."""
+    sampling params are (B,) host sequences. Returns (next (B,), cache).
+    ``grid``: the serving grid (``serving_grid``), as in
+    ``models.decode_step``."""
     cfg = dropless_cfg(cfg)
     vocab = cfg.vocab_size
 
     def decode_fn(params, tokens, cache, positions, seeds, temperature, top_k, top_p):
         pos = torch.tensor(positions, dtype=torch.long, device=tokens.device)
         logits, cache = decode_step(params, tokens, cache, pos, cfg,
-                                    compute_dtype=compute_dtype)
+                                    compute_dtype=compute_dtype, grid=grid)
         gens = position_generators(seeds, positions, tokens.device, temperature)
         nxt = sample_tokens(logits[:, 0, :vocab], gens, temperature, top_k, top_p)
         return nxt, cache
@@ -72,16 +104,17 @@ def make_decode_fn(cfg: ModelConfig, *, compute_dtype=torch.float32):
     return decode_fn
 
 
-def make_prefill_fn(cfg: ModelConfig, *, compute_dtype=torch.float32):
+def make_prefill_fn(cfg: ModelConfig, *, compute_dtype=torch.float32, grid=None):
     """The engine's prefill function: write prompt K/V into cache rows and
     sample the first token from the last-position logits (keyed on position
-    length - 1, so a single-request replay matches)."""
+    length - 1, so a single-request replay matches). ``grid``: as in
+    ``make_decode_fn``."""
     cfg = dropless_cfg(cfg)
     vocab = cfg.vocab_size
 
     def prefill_fn(params, tokens, cache, slots, lengths, seeds, temperature, top_k, top_p):
         last, cache = prefill_with_cache(params, tokens, cache, slots, lengths, cfg,
-                                         compute_dtype=compute_dtype)
+                                         compute_dtype=compute_dtype, grid=grid)
         gens = position_generators(seeds, [n - 1 for n in lengths], tokens.device,
                                    temperature)
         first = sample_tokens(last[:, :vocab], gens, temperature, top_k, top_p)
@@ -125,17 +158,23 @@ class ServeEngine:
     device, ``cuda`` by default (pass ``"cpu"`` for the plain path).
     ``on_prefill(bucket, seconds)`` / ``on_decode(seconds)``, when given,
     receive the host time of each prefill / decode call (measured after a
-    read-back of its tokens, so it covers the device work)."""
+    read-back of its tokens, so it covers the device work). ``plan`` and
+    ``grid``: serving on a plan (module docstring, ``serving_grid``); the
+    device is then the grid's unless ``device`` says otherwise."""
 
     def __init__(self, params, cfg: ModelConfig, *, num_slots: int = 8,
                  max_len: int = 256, eos_id: Optional[int] = None,
                  scheduler: Optional[FIFOScheduler] = None,
                  cache_dtype=torch.float32, compute_dtype=torch.float32,
                  prefill_bucket: int = 8, device: DeviceLike = None,
-                 on_prefill=None, on_decode=None):
+                 on_prefill=None, on_decode=None, plan=None, grid=None):
         if cfg.arch_type not in ("dense", "moe"):
             raise NotImplementedError(
                 f"ServeEngine drives attention-KV archs (dense, moe); got {cfg.arch_type!r}")
+        self.grid = serving_grid(cfg, plan, grid)
+        self.plan = plan
+        if device is None and self.grid is not None:
+            device = self.grid.world.device
         self.device = resolve_device(device)
         emb = params["embed"]["table"]
         if emb.device.type != self.device.type:
@@ -143,11 +182,12 @@ class ServeEngine:
         self.params = params
         self.cfg = cfg
         self.eos_id = eos_id
-        self.pool = SlotKVPool(cfg, num_slots, max_len, cache_dtype, device=self.device)
+        tp = self.grid.tp.world if self.grid is not None else 1
+        self.pool = SlotKVPool(cfg, num_slots, max_len, cache_dtype, device=self.device, tp=tp)
         self.scheduler = scheduler or FIFOScheduler()
         self.prefill_bucket = prefill_bucket
-        self._decode = make_decode_fn(cfg, compute_dtype=compute_dtype)
-        self._prefill = make_prefill_fn(cfg, compute_dtype=compute_dtype)
+        self._decode = make_decode_fn(cfg, compute_dtype=compute_dtype, grid=self.grid)
+        self._prefill = make_prefill_fn(cfg, compute_dtype=compute_dtype, grid=self.grid)
         self._on_prefill = on_prefill
         self._on_decode = on_decode
         self._slots: dict[int, _SlotState] = {}
@@ -194,7 +234,7 @@ class ServeEngine:
             first, self.pool.cache = self._prefill(
                 self.params, toks.to(self.device), self.pool.cache, [slot], [n],
                 [sp.seed], [sp.temperature], [sp.top_k], [sp.top_p])
-            first = int(first[0])                      # read-back
+            first = int(self._agreed(first)[0])        # read-back
             if self._on_prefill is not None:
                 self._on_prefill(P, time.perf_counter() - t0)
             self.prefills += 1
@@ -219,7 +259,7 @@ class ServeEngine:
             nxt, self.pool.cache = self._decode(
                 self.params, tokens.to(self.device), self.pool.cache, positions, seeds,
                 temperature, top_k, top_p)
-            nxt = nxt.tolist()                         # the one read-back per step
+            nxt = self._agreed(nxt).tolist()           # the one read-back per step
             if self._on_decode is not None:
                 self._on_decode(time.perf_counter() - t0)
             self.decode_steps += 1
@@ -229,6 +269,14 @@ class ServeEngine:
 
         self.steps += 1
         return finished
+
+    def _agreed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``tokens``, checked equal on every rank of the grid."""
+        if self.grid is not None and self.grid.world.world > 1:
+            seen = all_gather_dim(tokens[None], self.grid.world)
+            if not bool((seen == tokens).all()):
+                raise RuntimeError(f"the ranks sampled different tokens: {seen.tolist()}")
+        return tokens
 
     def _emit(self, st: _SlotState, token: int, finished: list[GenResult]) -> None:
         """Append one generated token; finish/evict on EOS or length."""

@@ -21,7 +21,7 @@ class SlotKVPool:
     """Fixed-capacity pool of cache slots over ``models.init_cache``."""
 
     def __init__(self, cfg, num_slots: int, max_len: int, dtype=torch.float32,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, tp: int = 1):
         if 0 < max_len < cfg.sliding_window:
             # a ring smaller than the model's window would narrow attention
             # from the second decode token on
@@ -32,7 +32,8 @@ class SlotKVPool:
         self.num_slots = num_slots
         self.max_len = max_len
         self.device = resolve_device(device)
-        self.cache = init_cache(cfg, num_slots, max_len, device=self.device, dtype=dtype)
+        # a serving grid's 'tp' ranks each hold their kv heads' share
+        self.cache = init_cache(cfg, num_slots, max_len, device=self.device, dtype=dtype, tp=tp)
         # the deque carries the reuse order; the set makes free() O(1)
         self._free = deque(range(num_slots))
         self._free_set = set(self._free)

@@ -91,7 +91,7 @@ from repro_torch.parallel.pipeline import (StageLink, _check_stage_divisible,
                                            check_pp_microbatches, run_schedule, schedule_ticks)
 from repro_torch.parallel.placement import ExpertPlacement
 from repro_torch.parallel.sharding import param_placements, rank_shard
-from repro_torch.serve.engine import dropless_cfg, make_decode_fn
+from repro_torch.serve.engine import dropless_cfg, make_decode_fn, serving_grid
 from repro_torch.tree import keyed_leaves, leaves, tree_map, unflatten
 
 OPT_SHARDING_MODES = ("none", "so", "epso")
@@ -234,7 +234,9 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     and ``train_step.loss_and_grads(params, batch) -> (loss, metrics,
     grads)`` is its pipelined half alone; ``train_step.saved_peak`` holds,
     after a step, the most stage inputs each of the process's stages kept
-    saved at once."""
+    saved at once, and ``train_step.router_terms`` the step's ``moe_aux``
+    and ``moe_z`` (the per-layer means over the microbatches, as
+    ``loss_fn``'s metrics; the JAX PP step's metrics leave them out)."""
     pl_inv = _placement_rows(cfg, placement)
     grid = _grid(ep_group, grid)
     mode = _opt_mode(opt_sharding_mode)
@@ -335,7 +337,8 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
             return unflatten(lay, [t[layer_rows(s)] for t in flat])
 
         def run_stage(lp, h):
-            return pipeline_stage_forward(lp, h, cfg, sac=sac, ep_group=ep, tp_group=tpg)
+            return pipeline_stage_forward(lp, h, cfg, sac=sac, ep_group=ep, tp_group=tpg,
+                                          batch_group=rows)
 
         def forward(s, m, x):
             with torch.no_grad():
@@ -369,7 +372,11 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
                 else:
                     outs, cots, obj = [h], [dy], None
                 if moe:
-                    # the router terms; on a grid the rank's share (loss_fn)
+                    # the router terms, the whole microbatch's on every rank of
+                    # the stage: each rank takes 1 / n_rows of them, because the
+                    # backward of their sum over the batch group adds the
+                    # ranks' cotangents, so each rank's probabilities get the
+                    # whole term's gradient once
                     r = (ca * aux + cz * z) / nl / n_rows
                     obj = r if obj is None else obj + r
                 if obj is not None:
@@ -396,15 +403,13 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
             g.div_(n_mb)
         vec = torch.cat([torch.stack(sums[:3])] + ([sums[3], sums[4][None]] if moe else []))
         if grid is not None:
-            if moe and grid.data.world > 1:
-                # each replica's router terms cover its rows: their mean (aux,
-                # z) and sum (counts, drops) over 'data', as loss_fn takes them
-                dp = grid.data.world
-                moe_part = torch.cat([vec[1:3] / dp, vec[3:]])
-                vec = torch.cat([vec[:1], all_reduce_sum(moe_part, grid.data)])
-            vec = all_reduce_sum(vec, grid.pp)      # ce from the last stage, the rest summed
+            # ce from the last stage, the rest summed over the stages (a
+            # stage's router terms, counts and drops are already the whole
+            # microbatch's on each of its ranks)
+            vec = all_reduce_sum(vec, grid.pp)
         ce, aux, z = vec[0] / n_mb, vec[1] / n_mb, vec[2] / n_mb
         loss = ce + (ca * aux + cz * z) / nl
+        train_step.router_terms = {"moe_aux": aux / nl, "moe_z": z / nl}
         metrics = {"ce": ce}
         if moe:
             # summed over every layer and microbatch; the per-layer mean makes
@@ -538,7 +543,8 @@ def _on(dev: torch.device, params: dict, what: str) -> None:
 
 
 def make_prefill_step(cfg: ModelConfig, *, compute_dtype: torch.dtype = torch.bfloat16,
-                      into_cache: bool = False, device: DeviceLike = None):
+                      into_cache: bool = False, device: DeviceLike = None, plan=None,
+                      grid: Optional[ProcessGrid] = None):
     """``into_cache=False``: the prefill lowering, ``prefill_step(params,
     batch) -> last-position logits (B, V_pad)``: the forward over
     batch["tokens"] (B, S) with flash attention, under ``no_grad`` (every
@@ -548,8 +554,13 @@ def make_prefill_step(cfg: ModelConfig, *, compute_dtype: torch.dtype = torch.bf
     slots, lengths) -> (last_logits, cache)`` through
     ``models.prefill_with_cache`` on the dropless config (attention-KV archs
     only). Runs on ``cuda`` unless ``device`` says otherwise; token inputs
-    are moved there, params must already live there."""
-    dev = resolve_device(device)
+    are moved there, params must already live there. ``plan`` and ``grid``
+    (the JAX lowering's ``plan=``): serving on the plan's 'ep' x 'tp' grid
+    (``serve.engine.serving_grid``): the params are this rank's tiles, the
+    cache holds its kv heads, every rank takes the same tokens and returns
+    the whole logits; the device is the grid's."""
+    grid = serving_grid(cfg, plan, grid)
+    dev = resolve_device(device if device is not None or grid is None else grid.world.device)
     if into_cache:
         scfg = dropless_cfg(cfg)
 
@@ -557,22 +568,26 @@ def make_prefill_step(cfg: ModelConfig, *, compute_dtype: torch.dtype = torch.bf
             _on(dev, params, "prefill_step")
             with torch.no_grad():
                 return prefill_with_cache(params, tokens.to(dev), cache, slots, lengths, scfg,
-                                          compute_dtype=compute_dtype)
+                                          compute_dtype=compute_dtype, grid=grid)
 
         return prefill_into_cache
+
+    ep, tpg = (grid.ep, grid.tp) if grid is not None else (None, None)
 
     def prefill_step(params, batch: dict):
         _on(dev, params, "prefill_step")
         with torch.no_grad():
             logits, _ = forward(params, {"tokens": batch["tokens"].to(dev)}, cfg, sac="",
-                                compute_dtype=compute_dtype, attn_impl="flash")
+                                compute_dtype=compute_dtype, attn_impl="flash", ep_group=ep,
+                                tp_group=tpg, replicated=grid is not None)
             return logits[:, -1]
 
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig, *, compute_dtype: torch.dtype = torch.bfloat16,
-                    sample: bool = False, device: DeviceLike = None):
+                    sample: bool = False, device: DeviceLike = None, plan=None,
+                    grid: Optional[ProcessGrid] = None):
     """``serve_step(params, tokens, cache, index) -> (logits (B, 1, V_pad),
     cache)``: one ``decode_step``; ``index`` is a scalar (lockstep batch)
     or (B,) per-row positions. The cache is updated in place. An ssm or
@@ -580,10 +595,11 @@ def make_serve_step(cfg: ModelConfig, *, compute_dtype: torch.dtype = torch.bflo
     returns the serve engine's decode function (``serve.make_decode_fn``:
     ``(params, tokens, cache, positions, seeds, temperature, top_k, top_p)
     -> (next_tokens, cache)``). Runs on ``cuda`` unless ``device`` says
-    otherwise."""
-    dev = resolve_device(device)
+    otherwise. ``plan`` and ``grid``: as in ``make_prefill_step``."""
+    grid = serving_grid(cfg, plan, grid)
+    dev = resolve_device(device if device is not None or grid is None else grid.world.device)
     if sample:
-        decode_fn = make_decode_fn(cfg, compute_dtype=compute_dtype)
+        decode_fn = make_decode_fn(cfg, compute_dtype=compute_dtype, grid=grid)
 
         def sample_step(params, tokens, cache, *args):
             _on(dev, params, "serve_step")
@@ -598,6 +614,6 @@ def make_serve_step(cfg: ModelConfig, *, compute_dtype: torch.dtype = torch.bflo
             index = index.to(dev)
         with torch.no_grad():
             return decode_step(params, tokens.to(dev), cache, index, cfg,
-                               compute_dtype=compute_dtype)
+                               compute_dtype=compute_dtype, grid=grid)
 
     return serve_step

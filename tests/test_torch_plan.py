@@ -223,9 +223,11 @@ def test_resolve_takes_pp(spec, world, grid, sizes):
 
 def test_resolve_refuses_what_pp_refuses():
     """What stays refused with a pp axis: a non-uniform stack (the hybrid
-    arch, the JAX step's ValueError), a rebalance= policy (the JAX plan's
-    NotImplementedError, same text) and the all-to-all Stage 1 inside a
-    stage (the port's refusal, ROADMAP.md §1 item 5.11)."""
+    arch, the JAX step's ValueError) and a rebalance= policy (the JAX plan's
+    NotImplementedError, same text). The all-to-all Stage 1 resolves under
+    pp, as the JAX plan takes it (a stage runs the one-device dispatch),
+    with dropless dispatch and a tp axis too; outside pp those two still
+    refuse it, as the JAX MoE block does."""
     from repro.configs.base import ParallelConfig as JParallel, TrainConfig as JTrain
     from repro.train import make_train_step as jmake_train_step
     hyb, jhyb = (red(get("zamba2-7b"), layers=4) for get, red in ((tget, treduced),
@@ -243,5 +245,10 @@ def test_resolve_refuses_what_pp_refuses():
         JPlan.parse("pp=2,ep=2,rebalance=10:1.2").validate_model(jmoe)
     assert str(te.value) == str(je.value)
     a2a = dataclasses.replace(moe, moe=dataclasses.replace(moe.moe, stage1="a2a"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1 item 5.11"):
-        ParallelPlan.parse("pp=2,ep=2").resolve(a2a)
+    assert ParallelPlan.parse("pp=2,ep=2").resolve(a2a).grid == (1, 2, 1, 2)
+    dropless = dataclasses.replace(a2a, moe=dataclasses.replace(a2a.moe, dispatch="dropless"))
+    assert ParallelPlan.parse("pp=2,ep=2,tp=2").resolve(dropless).world == 8
+    with pytest.raises(ValueError, match="does not compose with stage1='a2a'"):
+        ParallelPlan.parse("ep=2").resolve(dropless)
+    with pytest.raises(NotImplementedError, match="expert-TP"):
+        ParallelPlan.parse("ep=2,tp=2").resolve(a2a)

@@ -5,19 +5,28 @@ step (``tests/test_torch_pp_train.py`` holds that one to the JAX PP step):
 
 * grids (pp=2) on 2 ranks and (dp=2, pp=2), (pp=2, ep=2), (pp=2, tp=2),
   (pp=4) on 4, each in 'none', 'so' and 'epso', two steps of reduced
-  Mula-7B-A1B (4 layers, 8 experts, dropless, no router terms: under EP
-  and DP the aux and z are the ranks' mean, not the one-device value) from
-  one whole state: every rank's metrics equal the one-process step's at
-  atol = rtol = 1e-4 and the other ranks' exactly, and every rank's params
-  after the second step its tiles of the one-process step's. The
+  Mula-7B-A1B (4 layers, 8 experts, dropless, the Mula router terms: aux
+  0.01, z 0.001) from one whole state: every rank's metrics and router
+  terms (``step.router_terms``: moe_aux, moe_z) equal the one-process
+  step's at atol = rtol = 1e-4 and the other ranks' exactly, and every
+  rank's params after the second step its tiles of the one-process
+  step's. A stage takes the aux and z of the whole microbatch, over the
+  ranks that split it ('data' x 'ep'), as the one-process step does. The
   one-process step sees each microbatch as the grid does: microbatch m is
   the ranks' microbatches m side by side (``_oracle_batch``);
-* capacity dispatch with overflowing experts on (pp=2, ep=2): dp = 1, so
-  the stage's MoE block dispatches the whole gathered microbatch in the
-  one-device pool, and the drops are the one-process step's; and on (dp=2,
-  pp=2) without overflow; with overflow on (dp=2, pp=2) each replica's
-  pool keeps the pairs the one-process step drops (the difference
-  ROADMAP.md §3 records, with this case's numbers);
+* capacity dispatch with overflowing experts on (pp=2, ep=2) and (dp=2,
+  pp=2), and without overflow on (dp=2, pp=2): the stage's MoE block drops
+  the pairs of the one-device pool of the whole microbatch (the plan of
+  the ids gathered over 'data' x 'ep'), so the drops are the one-process
+  step's; the same overflowing (pp=2, ep=2) case with ``stage1='a2a'``,
+  which a stage runs as the allgather, bit for bit its allgather run's;
+  the overflowing (dp=2, pp=2) case with ``moe_impl='dense_capacity'``
+  (the dense path, which takes the same whole-microbatch pool and router
+  terms);
+* a stage's MoE block alone on dp x ep grids of 4 ranks (dp=2 x ep=2 for
+  fsmoe and the dense path, dp=4, ep=4), overflowing capacity dispatch:
+  outputs, aux, z, counts, drops and gradients the one-device block's on
+  the whole batch (``torch_ep_ranks.whole_pool_block_rank``);
 * every rank holds ``state_bytes_per_device`` bytes of optimizer state,
   and under 1f1b stage 0 never more than pp saved stage inputs;
 * placements and state bytes of full-width Mula-7B-A1B on ('data', 'pp',
@@ -26,8 +35,9 @@ step (``tests/test_torch_pp_train.py`` holds that one to the JAX PP step):
   JAX plan splits them on the vocab over the model axis, the port keeps
   them whole, ROADMAP.md §1 item 5.5).
 
-Each world size spawns once (two spawns, run side by side), every case a
-grid re-cut from the same processes (``torch_ep_ranks.pp_grid_cases_rank``).
+Each world size spawns once (two spawns, run side by side; the block
+cases a third), every case a grid re-cut from the same processes
+(``torch_ep_ranks.pp_grid_cases_rank``).
 """
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
@@ -46,6 +56,7 @@ from repro.optim import epso as jepso  # noqa: E402
 from repro.parallel.sharding import ShardingRules, param_specs  # noqa: E402
 from repro_torch.configs import ParallelConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config as tget, reduced as treduced  # noqa: E402
+from repro_torch.core import moe as tmoe  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.optim import adamw_init  # noqa: E402
 from repro_torch.optim import epso as tepso  # noqa: E402
@@ -80,12 +91,19 @@ def one_thread():
 
 def _cfg(**moe_kw):
     tc = treduced(tget("mula-7b-a1b"), d_model=64, vocab=128, layers=4, max_experts=8)
-    moe = {"dispatch": "dropless", "router_aux_coef": 0.0, "router_z_coef": 0.0, **moe_kw}
+    assert (tc.moe.router_aux_coef, tc.moe.router_z_coef) == (0.01, 0.001)
+    moe = {"dispatch": "dropless", **moe_kw}
     return dataclasses.replace(tc, moe=dataclasses.replace(tc.moe, **moe))
 
 
 CFGS = {"moe": _cfg(), "capacity": _cfg(dispatch="capacity", capacity_factor=0.25),
-        "roomy": _cfg(dispatch="capacity", capacity_factor=8.0)}
+        "roomy": _cfg(dispatch="capacity", capacity_factor=8.0),
+        "capacity_a2a": _cfg(dispatch="capacity", capacity_factor=0.25, stage1="a2a"),
+        "dense_capacity": _cfg(dispatch="capacity", capacity_factor=0.25,
+                               moe_impl="dense_capacity")}
+# each case of the first config run as its twin of the second, bit for bit
+TWINS = {"capacity_a2a": "capacity"}
+ROUTER = ("moe_aux", "moe_z")
 # (config, (dp, pp, ep, tp), mode, schedule, microbatches)
 CASES2 = [("moe", (1, 2, 1, 1), mode, s, 4) for mode, s in zip(MODES, ("1f1b", "gpipe", "1f1b"))]
 CASES4 = [("moe", grid, mode, s, n)
@@ -93,7 +111,9 @@ CASES4 = [("moe", grid, mode, s, n)
                              ((1, 2, 1, 2), "1f1b", 4), ((1, 4, 1, 1), "1f1b", 4))
           for mode in MODES] + [("capacity", (1, 2, 2, 1), "epso", "1f1b", 2),
                                 ("roomy", (2, 2, 1, 1), "so", "gpipe", 2),
-                                ("capacity", (2, 2, 1, 1), "so", "1f1b", 2)]
+                                ("capacity", (2, 2, 1, 1), "so", "1f1b", 2),
+                                ("capacity_a2a", (1, 2, 2, 1), "epso", "1f1b", 2),
+                                ("dense_capacity", (2, 2, 1, 1), "so", "1f1b", 2)]
 
 
 def _batches(n=2):
@@ -127,7 +147,7 @@ def _oracle(case, params, batches):
     metrics = []
     for b in batches:
         state, m = step(state, _oracle_batch(b, dp * ep, n_mb))
-        metrics.append(m)
+        metrics.append({**m, **step.router_terms})
     return metrics, dict(leaves_with_path(state.params))
 
 
@@ -153,34 +173,17 @@ def _ids(case):
     return f"{name}-dp{dp}pp{pp}ep{ep}tp{tp}-{mode}-{schedule}-mb{n}"
 
 
-def _overflows_per_replica(case):
-    """Capacity dispatch with overflow under dp > 1: each replica's stage
-    dispatches its own rows in its own pool, the one-process step the whole
-    microbatch in one (ROADMAP.md §3, "Not faults")."""
-    name, (dp, _, ep, _), _, _, _ = case
-    return name == "capacity" and dp > 1
-
-
 @pytest.mark.parametrize("index", range(len(CASES2 + CASES4)),
                          ids=[_ids(c) for c in CASES2 + CASES4])
 def test_grid_matches_one_process_pp_step(grid_runs, index):
     case, rank_res, (want_m, want_p) = grid_runs[index]
     name, (dp, pp, ep, tp), mode, schedule, n_mb = case
-    if _overflows_per_replica(case):
-        # the one-process step drops pairs and each replica's pool keeps
-        # them: the losses part (the numbers ROADMAP.md §3 gives)
-        got = rank_res[0]["metrics"]
-        drops = [(float(g["moe_drops"]), float(w["moe_drops"])) for g, w in zip(got, want_m)]
-        gaps = [abs(float(g["loss"]) - float(w["loss"])) for g, w in zip(got, want_m)]
-        print(f"{_ids(case)}: drops (grid, one process) {drops}, loss gaps {gaps}")
-        assert all(g == 0 < w for g, w in drops) and all(0 < x < 1e-2 for x in gaps)
-        return
     tc = CFGS[name]
     sizes = {a: n for a, n in zip(("data", "pp", "ep", "tp"), (dp, pp, ep, tp)) if n > 1}
     place = dict(leaves_with_path(placements(tc, init_params(tc, device="meta"), sizes)))
     for r in rank_res:
         for i, (got, want) in enumerate(zip(r["metrics"], want_m)):
-            assert sorted(got) == sorted(k for k in want if k in ranks.KEYS)
+            assert sorted(got) == sorted(k for k in want if k in ranks.KEYS + ROUTER)
             for k in got:
                 np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), **TOL,
                                            err_msg=f"{_ids(case)} step {i} {k} {r['coords']}")
@@ -198,8 +201,74 @@ def test_grid_matches_one_process_pp_step(grid_runs, index):
         # gradient back (not on stage 0), 4 bytes an element
         act = BATCH // (dp * ep) // n_mb * SEQ * tc.d_model * 4
         assert r["sent_bytes"] == n_mb * act * ((stage < pp - 1) + (stage > 0))
-    if name == "capacity":
+    if "capacity" in name:
         assert all(float(m["moe_drops"]) > 0 for m in want_m)
+    if name in TWINS:
+        twin = next(r for c, r, _ in grid_runs if c == (TWINS[name],) + case[1:])
+        for r, t in zip(rank_res, twin):
+            for got, want in zip(r["metrics"], t["metrics"]):
+                assert all(torch.equal(got[k], want[k]) for k in got), _ids(case)
+            assert all(torch.equal(r["params"][k], t["params"][k]) for k in r["params"])
+
+
+# (config, dp, ep): the MoE block of a stage on a dp x ep grid
+BLOCK_CASES = [("capacity", 2, 2), ("dense_capacity", 2, 2), ("capacity", 4, 1),
+               ("capacity", 1, 4)]
+
+
+@pytest.fixture(scope="module")
+def block_runs():
+    names = sorted({c[0] for c in BLOCK_CASES})
+    tcs = {n: CFGS[n] for n in names}
+    p = {n: {k: v[0] for k, v in init_params(tcs[n], seed=1, device="cpu")["layers"]["moe"]
+             .items()} for n in names}
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((BATCH, SEQ, 64), dtype=np.float32))
+    ct = torch.from_numpy(rng.standard_normal((BATCH, SEQ, 64), dtype=np.float32))
+    got = spawn(ranks.whole_pool_block_rank, 4, device="cpu", timeout_s=240,
+                args=(tcs, p, x, ct, BLOCK_CASES))
+    return tcs, p, x, ct, got
+
+
+@pytest.mark.parametrize("index", range(len(BLOCK_CASES)),
+                         ids=[f"{n}-dp{d}ep{e}" for n, d, e in BLOCK_CASES])
+def test_whole_pool_block_matches_one_device(block_runs, index):
+    """A pipeline stage's MoE block on a dp x ep grid, capacity dispatch
+    with overflowing experts: every rank's outputs (its rows), aux, z,
+    counts and drops are the one-device block's on the whole batch, and so
+    are its x gradients; the router's and the stacks' gradients summed
+    over the ranks that hold them are the one-device gradients. With dp >
+    1 and ep > 1 the gathered ids come in row order d * ep + e, the
+    order an overflowing expert's first-come pool shows."""
+    tcs, p, x, ct, got = block_runs
+    name, dp, ep = BLOCK_CASES[index]
+    tc = tcs[name]
+    pw = {k: v.clone().requires_grad_() for k, v in p[name].items()}
+    xw = x.clone().requires_grad_()
+    out, aux, z, st = tmoe.sparse_moe_block(pw, xw, tc)
+    keys = ("router", "gate", "up", "down")
+    loss = (out * ct).sum() + ranks.AUX * aux + ranks.Z * z
+    gx, *gp = torch.autograd.grad(loss, [xw] + [pw[k] for k in keys])
+    assert float(st.drops) > 0
+    n = BATCH // (dp * ep)
+    total = {k: torch.zeros_like(v) for k, v in zip(keys, gp)}
+    for r in (res[index] for res in got):
+        c = r["coords"]
+        i = c["data"] * ep + c["ep"]
+        rows = slice(i * n, (i + 1) * n)
+        np.testing.assert_allclose(r["out"].numpy(), out[rows].detach().numpy(), **TOL)
+        for k, want in (("aux", aux), ("z", z), ("counts", st.counts), ("drops", st.drops)):
+            np.testing.assert_allclose(r[k].numpy(), want.detach().numpy(), **TOL, err_msg=k)
+        np.testing.assert_allclose(r["grads"]["x"].numpy(), gx[rows].numpy(), **TOL)
+        for k in keys:
+            g = r["grads"][k]
+            if g.shape == total[k].shape:
+                total[k] += g
+            else:             # the rank's expert slice
+                el = g.shape[0]
+                total[k][c["ep"] * el:(c["ep"] + 1) * el] += g
+    for k, want in zip(keys, gp):
+        np.testing.assert_allclose(total[k].numpy(), want.numpy(), **TOL, err_msg=k)
 
 
 def _plan_rules(cfg, dp, pp, ep, tp):

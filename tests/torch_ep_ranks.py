@@ -297,7 +297,8 @@ def pp_grid_cases_rank(world, tc_by_name, params_by_name, opt_by_name, train, ba
     batch on the rank's rows; per case the metrics of each step, the
     rank's params, its state bytes (and what ``state_bytes_per_device``
     gives it), its saved-input peaks and the bytes it handed to its
-    neighbour stages."""
+    neighbour stages. The metrics of a step hold its router terms too
+    (``step.router_terms``)."""
     from repro_torch.convert import opt_state_for_rank, params_for_rank
     from repro_torch.models import init_params
     from repro_torch.optim.epso import state_bytes_per_device
@@ -319,7 +320,7 @@ def pp_grid_cases_rank(world, tc_by_name, params_by_name, opt_by_name, train, ba
         metrics = []
         for b in batches:
             state, m = step(state, grid_rows(grid, b))
-            metrics.append({k: m[k] for k in KEYS if k in m})
+            metrics.append({**{k: m[k] for k in KEYS if k in m}, **step.router_terms})
         sizes = grid.axis_sizes
         shapes = init_params(tc, device="meta")
         out.append({
@@ -330,4 +331,108 @@ def pp_grid_cases_rank(world, tc_by_name, params_by_name, opt_by_name, train, ba
             "state_bytes_expected": state_bytes_per_device(
                 shapes, placements(tc, shapes, sizes), sizes, mode),
             "saved_peak": dict(step.saved_peak), "sent_bytes": step.sent_bytes})
+    return out
+
+
+def whole_pool_block_rank(world, tc_by_name, p_by_name, x, ct, cases):
+    """One rank of the whole-pool block tests: for each case ``(name, dp,
+    ep)`` a dp x ep grid re-cut from the spawn's processes, the rank's rows
+    of x (B, S, d) (block d * ep + e, ``grid_rows``) and its share of the
+    block's params (its expert slice where the block runs
+    ``moe_fsmoe_ep``); the block of a pipeline stage (``whole_pool`` over
+    the ('data', 'ep') group): its outputs, stats and the gradients of the
+    rank's share of sum(out * ct) + AUX * aux + Z * z, the router terms
+    taken 1 / (dp * ep) a rank as the PP step takes them."""
+    from repro_torch.parallel import init_grid
+    from repro_torch.parallel.grid import BATCH_AXES
+    out = []
+    for name, dp, ep in cases:
+        tc = tc_by_name[name]
+        grid = init_grid(world, dp, ep)
+        rows = grid.group(BATCH_AXES)
+        p = p_by_name[name]
+        if tmoe.uses_ep(tc.moe, ep):
+            p = expert_shard({"moe": p}, grid.ep.rank, ep)["moe"]
+        p = {k: v.clone().requires_grad_() for k, v in p.items()}
+        r = {"tokens": x, "ct": ct}
+        mine = grid_rows(grid, r)
+        xl = mine["tokens"].clone().requires_grad_()
+        o, aux, z, st = tmoe.sparse_moe_block(p, xl, tc, ep_group=grid.ep, whole_pool=True,
+                                              batch_group=rows)
+        loss = (o * mine["ct"]).sum() + (AUX * aux + Z * z) / rows.world
+        keys = ("router", "gate", "up", "down")
+        grads = torch.autograd.grad(loss, [xl] + [p[k] for k in keys])
+        out.append({"out": o.detach(), "aux": aux.detach(), "z": z.detach(),
+                    "counts": st.counts, "drops": st.drops, "coords": grid.coords,
+                    "grads": dict(zip(("x",) + keys, grads))})
+    return out
+
+
+def serve_grid_cases_rank(world, tc, params, prompts, max_new, batch, cases):
+    """One rank of the serving-on-a-plan tests: for each (ep, tp) of
+    ``cases`` a grid re-cut from the spawn's processes (``init_grid`` over
+    the world, dp = 1), the plan resolved for serving, the rank's tiles of
+    the whole ``params`` (``convert.params_for_rank``); then an engine
+    over ``prompts`` (greedy, ``max_new`` tokens each) and the lowerings
+    on ``batch``: the prefill into cache slots (its last logits), one
+    decode step after it (its logits) and the forward's last logits."""
+    from repro_torch.convert import params_for_rank
+    from repro_torch.models import init_cache
+    from repro_torch.parallel import init_grid
+    from repro_torch.parallel.plan import ParallelPlan
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train import make_prefill_step, make_serve_step
+
+    out = []
+    for ep, tp in cases:
+        grid = init_grid(world, 1, ep, tp)
+        plan = ParallelPlan(ep=ep, tp=tp).resolve(tc, serving=True)
+        mine = params_for_rank(params, tc, dp=1, ep=ep, tp=tp, rank=grid.world.rank,
+                               device=world.device)
+        eng = ServeEngine(mine, tc, num_slots=3, max_len=32, plan=plan, grid=grid)
+        for p, n in zip(prompts, max_new):
+            eng.submit(p, n)
+        res = eng.run()
+        B, P = batch.shape
+        cache = init_cache(tc, B, 32, device=world.device, dtype=torch.float32, tp=tp)
+        prefill = make_prefill_step(tc, compute_dtype=torch.float32, into_cache=True, plan=plan,
+                                    grid=grid)
+        last, cache = prefill(mine, batch, cache, list(range(B)), [P] * B)
+        decode = make_serve_step(tc, compute_dtype=torch.float32, plan=plan, grid=grid)
+        step, _ = decode(mine, last.argmax(-1)[:, None], cache, P)
+        forward = make_prefill_step(tc, compute_dtype=torch.float32, plan=plan, grid=grid)
+        out.append({"coords": grid.coords, "tokens": {rid: r.tokens for rid, r in res.items()},
+                    "prefill": last, "decode": step[:, 0], "forward": forward(
+                        mine, {"tokens": batch})})
+    return out
+
+
+def remat_collectives_rank(grid, tc, train, params, opt, batch, policies):
+    """One rank of a dp x ep x tp grid: for each remat policy of
+    ``policies``, from the same whole params and AdamW state ('none'),
+    one ``make_train_step`` step on the rank's rows under the profiler;
+    per policy the metrics, the rank's params after the step, the count
+    of each ``gloo:*`` event of the step and the replay depths that the
+    process's ``CollectiveTape``s learned so far."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.convert import opt_state_for_rank, params_for_rank
+    from repro_torch.parallel.ep import CollectiveTape
+    s, rank = grid.sizes, grid.world.rank
+    out = {}
+    for sac in policies:
+        state = TrainState(params_for_rank(params, tc, dp=s["data"], ep=s["ep"], tp=s["tp"],
+                                           rank=rank),
+                           opt_state_for_rank(opt, tc, dp=s["data"], ep=s["ep"], tp=s["tp"],
+                                              rank=rank, mode="none"))
+        step = make_train_step(tc, ParallelConfig(remat_policy=sac), train, grid=grid)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            state, m = step(state, grid_rows(grid, batch))
+        events = {}
+        for e in prof.events():
+            if e.name.startswith("gloo:"):
+                events[e.name] = events.get(e.name, 0) + 1
+        out[sac] = {"metrics": {k: m[k] for k in KEYS}, "events": events,
+                    "params": dict(leaves_with_path(state.params)),
+                    "replayed": sorted(set(CollectiveTape._replayed.values()))}
     return out
