@@ -72,12 +72,18 @@ Phases, each printing JSON lines:
   launcher_ssm  reduced Zamba2-7B and falcon-mamba-7b through the launcher:
              6 steps with a checkpoint at step 3, then a resumed run whose
              steps 4-5 are bit-identical;
+  grid_session  the multi-rank phases' 4 processes, started once and
+             sharing the card over gloo; in turn, each on the world or on a
+             grid cut from it: ep_reference, ep_train, epso_train (with the
+             phases its ranks run) and the multi-rank launcher runs of
+             launcher_grid_dense, _ft (its clean run), _tp and _rebalance;
+             prints each job's seconds on every rank;
   ep_reference  expert parallelism (EP) on 4 ranks, processes that share
              the card over gloo: a small MoE block's output and input
              gradient against the same block in one process on the card, and
              one EP training step against the single-process CPU float32
              step from the same state, in loss and gradient norm;
-  ep_train   full-width Mula-7B-A1B cut to 4 of its 16 layers, EP = 4 (16
+  ep_train   full-width Mula-7B-A1B cut to 2 of its 16 layers, EP = 4 (16
              experts per rank, one 2048-token sequence per rank), 3 steps
              on one fixed batch; asserts on every rank finite
              metrics, a falling loss, clip_scale <= 1, the same metrics as the
@@ -124,17 +130,17 @@ Phases, each printing JSON lines:
              layer: attention's tp all-reduce and the Stage 1's three
              all-gathers);
   placement_train  inside epso_train's ranks: the same grid in
-             'epso'/'ring' with dropless dispatch, 6 steps from
+             'epso'/'ring' with dropless dispatch, 5 steps from
              init_state(seed 0) unplaced; then the state after step 2 (kept
              on the host) has its expert stacks and their master, m and v
              moved to a fixed placement (seed 0) that sends half of every
              rank's experts to the other EP rank
-             (``parallel.placement.apply_placement``) and takes steps 3-5
+             (``parallel.placement.apply_placement``) and takes steps 3-4
              again; asserts every moved (layer, expert) slice equal to the
              slice its global id held before the move, by exact sums of
              the bits taken on each rank before and after it (no gather),
              no drops, the routed pairs conserved, the state bytes exact
-             after the move, steps 3-5 within 2e-3 of the unplaced losses,
+             after the move, steps 3-4 within 2e-3 of the unplaced losses,
              the exact launch count; prints the move's ms and the bytes a
              rank sent (computed from the shapes), the rank imbalance of
              steps 0-2's counts under both placements;
@@ -163,16 +169,34 @@ Phases, each printing JSON lines:
              on one rank, whose prefill and decode logits the grid's must
              match within 5e-2 of max|logits|; prints the greedy tokens'
              agreement with the one-rank engine, step ms and peak memory;
-  launcher_dense  full-width, full-depth Mula-1B (16 layers, d_model 2048,
+  fsdp_train inside epso_train's ranks, the 4 processes re-cut into a
+             ('data', 4) grid: full-width Mula-7B-A1B at 2 of its 16 layers,
+             one 2048-token row a rank, block remat, 3 steps of FSDP
+             (ZeRO-3: each rank holds its 'data' tile of every layer
+             weight, and its master, m and v are those tiles; each layer is
+             gathered inside its remat block, again in the recompute, and
+             its gradients reduce-scattered onto the tiles) in 'none', and
+             as its reference 'so' without fsdp on the same grid and rows:
+             finite metrics, a falling loss, clip_scale <= 1, rank 0's
+             metrics on every rank, step 0's loss bit for bit the 'so'
+             run's and later ones within 1e-3 (the ce too), the grad norms
+             within 1e-5 while the params are step 0's (the gradient's
+             scale) and within 2e-3 after an update, the state bytes and
+             param elements a rank, the gathers and reduce-scatters of each step
+             and of rank 0's profiled step, the exact launch count; prints
+             peak memory a rank of both runs, step ms and the bytes
+             gathered a step;
+  launcher_dense  full-width Mula-1B at 4 of its 16 layers (d_model 2048,
              d_ff 8192, the byte vocab padded to 512; random weights from
              seed 0, fp32 state, bf16 compute) trained by the launcher
-             (``repro_torch.launch.train.run``) on the synthetic corpus for 6
+             (``repro_torch.launch.train.run``'s ``launch_ranks(prepare_run(
+             ...))``, the spec cut to that depth) on the synthetic corpus for 6
              steps of 4 x 2048 tokens with a checkpoint at step 3, then the
              same call again, which resumes from it and trains steps 4 and 5:
              asserts their losses and grad norms bit-identical to the first
              run's, a falling loss and finite metrics; step ms, tokens/s,
              peak memory, checkpoint GB, save and restore ms, the host's RSS
-             peak, free disk before the save, one profiled step. Needs ~22
+             peak, free disk before the save, one profiled step. Needs ~6
              GB of free disk in ``build/`` (deleted at the end);
   launcher_ft  a 2-layer, d_model 512 Mula-7B-A1B through the MoE kernels
              (bf16) trained by the launcher for 18 steps, once clean and once
@@ -181,7 +205,7 @@ Phases, each printing JSON lines:
              valid at steps 10 and 15, a history bit-identical to the clean
              run's and the exact launch count of every kernel of the path;
   launcher_grid_dense  launcher_dense's run (its checkpoint at step 4) at
-             4 of Mula-1B's 16 layers through the multi-rank
+             2 of Mula-1B's 16 layers through the multi-rank
              launcher, ``parallel='dp=4'``, ``opt_shard='so'``: four ranks
              share the card over gloo, one 2048-token row each, then the
              same call resumes from step 4; beside it the same run on one
@@ -191,12 +215,13 @@ Phases, each printing JSON lines:
              those of the one-rank run, the MANIFEST's plan layout, and
              each rank's state bytes exactly ``state_bytes_per_device``;
   launcher_grid_ft  launcher_ft's runs on a dp = 2 x ep = 2 grid under
-             EPSO: on every rank two relaunches with the node swaps, valid
-             slots at steps 10 and 15, the clean run's history, the exact
-             launch count of every kernel; losses finite, falling, within
+             EPSO, the clean one in the session (the exact launch count of
+             every kernel), the faulty one through ``python -m
+             repro_torch.launch.train`` in a fresh process: two relaunches
+             with the node swaps, valid slots at steps 10 and 15, the clean
+             run's history bit for bit; losses finite, falling, within
              0.1 % of launcher_ft's for steps 0-2 and 5 % after, both runs'
-             MoE drops side by side; then 4 steps of the same plan through
-             ``python -m repro_torch.launch.train``;
+             MoE drops side by side;
   launcher_grid_tp  launcher_ft's run on ``parallel='dp=1,ep=2,tp=2'``
              under EPSO, clean and with a hard failure at step 7: one
              relaunch, a bit-identical history, the plan's layout in the
@@ -255,10 +280,10 @@ FP32_FLOPS = 67e12
 MULA = "mula-7b-a1b"
 ZAMBA = "zamba2-7b"
 DEV = "cuda"
-# EP_STEPS, EPSO_STEPS, TP_STEPS, GRID_DENSE_LAYERS and HYBRID_DEPTHS are cut
-# to what the smoke's time limit leaves room for beside pp_train and
-# launcher_grid_pp
-EP_RANKS, EP_SEQ, EP_STEPS = 4, 2048, 3
+# EP_STEPS, EP_LAYERS, EPSO_STEPS, TP_STEPS, GRID_DENSE_LAYERS and
+# HYBRID_DEPTHS are cut to what the smoke's time limit leaves room for beside
+# pp_train, launcher_grid_pp and fsdp_train
+EP_RANKS, EP_SEQ, EP_STEPS, EP_LAYERS = 4, 2048, 3, 2
 # epso_train: the sharded optimizer on a dp x ep grid of ranks sharing the card
 EPSO_DP, EPSO_EP, EPSO_LAYERS, EPSO_STEPS = 2, 2, 2, 3
 EPSO_RUNS = (("none", "off"), ("so", "off"), ("epso", "ring"), ("epso", "xla"))
@@ -292,8 +317,32 @@ TP_STEPS, TP_LOSS_TOL = 3, 2e-3
 # of the expert stacks and their states after step PLACEMENT_MOVE_AFTER to a
 # placement from seed PLACEMENT_SEED; steps after the move within
 # PLACEMENT_LOSS_TOL of the unplaced run's (top 8: the sum over ranks
-# reassociates; the size of 'so' against 'none''s drift over 6 steps)
-PLACEMENT_STEPS, PLACEMENT_MOVE_AFTER, PLACEMENT_SEED, PLACEMENT_LOSS_TOL = 6, 2, 0, 2e-3
+# reassociates; the size of 'so' against 'none''s drift over 6 steps); 5
+# steps, not 6, for the smoke's time limit: the two after the move are the
+# placed forward and, at step 4, the first update made under the placement
+PLACEMENT_STEPS, PLACEMENT_MOVE_AFTER, PLACEMENT_SEED, PLACEMENT_LOSS_TOL = 5, 2, 0, 2e-3
+# fsdp_train (inside epso_train's ranks, the 4 processes re-cut as a ('data',
+# FSDP_DP) grid): FSDP (ZeRO-3) 'none' and, as its reference, 'so' without
+# fsdp (its math is 'none''s; a whole-params 'none' run of 4 ranks does not
+# fit the card), EPSO_STEPS steps each on the rank's row, block remat; the
+# per-rank fp32 state bytes and param elements of full-width Mula-7B-A1B at 2
+# layers on ('data', 4) (``state_bytes_per_device`` of the fsdp placements,
+# the JAX package's: tests/test_torch_fsdp.py); losses and ce after step 0
+# within FSDP_LOSS_TOL relative of the 'so' run's (step 0's loss bit for bit);
+# the grad norm of each step whose params are still step 0's (every earlier
+# step's lr was 0) within FSDP_NORM_TOL of 'so''s, which a reduce-scatter that
+# averages for a sum, or a norm without the 'data' sum, misses by 2x or more;
+# the grad norms after an update within FSDP_NORM_TOL_UPDATED (bf16 rounding
+# moves them: step 2's grad norm under 'so' and 'epso' was 2.3e-4 and 1.1e-3
+# off 'none''s on the 2 x 2 grid, measured on the H100)
+FSDP_DP = 4
+FSDP_STATE_BYTES = {"fsdp": 4_996_325_376, "so": 3_137_107_968}
+FSDP_PARAM_ELEMS = 416_360_448
+FSDP_LOSS_TOL, FSDP_NORM_TOL, FSDP_NORM_TOL_UPDATED = 1e-3, 1e-5, 2e-3
+# the multi-rank phases' processes, started once (grid_session): ep_reference,
+# ep_train, epso_train with the phases its ranks run, and the multi-rank
+# launcher runs of LAUNCHER_GRID_RUNS, in turn; the session's time limit
+SESSION_RANKS, SESSION_TIMEOUT_S = 4, 900
 # the launcher phases' runs (``repro_torch.launch.train.run`` keywords) and
 # their directory, git-ignored, inside the checkout
 LAUNCH_DIR = ROOT / "build" / "launcher"
@@ -304,6 +353,10 @@ DENSE_ARCH, FT_ARCH = "mula-1b", MULA
 # 2,500-step warmup
 DENSE_RUN = dict(scale="full", steps=6, batch=4, seq=2048, ckpt_interval=3, lr=1e-4,
                  compute_dtype="bfloat16", log_every=1)
+# launcher_dense runs DENSE_LAYERS of Mula-1B's 16 layers (the smoke's time
+# limit: at full depth its 17.2 GB checkpoint's save and restore took ~58 s of
+# the phase's ~85 s on the H100)
+DENSE_LAYERS = 4
 FT_RUN = dict(scale="smoke", d_model=512, layers=2, steps=18, batch=4, seq=256,
               ckpt_interval=5, compute_dtype="bfloat16", log_every=100)
 FT_INJECT = dict(inject_hard_at=7, inject_soft_at=12)
@@ -314,9 +367,10 @@ FT_INJECT = dict(inject_hard_at=7, inject_soft_at=12)
 GRID_DENSE_RUN = dict(DENSE_RUN, ckpt_interval=4, parallel="dp=4", opt_shard="so")
 # launcher_grid_dense runs GRID_DENSE_LAYERS of Mula-1B's 16 layers (the
 # smoke's time limit: the save and restore of its gathered tiles
-# through gloo took ~75 s of its ~250 s at full depth), against a one-rank
-# run of the same depth
-GRID_DENSE_LAYERS = 4
+# through gloo took ~75 s of its ~250 s at full depth; 4 layers took
+# 107 s of a 1,237 s smoke on a slow host), against a one-rank run of the
+# same depth
+GRID_DENSE_LAYERS = 2
 GRID_FT_DP, GRID_FT_EP = 2, 2
 GRID_FT_RUN = dict(FT_RUN, parallel=f"dp={GRID_FT_DP},ep={GRID_FT_EP}", opt_shard="epso")
 # one MoE call of launcher_grid_ft on one rank: its ep group's rows, gathered
@@ -2368,22 +2422,15 @@ def _ep_reference_rank(group, t_cfg):
             "launches": dict(ops.launches)}
 
 
-def phase_ep_reference() -> dict:
-    """EP_RANKS ranks on the card over gloo: (a) the small MoE block's
-    output and input gradient, bf16 through the kernels, against the same
-    block in this process on the card (rel 3e-2 of max|ref|: each rank's
-    partial output is rounded to bf16 and the partials are summed in bf16,
-    where one process rounds once after an f32 combine); (b) one EP
-    training step (bf16 compute and gradient reduction) against one step
-    of the CPU float32 path from the same init_state(seed 0), with
-    EP_RANKS microbatches so that each is one rank's rows (the tolerances
-    of train_reference: loss rel 1e-2, grad_norm rel 3e-2)."""
+def ep_reference_prep() -> dict:
+    """ep_reference's side in this process: the small MoE block's output
+    and input gradient on the card, one step of the CPU float32 path from
+    init_state(seed 0) with EP_RANKS microbatches, and the ranks' job."""
     import dataclasses
 
     import torch
     from repro_torch.configs import ParallelConfig, TrainConfig
     from repro_torch.optim import adamw_init
-    from repro_torch.parallel import spawn
     from repro_torch.train import TrainState, init_state, make_train_step
     from repro_torch.tree import tree_map
 
@@ -2398,25 +2445,41 @@ def phase_ep_reference() -> dict:
         TrainState(params, adamw_init(params)), batch)
     del p
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn(_ep_reference_rank, EP_RANKS, args=(t_gpu,), backend="gloo", device=DEV,
-                  timeout_s=300)
-    wall = time.perf_counter() - t0
+    return {"out": out_ref.cpu(), "gx": gx_ref.cpu(),
+            "m_cpu": {k: float(m_cpu[k]) for k in ("loss", "grad_norm")},
+            "job": ("ep_reference", _ep_reference_rank, (t_gpu,), None)}
+
+
+def phase_ep_reference(ranks, wall: float, ref: dict) -> dict:
+    """EP_RANKS ranks on the card over gloo (the session's job, ``ranks``;
+    ``ref`` from ``ep_reference_prep``): (a) the small MoE block's
+    output and input gradient, bf16 through the kernels, against the same
+    block in this process on the card (rel 3e-2 of max|ref|: each rank's
+    partial output is rounded to bf16 and the partials are summed in bf16,
+    where one process rounds once after an f32 combine); (b) one EP
+    training step (bf16 compute and gradient reduction) against one step
+    of the CPU float32 path from the same init_state(seed 0), with
+    EP_RANKS microbatches so that each is one rank's rows (the tolerances
+    of train_reference: loss rel 1e-2, grad_norm rel 3e-2)."""
+    import torch
+
+    cfg = _ep_small_cfg()
+    out_ref, gx_ref, m_cpu = ref["out"], ref["gx"], ref["m_cpu"]
 
     def rel(a, b):
         return float((a.float() - b.float()).abs().max() / b.float().abs().max())
 
-    out_err = rel(torch.cat([r["out"] for r in ranks]), out_ref.cpu())
-    gx_err = rel(torch.cat([r["gx"] for r in ranks]), gx_ref.cpu())
-    step_rel = {k: abs(ranks[0][k] - float(m_cpu[k])) / abs(float(m_cpu[k]))
+    out_err = rel(torch.cat([r["out"] for r in ranks]), out_ref)
+    gx_err = rel(torch.cat([r["gx"] for r in ranks]), gx_ref)
+    step_rel = {k: abs(ranks[0][k] - m_cpu[k]) / abs(m_cpu[k])
                 for k in ("loss", "grad_norm")}
     tol = {"block": 3e-2, "loss": 1e-2, "grad_norm": 3e-2}
     expect = expected_train_launches(cfg.num_layers, 1, 1)
     row = {"config": cfg.name, "ranks": EP_RANKS, "backend": "gloo", "experts_per_rank":
            cfg.moe.num_experts // EP_RANKS, "block_out_rel_err": out_err,
            "block_grad_x_rel_err": gx_err, "loss_ep": [r["loss"] for r in ranks],
-           "loss_cpu": float(m_cpu["loss"]), "grad_norm_ep": [r["grad_norm"] for r in ranks],
-           "grad_norm_cpu": float(m_cpu["grad_norm"]), "step_rel_err": step_rel,
+           "loss_cpu": m_cpu["loss"], "grad_norm_ep": [r["grad_norm"] for r in ranks],
+           "grad_norm_cpu": m_cpu["grad_norm"], "step_rel_err": step_rel,
            "tolerance": tol, "launches_per_rank": [r["launches"] for r in ranks],
            "expected_launches": expect, "wall_s": wall}
     emit("ep_reference", **row)
@@ -2444,7 +2507,7 @@ def _ep_train_rank(group, steps):
     from repro_torch.train import init_state, make_train_step
     from repro_torch.tree import leaves
 
-    cfg = dataclasses.replace(get_config(MULA), num_layers=4)
+    cfg = dataclasses.replace(get_config(MULA), num_layers=EP_LAYERS)
     train = TrainConfig(seq_len=EP_SEQ, global_batch=EP_RANKS, warmup_steps=2, total_steps=100)
     par = ParallelConfig(microbatches=1, remat_policy="block")
     torch.cuda.reset_peak_memory_stats()
@@ -2483,23 +2546,17 @@ def _ep_train_rank(group, steps):
             "backend": group.backend, "device": str(group.device)}
 
 
-def phase_ep_train() -> dict:
-    """Full-width Mula-7B-A1B, 4 of its 16 layers, EP_RANKS ranks on the
+def phase_ep_train(ranks, wall: float) -> dict:
+    """Full-width Mula-7B-A1B, EP_LAYERS of its 16 layers, EP_RANKS ranks on the
     card over gloo, EP_STEPS steps on the fixed batch (one sequence of
     EP_SEQ tokens per rank, EP_RANKS * EP_SEQ gathered tokens per MoE
     call, the config's own capacity dispatch), microbatches 1, block
-    remat."""
+    remat: the session's job ``ranks`` (``_ep_train_rank``)."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.parallel import spawn
 
     cfg = get_config(MULA)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn(_ep_train_rank, EP_RANKS, args=(EP_STEPS,), backend="gloo", device=DEV,
-                  timeout_s=600)
-    wall = time.perf_counter() - t0
-    expect = expected_train_launches(4, 1, EP_STEPS)
+    expect = expected_train_launches(EP_LAYERS, 1, EP_STEPS)
     keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
     routed = EP_RANKS * EP_SEQ * cfg.moe.experts_per_token
     for i, r in enumerate(ranks):
@@ -2522,7 +2579,8 @@ def phase_ep_train() -> dict:
         if r["launches"] != expect:
             raise AssertionError(f"ep_train rank {i}: launches {r['launches']} != {expect}")
     step_ms = [statistics.median(s["step_ms"] for s in r["history"][1:]) for r in ranks]
-    row = {"model": cfg.name, "layers": 4, "ranks": EP_RANKS, "backend": ranks[0]["backend"],
+    row = {"model": cfg.name, "layers": EP_LAYERS, "ranks": EP_RANKS,
+           "backend": ranks[0]["backend"],
            "device": ranks[0]["device"], "experts_per_rank": cfg.moe.num_experts // EP_RANKS,
            "seq_per_rank": 1, "seq_len": EP_SEQ, "gathered_tokens_per_moe_call":
            EP_RANKS * EP_SEQ, "dispatch": cfg.moe.dispatch, "steps": EP_STEPS,
@@ -2557,8 +2615,8 @@ def _checksums(tree) -> dict:
 def _epso_train_rank(grid, steps):
     """One rank of epso_train: for each (mode, overlap) of EPSO_RUNS its
     share of init_state(seed 0) on the grid, its row of the fixed batch,
-    ``steps`` steps and one more profiled on rank 0; what the parent
-    asserts and prints."""
+    ``steps`` steps, the last profiled on rank 0; what the parent asserts
+    and prints."""
     import dataclasses
 
     import torch
@@ -2600,25 +2658,24 @@ def _epso_train_rank(grid, steps):
                     "gathered_bytes_f32": 4 * sum(b.elems for b in gathered),
                     "largest_bucket_elems": max(b.elems for b in p.buckets),
                     "axes": list(p.axes)}
-        history = []
+        history, profile = [], None
         ops.reset_launches()
-        for _ in range(steps):
+        for i in range(steps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, m = step(state, mine)
+            if i == steps - 1 and r == 0:
+                # the last step profiled on rank 0 (the others wait in lockstep)
+                box = {}
+                profile = _profile_window(lambda: box.update(r=step(state, mine)),
+                                          host_prefixes=("gloo:", "c10d::"))
+                state, m = box.pop("r")
+            else:
+                state, m = step(state, mine)
             torch.cuda.synchronize()
             history.append({**{k: float(m[k]) for k in keys},
                             "step_ms": (time.perf_counter() - t0) * 1e3})
         launches = dict(ops.launches)
         sums = _checksums(state.params)
-        # one more step, profiled on rank 0 (every rank takes it: lockstep)
-        profile = None
-        if r == 0:
-            profile = _profile_window(lambda: step(state, mine),
-                                      host_prefixes=("gloo:", "c10d::"))
-        else:
-            step(state, mine)
-            torch.cuda.synchronize()
         out[f"{mode}/{overlap}"] = {
             "history": history, "launches": launches, "checksums": sums, "profile": profile,
             "peak_bytes": torch.cuda.max_memory_allocated(), "init_s": init_s,
@@ -2632,17 +2689,36 @@ def _epso_train_rank(grid, steps):
             "a2a": _a2a_train_rank(grid, cfg, train, mine, steps),
             "tp": _tp_train_rank(grid, cfg, train, batch),
             "pp": _pp_train_rank(grid),
-            "serve": _grid_serve_rank(grid)}
+            "serve": _grid_serve_rank(grid),
+            "fsdp": _fsdp_train_rank(grid, cfg, train, mine)}
 
 
-def _history_run(cfg, train, grid, mode, overlap, rows, steps, sac="block", profile=False):
+def _fsdp_train_rank(grid, cfg, train, rows):
+    """fsdp_train on one rank: the spawn's processes re-cut as a ('data',
+    FSDP_DP) grid (``init_grid``), the rank's ``rows``; EPSO_STEPS steps of
+    FSDP 'none' (``fsdp_params``), the last profiled on rank 0, and the
+    'so' run without fsdp, from init_state(seed 0), block remat."""
+    from repro_torch.parallel import init_grid
+    g = init_grid(grid.world, FSDP_DP, 1)
+    return {"coords": g.coords,
+            "fsdp": _history_run(cfg, train, g, "none", "off", rows, EPSO_STEPS,
+                                 profile_last=True, fsdp=True),
+            "so": _history_run(cfg, train, g, "so", "off", rows, EPSO_STEPS)}
+
+
+def _history_run(cfg, train, grid, mode, overlap, rows, steps, sac="block", profile=False,
+                 fsdp=False, profile_last=False):
     """``steps`` steps of ``cfg`` from init_state(seed 0) on ``grid`` in
     ``mode``/``overlap`` under the remat policy ``sac`` on the rank's
     ``rows``: per step the metrics, the counts and the step ms; the
-    launches, the peak memory and the state bytes held. ``profile``: one
-    more step, profiled on rank 0 (``_profile_window`` with the gloo
-    events; every rank takes it), whose loss ends the history, and that
-    step's own peak memory."""
+    launches, the peak memory (also of the steps alone) and the state bytes
+    and param elements held. ``fsdp``: the state and step of
+    ``ParallelConfig.fsdp_params``, and the steps' gather counts and bytes.
+    ``profile``: one more step, profiled on rank 0 (``_profile_window``
+    with the gloo and c10d events; every rank takes it), whose loss ends
+    the history, and that step's own peak memory. ``profile_last``: the
+    last of the ``steps`` steps profiled so on rank 0 instead (its step ms
+    carries the profiler's cost)."""
     import torch
     from repro_torch.configs import ParallelConfig
     from repro_torch.kernels import ops
@@ -2652,23 +2728,36 @@ def _history_run(cfg, train, grid, mode, overlap, rows, steps, sac="block", prof
     keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    state = init_state(cfg, train, seed=0, grid=grid, opt_sharding_mode=mode)
-    par = ParallelConfig(microbatches=1, remat_policy=sac, opt_overlap=overlap)
+    state = init_state(cfg, train, seed=0, grid=grid, opt_sharding_mode=mode, fsdp=fsdp)
+    par = ParallelConfig(microbatches=1, remat_policy=sac, opt_overlap=overlap,
+                         fsdp_params=fsdp)
     step = make_train_step(cfg, par, train, opt_sharding_mode=mode, grid=grid)
     held = sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m, state.opt.v)
                for t in leaves(tree))
-    history = []
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    history, prof = [], None
     ops.reset_launches()
-    for _ in range(steps):
+    for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, m = step(state, rows)
+        if profile_last and i == steps - 1 and grid.world.rank == 0:
+            box = {}
+            prof = _profile_window(lambda: box.update(r=step(state, rows)),
+                                   host_prefixes=("gloo:", "c10d::"))
+            state, m = box.pop("r")
+        else:
+            state, m = step(state, rows)
         torch.cuda.synchronize()
         history.append({**{k: float(m[k]) for k in keys},
                         "counts": m["moe_counts"].double().cpu().tolist(),
                         "step_ms": (time.perf_counter() - t0) * 1e3})
     out = {"history": history, "launches": dict(ops.launches), "state_bytes": held,
-           "peak_bytes": torch.cuda.max_memory_allocated()}
+           "param_elems": sum(t.numel() for t in leaves(state.params)),
+           "peak_bytes": max(init_peak, torch.cuda.max_memory_allocated()),
+           "peak_bytes_steps": torch.cuda.max_memory_allocated(),
+           "fsdp_stats": dict(step.fsdp_gather.stats) if step.fsdp_gather is not None else None,
+           "profile": prof}
     if profile:
         last = {}
 
@@ -3174,22 +3263,17 @@ def _moved_slices_differ(ranks, row) -> tuple:
     return compared, differ
 
 
-def phase_epso_train() -> dict:
+def phase_epso_train(ranks, wall: float) -> tuple:
     """Full-width Mula-7B-A1B, EPSO_LAYERS of its 16 layers, on an EPSO_DP x
     EPSO_EP grid of ranks sharing the card over gloo, in each of
     EPSO_RUNS: EPSO_STEPS steps on the fixed batch (one EP_SEQ-token row a
-    rank), microbatches 1, block remat, the config's capacity dispatch."""
-    import torch
+    rank), microbatches 1, block remat, the config's capacity dispatch:
+    the session's job ``ranks`` (``_epso_train_rank``), and the phases
+    its ranks ran after it."""
     from repro_torch.configs import get_config
-    from repro_torch.parallel import spawn
 
     cfg = get_config(MULA)
     world = EPSO_DP * EPSO_EP
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ranks = spawn(_epso_train_rank, world, args=(EPSO_STEPS,), backend="gloo", device=DEV,
-                  timeout_s=1100, grid=(EPSO_DP, EPSO_EP))
-    wall = time.perf_counter() - t0
     expect = expected_train_launches(EPSO_LAYERS, 1, EPSO_STEPS)
     keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
     names = [f"{mode}/{ov}" for mode, ov in EPSO_RUNS]
@@ -3260,7 +3344,139 @@ def phase_epso_train() -> dict:
                    "buffers, explicitly): no step time here is an EP, DP or EPSO speed"}
     emit("epso_train", **row)
     return (row, phase_placement_train(ranks, cfg), phase_a2a_train(ranks, cfg),
-            phase_tp_train(ranks, cfg), phase_pp_train(ranks), phase_grid_serve(ranks))
+            phase_tp_train(ranks, cfg), phase_pp_train(ranks), phase_grid_serve(ranks),
+            phase_fsdp_train(ranks, cfg))
+
+
+def fsdp_layer_bytes(cfg, itemsize: int) -> int:
+    """The bytes of one layer's fsdp-split leaves whole in a dtype of
+    ``itemsize`` bytes (the compute dtype), what one gather of a layer
+    assembles on every rank."""
+    from repro_torch.models import init_params
+    from repro_torch.train.trainer import placements
+    from repro_torch.tree import leaves
+    shapes = init_params(cfg, device="meta")
+    place = placements(cfg, shapes, {"data": FSDP_DP}, fsdp=True)
+    return sum(t.numel() // cfg.num_layers * itemsize
+               for t, pl in zip(leaves(shapes["layers"]), leaves(place["layers"])) if any(pl))
+
+
+def phase_fsdp_train(ranks, cfg) -> dict:
+    """The fsdp runs of epso_train's ranks (``_fsdp_train_rank``): full-width
+    Mula-7B-A1B at EPSO_LAYERS layers on ('data', FSDP_DP), one EP_SEQ-token
+    row a rank, block remat, EPSO_STEPS steps of FSDP 'none' and of 'so'
+    without fsdp. Asserts on every rank finite metrics, a falling loss,
+    clip_scale <= 1, rank 0's metrics, step 0's loss bit for bit the 'so'
+    run's and later ones within FSDP_LOSS_TOL (the ce too), the grad norms
+    within FSDP_NORM_TOL while the params are step 0's and within
+    FSDP_NORM_TOL_UPDATED after an update, the state bytes and param
+    elements a rank (planned = measured = FSDP_STATE_BYTES,
+    FSDP_PARAM_ELEMS), the gathers, reduce-scatters and gathered bytes of
+    the steps (a gather a layer in the forward and again in the recompute,
+    a reduce-scatter a layer), the ``c10d::`` all-gathers and
+    reduce-scatters of rank 0's profiled last step, and the exact launch
+    count;
+    prints peak memory (of the steps alone too), step ms a rank and the
+    bytes gathered a step, counted and computed."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import TrainConfig
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    L, n = EPSO_LAYERS, EPSO_STEPS
+    expect = expected_train_launches(L, 1, n)
+    layer = fsdp_layer_bytes(dataclasses.replace(cfg, num_layers=L),
+                             getattr(torch, TrainConfig().compute_dtype).itemsize)
+    want_stats = {"all_gather": 2 * L * n, "reduce_scatter": L * n,
+                  "gathered_bytes": 2 * L * n * layer}
+    so = ranks[0]["fsdp"]["so"]["history"][:n]
+    ref = [s["loss"] for s in so]
+    # the steps that run on step 0's params: no earlier step had an lr
+    fresh = [i for i in range(n) if all(s["lr"] == 0 for s in so[:i])]
+
+    def rel_to_so(h, key):
+        return [abs(s[key] - b[key]) / abs(b[key]) for s, b in zip(h, so)]
+    for i, rk in enumerate(ranks):
+        for name in ("fsdp", "so"):
+            run, where = rk["fsdp"][name], f"fsdp_train {name} rank {i}"
+            h = run["history"][:n]
+            if not all(math.isfinite(s[k]) for s in h for k in keys) or \
+                    not all(s["clip_scale"] <= 1.0 for s in h):
+                raise AssertionError(f"{where}: non-finite metrics or clip_scale above 1: {h}")
+            if not h[-1]["loss"] < h[0]["loss"]:
+                raise AssertionError(f"{where}: loss did not fall: {[s['loss'] for s in h]}")
+            if [{k: s[k] for k in keys} for s in h] != [
+                    {k: s[k] for k in keys} for s in ranks[0]["fsdp"][name]["history"][:n]]:
+                raise AssertionError(f"{where}: metrics differ from rank 0's")
+            if run["state_bytes"] != FSDP_STATE_BYTES[name]:
+                raise AssertionError(f"{where}: state bytes {run['state_bytes']}, expected "
+                                     f"{FSDP_STATE_BYTES[name]}")
+            if run["launches"] != expect:
+                raise AssertionError(f"{where}: launches {run['launches']} != {expect}")
+        run, where = rk["fsdp"]["fsdp"], f"fsdp_train fsdp rank {i}"
+        h = run["history"][:n]
+        if h[0]["loss"] != ref[0]:
+            raise AssertionError(f"{where}: step 0 loss {h[0]['loss']} != 'so''s {ref[0]}")
+        rel = rel_to_so(h, "loss")
+        if max(rel) > FSDP_LOSS_TOL:
+            raise AssertionError(f"{where}: losses off 'so''s by {rel} (> {FSDP_LOSS_TOL})")
+        rel = rel_to_so(h, "ce")
+        if max(rel) > FSDP_LOSS_TOL:
+            raise AssertionError(f"{where}: ce off 'so''s by {rel} (> {FSDP_LOSS_TOL})")
+        rel = rel_to_so(h, "grad_norm")
+        if max(rel[i] for i in fresh) > FSDP_NORM_TOL or max(rel) > FSDP_NORM_TOL_UPDATED:
+            raise AssertionError(f"{where}: grad norms off 'so''s by {rel} (> {FSDP_NORM_TOL} "
+                                 f"at steps {fresh}, on step 0's params, or > "
+                                 f"{FSDP_NORM_TOL_UPDATED})")
+        if run["param_elems"] != FSDP_PARAM_ELEMS:
+            raise AssertionError(f"{where}: {run['param_elems']} param elements, expected "
+                                 f"{FSDP_PARAM_ELEMS}")
+        if run["fsdp_stats"] != want_stats:
+            raise AssertionError(f"{where}: gathers {run['fsdp_stats']} != {want_stats}")
+    prof = ranks[0]["fsdp"]["fsdp"]["profile"]
+    calls = {k: v["calls"] for k, v in prof["host_events"].items()}
+    want_calls = {"c10d::allgather_": 2 * L, "c10d::reduce_scatter_": L}
+    if {k: calls.get(k, 0) for k in want_calls} != want_calls:
+        raise AssertionError(f"fsdp_train: rank 0's profiled step made {calls}, expected "
+                             f"{want_calls}")
+    runs = {}
+    for name in ("fsdp", "so"):
+        r0 = ranks[0]["fsdp"][name]
+        runs[name] = {
+            "losses": [s["loss"] for s in r0["history"]],
+            "grad_norms": [s["grad_norm"] for s in r0["history"]],
+            "loss_rel_to_so": rel_to_so(r0["history"], "loss"),
+            "ce_rel_to_so": rel_to_so(r0["history"], "ce"),
+            "grad_norm_rel_to_so": rel_to_so(r0["history"], "grad_norm"),
+            "state_bytes_per_rank": r0["state_bytes"], "param_elems_per_rank": r0["param_elems"],
+            "peak_bytes_by_rank": [rk["fsdp"][name]["peak_bytes"] for rk in ranks],
+            "peak_bytes_steps_by_rank": [rk["fsdp"][name]["peak_bytes_steps"] for rk in ranks],
+            "step_ms_by_rank": [[s["step_ms"] for s in rk["fsdp"][name]["history"]]
+                                for rk in ranks],
+            "step_ms_median_by_rank": [statistics.median(
+                s["step_ms"] for s in rk["fsdp"][name]["history"][1:]) for rk in ranks]}
+    fs = ranks[0]["fsdp"]["fsdp"]
+    runs["fsdp"].update({
+        "gathered_bytes_per_step_counted": fs["fsdp_stats"]["gathered_bytes"] / n,
+        "gathered_bytes_per_step_computed": 2 * L * layer,
+        "gathers_per_step": fs["fsdp_stats"]["all_gather"] / n,
+        "reduce_scatters_per_step": fs["fsdp_stats"]["reduce_scatter"] / n,
+        "profiled_step_calls_rank0": calls,
+        "profiled_step_gloo_host_ms_rank0": sum(v["ms"] for k, v in prof["host_events"].items()
+                                                if k.startswith("gloo:")),
+        "profile_step_rank0": prof})
+    row = {"model": cfg.name, "layers": L, "grid": {"data": FSDP_DP}, "ranks": len(ranks),
+           "seq_per_rank": 1, "seq_len": EP_SEQ, "steps": n, "remat": "block",
+           "dispatch": cfg.moe.dispatch, "runs": runs, "tolerance": FSDP_LOSS_TOL,
+           "grad_norm_tolerance": {"steps_on_step0_params": fresh, "there": FSDP_NORM_TOL,
+                                   "after_an_update": FSDP_NORM_TOL_UPDATED},
+           "layer_bytes_gathered": layer,
+           "launches_per_rank": ranks[0]["fsdp"]["fsdp"]["launches"],
+           "expected_launches": expect,
+           "note": "4 ranks time-share one card; gloo carries the gathers and reduce-scatters "
+                   "(as all-reduces) through host memory: no step time here is an FSDP speed"}
+    emit("fsdp_train", **row)
+    return row
 
 
 def phase_pp_train(ranks) -> dict:
@@ -3639,7 +3855,7 @@ def phase_placement_train(ranks, cfg) -> dict:
 
 
 # ----------------------------------------------------------------------------
-# the training launcher: full-depth dense Mula-1B, and fault tolerance through
+# the training launcher: dense Mula-1B, and fault tolerance through
 # the MoE kernels
 # ----------------------------------------------------------------------------
 
@@ -3775,18 +3991,25 @@ def _finite(history) -> bool:
 
 
 def phase_launcher_dense() -> dict:
-    """Mula-1B at full width and depth through the launcher: ``run(DENSE_ARCH,
-    **DENSE_RUN)`` (6 steps, a checkpoint after step 3), then the same call
-    in the same directory, which resumes at step 4; steps 4 and 5 must
-    agree bit for bit. The second run's last step is profiled."""
+    """Mula-1B at full width and DENSE_LAYERS of its 16 layers through the
+    launcher: ``run(DENSE_ARCH, **DENSE_RUN)``'s ``launch_ranks(prepare_run(
+    ...))`` with the spec's model cut to that depth (6 steps, a checkpoint
+    after step 3), then the same call in the same directory, which resumes
+    at step 4; steps 4 and 5 must agree bit for bit. The second run's last
+    step is profiled."""
+    import dataclasses
     import gc
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.launch.train import run
+    from repro_torch.launch.train import launch_ranks
 
-    cfg = get_config(DENSE_ARCH)
+    cfg = dataclasses.replace(get_config(DENSE_ARCH), num_layers=DENSE_LAYERS)
+
+    def run(arch, **kw):
+        return launch_ranks(_prepare_grid_run(arch, kw, DENSE_LAYERS))[0]
+
     out = LAUNCH_DIR / "dense"
     shutil.rmtree(out, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -3933,58 +4156,154 @@ def _launcher_grid_rank(grid, spec):
             "coords": grid.coords if grid is not None else None}
 
 
-def _launch_grid(name: str, arch: str, run_kw: dict, layers: int = 0) -> tuple:
-    """``launch.train.prepare_run(arch, **run_kw)`` in this process, then its
-    ranks through ``launch.train.launch_ranks`` with ``_launcher_grid_rank``
-    as the rank body (in this process for a plan of one rank); the run's
-    spec, the ranks' results and the wall time. ``layers``: the model cut to
-    that many of its layers. Every rank must see the same history."""
+def _prepare_grid_run(arch: str, run_kw: dict, layers: int = 0):
+    """``launch.train.prepare_run(arch, **run_kw)``, with the model cut to
+    ``layers`` of its layers if given."""
     import dataclasses
 
-    import torch
     from repro_torch.launch import train as launch
-    torch.cuda.empty_cache()
     spec = launch.prepare_run(arch, **run_kw)
     if layers:
         spec = dataclasses.replace(spec, cfg=dataclasses.replace(spec.cfg, num_layers=layers))
-    t0 = time.perf_counter()
-    ranks = launch.launch_ranks(spec, _launcher_grid_rank)
-    wall = time.perf_counter() - t0
+    return spec
+
+
+def _same_history(name: str, ranks) -> None:
     for i, r in enumerate(ranks):
         if list(r["result"]) != list(ranks[0]["result"]):
             raise AssertionError(f"{name}: rank {i}'s history differs from rank 0's")
+
+
+def _launch_grid(name: str, arch: str, run_kw: dict, layers: int = 0) -> tuple:
+    """The run's spec (``_prepare_grid_run``), then its ranks through
+    ``launch.train.launch_ranks`` with ``_launcher_grid_rank`` as the rank
+    body (in this process for a plan of one rank); the spec, the ranks'
+    results and the wall time. Every rank must see the same history."""
+    import torch
+    from repro_torch.launch import train as launch
+    torch.cuda.empty_cache()
+    spec = _prepare_grid_run(arch, run_kw, layers)
+    t0 = time.perf_counter()
+    ranks = launch.launch_ranks(spec, _launcher_grid_rank)
+    wall = time.perf_counter() - t0
+    _same_history(name, ranks)
     return spec, ranks, wall
 
 
-def phase_launcher_grid_dense() -> dict:
+# the multi-rank launcher runs that share the session's processes: name,
+# arch, run keywords (``out`` added under LAUNCH_DIR / name), layers; in this
+# order (each grid_dense run resumes the one before it in the same directory)
+LAUNCHER_GRID_RUNS = (
+    ("grid_dense/first", DENSE_ARCH, GRID_DENSE_RUN, GRID_DENSE_LAYERS),
+    ("grid_dense/second", DENSE_ARCH, GRID_DENSE_RUN, GRID_DENSE_LAYERS),
+    ("grid_ft/clean", FT_ARCH, GRID_FT_RUN, 0),
+    ("grid_tp/clean", FT_ARCH, GRID_TP_RUN, 0),
+    ("grid_tp/faulty", FT_ARCH, dict(GRID_TP_RUN, **GRID_TP_INJECT), 0),
+    ("grid_rebalance/clean", FT_ARCH, GRID_REB_RUN, 0),
+    ("grid_rebalance/faulty", FT_ARCH, dict(GRID_REB_RUN, **GRID_REB_INJECT), 0))
+
+
+def _grid_run_dir(name: str) -> Path:
+    """A session launcher run's directory: one for both grid_dense runs."""
+    return LAUNCH_DIR / ("grid_dense" if name.startswith("grid_dense/") else name)
+
+
+def launcher_grid_jobs() -> tuple:
+    """The session jobs of LAUNCHER_GRID_RUNS, each ``launch.train.
+    _rank_main`` under ``_launcher_grid_rank``, as ``launch_ranks`` would
+    run it: its spec, and its data prepared here first (``prepare_data``),
+    in an emptied directory; the jobs and {name: spec}."""
+    from repro_torch.launch import train as launch
+
+    for name, *_ in LAUNCHER_GRID_RUNS:
+        shutil.rmtree(_grid_run_dir(name), ignore_errors=True)
+    jobs, specs = [], {}
+    for name, arch, run_kw, layers in LAUNCHER_GRID_RUNS:
+        spec = _prepare_grid_run(arch, dict(run_kw, out=str(_grid_run_dir(name))), layers)
+        os.makedirs(spec.out, exist_ok=True)
+        launch.prepare_data(spec.out, context=spec.train.seq_len, seed=spec.train.seed)
+        specs[name] = spec
+        jobs.append((name, _launcher_grid_rank, (spec,), spec.plan.grid))
+    return jobs, specs
+
+
+def _grid_run(session: dict, specs: dict, name: str) -> tuple:
+    """A session launcher run's spec, ranks and rank 0's wall time; every
+    rank must see the same history."""
+    ranks = session["ranks"][name]
+    _same_history(f"launcher_{name}", ranks)
+    return specs[name], ranks, session["wall_s"][name]
+
+
+def _session_rank(world, jobs):
+    """One rank of the session: each job ``(name, fn, args, shape)`` in
+    turn, ``fn(g, *args)`` with ``g`` the world's group (``shape`` None) or
+    the grid of that ``spawn(grid=)`` shape cut from it (``init_grid``,
+    collective: every rank runs the jobs in one order); {name: result} and
+    {name: the job's seconds}."""
+    import torch
+    from repro_torch.parallel import init_grid
+
+    out, wall = {}, {}
+    for name, fn, args, shape in jobs:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        g = world if shape is None else init_grid(world, *shape)
+        try:
+            out[name] = fn(g, *args)
+        except Exception as e:
+            raise RuntimeError(f"session job {name} failed") from e
+        wall[name] = time.perf_counter() - t0
+    return {"results": out, "wall_s": wall}
+
+
+def grid_session(jobs) -> dict:
+    """The multi-rank phases' ranks, SESSION_RANKS processes sharing the
+    card over gloo, started once for all ``jobs`` (``_session_rank``): each
+    process start, CUDA context and gloo rendezvous took ~20-25 s a spawn
+    when every phase had its own. {"ranks": {name: the ranks' results in
+    rank order}, "wall_s": {name: rank 0's seconds}}."""
+    import torch
+    from repro_torch.parallel import spawn
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = spawn(_session_rank, SESSION_RANKS, args=(jobs,), backend="gloo", device=DEV,
+                  timeout_s=SESSION_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    names = [j[0] for j in jobs]
+    out = {"ranks": {n: [r["results"][n] for r in ranks] for n in names},
+           "wall_s": ranks[0]["wall_s"]}
+    emit("grid_session", ranks=SESSION_RANKS, wall_s=wall, job_wall_s_rank0=out["wall_s"],
+         job_wall_s_by_rank={n: [r["wall_s"][n] for r in ranks] for n in names})
+    return out
+
+
+def phase_launcher_grid_dense(session: dict, specs: dict) -> dict:
     """Mula-1B at full width and GRID_DENSE_LAYERS of its 16 layers through
     the multi-rank launcher: launcher_dense's run (GRID_DENSE_RUN) with
     ``parallel='dp=4'`` and ``opt_shard='so'``, four ranks sharing the card
-    over gloo, one 2048-token row each; then the same call, which resumes
-    from the last checkpoint. Beside it the same run on one rank (no plan)
-    at the same depth. The resumed steps must agree bit for bit, the losses
-    within 1 % of the one-rank run's (same seed), the checkpoint hold the
-    one-rank run's members (whole arrays) and the plan's layout, each rank
-    exactly its planned state bytes."""
+    over gloo, one 2048-token row each; then the same run, which resumes
+    from the last checkpoint (both in the session's processes). Beside it
+    the same run on one rank (no plan) at the same depth. The resumed
+    steps must agree bit for bit, the losses within 1 % of the one-rank
+    run's (same seed), the checkpoint hold the one-rank run's members
+    (whole arrays) and the plan's layout, each rank exactly its planned
+    state bytes."""
     from repro_torch.models import init_params
     from repro_torch.optim.epso import state_bytes_per_device
     from repro_torch.parallel.sharding import param_placements
 
-    out, one_out = LAUNCH_DIR / "grid_dense", LAUNCH_DIR / "grid_dense_one"
+    out, one_out = _grid_run_dir("grid_dense/first"), LAUNCH_DIR / "grid_dense_one"
     one_run = {k: v for k, v in GRID_DENSE_RUN.items() if k not in ("parallel", "opt_shard")}
-    for d in (out, one_out):
-        shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(one_out, ignore_errors=True)
     try:
         _, one, wall_one = _launch_grid("launcher_grid_dense", DENSE_ARCH,
                                         dict(one_run, out=str(one_out)), GRID_DENSE_LAYERS)
         one_members = _npz_members(next((one_out / "ckpt").glob("ckpt-*/state.npz")))
         shutil.rmtree(one_out, ignore_errors=True)
-        spec, first, wall_first = _launch_grid("launcher_grid_dense", DENSE_ARCH,
-                                               dict(GRID_DENSE_RUN, out=str(out)),
-                                               GRID_DENSE_LAYERS)
-        _, second, wall_second = _launch_grid("launcher_grid_dense", DENSE_ARCH,
-                                              dict(GRID_DENSE_RUN, out=str(out)),
-                                              GRID_DENSE_LAYERS)
+        spec, first, wall_first = _grid_run(session, specs, "grid_dense/first")
+        _, second, wall_second = _grid_run(session, specs, "grid_dense/second")
         ckpt = next((out / "ckpt").glob("ckpt-*/state.npz"))
         members = _npz_members(ckpt)
         manifest = json.loads((ckpt.parent / "MANIFEST.json").read_text())
@@ -4055,11 +4374,20 @@ def phase_launcher_grid_dense() -> dict:
     return row
 
 
-def phase_launcher_grid_ft(ft: dict) -> dict:
+def _cli_args(run: dict) -> list:
+    """The launcher's command line (``launch.train.main``) for the
+    ``run`` keywords of ``launch.train.run``: each key as its --flag."""
+    return [arg for k, v in run.items() for arg in (f"--{k.replace('_', '-')}", str(v))]
+
+
+def phase_launcher_grid_ft(ft: dict, session: dict, specs: dict) -> dict:
     """launcher_ft's runs on a dp = 2 x ep = 2 grid under EPSO
-    (GRID_FT_RUN): clean, then with FT_INJECT; every rank relaunches twice
-    and ends with the clean run's history, and launches exactly the kernels
-    of 18 and 21 steps. The losses are held to launcher_ft's (``ft``, same
+    (GRID_FT_RUN): clean in the session, its ranks under the probe (the
+    exact launches of 18 steps on every rank); then with FT_INJECT through
+    the command line, ``python -m repro_torch.launch.train`` in a fresh
+    process whose ranks run the launcher's own body: two relaunches with
+    the node swaps, and its history (rank 0's ``history.json``) the clean
+    run's bit for bit. The losses are held to launcher_ft's (``ft``, same
     seed and data): within 0.1 % for steps 0-2, where the warmup's small
     steps leave both runs' params nearly the same, so the losses compare
     the forward and the first updates through this grid's kernel shapes;
@@ -4070,38 +4398,30 @@ def phase_launcher_grid_ft(ft: dict) -> dict:
     pairs that launcher_ft keeps (measured on the card: drops from step 3
     on here, none there, and the losses part at that step). That is the
     reference's own EP semantics (``tests/test_torch_ep.py`` holds each
-    rank's capacity dispatch to the JAX one), not rounding. Then the same
-    plan through the command line, 4 steps in a subprocess."""
+    rank's capacity dispatch to the JAX one), not rounding."""
     out = LAUNCH_DIR / "grid_ft"
     shutil.rmtree(out, ignore_errors=True)
-    runs = {}
+    cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch", FT_ARCH,
+           *_cli_args(dict(GRID_FT_RUN, **FT_INJECT, out=str(out / "faulty")))]
     try:
-        for name, kw in (("clean", {}), ("faulty", FT_INJECT)):
-            runs[name] = _launch_grid("launcher_grid_ft", FT_ARCH,
-                                      dict(GRID_FT_RUN, out=str(out / name), **kw))[1:]
-        manifests = [json.loads((out / "faulty" / "ckpt" / slot / "MANIFEST.json").read_text())
-                     for slot in ("ckpt-1", "ckpt-2")]
-        cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch", FT_ARCH,
-               "--parallel", GRID_FT_RUN["parallel"], "--opt-shard", "epso", "--d-model",
-               str(FT_RUN["d_model"]), "--layers", str(FT_RUN["layers"]), "--steps", "4",
-               "--batch", str(FT_RUN["batch"]), "--seq", str(FT_RUN["seq"]),
-               "--compute-dtype", FT_RUN["compute_dtype"], "--out", str(out / "cli")]
+        clean, clean_wall = _grid_run(session, specs, "grid_ft/clean")[1:]
         t0 = time.perf_counter()
         proc = subprocess.run(cli, capture_output=True, text=True, timeout=600, cwd=str(ROOT),
                               env={**os.environ, "PYTHONPATH": str(SRC)})
-        cli_wall = time.perf_counter() - t0
-        cli_out = {"rc": proc.returncode, "wall_s": cli_wall,
-                   "stdout_tail": proc.stdout[-1500:], "stderr_tail": proc.stderr[-1500:]}
-        if proc.returncode == 0:
-            cli_out["history"] = json.loads((out / "cli" / "history.json").read_text())
-            cli_out["summary"] = json.loads((out / "cli" / "summary.json").read_text())
+        faulty_wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"launcher_grid_ft: the command line run {cli} failed "
+                                 f"(rc {proc.returncode}): {proc.stderr[-3000:]}")
+        faulty = json.loads((out / "faulty" / "history.json").read_text())
+        summary = json.loads((out / "faulty" / "summary.json").read_text())
+        manifests = [json.loads((out / "faulty" / "ckpt" / slot / "MANIFEST.json").read_text())
+                     for slot in ("ckpt-1", "ckpt-2")]
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    (clean, clean_wall), (faulty, faulty_wall) = runs["clean"], runs["faulty"]
     layers = FT_RUN["layers"]
-    expect = {"clean": expected_train_launches(layers, 1, FT_RUN["steps"]),
-              "faulty": expected_train_launches(layers, 1, FT_RUN["steps"] + 3)}
-    c0, f0 = clean[0]["result"], faulty[0]["result"]
+    expect = expected_train_launches(layers, 1, FT_RUN["steps"])
+    # the clean history as the command line's history.json holds it
+    c0 = json.loads(json.dumps(list(clean[0]["result"])))
     losses = [h["loss"] for h in c0]
     rel = [abs(a - b) / abs(b) for a, b in zip(losses, ft["losses"])]
     drops = [h["moe_drops"] for h in c0]
@@ -4110,30 +4430,29 @@ def phase_launcher_grid_ft(ft: dict) -> dict:
            "moe_drops": drops, "moe_drops_launcher_ft": ft["moe_drops"],
            "moe_drops_differ_at_steps": [i for i, (a, b) in enumerate(zip(drops, ft["moe_drops"]))
                                          if a != b],
-           "relaunches_by_rank": [r["result"].relaunches for r in faulty],
-           "replaced_by_rank": [r["result"].replaced for r in faulty],
+           "cli": cli[1:], "cli_relaunches": summary["relaunches"],
+           "cli_replaced": summary["replaced"], "cli_summary": summary,
+           "cli_stdout_tail": proc.stdout[-1500:],
            "slot_steps": sorted(m["step"] for m in manifests if m.get("valid")),
-           "history_bit_identical": list(f0) == list(c0),
+           "history_bit_identical": faulty == c0,
            "step_ms_median_by_rank": [statistics.median(r["rec"]["step_ms"]) for r in clean],
-           "save_ms_rank0": faulty[0]["rec"]["save_ms"],
-           "restore_ms_rank0": faulty[0]["rec"]["restore_ms"],
-           "peak_bytes_by_rank": [r["peak_bytes"] for r in clean + faulty],
+           "peak_bytes_by_rank": [r["peak_bytes"] for r in clean],
            "wall_s": [clean_wall, faulty_wall],
-           "launches_per_rank": {"clean": clean[0]["launches"], "faulty": faulty[0]["launches"]},
-           "expected_launches": expect, "cli": cli_out}
+           "launches_per_rank": clean[0]["launches"], "expected_launches": expect}
     emit("launcher_grid_ft", **row)
-    for i, (c, f) in enumerate(zip(clean, faulty)):
+    for i, c in enumerate(clean):
         where = f"launcher_grid_ft rank {i}"
-        if c["result"].relaunches != 0 or f["result"].relaunches != 2 or \
-                f["result"].replaced != [(0, 4), (1, 5)]:
-            raise AssertionError(f"{where}: relaunches {c['result'].relaunches} / "
-                                 f"{f['result'].relaunches}, node swaps {f['result'].replaced}")
-        if list(f["result"]) != list(c["result"]) or \
-                [h["step"] for h in f["result"]] != list(range(FT_RUN["steps"])):
-            raise AssertionError(f"{where}: the faulty run's history differs from the clean one")
-        if {"clean": c["launches"], "faulty": f["launches"]} != expect:
-            raise AssertionError(f"{where}: kernel launches {c['launches']} / "
-                                 f"{f['launches']} != expected {expect}")
+        if c["result"].relaunches != 0:
+            raise AssertionError(f"{where}: the clean run relaunched {c['result'].relaunches} "
+                                 f"times")
+        if c["launches"] != expect:
+            raise AssertionError(f"{where}: kernel launches {c['launches']} != expected {expect}")
+    if summary["relaunches"] != 2 or summary["replaced"] != [[0, 4], [1, 5]] or \
+            summary["steps"] != FT_RUN["steps"] or summary["parallel"] != "dp=2,ep=2,opt=epso":
+        raise AssertionError(f"launcher_grid_ft: the command line run's summary {summary}")
+    if faulty != c0 or [h["step"] for h in faulty] != list(range(FT_RUN["steps"])):
+        raise AssertionError("launcher_grid_ft: the command line's faulty history differs from "
+                             "the clean one")
     if row["slot_steps"] != [10, 15]:
         raise AssertionError(f"launcher_grid_ft: valid slots at {row['slot_steps']}, not 10, 15")
     if not (_finite(c0) and c0[-1]["loss"] < c0[0]["loss"]):
@@ -4141,35 +4460,28 @@ def phase_launcher_grid_ft(ft: dict) -> dict:
     if len(rel) != FT_RUN["steps"] or max(rel[:3]) > 1e-3 or max(rel) > 0.05:
         raise AssertionError(f"launcher_grid_ft: losses off launcher_ft's by {rel} (> 0.1 % "
                              f"in steps 0-2 or > 5 %)")
-    summary = cli_out.get("summary") or {}
-    if cli_out["rc"] != 0 or [h["step"] for h in cli_out["history"]] != [0, 1, 2, 3] or \
-            not _finite(cli_out["history"]) or (summary.get("parallel"), summary.get(
-                "opt_overlap"), summary.get("steps")) != ("dp=2,ep=2,opt=epso", "ring", 4):
-        raise AssertionError(f"launcher_grid_ft: the command line run failed: {cli_out}")
     return row
 
 
-def phase_launcher_grid_tp(ft: dict) -> dict:
+def phase_launcher_grid_tp(ft: dict, session: dict, specs: dict) -> dict:
     """launcher_ft's runs on an ep = 2 x tp = 2 grid under EPSO
     (GRID_TP_RUN: attention, the expert stacks' d_ff and the SO/EPSO state
     split over 'tp'): clean, then with a hard failure at step 7 that
-    relaunches from the step-5 checkpoint. Every rank relaunches once and
+    relaunches from the step-5 checkpoint (both in the session's
+    processes). Every rank relaunches once and
     ends with the clean run's history, bit for bit, and launches exactly
     the kernels of 18 and 19 steps; the MANIFEST holds the plan's layout;
     the losses are finite, fall, and lie within GRID_TP_LOSS_TOL relative
     of launcher_ft's (same seed and data) at the steps where neither run
     drops pairs (the capacity pools differ by design: ROADMAP.md §3, "Not
     faults")."""
-    out = LAUNCH_DIR / "grid_tp"
-    shutil.rmtree(out, ignore_errors=True)
     runs = {}
     try:
-        for name, kw in (("clean", {}), ("faulty", GRID_TP_INJECT)):
-            runs[name] = _launch_grid("launcher_grid_tp", FT_ARCH,
-                                      dict(GRID_TP_RUN, out=str(out / name), **kw))[1:]
-        manifest = _newest_manifest(out / "faulty" / "ckpt")
+        for name in ("clean", "faulty"):
+            runs[name] = _grid_run(session, specs, f"grid_tp/{name}")[1:]
+        manifest = _newest_manifest(_grid_run_dir("grid_tp/faulty") / "ckpt")
     finally:
-        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(LAUNCH_DIR / "grid_tp", ignore_errors=True)
     (clean, clean_wall), (faulty, faulty_wall) = runs["clean"], runs["faulty"]
     layers, steps = FT_RUN["layers"], FT_RUN["steps"]
     expect = {"clean": expected_train_launches(layers, 1, steps),
@@ -4324,27 +4636,26 @@ def _newest_manifest(ckpt) -> dict:
     return max((m for m in mans if m.get("valid")), key=lambda m: m["step"])
 
 
-def phase_launcher_grid_rebalance() -> dict:
+def phase_launcher_grid_rebalance(session: dict, specs: dict) -> dict:
     """launcher_grid_ft's run with live EP rebalancing (GRID_REB_RUN: the
     plan's ``rebalance=2:1.0`` and ``rebalance_force_at=3``) on the dp = 2 x
     ep = 2 EPSO grid: clean, then with a hard failure (GRID_REB_INJECT)
     after the step-5 checkpoint that follows the event, so that the relaunch
-    restores placed arrays and the MANIFEST's placement. Asserts at least
+    restores placed arrays and the MANIFEST's placement (both in the
+    session's processes). Asserts at least
     one event, the faulty run's history bit-identical to the clean one's
     (imbalances and events included) on every rank, the same placement in
     both runs' last MANIFEST, finite losses and the exact launch count of
     every kernel (one more step replayed in the faulty run)."""
-    out = LAUNCH_DIR / "grid_rebalance"
-    shutil.rmtree(out, ignore_errors=True)
     runs = {}
     try:
-        for name, kw in (("clean", {}), ("faulty", GRID_REB_INJECT)):
-            runs[name] = _launch_grid("launcher_grid_rebalance", FT_ARCH,
-                                      dict(GRID_REB_RUN, out=str(out / name), **kw))[1:]
-            runs[name] += (_newest_manifest(out / name / "ckpt"),
-                           json.loads((out / name / "summary.json").read_text()))
+        for name in ("clean", "faulty"):
+            d = _grid_run_dir(f"grid_rebalance/{name}")
+            runs[name] = _grid_run(session, specs, f"grid_rebalance/{name}")[1:]
+            runs[name] += (_newest_manifest(d / "ckpt"),
+                           json.loads((d / "summary.json").read_text()))
     finally:
-        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(LAUNCH_DIR / "grid_rebalance", ignore_errors=True)
     (clean, clean_wall, man_c, sum_c), (faulty, faulty_wall, man_f, sum_f) = \
         runs["clean"], runs["faulty"]
     layers, steps = FT_RUN["layers"], FT_RUN["steps"]
@@ -4616,15 +4927,27 @@ def main(argv=None) -> int:
     ssm_serve = phase_ssm_serve()
     ssm_train = phase_ssm_train()
     phase_launcher_ssm()
-    phase_ep_reference()
-    ep_train = phase_ep_train()
-    epso, placement, a2a, tp, pp, grid_serve = phase_epso_train()
+    # the multi-rank phases share one set of processes (grid_session)
+    ep_ref = ep_reference_prep()
+    grid_jobs, grid_specs = launcher_grid_jobs()
+    try:
+        session = grid_session([
+            ep_ref["job"], ("ep_train", _ep_train_rank, (EP_STEPS,), None),
+            ("epso_train", _epso_train_rank, (EPSO_STEPS,), (EPSO_DP, EPSO_EP)), *grid_jobs])
+    except BaseException:
+        shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+        raise
+    ranks, walls = session["ranks"], session["wall_s"]
+    phase_ep_reference(ranks["ep_reference"], walls["ep_reference"], ep_ref)
+    ep_train = phase_ep_train(ranks["ep_train"], walls["ep_train"])
+    epso, placement, a2a, tp, pp, grid_serve, fsdp = phase_epso_train(
+        ranks["epso_train"], walls["epso_train"])
     dense = phase_launcher_dense()
     ft = phase_launcher_ft()
-    grid_dense = phase_launcher_grid_dense()
-    grid_ft = phase_launcher_grid_ft(ft)
-    grid_tp = phase_launcher_grid_tp(ft)
-    grid_reb = phase_launcher_grid_rebalance()
+    grid_dense = phase_launcher_grid_dense(session, grid_specs)
+    grid_ft = phase_launcher_grid_ft(ft, session, grid_specs)
+    grid_tp = phase_launcher_grid_tp(ft, session, grid_specs)
+    grid_reb = phase_launcher_grid_rebalance(session, grid_specs)
     grid_pp = phase_launcher_grid_pp()
     phase_launches(get_config(MULA))
     emit("phase_times", seconds=PHASE_S, total_s=time.perf_counter() - T_START)
@@ -4645,11 +4968,11 @@ def main(argv=None) -> int:
                    "tp_train": tp["launches_per_rank"][name],
                    "pp_train": pp["launches_per_rank"][name],
                    "grid_serve": grid_serve["launches_per_rank"][name],
+                   "fsdp_train": fsdp["launches_per_rank"][name],
                    "launcher_dense": dense["launches"][name],
                    "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name],
                    "launcher_grid_dense": grid_dense["launches_per_rank"][name],
-                   "launcher_grid_ft": grid_ft["launches_per_rank"]["clean"][name]
-                   + grid_ft["launches_per_rank"]["faulty"][name],
+                   "launcher_grid_ft": grid_ft["launches_per_rank"][name],
                    "launcher_grid_rebalance": grid_reb["launches_per_rank"]["clean"][name]
                    + grid_reb["launches_per_rank"]["faulty"][name],
                    "launcher_grid_tp": grid_tp["launches_per_rank"]["clean"][name]

@@ -78,6 +78,7 @@ import torch.distributed as dist
 
 from repro_torch.parallel.grid import rank_coords
 from repro_torch.parallel.placement import ExpertPlacement, is_expert_stack
+from repro_torch.parallel.plan import FSDP_ITEM, refuse
 from repro_torch.parallel.sharding import tile_slices
 from repro_torch.tree import assign, keyed_leaves, leaves, leaves_with_path
 
@@ -180,6 +181,9 @@ class _Tiles:
                 f"checkpoints of a grid on the {grid.world.backend!r} backend: the tiles go "
                 f"through host tensors over gloo (ROADMAP.md §1 item 5, NCCL with one card per "
                 f"rank)")
+        if any("data" in axes for key, (_, place) in layout.items()
+               if key.startswith(".params") for axes in place):
+            refuse("grid checkpoints of an fsdp layout (params split over 'data')", FSDP_ITEM)
         self.group, self.rank = grid.world.group, grid.world.rank
         self.sizes = grid.axis_sizes
         self.coords = [rank_coords(r, grid.sizes) for r in range(grid.world.world)]

@@ -66,24 +66,26 @@ def opt_state_shard(opt: AdamWState, rank: int, world: int) -> AdamWState:
     return AdamWState(opt.step, *(expert_shard(t, rank, world) for t in (opt.master, opt.m, opt.v)))
 
 
-def _grid_specs(cfg: ModelConfig, dp: int, ep: int, mode: str, tp: int = 1, pp: int = 1):
+def _grid_specs(cfg: ModelConfig, dp: int, ep: int, mode: str, tp: int = 1, pp: int = 1,
+                fsdp: bool = False):
     sizes = {a: n for a, n in (("data", dp), ("pp", pp), ("ep", ep), ("tp", tp)) if n > 1}
     shapes = init_params(cfg, device="meta")
-    place = placements(cfg, shapes, sizes)
+    place = placements(cfg, shapes, sizes, fsdp=fsdp)
     return shapes, optimizer_state_specs(shapes, place, sizes, mode), \
         {"data": dp, "pp": pp, "ep": ep, "tp": tp}, place
 
 
 def params_for_rank(params: dict, cfg: ModelConfig, *, dp: int, ep: int, rank: int,
                     tp: int = 1, pp: int = 1, device: DeviceLike = None,
-                    dtype: torch.dtype = None) -> dict:
+                    dtype: torch.dtype = None, fsdp: bool = False) -> dict:
     """Copies of rank ``rank``'s tiles of a whole parameter tree on a dp x
     pp x ep x tp grid (rank = ((d * pp + p) * ep + e) * tp + t): what
     ``train.init_state`` cuts there from the same whole params. The leaves
     are tensors or numpy arrays (the JAX package's, ``jax.tree.map(
     np.asarray, p)``, whose tiles become float32 tensors); each leaf is cut
-    before its tile is copied, to ``device`` as ``dtype`` where given."""
-    _, _, sizes, place = _grid_specs(cfg, dp, ep, "none", tp, pp)
+    before its tile is copied, to ``device`` as ``dtype`` where given.
+    ``fsdp``: the layout with the 'data' tiles (``init_state(fsdp=True)``)."""
+    _, _, sizes, place = _grid_specs(cfg, dp, ep, "none", tp, pp, fsdp)
     coords = rank_coords(rank, sizes)
     dev = None if device is None else resolve_device(device)
 
@@ -98,17 +100,18 @@ def params_for_rank(params: dict, cfg: ModelConfig, *, dp: int, ep: int, rank: i
 
 def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, rank: int,
                        mode: str, device: DeviceLike = None, tp: int = 1,
-                       pp: int = 1) -> AdamWState:
+                       pp: int = 1, fsdp: bool = False) -> AdamWState:
     """Rank ``rank``'s state on a dp x pp x ep x tp grid (rank = ((d * pp +
     p) * ep + e) * tp + t) under ``opt_sharding_mode`` ``mode``, from a full AdamW state: the JAX
     package's with numpy leaves (converted by ``opt_state_from_jax`` onto
     ``device``) or the port's. Each of master, m and v is cut by its state
     placement (``optim.epso.optimizer_state_specs`` of the port's param
     placements), as copies; the step is kept. The shards equal what
-    ``train.init_state`` cuts on that rank from the same full state."""
+    ``train.init_state`` cuts on that rank from the same full state (with
+    ``fsdp``, ``init_state(fsdp=True)``)."""
     if not torch.is_tensor(leaves(opt.master)[0]):
         opt = opt_state_from_jax(opt, device=device)
-    _, specs, sizes, _ = _grid_specs(cfg, dp, ep, mode, tp, pp)
+    _, specs, sizes, _ = _grid_specs(cfg, dp, ep, mode, tp, pp, fsdp)
     coords = rank_coords(rank, sizes)
 
     def cut(tree):
@@ -118,12 +121,12 @@ def opt_state_for_rank(opt: AdamWState, cfg: ModelConfig, *, dp: int, ep: int, r
 
 
 def opt_state_from_ranks(states: list, cfg: ModelConfig, *, dp: int, ep: int,
-                         mode: str, tp: int = 1, pp: int = 1) -> dict:
+                         mode: str, tp: int = 1, pp: int = 1, fsdp: bool = False) -> dict:
     """The inverse of ``opt_state_for_rank``: the ranks' states (in rank
     order) put back together into full float32 numpy arrays, ``{"master",
     "m", "v"}`` each a dict of leaves by path ('layers/moe/gate'), and
     ``"step"``. Ranks that hold the same tile must agree on it exactly."""
-    shapes, specs, sizes, _ = _grid_specs(cfg, dp, ep, mode, tp, pp)
+    shapes, specs, sizes, _ = _grid_specs(cfg, dp, ep, mode, tp, pp, fsdp)
     out = {"step": int(states[0].step)}
     for what in ("master", "m", "v"):
         full = {path: np.full(tuple(leaf.shape), np.nan, dtype=np.float32)

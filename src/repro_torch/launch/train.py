@@ -62,7 +62,8 @@ float32 the JAX launcher fixes. The MoE kernels on the card take bf16, so
 an MoE model on the card runs with ``bfloat16``.
 
 Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
-item that ports them: plans with a pod axis, ``fsdp`` (§1 item 5), tp for
+item that ports them: plans with a pod axis (§1 item 5), ``fsdp`` (§1
+item 5.1c: the step runs it, the launcher not yet), tp for
 the ssm and hybrid archs (§1 item 5.10), the all-to-all Stage 1 under pp
 (§1 item 5.11), ``kernel_tiles`` and ``tiles=`` (§1 item 7), and the vlm
 and audio archs (§1 item 6). A pp axis refuses the hybrid arch and
@@ -93,7 +94,7 @@ from repro_torch.optim.overlap import resolve_opt_overlap
 from repro_torch.parallel import ParallelPlan, ResolvedPlan, spawn
 from repro_torch.parallel.pipeline import check_pp_microbatches
 from repro_torch.parallel.placement import ExpertPlacement, RebalanceController, apply_placement
-from repro_torch.parallel.plan import refuse
+from repro_torch.parallel.plan import FSDP_ITEM, refuse
 from repro_torch.train import init_state, make_train_step, state_layout
 from repro_torch.tree import keyed_leaves, leaves
 
@@ -139,11 +140,13 @@ def _env_int(name: str):
     return int(v) if v else None
 
 
-def _check_supported(cfg, *, kernel_tiles) -> None:
+def _check_supported(cfg, *, kernel_tiles, fsdp: bool = False) -> None:
     if kernel_tiles is not None:
         refuse("kernel tile selection (--kernel-tiles)", "item 7, autotuning")
     if cfg.arch_type not in ARCHS:
         refuse(f"arch_type {cfg.arch_type!r}", "item 6, the rest of the zoo")
+    if fsdp:
+        refuse("fsdp in the launcher (--parallel ...,fsdp)", FSDP_ITEM)
 
 
 def _batch_mover(batch: int, seq: int, dev: torch.device):
@@ -242,8 +245,6 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
             cfg.moe, moe_impl=moe_impl or cfg.moe.moe_impl,
             forced_uniform_routing=fur,
             d_ff_expert=moe_dff or cfg.moe.d_ff_expert))
-    _check_supported(cfg, kernel_tiles=kernel_tiles)
-
     # ---- the ParallelPlan: --parallel spec, or the legacy --mesh shim ----
     if parallel:
         pplan = ParallelPlan.parse(parallel)
@@ -256,6 +257,7 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
                                          pp_schedule=pp_schedule or "1f1b")
     else:
         pplan = None
+    _check_supported(cfg, kernel_tiles=kernel_tiles, fsdp=pplan is not None and pplan.fsdp)
     if pplan is not None and pp_impl is not None:
         pplan = dataclasses.replace(pplan, pp_impl=pp_impl)
     if rebalance is not None:               # the flag overrides the spec's token

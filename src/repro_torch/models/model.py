@@ -376,7 +376,8 @@ def _moe_block(lp, h, cfg, sac: str, attn_impl: str = "blockwise", ep_group=None
 
 def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
             compute_dtype: torch.dtype = torch.bfloat16, attn_impl: str = "blockwise",
-            ep_group=None, placement=None, tp_group=None, replicated: bool = False):
+            ep_group=None, placement=None, tp_group=None, replicated: bool = False,
+            fsdp=None):
     """The forward over whole sequences. batch["tokens"]: (B, S) int; under
     an EP group (``parallel.EPGroup``) the rank's rows, with the rank's
     share of the params (``parallel.expert_shard``); the MoE blocks then
@@ -394,12 +395,17 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     ``replicated`` (serving on a grid): every rank holds the whole batch,
     not its rows (``sparse_moe_block(replicated=True)``), and the MoE
     blocks take no router terms or stats (aux holds zeros and no
-    "moe_stats").
+    "moe_stats"). ``fsdp`` (dense and moe; ``make_train_step`` refuses the
+    others): a ``parallel.fsdp.LayerGather``;
+    the layer params are the rank's 'data' tiles, and each block gathers
+    its layer's inside the function that block remat checkpoints, so the
+    recompute gathers again and no gathered weight is saved.
     ssm and hybrid: each SSM
     layer under block remat, its mixer under the 'ssm' SAC name; the hybrid
     model's shared block after each group takes ``sac`` but no block remat,
     as in the JAX package."""
     _check_arch(cfg)
+    gather = fsdp if fsdp is not None else (lambda lp: lp)
     h = L.embed(params["embed"], batch["tokens"], compute_dtype)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     aux = {"moe_aux": zero, "moe_z": zero}
@@ -419,8 +425,8 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
         return _logits(params, h, cfg), aux
     layers = unstack_layers(params["layers"], cfg.num_layers)
     if cfg.arch_type == "moe":
-        block = block_remat(lambda lp, x, pl: _moe_block(lp, x, cfg, sac, attn_impl, ep_group,
-                                                          pl, tp_group,
+        block = block_remat(lambda lp, x, pl: _moe_block(gather(lp), x, cfg, sac, attn_impl,
+                                                          ep_group, pl, tp_group,
                                                           replicated=replicated), sac)
         counts = torch.zeros(cfg.moe.num_experts, dtype=torch.float32, device=h.device)
         drops = zero
@@ -434,8 +440,8 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
         if not replicated:
             aux["moe_stats"] = moe_lib.MoeStats(counts, drops)
     else:
-        block = block_remat(lambda lp, x: _dense_block(lp, x, cfg, sac, attn_impl, tp_group),
-                            sac)
+        block = block_remat(lambda lp, x: _dense_block(gather(lp), x, cfg, sac, attn_impl,
+                                                       tp_group), sac)
         for lp in layers:
             h = block(lp, h)
     return _logits(params, h, cfg), aux
@@ -539,7 +545,8 @@ def masked_ce(logits, labels, cfg: ModelConfig):
 
 
 def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
-            compute_dtype: torch.dtype = torch.bfloat16, ep_group=None, placement=None):
+            compute_dtype: torch.dtype = torch.bfloat16, ep_group=None, placement=None,
+            fsdp=None):
     """Next-token cross entropy plus the MoE aux and z losses (each
     averaged over layers, times its coefficient). Returns (loss, metrics):
     ce, moe_aux, moe_z, ntok and, for MoE, moe_counts (per-layer mean of
@@ -557,12 +564,12 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     blocks' collectives run over the rank's 'ep' group, whose aux and z are
     their mean over its ranks; the metrics are global (the MoE terms also
     summed over 'data'), the same on every rank, and carry the global loss
-    as "loss". ``placement``: as in ``forward``; the metrics stay in global
-    expert ids."""
+    as "loss". ``placement`` and ``fsdp``: as in ``forward``; the metrics
+    stay in global expert ids."""
     grid = as_grid(ep_group)
     logits, aux = forward(params, batch, cfg, sac=sac, compute_dtype=compute_dtype,
                           ep_group=grid.ep if grid is not None else None, placement=placement,
-                          tp_group=grid.tp if grid is not None else None)
+                          tp_group=grid.tp if grid is not None else None, fsdp=fsdp)
     nl = max(cfg.num_layers, 1)
     router = []
     if cfg.is_moe:

@@ -51,7 +51,7 @@ def expert_leaf_mask(tree, num_layers: int, num_experts: int) -> tuple:
 
 
 def expert_slice_sumsq(g: torch.Tensor, inv=None, group=None, tp=None,
-                       pp=None) -> torch.Tensor:
+                       pp=None, data=None) -> torch.Tensor:
     """Squared sum of an (L, E, ...) expert-stack gradient with a canonical
     association: per-(layer, expert) slice sums first, reordered to global
     expert ids when ``inv`` (the (L, E) id -> position map of a placement)
@@ -59,12 +59,15 @@ def expert_slice_sumsq(g: torch.Tensor, inv=None, group=None, tp=None,
     (L, E / world, ...) slice: the slice sums of all ranks are gathered in
     rank (= expert) order first, so every expert counts once and the sum
     associates as on one device. With a 'tp' group ``tp`` ``g`` holds the
-    rank's d_ff shard: the slice sums are summed over 'tp' first. With a
+    rank's d_ff shard: the slice sums are summed over 'tp' first; with a
+    'data' group ``data`` (fsdp) ``g`` holds the rank's tile of a per-slice
+    dim, and they are summed over 'data' likewise. With a
     'pp' group ``pp`` ``g`` holds the rank's stage of the layers: the slice
     sums of the stages are gathered in stage (= layer) order."""
     s = torch.sum(torch.square(g.float()), dim=tuple(range(2, g.ndim)))
-    if tp is not None and tp.world > 1:
-        s = all_reduce_sum(s, tp)
+    for part in (tp, data):
+        if part is not None and part.world > 1:
+            s = all_reduce_sum(s, part)
     if group is not None:
         s = all_gather_tokens(s.T.contiguous(), group).T.contiguous()
     if pp is not None and pp.world > 1:
@@ -75,7 +78,7 @@ def expert_slice_sumsq(g: torch.Tensor, inv=None, group=None, tp=None,
 
 
 def global_norm(grads, *, expert_norm=None, group=None, tp=None, tp_split=None, pp=None,
-                pp_split=None) -> torch.Tensor:
+                pp_split=None, data=None, data_split=None) -> torch.Tensor:
     """Global L2 norm of a gradient tree. ``expert_norm``, when given, is a
     ``(mask, inv)`` pair: leaves flagged in ``mask`` contribute through
     ``expert_slice_sumsq``; ``None`` keeps the plain whole-leaf sums. With
@@ -85,7 +88,11 @@ def global_norm(grads, *, expert_norm=None, group=None, tp=None, tp_split=None, 
     ``tp_split`` are the rank's tp shards: their squares are summed over
     'tp' (one all-reduce for the others, inside ``expert_slice_sumsq`` for
     the expert stacks); with a 'pp' group ``pp`` likewise the leaves
-    flagged in ``pp_split``, the rank's stage of the layers, over 'pp'."""
+    flagged in ``pp_split``, the rank's stage of the layers, over 'pp'; and
+    with a 'data' group ``data`` the leaves flagged in ``data_split``, the
+    rank's fsdp tiles, over 'data'. An expert stack cut on its expert dim
+    by 'data' no longer matches ``expert_norm``'s mask (its slices are
+    not the rank's count of experts) and counts as a plain tile."""
     mask = expert_norm[0] if expert_norm is not None else ()
     inv = expert_norm[1] if expert_norm is not None else None
     n = len(leaves(grads))
@@ -93,14 +100,17 @@ def global_norm(grads, *, expert_norm=None, group=None, tp=None, tp_split=None, 
         tp, tp_split = None, ()
     if pp is None or pp.world == 1 or not pp_split:
         pp, pp_split = None, ()
+    if data is None or data.world == 1 or not data_split:
+        data, data_split = None, ()
     expert = [i < len(mask) and mask[i] for i in range(n)]
     split = [i < len(tp_split) and tp_split[i] for i in range(n)]
     staged = [i < len(pp_split) and pp_split[i] for i in range(n)]
+    tiled = [i < len(data_split) and data_split[i] for i in range(n)]
     sums = [expert_slice_sumsq(g, inv, group, tp if split[i] else None,
-                               pp if staged[i] else None)
+                               pp if staged[i] else None, data if tiled[i] else None)
             if expert[i] else torch.sum(torch.square(g.float()))
             for i, g in enumerate(leaves(grads))]
-    for g_, flags in ((tp, split), (pp, staged)):
+    for g_, flags in ((tp, split), (pp, staged), (data, tiled)):
         shards = [i for i, sp in enumerate(flags) if sp and not expert[i]]
         if shards:
             tot = all_reduce_sum(torch.stack([sums[i] for i in shards]), g_)
@@ -151,17 +161,19 @@ def adamw_leaf_(g, master, m, v, **hyper) -> None:
 def adamw_update(grads, state: AdamWState, *, lr, beta1=0.9, beta2=0.99, eps=1e-8,
                  weight_decay=0.1, grad_clip=1.0, clip_enabled=None,
                  param_dtype=torch.float32, expert_norm=None, group=None, tp=None,
-                 tp_split=None, pp=None, pp_split=None):
+                 tp_split=None, pp=None, pp_split=None, data=None, data_split=None):
     """One optimizer step; ``lr`` and ``clip_enabled`` may be tensors. The
     state's master, m and v are updated in place. ``group``: the EP group
     whose ranks hold the slices of the leaves flagged in ``expert_norm``;
     ``tp``: the 'tp' group whose ranks hold shards of the leaves flagged
     in ``tp_split``, ``pp``: the 'pp' group whose stages hold the layers
-    of the leaves flagged in ``pp_split`` (``global_norm``). Returns (new_params in
+    of the leaves flagged in ``pp_split``, ``data``: the 'data' group whose
+    ranks hold the fsdp tiles of the leaves flagged in ``data_split``
+    (``global_norm``). Returns (new_params in
     ``param_dtype``, new_state, metrics {grad_norm, clip_scale})."""
     step = state.step + 1
     gnorm = global_norm(grads, expert_norm=expert_norm, group=group, tp=tp, tp_split=tp_split,
-                        pp=pp, pp_split=pp_split)
+                        pp=pp, pp_split=pp_split, data=data, data_split=data_split)
     scale = clip_scale(gnorm, grad_clip, clip_enabled)
     t = step.to(torch.float32)
     bc1 = 1.0 - beta1 ** t

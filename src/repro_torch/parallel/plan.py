@@ -19,8 +19,9 @@ with tp > 1 or pp > 1, tp and pp; ``parallel.grid.grid_spec``) for
 computes them, and the live expert placement (``placement``,
 ``with_placement``) a ``rebalance=`` policy moves. What the port cannot
 run raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: a pod
-axis and ``fsdp`` (§1 item 5), tp for the ssm and hybrid archs (§1 item
-5.10), an explicit ``tiles=`` (§1 item 7), and in serving (``resolve(...,
+axis (§1 item 5), ``fsdp`` beyond a dense or moe model on dp alone with
+``opt=none`` (``check_fsdp``, §1 item 5.1c), tp for the ssm and hybrid
+archs (§1 item 5.10), an explicit ``tiles=`` (§1 item 7), and in serving (``resolve(...,
 serving=True)``) a dp or pp axis (§1 item 5.7b). A pp axis needs a uniform
 layer stack (``models.model.PP_ARCH_TYPES``; the JAX step's ValueError)
 and refuses a ``rebalance=`` policy, as the JAX plan does; its stages run
@@ -95,6 +96,25 @@ def refuse(what: str, item: str) -> None:
 
 # the ROADMAP.md item of serving with data replicas or pipeline stages
 SERVE_DP_PP_ITEM = "item 5.7b, dp and pp in serving"
+# the ROADMAP.md item of fsdp beyond the 'none' step on a pure 'data' grid
+FSDP_ITEM = "item 5.1c, fsdp with the other axes and modes"
+# the archs whose layers the fsdp step gathers (``parallel.fsdp``)
+FSDP_ARCH_TYPES = ("dense", "moe")
+
+
+def check_fsdp(arch_type: str, axis_sizes: dict, opt_shard: str) -> None:
+    """Refuse what fsdp does not run with yet (``FSDP_ITEM``): any axis
+    of size > 1 in ``axis_sizes`` but 'data', an ``opt_shard`` other than
+    'none', an arch outside ``FSDP_ARCH_TYPES``."""
+    other = [f"{a}={n}" for a, n in axis_sizes.items() if a != "data" and n > 1]
+    if other:
+        refuse(f"fsdp with {', '.join(other)} (the port gathers over a pure 'data' grid)",
+               FSDP_ITEM)
+    if opt_shard != "none":
+        refuse(f"fsdp with opt_shard={opt_shard!r} (the sharded-optimizer update of "
+               f"'data' tiles)", FSDP_ITEM)
+    if arch_type not in FSDP_ARCH_TYPES:
+        refuse(f"fsdp for arch_type {arch_type!r}", FSDP_ITEM)
 
 
 @dataclass(frozen=True)
@@ -364,7 +384,8 @@ class ParallelPlan:
         if self.pp > 1:
             self._check_pp(cfg)
         if self.fsdp:
-            refuse("fsdp (parameters sharded over 'data')", "item 5, the rest of multi-GPU")
+            check_fsdp(cfg.arch_type, {"pp": self.pp, "ep": self.ep, "tp": self.tp},
+                       self.opt_shard)
         if self.tiles is not None:
             refuse(f"kernel tile selection (tiles={self.tiles})", "item 7, autotuning")
         if self.ep > 1 and cfg.moe.moe_impl != "fsmoe":
@@ -470,7 +491,7 @@ class ResolvedPlan:
         return ParallelConfig(microbatches=p.microbatches, remat_policy=remat_policy,
                               optimizer_sharding=p.opt_shard, opt_overlap=p.opt_overlap,
                               pp_stages=p.pp, pp_schedule=p.pp_schedule, pp_impl=p.pp_impl,
-                              moe_dispatch=p.moe_dispatch)
+                              moe_dispatch=p.moe_dispatch, fsdp_params=p.fsdp)
 
     @property
     def axis_sizes(self) -> dict:

@@ -14,6 +14,13 @@ rule leaves it unsplit; each rule is taken on the per-layer shape, the
 leading layer dims (``layers/``, ``rem/``: one; ``groups/``: two) split
 only by 'pp', and only that of ``layers/``.
 
+With ``fsdp`` (ZeRO-3, the JAX rule ``fsdp_wrap``) the 'data' axis
+splits the params too, after the entries above: on the largest per-layer
+dim that is still whole and that dp divides (the sort is stable, so on a tie
+the lower dim), for the expert stacks, the router, attention, the dense and
+shared MLPs and the SSM mixers' projections; never the embedding and head
+tables, the norms or the other small leaves, and never a stacked layer dim.
+
 The JAX package also splits ``embed/table`` and ``head/table`` on the vocab
 over the model axis; that is a memory layout of its compiler, not part of
 the math, and the port keeps them replicated. It splits the SSM mixers'
@@ -116,18 +123,41 @@ def _tp_dim(path: str, inner: tuple):
     return None
 
 
-def param_placements(params: dict, axis_sizes: dict, *, split_experts: bool = True) -> dict:
+def _fsdp_wrapped(path: str, inner: tuple) -> bool:
+    """Whether ``fsdp`` may split a leaf over 'data': the leaves the JAX
+    ``_param_spec`` passes through ``fsdp_wrap``, matched on the path as
+    it matches them, with ``inner`` the per-layer shape."""
+    p = "/" + path
+    if any(k in p for k in ("/moe/gate", "/moe/up", "/moe/down")) and "shared" not in p \
+            and len(inner) == 3:
+        return True
+    if "/moe/router" in p:
+        return True
+    if p.endswith(("embed/table", "head/table")):
+        return False
+    if p.endswith(("/wq", "/wk", "/wv", "/wo")):
+        return True
+    if p.endswith(("/up", "/gate", "/down")) and len(inner) == 2:
+        return True
+    return p.endswith(("/in_proj", "/out_proj", "/conv_w", "/x_proj", "/dt_proj"))
+
+
+def param_placements(params: dict, axis_sizes: dict, *, split_experts: bool = True,
+                     fsdp: bool = False) -> dict:
     """The placement of each leaf of a *global* parameter tree (any leaves
     with ``.shape``) on a grid with ``axis_sizes`` (its axes of size > 1):
     with a 'pp' axis the leading layer dim of each ``layers/`` leaf on
     ('pp',) where pp divides it, an expert stack's E dim on ('ep',) where
     'ep' is an axis and divides it (not with ``split_experts=False``, the
     dense MoE path that holds every expert), and with a 'tp' axis each
-    leaf's tp dim (``_tp_dim``) on ('tp',) where tp divides it; every other
+    leaf's tp dim (``_tp_dim``) on ('tp',) where tp divides it; with
+    ``fsdp`` and a 'data' axis, then, the largest whole per-layer dim that
+    dp divides of each leaf ``fsdp_wrap`` takes, on ('data',); every other
     dim and leaf whole."""
     n_ep = axis_sizes.get("ep", 1) if split_experts else 1
     n_tp = axis_sizes.get("tp", 1)
     n_pp = axis_sizes.get("pp", 1)
+    n_dp = axis_sizes.get("data", 1) if fsdp else 1
 
     def walk(node, prefix):
         if isinstance(node, dict):
@@ -143,6 +173,13 @@ def param_placements(params: dict, axis_sizes: dict, *, split_experts: bool = Tr
             dim = _tp_dim(prefix, tuple(node.shape[lead:]))
             if dim is not None and node.shape[lead + dim] % n_tp == 0:
                 place[lead + dim] = ("tp",)
+        lead = _stacked(prefix)
+        inner = tuple(node.shape[lead:])
+        if n_dp > 1 and _fsdp_wrapped(prefix, inner):
+            for i in sorted(range(len(inner)), key=lambda i: -inner[i]):
+                if not place[lead + i] and inner[i] % n_dp == 0:
+                    place[lead + i] = ("data",)
+                    break
         return tuple(place)
     return walk(params, "")
 

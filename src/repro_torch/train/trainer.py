@@ -66,6 +66,18 @@ the layer tiles never; the metrics are summed over 'pp', so every rank
 reports the same. ``pp_impl`` 'shardmap' checks that pp divides the
 microbatches on such a grid; 'masked' runs the same executor with any
 count (the JAX executors agree to about 1 ulp).
+
+FSDP (``ParallelConfig.fsdp_params``, ZeRO-3 on the 'data' axis, the JAX
+``fsdp`` layout): rank d holds its 'data' tile of every leaf that
+``param_placements(..., fsdp=True)`` splits, and under 'none' its master,
+m and v are those tiles. Each layer's tiles are gathered inside the
+function that block remat checkpoints (``parallel.fsdp.LayerGather``, in
+``compute_dtype``); the gather's backward reduce-scatters the layer's
+gradients onto the tiles, in ``grad_reduce_dtype``, once a microbatch, so the tiles take no
+sum over 'data' in the update; the grad norm sums their squares over
+'data'. It runs on a pure 'data' grid of a dense or moe model under
+'none', with a 'block' or 'block_sc' remat policy; everything else is
+refused (``parallel.plan.check_fsdp``, ROADMAP.md §1 item 5.1c).
 """
 from __future__ import annotations
 
@@ -86,10 +98,12 @@ from repro_torch.optim.epso import (DEFAULT_BUCKET_BYTES, UpdatePlan, optimizer_
                                     plan_update_buckets)
 from repro_torch.optim.overlap import overlapped_adamw_update, resolve_opt_overlap, shard_of
 from repro_torch.parallel.ep import EPGroup, all_reduce_sum
+from repro_torch.parallel.fsdp import LayerGather
 from repro_torch.parallel.grid import BATCH_AXES, SUM_AXES, ProcessGrid, as_grid
 from repro_torch.parallel.pipeline import (StageLink, _check_stage_divisible,
                                            check_pp_microbatches, run_schedule, schedule_ticks)
 from repro_torch.parallel.placement import ExpertPlacement
+from repro_torch.parallel.plan import FSDP_ITEM, check_fsdp, refuse
 from repro_torch.parallel.sharding import param_placements, rank_shard
 from repro_torch.serve.engine import dropless_cfg, make_decode_fn, serving_grid
 from repro_torch.tree import keyed_leaves, leaves, tree_map, unflatten
@@ -125,13 +139,14 @@ def _opt_mode(mode: Optional[str]) -> str:
     return mode
 
 
-def placements(cfg: ModelConfig, shapes: dict, axis_sizes: dict) -> dict:
+def placements(cfg: ModelConfig, shapes: dict, axis_sizes: dict, *,
+               fsdp: bool = False) -> dict:
     """``param_placements`` of ``cfg``'s global ``shapes`` on a grid with
     ``axis_sizes``, as the step runs them: the expert stacks split over
     'ep' only where the MoE block runs EP (``core.moe.uses_ep``; else the
-    dense path holds every expert)."""
+    dense path holds every expert); with ``fsdp`` the 'data' tiles too."""
     split = cfg.moe is None or uses_ep(cfg.moe, axis_sizes.get("ep", 1))
-    return param_placements(shapes, axis_sizes, split_experts=split)
+    return param_placements(shapes, axis_sizes, split_experts=split, fsdp=fsdp)
 
 
 def opt_layout(cfg: ModelConfig, grid: Optional[ProcessGrid], mode: str, *,
@@ -147,7 +162,8 @@ def opt_layout(cfg: ModelConfig, grid: Optional[ProcessGrid], mode: str, *,
     return plan, leaves(optimizer_state_specs(shapes, place, sizes, mode))
 
 
-def state_layout(cfg: ModelConfig, axis_sizes: dict, mode: Optional[str]) -> dict:
+def state_layout(cfg: ModelConfig, axis_sizes: dict, mode: Optional[str], *,
+                 fsdp: bool = False) -> dict:
     """``{key: (global shape, placement)}`` for every leaf of a
     ``TrainState`` of ``cfg`` on a grid whose axes of size > 1 are
     ``axis_sizes`` (``ProcessGrid.axis_sizes``) under ``opt_sharding_mode``
@@ -156,9 +172,10 @@ def state_layout(cfg: ModelConfig, axis_sizes: dict, mode: Optional[str]) -> dic
     and v by their state placement, the step whole. The params appear a
     second time under their keys in a params tree alone (a model-only
     checkpoint's keys). A rank holds ``parallel.sharding.tile_slices`` of
-    each global leaf. ``checkpoint.Checkpointer(layout=)`` takes it."""
+    each global leaf. ``checkpoint.Checkpointer(layout=)`` takes it (and
+    refuses a ``fsdp`` one, ROADMAP.md §1 item 5.1c)."""
     shapes = init_params(cfg, device="meta")
-    place = placements(cfg, shapes, axis_sizes)
+    place = placements(cfg, shapes, axis_sizes, fsdp=fsdp)
     specs = optimizer_state_specs(shapes, place, axis_sizes, _opt_mode(mode))
     flat = [(key, tuple(leaf.shape)) for key, leaf in keyed_leaves(shapes)]
     out = {key: (shape, p) for (key, shape), p in zip(flat, leaves(place))}
@@ -181,23 +198,29 @@ def _cut(tree: dict, plan: UpdatePlan, grid: ProcessGrid) -> dict:
 def init_state(cfg: ModelConfig, train: TrainConfig, *, seed: int = 0,
                device: DeviceLike = None, ep_group: Optional[EPGroup] = None,
                grid: Optional[ProcessGrid] = None,
-               opt_sharding_mode: Optional[str] = None) -> TrainState:
+               opt_sharding_mode: Optional[str] = None, fsdp: bool = False) -> TrainState:
     """Random params (``init_params`` from ``seed``) and a fresh AdamW
     state, on ``cuda`` unless ``device`` says otherwise (on a grid, its
     device). On a grid (or an ``ep_group``): the rank's share of the state
     that ``init_state(cfg, train, seed=seed)`` gives on one process, its
-    optimizer state cut by ``opt_sharding_mode`` (None: 'none')."""
+    optimizer state cut by ``opt_sharding_mode`` (None: 'none'). ``fsdp``:
+    the params, master, m and v are the rank's 'data' tiles too
+    (``ParallelConfig.fsdp_params``; float32 params keep sharing the
+    master's tensors)."""
     grid = _grid(ep_group, grid)
     mode = _opt_mode(opt_sharding_mode)
+    if fsdp:
+        check_fsdp(cfg.arch_type, grid.axis_sizes if grid is not None else {}, mode)
     if device is None and grid is not None:
         device = grid.world.device
     params = init_params(cfg, seed=seed, device=device)
     if grid is not None and grid.axis_sizes:
-        # copy the rank's tiles (expert slices, tp shards), so that the whole
-        # leaves are freed
+        # copy the rank's tiles (expert slices, tp shards, fsdp tiles), so
+        # that the whole leaves are freed
         sizes = grid.axis_sizes
         params = tree_map(lambda s, t: s.clone() if s.shape != t.shape else s,
-                          rank_shard(params, placements(cfg, params, sizes), grid.coords, sizes),
+                          rank_shard(params, placements(cfg, params, sizes, fsdp=fsdp),
+                                     grid.coords, sizes),
                           params)
     pd = _dtype(train.param_dtype)
     if mode == "none" or grid is None:
@@ -228,7 +251,11 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     (``optim.overlap.resolve_opt_overlap``). The update plan is built here,
     once. ``placement``: the ``ExpertPlacement`` the state's expert stacks
     are stored in (None or the identity: global-id order); the metrics stay
-    in global ids. With ``parallel.pp_stages`` > 1 the step pipelines (the
+    in global ids. ``parallel.fsdp_params``: the state is the one
+    ``init_state(fsdp=True)`` gives (the module docstring);
+    ``train_step.fsdp_gather`` is then its ``parallel.fsdp.LayerGather``,
+    whose ``stats`` count the gathers, the reduce-scatters and the bytes
+    gathered. With ``parallel.pp_stages`` > 1 the step pipelines (the
     module docstring; its metrics, as the JAX PP step's: loss, lr, ce,
     grad_norm, clip_scale and, for MoE, moe_counts, moe_load, moe_drops),
     and ``train_step.loss_and_grads(params, batch) -> (loss, metrics,
@@ -269,14 +296,26 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         ticks = schedule_ticks(parallel.pp_schedule, max(nmb, 1), pp)
     if gpp not in (1, pp):
         raise ValueError(f"the grid's 'pp' axis has {gpp} stages, the step pp_stages={pp}")
-    split_axes = tp_split = pp_split = None
+    fsdp = parallel.fsdp_params
+    if fsdp:
+        check_fsdp(cfg.arch_type, grid.axis_sizes if grid is not None else {}, mode)
+        if pp > 1 or pl_inv is not None:
+            refuse("fsdp with pipeline stages or an expert placement", FSDP_ITEM)
+        if not {"block", "block_sc"} & set(sac.split(",")):
+            refuse(f"fsdp under remat_policy={sac!r} (autograd would keep every layer's "
+                   f"gathered weights; take 'block' or 'block_sc')", FSDP_ITEM)
+    split_axes = tp_split = pp_split = data_split = gather = None
     if grid is not None:
         # per leaf, the grid axes splitting it (its gradient is summed over
         # the batch axes that do not), and whether 'tp' does
-        place = leaves(placements(cfg, init_params(cfg, device="meta"), grid.axis_sizes))
+        tree = placements(cfg, init_params(cfg, device="meta"), grid.axis_sizes, fsdp=fsdp)
+        place = leaves(tree)
         split_axes = [{a for e in pl for a in e} for pl in place]
         tp_split = tuple("tp" in ax for ax in split_axes)
         pp_split = tuple("pp" in ax for ax in split_axes)
+        if any("data" in ax for ax in split_axes):
+            data_split = tuple("data" in ax for ax in split_axes)
+            gather = LayerGather(tree["layers"], grid.data, rd, cd)
     if sharded_opt:
         # 'off': the same sharded math with every leaf its own bucket
         plan, state_specs = opt_layout(cfg, grid, mode,
@@ -433,7 +472,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         acc = sums = None
         for mb in mbs:
             mb_loss, metrics = loss_fn(leaf, mb, cfg, sac=sac, compute_dtype=cd, ep_group=grid,
-                                       placement=rows)
+                                       placement=rows, fsdp=gather)
             gs = torch.autograd.grad(mb_loss, flat, allow_unused=True, materialize_grads=True)
             gs = [g.float() for g in gs]            # f32 gradient sums
             acc = gs if acc is None else [a.add_(g) for a, g in zip(acc, gs)]
@@ -484,7 +523,8 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         new_params, new_opt, om = adamw_update(
             grads, state.opt, param_dtype=pd, group=grid.ep if sharded else None,
             tp=grid.tp if grid is not None else None, tp_split=tp_split,
-            pp=grid.pp if grid is not None else None, pp_split=pp_split, **hyper)
+            pp=grid.pp if grid is not None else None, pp_split=pp_split,
+            data=grid.data if data_split else None, data_split=data_split, **hyper)
         return TrainState(new_params, new_opt), {"lr": lr, **om}
 
     def expert_norm(params):
@@ -498,7 +538,8 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         """Sum each gradient over the axes of ``SUM_AXES`` that do not split
         its leaf, in ``dtype``, one flat buffer per set of axes: the whole
         leaves' over ('data', 'pp', 'ep'), the layer tiles' over ('data',
-        'ep'), the expert slices' over 'data'."""
+        'ep'), the expert slices' over 'data', the fsdp tiles' (their sum
+        over 'data' was the gather's reduce-scatter) over none."""
         by_axes = {}
         for g, split in zip(leaves(grads), split_axes):
             by_axes.setdefault(tuple(a for a in SUM_AXES if a not in split), []).append(g)
@@ -515,6 +556,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     # that drive or record the update (the card tests, chip_smoke)
     train_step.update = update
     train_step.opt_overlap_impl = ov_impl
+    train_step.fsdp_gather = gather
     if pp > 1:
         train_step.loss_and_grads = pp_loss_and_grads
     return train_step

@@ -113,16 +113,36 @@ def test_apply_to_model_matches_jax():
 
 
 @pytest.mark.parametrize("spec,item,arch", [
-    ("pod=2,dp=2", "item 5", "mula-7b-a1b"), ("dp=2,fsdp", "item 5", "mula-7b-a1b"),
+    ("pod=2,dp=2", "item 5", "mula-7b-a1b"),
+    ("dp=2,ep=2,fsdp", "item 5.1c", "mula-7b-a1b"), ("dp=2,tp=2,fsdp", "item 5.1c", "mula-1b"),
+    ("dp=2,pp=2,fsdp", "item 5.1c", "mula-7b-a1b"),
+    ("dp=2,fsdp,opt=so", "item 5.1c", "mula-7b-a1b"), ("dp=2,fsdp", "item 5.1c", "zamba2-7b"),
+    ("dp=2,fsdp", "item 5.1c", "falcon-mamba-7b"),
     ("dp=2,tp=2", "item 5.10", "zamba2-7b"), ("tp=2", "item 5.10", "falcon-mamba-7b"),
     ("dp=2,tiles=auto", "item 7", "mula-7b-a1b"),
     ("dp=2,tiles=64x256x256", "item 7", "mula-7b-a1b")])
 def test_resolve_refuses_what_the_port_lacks(spec, item, arch):
-    """pod and fsdp (item 5), tp for the state-space archs (item 5.10) and
-    explicit tiles (item 7)."""
+    """pod (item 5), fsdp with another axis, a sharded optimizer or a
+    state-space arch (item 5.1c), tp for the state-space archs (item 5.10)
+    and explicit tiles (item 7)."""
     cfg = treduced(tget(arch))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         ParallelPlan.parse(spec).resolve(cfg, global_batch=8)
+
+
+@pytest.mark.parametrize("spec,arch", [("dp=2,fsdp", "mula-7b-a1b"), ("dp=4,fsdp", "mula-1b"),
+                                       ("fsdp", "mula-1b")])
+def test_resolve_takes_fsdp(spec, arch):
+    """fsdp resolves on a pure 'data' grid of a dense or moe model under
+    opt=none (it was refused before the fsdp step was ported): the grid
+    (dp, 1), the checkpoint layout the JAX ``ResolvedPlan``'s, and the
+    ParallelConfig carries ``fsdp_params``."""
+    from repro.parallel.plan import ResolvedPlan as JResolved
+    r = ParallelPlan.parse(spec).resolve(treduced(tget(arch)), global_batch=8)
+    dp = r.plan.dp
+    assert (r.world, r.grid, r.axis_sizes) == (dp, (dp, 1), {"data": dp} if dp > 1 else {})
+    assert r.layout_signature() == JResolved(plan=JPlan.parse(spec)).layout_signature()
+    assert r.layout_signature()["fsdp"] and r.parallel_config().fsdp_params
 
 
 @pytest.mark.parametrize("spec,world,grid,sizes", [

@@ -436,3 +436,142 @@ def remat_collectives_rank(grid, tc, train, params, opt, batch, policies):
                     "params": dict(leaves_with_path(state.params)),
                     "replayed": sorted(set(CollectiveTape._replayed.values()))}
     return out
+
+
+class _CountCollectives:
+    """Within the block, the calls of each ``torch.distributed`` collective
+    in ``NAMES``, by name (the port calls them through the module)."""
+    NAMES = ("all_gather", "reduce_scatter", "all_reduce")
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.counts, self.saved = {}, {n: getattr(dist, n) for n in self.NAMES}
+
+        def counting(name, fn):
+            def call(*a, **kw):
+                self.counts[name] = self.counts.get(name, 0) + 1
+                return fn(*a, **kw)
+            return call
+        for n, fn in self.saved.items():
+            setattr(dist, n, counting(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+        for n, fn in self.saved.items():
+            setattr(dist, n, fn)
+
+
+def fsdp_cases_rank(grid, tc_by_arch, params_by_arch, opt_by_arch, trains, batches, cases):
+    """One rank of a dp = 2 'data' grid: for each (arch, microbatches,
+    remat policy, fsdp, train) of ``cases``, from the whole params and
+    AdamW state of ``arch`` ('none'), the rank's tiles (``fsdp``: its 'data'
+    tiles too), one step per batch on its rows under ``trains[train]``;
+    per case the metrics, the params, the
+    state, its bytes against ``state_bytes_per_device``, the calls of each
+    collective and the gather's ``stats``. Then, per arch and
+    remat policy of the fsdp cases, one forward of ``loss_fn`` and its
+    backward (``_fsdp_memory``), and per arch one optimizer update of
+    gradients of rank + 1 (``_fsdp_update_sums``)."""
+    from repro_torch.convert import opt_state_for_rank, params_for_rank
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.train.trainer import placements
+    from repro_torch.tree import leaves
+
+    dp, rank = grid.sizes["data"], grid.world.rank
+    sizes = grid.axis_sizes
+    out = {}
+    for arch, nmb, sac, fsdp, tname in cases:
+        tc, train = tc_by_arch[arch], trains[tname]
+        state = TrainState(params_for_rank(params_by_arch[arch], tc, dp=dp, ep=1, rank=rank,
+                                           fsdp=fsdp),
+                           opt_state_for_rank(opt_by_arch[arch], tc, dp=dp, ep=1, rank=rank,
+                                              mode="none", fsdp=fsdp))
+        step = make_train_step(tc, ParallelConfig(microbatches=nmb, remat_policy=sac,
+                                                  fsdp_params=fsdp), train, grid=grid)
+        metrics = []
+        with _CountCollectives() as calls:
+            for b in batches:
+                state, m = step(state, grid_rows(grid, b))
+                metrics.append({k: m[k] for k in KEYS if k in m})
+        shapes = init_params(tc, device="meta")
+        out[(arch, nmb, sac, fsdp, tname)] = {
+            "metrics": metrics, "params": dict(leaves_with_path(state.params)),
+            "opt": state.opt, "calls": calls.counts,
+            "stats": dict(step.fsdp_gather.stats) if step.fsdp_gather is not None else None,
+            "state_bytes": sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m,
+                                                          state.opt.v) for t in leaves(tree)),
+            "state_bytes_expected": state_bytes_per_device(
+                shapes, placements(tc, shapes, sizes, fsdp=fsdp), sizes, "none"),
+            "shares_master": all(p is ma for p, ma in zip(leaves(state.params),
+                                                          leaves(state.opt.master)))}
+    train = trains["f32"]
+    for arch, sac in dict.fromkeys((a, s) for a, _, s, f, _ in cases if f):
+        tc = tc_by_arch[arch]
+        mine = params_for_rank(params_by_arch[arch], tc, dp=dp, ep=1, rank=rank, fsdp=True)
+        out[("memory", arch, sac)] = _fsdp_memory(grid, tc, train, mine, batches[0], sac)
+        if ("update", arch) not in out:
+            out[("update", arch)] = _fsdp_update_sums(grid, tc, train, mine)
+    return out
+
+
+def _fsdp_memory(grid, tc, train, params, batch, sac):
+    """One forward of ``loss_fn`` on the rank's rows with its fsdp tiles
+    under ``sac``, then its backward: the shapes autograd packed outside
+    the checkpoints (``saved_tensors_hooks``), how many of the storages the
+    gathers made (their flat buffers and whole leaves) were still alive
+    between forward and backward, and the gathers and reduce-scatters of
+    each pass."""
+    import gc
+
+    from torch.multiprocessing.reductions import StorageWeakRef
+
+    from repro_torch.models import loss_fn
+    from repro_torch.parallel import fsdp as fsdp_mod
+    from repro_torch.tree import leaves, tree_map
+
+    step = make_train_step(tc, ParallelConfig(remat_policy=sac, fsdp_params=True), train,
+                           grid=grid)
+    gather = step.fsdp_gather
+    made, packed = [], []
+    unpack = fsdp_mod._unpack
+
+    def recording(full, shapes, dims):
+        whole = unpack(full, shapes, dims)
+        made.extend(StorageWeakRef(t.untyped_storage()) for t in [full] + whole)
+        return whole
+
+    def pack(t):
+        packed.append(tuple(t.shape))
+        return t
+
+    leaf = tree_map(lambda p: p.detach().requires_grad_(), params)
+    fsdp_mod._unpack = recording
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _ = loss_fn(leaf, grid_rows(grid, batch), tc, sac=sac,
+                              compute_dtype=torch.float32, ep_group=grid, fsdp=gather)
+        forward = dict(gather.stats)
+        gc.collect()
+        alive, gathered = sum(not ref.expired() for ref in made), len(made)
+        torch.autograd.grad(loss, leaves(leaf))
+    finally:
+        fsdp_mod._unpack = unpack
+    return {"packed": packed, "alive": alive, "gathered": gathered, "forward": forward,
+            "after_backward": dict(gather.stats)}
+
+
+def _fsdp_update_sums(grid, tc, train, params):
+    """``train_step.update`` on gradients of rank + 1 everywhere: the
+    gradients it leaves behind (summed in place over the axes that do not
+    split their leaf) and the grad norm."""
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    step = make_train_step(tc, ParallelConfig(fsdp_params=True), train, grid=grid)
+    grads = tree_map(lambda p: torch.full_like(p, grid.world.rank + 1.0), params)
+    state = TrainState(params, adamw_init(params))
+    _, om = step.update(state, grads)
+    return {"grads": {k: torch.unique(v) for k, v in leaves_with_path(grads)},
+            "grad_norm": om["grad_norm"]}
