@@ -76,8 +76,8 @@ Phases, each printing JSON lines:
              sharing the card over gloo; in turn, each on the world or on a
              grid cut from it: ep_reference, ep_train, epso_train (with the
              phases its ranks run) and the multi-rank launcher runs of
-             launcher_grid_dense, _ft (its clean run), _tp and _rebalance;
-             prints each job's seconds on every rank;
+             launcher_grid_dense, _ft (its clean run), _tp, _rebalance and
+             _fsdp; prints each job's seconds on every rank;
   ep_reference  expert parallelism (EP) on 4 ranks, processes that share
              the card over gloo: a small MoE block's output and input
              gradient against the same block in one process on the card, and
@@ -186,6 +186,20 @@ Phases, each printing JSON lines:
              and of rank 0's profiled step, the exact launch count; prints
              peak memory a rank of both runs, step ms and the bytes
              gathered a step;
+  fsdp_ep_train inside epso_train's ranks, on their dp = 2 x ep = 2 grid:
+             the same model and rows, 3 steps of FSDP in 'epso'/'ring' (each
+             rank its 'data' tile of every layer weight, of an expert stack
+             its tile of its 'ep' slice, and the EPSO shards of those tiles;
+             the MoE block gets the rank's whole 'ep' slice, gathered over
+             'data' inside the remat block) from init_state(seed 0), held to
+             epso_train's own 'epso'/'ring' run: step 0's loss bit for bit,
+             the grad norms within 1e-5 while the params are step 0's and
+             2e-3 after an update, the losses and ce within 1e-3; rank 0's
+             metrics on every rank, the state bytes (3,137,107,968) and
+             param elements (424,814,592) a rank, the gathers and
+             reduce-scatters of each step, the exact launch count; prints
+             peak memory a rank beside epso_train's, step ms and the bytes
+             gathered a step;
   launcher_dense  full-width Mula-1B at 4 of its 16 layers (d_model 2048,
              d_ff 8192, the byte vocab padded to 512; random weights from
              seed 0, fp32 state, bf16 compute) trained by the launcher
@@ -234,6 +248,14 @@ Phases, each printing JSON lines:
              (rank imbalances and events included) bit-identical to the
              clean one's on every rank, the same placement in both last
              MANIFESTs, finite losses, the exact launch count;
+  launcher_grid_fsdp  launcher_ft's shapes on ``--parallel
+             dp=2,ep=2,fsdp --opt-shard epso``, 18 steps that checkpoint
+             every 5, then the same run, which resumes steps 16-17 from the
+             last (both in the session): the resumed steps bit-identical, the
+             checkpoint whole arrays, the fsdp layout in the MANIFEST, the
+             state bytes a rank, the exact launch count, step 0's loss bit
+             for bit launcher_grid_ft's clean run's and later ones within
+             2e-3 of it; save and restore ms, the checkpoint's bytes;
   launcher_grid_pp  launcher_ft's run on ``--parallel pp=2,ep=2
              --opt-shard epso`` through the launcher's command line
              (``launch.train.main(argv)``, in this process so that each
@@ -339,6 +361,14 @@ FSDP_DP = 4
 FSDP_STATE_BYTES = {"fsdp": 4_996_325_376, "so": 3_137_107_968}
 FSDP_PARAM_ELEMS = 416_360_448
 FSDP_LOSS_TOL, FSDP_NORM_TOL, FSDP_NORM_TOL_UPDATED = 1e-3, 1e-5, 2e-3
+# fsdp_ep_train (inside epso_train's ranks, on their EPSO_DP x EPSO_EP grid):
+# FSDP in 'epso'/'ring', EPSO_STEPS steps from init_state(seed 0) on the
+# rank's row, held to epso_train's own 'epso'/'ring' history at the
+# fsdp_train tolerances; the per-rank fp32 state bytes and param elements of
+# full-width Mula-7B-A1B at 2 layers on 2 x 2 with fsdp (the JAX package's:
+# tests/test_torch_fsdp_ep.py)
+FSDP_EP_RUN = ("epso", "ring")
+FSDP_EP_STATE_BYTES, FSDP_EP_PARAM_ELEMS = 3_137_107_968, 424_814_592
 # the multi-rank phases' processes, started once (grid_session): ep_reference,
 # ep_train, epso_train with the phases its ranks run, and the multi-rank
 # launcher runs of LAUNCHER_GRID_RUNS, in turn; the session's time limit
@@ -420,6 +450,14 @@ BLOCK_SC_SAVED_PER_LAYER = 1 + 3
 GRID_PP_RUN = dict(FT_RUN, parallel="pp=2,ep=2", opt_shard="epso")
 GRID_PP_INJECT = 7
 GRID_PP_LAYOUT = {"axes": [["pp", 2], ["ep", 2]], "opt_shard": "epso", "fsdp": False}
+# launcher_grid_fsdp: launcher_grid_ft's clean run with fsdp (the same steps
+# and schedule), checkpoints every 5 steps, then the same run again, which
+# resumes steps 16-17 from the last (both in the session's processes);
+# losses after step 0 within GRID_FSDP_LOSS_TOL of launcher_grid_ft's clean
+# run where both drop as many pairs
+GRID_FSDP_RUN = dict(GRID_FT_RUN, parallel=f"dp={GRID_FT_DP},ep={GRID_FT_EP},fsdp")
+GRID_FSDP_LAYOUT = {"axes": [["data", 2], ["ep", 2]], "opt_shard": "epso", "fsdp": True}
+GRID_FSDP_LOSS_TOL = 2e-3
 
 
 T_START = time.perf_counter()
@@ -2690,7 +2728,9 @@ def _epso_train_rank(grid, steps):
             "tp": _tp_train_rank(grid, cfg, train, batch),
             "pp": _pp_train_rank(grid),
             "serve": _grid_serve_rank(grid),
-            "fsdp": _fsdp_train_rank(grid, cfg, train, mine)}
+            "fsdp": _fsdp_train_rank(grid, cfg, train, mine),
+            "fsdp_ep": _history_run(cfg, train, grid, *FSDP_EP_RUN, mine, EPSO_STEPS,
+                                    fsdp=True)}
 
 
 def _fsdp_train_rank(grid, cfg, train, rows):
@@ -3345,20 +3385,50 @@ def phase_epso_train(ranks, wall: float) -> tuple:
     emit("epso_train", **row)
     return (row, phase_placement_train(ranks, cfg), phase_a2a_train(ranks, cfg),
             phase_tp_train(ranks, cfg), phase_pp_train(ranks), phase_grid_serve(ranks),
-            phase_fsdp_train(ranks, cfg))
+            phase_fsdp_train(ranks, cfg), phase_fsdp_ep_train(ranks, cfg))
 
 
-def fsdp_layer_bytes(cfg, itemsize: int) -> int:
-    """The bytes of one layer's fsdp-split leaves whole in a dtype of
-    ``itemsize`` bytes (the compute dtype), what one gather of a layer
-    assembles on every rank."""
+def fsdp_layer_bytes(cfg, itemsize: int, sizes=None) -> int:
+    """The bytes of one layer's fsdp-split leaves in a dtype of ``itemsize``
+    bytes (the compute dtype) on a grid of ``sizes`` (default ('data',
+    FSDP_DP)), what one gather of a layer assembles on every rank: each
+    leaf whole over 'data', the rank's slice of it over the other axes
+    (an expert stack's 'ep' slice)."""
     from repro_torch.models import init_params
     from repro_torch.train.trainer import placements
     from repro_torch.tree import leaves
+    sizes = sizes or {"data": FSDP_DP}
     shapes = init_params(cfg, device="meta")
-    place = placements(cfg, shapes, {"data": FSDP_DP}, fsdp=True)
-    return sum(t.numel() // cfg.num_layers * itemsize
-               for t, pl in zip(leaves(shapes["layers"]), leaves(place["layers"])) if any(pl))
+    place = placements(cfg, shapes, sizes, fsdp=True)
+    return sum(t.numel() // cfg.num_layers // math.prod(
+        sizes[a] for e in pl for a in e if a != "data") * itemsize
+        for t, pl in zip(leaves(shapes["layers"]), leaves(place["layers"]))
+        if any("data" in e for e in pl))
+
+
+def _fsdp_held_to(h, ref, where: str, what: str) -> tuple:
+    """Hold an fsdp run's history ``h`` to ``ref``, the history of the run
+    without fsdp it is compared with (``what`` names it): step 0's loss bit
+    for bit, the losses and the ce within FSDP_LOSS_TOL, the grad norms
+    within FSDP_NORM_TOL while the params are step 0's (every earlier
+    step's lr was 0) and within FSDP_NORM_TOL_UPDATED after an update.
+    Returns the relative differences by metric and those steps."""
+    fresh = [i for i in range(len(ref)) if all(s["lr"] == 0 for s in ref[:i])]
+    rel = {k: [abs(s[k] - b[k]) / abs(b[k]) for s, b in zip(h, ref)]
+           for k in ("loss", "ce", "grad_norm")}
+    if h[0]["loss"] != ref[0]["loss"]:
+        raise AssertionError(f"{where}: step 0 loss {h[0]['loss']} != {what}'s "
+                             f"{ref[0]['loss']}")
+    for key in ("loss", "ce"):
+        if max(rel[key]) > FSDP_LOSS_TOL:
+            raise AssertionError(f"{where}: {key} off {what}'s by {rel[key]} "
+                                 f"(> {FSDP_LOSS_TOL})")
+    norm = rel["grad_norm"]
+    if max(norm[i] for i in fresh) > FSDP_NORM_TOL or max(norm) > FSDP_NORM_TOL_UPDATED:
+        raise AssertionError(f"{where}: grad norms off {what}'s by {norm} (> {FSDP_NORM_TOL} "
+                             f"at steps {fresh}, on step 0's params, or > "
+                             f"{FSDP_NORM_TOL_UPDATED})")
+    return rel, fresh
 
 
 def phase_fsdp_train(ranks, cfg) -> dict:
@@ -3390,12 +3460,6 @@ def phase_fsdp_train(ranks, cfg) -> dict:
     want_stats = {"all_gather": 2 * L * n, "reduce_scatter": L * n,
                   "gathered_bytes": 2 * L * n * layer}
     so = ranks[0]["fsdp"]["so"]["history"][:n]
-    ref = [s["loss"] for s in so]
-    # the steps that run on step 0's params: no earlier step had an lr
-    fresh = [i for i in range(n) if all(s["lr"] == 0 for s in so[:i])]
-
-    def rel_to_so(h, key):
-        return [abs(s[key] - b[key]) / abs(b[key]) for s, b in zip(h, so)]
     for i, rk in enumerate(ranks):
         for name in ("fsdp", "so"):
             run, where = rk["fsdp"][name], f"fsdp_train {name} rank {i}"
@@ -3414,20 +3478,7 @@ def phase_fsdp_train(ranks, cfg) -> dict:
             if run["launches"] != expect:
                 raise AssertionError(f"{where}: launches {run['launches']} != {expect}")
         run, where = rk["fsdp"]["fsdp"], f"fsdp_train fsdp rank {i}"
-        h = run["history"][:n]
-        if h[0]["loss"] != ref[0]:
-            raise AssertionError(f"{where}: step 0 loss {h[0]['loss']} != 'so''s {ref[0]}")
-        rel = rel_to_so(h, "loss")
-        if max(rel) > FSDP_LOSS_TOL:
-            raise AssertionError(f"{where}: losses off 'so''s by {rel} (> {FSDP_LOSS_TOL})")
-        rel = rel_to_so(h, "ce")
-        if max(rel) > FSDP_LOSS_TOL:
-            raise AssertionError(f"{where}: ce off 'so''s by {rel} (> {FSDP_LOSS_TOL})")
-        rel = rel_to_so(h, "grad_norm")
-        if max(rel[i] for i in fresh) > FSDP_NORM_TOL or max(rel) > FSDP_NORM_TOL_UPDATED:
-            raise AssertionError(f"{where}: grad norms off 'so''s by {rel} (> {FSDP_NORM_TOL} "
-                                 f"at steps {fresh}, on step 0's params, or > "
-                                 f"{FSDP_NORM_TOL_UPDATED})")
+        rel, fresh = _fsdp_held_to(run["history"][:n], so, where, "'so'")
         if run["param_elems"] != FSDP_PARAM_ELEMS:
             raise AssertionError(f"{where}: {run['param_elems']} param elements, expected "
                                  f"{FSDP_PARAM_ELEMS}")
@@ -3442,12 +3493,12 @@ def phase_fsdp_train(ranks, cfg) -> dict:
     runs = {}
     for name in ("fsdp", "so"):
         r0 = ranks[0]["fsdp"][name]
+        rel = _fsdp_held_to(r0["history"], so, "fsdp_train", "'so'")[0]
         runs[name] = {
             "losses": [s["loss"] for s in r0["history"]],
             "grad_norms": [s["grad_norm"] for s in r0["history"]],
-            "loss_rel_to_so": rel_to_so(r0["history"], "loss"),
-            "ce_rel_to_so": rel_to_so(r0["history"], "ce"),
-            "grad_norm_rel_to_so": rel_to_so(r0["history"], "grad_norm"),
+            "loss_rel_to_so": rel["loss"], "ce_rel_to_so": rel["ce"],
+            "grad_norm_rel_to_so": rel["grad_norm"],
             "state_bytes_per_rank": r0["state_bytes"], "param_elems_per_rank": r0["param_elems"],
             "peak_bytes_by_rank": [rk["fsdp"][name]["peak_bytes"] for rk in ranks],
             "peak_bytes_steps_by_rank": [rk["fsdp"][name]["peak_bytes_steps"] for rk in ranks],
@@ -3476,6 +3527,103 @@ def phase_fsdp_train(ranks, cfg) -> dict:
            "note": "4 ranks time-share one card; gloo carries the gathers and reduce-scatters "
                    "(as all-reduces) through host memory: no step time here is an FSDP speed"}
     emit("fsdp_train", **row)
+    return row
+
+
+def phase_fsdp_ep_train(ranks, cfg) -> dict:
+    """The fsdp run of epso_train's ranks on their EPSO_DP x EPSO_EP grid
+    (``_history_run(fsdp=True)`` in FSDP_EP_RUN's mode): full-width
+    Mula-7B-A1B at EPSO_LAYERS layers, one EP_SEQ-token row a rank, block
+    remat, EPSO_STEPS steps, each rank holding its 'data' tile of every
+    layer weight (of an expert stack, of its 'ep' slice) and the EPSO
+    shards of those tiles. Held to epso_train's own run in that mode on the
+    same rows: step 0's loss bit for bit, the later losses and the ce within
+    FSDP_LOSS_TOL, the grad norms within FSDP_NORM_TOL while the params are
+    step 0's and within FSDP_NORM_TOL_UPDATED after an update. Asserts on
+    every rank finite metrics, a falling loss, clip_scale <= 1, rank 0's
+    metrics, the state bytes and param elements a rank (FSDP_EP_STATE_BYTES
+    = ``state_bytes_per_device`` of the fsdp placements, FSDP_EP_PARAM_ELEMS),
+    the gathers, reduce-scatters and bytes gathered of each step, and the
+    exact launch count; prints peak memory a rank beside epso_train's,
+    step ms and the bytes gathered a step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.train.trainer import placements
+
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    L, n = EPSO_LAYERS, EPSO_STEPS
+    sizes = {"data": EPSO_DP, "ep": EPSO_EP}
+    lcfg = dataclasses.replace(cfg, num_layers=L)
+    shapes = init_params(lcfg, device="meta")
+    planned = state_bytes_per_device(shapes, placements(lcfg, shapes, sizes, fsdp=True), sizes,
+                                     FSDP_EP_RUN[0])
+    expect = expected_train_launches(L, 1, n)
+    layer = fsdp_layer_bytes(lcfg, getattr(torch, TrainConfig().compute_dtype).itemsize, sizes)
+    want_stats = {"all_gather": 2 * L * n, "reduce_scatter": L * n,
+                  "gathered_bytes": 2 * L * n * layer}
+    name = "/".join(FSDP_EP_RUN)
+    ref = ranks[0]["runs"][name]["history"][:n]
+    if planned != FSDP_EP_STATE_BYTES:
+        raise AssertionError(f"fsdp_ep_train: {planned} state bytes planned, expected "
+                             f"{FSDP_EP_STATE_BYTES}")
+    for i, rk in enumerate(ranks):
+        run, where = rk["fsdp_ep"], f"fsdp_ep_train rank {i}"
+        h = run["history"][:n]
+        if not all(math.isfinite(s[k]) for s in h for k in keys) or \
+                not all(s["clip_scale"] <= 1.0 for s in h):
+            raise AssertionError(f"{where}: non-finite metrics or clip_scale above 1: {h}")
+        if not h[-1]["loss"] < h[0]["loss"]:
+            raise AssertionError(f"{where}: loss did not fall: {[s['loss'] for s in h]}")
+        if [{k: s[k] for k in keys} for s in h] != [
+                {k: s[k] for k in keys} for s in ranks[0]["fsdp_ep"]["history"][:n]]:
+            raise AssertionError(f"{where}: metrics differ from rank 0's")
+        rel, fresh = _fsdp_held_to(h, ref, where, f"epso_train {name}")
+        if run["state_bytes"] != FSDP_EP_STATE_BYTES or \
+                run["param_elems"] != FSDP_EP_PARAM_ELEMS:
+            raise AssertionError(f"{where}: {run['state_bytes']} state bytes and "
+                                 f"{run['param_elems']} param elements, expected "
+                                 f"{FSDP_EP_STATE_BYTES} and {FSDP_EP_PARAM_ELEMS}")
+        if run["fsdp_stats"] != want_stats:
+            raise AssertionError(f"{where}: gathers {run['fsdp_stats']} != {want_stats}")
+        if run["launches"] != expect:
+            raise AssertionError(f"{where}: launches {run['launches']} != {expect}")
+    r0 = ranks[0]["fsdp_ep"]
+    rel, fresh = _fsdp_held_to(r0["history"], ref, "fsdp_ep_train", f"epso_train {name}")
+    row = {"model": cfg.name, "layers": L, "grid": sizes, "ranks": len(ranks),
+           "mode": name, "seq_per_rank": 1, "seq_len": EP_SEQ, "steps": n, "remat": "block",
+           "dispatch": cfg.moe.dispatch,
+           "losses": [s["loss"] for s in r0["history"]],
+           "grad_norms": [s["grad_norm"] for s in r0["history"]],
+           "loss_rel_to_epso": rel["loss"], "ce_rel_to_epso": rel["ce"],
+           "grad_norm_rel_to_epso": rel["grad_norm"],
+           "tolerance": FSDP_LOSS_TOL,
+           "grad_norm_tolerance": {"steps_on_step0_params": fresh, "there": FSDP_NORM_TOL,
+                                   "after_an_update": FSDP_NORM_TOL_UPDATED},
+           "state_bytes_per_rank": r0["state_bytes"], "param_elems_per_rank": r0["param_elems"],
+           "peak_bytes_by_rank": [rk["fsdp_ep"]["peak_bytes"] for rk in ranks],
+           "peak_bytes_steps_by_rank": [rk["fsdp_ep"]["peak_bytes_steps"] for rk in ranks],
+           "peak_bytes_by_rank_epso": [rk["runs"][name]["peak_bytes"] for rk in ranks],
+           "step_ms_by_rank": [[s["step_ms"] for s in rk["fsdp_ep"]["history"]]
+                               for rk in ranks],
+           "step_ms_median_by_rank": [statistics.median(
+               s["step_ms"] for s in rk["fsdp_ep"]["history"][1:]) for rk in ranks],
+           # epso_train's last step is profiled on rank 0
+           "step_ms_median_by_rank_epso": [statistics.median(
+               s["step_ms"] for s in rk["runs"][name]["history"][1:-1]) for rk in ranks],
+           "gathered_bytes_per_step_counted": r0["fsdp_stats"]["gathered_bytes"] / n,
+           "gathered_bytes_per_step_computed": 2 * L * layer,
+           "gathers_per_step": r0["fsdp_stats"]["all_gather"] / n,
+           "reduce_scatters_per_step": r0["fsdp_stats"]["reduce_scatter"] / n,
+           "layer_bytes_gathered": layer,
+           "launches_per_rank": r0["launches"], "expected_launches": expect,
+           "note": "4 ranks time-share one card; gloo carries the gathers, the "
+                   "reduce-scatters and the EPSO collectives through host memory: no step "
+                   "time here is an FSDP speed"}
+    emit("fsdp_ep_train", **row)
     return row
 
 
@@ -4200,12 +4348,16 @@ LAUNCHER_GRID_RUNS = (
     ("grid_tp/clean", FT_ARCH, GRID_TP_RUN, 0),
     ("grid_tp/faulty", FT_ARCH, dict(GRID_TP_RUN, **GRID_TP_INJECT), 0),
     ("grid_rebalance/clean", FT_ARCH, GRID_REB_RUN, 0),
-    ("grid_rebalance/faulty", FT_ARCH, dict(GRID_REB_RUN, **GRID_REB_INJECT), 0))
+    ("grid_rebalance/faulty", FT_ARCH, dict(GRID_REB_RUN, **GRID_REB_INJECT), 0),
+    ("grid_fsdp/first", FT_ARCH, GRID_FSDP_RUN, 0),
+    ("grid_fsdp/second", FT_ARCH, GRID_FSDP_RUN, 0))
 
 
 def _grid_run_dir(name: str) -> Path:
-    """A session launcher run's directory: one for both grid_dense runs."""
-    return LAUNCH_DIR / ("grid_dense" if name.startswith("grid_dense/") else name)
+    """A session launcher run's directory: one for a run and the run that
+    resumes it (``.../first``, ``.../second``)."""
+    base, _, which = name.partition("/")
+    return LAUNCH_DIR / (base if which in ("first", "second") else name)
 
 
 def launcher_grid_jobs() -> tuple:
@@ -4525,6 +4677,103 @@ def phase_launcher_grid_tp(ft: dict, session: dict, specs: dict) -> dict:
     if not both_clean or max(rel.values()) > GRID_TP_LOSS_TOL:
         raise AssertionError(f"launcher_grid_tp: losses off launcher_ft's by {rel} at the "
                              f"steps without drops (> {GRID_TP_LOSS_TOL})")
+    return row
+
+
+def phase_launcher_grid_fsdp(session: dict, specs: dict) -> dict:
+    """launcher_ft's shapes on a dp = 2 x ep = 2 grid with fsdp under EPSO
+    (GRID_FSDP_RUN, ``--parallel dp=2,ep=2,fsdp --opt-shard epso``): 18
+    steps that checkpoint every 5 (the fsdp tiles and their EPSO shards
+    gathered to rank 0 into whole arrays), then the same run again, which
+    resumes from the last (the tiles sent back) and takes steps 16-17
+    (both in the session's processes). Asserts the resumed steps bit-identical, the
+    checkpoint's members the whole arrays of the config (keys, shapes,
+    dtypes), the plan's layout with fsdp in the MANIFEST, each rank's state
+    bytes ``state_bytes_per_device`` of the fsdp placements, the exact
+    launch count of both runs, losses finite and falling, step 0's loss
+    bit for bit launcher_grid_ft's clean run's (the same plan without
+    fsdp) and the later ones within GRID_FSDP_LOSS_TOL of it where both
+    drop as many pairs; prints save and restore ms and the checkpoint's
+    bytes."""
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.train import state_layout
+    from repro_torch.train.trainer import placements
+
+    out = _grid_run_dir("grid_fsdp/first")
+    try:
+        spec, first, wall_first = _grid_run(session, specs, "grid_fsdp/first")
+        _, second, wall_second = _grid_run(session, specs, "grid_fsdp/second")
+        ckpt = next((out / "ckpt").glob("ckpt-*/state.npz"))
+        members = _npz_members(ckpt)
+        manifest = json.loads((ckpt.parent / "MANIFEST.json").read_text())
+        ckpt_bytes = {"full_ckpt_bytes": ckpt.stat().st_size,
+                      "model_only_ckpt_bytes": sum(f.stat().st_size for f in (out / "ckpt").glob(
+                          "model-*.npz"))}
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    cfg, sizes = spec.cfg, spec.plan.axis_sizes
+    shapes = init_params(cfg, device="meta")
+    want_bytes = state_bytes_per_device(shapes, placements(cfg, shapes, sizes, fsdp=True), sizes,
+                                        "epso")
+    want_members = {k: [list(shape), "int32" if k == ".opt.step" else "float32"]
+                    for k, (shape, _) in state_layout(cfg, sizes, "epso", fsdp=True).items()
+                    if k.startswith((".params", ".opt"))}
+    steps, every = GRID_FSDP_RUN["steps"], GRID_FSDP_RUN["ckpt_interval"]
+    last_ckpt = (steps - 1) // every * every
+    expect = {"first": expected_train_launches(cfg.num_layers, 1, steps),
+              "second": expected_train_launches(cfg.num_layers, 1, steps - last_ckpt - 1)}
+    keys = ("loss", "grad_norm", "lr", "moe_drops")
+    hist, again = first[0]["result"], second[0]["result"]
+    resumed = {h["step"]: {k: h[k] for k in keys} for h in again}
+    straight = {h["step"]: {k: h[k] for k in keys} for h in hist[last_ckpt + 1:]}
+    ref = list(_grid_run(session, specs, "grid_ft/clean")[1][0]["result"])[:steps]
+    losses, drops = [h["loss"] for h in hist], [h["moe_drops"] for h in hist]
+    same_drops = [i for i, (h, r) in enumerate(zip(hist, ref)) if h["moe_drops"] == r["moe_drops"]]
+    rel = {i: abs(losses[i] - ref[i]["loss"]) / abs(ref[i]["loss"]) for i in same_drops}
+    row = {"model": cfg.name, "run": GRID_FSDP_RUN, "ranks": len(first),
+           "losses": losses, "grad_norms": [h["grad_norm"] for h in hist], "moe_drops": drops,
+           "losses_grid_ft": [r["loss"] for r in ref],
+           "moe_drops_grid_ft": [r["moe_drops"] for r in ref],
+           "loss_rel_to_grid_ft": rel, "tolerance": GRID_FSDP_LOSS_TOL,
+           "resumed_steps": resumed, "history_bit_identical": resumed == straight,
+           "step_ms_median_by_rank": [statistics.median(r["rec"]["step_ms"]) for r in first],
+           "peak_bytes_by_rank": [r["peak_bytes"] for r in first],
+           "state_bytes_by_rank": [r["rec"]["state_bytes"] for r in first],
+           "state_bytes_expected": want_bytes,
+           "save_ms_by_rank": [r["rec"]["save_ms"] for r in first],
+           "save_model_only_ms_by_rank": [r["rec"]["save_model_only_ms"] for r in first],
+           "restore_ms_by_rank": [r["rec"]["restore_ms"] for r in second], **ckpt_bytes,
+           "manifest_plan": manifest.get("plan"), "wall_s": [wall_first, wall_second],
+           "launches_per_rank": {"first": first[0]["launches"],
+                                 "second": second[0]["launches"]},
+           "expected_launches": expect}
+    emit("launcher_grid_fsdp", **row)
+    if [h["step"] for h in hist] != list(range(steps)) or \
+            sorted(resumed) != list(range(last_ckpt + 1, steps)):
+        raise AssertionError(f"launcher_grid_fsdp: steps {[h['step'] for h in hist]} then "
+                             f"{sorted(resumed)}, not 0-{steps - 1} then "
+                             f"{last_ckpt + 1}-{steps - 1}")
+    if resumed != straight:
+        raise AssertionError(f"launcher_grid_fsdp: resumed steps {resumed} differ from the "
+                             f"uninterrupted run's {straight}")
+    for i, (f, g) in enumerate(zip(first, second)):
+        if {"first": f["launches"], "second": g["launches"]} != expect:
+            raise AssertionError(f"launcher_grid_fsdp rank {i}: kernel launches "
+                                 f"{f['launches']} / {g['launches']} != expected {expect}")
+        if f["rec"]["state_bytes"] != want_bytes or g["rec"]["state_bytes"] != want_bytes:
+            raise AssertionError(f"launcher_grid_fsdp rank {i}: state bytes "
+                                 f"{f['rec']['state_bytes']}, planned {want_bytes}")
+    if members != want_members:
+        raise AssertionError(f"launcher_grid_fsdp: the checkpoint's members {members} are not "
+                             f"the config's whole arrays {want_members}")
+    if (manifest.get("plan") or {}).get("layout") != GRID_FSDP_LAYOUT:
+        raise AssertionError(f"launcher_grid_fsdp: MANIFEST plan {manifest.get('plan')}")
+    if not (_finite(hist) and losses[-1] < losses[0]):
+        raise AssertionError(f"launcher_grid_fsdp: losses {losses} not finite and falling")
+    if losses[0] != ref[0]["loss"] or max(rel.values()) > GRID_FSDP_LOSS_TOL:
+        raise AssertionError(f"launcher_grid_fsdp: losses off launcher_grid_ft's by {rel} "
+                             f"(step 0 bit for bit, else > {GRID_FSDP_LOSS_TOL})")
     return row
 
 
@@ -4940,7 +5189,7 @@ def main(argv=None) -> int:
     ranks, walls = session["ranks"], session["wall_s"]
     phase_ep_reference(ranks["ep_reference"], walls["ep_reference"], ep_ref)
     ep_train = phase_ep_train(ranks["ep_train"], walls["ep_train"])
-    epso, placement, a2a, tp, pp, grid_serve, fsdp = phase_epso_train(
+    epso, placement, a2a, tp, pp, grid_serve, fsdp, fsdp_ep = phase_epso_train(
         ranks["epso_train"], walls["epso_train"])
     dense = phase_launcher_dense()
     ft = phase_launcher_ft()
@@ -4948,6 +5197,7 @@ def main(argv=None) -> int:
     grid_ft = phase_launcher_grid_ft(ft, session, grid_specs)
     grid_tp = phase_launcher_grid_tp(ft, session, grid_specs)
     grid_reb = phase_launcher_grid_rebalance(session, grid_specs)
+    grid_fsdp = phase_launcher_grid_fsdp(session, grid_specs)
     grid_pp = phase_launcher_grid_pp()
     phase_launches(get_config(MULA))
     emit("phase_times", seconds=PHASE_S, total_s=time.perf_counter() - T_START)
@@ -4969,6 +5219,7 @@ def main(argv=None) -> int:
                    "pp_train": pp["launches_per_rank"][name],
                    "grid_serve": grid_serve["launches_per_rank"][name],
                    "fsdp_train": fsdp["launches_per_rank"][name],
+                   "fsdp_ep_train": fsdp_ep["launches_per_rank"][name],
                    "launcher_dense": dense["launches"][name],
                    "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name],
                    "launcher_grid_dense": grid_dense["launches_per_rank"][name],
@@ -4977,7 +5228,9 @@ def main(argv=None) -> int:
                    + grid_reb["launches_per_rank"]["faulty"][name],
                    "launcher_grid_tp": grid_tp["launches_per_rank"]["clean"][name]
                    + grid_tp["launches_per_rank"]["faulty"][name],
-                   "launcher_grid_pp": grid_pp["launches_per_rank"][name]}
+                   "launcher_grid_pp": grid_pp["launches_per_rank"][name],
+                   "launcher_grid_fsdp": grid_fsdp["launches_per_rank"]["first"][name]
+                   + grid_fsdp["launches_per_rank"]["second"][name]}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

@@ -51,8 +51,8 @@ On a dp x pp x ep x tp process grid (``grid=``, the rank's
 still the JAX package's: whole arrays. A rank holds a tile of each leaf
 (``parallel.sharding.tile_slices`` of the ``layout=`` the caller passes,
 ``train.state_layout``: pipeline stages of the layer stacks over 'pp',
-expert slices over 'ep', tp shards, SO/EPSO state shards); a stage-split
-layer stack is one stage-agnostic (L, ...) array on disk, as the JAX
+expert slices over 'ep', tp shards, fsdp tiles over 'data', SO/EPSO state
+shards); a stage-split layer stack is one stage-agnostic (L, ...) array on disk, as the JAX
 checkpointer writes it, so checkpoints move across pipeline layouts. On save, leaf by leaf, the first rank holding each distinct tile
 (so one of the tp replicas of a leaf 'tp' does not split) sends it to rank 0, which assembles the leaf
 on the host and writes the member: the host holds one leaf at a time. On
@@ -78,7 +78,7 @@ import torch.distributed as dist
 
 from repro_torch.parallel.grid import rank_coords
 from repro_torch.parallel.placement import ExpertPlacement, is_expert_stack
-from repro_torch.parallel.plan import FSDP_ITEM, refuse
+from repro_torch.parallel.plan import FSDP_AXES, FSDP_ITEM, refuse
 from repro_torch.parallel.sharding import tile_slices
 from repro_torch.tree import assign, keyed_leaves, leaves, leaves_with_path
 
@@ -181,9 +181,12 @@ class _Tiles:
                 f"checkpoints of a grid on the {grid.world.backend!r} backend: the tiles go "
                 f"through host tensors over gloo (ROADMAP.md §1 item 5, NCCL with one card per "
                 f"rank)")
-        if any("data" in axes for key, (_, place) in layout.items()
-               if key.startswith(".params") for axes in place):
-            refuse("grid checkpoints of an fsdp layout (params split over 'data')", FSDP_ITEM)
+        fsdp = any("data" in axes for key, (_, place) in layout.items()
+                   if key.startswith(".params") for axes in place)
+        other = [a for a in grid.axis_sizes if a not in FSDP_AXES]
+        if fsdp and other:
+            refuse(f"grid checkpoints of an fsdp layout on a grid with {', '.join(other)}",
+                   FSDP_ITEM)
         self.group, self.rank = grid.world.group, grid.world.rank
         self.sizes = grid.axis_sizes
         self.coords = [rank_coords(r, grid.sizes) for r in range(grid.world.world)]

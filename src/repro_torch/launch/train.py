@@ -62,8 +62,8 @@ float32 the JAX launcher fixes. The MoE kernels on the card take bf16, so
 an MoE model on the card runs with ``bfloat16``.
 
 Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
-item that ports them: plans with a pod axis (§1 item 5), ``fsdp`` (§1
-item 5.1c: the step runs it, the launcher not yet), tp for
+item that ports them: plans with a pod axis (§1 item 5), ``fsdp`` with
+'tp' or 'pp' or for the ssm and hybrid archs (§1 item 5.1d), tp for
 the ssm and hybrid archs (§1 item 5.10), the all-to-all Stage 1 under pp
 (§1 item 5.11), ``kernel_tiles`` and ``tiles=`` (§1 item 7), and the vlm
 and audio archs (§1 item 6). A pp axis refuses the hybrid arch and
@@ -140,13 +140,11 @@ def _env_int(name: str):
     return int(v) if v else None
 
 
-def _check_supported(cfg, *, kernel_tiles, fsdp: bool = False) -> None:
+def _check_supported(cfg, *, kernel_tiles) -> None:
     if kernel_tiles is not None:
         refuse("kernel tile selection (--kernel-tiles)", "item 7, autotuning")
     if cfg.arch_type not in ARCHS:
         refuse(f"arch_type {cfg.arch_type!r}", "item 6, the rest of the zoo")
-    if fsdp:
-        refuse("fsdp in the launcher (--parallel ...,fsdp)", FSDP_ITEM)
 
 
 def _batch_mover(batch: int, seq: int, dev: torch.device):
@@ -257,7 +255,7 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
                                          pp_schedule=pp_schedule or "1f1b")
     else:
         pplan = None
-    _check_supported(cfg, kernel_tiles=kernel_tiles, fsdp=pplan is not None and pplan.fsdp)
+    _check_supported(cfg, kernel_tiles=kernel_tiles)
     if pplan is not None and pp_impl is not None:
         pplan = dataclasses.replace(pplan, pp_impl=pp_impl)
     if rebalance is not None:               # the flag overrides the spec's token
@@ -290,6 +288,8 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
                 cfg.moe, dispatch=moe_dispatch))
         opt_shard = opt_shard or "none"
     plan = pplan.resolve(cfg, global_batch=batch) if pplan is not None else None
+    if plan is not None and plan.plan.fsdp and rebalance_force_at is not None:
+        refuse("fsdp with --rebalance-force-at (an expert placement)", FSDP_ITEM)
     world = plan.batch_ranks if plan is not None else 1
     if (batch // world) % microbatches:
         raise ValueError(f"a rank's {batch // world} of the batch's {batch} rows do not split "
@@ -372,6 +372,7 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
     lost."""
     cfg, train, steps, mode = spec.cfg, spec.train, spec.train.total_steps, \
         spec.par.optimizer_sharding
+    fsdp = spec.par.fsdp_params
     rank = grid.world.rank if grid is not None else 0
     lead = rank == 0
     dev = grid.world.device if grid is not None else spec.device
@@ -382,10 +383,10 @@ def _rank_main(grid, spec: RunSpec) -> RunResult:
 
     def fresh_state():
         return init_state(cfg, train, seed=train.seed, device=dev, grid=grid,
-                          opt_sharding_mode=mode)
+                          opt_sharding_mode=mode, fsdp=fsdp)
 
     state = fresh_state()
-    layout = state_layout(cfg, grid.axis_sizes, mode) if grid is not None else None
+    layout = state_layout(cfg, grid.axis_sizes, mode, fsdp=fsdp) if grid is not None else None
     ckpt = Checkpointer(os.path.join(spec.out, "ckpt"), interval=spec.ckpt_interval,
                         plan=spec.plan, grid=grid, layout=layout)
     cluster = ClusterManager(n_active=max(2, spec.world), n_buffer=spec.n_buffer)

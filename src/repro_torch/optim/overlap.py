@@ -14,7 +14,10 @@ mismatch between grads/params and states; here each is one explicit
   rows, so a gradient is never summed over 'tp': a state split over 'tp'
   that its param does not split takes the rank's own part of the
   gradient; SO/EPSO add no 'pp' to a state (the JAX rule), so the stage
-  tiles' states stay on their stage;
+  tiles' states stay on their stage. An fsdp tile's gradient arrives
+  summed over 'data' (``parallel.fsdp``): its param placement uses
+  'data', so neither its bucket's reduce-scatter nor the sum over the axes
+  the state replicates runs over 'data' again;
 * the global grad norm comes from the shards: one scalar all-reduce per
   distinct state-axis set; the expert stacks take the canonical (L, E)
   slice-sum path (gathered over the axes tiling dims 0 and 1, summed over
@@ -23,7 +26,9 @@ mismatch between grads/params and states; here each is one explicit
   whichever rank holds an expert;
 * ``adamw_leaf`` runs on each shard, in place;
 * the updated master shards are cast to the param dtype and gathered, one
-  buffer per bucket, over the bucket's axes, and written into the params.
+  buffer per bucket, over the bucket's axes, and written into the params
+  (the rank's tiles: an fsdp tile is put together from its state shards,
+  never into the whole leaf).
 
 ``impl``: 'xla' gathers a bucket with one ``all_gather``, 'ring' with the
 hierarchical ring of neighbour exchanges (``_ring_all_gather``), both

@@ -9,7 +9,10 @@ makes a layer's weights whole for that layer's forward and backward
 alone. ``models.model.forward`` calls it inside the function that block
 remat checkpoints, so the checkpoint saves the tiles, and its recompute in
 the backward gathers again; outside a layer's own forward and backward no
-rank holds that layer's gathered weights or their whole gradient.
+rank holds that layer's gathered weights or their whole gradient. On a
+('data', 'ep') grid an expert stack's tile is cut from the rank's 'ep'
+slice, so the gather makes that slice whole, what the MoE block takes under
+EP; the group is the 'data' group of the rank's 'ep' coordinate.
 
 * forward: one all-gather over 'data' of the layer's tiles, cast to the
   compute dtype and packed into one flat buffer, leaf after leaf; each

@@ -68,16 +68,25 @@ microbatches on such a grid; 'masked' runs the same executor with any
 count (the JAX executors agree to about 1 ulp).
 
 FSDP (``ParallelConfig.fsdp_params``, ZeRO-3 on the 'data' axis, the JAX
-``fsdp`` layout): rank d holds its 'data' tile of every leaf that
-``param_placements(..., fsdp=True)`` splits, and under 'none' its master,
-m and v are those tiles. Each layer's tiles are gathered inside the
-function that block remat checkpoints (``parallel.fsdp.LayerGather``, in
-``compute_dtype``); the gather's backward reduce-scatters the layer's
-gradients onto the tiles, in ``grad_reduce_dtype``, once a microbatch, so the tiles take no
-sum over 'data' in the update; the grad norm sums their squares over
-'data'. It runs on a pure 'data' grid of a dense or moe model under
-'none', with a 'block' or 'block_sc' remat policy; everything else is
-refused (``parallel.plan.check_fsdp``, ROADMAP.md §1 item 5.1c).
+``fsdp`` layout): rank (d, e) holds its 'data' tile of every leaf that
+``param_placements(..., fsdp=True)`` splits (of an expert stack, its tile
+of its 'ep' slice). Under 'none' its master, m and v are those tiles;
+under 'so' and 'epso' they are cut from the tiles by the state placement
+``optim.epso.optimizer_state_specs`` gives on the fsdp param placements,
+which adds only the axes a tile does not use yet ('epso' on a ('data',
+'ep') grid: 'ep' for a layer tile, nothing for an expert stack). Each
+layer's tiles are gathered inside the function that block remat
+checkpoints (``parallel.fsdp.LayerGather``, in ``compute_dtype``; an
+expert stack into the rank's whole 'ep' slice); the gather's backward
+reduce-scatters the layer's gradients onto the tiles, in
+``grad_reduce_dtype``, once a microbatch, so a tile takes no sum over
+'data' in the update, only over the batch axes that do not split it
+('ep' for a layer tile, none for an expert stack); the grad norm sums
+their squares over 'data' (and over 'ep' where the state splits them).
+It runs on ('data', 'ep') grids of a dense or moe model in every
+optimizer mode, with a 'block' or 'block_sc' remat policy; 'tp', 'pp', a
+placement and the state-space archs are refused
+(``parallel.plan.check_fsdp``, ROADMAP.md §1 item 5.1d).
 """
 from __future__ import annotations
 
@@ -150,14 +159,16 @@ def placements(cfg: ModelConfig, shapes: dict, axis_sizes: dict, *,
 
 
 def opt_layout(cfg: ModelConfig, grid: Optional[ProcessGrid], mode: str, *,
-               max_bucket_bytes: int = DEFAULT_BUCKET_BYTES) -> tuple[UpdatePlan, list]:
+               max_bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+               fsdp: bool = False) -> tuple[UpdatePlan, list]:
     """The SO/EPSO layout of ``cfg``'s parameters on ``grid``: the update
     plan and each leaf's state placement (leaf order), from the global
     shapes (``init_params`` on the meta device) and the port's param
-    placements. Without a grid every state is whole."""
+    placements (``fsdp``: with the 'data' tiles, so that a state adds only
+    the axes its tile does not use). Without a grid every state is whole."""
     shapes = init_params(cfg, device="meta")
     sizes = grid.axis_sizes if grid is not None else {}
-    place = placements(cfg, shapes, sizes)
+    place = placements(cfg, shapes, sizes, fsdp=fsdp)
     plan = plan_update_buckets(shapes, place, sizes, mode, max_bucket_bytes=max_bucket_bytes)
     return plan, leaves(optimizer_state_specs(shapes, place, sizes, mode))
 
@@ -172,8 +183,7 @@ def state_layout(cfg: ModelConfig, axis_sizes: dict, mode: Optional[str], *,
     and v by their state placement, the step whole. The params appear a
     second time under their keys in a params tree alone (a model-only
     checkpoint's keys). A rank holds ``parallel.sharding.tile_slices`` of
-    each global leaf. ``checkpoint.Checkpointer(layout=)`` takes it (and
-    refuses a ``fsdp`` one, ROADMAP.md §1 item 5.1c)."""
+    each global leaf. ``checkpoint.Checkpointer(layout=)`` takes it."""
     shapes = init_params(cfg, device="meta")
     place = placements(cfg, shapes, axis_sizes, fsdp=fsdp)
     specs = optimizer_state_specs(shapes, place, axis_sizes, _opt_mode(mode))
@@ -188,7 +198,9 @@ def state_layout(cfg: ModelConfig, axis_sizes: dict, mode: Optional[str], *,
 
 
 def _cut(tree: dict, plan: UpdatePlan, grid: ProcessGrid) -> dict:
-    """Copies of this rank's SO/EPSO shards of a param-local tree."""
+    """Copies of this rank's SO/EPSO shards of a param-local tree (the
+    rank's tiles: ``plan``'s leaves cut them on the axes the state adds to
+    their placement alone)."""
     by_index = {lf.index: lf for b in plan.buckets for lf in b.leaves}
     order = {id(t): i for i, t in enumerate(leaves(tree))}
     return tree_map(lambda t: shard_of(t, by_index[order[id(t)]], grid.coords,
@@ -204,13 +216,14 @@ def init_state(cfg: ModelConfig, train: TrainConfig, *, seed: int = 0,
     device). On a grid (or an ``ep_group``): the rank's share of the state
     that ``init_state(cfg, train, seed=seed)`` gives on one process, its
     optimizer state cut by ``opt_sharding_mode`` (None: 'none'). ``fsdp``:
-    the params, master, m and v are the rank's 'data' tiles too
-    (``ParallelConfig.fsdp_params``; float32 params keep sharing the
-    master's tensors)."""
+    the params are the rank's 'data' tiles too (``ParallelConfig.
+    fsdp_params``), and master, m and v are cut from them: under 'none'
+    the tiles themselves (float32 params keep sharing the master's
+    tensors), under 'so' and 'epso' the shards of the tiles."""
     grid = _grid(ep_group, grid)
     mode = _opt_mode(opt_sharding_mode)
     if fsdp:
-        check_fsdp(cfg.arch_type, grid.axis_sizes if grid is not None else {}, mode)
+        check_fsdp(cfg.arch_type, grid.axis_sizes if grid is not None else {})
     if device is None and grid is not None:
         device = grid.world.device
     params = init_params(cfg, seed=seed, device=device)
@@ -225,7 +238,7 @@ def init_state(cfg: ModelConfig, train: TrainConfig, *, seed: int = 0,
     pd = _dtype(train.param_dtype)
     if mode == "none" or grid is None:
         return TrainState(tree_map(lambda p: p.to(pd), params), adamw_init(params))
-    plan, _ = opt_layout(cfg, grid, mode)
+    plan, _ = opt_layout(cfg, grid, mode, fsdp=fsdp)
     master = _cut(tree_map(lambda p: p.detach().to(torch.float32), params), plan, grid)
     opt = AdamWState(torch.zeros((), dtype=torch.int32, device=params["embed"]["table"].device),
                      master, tree_map(torch.zeros_like, master),
@@ -298,7 +311,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         raise ValueError(f"the grid's 'pp' axis has {gpp} stages, the step pp_stages={pp}")
     fsdp = parallel.fsdp_params
     if fsdp:
-        check_fsdp(cfg.arch_type, grid.axis_sizes if grid is not None else {}, mode)
+        check_fsdp(cfg.arch_type, grid.axis_sizes if grid is not None else {})
         if pp > 1 or pl_inv is not None:
             refuse("fsdp with pipeline stages or an expert placement", FSDP_ITEM)
         if not {"block", "block_sc"} & set(sac.split(",")):
@@ -320,7 +333,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         # 'off': the same sharded math with every leaf its own bucket
         plan, state_specs = opt_layout(cfg, grid, mode,
                                        max_bucket_bytes=0 if ov_impl == "off" else
-                                       DEFAULT_BUCKET_BYTES)
+                                       DEFAULT_BUCKET_BYTES, fsdp=fsdp)
 
     rows_on = {}
 
@@ -539,7 +552,9 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         its leaf, in ``dtype``, one flat buffer per set of axes: the whole
         leaves' over ('data', 'pp', 'ep'), the layer tiles' over ('data',
         'ep'), the expert slices' over 'data', the fsdp tiles' (their sum
-        over 'data' was the gather's reduce-scatter) over none."""
+        over 'data' was the gather's reduce-scatter) over 'ep' where it
+        does not split them: a layer tile's over 'ep', an expert stack's
+        over none."""
         by_axes = {}
         for g, split in zip(leaves(grads), split_axes):
             by_axes.setdefault(tuple(a for a in SUM_AXES if a not in split), []).append(g)

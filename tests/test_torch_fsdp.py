@@ -26,9 +26,10 @@ layer's tiles inside its remat block and reduce-scatters its gradients.
   leaf's shape, under 'block' and 'block_sc' (the tape keeps no gather);
   the fsdp tiles' gradients take no second sum over 'data' in the update.
 * Refusals: the step under a remat policy that would keep the gathered
-  weights, with 'so', pp or a placement, and a grid ``Checkpointer`` given
-  an fsdp layout, alone or with its fsdp plan, all naming ROADMAP.md §1
-  item 5.1c.
+  weights, with pp or a placement, and a grid ``Checkpointer`` given an
+  fsdp layout on a grid with 'tp' or 'pp', naming ROADMAP.md §1 item 5.1d
+  (the ('data', 'ep') grids and the sharded optimizer:
+  tests/test_torch_fsdp_ep.py).
 """
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
@@ -68,7 +69,7 @@ import torch_ep_ranks as ranks  # noqa: E402
 from test_torch_epso import (F32, TIMEOUT_S, TOL, _batches, _jleaves, _mesh, _np,  # noqa: E402
                              _placement, _placements)
 
-ITEM = "ROADMAP.md §1 item 5.1c"
+ITEM = "ROADMAP.md §1 item 5.1d"
 BF16 = dict(param_dtype="float32", compute_dtype="bfloat16", grad_reduce_dtype="bfloat16")
 DP = 2
 ARCHS = ("mula-1b", "mula-7b-a1b")
@@ -448,40 +449,50 @@ def test_fsdp_tiles_take_no_second_sum(fsdp_runs, arch):
 # refusals
 # ----------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw,mode", [
-    (dict(remat_policy="none"), None), (dict(remat_policy="attn,moe"), None),
-    (dict(), "so"), (dict(pp_stages=2), None)],
-    ids=["remat-none", "remat-attn-moe", "opt-so", "pp"])
-def test_fsdp_step_refuses_what_it_does_not_run(kw, mode):
+@pytest.mark.parametrize("kw,placed", [
+    (dict(remat_policy="none"), False), (dict(remat_policy="attn,moe"), False),
+    (dict(), True), (dict(pp_stages=2), False)],
+    ids=["remat-none", "remat-attn-moe", "placement", "pp"])
+def test_fsdp_step_refuses_what_it_does_not_run(kw, placed):
     """The step refuses fsdp under a remat policy without 'block' or
     'block_sc' (autograd would keep every layer's gathered weights), with
-    'so' and with pp stages; ``init_state`` refuses 'so' too."""
+    an expert placement and with pp stages; ``init_state`` refuses fsdp
+    for a hybrid model."""
+    from repro_torch.parallel.placement import ExpertPlacement
     _, tc = _step_cfgs("mula-7b-a1b")
     train = TrainConfig(**F32)
+    placement = None
+    if placed:
+        L, E = tc.num_layers, tc.moe.num_experts
+        placement = ExpertPlacement(L, E, tuple(tuple(reversed(range(E))) for _ in range(L)))
     with pytest.raises(NotImplementedError, match=ITEM):
         make_train_step(tc, ParallelConfig(fsdp_params=True, **kw), train,
-                        opt_sharding_mode=mode)
-    if mode is not None:
+                        placement=placement)
+    if placed:
+        hybrid = treduced(tget("zamba2-7b"), d_model=64, vocab=128)
         with pytest.raises(NotImplementedError, match=ITEM):
-            init_state(tc, train, device="cpu", opt_sharding_mode=mode, fsdp=True)
+            init_state(hybrid, train, device="cpu", fsdp=True)
 
 
 def test_grid_checkpointer_refuses_fsdp(tmp_path):
-    """A grid ``Checkpointer`` given an fsdp layout, alone or with the
-    fsdp plan it comes from, refuses before it touches a file."""
+    """A grid ``Checkpointer`` given an fsdp layout on a grid with 'tp' or
+    with 'pp' refuses before it touches a file; on ('data', DP) it takes
+    one."""
     from repro_torch.checkpoint import Checkpointer
-    from repro_torch.parallel import ParallelPlan, ProcessGrid
+    from repro_torch.parallel import ProcessGrid
     from repro_torch.parallel.ep import EPGroup
     _, tc = _step_cfgs("mula-1b")
     dev = torch.device("cpu")
-    grid = ProcessGrid(EPGroup(None, 0, DP, dev, "gloo"), EPGroup(None, 0, DP, dev, "gloo"),
-                       EPGroup(None, 0, 1, dev, "gloo"))
-    sizes = grid.axis_sizes
-    with pytest.raises(NotImplementedError, match=ITEM):
-        Checkpointer(str(tmp_path / "a"), grid=grid,
-                     layout=state_layout(tc, sizes, "none", fsdp=True))
-    plan = ParallelPlan.parse(f"dp={DP},fsdp").resolve(tc, global_batch=4)
-    with pytest.raises(NotImplementedError, match=ITEM):
-        Checkpointer(str(tmp_path / "b"), plan=plan, grid=grid,
-                     layout=state_layout(tc, sizes, "none", fsdp=plan.plan.fsdp))
-    assert not (tmp_path / "a").exists() and not (tmp_path / "b").exists()
+
+    def view(n):
+        return EPGroup(None, 0, n, dev, "gloo")
+
+    for name, grid in (("tp", ProcessGrid(view(2 * DP), view(DP), view(1), tp=view(2))),
+                       ("pp", ProcessGrid(view(2 * DP), view(DP), view(1), pp=view(2)))):
+        with pytest.raises(NotImplementedError, match=ITEM):
+            Checkpointer(str(tmp_path / name), grid=grid,
+                         layout=state_layout(tc, grid.axis_sizes, "none", fsdp=True))
+        assert not (tmp_path / name).exists()
+    grid = ProcessGrid(view(DP), view(DP), view(1))
+    Checkpointer(str(tmp_path / "data"), grid=grid,
+                 layout=state_layout(tc, grid.axis_sizes, "none", fsdp=True))

@@ -183,10 +183,12 @@ def grid_checkpoint_rank(grid, tc, spec, root, action):
     from repro_torch.tree import tree_map
 
     plan = ParallelPlan.parse(spec).resolve(tc)
-    layout = state_layout(tc, grid.axis_sizes, plan.opt_shard)
+    fsdp = plan.plan.fsdp
+    layout = state_layout(tc, grid.axis_sizes, plan.opt_shard, fsdp=fsdp)
     train = TrainConfig(param_dtype="float32")
     if action == "save":
-        st = init_state(tc, train, seed=0, grid=grid, opt_sharding_mode=plan.opt_shard)
+        st = init_state(tc, train, seed=0, grid=grid, opt_sharding_mode=plan.opt_shard,
+                        fsdp=fsdp)
         opt = st.opt._replace(step=torch.full_like(st.opt.step, 7),
                               m=tree_map(lambda t: t * 0.5 + 1.0, st.opt.master),
                               v=tree_map(lambda t: t * t + 1e-3, st.opt.master))
@@ -195,7 +197,7 @@ def grid_checkpoint_rank(grid, tc, spec, root, action):
         ck.save(st, 5)
         ck.save_model_only(st.params, 5)
         return st
-    st = init_state(tc, train, seed=1, grid=grid, opt_sharding_mode=plan.opt_shard)
+    st = init_state(tc, train, seed=1, grid=grid, opt_sharding_mode=plan.opt_shard, fsdp=fsdp)
     error = None
     try:
         Checkpointer(root, plan=plan, grid=grid, layout=layout).restore(st)
@@ -205,7 +207,8 @@ def grid_checkpoint_rank(grid, tc, spec, root, action):
                       on_plan_mismatch="reshard")
     restored, step = ck.restore(st)
     params = ck.restore_model_only(
-        init_state(tc, train, seed=2, grid=grid, opt_sharding_mode=plan.opt_shard).params, 5)
+        init_state(tc, train, seed=2, grid=grid, opt_sharding_mode=plan.opt_shard,
+                   fsdp=fsdp).params, 5)
     return {"error": error, "step": step, "state": restored, "model_only": params}
 
 
@@ -440,16 +443,20 @@ def remat_collectives_rank(grid, tc, train, params, opt, batch, policies):
 
 class _CountCollectives:
     """Within the block, the calls of each ``torch.distributed`` collective
-    in ``NAMES``, by name (the port calls them through the module)."""
+    in ``NAMES``, by name (the port calls them through the module), and
+    by name and process group (``on``)."""
     NAMES = ("all_gather", "reduce_scatter", "all_reduce")
 
     def __enter__(self):
         import torch.distributed as dist
         self.counts, self.saved = {}, {n: getattr(dist, n) for n in self.NAMES}
+        self.by_group = {}
 
         def counting(name, fn):
             def call(*a, **kw):
                 self.counts[name] = self.counts.get(name, 0) + 1
+                key = (name, id(kw.get("group")))
+                self.by_group[key] = self.by_group.get(key, 0) + 1
                 return fn(*a, **kw)
             return call
         for n, fn in self.saved.items():
@@ -460,6 +467,10 @@ class _CountCollectives:
         import torch.distributed as dist
         for n, fn in self.saved.items():
             setattr(dist, n, fn)
+
+    def on(self, group) -> dict:
+        """The calls of each collective over the process group ``group``."""
+        return {n: self.by_group.get((n, id(group)), 0) for n in self.NAMES}
 
 
 def fsdp_cases_rank(grid, tc_by_arch, params_by_arch, opt_by_arch, trains, batches, cases):
@@ -573,5 +584,94 @@ def _fsdp_update_sums(grid, tc, train, params):
     grads = tree_map(lambda p: torch.full_like(p, grid.world.rank + 1.0), params)
     state = TrainState(params, adamw_init(params))
     _, om = step.update(state, grads)
+    return {"grads": {k: torch.unique(v) for k, v in leaves_with_path(grads)},
+            "grad_norm": om["grad_norm"]}
+
+
+def fsdp_ep_cases_rank(grid, tc_by_arch, params_by_arch, opt_by_arch, train, batches, cases,
+                       ckpt_root):
+    """One rank of a dp = 2 x ep = 2 grid: for each (arch, mode, overlap,
+    remat policy, fsdp) of ``cases``, from the whole params and AdamW state
+    of ``arch``, the rank's tiles and its state in ``mode``
+    (``convert.params_for_rank`` / ``opt_state_for_rank``, ``fsdp``: with
+    the 'data' tiles), one step per batch on its rows; per case the
+    metrics, the params, the state, its bytes against
+    ``state_bytes_per_device``, the collectives over the 'data' group, the
+    gather's ``stats`` and the update plan's buckets gathered over 'data'
+    alone. Then per arch and (mode, overlap) of the fsdp cases one update
+    of gradients that tell the ranks apart (``_fsdp_ep_update``); and the
+    grid checkpoint of ``dp=2,ep=2,fsdp,opt=epso`` saved under
+    ``ckpt_root`` and restored (``grid_checkpoint_rank``)."""
+    from repro_torch.convert import opt_state_for_rank, params_for_rank
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import DEFAULT_BUCKET_BYTES, state_bytes_per_device
+    from repro_torch.train.trainer import opt_layout, placements
+    from repro_torch.tree import leaves
+
+    dp, ep, rank = grid.sizes["data"], grid.sizes["ep"], grid.world.rank
+    sizes = grid.axis_sizes
+    out = {}
+    for arch, mode, overlap, sac, fsdp in cases:
+        tc = tc_by_arch[arch]
+        state = TrainState(params_for_rank(params_by_arch[arch], tc, dp=dp, ep=ep, rank=rank,
+                                           fsdp=fsdp),
+                           opt_state_for_rank(opt_by_arch[arch], tc, dp=dp, ep=ep, rank=rank,
+                                              mode=mode, fsdp=fsdp))
+        par = ParallelConfig(remat_policy=sac, opt_overlap=overlap, fsdp_params=fsdp)
+        step = make_train_step(tc, par, train, opt_sharding_mode=mode, grid=grid)
+        metrics = []
+        with _CountCollectives() as calls:
+            for b in batches:
+                state, m = step(state, grid_rows(grid, b))
+                metrics.append({k: m[k] for k in KEYS if k in m})
+        shapes = init_params(tc, device="meta")
+        data_buckets = 0
+        if mode != "none":
+            plan, _ = opt_layout(tc, grid, mode, fsdp=fsdp,
+                                 max_bucket_bytes=0 if step.opt_overlap_impl == "off"
+                                 else DEFAULT_BUCKET_BYTES)
+            data_buckets = sum(bk.axes == ("data",) for bk in plan.buckets)
+        out[(arch, mode, overlap, sac, fsdp)] = {
+            "metrics": metrics, "params": dict(leaves_with_path(state.params)),
+            "opt": state.opt, "data_calls": calls.on(grid.data.group),
+            "stats": dict(step.fsdp_gather.stats) if step.fsdp_gather is not None else None,
+            "impl": step.opt_overlap_impl, "data_buckets": data_buckets,
+            "state_bytes": sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m,
+                                                          state.opt.v) for t in leaves(tree)),
+            "state_bytes_expected": state_bytes_per_device(
+                shapes, placements(tc, shapes, sizes, fsdp=fsdp), sizes, mode),
+            "param_elems": sum(t.numel() for t in leaves(state.params))}
+    for arch, mode, overlap in dict.fromkeys((c[0], c[1], c[2]) for c in cases if c[4]):
+        out[("update", arch, mode, overlap)] = _fsdp_ep_update(
+            grid, tc_by_arch[arch], train, params_by_arch[arch], mode, overlap)
+    tc = tc_by_arch["mula-7b-a1b"]
+    spec = f"dp={dp},ep={ep},opt=epso,fsdp"
+    out["ckpt"] = {"saved": grid_checkpoint_rank(grid, tc, spec, ckpt_root, "save"),
+                   "restored": grid_checkpoint_rank(grid, tc, spec, ckpt_root, "restore")}
+    return out
+
+
+def fsdp_ep_grad(p, coords):
+    """A gradient that says which rank it came from: (d + 1) + 10 e on the
+    rank at 'data' d and 'ep' e. Sums of it over any ranks are exact."""
+    return torch.full_like(p, coords["data"] + 1.0 + 10.0 * coords["ep"])
+
+
+def _fsdp_ep_update(grid, tc, train, params, mode, overlap):
+    """``train_step.update`` of the fsdp step in ``mode``/``overlap`` on
+    ``fsdp_ep_grad`` gradients: the grad norm, and under 'none' the
+    gradients it leaves behind (summed in place over the axes that do not
+    split their leaf), one value a leaf."""
+    from repro_torch.convert import opt_state_for_rank, params_for_rank
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+
+    s, rank = grid.sizes, grid.world.rank
+    mine = params_for_rank(params, tc, dp=s["data"], ep=s["ep"], rank=rank, fsdp=True)
+    opt = opt_state_for_rank(adamw_init(params), tc, dp=s["data"], ep=s["ep"], rank=rank, mode=mode, fsdp=True)
+    step = make_train_step(tc, ParallelConfig(opt_overlap=overlap, fsdp_params=True), train,
+                           opt_sharding_mode=mode, grid=grid)
+    grads = tree_map(lambda p: fsdp_ep_grad(p, grid.coords), mine)
+    _, om = step.update(TrainState(mine, opt), grads)
     return {"grads": {k: torch.unique(v) for k, v in leaves_with_path(grads)},
             "grad_norm": om["grad_norm"]}
