@@ -76,8 +76,8 @@ Phases, each printing JSON lines:
              sharing the card over gloo; in turn, each on the world or on a
              grid cut from it: ep_reference, ep_train, epso_train (with the
              phases its ranks run) and the multi-rank launcher runs of
-             launcher_grid_dense, _ft (its clean run), _tp, _rebalance and
-             _fsdp; prints each job's seconds on every rank;
+             launcher_grid_dense, _ft (its clean run), _tp, _rebalance,
+             _fsdp and _fsdp_pp; prints each job's seconds on every rank;
   ep_reference  expert parallelism (EP) on 4 ranks, processes that share
              the card over gloo: a small MoE block's output and input
              gradient against the same block in one process on the card, and
@@ -200,6 +200,29 @@ Phases, each printing JSON lines:
              reduce-scatters of each step, the exact launch count; prints
              peak memory a rank beside epso_train's, step ms and the bytes
              gathered a step;
+  fsdp_tp_train inside epso_train's ranks, the 4 processes re-cut into
+             ('data', 2) x ('tp', 2): the same widths in the expert-TP EP =
+             1 form (64 experts, expert d_ff 512 a rank), dropless, router
+             terms on, one 2048-token row a 'data' rank that its tp ranks
+             share; 2 steps of FSDP in 'epso'/'ring' (each rank its 'data'
+             tile of its tp shard of every layer weight) beside the same
+             grid's 'epso'/'ring' run without fsdp, from init_state(seed 0),
+             no warmup (step 1 after an update):
+             held as fsdp_ep_train is, plus no drops and every routed pair
+             counted; the state bytes (3,137,107,968) and param elements
+             (416,425,984) a rank; prints peak memory a rank of both runs,
+             step ms and the bytes gathered a step;
+  fsdp_pp_train inside epso_train's ranks, the 4 processes re-cut into
+             ('data', 2) x ('pp', 2): the same widths at 2 layers, one a
+             stage (64 experts a rank), 'epso'/'ring', dropless, router
+             terms on, peak lr 1e-4, 4 one-row microbatches of 512 tokens a
+             'data' rank, 2 steps of 1f1b with FSDP beside the same grid's
+             run without fsdp: held as fsdp_tp_train is; 3 gathers and 1
+             reduce-scatter a layer and microbatch of a stage, the
+             saved-input peak and the bytes handed to the neighbour stage
+             as pp_train's; the state bytes (3,756,822,528) and param
+             elements (416,356,352) a rank; the exact launch count of a
+             stage;
   launcher_dense  full-width Mula-1B at 4 of its 16 layers (d_model 2048,
              d_ff 8192, the byte vocab padded to 512; random weights from
              seed 0, fp32 state, bf16 compute) trained by the launcher
@@ -256,6 +279,12 @@ Phases, each printing JSON lines:
              state bytes a rank, the exact launch count, step 0's loss bit
              for bit launcher_grid_ft's clean run's and later ones within
              2e-3 of it; save and restore ms, the checkpoint's bytes;
+  launcher_grid_fsdp_pp  the same on ``--parallel dp=2,pp=2,fsdp
+             --opt-shard epso`` (one layer a stage, 2 microbatches): the
+             resumed steps bit-identical, the checkpoint whole arrays, the
+             fsdp layout in the MANIFEST, the state bytes a rank, a stage's
+             exact launch count, the losses within 2e-3 of launcher_ft's at
+             the steps where neither run drops pairs; save and restore ms;
   launcher_grid_pp  launcher_ft's run on ``--parallel pp=2,ep=2
              --opt-shard epso`` through the launcher's command line
              (``launch.train.main(argv)``, in this process so that each
@@ -369,6 +398,30 @@ FSDP_LOSS_TOL, FSDP_NORM_TOL, FSDP_NORM_TOL_UPDATED = 1e-3, 1e-5, 2e-3
 # tests/test_torch_fsdp_ep.py)
 FSDP_EP_RUN = ("epso", "ring")
 FSDP_EP_STATE_BYTES, FSDP_EP_PARAM_ELEMS = 3_137_107_968, 424_814_592
+# fsdp_tp_train (inside epso_train's ranks, the 4 processes re-cut as
+# FSDP_TP_GRID (dp, ep, tp)): full-width Mula-7B-A1B at EPSO_LAYERS layers in
+# the expert-TP EP = 1 form, dropless, router terms on, one EP_SEQ-token row a
+# 'data' rank; FSDP in 'epso'/'ring' beside the same grid's run without fsdp,
+# EPSO_STEPS steps each, held at the fsdp_train tolerances; the per-rank fp32
+# state bytes and param elements with fsdp (tests/test_torch_fsdp_grid.py)
+FSDP_TP_GRID = (2, 1, 2)
+FSDP_TP_STATE_BYTES, FSDP_TP_PARAM_ELEMS = 3_137_107_968, 416_425_984
+# fsdp_pp_train (inside epso_train's ranks, re-cut as ('data', FSDP_PP_DP) x
+# ('pp', FSDP_PP_STAGES)): full-width Mula-7B-A1B at EPSO_LAYERS layers, one
+# a stage, 'epso'/'ring', dropless, router terms on, peak lr CMP_LR, PP_MB
+# one-row microbatches of PP_SEQ tokens a 'data' rank, 1f1b; FSDP beside the
+# same grid's run without fsdp, EPSO_STEPS steps each, held at the fsdp_train
+# tolerances; the per-rank fp32 state bytes and param elements with fsdp
+# (tests/test_torch_fsdp_grid.py)
+FSDP_PP_DP, FSDP_PP_STAGES = 2, 2
+FSDP_PP_STATE_BYTES, FSDP_PP_PARAM_ELEMS = 3_756_822_528, 416_356_352
+# fsdp_tp_train and fsdp_pp_train take FSDP_GRID_STEPS steps with no warmup
+# (the lr at its peak from step 0): step 0 on the initial params, step 1
+# after an update, the two kinds of step the fsdp_train tolerances hold.
+# Cut from 3 steps for the smoke's time limit: fsdp_pp_train's fsdp step
+# gathers 10,069,475,328 B through gloo and took 18.9-19.7 s (measured on the
+# H100, 4 ranks sharing it)
+FSDP_GRID_STEPS = 2
 # the multi-rank phases' processes, started once (grid_session): ep_reference,
 # ep_train, epso_train with the phases its ranks run, and the multi-rank
 # launcher runs of LAUNCHER_GRID_RUNS, in turn; the session's time limit
@@ -458,6 +511,12 @@ GRID_PP_LAYOUT = {"axes": [["pp", 2], ["ep", 2]], "opt_shard": "epso", "fsdp": F
 GRID_FSDP_RUN = dict(GRID_FT_RUN, parallel=f"dp={GRID_FT_DP},ep={GRID_FT_EP},fsdp")
 GRID_FSDP_LAYOUT = {"axes": [["data", 2], ["ep", 2]], "opt_shard": "epso", "fsdp": True}
 GRID_FSDP_LOSS_TOL = 2e-3
+# launcher_grid_fsdp_pp: launcher_ft's run on dp = 2 x pp = 2 with fsdp under
+# EPSO (one layer a stage; the launcher's default 2 microbatches), run and
+# resumed as launcher_grid_fsdp; losses within GRID_FSDP_LOSS_TOL of
+# launcher_ft's at the steps where neither run drops pairs
+GRID_FSDP_PP_RUN = dict(FT_RUN, parallel="dp=2,pp=2,fsdp", opt_shard="epso")
+GRID_FSDP_PP_LAYOUT = {"axes": [["data", 2], ["pp", 2]], "opt_shard": "epso", "fsdp": True}
 
 
 T_START = time.perf_counter()
@@ -2730,7 +2789,9 @@ def _epso_train_rank(grid, steps):
             "serve": _grid_serve_rank(grid),
             "fsdp": _fsdp_train_rank(grid, cfg, train, mine),
             "fsdp_ep": _history_run(cfg, train, grid, *FSDP_EP_RUN, mine, EPSO_STEPS,
-                                    fsdp=True)}
+                                    fsdp=True),
+            "fsdp_tp": _fsdp_tp_train_rank(grid, cfg, train, batch),
+            "fsdp_pp": _fsdp_pp_train_rank(grid)}
 
 
 def _fsdp_train_rank(grid, cfg, train, rows):
@@ -2746,14 +2807,61 @@ def _fsdp_train_rank(grid, cfg, train, rows):
             "so": _history_run(cfg, train, g, "so", "off", rows, EPSO_STEPS)}
 
 
+def _fsdp_tp_train_rank(grid, cfg, train, batch):
+    """fsdp_tp_train on one rank: the spawn's processes re-cut as
+    FSDP_TP_GRID (``init_grid``), the dropless model, the rank's row (row d
+    of the batch, the same on its tp peers); FSDP_GRID_STEPS steps without
+    warmup of FSDP 'epso'/'ring' and of 'epso'/'ring' without fsdp, from
+    init_state(seed 0), block remat."""
+    import dataclasses
+
+    from repro_torch.parallel import init_grid
+    g = init_grid(grid.world, *FSDP_TP_GRID)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="dropless"))
+    train = dataclasses.replace(train, warmup_steps=0)
+    d = g.coords["data"]
+    rows = {k: v[d:d + 1] for k, v in batch.items()}
+    n = FSDP_GRID_STEPS
+    return {"coords": g.coords,
+            "fsdp": _history_run(cfg, train, g, "epso", "ring", rows, n, fsdp=True),
+            "plain": _history_run(cfg, train, g, "epso", "ring", rows, n)}
+
+
+def _fsdp_pp_train_rank(grid):
+    """fsdp_pp_train on one rank: the spawn's processes re-cut as
+    ('data', FSDP_PP_DP) x ('pp', FSDP_PP_STAGES), ``pp_train_config``'s
+    model at EPSO_LAYERS layers, the rank's rows (block d of the fixed
+    batch, the same on both stages); FSDP_GRID_STEPS 1f1b steps without
+    warmup of FSDP 'epso'/'ring' and of 'epso'/'ring' without fsdp, from
+    init_state(seed 0), block remat."""
+    import dataclasses
+
+    from repro_torch.parallel import init_grid
+    cfg, train = pp_train_config(EPSO_LAYERS, FSDP_PP_DP)
+    train = dataclasses.replace(train, warmup_steps=0)
+    g = init_grid(grid.world, FSDP_PP_DP, 1, 1, FSDP_PP_STAGES)
+    batch = _fixed_batch(cfg.vocab_size, train.global_batch, train.seq_len, g.world.device)
+    n = train.global_batch // FSDP_PP_DP
+    d = g.coords["data"]
+    rows = {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+    kw = dict(microbatches=PP_MB, pp_stages=FSDP_PP_STAGES)
+    n = FSDP_GRID_STEPS
+    return {"coords": g.coords,
+            "fsdp": _history_run(cfg, train, g, "epso", "ring", rows, n, fsdp=True, **kw),
+            "plain": _history_run(cfg, train, g, "epso", "ring", rows, n, **kw)}
+
+
 def _history_run(cfg, train, grid, mode, overlap, rows, steps, sac="block", profile=False,
-                 fsdp=False, profile_last=False):
+                 fsdp=False, profile_last=False, microbatches=1, pp_stages=1):
     """``steps`` steps of ``cfg`` from init_state(seed 0) on ``grid`` in
     ``mode``/``overlap`` under the remat policy ``sac`` on the rank's
-    ``rows``: per step the metrics, the counts and the step ms; the
-    launches, the peak memory (also of the steps alone) and the state bytes
-    and param elements held. ``fsdp``: the state and step of
-    ``ParallelConfig.fsdp_params``, and the steps' gather counts and bytes.
+    ``rows`` in ``microbatches``: per step the metrics, the counts and the
+    step ms; the launches, the peak memory (also of the steps alone) and
+    the state bytes and param elements held. ``fsdp``: the state and step
+    of ``ParallelConfig.fsdp_params``, and the steps' gather counts and
+    bytes. ``pp_stages`` > 1: the 1f1b pipelined step on the grid's 'pp'
+    axis, each step with its router aux term, the bytes handed to the
+    neighbour stages and the rank's saved-input peak.
     ``profile``: one more step, profiled on rank 0 (``_profile_window``
     with the gloo and c10d events; every rank takes it), whose loss ends
     the history, and that step's own peak memory. ``profile_last``: the
@@ -2769,8 +2877,8 @@ def _history_run(cfg, train, grid, mode, overlap, rows, steps, sac="block", prof
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = init_state(cfg, train, seed=0, grid=grid, opt_sharding_mode=mode, fsdp=fsdp)
-    par = ParallelConfig(microbatches=1, remat_policy=sac, opt_overlap=overlap,
-                         fsdp_params=fsdp)
+    par = ParallelConfig(microbatches=microbatches, remat_policy=sac, opt_overlap=overlap,
+                         fsdp_params=fsdp, pp_stages=pp_stages)
     step = make_train_step(cfg, par, train, opt_sharding_mode=mode, grid=grid)
     held = sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m, state.opt.v)
                for t in leaves(tree))
@@ -2792,6 +2900,10 @@ def _history_run(cfg, train, grid, mode, overlap, rows, steps, sac="block", prof
         history.append({**{k: float(m[k]) for k in keys},
                         "counts": m["moe_counts"].double().cpu().tolist(),
                         "step_ms": (time.perf_counter() - t0) * 1e3})
+        if pp_stages > 1:
+            history[-1].update(moe_aux=float(step.router_terms["moe_aux"]),
+                               sent_bytes=step.sent_bytes,
+                               saved_peak=step.saved_peak[grid.coords["pp"]])
     out = {"history": history, "launches": dict(ops.launches), "state_bytes": held,
            "param_elems": sum(t.numel() for t in leaves(state.params)),
            "peak_bytes": max(init_peak, torch.cuda.max_memory_allocated()),
@@ -2828,17 +2940,17 @@ def _a2a_train_rank(grid, cfg, train, mine, steps):
         steps) for stage1 in ("a2a", "allgather")}
 
 
-def pp_train_config():
-    """pp_train's model and TrainConfig: full-width Mula-7B-A1B at PP_LAYERS
+def pp_train_config(layers: int = PP_LAYERS, batch_ranks: int = PP_DP * PP_EP):
+    """pp_train's model and TrainConfig: full-width Mula-7B-A1B at ``layers``
     layers, dropless, with the config's router terms (a stage takes them
     over the whole microbatch); PP_MB one-row microbatches of PP_SEQ tokens
-    a batch rank (PP_DP x PP_EP of them), peak lr CMP_LR."""
+    a batch rank (``batch_ranks`` of them), peak lr CMP_LR."""
     import dataclasses
 
     from repro_torch.configs import TrainConfig, get_config
-    cfg = dataclasses.replace(get_config(MULA), num_layers=PP_LAYERS)
+    cfg = dataclasses.replace(get_config(MULA), num_layers=layers)
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="dropless"))
-    train = TrainConfig(seq_len=PP_SEQ, global_batch=PP_DP * PP_EP * PP_MB, warmup_steps=2,
+    train = TrainConfig(seq_len=PP_SEQ, global_batch=batch_ranks * PP_MB, warmup_steps=2,
                         total_steps=100, lr_peak=CMP_LR, lr_min=CMP_LR / 10)
     return cfg, train
 
@@ -3385,7 +3497,8 @@ def phase_epso_train(ranks, wall: float) -> tuple:
     emit("epso_train", **row)
     return (row, phase_placement_train(ranks, cfg), phase_a2a_train(ranks, cfg),
             phase_tp_train(ranks, cfg), phase_pp_train(ranks), phase_grid_serve(ranks),
-            phase_fsdp_train(ranks, cfg), phase_fsdp_ep_train(ranks, cfg))
+            phase_fsdp_train(ranks, cfg), phase_fsdp_ep_train(ranks, cfg),
+            phase_fsdp_tp_train(ranks, cfg), phase_fsdp_pp_train(ranks))
 
 
 def fsdp_layer_bytes(cfg, itemsize: int, sizes=None) -> int:
@@ -3393,7 +3506,7 @@ def fsdp_layer_bytes(cfg, itemsize: int, sizes=None) -> int:
     bytes (the compute dtype) on a grid of ``sizes`` (default ('data',
     FSDP_DP)), what one gather of a layer assembles on every rank: each
     leaf whole over 'data', the rank's slice of it over the other axes
-    (an expert stack's 'ep' slice)."""
+    that split a layer (an expert stack's 'ep' slice, a tp shard)."""
     from repro_torch.models import init_params
     from repro_torch.train.trainer import placements
     from repro_torch.tree import leaves
@@ -3401,7 +3514,7 @@ def fsdp_layer_bytes(cfg, itemsize: int, sizes=None) -> int:
     shapes = init_params(cfg, device="meta")
     place = placements(cfg, shapes, sizes, fsdp=True)
     return sum(t.numel() // cfg.num_layers // math.prod(
-        sizes[a] for e in pl for a in e if a != "data") * itemsize
+        sizes[a] for e in pl for a in e if a not in ("data", "pp")) * itemsize
         for t, pl in zip(leaves(shapes["layers"]), leaves(place["layers"]))
         if any("data" in e for e in pl))
 
@@ -3625,6 +3738,160 @@ def phase_fsdp_ep_train(ranks, cfg) -> dict:
                    "time here is an FSDP speed"}
     emit("fsdp_ep_train", **row)
     return row
+
+
+def _fsdp_pair(ranks, key: str, sizes: dict, lcfg, want: dict, expect: dict, pairs: int,
+               gathers: int, n_mb: int = 1) -> dict:
+    """Hold the fsdp run of each rank's ``ranks[i][key]`` (``_history_run``
+    pairs 'fsdp' and 'plain', the same grid of ``sizes`` and mode without
+    fsdp) and return the phase's row: on every rank both runs' finite
+    metrics, a falling loss, clip_scale <= 1, rank 0's metrics, no drops
+    and ``pairs`` routed pairs a step, the exact launch count ``expect``;
+    the fsdp run held to the plain one (``_fsdp_held_to``), its state
+    bytes (planned and measured) and param elements ``want``, and its
+    gathers (``gathers`` a layer of the rank and microbatch),
+    reduce-scatters (one) and bytes gathered of each step; the plain run's
+    state bytes its plan's. Under pp (``want['pp']``) each step's
+    saved-input peak and bytes handed to the neighbour stage as pp_train's."""
+    import torch
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.train.trainer import placements
+
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    n = FSDP_GRID_STEPS
+    pp = sizes.get("pp", 1)
+    lay = lcfg.num_layers // pp * n_mb * n
+    layer = fsdp_layer_bytes(lcfg, getattr(torch, TrainConfig().compute_dtype).itemsize, sizes)
+    want_stats = {"all_gather": gathers * lay, "reduce_scatter": lay,
+                  "gathered_bytes": gathers * lay * layer}
+    shapes = init_params(lcfg, device="meta")
+    planned = {f: state_bytes_per_device(shapes, placements(lcfg, shapes, sizes, fsdp=f), sizes,
+                                         "epso") for f in (True, False)}
+    if planned[True] != want["state_bytes"]:
+        raise AssertionError(f"{key}: {planned[True]} state bytes planned, expected "
+                             f"{want['state_bytes']}")
+    name = f"{key}_train"
+    for i, rk in enumerate(ranks):
+        for which, fsdp in (("fsdp", True), ("plain", False)):
+            run, where = rk[key][which], f"{name} {which} rank {i}"
+            h = run["history"]
+            if not all(math.isfinite(s[k]) for s in h for k in keys) or \
+                    not all(s["clip_scale"] <= 1.0 for s in h):
+                raise AssertionError(f"{where}: non-finite metrics or clip_scale above 1: {h}")
+            if not h[-1]["loss"] < h[0]["loss"]:
+                raise AssertionError(f"{where}: loss did not fall: {[s['loss'] for s in h]}")
+            if [{k: s[k] for k in keys + ("counts",)} for s in h] != [
+                    {k: s[k] for k in keys + ("counts",)}
+                    for s in ranks[0][key][which]["history"]]:
+                raise AssertionError(f"{where}: metrics differ from rank 0's")
+            if any(s["moe_drops"] != 0 for s in h) or any(sum(s["counts"]) != pairs for s in h):
+                raise AssertionError(f"{where}: drops or routed pairs off: "
+                                     f"{[(s['moe_drops'], sum(s['counts'])) for s in h]}")
+            if run["state_bytes"] != planned[fsdp]:
+                raise AssertionError(f"{where}: state bytes {run['state_bytes']}, planned "
+                                     f"{planned[fsdp]}")
+            if run["launches"] != expect:
+                raise AssertionError(f"{where}: launches {run['launches']} != {expect}")
+            if pp > 1:
+                stage = rk[key]["coords"]["pp"]
+                act = PP_SEQ * lcfg.d_model * 2         # one row, bf16
+                for s in h:
+                    want_sent = n_mb * act * ((stage < pp - 1) + (stage > 0))
+                    if s["saved_peak"] != pp - stage or s["sent_bytes"] != want_sent:
+                        raise AssertionError(f"{where}: saved-input peak {s['saved_peak']} "
+                                             f"(want {pp - stage}) or bytes handed off "
+                                             f"{s['sent_bytes']} (want {want_sent})")
+        run, where = rk[key]["fsdp"], f"{name} rank {i}"
+        _fsdp_held_to(run["history"], rk[key]["plain"]["history"], where, "the plain run")
+        if run["param_elems"] != want["param_elems"]:
+            raise AssertionError(f"{where}: {run['param_elems']} param elements, expected "
+                                 f"{want['param_elems']}")
+        if run["fsdp_stats"] != want_stats:
+            raise AssertionError(f"{where}: gathers {run['fsdp_stats']} != {want_stats}")
+    r0, p0 = ranks[0][key]["fsdp"], ranks[0][key]["plain"]
+    rel, fresh = _fsdp_held_to(r0["history"], p0["history"], name, "the plain run")
+    row = {"model": lcfg.name, "layers": lcfg.num_layers, "grid": sizes, "ranks": len(ranks),
+           "mode": "epso/ring", "dispatch": "dropless",
+           "router_coefs": [lcfg.moe.router_aux_coef, lcfg.moe.router_z_coef],
+           "microbatches": n_mb, "steps": n, "remat": "block",
+           "coords_by_rank": [rk[key]["coords"] for rk in ranks],
+           "losses": [s["loss"] for s in r0["history"]],
+           "losses_plain": [s["loss"] for s in p0["history"]],
+           "grad_norms": [s["grad_norm"] for s in r0["history"]],
+           "grad_norms_plain": [s["grad_norm"] for s in p0["history"]],
+           "loss_rel_to_plain": rel["loss"], "ce_rel_to_plain": rel["ce"],
+           "grad_norm_rel_to_plain": rel["grad_norm"], "tolerance": FSDP_LOSS_TOL,
+           "grad_norm_tolerance": {"steps_on_step0_params": fresh, "there": FSDP_NORM_TOL,
+                                   "after_an_update": FSDP_NORM_TOL_UPDATED},
+           "state_bytes_per_rank": r0["state_bytes"], "state_bytes_plain": p0["state_bytes"],
+           "param_elems_per_rank": r0["param_elems"], "param_elems_plain": p0["param_elems"],
+           "peak_bytes_by_rank": [rk[key]["fsdp"]["peak_bytes"] for rk in ranks],
+           "peak_bytes_by_rank_plain": [rk[key]["plain"]["peak_bytes"] for rk in ranks],
+           "peak_bytes_steps_by_rank": [rk[key]["fsdp"]["peak_bytes_steps"] for rk in ranks],
+           "step_ms_by_rank": [[s["step_ms"] for s in rk[key]["fsdp"]["history"]]
+                               for rk in ranks],
+           "step_ms_median_by_rank": [statistics.median(
+               s["step_ms"] for s in rk[key]["fsdp"]["history"][1:]) for rk in ranks],
+           "step_ms_median_by_rank_plain": [statistics.median(
+               s["step_ms"] for s in rk[key]["plain"]["history"][1:]) for rk in ranks],
+           "gathered_bytes_per_step_counted": r0["fsdp_stats"]["gathered_bytes"] / n,
+           "gathered_bytes_per_step_computed": gathers * lay // n * layer,
+           "gathers_per_step": r0["fsdp_stats"]["all_gather"] / n,
+           "reduce_scatters_per_step": r0["fsdp_stats"]["reduce_scatter"] / n,
+           "layer_bytes_gathered": layer,
+           "launches_per_rank": r0["launches"], "expected_launches": expect,
+           "note": "4 ranks time-share one card; gloo carries the gathers, the "
+                   "reduce-scatters, the tp sums, the stage hand-offs and the EPSO "
+                   "collectives through host memory: no step time here is a speed"}
+    if pp > 1:
+        row.update(saved_peak_by_rank=[rk[key]["fsdp"]["history"][0]["saved_peak"]
+                                       for rk in ranks],
+                   handoff_bytes_per_step_by_rank=[rk[key]["fsdp"]["history"][0]["sent_bytes"]
+                                                   for rk in ranks],
+                   moe_aux=[s["moe_aux"] for s in r0["history"]])
+    emit(name, **row)
+    return row
+
+
+def phase_fsdp_tp_train(ranks, cfg) -> dict:
+    """The fsdp run of epso_train's ranks on ('data', 2) x ('tp', 2)
+    (``_fsdp_tp_train_rank``): full-width Mula-7B-A1B at EPSO_LAYERS layers,
+    the expert-TP EP = 1 form, dropless, router terms on, one EP_SEQ-token
+    row a 'data' rank, FSDP_GRID_STEPS steps of 'epso'/'ring' with fsdp beside
+    the same grid's run without it, held by ``_fsdp_pair`` (a layer
+    gathered twice a step, in the forward and the recompute), the state
+    bytes and param elements a rank FSDP_TP_STATE_BYTES and
+    FSDP_TP_PARAM_ELEMS; prints peak memory, step ms and the bytes gathered
+    a step."""
+    import dataclasses
+    dp, ep, tp = FSDP_TP_GRID
+    lcfg = dataclasses.replace(cfg, num_layers=EPSO_LAYERS)
+    lcfg = dataclasses.replace(lcfg, moe=dataclasses.replace(lcfg.moe, dispatch="dropless"))
+    sizes = {a: k for a, k in (("data", dp), ("ep", ep), ("tp", tp)) if k > 1}
+    return _fsdp_pair(ranks, "fsdp_tp", sizes, lcfg,
+                      {"state_bytes": FSDP_TP_STATE_BYTES, "param_elems": FSDP_TP_PARAM_ELEMS},
+                      expected_train_launches(EPSO_LAYERS, 1, FSDP_GRID_STEPS),
+                      dp * EP_SEQ * lcfg.moe.experts_per_token, 2)
+
+
+def phase_fsdp_pp_train(ranks) -> dict:
+    """The fsdp run of epso_train's ranks on ('data', FSDP_PP_DP) x ('pp',
+    FSDP_PP_STAGES) (``_fsdp_pp_train_rank``): full-width Mula-7B-A1B at
+    EPSO_LAYERS layers, one a stage, 'epso'/'ring', dropless, router terms
+    on, PP_MB microbatches, FSDP_GRID_STEPS 1f1b steps with fsdp beside the same
+    grid's run without it, held by ``_fsdp_pair`` (a layer gathered three
+    times a microbatch: the F tick, the B tick's forward, the recompute),
+    the state bytes and param elements a rank FSDP_PP_STATE_BYTES and
+    FSDP_PP_PARAM_ELEMS, the exact launch count of a stage; prints peak
+    memory, step ms and the bytes gathered a step."""
+    cfg, train = pp_train_config(EPSO_LAYERS, FSDP_PP_DP)
+    sizes = {"data": FSDP_PP_DP, "pp": FSDP_PP_STAGES}
+    return _fsdp_pair(ranks, "fsdp_pp", sizes, cfg,
+                      {"state_bytes": FSDP_PP_STATE_BYTES, "param_elems": FSDP_PP_PARAM_ELEMS},
+                      expected_pp_launches(EPSO_LAYERS // FSDP_PP_STAGES, PP_MB, FSDP_GRID_STEPS),
+                      train.global_batch * PP_SEQ * cfg.moe.experts_per_token, 3, PP_MB)
 
 
 def phase_pp_train(ranks) -> dict:
@@ -4350,7 +4617,9 @@ LAUNCHER_GRID_RUNS = (
     ("grid_rebalance/clean", FT_ARCH, GRID_REB_RUN, 0),
     ("grid_rebalance/faulty", FT_ARCH, dict(GRID_REB_RUN, **GRID_REB_INJECT), 0),
     ("grid_fsdp/first", FT_ARCH, GRID_FSDP_RUN, 0),
-    ("grid_fsdp/second", FT_ARCH, GRID_FSDP_RUN, 0))
+    ("grid_fsdp/second", FT_ARCH, GRID_FSDP_RUN, 0),
+    ("grid_fsdp_pp/first", FT_ARCH, GRID_FSDP_PP_RUN, 0),
+    ("grid_fsdp_pp/second", FT_ARCH, GRID_FSDP_PP_RUN, 0))
 
 
 def _grid_run_dir(name: str) -> Path:
@@ -4680,30 +4949,38 @@ def phase_launcher_grid_tp(ft: dict, session: dict, specs: dict) -> dict:
     return row
 
 
-def phase_launcher_grid_fsdp(session: dict, specs: dict) -> dict:
-    """launcher_ft's shapes on a dp = 2 x ep = 2 grid with fsdp under EPSO
-    (GRID_FSDP_RUN, ``--parallel dp=2,ep=2,fsdp --opt-shard epso``): 18
-    steps that checkpoint every 5 (the fsdp tiles and their EPSO shards
+def phase_launcher_grid_fsdp(session: dict, specs: dict, base: str = "grid_fsdp",
+                             ft: dict = None) -> dict:
+    """launcher_ft's shapes with fsdp under EPSO: ``base`` 'grid_fsdp' on a
+    dp = 2 x ep = 2 grid (GRID_FSDP_RUN, ``--parallel dp=2,ep=2,fsdp
+    --opt-shard epso``), 'grid_fsdp_pp' on dp = 2 x pp = 2
+    (GRID_FSDP_PP_RUN, ``--parallel dp=2,pp=2,fsdp``: one layer a stage).
+    18 steps that checkpoint every 5 (the fsdp tiles and their EPSO shards
     gathered to rank 0 into whole arrays), then the same run again, which
-    resumes from the last (the tiles sent back) and takes steps 16-17
-    (both in the session's processes). Asserts the resumed steps bit-identical, the
-    checkpoint's members the whole arrays of the config (keys, shapes,
+    resumes from the last (the tiles sent back) and takes steps 16-17 (both
+    in the session's processes). Asserts the resumed steps bit-identical,
+    the checkpoint's members the whole arrays of the config (keys, shapes,
     dtypes), the plan's layout with fsdp in the MANIFEST, each rank's state
     bytes ``state_bytes_per_device`` of the fsdp placements, the exact
-    launch count of both runs, losses finite and falling, step 0's loss
-    bit for bit launcher_grid_ft's clean run's (the same plan without
-    fsdp) and the later ones within GRID_FSDP_LOSS_TOL of it where both
-    drop as many pairs; prints save and restore ms and the checkpoint's
-    bytes."""
+    launch count of both runs (of a stage under pp), losses finite and
+    falling; 'grid_fsdp': step 0's loss bit for bit launcher_grid_ft's
+    clean run's (the same plan without fsdp) and the later ones within
+    GRID_FSDP_LOSS_TOL of it where both drop as many pairs; 'grid_fsdp_pp':
+    the losses within GRID_FSDP_LOSS_TOL of launcher_ft's (``ft``, one
+    rank) at the steps where neither run drops pairs. Prints save and
+    restore ms and the checkpoint's bytes."""
     from repro_torch.models import init_params
     from repro_torch.optim.epso import state_bytes_per_device
     from repro_torch.train import state_layout
     from repro_torch.train.trainer import placements
 
-    out = _grid_run_dir("grid_fsdp/first")
+    phase = f"launcher_{base}"
+    run, layout = {"grid_fsdp": (GRID_FSDP_RUN, GRID_FSDP_LAYOUT),
+                   "grid_fsdp_pp": (GRID_FSDP_PP_RUN, GRID_FSDP_PP_LAYOUT)}[base]
+    out = _grid_run_dir(f"{base}/first")
     try:
-        spec, first, wall_first = _grid_run(session, specs, "grid_fsdp/first")
-        _, second, wall_second = _grid_run(session, specs, "grid_fsdp/second")
+        spec, first, wall_first = _grid_run(session, specs, f"{base}/first")
+        _, second, wall_second = _grid_run(session, specs, f"{base}/second")
         ckpt = next((out / "ckpt").glob("ckpt-*/state.npz"))
         members = _npz_members(ckpt)
         manifest = json.loads((ckpt.parent / "MANIFEST.json").read_text())
@@ -4712,30 +4989,46 @@ def phase_launcher_grid_fsdp(session: dict, specs: dict) -> dict:
                           "model-*.npz"))}
     finally:
         shutil.rmtree(out, ignore_errors=True)
-    cfg, sizes = spec.cfg, spec.plan.axis_sizes
+    cfg, sizes, par = spec.cfg, spec.plan.axis_sizes, spec.par
     shapes = init_params(cfg, device="meta")
     want_bytes = state_bytes_per_device(shapes, placements(cfg, shapes, sizes, fsdp=True), sizes,
                                         "epso")
     want_members = {k: [list(shape), "int32" if k == ".opt.step" else "float32"]
                     for k, (shape, _) in state_layout(cfg, sizes, "epso", fsdp=True).items()
                     if k.startswith((".params", ".opt"))}
-    steps, every = GRID_FSDP_RUN["steps"], GRID_FSDP_RUN["ckpt_interval"]
+    steps, every = run["steps"], run["ckpt_interval"]
     last_ckpt = (steps - 1) // every * every
-    expect = {"first": expected_train_launches(cfg.num_layers, 1, steps),
-              "second": expected_train_launches(cfg.num_layers, 1, steps - last_ckpt - 1)}
+    if par.pp_stages > 1:
+        # a stage's layers; capacity dispatch: each forward also makes the
+        # one-device plan of the microbatch gathered over 'data'
+        expect = {k: expected_pp_launches(cfg.num_layers // par.pp_stages, par.microbatches, n,
+                                          whole_pool=True)
+                  for k, n in (("first", steps), ("second", steps - last_ckpt - 1))}
+    else:
+        expect = {k: expected_train_launches(cfg.num_layers, 1, n)
+                  for k, n in (("first", steps), ("second", steps - last_ckpt - 1))}
     keys = ("loss", "grad_norm", "lr", "moe_drops")
     hist, again = first[0]["result"], second[0]["result"]
     resumed = {h["step"]: {k: h[k] for k in keys} for h in again}
     straight = {h["step"]: {k: h[k] for k in keys} for h in hist[last_ckpt + 1:]}
-    ref = list(_grid_run(session, specs, "grid_ft/clean")[1][0]["result"])[:steps]
     losses, drops = [h["loss"] for h in hist], [h["moe_drops"] for h in hist]
-    same_drops = [i for i, (h, r) in enumerate(zip(hist, ref)) if h["moe_drops"] == r["moe_drops"]]
-    rel = {i: abs(losses[i] - ref[i]["loss"]) / abs(ref[i]["loss"]) for i in same_drops}
-    row = {"model": cfg.name, "run": GRID_FSDP_RUN, "ranks": len(first),
+    if base == "grid_fsdp":
+        ref_name = "launcher_grid_ft"
+        ref = list(_grid_run(session, specs, "grid_ft/clean")[1][0]["result"])[:steps]
+        ref_losses, ref_drops = [r["loss"] for r in ref], [r["moe_drops"] for r in ref]
+        compared = [i for i, (a, b) in enumerate(zip(drops, ref_drops)) if a == b]
+    else:
+        ref_name = "launcher_ft"
+        ref_losses, ref_drops = ft["losses"][:steps], ft["moe_drops"][:steps]
+        compared = [i for i, (a, b) in enumerate(zip(drops, ref_drops)) if a == 0 == b]
+    rel = {i: abs(losses[i] - ref_losses[i]) / abs(ref_losses[i]) for i in compared}
+    row = {"model": cfg.name, "run": run, "ranks": len(first),
+           "coords_by_rank": [r["coords"] for r in first],
+           "microbatches": par.microbatches, "pp_stages": par.pp_stages,
            "losses": losses, "grad_norms": [h["grad_norm"] for h in hist], "moe_drops": drops,
-           "losses_grid_ft": [r["loss"] for r in ref],
-           "moe_drops_grid_ft": [r["moe_drops"] for r in ref],
-           "loss_rel_to_grid_ft": rel, "tolerance": GRID_FSDP_LOSS_TOL,
+           f"losses_{ref_name}": ref_losses, f"moe_drops_{ref_name}": ref_drops,
+           "steps_compared": compared, f"loss_rel_to_{ref_name}": rel,
+           "tolerance": GRID_FSDP_LOSS_TOL,
            "resumed_steps": resumed, "history_bit_identical": resumed == straight,
            "step_ms_median_by_rank": [statistics.median(r["rec"]["step_ms"]) for r in first],
            "peak_bytes_by_rank": [r["peak_bytes"] for r in first],
@@ -4748,32 +5041,35 @@ def phase_launcher_grid_fsdp(session: dict, specs: dict) -> dict:
            "launches_per_rank": {"first": first[0]["launches"],
                                  "second": second[0]["launches"]},
            "expected_launches": expect}
-    emit("launcher_grid_fsdp", **row)
+    emit(phase, **row)
     if [h["step"] for h in hist] != list(range(steps)) or \
             sorted(resumed) != list(range(last_ckpt + 1, steps)):
-        raise AssertionError(f"launcher_grid_fsdp: steps {[h['step'] for h in hist]} then "
+        raise AssertionError(f"{phase}: steps {[h['step'] for h in hist]} then "
                              f"{sorted(resumed)}, not 0-{steps - 1} then "
                              f"{last_ckpt + 1}-{steps - 1}")
     if resumed != straight:
-        raise AssertionError(f"launcher_grid_fsdp: resumed steps {resumed} differ from the "
+        raise AssertionError(f"{phase}: resumed steps {resumed} differ from the "
                              f"uninterrupted run's {straight}")
     for i, (f, g) in enumerate(zip(first, second)):
         if {"first": f["launches"], "second": g["launches"]} != expect:
-            raise AssertionError(f"launcher_grid_fsdp rank {i}: kernel launches "
+            raise AssertionError(f"{phase} rank {i}: kernel launches "
                                  f"{f['launches']} / {g['launches']} != expected {expect}")
         if f["rec"]["state_bytes"] != want_bytes or g["rec"]["state_bytes"] != want_bytes:
-            raise AssertionError(f"launcher_grid_fsdp rank {i}: state bytes "
+            raise AssertionError(f"{phase} rank {i}: state bytes "
                                  f"{f['rec']['state_bytes']}, planned {want_bytes}")
     if members != want_members:
-        raise AssertionError(f"launcher_grid_fsdp: the checkpoint's members {members} are not "
+        raise AssertionError(f"{phase}: the checkpoint's members {members} are not "
                              f"the config's whole arrays {want_members}")
-    if (manifest.get("plan") or {}).get("layout") != GRID_FSDP_LAYOUT:
-        raise AssertionError(f"launcher_grid_fsdp: MANIFEST plan {manifest.get('plan')}")
+    if (manifest.get("plan") or {}).get("layout") != layout:
+        raise AssertionError(f"{phase}: MANIFEST plan {manifest.get('plan')}")
     if not (_finite(hist) and losses[-1] < losses[0]):
-        raise AssertionError(f"launcher_grid_fsdp: losses {losses} not finite and falling")
-    if losses[0] != ref[0]["loss"] or max(rel.values()) > GRID_FSDP_LOSS_TOL:
-        raise AssertionError(f"launcher_grid_fsdp: losses off launcher_grid_ft's by {rel} "
-                             f"(step 0 bit for bit, else > {GRID_FSDP_LOSS_TOL})")
+        raise AssertionError(f"{phase}: losses {losses} not finite and falling")
+    if base == "grid_fsdp" and losses[0] != ref_losses[0]:
+        raise AssertionError(f"{phase}: step 0's loss {losses[0]} != {ref_name}'s "
+                             f"{ref_losses[0]}")
+    if not compared or max(rel.values()) > GRID_FSDP_LOSS_TOL:
+        raise AssertionError(f"{phase}: losses off {ref_name}'s by {rel} at steps "
+                             f"{compared} (> {GRID_FSDP_LOSS_TOL})")
     return row
 
 
@@ -5189,8 +5485,8 @@ def main(argv=None) -> int:
     ranks, walls = session["ranks"], session["wall_s"]
     phase_ep_reference(ranks["ep_reference"], walls["ep_reference"], ep_ref)
     ep_train = phase_ep_train(ranks["ep_train"], walls["ep_train"])
-    epso, placement, a2a, tp, pp, grid_serve, fsdp, fsdp_ep = phase_epso_train(
-        ranks["epso_train"], walls["epso_train"])
+    epso, placement, a2a, tp, pp, grid_serve, fsdp, fsdp_ep, fsdp_tp, fsdp_pp = \
+        phase_epso_train(ranks["epso_train"], walls["epso_train"])
     dense = phase_launcher_dense()
     ft = phase_launcher_ft()
     grid_dense = phase_launcher_grid_dense(session, grid_specs)
@@ -5198,6 +5494,7 @@ def main(argv=None) -> int:
     grid_tp = phase_launcher_grid_tp(ft, session, grid_specs)
     grid_reb = phase_launcher_grid_rebalance(session, grid_specs)
     grid_fsdp = phase_launcher_grid_fsdp(session, grid_specs)
+    grid_fsdp_pp = phase_launcher_grid_fsdp(session, grid_specs, "grid_fsdp_pp", ft)
     grid_pp = phase_launcher_grid_pp()
     phase_launches(get_config(MULA))
     emit("phase_times", seconds=PHASE_S, total_s=time.perf_counter() - T_START)
@@ -5220,6 +5517,8 @@ def main(argv=None) -> int:
                    "grid_serve": grid_serve["launches_per_rank"][name],
                    "fsdp_train": fsdp["launches_per_rank"][name],
                    "fsdp_ep_train": fsdp_ep["launches_per_rank"][name],
+                   "fsdp_tp_train": fsdp_tp["launches_per_rank"][name],
+                   "fsdp_pp_train": fsdp_pp["launches_per_rank"][name],
                    "launcher_dense": dense["launches"][name],
                    "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name],
                    "launcher_grid_dense": grid_dense["launches_per_rank"][name],
@@ -5230,7 +5529,9 @@ def main(argv=None) -> int:
                    + grid_tp["launches_per_rank"]["faulty"][name],
                    "launcher_grid_pp": grid_pp["launches_per_rank"][name],
                    "launcher_grid_fsdp": grid_fsdp["launches_per_rank"]["first"][name]
-                   + grid_fsdp["launches_per_rank"]["second"][name]}
+                   + grid_fsdp["launches_per_rank"]["second"][name],
+                   "launcher_grid_fsdp_pp": grid_fsdp_pp["launches_per_rank"]["first"][name]
+                   + grid_fsdp_pp["launches_per_rank"]["second"][name]}
         summary.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],

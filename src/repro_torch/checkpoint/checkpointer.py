@@ -78,7 +78,6 @@ import torch.distributed as dist
 
 from repro_torch.parallel.grid import rank_coords
 from repro_torch.parallel.placement import ExpertPlacement, is_expert_stack
-from repro_torch.parallel.plan import FSDP_AXES, FSDP_ITEM, refuse
 from repro_torch.parallel.sharding import tile_slices
 from repro_torch.tree import assign, keyed_leaves, leaves, leaves_with_path
 
@@ -181,12 +180,6 @@ class _Tiles:
                 f"checkpoints of a grid on the {grid.world.backend!r} backend: the tiles go "
                 f"through host tensors over gloo (ROADMAP.md §1 item 5, NCCL with one card per "
                 f"rank)")
-        fsdp = any("data" in axes for key, (_, place) in layout.items()
-                   if key.startswith(".params") for axes in place)
-        other = [a for a in grid.axis_sizes if a not in FSDP_AXES]
-        if fsdp and other:
-            refuse(f"grid checkpoints of an fsdp layout on a grid with {', '.join(other)}",
-                   FSDP_ITEM)
         self.group, self.rank = grid.world.group, grid.world.rank
         self.sizes = grid.axis_sizes
         self.coords = [rank_coords(r, grid.sizes) for r in range(grid.world.world)]

@@ -63,7 +63,7 @@ an MoE model on the card runs with ``bfloat16``.
 
 Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
 item that ports them: plans with a pod axis (§1 item 5), ``fsdp`` with
-'tp' or 'pp' or for the ssm and hybrid archs (§1 item 5.1d), tp for
+an expert placement or for the ssm and hybrid archs (§1 item 5.1d), tp for
 the ssm and hybrid archs (§1 item 5.10), the all-to-all Stage 1 under pp
 (§1 item 5.11), ``kernel_tiles`` and ``tiles=`` (§1 item 7), and the vlm
 and audio archs (§1 item 6). A pp axis refuses the hybrid arch and

@@ -396,7 +396,7 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     not its rows (``sparse_moe_block(replicated=True)``), and the MoE
     blocks take no router terms or stats (aux holds zeros and no
     "moe_stats"). ``fsdp`` (dense and moe; ``make_train_step`` refuses the
-    others): a ``parallel.fsdp.LayerGather``;
+    others): a ``parallel.fsdp.LayerGather`` over the rank's 'data' group;
     the layer params are the rank's 'data' tiles, and each block gathers
     its layer's inside the function that block remat checkpoints, so the
     recompute gathers again and no gathered weight is saved.
@@ -461,7 +461,7 @@ def embed_tokens(params, tokens, cfg: ModelConfig, *,
 
 
 def pipeline_stage_forward(stage_lp, h, cfg: ModelConfig, *, sac: str = "", ep_group=None,
-                           tp_group=None, batch_group=None):
+                           tp_group=None, batch_group=None, fsdp=None):
     """Apply one pipeline stage's (L/pp, ...)-stacked layer slice to ``h``,
     with the block functions (and block remat) ``forward`` uses, so that
     running the pp stage slices back to back is the sequential model.
@@ -477,26 +477,33 @@ def pipeline_stage_forward(stage_lp, h, cfg: ModelConfig, *, sac: str = "", ep_g
     JAX stage routes each microbatch with single-device geometry (``c_align
     = 1``), never the EP shard_map's: the drops, aux, z and counts are the
     one-device step's, the same on every rank of the stage, with any
-    ``stage1``."""
+    ``stage1``. ``fsdp`` (dense and moe): a ``parallel.fsdp.LayerGather``
+    over the stage's 'data' group; ``stage_lp`` holds the rank's 'data'
+    tiles of the stage's layers, and each block gathers its layer's inside
+    the function block remat checkpoints, as in ``forward``. The PP step
+    runs a stage three times a microbatch (the F tick without autograd, the
+    B tick's forward, its recompute), so a layer is gathered three times and
+    reduce-scattered once a microbatch."""
     at = cfg.arch_type
     if at not in PP_ARCH_TYPES:
         raise ValueError(
             f"pipeline parallelism supports arch_type in {PP_ARCH_TYPES}, "
             f"not {at!r} (non-uniform layer stacks)")
+    gather = fsdp if fsdp is not None else (lambda lp: lp)
     n = leaves(stage_lp)[0].shape[0]
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     layers = unstack_layers(stage_lp, n)
     if at == "ssm":
         block = block_remat(lambda lp, x: _ssm_block(lp, x, cfg, sac), sac)
     elif at == "dense":
-        block = block_remat(lambda lp, x: _dense_block(lp, x, cfg, sac, "blockwise", tp_group),
-                            sac)
+        block = block_remat(lambda lp, x: _dense_block(gather(lp), x, cfg, sac, "blockwise",
+                                                       tp_group), sac)
     if at != "moe":
         for lp in layers:
             h = block(lp, h)
         return h, zero, zero, moe_lib.MoeStats(torch.zeros(0, device=h.device), zero)
-    block = block_remat(lambda lp, x: _moe_block(lp, x, cfg, sac, "blockwise", ep_group, None,
-                                                 tp_group, whole_pool=True,
+    block = block_remat(lambda lp, x: _moe_block(gather(lp), x, cfg, sac, "blockwise", ep_group,
+                                                 None, tp_group, whole_pool=True,
                                                  batch_group=batch_group), sac)
     aux, z, drops = zero, zero, zero
     counts = torch.zeros(cfg.moe.num_experts, dtype=torch.float32, device=h.device)

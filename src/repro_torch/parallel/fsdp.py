@@ -6,13 +6,18 @@ Under ``ParallelConfig.fsdp_params`` rank d of the 'data' axis holds its
 tile of every leaf that ``sharding.param_placements(..., fsdp=True)``
 splits: the layer weights, each cut on one per-layer dim. ``LayerGather``
 makes a layer's weights whole for that layer's forward and backward
-alone. ``models.model.forward`` calls it inside the function that block
-remat checkpoints, so the checkpoint saves the tiles, and its recompute in
-the backward gathers again; outside a layer's own forward and backward no
-rank holds that layer's gathered weights or their whole gradient. On a
-('data', 'ep') grid an expert stack's tile is cut from the rank's 'ep'
-slice, so the gather makes that slice whole, what the MoE block takes under
-EP; the group is the 'data' group of the rank's 'ep' coordinate.
+alone. ``models.model.forward`` and ``pipeline_stage_forward`` call it
+inside the function that block remat checkpoints, so the checkpoint saves
+the tiles, and its recompute in the backward gathers again; outside a
+layer's own forward and backward no rank holds that layer's gathered
+weights or their whole gradient. A tile is cut from the rank's share of
+the leaf over the grid's other axes: an expert stack's 'ep' slice, a tp
+shard, the layers of its pipeline stage. The gather makes that share whole
+over 'data', no more: what the layer takes on the rank under EP, TP and
+PP. The group is the 'data' group of the rank's ('pp', 'ep', 'tp')
+coordinate. Under pp a stage gathers a layer three times a microbatch (its
+F tick's forward without autograd, its B tick's forward, the recompute) and
+reduce-scatters it once; otherwise twice and once.
 
 * forward: one all-gather over 'data' of the layer's tiles, cast to the
   compute dtype and packed into one flat buffer, leaf after leaf; each
@@ -96,10 +101,12 @@ class _GatherTiles(torch.autograd.Function):
 
 
 class LayerGather:
-    """The gather of one layer's 'data' tiles over the grid's 'data' group
-    ``group``: ``gather(lp)`` takes a layer's params (one layer of the
-    ``layers`` stack, tiles where ``layer_place`` splits them over 'data')
-    and returns them with those leaves whole, differentiably (the module
+    """The gather of one layer's 'data' tiles over ``group``, the grid's
+    'data' group of the rank's ('pp', 'ep', 'tp') coordinate: ``gather(lp)``
+    takes a layer's params (one layer of the ``layers`` stack or of a
+    stage's slice of it, tiles where ``layer_place`` splits them over
+    'data') and returns them with those leaves whole over 'data', the
+    rank's share over the other axes, differentiably (the module
     docstring). ``layer_place``: the placements of the stacked
     ``layers`` tree (``param_placements(..., fsdp=True)['layers']``);
     ``dtype``: the compute dtype, which the whole leaves come in.

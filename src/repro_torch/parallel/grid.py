@@ -23,7 +23,8 @@ the collectives of ``parallel.ep`` run; the ones the port uses:
              gradients handed between stages, the sums of the gradients of
              the leaves every stage holds whole;
 * ``data``   the ``dp`` ranks of (p, e, t): the expert slices' gradients
-             are summed over it;
+             are summed over it, and the fsdp gathers and
+             reduce-scatters run over it (``parallel.fsdp``);
 * ('data', 'ep')  the ranks of one (pp, tp) coordinate, which split the
              batch: the loss's global token count, the gradients of the
              leaves the batch axes do not split;

@@ -19,8 +19,8 @@ with tp > 1 or pp > 1, tp and pp; ``parallel.grid.grid_spec``) for
 computes them, and the live expert placement (``placement``,
 ``with_placement``) a ``rebalance=`` policy moves. What the port cannot
 run raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: a pod
-axis (§1 item 5), ``fsdp`` beyond a dense or moe model on dp and ep
-(``check_fsdp``, §1 item 5.1d), tp for the ssm and hybrid
+axis (§1 item 5), ``fsdp`` for the state-space archs or with an expert
+placement (``check_fsdp``, §1 item 5.1d), tp for the ssm and hybrid
 archs (§1 item 5.10), an explicit ``tiles=`` (§1 item 7), and in serving (``resolve(...,
 serving=True)``) a dp or pp axis (§1 item 5.7b). A pp axis needs a uniform
 layer stack (``models.model.PP_ARCH_TYPES``; the JAX step's ValueError)
@@ -96,23 +96,18 @@ def refuse(what: str, item: str) -> None:
 
 # the ROADMAP.md item of serving with data replicas or pipeline stages
 SERVE_DP_PP_ITEM = "item 5.7b, dp and pp in serving"
-# the ROADMAP.md item of fsdp beyond the ('data', 'ep') grids of a dense or
-# moe model
-FSDP_ITEM = "item 5.1d, fsdp with tp, pp, a placement or the state-space archs"
-# the archs whose layers the fsdp step gathers (``parallel.fsdp``)
+# the ROADMAP.md item of fsdp for the state-space archs or with an expert
+# placement
+FSDP_ITEM = "item 5.1d, fsdp with a placement or the state-space archs"
+# the archs whose layers the fsdp step gathers (``parallel.fsdp``), on any
+# grid: its tiles over 'data', beside the stages over 'pp', the expert slices
+# over 'ep' and the tp shards over 'tp'
 FSDP_ARCH_TYPES = ("dense", "moe")
-# the grid axes fsdp runs on: its tiles over 'data', the expert slices over 'ep'
-FSDP_AXES = ("data", "ep")
 
 
-def check_fsdp(arch_type: str, axis_sizes: dict) -> None:
-    """Refuse what fsdp does not run with yet (``FSDP_ITEM``): any axis
-    of size > 1 in ``axis_sizes`` outside ``FSDP_AXES``, an arch outside
-    ``FSDP_ARCH_TYPES``. Every optimizer mode runs with it."""
-    other = [f"{a}={n}" for a, n in axis_sizes.items() if a not in FSDP_AXES and n > 1]
-    if other:
-        refuse(f"fsdp with {', '.join(other)} (the port gathers on ('data', 'ep') grids)",
-               FSDP_ITEM)
+def check_fsdp(arch_type: str) -> None:
+    """Refuse fsdp for an arch outside ``FSDP_ARCH_TYPES`` (``FSDP_ITEM``).
+    Every grid and every optimizer mode runs with it."""
     if arch_type not in FSDP_ARCH_TYPES:
         refuse(f"fsdp for arch_type {arch_type!r}", FSDP_ITEM)
 
@@ -384,7 +379,7 @@ class ParallelPlan:
         if self.pp > 1:
             self._check_pp(cfg)
         if self.fsdp:
-            check_fsdp(cfg.arch_type, {"pp": self.pp, "ep": self.ep, "tp": self.tp})
+            check_fsdp(cfg.arch_type)
             if self.rebalance_params() is not None:
                 refuse(f"fsdp with rebalance={self.rebalance} (an expert placement)",
                        FSDP_ITEM)

@@ -68,24 +68,29 @@ microbatches on such a grid; 'masked' runs the same executor with any
 count (the JAX executors agree to about 1 ulp).
 
 FSDP (``ParallelConfig.fsdp_params``, ZeRO-3 on the 'data' axis, the JAX
-``fsdp`` layout): rank (d, e) holds its 'data' tile of every leaf that
-``param_placements(..., fsdp=True)`` splits (of an expert stack, its tile
-of its 'ep' slice). Under 'none' its master, m and v are those tiles;
-under 'so' and 'epso' they are cut from the tiles by the state placement
+``fsdp`` layout): rank (d, p, e, t) holds its 'data' tile of every leaf
+that ``param_placements(..., fsdp=True)`` splits, cut from its share over
+the other axes (an expert stack's 'ep' slice, a tp shard, the layers of
+stage p). Under 'none' its master, m and v are those tiles; under 'so'
+and 'epso' they are cut from the tiles by the state placement
 ``optim.epso.optimizer_state_specs`` gives on the fsdp param placements,
 which adds only the axes a tile does not use yet ('epso' on a ('data',
-'ep') grid: 'ep' for a layer tile, nothing for an expert stack). Each
-layer's tiles are gathered inside the function that block remat
-checkpoints (``parallel.fsdp.LayerGather``, in ``compute_dtype``; an
-expert stack into the rank's whole 'ep' slice); the gather's backward
-reduce-scatters the layer's gradients onto the tiles, in
-``grad_reduce_dtype``, once a microbatch, so a tile takes no sum over
-'data' in the update, only over the batch axes that do not split it
-('ep' for a layer tile, none for an expert stack); the grad norm sums
-their squares over 'data' (and over 'ep' where the state splits them).
-It runs on ('data', 'ep') grids of a dense or moe model in every
-optimizer mode, with a 'block' or 'block_sc' remat policy; 'tp', 'pp', a
-placement and the state-space archs are refused
+'ep') grid: 'ep' for a layer tile, nothing for an expert stack; never
+'pp', so a stage's tiles keep their state on the stage). Each layer's
+tiles are gathered inside the function that block remat checkpoints
+(``parallel.fsdp.LayerGather`` over the rank's 'data' group, in
+``compute_dtype``, into the rank's share: an expert stack's 'ep' slice, a
+tp shard); the gather's backward reduce-scatters the layer's gradients
+onto the tiles, in ``grad_reduce_dtype``, once a microbatch, so a tile
+takes no sum over 'data' in the update, only over the batch axes that do
+not split it ('ep' for a layer tile, none for an expert stack), never over
+'tp' and, a stage's layers, never over 'pp'; the grad norm sums their
+squares over 'data' (and over 'tp', 'pp' and 'ep' where they split them).
+A pipeline stage gathers a layer at its F tick (without autograd), at its
+B tick's forward and in the recompute: three gathers and one
+reduce-scatter a layer and microbatch. It runs on any grid of a dense or
+moe model in every optimizer mode, with a 'block' or 'block_sc' remat
+policy; a placement and the state-space archs are refused
 (``parallel.plan.check_fsdp``, ROADMAP.md §1 item 5.1d).
 """
 from __future__ import annotations
@@ -223,7 +228,7 @@ def init_state(cfg: ModelConfig, train: TrainConfig, *, seed: int = 0,
     grid = _grid(ep_group, grid)
     mode = _opt_mode(opt_sharding_mode)
     if fsdp:
-        check_fsdp(cfg.arch_type, grid.axis_sizes if grid is not None else {})
+        check_fsdp(cfg.arch_type)
     if device is None and grid is not None:
         device = grid.world.device
     params = init_params(cfg, seed=seed, device=device)
@@ -311,9 +316,9 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         raise ValueError(f"the grid's 'pp' axis has {gpp} stages, the step pp_stages={pp}")
     fsdp = parallel.fsdp_params
     if fsdp:
-        check_fsdp(cfg.arch_type, grid.axis_sizes if grid is not None else {})
-        if pp > 1 or pl_inv is not None:
-            refuse("fsdp with pipeline stages or an expert placement", FSDP_ITEM)
+        check_fsdp(cfg.arch_type)
+        if pl_inv is not None:
+            refuse("fsdp with an expert placement", FSDP_ITEM)
         if not {"block", "block_sc"} & set(sac.split(",")):
             refuse(f"fsdp under remat_policy={sac!r} (autograd would keep every layer's "
                    f"gathered weights; take 'block' or 'block_sc')", FSDP_ITEM)
@@ -390,7 +395,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
 
         def run_stage(lp, h):
             return pipeline_stage_forward(lp, h, cfg, sac=sac, ep_group=ep, tp_group=tpg,
-                                          batch_group=rows)
+                                          batch_group=rows, fsdp=gather)
 
         def forward(s, m, x):
             with torch.no_grad():
@@ -554,7 +559,8 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         'ep'), the expert slices' over 'data', the fsdp tiles' (their sum
         over 'data' was the gather's reduce-scatter) over 'ep' where it
         does not split them: a layer tile's over 'ep', an expert stack's
-        over none."""
+        over none. Never over 'tp' (not in ``SUM_AXES``), and a stage's
+        layers never over 'pp' (their placement uses it)."""
         by_axes = {}
         for g, split in zip(leaves(grads), split_axes):
             by_axes.setdefault(tuple(a for a in SUM_AXES if a not in split), []).append(g)

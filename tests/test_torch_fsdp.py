@@ -26,10 +26,10 @@ layer's tiles inside its remat block and reduce-scatters its gradients.
   leaf's shape, under 'block' and 'block_sc' (the tape keeps no gather);
   the fsdp tiles' gradients take no second sum over 'data' in the update.
 * Refusals: the step under a remat policy that would keep the gathered
-  weights, with pp or a placement, and a grid ``Checkpointer`` given an
-  fsdp layout on a grid with 'tp' or 'pp', naming ROADMAP.md §1 item 5.1d
-  (the ('data', 'ep') grids and the sharded optimizer:
-  tests/test_torch_fsdp_ep.py).
+  weights, with a placement and for a state-space arch, naming ROADMAP.md
+  §1 item 5.1d; a grid ``Checkpointer`` takes an fsdp layout on grids with
+  'tp' and 'pp' (the ('data', 'ep') grids and the sharded optimizer:
+  tests/test_torch_fsdp_ep.py; 'tp' and 'pp': tests/test_torch_fsdp_grid.py).
 """
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
@@ -449,17 +449,20 @@ def test_fsdp_tiles_take_no_second_sum(fsdp_runs, arch):
 # refusals
 # ----------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kw,placed", [
-    (dict(remat_policy="none"), False), (dict(remat_policy="attn,moe"), False),
-    (dict(), True), (dict(pp_stages=2), False)],
-    ids=["remat-none", "remat-attn-moe", "placement", "pp"])
-def test_fsdp_step_refuses_what_it_does_not_run(kw, placed):
+@pytest.mark.parametrize("kw,placed,arch", [
+    (dict(remat_policy="none"), False, "mula-7b-a1b"),
+    (dict(remat_policy="attn,moe"), False, "mula-7b-a1b"), (dict(), True, "mula-7b-a1b"),
+    (dict(), False, "falcon-mamba-7b")],
+    ids=["remat-none", "remat-attn-moe", "placement", "ssm"])
+def test_fsdp_step_refuses_what_it_does_not_run(kw, placed, arch):
     """The step refuses fsdp under a remat policy without 'block' or
     'block_sc' (autograd would keep every layer's gathered weights), with
-    an expert placement and with pp stages; ``init_state`` refuses fsdp
-    for a hybrid model."""
+    an expert placement and for a state-space arch (pp stages run with it
+    since fsdp took 'pp': tests/test_torch_fsdp_grid.py); ``init_state``
+    refuses fsdp for a hybrid model."""
     from repro_torch.parallel.placement import ExpertPlacement
-    _, tc = _step_cfgs("mula-7b-a1b")
+    tc = _step_cfgs(arch)[1] if arch != "falcon-mamba-7b" else treduced(
+        tget(arch), d_model=64, vocab=128)
     train = TrainConfig(**F32)
     placement = None
     if placed:
@@ -474,10 +477,12 @@ def test_fsdp_step_refuses_what_it_does_not_run(kw, placed):
             init_state(hybrid, train, device="cpu", fsdp=True)
 
 
-def test_grid_checkpointer_refuses_fsdp(tmp_path):
-    """A grid ``Checkpointer`` given an fsdp layout on a grid with 'tp' or
-    with 'pp' refuses before it touches a file; on ('data', DP) it takes
-    one."""
+def test_grid_checkpointer_takes_fsdp_layouts(tmp_path):
+    """A grid ``Checkpointer`` takes an fsdp layout on a grid with 'tp' and
+    on one with 'pp' (it refused both before fsdp took those axes; their
+    round trips: tests/test_torch_fsdp_grid.py), as on ('data', DP): the
+    layout's params carry their 'data' tiles beside the 'tp' shards or the
+    stages."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.parallel import ProcessGrid
     from repro_torch.parallel.ep import EPGroup
@@ -488,11 +493,10 @@ def test_grid_checkpointer_refuses_fsdp(tmp_path):
         return EPGroup(None, 0, n, dev, "gloo")
 
     for name, grid in (("tp", ProcessGrid(view(2 * DP), view(DP), view(1), tp=view(2))),
-                       ("pp", ProcessGrid(view(2 * DP), view(DP), view(1), pp=view(2)))):
-        with pytest.raises(NotImplementedError, match=ITEM):
-            Checkpointer(str(tmp_path / name), grid=grid,
-                         layout=state_layout(tc, grid.axis_sizes, "none", fsdp=True))
-        assert not (tmp_path / name).exists()
-    grid = ProcessGrid(view(DP), view(DP), view(1))
-    Checkpointer(str(tmp_path / "data"), grid=grid,
-                 layout=state_layout(tc, grid.axis_sizes, "none", fsdp=True))
+                       ("pp", ProcessGrid(view(2 * DP), view(DP), view(1), pp=view(2))),
+                       ("data", ProcessGrid(view(DP), view(DP), view(1)))):
+        layout = state_layout(tc, grid.axis_sizes, "none", fsdp=True)
+        Checkpointer(str(tmp_path / name), grid=grid, layout=layout)
+        axes = {a for key, (_, place) in layout.items() if key.startswith(".params")
+                for e in place for a in e}
+        assert axes == set(grid.axis_sizes), name

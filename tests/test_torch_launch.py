@@ -88,7 +88,8 @@ def test_resume_continues_where_the_checkpoint_left_off(tmp_path):
 @pytest.mark.parametrize("kw", [
     {"parallel": "dp=2,tp=2", "arch": "zamba2-7b"}, {"parallel": "tp=2", "arch": "falcon-mamba-7b"},
     {"parallel": "pod=2,dp=2"},
-    {"parallel": "dp=2,tp=2,fsdp"}, {"parallel": "dp=2,ep=2,fsdp", "rebalance_force_at": 3},
+    {"parallel": "dp=2,fsdp", "arch": "zamba2-7b"},
+    {"parallel": "dp=2,ep=2,fsdp", "rebalance_force_at": 3},
     {"parallel": "dp=2,tiles=auto"}, {"kernel_tiles": "auto"}, {"arch": "phi-3-vision-4.2b"},
     {"arch": "seamless-m4t-medium"}],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))

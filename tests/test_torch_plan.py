@@ -15,6 +15,7 @@ from repro.configs import get_config as jget, reduced as jreduced  # noqa: E402
 from repro.parallel.plan import ParallelPlan as JPlan, ResolvedPlan as JResolved  # noqa: E402
 from repro_torch.configs import get_config as tget, reduced as treduced  # noqa: E402
 from repro_torch.parallel import ParallelPlan, ResolvedPlan  # noqa: E402
+from repro_torch.parallel.grid import grid_spec  # noqa: E402
 
 FIELDS = ("dp", "pp", "ep", "tp", "pod", "opt_shard", "opt_overlap", "pp_schedule", "pp_impl",
           "microbatches", "fsdp", "moe_dispatch", "rebalance")
@@ -114,17 +115,15 @@ def test_apply_to_model_matches_jax():
 
 @pytest.mark.parametrize("spec,item,arch", [
     ("pod=2,dp=2", "item 5", "mula-7b-a1b"),
-    ("ep=2,tp=2,fsdp", "item 5.1d", "mula-7b-a1b"), ("dp=2,tp=2,fsdp", "item 5.1d", "mula-1b"),
-    ("dp=2,pp=2,fsdp", "item 5.1d", "mula-7b-a1b"),
     ("dp=2,ep=2,fsdp,rebalance=5:1.5", "item 5.1d", "mula-7b-a1b"),
     ("dp=2,fsdp", "item 5.1d", "zamba2-7b"), ("dp=2,fsdp,opt=so", "item 5.1d", "falcon-mamba-7b"),
     ("dp=2,tp=2", "item 5.10", "zamba2-7b"), ("tp=2", "item 5.10", "falcon-mamba-7b"),
     ("dp=2,tiles=auto", "item 7", "mula-7b-a1b"),
     ("dp=2,tiles=64x256x256", "item 7", "mula-7b-a1b")])
 def test_resolve_refuses_what_the_port_lacks(spec, item, arch):
-    """pod (item 5), fsdp with 'tp' or 'pp', a rebalance policy or a
-    state-space arch (item 5.1d), tp for the state-space archs (item 5.10)
-    and explicit tiles (item 7)."""
+    """pod (item 5), fsdp with a rebalance policy or for a state-space arch
+    (item 5.1d), tp for the state-space archs (item 5.10) and explicit
+    tiles (item 7)."""
     cfg = treduced(tget(arch))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         ParallelPlan.parse(spec).resolve(cfg, global_batch=8)
@@ -132,18 +131,25 @@ def test_resolve_refuses_what_the_port_lacks(spec, item, arch):
 
 @pytest.mark.parametrize("spec,arch", [("dp=2,fsdp", "mula-7b-a1b"), ("dp=4,fsdp", "mula-1b"),
                                        ("fsdp", "mula-1b"), ("dp=2,ep=2,fsdp", "mula-7b-a1b"),
-                                       ("dp=2,ep=2,fsdp,opt=epso", "mula-7b-a1b")])
+                                       ("dp=2,ep=2,fsdp,opt=epso", "mula-7b-a1b"),
+                                       ("ep=2,tp=2,fsdp", "mula-7b-a1b"),
+                                       ("dp=2,tp=2,fsdp", "mula-1b"),
+                                       ("dp=2,pp=2,fsdp", "mula-7b-a1b"),
+                                       ("dp=2,tp=2,fsdp,opt=so", "mula-7b-a1b"),
+                                       ("dp=2,pp=2,ep=2,fsdp,opt=epso", "mula-7b-a1b")])
 def test_resolve_takes_fsdp(spec, arch):
-    """fsdp resolves on ('data', 'ep') grids of a dense or moe model in
-    every optimizer mode (it was refused before the fsdp step was ported,
-    and with 'ep' or a sharded optimizer before that was): the grid (dp,
-    ep), the checkpoint layout the JAX ``ResolvedPlan``'s, and the
-    ParallelConfig carries ``fsdp_params`` and the mode."""
+    """fsdp resolves on any grid of a dense or moe model, with 'tp' and
+    'pp' too, in every optimizer mode (it was refused before the fsdp step
+    was ported, with 'ep' or a sharded optimizer before that was, and with
+    'tp' or 'pp' before those were): the grid, the checkpoint layout the
+    JAX ``ResolvedPlan``'s, and the ParallelConfig carries ``fsdp_params``
+    and the mode."""
     from repro.parallel.plan import ResolvedPlan as JResolved
     r = ParallelPlan.parse(spec).resolve(treduced(tget(arch)), global_batch=8)
-    dp, ep = r.plan.dp, r.plan.ep
-    sizes = {a: n for a, n in (("data", dp), ("ep", ep)) if n > 1}
-    assert (r.world, r.grid, r.axis_sizes) == (dp * ep, (dp, ep), sizes)
+    dp, pp, ep, tp = r.plan.dp, r.plan.pp, r.plan.ep, r.plan.tp
+    sizes = {a: n for a, n in (("data", dp), ("pp", pp), ("ep", ep), ("tp", tp)) if n > 1}
+    assert (r.world, r.grid, r.axis_sizes) == (dp * pp * ep * tp, grid_spec(dp, ep, tp, pp),
+                                               sizes)
     assert r.layout_signature() == JResolved(plan=JPlan.parse(spec)).layout_signature()
     assert r.layout_signature()["fsdp"] and r.parallel_config().fsdp_params
     assert r.parallel_config().optimizer_sharding == r.plan.opt_shard

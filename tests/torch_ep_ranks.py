@@ -675,3 +675,103 @@ def _fsdp_ep_update(grid, tc, train, params, mode, overlap):
     _, om = step.update(TrainState(mine, opt), grads)
     return {"grads": {k: torch.unique(v) for k, v in leaves_with_path(grads)},
             "grad_norm": om["grad_norm"]}
+
+
+def fsdp_grid_grad(p, coords):
+    """A gradient that says which 'data', 'pp' and 'ep' coordinate it came
+    from: (d + 1) + 10 p + 100 e. The same on the tp ranks of one
+    coordinate, as every gradient is (they hold the same rows); sums of it
+    over any ranks are exact."""
+    return torch.full_like(p, coords["data"] + 1.0 + 10.0 * coords["pp"] + 100.0 * coords["ep"])
+
+
+def fsdp_grid_cases_rank(world, tc_by_name, params_by_name, opt_by_name, train, batches, cases,
+                         updates=(), ckpts=()):
+    """One rank of the fsdp grid tests: for each case ``(name, (dp, pp, ep,
+    tp), mode, overlap, schedule, microbatches, remat policy, fsdp)`` a grid
+    re-cut from the spawn's processes (``init_grid`` over the world, once a
+    shape), the rank's tiles of config ``name``'s whole params and AdamW
+    state (``fsdp``: with the 'data' tiles) in ``mode``, one step per batch
+    on the rank's rows (with pp > 1 the pipelined step under ``schedule``);
+    per case the metrics (with the router terms of a pp step), the params,
+    the state, its bytes against ``state_bytes_per_device``, the param
+    elements, the all-gathers and reduce-scatters over the 'data' group,
+    the gather's ``stats``, the overlap impl, and with pp > 1 the
+    saved-input peak and the bytes handed to the neighbour stages. Then
+    for each ``(name, grid, mode, overlap)`` of ``updates`` one
+    ``train_step.update`` of ``fsdp_grid_grad`` gradients (its grad norm,
+    and under 'none' the summed gradients, one value a leaf); and for each
+    ``(name, spec, root)`` of ``ckpts`` the grid checkpoint of ``spec``
+    saved under ``root`` and restored (``grid_checkpoint_rank``)."""
+    from repro_torch.convert import opt_state_for_rank, params_for_rank
+    from repro_torch.models import init_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.parallel import ParallelPlan, init_grid
+    from repro_torch.train.trainer import placements
+    from repro_torch.tree import leaves, tree_map
+
+    grids = {}
+
+    def grid_of(shape):
+        if shape not in grids:
+            dp, pp, ep, tp = shape
+            grids[shape] = init_grid(world, dp, ep, tp, pp)
+        return grids[shape]
+
+    def cut(name, shape, mode, fsdp, opt=None):
+        dp, pp, ep, tp = shape
+        rank, tc = world.rank, tc_by_name[name]
+        kw = dict(dp=dp, ep=ep, tp=tp, pp=pp, rank=rank, fsdp=fsdp)
+        opt = opt_by_name[name] if opt is None else opt
+        return TrainState(params_for_rank(params_by_name[name], tc, **kw),
+                          opt_state_for_rank(opt, tc, mode=mode, **kw))
+
+    out = {}
+    for case in cases:
+        name, shape, mode, overlap, schedule, nmb, sac, fsdp = case
+        tc, grid = tc_by_name[name], grid_of(shape)
+        state = cut(name, shape, mode, fsdp)
+        par = ParallelConfig(microbatches=nmb, remat_policy=sac, opt_overlap=overlap,
+                             pp_stages=shape[1], pp_schedule=schedule or "1f1b",
+                             fsdp_params=fsdp)
+        step = make_train_step(tc, par, train, opt_sharding_mode=mode, grid=grid)
+        metrics = []
+        with _CountCollectives() as calls:
+            for b in batches:
+                state, m = step(state, grid_rows(grid, b))
+                extra = step.router_terms if shape[1] > 1 else {}
+                metrics.append({**{k: m[k] for k in KEYS if k in m}, **extra})
+        shapes = init_params(tc, device="meta")
+        sizes = grid.axis_sizes
+        out[case] = {
+            "coords": grid.coords, "metrics": metrics,
+            "params": dict(leaves_with_path(state.params)), "opt": state.opt,
+            "data_calls": calls.on(grid.data.group),
+            "stats": dict(step.fsdp_gather.stats) if step.fsdp_gather is not None else None,
+            "impl": step.opt_overlap_impl,
+            "state_bytes": sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m,
+                                                          state.opt.v) for t in leaves(tree)),
+            "state_bytes_expected": state_bytes_per_device(
+                shapes, placements(tc, shapes, sizes, fsdp=fsdp), sizes, mode),
+            "param_elems": sum(t.numel() for t in leaves(state.params)),
+            "saved_peak": dict(getattr(step, "saved_peak", {})),
+            "sent_bytes": getattr(step, "sent_bytes", 0)}
+    for name, shape, mode, overlap in updates:
+        tc, grid = tc_by_name[name], grid_of(shape)
+        state = cut(name, shape, mode, True, adamw_init(params_by_name[name]))
+        par = ParallelConfig(microbatches=shape[1], opt_overlap=overlap, pp_stages=shape[1],
+                             fsdp_params=True)
+        step = make_train_step(tc, par, train, opt_sharding_mode=mode, grid=grid)
+        grads = tree_map(lambda p: fsdp_grid_grad(p, grid.coords), state.params)
+        _, om = step.update(state, grads)
+        out[("update", name, shape, mode, overlap)] = {
+            "grads": {k: torch.unique(v) for k, v in leaves_with_path(grads)},
+            "grad_norm": om["grad_norm"]}
+    for name, spec, root in ckpts:
+        plan = ParallelPlan.parse(spec)
+        grid = grid_of((plan.dp, plan.pp, plan.ep, plan.tp))
+        out[("ckpt", spec)] = {
+            "saved": grid_checkpoint_rank(grid, tc_by_name[name], spec, root, "save"),
+            "restored": grid_checkpoint_rank(grid, tc_by_name[name], spec, root, "restore")}
+    return out
