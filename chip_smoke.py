@@ -408,12 +408,15 @@ FSDP_TP_GRID = (2, 1, 2)
 FSDP_TP_STATE_BYTES, FSDP_TP_PARAM_ELEMS = 3_137_107_968, 416_425_984
 # fsdp_pp_train (inside epso_train's ranks, re-cut as ('data', FSDP_PP_DP) x
 # ('pp', FSDP_PP_STAGES)): full-width Mula-7B-A1B at EPSO_LAYERS layers, one
-# a stage, 'epso'/'ring', dropless, router terms on, peak lr CMP_LR, PP_MB
-# one-row microbatches of PP_SEQ tokens a 'data' rank, 1f1b; FSDP beside the
-# same grid's run without fsdp, EPSO_STEPS steps each, held at the fsdp_train
-# tolerances; the per-rank fp32 state bytes and param elements with fsdp
-# (tests/test_torch_fsdp_grid.py)
-FSDP_PP_DP, FSDP_PP_STAGES = 2, 2
+# a stage, 'epso'/'ring', dropless, router terms on, peak lr CMP_LR,
+# FSDP_PP_MB one-row microbatches of PP_SEQ tokens a 'data' rank, 1f1b; FSDP
+# beside the same grid's run without fsdp, FSDP_GRID_STEPS steps each, held
+# at the fsdp_train tolerances; the per-rank fp32 state bytes and param
+# elements with fsdp (tests/test_torch_fsdp_grid.py). 2 microbatches, cut
+# from PP_MB = 4 for the smoke's time limit: the fsdp step gathers each layer
+# three times a microbatch, 10.1 GB through gloo at 4 (20.96-27.70 s a step,
+# measured on the H100, 4 ranks sharing it)
+FSDP_PP_DP, FSDP_PP_STAGES, FSDP_PP_MB = 2, 2, 2
 FSDP_PP_STATE_BYTES, FSDP_PP_PARAM_ELEMS = 3_756_822_528, 416_356_352
 # fsdp_tp_train and fsdp_pp_train take FSDP_GRID_STEPS steps with no warmup
 # (the lr at its peak from step 0): step 0 on the initial params, step 1
@@ -517,6 +520,44 @@ GRID_FSDP_LOSS_TOL = 2e-3
 # launcher_ft's at the steps where neither run drops pairs
 GRID_FSDP_PP_RUN = dict(FT_RUN, parallel="dp=2,pp=2,fsdp", opt_shard="epso")
 GRID_FSDP_PP_LAYOUT = {"axes": [["data", 2], ["pp", 2]], "opt_shard": "epso", "fsdp": True}
+# fsdp_placement_train (inside epso_train's ranks, on its EPSO_DP x EPSO_EP
+# grid): fsdp_ep_train's model and rows, dropless, FSDP 'epso'/'ring' from
+# init_state(seed 0); the state after step FSDP_PLACEMENT_MOVE_AFTER kept on
+# the host, the next step taken unplaced, then the kept state written back,
+# moved to placement_train's placement (``placement_row``) and that step
+# taken again under it: its loss within PLACEMENT_LOSS_TOL of the unplaced
+# one's (top 8: the sum over the EP ranks reassociates). The move follows
+# step 0 (its lr is 0, its moments are not), not step 1: the job took 48.9
+# s with one more step (measured on the H100)
+FSDP_PLACEMENT_MOVE_AFTER = 0
+# fsdp_hybrid_train (a session job, its processes re-cut as ('data',
+# FSDP_DP)): full-width Zamba2-7B at FSDP_HYBRID_LAYERS layers (one group of
+# 6 Mamba-2 layers, the shared block, one remaining layer), one
+# FSDP_HYBRID_SEQ-token row a rank, block remat, FSDP_GRID_STEPS steps
+# without warmup at peak lr CMP_LR of FSDP 'so' beside 'so' without fsdp
+# (whole params under 'none' on 4 ranks may not fit the card); the state
+# bytes and param elements a rank tests/test_torch_fsdp_ssm.py's figures.
+# Not the config's 4e-4: Adam's first step on one fixed row took the loss
+# from 11.08 to 0.30, where the two runs' bf16 gradient sums (grouped
+# otherwise by the gathers' reduce-scatters than by the SO buckets; under
+# pp the fsdp run rounds each microbatch's) parted the losses by 5.4e-4 of
+# it, and falcon-mamba's by 2.17e-3 (measured on the H100)
+FSDP_HYBRID_LAYERS, FSDP_HYBRID_SEQ = 7, 2048
+FSDP_HYBRID_STATE_BYTES, FSDP_HYBRID_PARAM_ELEMS = 2_942_262_288, 417_325_104
+# fsdp_ssm_pp_train (a session job, re-cut as ('data', FSDP_PP_DP) x ('pp',
+# FSDP_PP_STAGES)): full-width falcon-mamba-7b at FSDP_SSM_PP_LAYERS layers,
+# one a stage, FSDP_SSM_PP_MB one-row microbatches of FSDP_SSM_PP_SEQ tokens
+# a batch rank (Mamba-1 is host-bound: ssm_train took 14.0 s a step at 8
+# layers of 2 x 2048 tokens; the job took 42.9 s at 512 tokens, measured on
+# the H100), 1f1b, FSDP_GRID_STEPS steps without warmup at peak lr CMP_LR of FSDP
+# 'so' beside 'so' without fsdp; the state bytes and param elements a rank
+# tests/test_torch_fsdp_ssm.py's figures
+FSDP_SSM_PP_LAYERS, FSDP_SSM_PP_MB, FSDP_SSM_PP_SEQ = 2, 2, 256
+FSDP_SSM_PP_STATE_BYTES, FSDP_SSM_PP_PARAM_ELEMS = 3_827_957_760, 585_416_704
+# launcher_grid_fsdp_rebalance: launcher_grid_rebalance's runs (GRID_REB_RUN,
+# clean and with GRID_REB_INJECT) with fsdp
+GRID_FSDP_REB_RUN = dict(GRID_REB_RUN, parallel=f"dp={GRID_FT_DP},ep={GRID_FT_EP},fsdp,"
+                                               f"rebalance=2:1.0")
 
 
 T_START = time.perf_counter()
@@ -2791,7 +2832,8 @@ def _epso_train_rank(grid, steps):
             "fsdp_ep": _history_run(cfg, train, grid, *FSDP_EP_RUN, mine, EPSO_STEPS,
                                     fsdp=True),
             "fsdp_tp": _fsdp_tp_train_rank(grid, cfg, train, batch),
-            "fsdp_pp": _fsdp_pp_train_rank(grid)}
+            "fsdp_pp": _fsdp_pp_train_rank(grid),
+            "fsdp_placement": _fsdp_placement_rank(grid, cfg, train, mine)}
 
 
 def _fsdp_train_rank(grid, cfg, train, rows):
@@ -2837,26 +2879,146 @@ def _fsdp_pp_train_rank(grid):
     import dataclasses
 
     from repro_torch.parallel import init_grid
-    cfg, train = pp_train_config(EPSO_LAYERS, FSDP_PP_DP)
+    cfg, train = pp_train_config(EPSO_LAYERS, FSDP_PP_DP, FSDP_PP_MB)
     train = dataclasses.replace(train, warmup_steps=0)
     g = init_grid(grid.world, FSDP_PP_DP, 1, 1, FSDP_PP_STAGES)
     batch = _fixed_batch(cfg.vocab_size, train.global_batch, train.seq_len, g.world.device)
     n = train.global_batch // FSDP_PP_DP
     d = g.coords["data"]
     rows = {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
-    kw = dict(microbatches=PP_MB, pp_stages=FSDP_PP_STAGES)
+    kw = dict(microbatches=FSDP_PP_MB, pp_stages=FSDP_PP_STAGES)
     n = FSDP_GRID_STEPS
     return {"coords": g.coords,
             "fsdp": _history_run(cfg, train, g, "epso", "ring", rows, n, fsdp=True, **kw),
             "plain": _history_run(cfg, train, g, "epso", "ring", rows, n, **kw)}
 
 
+def _fsdp_placement_rank(grid, cfg, train, rows):
+    """fsdp_placement_train on one rank of the epso grid: the dropless model,
+    FSDP 'epso'/'ring' (FSDP_EP_RUN) from init_state(seed 0) on the rank's
+    ``rows``, FSDP_PLACEMENT_MOVE_AFTER + 1 steps; the state then kept on
+    the host and the next step taken unplaced; the kept state written back,
+    moved to ``placement_row``'s placement (``apply_placement`` on the fsdp
+    layout) and that step taken again in a step built for it. Per step the
+    metrics, counts, ms, launches and the gather's stats; for the move its
+    wall ms, the bytes this rank sent, the slice sums of the expert stacks
+    (the rank's 'data' tiles of its 'ep' slice) before and after it and the
+    state bytes after it."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import ParallelConfig
+    from repro_torch.ft import restore_into, snapshot
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.placement import ExpertPlacement, apply_placement
+    from repro_torch.train import init_state, make_train_step, state_layout
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="dropless"))
+    mode, overlap = FSDP_EP_RUN
+    par = ParallelConfig(microbatches=1, remat_policy="block", opt_overlap=overlap,
+                         fsdp_params=True)
+    layout = state_layout(cfg, grid.axis_sizes, mode, fsdp=True)
+    L, E = cfg.num_layers, cfg.moe.num_experts
+    placed = ExpertPlacement.broadcast(placement_row(E, grid.ep.world), L)
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+
+    def one(step, state):
+        ops.reset_launches()
+        stats = dict(step.fsdp_gather.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, rows)
+        torch.cuda.synchronize()
+        return state, {**{k: float(m[k]) for k in keys},
+                       "counts": m["moe_counts"].double().cpu().tolist(),
+                       "step_ms": (time.perf_counter() - t0) * 1e3,
+                       "launches": dict(ops.launches),
+                       "fsdp_stats": {k: v - stats[k] for k, v in step.fsdp_gather.stats.items()}}
+
+    torch.cuda.empty_cache()
+    state = init_state(cfg, train, seed=0, grid=grid, opt_sharding_mode=mode, fsdp=True)
+    step = make_train_step(cfg, par, train, opt_sharding_mode=mode, grid=grid)
+    history = []
+    for _ in range(FSDP_PLACEMENT_MOVE_AFTER + 1):
+        state, rec = one(step, state)
+        history.append(rec)
+    kept = snapshot(state)
+    state, unplaced = one(step, state)
+    restore_into(state, kept)
+    del kept
+    before = _slice_sums(state, layout, grid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, sent = apply_placement(state, ExpertPlacement.identity(L, E), placed, grid=grid,
+                                  layout=layout)
+    torch.cuda.synchronize()
+    move = {"ms": (time.perf_counter() - t0) * 1e3, "sent_bytes": sent,
+            "before": before, "after": _slice_sums(state, layout, grid),
+            "state_bytes": sum(t.numel() * 4 for tree in (state.opt.master, state.opt.m,
+                                                          state.opt.v) for t in leaves(tree))}
+    step = make_train_step(cfg, par, train, opt_sharding_mode=mode, grid=grid, placement=placed)
+    state, placed_rec = one(step, state)
+    del state, step
+    return {"row": list(placed.perm[0]), "history": history, "unplaced": unplaced,
+            "placed": placed_rec, "move": move}
+
+
+def _fsdp_hybrid_train_rank(world):
+    """fsdp_hybrid_train on one rank of the session: its processes re-cut as
+    ('data', FSDP_DP), full-width Zamba2-7B at FSDP_HYBRID_LAYERS layers,
+    the rank's FSDP_HYBRID_SEQ-token row of a fixed batch; FSDP_GRID_STEPS
+    steps without warmup at peak lr CMP_LR of FSDP 'so' and of 'so'
+    without fsdp, from init_state(seed 0), block remat."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.parallel import init_grid
+    cfg = dataclasses.replace(get_config(ZAMBA), num_layers=FSDP_HYBRID_LAYERS)
+    g = init_grid(world, FSDP_DP, 1)
+    train = TrainConfig(seq_len=FSDP_HYBRID_SEQ, global_batch=FSDP_DP, warmup_steps=0,
+                        total_steps=100, lr_peak=CMP_LR, lr_min=CMP_LR / 10)
+    batch = _fixed_batch(cfg.vocab_size, FSDP_DP, FSDP_HYBRID_SEQ, g.world.device)
+    d = g.coords["data"]
+    rows = {k: v[d:d + 1] for k, v in batch.items()}
+    n = FSDP_GRID_STEPS
+    return {"coords": g.coords,
+            "fsdp": _history_run(cfg, train, g, "so", "off", rows, n, fsdp=True),
+            "plain": _history_run(cfg, train, g, "so", "off", rows, n)}
+
+
+def _fsdp_ssm_pp_train_rank(world):
+    """fsdp_ssm_pp_train on one rank of the session: its processes re-cut as
+    ('data', FSDP_PP_DP) x ('pp', FSDP_PP_STAGES), full-width falcon-mamba-7b
+    at FSDP_SSM_PP_LAYERS layers, the rank's FSDP_SSM_PP_MB rows of a fixed
+    batch (block d, the same on both stages); FSDP_GRID_STEPS 1f1b steps
+    without warmup at peak lr CMP_LR of FSDP 'so' and of 'so' without fsdp,
+    from init_state(seed 0), block remat."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.parallel import init_grid
+    cfg = dataclasses.replace(get_config(FALCON), num_layers=FSDP_SSM_PP_LAYERS)
+    g = init_grid(world, FSDP_PP_DP, 1, 1, FSDP_PP_STAGES)
+    n = FSDP_SSM_PP_MB
+    train = TrainConfig(seq_len=FSDP_SSM_PP_SEQ, global_batch=FSDP_PP_DP * n, warmup_steps=0,
+                        total_steps=100, lr_peak=CMP_LR, lr_min=CMP_LR / 10)
+    batch = _fixed_batch(cfg.vocab_size, train.global_batch, FSDP_SSM_PP_SEQ, g.world.device)
+    d = g.coords["data"]
+    rows = {k: v[d * n:(d + 1) * n] for k, v in batch.items()}
+    kw = dict(microbatches=n, pp_stages=FSDP_PP_STAGES)
+    steps = FSDP_GRID_STEPS
+    return {"coords": g.coords,
+            "fsdp": _history_run(cfg, train, g, "so", "off", rows, steps, fsdp=True, **kw),
+            "plain": _history_run(cfg, train, g, "so", "off", rows, steps, **kw)}
+
+
 def _history_run(cfg, train, grid, mode, overlap, rows, steps, sac="block", profile=False,
                  fsdp=False, profile_last=False, microbatches=1, pp_stages=1):
     """``steps`` steps of ``cfg`` from init_state(seed 0) on ``grid`` in
     ``mode``/``overlap`` under the remat policy ``sac`` on the rank's
-    ``rows`` in ``microbatches``: per step the metrics, the counts and the
-    step ms; the launches, the peak memory (also of the steps alone) and
+    ``rows`` in ``microbatches``: per step the metrics, the counts (a MoE
+    model's) and the step ms; the launches, the peak memory (also of the steps alone) and
     the state bytes and param elements held. ``fsdp``: the state and step
     of ``ParallelConfig.fsdp_params``, and the steps' gather counts and
     bytes. ``pp_stages`` > 1: the 1f1b pipelined step on the grid's 'pp'
@@ -2897,9 +3059,10 @@ def _history_run(cfg, train, grid, mode, overlap, rows, steps, sac="block", prof
         else:
             state, m = step(state, rows)
         torch.cuda.synchronize()
-        history.append({**{k: float(m[k]) for k in keys},
-                        "counts": m["moe_counts"].double().cpu().tolist(),
+        history.append({**{k: float(m[k]) for k in keys if k in m},
                         "step_ms": (time.perf_counter() - t0) * 1e3})
+        if "moe_counts" in m:
+            history[-1]["counts"] = m["moe_counts"].double().cpu().tolist()
         if pp_stages > 1:
             history[-1].update(moe_aux=float(step.router_terms["moe_aux"]),
                                sent_bytes=step.sent_bytes,
@@ -2940,17 +3103,18 @@ def _a2a_train_rank(grid, cfg, train, mine, steps):
         steps) for stage1 in ("a2a", "allgather")}
 
 
-def pp_train_config(layers: int = PP_LAYERS, batch_ranks: int = PP_DP * PP_EP):
+def pp_train_config(layers: int = PP_LAYERS, batch_ranks: int = PP_DP * PP_EP,
+                    microbatches: int = PP_MB):
     """pp_train's model and TrainConfig: full-width Mula-7B-A1B at ``layers``
     layers, dropless, with the config's router terms (a stage takes them
-    over the whole microbatch); PP_MB one-row microbatches of PP_SEQ tokens
-    a batch rank (``batch_ranks`` of them), peak lr CMP_LR."""
+    over the whole microbatch); ``microbatches`` one-row microbatches of
+    PP_SEQ tokens a batch rank (``batch_ranks`` of them), peak lr CMP_LR."""
     import dataclasses
 
     from repro_torch.configs import TrainConfig, get_config
     cfg = dataclasses.replace(get_config(MULA), num_layers=layers)
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="dropless"))
-    train = TrainConfig(seq_len=PP_SEQ, global_batch=batch_ranks * PP_MB, warmup_steps=2,
+    train = TrainConfig(seq_len=PP_SEQ, global_batch=batch_ranks * microbatches, warmup_steps=2,
                         total_steps=100, lr_peak=CMP_LR, lr_min=CMP_LR / 10)
     return cfg, train
 
@@ -3383,29 +3547,30 @@ def _placement_train_rank(grid, cfg, train, mine, steps):
     return out
 
 
-def _moved_slices_differ(ranks, row) -> tuple:
-    """(slices compared, those that differ) over every rank's expert stacks:
-    the sums at position ``pos`` after the move against those of global id
-    ``row[pos]`` before it, from the rank that held it with the same cut of
-    the other dims (replicas must agree)."""
+def _moved_slices_differ(moves, row, phase: str = "placement_train") -> tuple:
+    """(slices compared, those that differ) over every rank's expert stacks
+    (``moves``: each rank's move record, its ``before`` and ``after`` slice
+    sums): the sums at position ``pos`` after the move against those of
+    global id ``row[pos]`` before it, from the rank that held it with the
+    same cut of the other dims (an fsdp tile's 'data' coordinate among
+    them; replicas must agree)."""
     import numpy as np
 
     ref = {}
-    for rk in ranks:
-        for key, b in rk["placement"]["placed"]["move"]["before"].items():
+    for move in moves:
+        for key, b in move["before"].items():
             table = ref.setdefault((key, repr(b["other"])), {})
             for j in range(b["sums"].shape[1]):
                 got = b["sums"][:, j].numpy()
                 if b["offset"] + j in table and not np.array_equal(table[b["offset"] + j], got):
-                    raise AssertionError(f"placement_train: replicas of {key} differ before "
-                                         f"the move")
+                    raise AssertionError(f"{phase}: replicas of {key} differ before the move")
                 table[b["offset"] + j] = got
     compared, differ = 0, []
-    for i, rk in enumerate(ranks):
-        for key, a in rk["placement"]["placed"]["move"]["after"].items():
+    for i, move in enumerate(moves):
+        for key, a in move["after"].items():
             table = ref[(key, repr(a["other"]))]
             if sorted(table) != list(range(len(row))):
-                raise AssertionError(f"placement_train: {key} before the move covers "
+                raise AssertionError(f"{phase}: {key} before the move covers "
                                      f"{len(table)} of {len(row)} experts")
             for j in range(a["sums"].shape[1]):
                 pos = a["offset"] + j
@@ -3498,24 +3663,29 @@ def phase_epso_train(ranks, wall: float) -> tuple:
     return (row, phase_placement_train(ranks, cfg), phase_a2a_train(ranks, cfg),
             phase_tp_train(ranks, cfg), phase_pp_train(ranks), phase_grid_serve(ranks),
             phase_fsdp_train(ranks, cfg), phase_fsdp_ep_train(ranks, cfg),
-            phase_fsdp_tp_train(ranks, cfg), phase_fsdp_pp_train(ranks))
+            phase_fsdp_tp_train(ranks, cfg), phase_fsdp_pp_train(ranks),
+            phase_fsdp_placement_train(ranks, cfg))
 
 
-def fsdp_layer_bytes(cfg, itemsize: int, sizes=None) -> int:
+def fsdp_layer_bytes(cfg, itemsize: int, sizes=None, part: str = "layers") -> int:
     """The bytes of one layer's fsdp-split leaves in a dtype of ``itemsize``
     bytes (the compute dtype) on a grid of ``sizes`` (default ('data',
-    FSDP_DP)), what one gather of a layer assembles on every rank: each
-    leaf whole over 'data', the rank's slice of it over the other axes
-    that split a layer (an expert stack's 'ep' slice, a tp shard)."""
+    FSDP_DP)), what one gather of a layer of the stacked subtree ``part``
+    (``layers``, the hybrid's ``groups`` or ``rem``, or its ``shared``
+    block) assembles on every rank: each leaf whole over 'data', the rank's
+    slice of it over the other axes that split a layer (an expert stack's
+    'ep' slice, a tp shard)."""
     from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import stacked_dims
     from repro_torch.train.trainer import placements
     from repro_torch.tree import leaves
     sizes = sizes or {"data": FSDP_DP}
     shapes = init_params(cfg, device="meta")
     place = placements(cfg, shapes, sizes, fsdp=True)
-    return sum(t.numel() // cfg.num_layers // math.prod(
+    per = math.prod(leaves(shapes[part])[0].shape[:stacked_dims(part + "/")])
+    return sum(t.numel() // per // math.prod(
         sizes[a] for e in pl for a in e if a not in ("data", "pp")) * itemsize
-        for t, pl in zip(leaves(shapes["layers"]), leaves(place["layers"]))
+        for t, pl in zip(leaves(shapes[part]), leaves(place[part]))
         if any("data" in e for e in pl))
 
 
@@ -3556,15 +3726,19 @@ def phase_fsdp_train(ranks, cfg) -> dict:
     elements a rank (planned = measured = FSDP_STATE_BYTES,
     FSDP_PARAM_ELEMS), the gathers, reduce-scatters and gathered bytes of
     the steps (a gather a layer in the forward and again in the recompute,
-    a reduce-scatter a layer), the ``c10d::`` all-gathers and
-    reduce-scatters of rank 0's profiled last step, and the exact launch
-    count;
+    a reduce-scatter a layer), the ``c10d::`` all-gathers (those and one
+    an expert stack, of its grad-norm slice sums) and reduce-scatters of
+    rank 0's profiled last step, and the exact launch count;
     prints peak memory (of the steps alone too), step ms a rank and the
     bytes gathered a step, counted and computed."""
     import dataclasses
 
     import torch
     from repro_torch.configs import TrainConfig
+    from repro_torch.models import init_params
+    from repro_torch.parallel.sharding import is_expert_stack_path
+    from repro_torch.train.trainer import placements
+    from repro_torch.tree import leaves_with_path
     keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
     L, n = EPSO_LAYERS, EPSO_STEPS
     expect = expected_train_launches(L, 1, n)
@@ -3599,7 +3773,13 @@ def phase_fsdp_train(ranks, cfg) -> dict:
             raise AssertionError(f"{where}: gathers {run['fsdp_stats']} != {want_stats}")
     prof = ranks[0]["fsdp"]["fsdp"]["profile"]
     calls = {k: v["calls"] for k, v in prof["host_events"].items()}
-    want_calls = {"c10d::allgather_": 2 * L, "c10d::reduce_scatter_": L}
+    # and one all-gather of each expert stack's grad-norm slice sums, which
+    # the update adds over 'data' in rank order (optim.adamw.sum_in_rank_order)
+    lcfg = dataclasses.replace(cfg, num_layers=L)
+    stacks = sum(is_expert_stack_path(path) and any("data" in e for e in pl)
+                 for path, pl in leaves_with_path(placements(
+                     lcfg, init_params(lcfg, device="meta"), {"data": FSDP_DP}, fsdp=True)))
+    want_calls = {"c10d::allgather_": 2 * L + stacks, "c10d::reduce_scatter_": L}
     if {k: calls.get(k, 0) for k in want_calls} != want_calls:
         raise AssertionError(f"fsdp_train: rank 0's profiled step made {calls}, expected "
                              f"{want_calls}")
@@ -3880,18 +4060,234 @@ def phase_fsdp_pp_train(ranks) -> dict:
     """The fsdp run of epso_train's ranks on ('data', FSDP_PP_DP) x ('pp',
     FSDP_PP_STAGES) (``_fsdp_pp_train_rank``): full-width Mula-7B-A1B at
     EPSO_LAYERS layers, one a stage, 'epso'/'ring', dropless, router terms
-    on, PP_MB microbatches, FSDP_GRID_STEPS 1f1b steps with fsdp beside the same
+    on, FSDP_PP_MB microbatches, FSDP_GRID_STEPS 1f1b steps with fsdp beside the same
     grid's run without it, held by ``_fsdp_pair`` (a layer gathered three
     times a microbatch: the F tick, the B tick's forward, the recompute),
     the state bytes and param elements a rank FSDP_PP_STATE_BYTES and
     FSDP_PP_PARAM_ELEMS, the exact launch count of a stage; prints peak
     memory, step ms and the bytes gathered a step."""
-    cfg, train = pp_train_config(EPSO_LAYERS, FSDP_PP_DP)
+    cfg, train = pp_train_config(EPSO_LAYERS, FSDP_PP_DP, FSDP_PP_MB)
     sizes = {"data": FSDP_PP_DP, "pp": FSDP_PP_STAGES}
     return _fsdp_pair(ranks, "fsdp_pp", sizes, cfg,
                       {"state_bytes": FSDP_PP_STATE_BYTES, "param_elems": FSDP_PP_PARAM_ELEMS},
-                      expected_pp_launches(EPSO_LAYERS // FSDP_PP_STAGES, PP_MB, FSDP_GRID_STEPS),
-                      train.global_batch * PP_SEQ * cfg.moe.experts_per_token, 3, PP_MB)
+                      expected_pp_launches(EPSO_LAYERS // FSDP_PP_STAGES, FSDP_PP_MB,
+                                           FSDP_GRID_STEPS),
+                      train.global_batch * PP_SEQ * cfg.moe.experts_per_token, 3, FSDP_PP_MB)
+
+
+def phase_fsdp_placement_train(ranks, cfg) -> dict:
+    """The fsdp placement run of epso_train's ranks (``_fsdp_placement_rank``):
+    full-width Mula-7B-A1B at EPSO_LAYERS layers on the EPSO_DP x EPSO_EP
+    grid, FSDP 'epso'/'ring', dropless, one EP_SEQ-token row a rank; the
+    state after step FSDP_PLACEMENT_MOVE_AFTER moved to placement_train's
+    placement and the next step taken again under it. Asserts every moved
+    (layer, expert) tile of params, master, m and v equal to its source by
+    the exact sums of its bits (``_moved_slices_differ``, each rank's 'data'
+    tile against the same tile), the state bytes FSDP_EP_STATE_BYTES after
+    the move, the placed step's loss within PLACEMENT_LOSS_TOL of the
+    unplaced step's, no drops and the routed pairs conserved, rank 0's
+    metrics on every rank, each step's gathers, reduce-scatters and bytes
+    gathered and its exact launch count. Prints the move's ms and bytes a
+    rank."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import TrainConfig
+
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
+    L, sizes = EPSO_LAYERS, {"data": EPSO_DP, "ep": EPSO_EP}
+    lcfg = dataclasses.replace(cfg, num_layers=L)
+    layer = fsdp_layer_bytes(lcfg, getattr(torch, TrainConfig().compute_dtype).itemsize, sizes)
+    want_stats = {"all_gather": 2 * L, "reduce_scatter": L, "gathered_bytes": 2 * L * layer}
+    expect = expected_train_launches(L, 1, 1)
+    pairs = len(ranks) * EP_SEQ * cfg.moe.experts_per_token
+    row0 = ranks[0]["fsdp_placement"]["row"]
+    compared, differ = _moved_slices_differ([rk["fsdp_placement"]["move"] for rk in ranks], row0,
+                                            "fsdp_placement_train")
+    if differ:
+        raise AssertionError(f"fsdp_placement_train: {len(differ)} of {compared} moved slices "
+                             f"differ from their sources: {differ[:8]}")
+
+    def steps_of(fp):
+        return fp["history"] + [fp["unplaced"], fp["placed"]]
+
+    for i, rk in enumerate(ranks):
+        fp, where = rk["fsdp_placement"], f"fsdp_placement_train rank {i}"
+        if [{k: s[k] for k in keys} for s in steps_of(fp)] != [
+                {k: s[k] for k in keys} for s in steps_of(ranks[0]["fsdp_placement"])]:
+            raise AssertionError(f"{where}: metrics differ from rank 0's")
+        for s in steps_of(fp):
+            if not all(math.isfinite(s[k]) for k in keys) or s["moe_drops"] != 0 or \
+                    sum(s["counts"]) != pairs:
+                raise AssertionError(f"{where}: non-finite metrics, drops or routed pairs off: "
+                                     f"{ {k: s[k] for k in keys} }, {sum(s['counts'])} pairs")
+            if s["launches"] != expect or s["fsdp_stats"] != want_stats:
+                raise AssertionError(f"{where}: launches {s['launches']} (want {expect}) or "
+                                     f"gathers {s['fsdp_stats']} (want {want_stats}) a step")
+        move = fp["move"]
+        if len(move["after"]) != 12 or sorted(move["after"]) != sorted(move["before"]):
+            raise AssertionError(f"{where}: {len(move['after'])} expert stacks moved, 12 "
+                                 f"expected")
+        if move["state_bytes"] != FSDP_EP_STATE_BYTES:
+            raise AssertionError(f"{where}: state bytes {move['state_bytes']} after the move, "
+                                 f"{FSDP_EP_STATE_BYTES} expected")
+        gap = abs(fp["placed"]["loss"] - fp["unplaced"]["loss"])
+        if gap > PLACEMENT_LOSS_TOL:
+            raise AssertionError(f"{where}: the placed step's loss off the unplaced one's by "
+                                 f"{gap} (> {PLACEMENT_LOSS_TOL})")
+    r0 = ranks[0]["fsdp_placement"]
+    row = {"model": cfg.name, "layers": L, "grid": sizes, "mode": "/".join(FSDP_EP_RUN),
+           "dispatch": "dropless", "move_after_step": FSDP_PLACEMENT_MOVE_AFTER, "row": row0,
+           "move_ms_by_rank": [rk["fsdp_placement"]["move"]["ms"] for rk in ranks],
+           "sent_bytes_by_rank": [rk["fsdp_placement"]["move"]["sent_bytes"] for rk in ranks],
+           "slices_compared": compared, "slices_differ": len(differ),
+           "state_bytes_per_rank": r0["move"]["state_bytes"],
+           "losses_before_move": [s["loss"] for s in r0["history"]],
+           "loss_unplaced": r0["unplaced"]["loss"], "loss_placed": r0["placed"]["loss"],
+           "loss_gap": abs(r0["placed"]["loss"] - r0["unplaced"]["loss"]),
+           "grad_norm_unplaced": r0["unplaced"]["grad_norm"],
+           "grad_norm_placed": r0["placed"]["grad_norm"],
+           "step_ms_by_rank": [[s["step_ms"] for s in steps_of(rk["fsdp_placement"])]
+                               for rk in ranks],
+           "gathers_per_step": want_stats, "layer_bytes_gathered": layer,
+           "launches_per_rank": r0["placed"]["launches"], "expected_launches": expect,
+           "tolerance": PLACEMENT_LOSS_TOL,
+           "note": "4 ranks time-share one card; gloo carries the move and the fsdp "
+                   "collectives through host memory: no time here is a speed"}
+    emit("fsdp_placement_train", **row)
+    return row
+
+
+def phase_fsdp_state_space_train(ranks, name: str) -> dict:
+    """A session job's fsdp runs of a state-space arch (``ranks``, each
+    rank's 'fsdp' and 'plain' ``_history_run``): ``name``
+    'fsdp_hybrid_train' (``_fsdp_hybrid_train_rank``) or
+    'fsdp_ssm_pp_train' (``_fsdp_ssm_pp_train_rank``). Asserts on every rank
+    both runs' finite metrics, a falling loss, clip_scale <= 1, rank 0's
+    metrics, the state bytes planned (``state_bytes_per_device``, the fsdp
+    one the CPU test's figure) and no port kernel launched (training takes
+    the plain SSM math); the fsdp run held to the plain one
+    (``_fsdp_held_to``: step 0's loss bit for bit), its param elements the
+    CPU test's figure and its gathers, reduce-scatters and bytes gathered
+    exactly: two gathers an SSM layer and microbatch (three under pp) and
+    one reduce-scatter, and for the hybrid one gather and one
+    reduce-scatter of the shared block a step, whatever its applications;
+    under pp each step's saved-input peak and the bytes handed to the
+    neighbour stage. Prints peak a rank of both runs, step ms and the bytes
+    gathered a step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.model import hybrid_layout
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.train.trainer import placements
+
+    if name == "fsdp_hybrid_train":
+        cfg = dataclasses.replace(get_config(ZAMBA), num_layers=FSDP_HYBRID_LAYERS)
+        sizes, n_mb, seq = {"data": FSDP_DP}, 1, FSDP_HYBRID_SEQ
+        want = {"state_bytes": FSDP_HYBRID_STATE_BYTES, "param_elems": FSDP_HYBRID_PARAM_ELEMS}
+    else:
+        cfg = dataclasses.replace(get_config(FALCON), num_layers=FSDP_SSM_PP_LAYERS)
+        sizes, n_mb, seq = {"data": FSDP_PP_DP, "pp": FSDP_PP_STAGES}, FSDP_SSM_PP_MB, \
+            FSDP_SSM_PP_SEQ
+        want = {"state_bytes": FSDP_SSM_PP_STATE_BYTES, "param_elems": FSDP_SSM_PP_PARAM_ELEMS}
+    keys = ("loss", "ce", "grad_norm", "clip_scale", "lr")
+    n, pp = FSDP_GRID_STEPS, sizes.get("pp", 1)
+    item = getattr(torch, TrainConfig().compute_dtype).itemsize
+    if cfg.arch_type == "hybrid":
+        n_group, every, rem = hybrid_layout(cfg)
+        ssm_layers = n_group * every + rem
+        gathers, scatters = 2 * ssm_layers + 1, ssm_layers + 1
+        nbytes = (2 * n_group * every * fsdp_layer_bytes(cfg, item, sizes, "groups")
+                  + 2 * rem * fsdp_layer_bytes(cfg, item, sizes, "rem")
+                  + fsdp_layer_bytes(cfg, item, sizes, "shared"))
+    else:
+        lay = cfg.num_layers // pp * n_mb
+        gathers, scatters = (3 if pp > 1 else 2) * lay, lay
+        nbytes = gathers * fsdp_layer_bytes(cfg, item, sizes)
+    want_stats = {"all_gather": n * gathers, "reduce_scatter": n * scatters,
+                  "gathered_bytes": n * nbytes}
+    expect = _no_launches()
+    shapes = init_params(cfg, device="meta")
+    planned = {f: state_bytes_per_device(shapes, placements(cfg, shapes, sizes, fsdp=f), sizes,
+                                         "so") for f in (True, False)}
+    if planned[True] != want["state_bytes"]:
+        raise AssertionError(f"{name}: {planned[True]} state bytes planned, expected "
+                             f"{want['state_bytes']}")
+    r0, p0 = ranks[0]["fsdp"], ranks[0]["plain"]
+    h, ref = r0["history"], p0["history"]
+    # the row first, so that it shows what an assertion below refuses
+    fresh = [i for i in range(len(ref)) if all(s["lr"] == 0 for s in ref[:i])]
+    rel = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(h, ref)]
+           for k in ("loss", "ce", "grad_norm")}
+    row = {"model": cfg.name, "layers": cfg.num_layers, "grid": sizes, "ranks": len(ranks),
+           "mode": "so/off", "microbatches": n_mb, "seq_len": seq, "steps": n, "remat": "block",
+           "coords_by_rank": [rk["coords"] for rk in ranks],
+           "losses": [s["loss"] for s in r0["history"]],
+           "losses_plain": [s["loss"] for s in p0["history"]],
+           "grad_norms": [s["grad_norm"] for s in r0["history"]],
+           "grad_norms_plain": [s["grad_norm"] for s in p0["history"]],
+           "loss_rel_to_plain": rel["loss"], "ce_rel_to_plain": rel["ce"],
+           "grad_norm_rel_to_plain": rel["grad_norm"], "tolerance": FSDP_LOSS_TOL,
+           "grad_norm_tolerance": {"steps_on_step0_params": fresh, "there": FSDP_NORM_TOL,
+                                   "after_an_update": FSDP_NORM_TOL_UPDATED},
+           "state_bytes_per_rank": r0["state_bytes"], "state_bytes_plain": p0["state_bytes"],
+           "param_elems_per_rank": r0["param_elems"], "param_elems_plain": p0["param_elems"],
+           "peak_bytes_by_rank": [rk["fsdp"]["peak_bytes"] for rk in ranks],
+           "peak_bytes_by_rank_plain": [rk["plain"]["peak_bytes"] for rk in ranks],
+           "peak_bytes_steps_by_rank": [rk["fsdp"]["peak_bytes_steps"] for rk in ranks],
+           "peak_bytes_steps_by_rank_plain": [rk["plain"]["peak_bytes_steps"] for rk in ranks],
+           "step_ms_by_rank": [[s["step_ms"] for s in rk["fsdp"]["history"]] for rk in ranks],
+           "step_ms_by_rank_plain": [[s["step_ms"] for s in rk["plain"]["history"]]
+                                     for rk in ranks],
+           "gathered_bytes_per_step_counted": r0["fsdp_stats"]["gathered_bytes"] / n,
+           "gathered_bytes_per_step_computed": nbytes,
+           "gathers_per_step": r0["fsdp_stats"]["all_gather"] / n,
+           "reduce_scatters_per_step": r0["fsdp_stats"]["reduce_scatter"] / n,
+           "launches_per_rank": r0["launches"], "expected_launches": expect,
+           "note": "4 ranks time-share one card; gloo carries the gathers, the "
+                   "reduce-scatters, the stage hand-offs and the SO collectives through host "
+                   "memory: no step time here is a speed"}
+    if pp > 1:
+        row.update(saved_peak_by_rank=[rk["fsdp"]["history"][0]["saved_peak"] for rk in ranks],
+                   handoff_bytes_per_step_by_rank=[rk["fsdp"]["history"][0]["sent_bytes"]
+                                                   for rk in ranks])
+    emit(name, **row)
+    for i, rk in enumerate(ranks):
+        for which, fsdp in (("fsdp", True), ("plain", False)):
+            run, where = rk[which], f"{name} {which} rank {i}"
+            h = run["history"]
+            if not all(math.isfinite(s[k]) for s in h for k in keys) or \
+                    not all(s["clip_scale"] <= 1.0 for s in h):
+                raise AssertionError(f"{where}: non-finite metrics or clip_scale above 1: {h}")
+            if not h[-1]["loss"] < h[0]["loss"]:
+                raise AssertionError(f"{where}: loss did not fall: {[s['loss'] for s in h]}")
+            if [{k: s[k] for k in keys} for s in h] != [
+                    {k: s[k] for k in keys} for s in ranks[0][which]["history"]]:
+                raise AssertionError(f"{where}: metrics differ from rank 0's")
+            if run["state_bytes"] != planned[fsdp]:
+                raise AssertionError(f"{where}: state bytes {run['state_bytes']}, planned "
+                                     f"{planned[fsdp]}")
+            if run["launches"] != expect:
+                raise AssertionError(f"{where}: launches {run['launches']} != {expect}")
+            if pp > 1:
+                stage = rk["coords"]["pp"]
+                want_sent = n_mb * seq * cfg.d_model * item * ((stage < pp - 1) + (stage > 0))
+                for s in h:
+                    if s["saved_peak"] != pp - stage or s["sent_bytes"] != want_sent:
+                        raise AssertionError(f"{where}: saved-input peak {s['saved_peak']} "
+                                             f"(want {pp - stage}) or bytes handed off "
+                                             f"{s['sent_bytes']} (want {want_sent})")
+        run, where = rk["fsdp"], f"{name} rank {i}"
+        _fsdp_held_to(run["history"], rk["plain"]["history"], where, "the plain run")
+        if run["param_elems"] != want["param_elems"]:
+            raise AssertionError(f"{where}: {run['param_elems']} param elements, expected "
+                                 f"{want['param_elems']}")
+        if run["fsdp_stats"] != want_stats:
+            raise AssertionError(f"{where}: gathers {run['fsdp_stats']} != {want_stats}")
+    return row
 
 
 def phase_pp_train(ranks) -> dict:
@@ -4200,7 +4596,8 @@ def phase_placement_train(ranks, cfg) -> dict:
     expect = {"unplaced": expected_train_launches(EPSO_LAYERS, 1, PLACEMENT_STEPS),
               "placed": expected_train_launches(EPSO_LAYERS, 1, PLACEMENT_STEPS - cut)}
     pairs = len(ranks) * EP_SEQ * cfg.moe.experts_per_token
-    compared, differ = _moved_slices_differ(ranks, ranks[0]["placement"]["row"])
+    compared, differ = _moved_slices_differ([rk["placement"]["placed"]["move"] for rk in ranks],
+                                            ranks[0]["placement"]["row"])
     if differ:
         raise AssertionError(f"placement_train: {len(differ)} of {compared} moved slices "
                              f"differ from their sources: {differ[:8]}")
@@ -4316,7 +4713,9 @@ def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
     """Time what ``repro_torch.launch.train.run`` does without changing it:
     each batch's move to the device and each train step (synchronized
     before and after: the launcher syncs after the step anyway), each full
-    and model-only save and each restore, and the free disk before a save.
+    and model-only save and each restore, each expert move
+    (``apply_placement``: its ms and the bytes it sent), and the free disk
+    before a save.
     The step call numbered ``profile_call`` (from 0, counted over every run
     inside the block) is profiled instead of timed. With ``need_disk`` a
     save that the disk cannot hold whole fails before it writes."""
@@ -4327,8 +4726,8 @@ def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
 
     rec = {"step_ms": [], "h2d_ms": [], "save_ms": [], "save_model_only_ms": [],
            "restore_ms": [], "disk_free_before_save": [], "profile": None,
-           "state_bytes": None, "calls": []}
-    made, mover = launch.make_train_step, launch._batch_mover
+           "state_bytes": None, "calls": [], "move_ms": [], "move_sent_bytes": []}
+    made, mover, place = launch.make_train_step, launch._batch_mover, launch.apply_placement
     calls = [0]
 
     def batch_mover(*a, **k):
@@ -4365,6 +4764,15 @@ def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
             return out
         return timed
 
+    def apply_placement(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = place(*a, **k)
+        torch.cuda.synchronize()
+        rec["move_ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["move_sent_bytes"].append(out[1])
+        return out
+
     def timer(name, fn, before=None):
         def wrapped(self, *a, **k):
             if before is not None:
@@ -4390,6 +4798,7 @@ def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
     cls = checkpointer.Checkpointer
     saved = {n: getattr(cls, n) for n in ("save", "save_model_only", "restore")}
     launch.make_train_step, launch._batch_mover = make_train_step, batch_mover
+    launch.apply_placement = apply_placement
     cls.save = timer("save_ms", saved["save"], check_disk)
     cls.save_model_only = timer("save_model_only_ms", saved["save_model_only"])
     cls.restore = timer("restore_ms", saved["restore"])
@@ -4397,6 +4806,7 @@ def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
         yield rec
     finally:
         launch.make_train_step, launch._batch_mover = made, mover
+        launch.apply_placement = place
         for n, fn in saved.items():
             setattr(cls, n, fn)
 
@@ -4619,7 +5029,9 @@ LAUNCHER_GRID_RUNS = (
     ("grid_fsdp/first", FT_ARCH, GRID_FSDP_RUN, 0),
     ("grid_fsdp/second", FT_ARCH, GRID_FSDP_RUN, 0),
     ("grid_fsdp_pp/first", FT_ARCH, GRID_FSDP_PP_RUN, 0),
-    ("grid_fsdp_pp/second", FT_ARCH, GRID_FSDP_PP_RUN, 0))
+    ("grid_fsdp_pp/second", FT_ARCH, GRID_FSDP_PP_RUN, 0),
+    ("grid_fsdp_rebalance/clean", FT_ARCH, GRID_FSDP_REB_RUN, 0),
+    ("grid_fsdp_rebalance/faulty", FT_ARCH, dict(GRID_FSDP_REB_RUN, **GRID_REB_INJECT), 0))
 
 
 def _grid_run_dir(name: str) -> Path:
@@ -5181,27 +5593,39 @@ def _newest_manifest(ckpt) -> dict:
     return max((m for m in mans if m.get("valid")), key=lambda m: m["step"])
 
 
-def phase_launcher_grid_rebalance(session: dict, specs: dict) -> dict:
-    """launcher_grid_ft's run with live EP rebalancing (GRID_REB_RUN: the
-    plan's ``rebalance=2:1.0`` and ``rebalance_force_at=3``) on the dp = 2 x
-    ep = 2 EPSO grid: clean, then with a hard failure (GRID_REB_INJECT)
-    after the step-5 checkpoint that follows the event, so that the relaunch
-    restores placed arrays and the MANIFEST's placement (both in the
-    session's processes). Asserts at least
-    one event, the faulty run's history bit-identical to the clean one's
-    (imbalances and events included) on every rank, the same placement in
-    both runs' last MANIFEST, finite losses and the exact launch count of
-    every kernel (one more step replayed in the faulty run)."""
+def phase_launcher_grid_rebalance(session: dict, specs: dict,
+                                  base: str = "grid_rebalance") -> dict:
+    """launcher_grid_ft's run with live EP rebalancing on the dp = 2 x ep = 2
+    EPSO grid: ``base`` 'grid_rebalance' (GRID_REB_RUN: the plan's
+    ``rebalance=2:1.0`` and ``rebalance_force_at=3``) or
+    'grid_fsdp_rebalance' (GRID_FSDP_REB_RUN: the same with fsdp, the
+    moves taking the 'data' tiles of the expert stacks): clean, then with a
+    hard failure (GRID_REB_INJECT) after the step-5 checkpoint that follows
+    the event, so that the relaunch restores placed arrays and the
+    MANIFEST's placement (both in the session's processes). Asserts at least
+    one event before step 9, the faulty run's history bit-identical to the
+    clean one's (imbalances and events included) on every rank, the same
+    placement in both runs' last MANIFEST, finite losses and the exact
+    launch count of every kernel (one more step replayed in the faulty
+    run); with fsdp also the plan's fsdp layout in the MANIFESTs and each
+    rank's state bytes ``state_bytes_per_device`` of the fsdp placements.
+    Prints save, restore and move ms."""
+    from repro_torch.models import init_params
+    from repro_torch.optim.epso import state_bytes_per_device
+    from repro_torch.train.trainer import placements
+
+    phase, fsdp = f"launcher_{base}", base == "grid_fsdp_rebalance"
+    run = GRID_FSDP_REB_RUN if fsdp else GRID_REB_RUN
     runs = {}
     try:
         for name in ("clean", "faulty"):
-            d = _grid_run_dir(f"grid_rebalance/{name}")
-            runs[name] = _grid_run(session, specs, f"grid_rebalance/{name}")[1:]
+            d = _grid_run_dir(f"{base}/{name}")
+            runs[name] = _grid_run(session, specs, f"{base}/{name}")
             runs[name] += (_newest_manifest(d / "ckpt"),
                            json.loads((d / "summary.json").read_text()))
     finally:
-        shutil.rmtree(LAUNCH_DIR / "grid_rebalance", ignore_errors=True)
-    (clean, clean_wall, man_c, sum_c), (faulty, faulty_wall, man_f, sum_f) = \
+        shutil.rmtree(LAUNCH_DIR / base, ignore_errors=True)
+    (spec, clean, clean_wall, man_c, sum_c), (_, faulty, faulty_wall, man_f, sum_f) = \
         runs["clean"], runs["faulty"]
     layers, steps = FT_RUN["layers"], FT_RUN["steps"]
     replayed = GRID_REB_INJECT["inject_hard_at"] - 1 - FT_RUN["ckpt_interval"]
@@ -5209,7 +5633,11 @@ def phase_launcher_grid_rebalance(session: dict, specs: dict) -> dict:
               "faulty": expected_train_launches(layers, 1, steps + replayed)}
     c0, f0 = clean[0]["result"], faulty[0]["result"]
     events = [h["step"] for h in c0 if h.get("rebalanced")]
-    row = {"model": launcher_ft_cfg().name, "run": GRID_REB_RUN, "inject": GRID_REB_INJECT,
+    cfg, sizes = spec.cfg, spec.plan.axis_sizes
+    shapes = init_params(cfg, device="meta")
+    want_bytes = state_bytes_per_device(shapes, placements(cfg, shapes, sizes, fsdp=fsdp), sizes,
+                                        "epso")
+    row = {"model": launcher_ft_cfg().name, "run": run, "inject": GRID_REB_INJECT,
            "ranks": len(clean), "events_at_steps": events, "rebalances": sum_c["rebalances"],
            "rebalances_faulty": sum_f["rebalances"],
            "moe_imbalance": [h["moe_imbalance"] for h in c0],
@@ -5218,22 +5646,29 @@ def phase_launcher_grid_rebalance(session: dict, specs: dict) -> dict:
            "relaunches_by_rank": [r["result"].relaunches for r in faulty],
            "history_bit_identical": list(f0) == list(c0),
            "manifest_step": [man_c["step"], man_f["step"]],
+           "manifest_plan": man_c.get("plan"),
            "manifest_placement": man_c.get("placement"),
            "manifest_placement_equal": man_c.get("placement") == man_f.get("placement"),
            "step_ms_median_by_rank": [statistics.median(r["rec"]["step_ms"]) for r in clean],
+           "state_bytes_by_rank": [r["rec"]["state_bytes"] for r in clean],
+           "state_bytes_expected": want_bytes,
+           "save_ms_by_rank": [r["rec"]["save_ms"] for r in clean],
+           "restore_ms_by_rank": [r["rec"]["restore_ms"] for r in faulty],
+           "move_ms_by_rank": [r["rec"]["move_ms"] for r in clean],
+           "move_sent_bytes_by_rank": [r["rec"]["move_sent_bytes"] for r in clean],
            "restore_ms_rank0": faulty[0]["rec"]["restore_ms"],
            "wall_s": [clean_wall, faulty_wall],
            "launches_per_rank": {"clean": clean[0]["launches"], "faulty": faulty[0]["launches"]},
            "expected_launches": expect}
-    emit("launcher_grid_rebalance", **row)
+    emit(phase, **row)
     if not events or events[0] >= 9 or sum_c["rebalances"] < 1:
-        raise AssertionError(f"launcher_grid_rebalance: events at {events} (none before step 9)")
+        raise AssertionError(f"{phase}: events at {events} (none before step 9)")
     restored = (GRID_REB_INJECT["inject_hard_at"] - 1) // FT_RUN["ckpt_interval"] * \
         FT_RUN["ckpt_interval"]
     if not any(s <= restored for s in events) or man_c.get("placement") is None:
-        raise AssertionError("launcher_grid_rebalance: the relaunch restores no placed checkpoint")
+        raise AssertionError(f"{phase}: the relaunch restores no placed checkpoint")
     for i, (c, f) in enumerate(zip(clean, faulty)):
-        where = f"launcher_grid_rebalance rank {i}"
+        where = f"{phase} rank {i}"
         if f["result"].relaunches != 1 or list(f["result"]) != list(c["result"]) or \
                 list(c["result"]) != list(c0):
             raise AssertionError(f"{where}: the faulty run's history differs from the clean one "
@@ -5241,11 +5676,18 @@ def phase_launcher_grid_rebalance(session: dict, specs: dict) -> dict:
         if {"clean": c["launches"], "faulty": f["launches"]} != expect:
             raise AssertionError(f"{where}: kernel launches {c['launches']} / "
                                  f"{f['launches']} != expected {expect}")
+        if fsdp and (c["rec"]["state_bytes"] != want_bytes or
+                     f["rec"]["state_bytes"] != want_bytes):
+            raise AssertionError(f"{where}: state bytes {c['rec']['state_bytes']} / "
+                                 f"{f['rec']['state_bytes']}, planned {want_bytes}")
     if man_c["step"] != man_f["step"] or man_c.get("placement") != man_f.get("placement"):
-        raise AssertionError(f"launcher_grid_rebalance: last MANIFESTs differ: "
-                             f"{man_c} / {man_f}")
+        raise AssertionError(f"{phase}: last MANIFESTs differ: {man_c} / {man_f}")
+    if fsdp and any((m.get("plan") or {}).get("layout") != GRID_FSDP_LAYOUT
+                    for m in (man_c, man_f)):
+        raise AssertionError(f"{phase}: MANIFEST plans {man_c.get('plan')} / "
+                             f"{man_f.get('plan')}, not the fsdp layout {GRID_FSDP_LAYOUT}")
     if not _finite(c0):
-        raise AssertionError(f"launcher_grid_rebalance: losses {row['losses']} not finite")
+        raise AssertionError(f"{phase}: losses {row['losses']} not finite")
     return row
 
 
@@ -5478,21 +5920,26 @@ def main(argv=None) -> int:
     try:
         session = grid_session([
             ep_ref["job"], ("ep_train", _ep_train_rank, (EP_STEPS,), None),
-            ("epso_train", _epso_train_rank, (EPSO_STEPS,), (EPSO_DP, EPSO_EP)), *grid_jobs])
+            ("epso_train", _epso_train_rank, (EPSO_STEPS,), (EPSO_DP, EPSO_EP)),
+            ("fsdp_hybrid_train", _fsdp_hybrid_train_rank, (), None),
+            ("fsdp_ssm_pp_train", _fsdp_ssm_pp_train_rank, (), None), *grid_jobs])
     except BaseException:
         shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
         raise
     ranks, walls = session["ranks"], session["wall_s"]
     phase_ep_reference(ranks["ep_reference"], walls["ep_reference"], ep_ref)
     ep_train = phase_ep_train(ranks["ep_train"], walls["ep_train"])
-    epso, placement, a2a, tp, pp, grid_serve, fsdp, fsdp_ep, fsdp_tp, fsdp_pp = \
+    epso, placement, a2a, tp, pp, grid_serve, fsdp, fsdp_ep, fsdp_tp, fsdp_pp, fsdp_placed = \
         phase_epso_train(ranks["epso_train"], walls["epso_train"])
+    fsdp_hybrid = phase_fsdp_state_space_train(ranks["fsdp_hybrid_train"], "fsdp_hybrid_train")
+    fsdp_ssm_pp = phase_fsdp_state_space_train(ranks["fsdp_ssm_pp_train"], "fsdp_ssm_pp_train")
     dense = phase_launcher_dense()
     ft = phase_launcher_ft()
     grid_dense = phase_launcher_grid_dense(session, grid_specs)
     grid_ft = phase_launcher_grid_ft(ft, session, grid_specs)
     grid_tp = phase_launcher_grid_tp(ft, session, grid_specs)
     grid_reb = phase_launcher_grid_rebalance(session, grid_specs)
+    grid_fsdp_reb = phase_launcher_grid_rebalance(session, grid_specs, "grid_fsdp_rebalance")
     grid_fsdp = phase_launcher_grid_fsdp(session, grid_specs)
     grid_fsdp_pp = phase_launcher_grid_fsdp(session, grid_specs, "grid_fsdp_pp", ft)
     grid_pp = phase_launcher_grid_pp()
@@ -5519,12 +5966,18 @@ def main(argv=None) -> int:
                    "fsdp_ep_train": fsdp_ep["launches_per_rank"][name],
                    "fsdp_tp_train": fsdp_tp["launches_per_rank"][name],
                    "fsdp_pp_train": fsdp_pp["launches_per_rank"][name],
+                   "fsdp_placement_train": fsdp_placed["launches_per_rank"][name],
+                   "fsdp_hybrid_train": fsdp_hybrid["launches_per_rank"][name],
+                   "fsdp_ssm_pp_train": fsdp_ssm_pp["launches_per_rank"][name],
                    "launcher_dense": dense["launches"][name],
                    "launcher_ft": ft["launches"]["clean"][name] + ft["launches"]["faulty"][name],
                    "launcher_grid_dense": grid_dense["launches_per_rank"][name],
                    "launcher_grid_ft": grid_ft["launches_per_rank"][name],
                    "launcher_grid_rebalance": grid_reb["launches_per_rank"]["clean"][name]
                    + grid_reb["launches_per_rank"]["faulty"][name],
+                   "launcher_grid_fsdp_rebalance":
+                       grid_fsdp_reb["launches_per_rank"]["clean"][name]
+                       + grid_fsdp_reb["launches_per_rank"]["faulty"][name],
                    "launcher_grid_tp": grid_tp["launches_per_rank"]["clean"][name]
                    + grid_tp["launches_per_rank"]["faulty"][name],
                    "launcher_grid_pp": grid_pp["launches_per_rank"][name],

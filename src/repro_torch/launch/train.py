@@ -53,7 +53,10 @@ load exceeds ``thr`` and the greedy placement lowers it;
 takes the expert stacks and their optimizer states across the 'ep' ranks
 (``apply_placement``), rebuilds the step in the new placement and writes
 it into the next checkpoints' MANIFEST; a resumed run, or a relaunch,
-takes the placement of the checkpoint it restored. Every rank runs the
+takes the placement of the checkpoint it restored. With ``fsdp`` in the
+plan the same move takes the expert stacks' 'data' tiles
+(``--parallel dp=2,ep=2,fsdp,rebalance=2:1.0``); fsdp also trains the
+ssm and hybrid archs (``--parallel dp=2,fsdp``). Every rank runs the
 same controller on the same global counts, so every rank takes the same
 decision.
 
@@ -62,9 +65,9 @@ float32 the JAX launcher fixes. The MoE kernels on the card take bf16, so
 an MoE model on the card runs with ``bfloat16``.
 
 Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
-item that ports them: plans with a pod axis (§1 item 5), ``fsdp`` with
-an expert placement or for the ssm and hybrid archs (§1 item 5.1d), tp for
-the ssm and hybrid archs (§1 item 5.10), the all-to-all Stage 1 under pp
+item that ports them: plans with a pod axis (§1 item 5), ``fsdp`` under
+a remat policy without 'block' or 'block_sc' (§1 item 5.1e), tp for the
+ssm and hybrid archs (§1 item 5.10), the all-to-all Stage 1 under pp
 (§1 item 5.11), ``kernel_tiles`` and ``tiles=`` (§1 item 7), and the vlm
 and audio archs (§1 item 6). A pp axis refuses the hybrid arch and
 rebalancing, as the JAX step and plan do. The ssm (Mamba-1) and hybrid (Zamba2) archs train on
@@ -94,7 +97,7 @@ from repro_torch.optim.overlap import resolve_opt_overlap
 from repro_torch.parallel import ParallelPlan, ResolvedPlan, spawn
 from repro_torch.parallel.pipeline import check_pp_microbatches
 from repro_torch.parallel.placement import ExpertPlacement, RebalanceController, apply_placement
-from repro_torch.parallel.plan import FSDP_ITEM, refuse
+from repro_torch.parallel.plan import refuse
 from repro_torch.train import init_state, make_train_step, state_layout
 from repro_torch.tree import keyed_leaves, leaves
 
@@ -288,8 +291,6 @@ def prepare_run(arch: str, *, scale: str = "smoke", steps: int = 100, batch: int
                 cfg.moe, dispatch=moe_dispatch))
         opt_shard = opt_shard or "none"
     plan = pplan.resolve(cfg, global_batch=batch) if pplan is not None else None
-    if plan is not None and plan.plan.fsdp and rebalance_force_at is not None:
-        refuse("fsdp with --rebalance-force-at (an expert placement)", FSDP_ITEM)
     world = plan.batch_ranks if plan is not None else 1
     if (batch // world) % microbatches:
         raise ValueError(f"a rank's {batch // world} of the batch's {batch} rows do not split "

@@ -395,33 +395,48 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     ``replicated`` (serving on a grid): every rank holds the whole batch,
     not its rows (``sparse_moe_block(replicated=True)``), and the MoE
     blocks take no router terms or stats (aux holds zeros and no
-    "moe_stats"). ``fsdp`` (dense and moe; ``make_train_step`` refuses the
-    others): a ``parallel.fsdp.LayerGather`` over the rank's 'data' group;
-    the layer params are the rank's 'data' tiles, and each block gathers
-    its layer's inside the function that block remat checkpoints, so the
-    recompute gathers again and no gathered weight is saved.
-    ssm and hybrid: each SSM
-    layer under block remat, its mixer under the 'ssm' SAC name; the hybrid
-    model's shared block after each group takes ``sac`` but no block remat,
-    as in the JAX package."""
+    "moe_stats"). ssm and hybrid: each SSM layer under block remat, its
+    mixer under the 'ssm' SAC name; the hybrid model's shared block after
+    each group takes ``sac`` but no block remat, as in the JAX package.
+    ``fsdp``: a ``parallel.fsdp.LayerGather`` over the rank's 'data'
+    group; the layer params are the rank's 'data' tiles, and each block
+    (dense, moe, or an SSM layer of ``layers``, ``groups`` or ``rem``)
+    gathers its layer's inside the function that block remat checkpoints,
+    so the recompute gathers again and no gathered weight is saved. The
+    hybrid's shared block is gathered once, before the groups, in float32
+    (its uses cast it to the compute dtype, the bits the gather moved), so
+    that its applications' cotangents add in float32 as without fsdp; it
+    stays whole until its backward has run. Every leaf fsdp splits is cast
+    to the compute dtype where a layer uses it, so a gather in that dtype
+    gives the layer the bits of its whole weight: the attention and MLP
+    projections (``layers``), the expert stacks and router (``core.moe``),
+    and the SSM mixers' ``in_proj``, ``conv_w``, ``x_proj``, ``dt_proj``
+    and ``out_proj`` (``ssm.mamba1_block``, ``_mamba1_inner``,
+    ``mamba2_block``)."""
     _check_arch(cfg)
-    gather = fsdp if fsdp is not None else (lambda lp: lp)
+    gather = fsdp if fsdp is not None else (lambda lp, part="layers", out_dtype=None: lp)
     h = L.embed(params["embed"], batch["tokens"], compute_dtype)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     aux = {"moe_aux": zero, "moe_z": zero}
-    ssm = block_remat(lambda lp, x: _ssm_block(lp, x, cfg, sac), sac)
+
+    def ssm(part):
+        return block_remat(lambda lp, x: _ssm_block(gather(lp, part), x, cfg, sac), sac)
+
     if cfg.arch_type == "ssm":
+        block = ssm("layers")
         for lp in unstack_layers(params["layers"], cfg.num_layers):
-            h = ssm(lp, h)
+            h = block(lp, h)
         return _logits(params, h, cfg), aux
     if cfg.arch_type == "hybrid":
         groups, rem = _hybrid_layers(params, cfg)
+        grouped, last = ssm("groups"), ssm("rem")
+        shared = gather(params["shared"], "shared", torch.float32)
         for layers in groups:
             for lp in layers:
-                h = ssm(lp, h)
-            h = _dense_block(params["shared"], h, cfg, sac, attn_impl)
+                h = grouped(lp, h)
+            h = _dense_block(shared, h, cfg, sac, attn_impl)
         for lp in rem:
-            h = ssm(lp, h)
+            h = last(lp, h)
         return _logits(params, h, cfg), aux
     layers = unstack_layers(params["layers"], cfg.num_layers)
     if cfg.arch_type == "moe":
@@ -477,10 +492,11 @@ def pipeline_stage_forward(stage_lp, h, cfg: ModelConfig, *, sac: str = "", ep_g
     JAX stage routes each microbatch with single-device geometry (``c_align
     = 1``), never the EP shard_map's: the drops, aux, z and counts are the
     one-device step's, the same on every rank of the stage, with any
-    ``stage1``. ``fsdp`` (dense and moe): a ``parallel.fsdp.LayerGather``
-    over the stage's 'data' group; ``stage_lp`` holds the rank's 'data'
-    tiles of the stage's layers, and each block gathers its layer's inside
-    the function block remat checkpoints, as in ``forward``. The PP step
+    ``stage1``. ``fsdp`` (every arch of ``PP_ARCH_TYPES``): a
+    ``parallel.fsdp.LayerGather`` over the stage's 'data' group;
+    ``stage_lp`` holds the rank's 'data' tiles of the stage's layers, and
+    each block (dense, moe or ssm) gathers its layer's inside the function
+    block remat checkpoints, as in ``forward``. The PP step
     runs a stage three times a microbatch (the F tick without autograd, the
     B tick's forward, its recompute), so a layer is gathered three times and
     reduce-scattered once a microbatch."""
@@ -494,7 +510,7 @@ def pipeline_stage_forward(stage_lp, h, cfg: ModelConfig, *, sac: str = "", ep_g
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     layers = unstack_layers(stage_lp, n)
     if at == "ssm":
-        block = block_remat(lambda lp, x: _ssm_block(lp, x, cfg, sac), sac)
+        block = block_remat(lambda lp, x: _ssm_block(gather(lp), x, cfg, sac), sac)
     elif at == "dense":
         block = block_remat(lambda lp, x: _dense_block(gather(lp), x, cfg, sac, "blockwise",
                                                        tp_group), sac)

@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.parallel.ep import all_gather_tokens, all_reduce_sum
+from repro_torch.parallel.ep import all_gather_dim, all_gather_tokens, all_reduce_sum
 from repro_torch.parallel.placement import is_expert_stack
 from repro_torch.tree import leaves, leaves_with_path, tree_map
 
@@ -50,6 +50,17 @@ def expert_leaf_mask(tree, num_layers: int, num_experts: int) -> tuple:
                  for path, leaf in leaves_with_path(tree))
 
 
+def sum_in_rank_order(s: torch.Tensor, group) -> torch.Tensor:
+    """``s`` summed over ``group``, the ranks' values added in rank order:
+    every element associates the same way wherever it lies in ``s`` (an
+    all-reduce may add each chunk of its buffer in another order)."""
+    parts = all_gather_dim(s[None], group, 0)
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p
+    return out
+
+
 def expert_slice_sumsq(g: torch.Tensor, inv=None, group=None, tp=None,
                        pp=None, data=None) -> torch.Tensor:
     """Squared sum of an (L, E, ...) expert-stack gradient with a canonical
@@ -61,13 +72,16 @@ def expert_slice_sumsq(g: torch.Tensor, inv=None, group=None, tp=None,
     associates as on one device. With a 'tp' group ``tp`` ``g`` holds the
     rank's d_ff shard: the slice sums are summed over 'tp' first; with a
     'data' group ``data`` (fsdp) ``g`` holds the rank's tile of a per-slice
-    dim, and they are summed over 'data' likewise. With a
+    dim, and they are summed over 'data' in rank order
+    (``sum_in_rank_order``), so that a slice's sum does not depend on the
+    position an expert placement gives it. With a
     'pp' group ``pp`` ``g`` holds the rank's stage of the layers: the slice
     sums of the stages are gathered in stage (= layer) order."""
     s = torch.sum(torch.square(g.float()), dim=tuple(range(2, g.ndim)))
-    for part in (tp, data):
-        if part is not None and part.world > 1:
-            s = all_reduce_sum(s, part)
+    if tp is not None and tp.world > 1:
+        s = all_reduce_sum(s, tp)
+    if data is not None and data.world > 1:
+        s = sum_in_rank_order(s, data)
     if group is not None:
         s = all_gather_tokens(s.T.contiguous(), group).T.contiguous()
     if pp is not None and pp.world > 1:

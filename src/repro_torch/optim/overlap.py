@@ -21,9 +21,9 @@ mismatch between grads/params and states; here each is one explicit
 * the global grad norm comes from the shards: one scalar all-reduce per
   distinct state-axis set; the expert stacks take the canonical (L, E)
   slice-sum path (gathered over the axes tiling dims 0 and 1, summed over
-  the rest, put in global-id order under an expert placement, then
-  reduced in one fixed order), so that the clip scale is the same
-  whichever rank holds an expert;
+  the rest, over 'data' in rank order, put in global-id order under an
+  expert placement, then reduced in one fixed order), so that the clip
+  scale is the same whichever rank holds an expert;
 * ``adamw_leaf`` runs on each shard, in place;
 * the updated master shards are cast to the param dtype and gathered, one
   buffer per bucket, over the bucket's axes, and written into the params
@@ -56,7 +56,7 @@ from repro_torch.parallel.grid import SUM_AXES, ProcessGrid
 from repro_torch.parallel.sharding import shard_index
 from repro_torch.tree import leaves
 
-from .adamw import AdamWState, adamw_leaf_, clip_scale
+from .adamw import AdamWState, adamw_leaf_, clip_scale, sum_in_rank_order
 from .epso import UpdatePlan, update_axis_order
 
 OVERLAP_IMPLS = ("off", "ring", "xla")
@@ -331,7 +331,9 @@ def overlapped_adamw_update(grads: list, state: AdamWState, params: list, *,
             for a in reversed(spec[d] if d < len(spec) else ()):
                 s = all_gather_dim(s, grid.group((a,)), d)
                 lead.append(a)
-        trail = tuple(a for a in lf.psum_axes if a not in lead)
+        trail = tuple(a for a in lf.psum_axes if a not in lead and a != "data")
+        if "data" in lf.psum_axes and "data" not in lead:
+            s = sum_in_rank_order(s, grid.group(("data",)))
         if trail:
             s = _all_reduce_(s, grid.group(trail))
         if inv is not None:

@@ -6,18 +6,27 @@ Under ``ParallelConfig.fsdp_params`` rank d of the 'data' axis holds its
 tile of every leaf that ``sharding.param_placements(..., fsdp=True)``
 splits: the layer weights, each cut on one per-layer dim. ``LayerGather``
 makes a layer's weights whole for that layer's forward and backward
-alone. ``models.model.forward`` and ``pipeline_stage_forward`` call it
-inside the function that block remat checkpoints, so the checkpoint saves
-the tiles, and its recompute in the backward gathers again; outside a
-layer's own forward and backward no rank holds that layer's gathered
-weights or their whole gradient. A tile is cut from the rank's share of
-the leaf over the grid's other axes: an expert stack's 'ep' slice, a tp
-shard, the layers of its pipeline stage. The gather makes that share whole
-over 'data', no more: what the layer takes on the rank under EP, TP and
-PP. The group is the 'data' group of the rank's ('pp', 'ep', 'tp')
-coordinate. Under pp a stage gathers a layer three times a microbatch (its
-F tick's forward without autograd, its B tick's forward, the recompute) and
-reduce-scatters it once; otherwise twice and once.
+alone, for every arch: the dense and moe blocks, the SSM layers of the
+ssm arch's ``layers`` and of the hybrid's ``groups`` (two stacked dims)
+and ``rem``. ``models.model.forward`` and ``pipeline_stage_forward`` call
+it inside the function that block remat checkpoints, so the checkpoint
+saves the tiles, and its recompute in the backward gathers again; outside
+a layer's own forward and backward no rank holds that layer's gathered
+weights or their whole gradient. The hybrid's shared attention+MLP block
+runs after every group without block remat (as in the JAX package), so
+``forward`` gathers it once a forward, in float32 (the compute-dtype bits,
+widened): autograd adds its applications' cotangents in float32, as the
+step without fsdp adds the cast-backs of its float32 params, before the
+one reduce-scatter. A tile is cut from the rank's share of the leaf over
+the grid's other axes: an expert stack's 'ep' slice (in the positions of
+an expert placement, which moves whole (layer, expert) slices and leaves
+the tiles' cut alone), a tp shard, the layers of its pipeline stage. The
+gather makes that share whole over 'data', no more: what the layer takes
+on the rank under EP, TP and PP. The group is the 'data' group of the
+rank's ('pp', 'ep', 'tp') coordinate. Under pp a stage gathers a layer
+three times a microbatch (its F tick's forward without autograd, its B
+tick's forward, the recompute) and reduce-scatters it once; otherwise
+twice and once.
 
 * forward: one all-gather over 'data' of the layer's tiles, cast to the
   compute dtype and packed into one flat buffer, leaf after leaf; each
@@ -44,6 +53,8 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.tree import leaves, unflatten
+
+from .sharding import stacked_dims
 
 
 def _pack(parts, dims, world: int) -> torch.Tensor:
@@ -72,7 +83,7 @@ def _unpack(full: torch.Tensor, shapes, dims) -> list:
 
 class _GatherTiles(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, gather, dims, *tiles):
+    def forward(ctx, gather, dims, out_dtype, *tiles):
         ctx.gather, ctx.dims = gather, dims
         ctx.shapes = [tuple(t.shape) for t in tiles]
         ctx.dtypes = [t.dtype for t in tiles]
@@ -82,7 +93,10 @@ class _GatherTiles(torch.autograd.Function):
         dist.all_gather(list(full.unbind(0)), flat, group=g.group)
         gather.stats["all_gather"] += 1
         gather.stats["gathered_bytes"] += full.numel() * full.element_size()
-        return tuple(_unpack(full, ctx.shapes, dims))
+        whole = _unpack(full, ctx.shapes, dims)
+        if out_dtype is not None:
+            whole = [w.to(out_dtype) for w in whole]
+        return tuple(whole)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -97,39 +111,42 @@ class _GatherTiles(torch.autograd.Function):
             n = math.prod(shape)
             tiles.append(out[off:off + n].view(shape).to(dtype))
             off += n
-        return (None, None, *tiles)
+        return (None, None, None, *tiles)
 
 
 class LayerGather:
     """The gather of one layer's 'data' tiles over ``group``, the grid's
-    'data' group of the rank's ('pp', 'ep', 'tp') coordinate: ``gather(lp)``
-    takes a layer's params (one layer of the ``layers`` stack or of a
-    stage's slice of it, tiles where ``layer_place`` splits them over
-    'data') and returns them with those leaves whole over 'data', the
-    rank's share over the other axes, differentiably (the module
-    docstring). ``layer_place``: the placements of the stacked
-    ``layers`` tree (``param_placements(..., fsdp=True)['layers']``);
-    ``dtype``: the compute dtype, which the whole leaves come in.
+    'data' group of the rank's ('pp', 'ep', 'tp') coordinate: ``gather(lp,
+    part)`` takes a layer's params (one layer of the top-level subtree
+    ``part``, past its ``sharding.stacked_dims``, or of a stage's slice of
+    ``layers``; the shared block whole; tiles where the placement splits
+    them over 'data') and returns them with those leaves whole over
+    'data', the rank's share over the other axes, differentiably (the
+    module docstring). ``place``: the placements of
+    the whole params tree (``param_placements(..., fsdp=True)``); ``dtype``:
+    the compute dtype, which the leaves are gathered in and come in, unless
+    the call asks for ``out_dtype`` (their cotangents then add up in it).
     ``stats`` counts the all-gathers, the reduce-scatters and the bytes of
     the whole layers gathered, from the start."""
 
-    def __init__(self, layer_place: dict, group, reduce_dtype: torch.dtype,
-                 dtype: torch.dtype):
-        # per leaf, the per-layer dim 'data' splits (the placement's, less
-        # the stacked layer dim), or None
-        self.dims = tuple(next((d - 1 for d, axes in enumerate(pl) if "data" in axes), None)
-                          for pl in leaves(layer_place))
+    def __init__(self, place: dict, group, reduce_dtype: torch.dtype, dtype: torch.dtype):
+        # per part and leaf, the per-layer dim 'data' splits (the
+        # placement's, less the stacked layer dims), or None
+        self.dims = {part: tuple(next((d - stacked_dims(part + "/") for d, axes in enumerate(pl)
+                                       if "data" in axes), None) for pl in leaves(sub))
+                     for part, sub in place.items()}
         self.group = group
         self.reduce_dtype = reduce_dtype
         self.dtype = dtype
         self.stats = {"all_gather": 0, "reduce_scatter": 0, "gathered_bytes": 0}
 
-    def __call__(self, lp: dict) -> dict:
+    def __call__(self, lp: dict, part: str = "layers", out_dtype=None) -> dict:
+        dims = self.dims[part]
         flat = leaves(lp)
-        cut = [i for i, d in enumerate(self.dims) if d is not None]
+        cut = [i for i, d in enumerate(dims) if d is not None]
         if not cut or self.group.world == 1:
             return lp
-        whole = _GatherTiles.apply(self, tuple(self.dims[i] for i in cut),
+        whole = _GatherTiles.apply(self, tuple(dims[i] for i in cut), out_dtype,
                                    *(flat[i] for i in cut))
         for i, w in zip(cut, whole):
             flat[i] = w

@@ -229,8 +229,13 @@ def apply_placement(state, current: ExpertPlacement, new: ExpertPlacement, *,
     SO/EPSO state splits it), the positions taken by ``rel``, and the
     rank's own positions cut back out; the other dims keep the rank's
     slice, since the SO/EPSO state placements only add axes to other dims.
-    One leaf at a time, so the transient is one leaf gathered over those
-    axes. Every slice written is a copy of its source: no arithmetic."""
+    Under fsdp (``state_layout(..., fsdp=True)``) a tile of an expert stack
+    is the rank's 'ep' slice cut on its d or f dim over 'data', and its
+    expert dim carries 'ep' alone in every mode: the move gathers over
+    'ep' and keeps the 'data' cut, so each rank moves its 'data' tile of
+    every (layer, expert) slice. One leaf at a time, so the transient is
+    one leaf gathered over those axes. Every slice written is a copy of its
+    source: no arithmetic."""
     L, E = current.num_layers, current.num_experts
     rel = current.relative_to(new)
     if grid is not None and layout is None:

@@ -19,9 +19,8 @@ with tp > 1 or pp > 1, tp and pp; ``parallel.grid.grid_spec``) for
 computes them, and the live expert placement (``placement``,
 ``with_placement``) a ``rebalance=`` policy moves. What the port cannot
 run raises ``NotImplementedError`` naming its ``ROADMAP.md`` item: a pod
-axis (§1 item 5), ``fsdp`` for the state-space archs or with an expert
-placement (``check_fsdp``, §1 item 5.1d), tp for the ssm and hybrid
-archs (§1 item 5.10), an explicit ``tiles=`` (§1 item 7), and in serving (``resolve(...,
+axis (§1 item 5), tp for the ssm and hybrid archs (§1 item 5.10), an
+explicit ``tiles=`` (§1 item 7), and in serving (``resolve(...,
 serving=True)``) a dp or pp axis (§1 item 5.7b). A pp axis needs a uniform
 layer stack (``models.model.PP_ARCH_TYPES``; the JAX step's ValueError)
 and refuses a ``rebalance=`` policy, as the JAX plan does; its stages run
@@ -96,20 +95,22 @@ def refuse(what: str, item: str) -> None:
 
 # the ROADMAP.md item of serving with data replicas or pipeline stages
 SERVE_DP_PP_ITEM = "item 5.7b, dp and pp in serving"
-# the ROADMAP.md item of fsdp for the state-space archs or with an expert
-# placement
-FSDP_ITEM = "item 5.1d, fsdp with a placement or the state-space archs"
-# the archs whose layers the fsdp step gathers (``parallel.fsdp``), on any
-# grid: its tiles over 'data', beside the stages over 'pp', the expert slices
-# over 'ep' and the tp shards over 'tp'
-FSDP_ARCH_TYPES = ("dense", "moe")
+# the ROADMAP.md item of fsdp under a remat policy without 'block' or
+# 'block_sc' (``train.make_train_step`` refuses it)
+FSDP_ITEM = "item 5.1e, fsdp without block remat"
+# the archs whose layers the fsdp step gathers (``parallel.fsdp``): every
+# arch the port trains, on any grid it trains on: its tiles over 'data',
+# beside the stages over 'pp', the expert slices over 'ep' (in any expert
+# placement) and the tp shards over 'tp'
+FSDP_ARCH_TYPES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_fsdp(arch_type: str) -> None:
-    """Refuse fsdp for an arch outside ``FSDP_ARCH_TYPES`` (``FSDP_ITEM``).
-    Every grid and every optimizer mode runs with it."""
+    """Refuse fsdp for an arch outside ``FSDP_ARCH_TYPES``, the archs the
+    port does not build at all (§1 item 6). Every grid, every optimizer
+    mode and every expert placement the arch takes runs with it."""
     if arch_type not in FSDP_ARCH_TYPES:
-        refuse(f"fsdp for arch_type {arch_type!r}", FSDP_ITEM)
+        refuse(f"fsdp for arch_type {arch_type!r}", "item 6, the rest of the zoo")
 
 
 @dataclass(frozen=True)
@@ -380,9 +381,6 @@ class ParallelPlan:
             self._check_pp(cfg)
         if self.fsdp:
             check_fsdp(cfg.arch_type)
-            if self.rebalance_params() is not None:
-                refuse(f"fsdp with rebalance={self.rebalance} (an expert placement)",
-                       FSDP_ITEM)
         if self.tiles is not None:
             refuse(f"kernel tile selection (tiles={self.tiles})", "item 7, autotuning")
         if self.ep > 1 and cfg.moe.moe_impl != "fsmoe":

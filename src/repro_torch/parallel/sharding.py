@@ -11,8 +11,8 @@ Megatron splits them: wq, wk, wv and gate, up on their output columns (the
 heads, d_ff), wo and down on their input rows. Every other leaf is
 replicated. A dim that its axis does not divide stays whole, as the JAX
 rule leaves it unsplit; each rule is taken on the per-layer shape, the
-leading layer dims (``layers/``, ``rem/``: one; ``groups/``: two) split
-only by 'pp', and only that of ``layers/``.
+leading layer dims (``stacked_dims``: ``layers/``, ``rem/`` one;
+``groups/`` two) split only by 'pp', and only that of ``layers/``.
 
 With ``fsdp`` (ZeRO-3, the JAX rule ``fsdp_wrap``) the 'data' axis
 splits the params too, after the entries above: on the largest per-layer
@@ -100,8 +100,10 @@ def expert_shard(params: dict, rank: int, world: int) -> dict:
                     if any(place) else t, params, param_placements(params, sizes))
 
 
-def _stacked(path: str) -> int:
-    """The leading layer dims of a leaf at ``path``."""
+def stacked_dims(path: str) -> int:
+    """The leading layer dims of a leaf at ``path``, or of each leaf of the
+    subtree at ``path + '/'``: ``layers/`` and ``rem/`` one, the hybrid's
+    ``groups/`` two, every other (the shared block's, the tables') none."""
     if path.startswith("groups/"):
         return 2
     return 1 if path.startswith(("layers/", "rem/")) else 0
@@ -169,11 +171,11 @@ def param_placements(params: dict, axis_sizes: dict, *, split_experts: bool = Tr
         if ax is not None:
             place[ax] = ("ep",)
         if n_tp > 1:
-            lead = _stacked(prefix)
+            lead = stacked_dims(prefix)
             dim = _tp_dim(prefix, tuple(node.shape[lead:]))
             if dim is not None and node.shape[lead + dim] % n_tp == 0:
                 place[lead + dim] = ("tp",)
-        lead = _stacked(prefix)
+        lead = stacked_dims(prefix)
         inner = tuple(node.shape[lead:])
         if n_dp > 1 and _fsdp_wrapped(prefix, inner):
             for i in sorted(range(len(inner)), key=lambda i: -inner[i]):

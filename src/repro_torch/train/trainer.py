@@ -88,10 +88,18 @@ not split it ('ep' for a layer tile, none for an expert stack), never over
 squares over 'data' (and over 'tp', 'pp' and 'ep' where they split them).
 A pipeline stage gathers a layer at its F tick (without autograd), at its
 B tick's forward and in the recompute: three gathers and one
-reduce-scatter a layer and microbatch. It runs on any grid of a dense or
-moe model in every optimizer mode, with a 'block' or 'block_sc' remat
-policy; a placement and the state-space archs are refused
-(``parallel.plan.check_fsdp``, ROADMAP.md §1 item 5.1d).
+reduce-scatter a layer and microbatch. It runs for every arch the port
+trains, on every grid and in every optimizer mode the arch takes, with a
+'block' or 'block_sc' remat policy (another policy is refused, ROADMAP.md
+§1 item 5.1e): the SSM layers of the ssm arch and of the hybrid's
+``groups`` and ``rem`` are gathered as the dense blocks are, the hybrid's
+shared block once a forward (``models.model.forward``), its tiles
+reduce-scattered once a microbatch and, split over 'data', never summed
+over it again. Under an expert placement the expert tiles are cut from
+the placed stacks (``apply_placement`` moves them), and the grad norm sums
+each (layer, expert) slice's squares over 'data' in rank order before it
+takes the slices in global-id order (``optim.adamw.expert_slice_sumsq``),
+so that a step computes the same across a move.
 """
 from __future__ import annotations
 
@@ -117,7 +125,7 @@ from repro_torch.parallel.grid import BATCH_AXES, SUM_AXES, ProcessGrid, as_grid
 from repro_torch.parallel.pipeline import (StageLink, _check_stage_divisible,
                                            check_pp_microbatches, run_schedule, schedule_ticks)
 from repro_torch.parallel.placement import ExpertPlacement
-from repro_torch.parallel.plan import FSDP_ITEM, check_fsdp, refuse
+from repro_torch.parallel.plan import FSDP_ITEM, refuse
 from repro_torch.parallel.sharding import param_placements, rank_shard
 from repro_torch.serve.engine import dropless_cfg, make_decode_fn, serving_grid
 from repro_torch.tree import keyed_leaves, leaves, tree_map, unflatten
@@ -227,8 +235,6 @@ def init_state(cfg: ModelConfig, train: TrainConfig, *, seed: int = 0,
     tensors), under 'so' and 'epso' the shards of the tiles."""
     grid = _grid(ep_group, grid)
     mode = _opt_mode(opt_sharding_mode)
-    if fsdp:
-        check_fsdp(cfg.arch_type)
     if device is None and grid is not None:
         device = grid.world.device
     params = init_params(cfg, seed=seed, device=device)
@@ -315,13 +321,9 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     if gpp not in (1, pp):
         raise ValueError(f"the grid's 'pp' axis has {gpp} stages, the step pp_stages={pp}")
     fsdp = parallel.fsdp_params
-    if fsdp:
-        check_fsdp(cfg.arch_type)
-        if pl_inv is not None:
-            refuse("fsdp with an expert placement", FSDP_ITEM)
-        if not {"block", "block_sc"} & set(sac.split(",")):
-            refuse(f"fsdp under remat_policy={sac!r} (autograd would keep every layer's "
-                   f"gathered weights; take 'block' or 'block_sc')", FSDP_ITEM)
+    if fsdp and not {"block", "block_sc"} & set(sac.split(",")):
+        refuse(f"fsdp under remat_policy={sac!r} (autograd would keep every layer's "
+               f"gathered weights; take 'block' or 'block_sc')", FSDP_ITEM)
     split_axes = tp_split = pp_split = data_split = gather = None
     if grid is not None:
         # per leaf, the grid axes splitting it (its gradient is summed over
@@ -333,7 +335,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         pp_split = tuple("pp" in ax for ax in split_axes)
         if any("data" in ax for ax in split_axes):
             data_split = tuple("data" in ax for ax in split_axes)
-            gather = LayerGather(tree["layers"], grid.data, rd, cd)
+            gather = LayerGather(tree, grid.data, rd, cd)
     if sharded_opt:
         # 'off': the same sharded math with every leaf its own bucket
         plan, state_specs = opt_layout(cfg, grid, mode,

@@ -26,10 +26,13 @@ layer's tiles inside its remat block and reduce-scatters its gradients.
   leaf's shape, under 'block' and 'block_sc' (the tape keeps no gather);
   the fsdp tiles' gradients take no second sum over 'data' in the update.
 * Refusals: the step under a remat policy that would keep the gathered
-  weights, with a placement and for a state-space arch, naming ROADMAP.md
-  §1 item 5.1d; a grid ``Checkpointer`` takes an fsdp layout on grids with
-  'tp' and 'pp' (the ('data', 'ep') grids and the sharded optimizer:
-  tests/test_torch_fsdp_ep.py; 'tp' and 'pp': tests/test_torch_fsdp_grid.py).
+  weights, naming ROADMAP.md §1 item 5.1e; the step builds with a placement
+  and for a state-space arch, and ``init_state`` cuts a hybrid and an ssm
+  model's tiles (their steps: tests/test_torch_fsdp_placed.py and
+  tests/test_torch_fsdp_ssm.py); a grid ``Checkpointer`` takes an fsdp
+  layout on grids with 'tp' and 'pp' (the ('data', 'ep') grids and the
+  sharded optimizer: tests/test_torch_fsdp_ep.py; 'tp' and 'pp':
+  tests/test_torch_fsdp_grid.py).
 """
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
@@ -60,7 +63,7 @@ from repro_torch.models import init_params  # noqa: E402
 from repro_torch.optim import epso as tepso  # noqa: E402
 from repro_torch.parallel import spawn  # noqa: E402
 from repro_torch.parallel.grid import rank_coords  # noqa: E402
-from repro_torch.parallel.sharding import tile_slices  # noqa: E402
+from repro_torch.parallel.sharding import is_expert_stack_path, tile_slices  # noqa: E402
 from repro_torch.train import init_state, make_train_step  # noqa: E402
 from repro_torch.train.trainer import placements, state_layout  # noqa: E402
 from repro_torch.tree import leaves, leaves_with_path  # noqa: E402
@@ -69,7 +72,7 @@ import torch_ep_ranks as ranks  # noqa: E402
 from test_torch_epso import (F32, TIMEOUT_S, TOL, _batches, _jleaves, _mesh, _np,  # noqa: E402
                              _placement, _placements)
 
-ITEM = "ROADMAP.md §1 item 5.1d"
+ITEM = "ROADMAP.md §1 item 5.1e"
 BF16 = dict(param_dtype="float32", compute_dtype="bfloat16", grad_reduce_dtype="bfloat16")
 DP = 2
 ARCHS = ("mula-1b", "mula-7b-a1b")
@@ -378,8 +381,10 @@ def test_fsdp_collective_counts_are_exact(fsdp_runs, arch, nmb, sac):
     ``torch.distributed`` calls): a gather for each layer and microbatch in
     the forward and again in the backward's recompute (also under
     'block_sc': the tape does not replay it), a reduce-scatter for each in
-    the backward; the gather's own counts agree, and its bytes are the
-    whole layers'. Without fsdp a dp step calls neither."""
+    the backward, and an all-gather a step of each expert stack's grad-norm
+    slice sums (added over 'data' in rank order); the gather's own counts
+    agree, and its bytes are the whole layers'. Without fsdp a dp step
+    calls neither."""
     tc = fsdp_runs["cfgs"][arch][1]
     n = tc.num_layers * nmb * STEPS
     shapes = init_params(tc, device="meta")
@@ -387,10 +392,14 @@ def test_fsdp_collective_counts_are_exact(fsdp_runs, arch, nmb, sac):
     layer = sum(t.numel() // tc.num_layers * 4 for t, pl in zip(leaves(shapes["layers"]),
                                                                leaves(place["layers"]))
                 if any(pl))
+    # the grad norm's slice sums of each expert stack, over 'data' in rank order
+    stacks = sum(is_expert_stack_path(path) for path, pl in leaves_with_path(place)
+                 if any(pl)) * STEPS
     for r in fsdp_runs["ranks"]:
         run = r[arch, nmb, sac, True, "f32"]
         calls = run["calls"]
-        assert (calls.get("all_gather", 0), calls.get("reduce_scatter", 0)) == (2 * n, n), calls
+        assert (calls.get("all_gather", 0), calls.get("reduce_scatter", 0)) == (
+            2 * n + stacks, n), calls
         assert run["stats"] == {"all_gather": 2 * n, "reduce_scatter": n,
                                 "gathered_bytes": 2 * n * layer}
         ref = r[arch, nmb, "block", False, "f32"]["calls"]
@@ -456,10 +465,12 @@ def test_fsdp_tiles_take_no_second_sum(fsdp_runs, arch):
     ids=["remat-none", "remat-attn-moe", "placement", "ssm"])
 def test_fsdp_step_refuses_what_it_does_not_run(kw, placed, arch):
     """The step refuses fsdp under a remat policy without 'block' or
-    'block_sc' (autograd would keep every layer's gathered weights), with
-    an expert placement and for a state-space arch (pp stages run with it
-    since fsdp took 'pp': tests/test_torch_fsdp_grid.py); ``init_state``
-    refuses fsdp for a hybrid model."""
+    'block_sc' (autograd would keep every layer's gathered weights), naming
+    ROADMAP.md §1 item 5.1e. It builds with an expert placement and for a
+    state-space arch (refused until fsdp took them: their steps run in
+    tests/test_torch_fsdp_placed.py and tests/test_torch_fsdp_ssm.py), and
+    ``init_state(fsdp=True)`` of a hybrid and an ssm model gives each rank
+    its 'data' tiles of the SSM mixers and of the shared block."""
     from repro_torch.parallel.placement import ExpertPlacement
     tc = _step_cfgs(arch)[1] if arch != "falcon-mamba-7b" else treduced(
         tget(arch), d_model=64, vocab=128)
@@ -468,13 +479,28 @@ def test_fsdp_step_refuses_what_it_does_not_run(kw, placed, arch):
     if placed:
         L, E = tc.num_layers, tc.moe.num_experts
         placement = ExpertPlacement(L, E, tuple(tuple(reversed(range(E))) for _ in range(L)))
-    with pytest.raises(NotImplementedError, match=ITEM):
-        make_train_step(tc, ParallelConfig(fsdp_params=True, **kw), train,
-                        placement=placement)
-    if placed:
-        hybrid = treduced(tget("zamba2-7b"), d_model=64, vocab=128)
+    par = ParallelConfig(fsdp_params=True, **kw)
+    if kw:
         with pytest.raises(NotImplementedError, match=ITEM):
-            init_state(hybrid, train, device="cpu", fsdp=True)
+            make_train_step(tc, par, train, placement=placement)
+        return
+    assert callable(make_train_step(tc, par, train, placement=placement))
+    if placed:
+        return
+    hybrid = dataclasses.replace(treduced(tget("zamba2-7b"), d_model=64, vocab=128, layers=5),
+                                 shared_attn_every=2)
+    for cfg in (hybrid, tc):
+        whole = dict(leaves_with_path(init_state(cfg, train, seed=0, device="cpu").params))
+        place = dict(leaves_with_path(placements(cfg, init_params(cfg, device="meta"),
+                                                 {"data": DP}, fsdp=True)))
+        tiled = {p.split("/")[0] for p, pl in place.items() if any(pl)}
+        assert tiled == ({"groups", "rem", "shared"} if cfg is hybrid else {"layers"}), tiled
+        for rank in range(DP):
+            st = init_state(cfg, train, seed=0, grid=_view(DP, rank), fsdp=True)
+            for path, p in leaves_with_path(st.params):
+                want = whole[path][tile_slices(place[path], whole[path].shape, {"data": rank},
+                                               {"data": DP})]
+                assert torch.equal(p, want), path
 
 
 def test_grid_checkpointer_takes_fsdp_layouts(tmp_path):

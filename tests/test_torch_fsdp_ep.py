@@ -67,7 +67,7 @@ from repro_torch.models import init_params  # noqa: E402
 from repro_torch.optim import epso as tepso  # noqa: E402
 from repro_torch.parallel import spawn  # noqa: E402
 from repro_torch.parallel.grid import rank_coords  # noqa: E402
-from repro_torch.parallel.sharding import tile_slices  # noqa: E402
+from repro_torch.parallel.sharding import is_expert_stack_path, tile_slices  # noqa: E402
 from repro_torch.train import init_state  # noqa: E402
 from repro_torch.train.trainer import placements  # noqa: E402
 from repro_torch.tree import keyed_leaves, leaves, leaves_with_path  # noqa: E402
@@ -307,8 +307,10 @@ def test_fsdp_ep_data_collectives_are_exact(fsdp_ep_runs, case):
     the recompute, also under 'block_sc'), its reduce-scatters (one a
     layer), and under 'so' one reduce-scatter for each update bucket
     gathered over 'data' alone (the leaves fsdp leaves whole) and one
-    all-gather for it (blocking under 'off'); its counts and bytes agree
-    with the gather's ``stats``."""
+    all-gather for it (blocking under 'off'); in every mode one all-gather
+    a step of each expert stack's grad-norm slice sums, added over 'data'
+    in rank order; its counts and bytes agree with the gather's
+    ``stats``."""
     tc = fsdp_ep_runs["cfgs"][case[0]][1]
     n = tc.num_layers * STEPS
     shapes = init_params(tc, device="meta")
@@ -317,12 +319,15 @@ def test_fsdp_ep_data_collectives_are_exact(fsdp_ep_runs, case):
                                                  else 1) * 4
                 for t, pl in zip(leaves(shapes["layers"]), leaves(place["layers"]))
                 if any("data" in e for e in pl))
+    # the grad norm's slice sums of each expert stack, over 'data' in rank order
+    stacks = sum(is_expert_stack_path(path) and any("data" in e for e in pl)
+                 for path, pl in leaves_with_path(place)) * STEPS
     for r in fsdp_ep_runs["ranks"]:
         run = r[case + (True,)]
         buckets = run["data_buckets"] * STEPS
         assert (case[1] == "so") == (buckets > 0)
-        assert run["data_calls"]["all_gather"] == 2 * n + (buckets if run["impl"] != "ring"
-                                                             else 0), run["data_calls"]
+        assert run["data_calls"]["all_gather"] == 2 * n + stacks + (
+            buckets if run["impl"] != "ring" else 0), run["data_calls"]
         assert run["data_calls"]["reduce_scatter"] == n + buckets, run["data_calls"]
         assert run["stats"] == {"all_gather": 2 * n, "reduce_scatter": n,
                                 "gathered_bytes": 2 * n * layer}

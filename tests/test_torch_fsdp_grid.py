@@ -451,26 +451,31 @@ def _layer_bytes(tc, shape):
 
 def _update_data_calls(tc, shape, mode, impl):
     """The all-gathers and reduce-scatters over the 'data' group alone of
-    one SO/EPSO update (``optim.overlap``): a reduce-scatter for each set of
-    leaves of a bucket reduced over 'data' alone that sums over the same
-    axes afterwards, an all-gather (not under 'ring', whose exchanges are
-    point to point) of each bucket gathered over 'data' alone, and one
-    gather of the grad-norm slice sums of an expert stack whose state
-    splits its layer or expert dim over 'data'."""
-    if mode == "none":
-        return {"all_gather": 0, "reduce_scatter": 0}
+    one update: under SO/EPSO (``optim.overlap``) a reduce-scatter for each
+    set of leaves of a bucket reduced over 'data' alone that sums over the
+    same axes afterwards, an all-gather (not under 'ring', whose exchanges
+    are point to point) of each bucket gathered over 'data' alone; in every
+    mode one all-gather of the grad-norm slice sums of each expert stack
+    whose state (under 'none': whose tile) uses 'data': over the layer or
+    expert dim it splits, or over a per-slice dim, which the slice sums are
+    added over in rank order (``optim.adamw.sum_in_rank_order``)."""
     sizes = _sizes(shape)
-    plan, specs = opt_layout(tc, _view(shape, 0), mode, fsdp=True,
-                             max_bucket_bytes=0 if impl == "off" else DEFAULT_BUCKET_BYTES)
+    meta = init_params(tc, device="meta")
+    if mode == "none":
+        specs = leaves(placements(tc, meta, sizes, fsdp=True))
+        plan = None
+    else:
+        plan, specs = opt_layout(tc, _view(shape, 0), mode, fsdp=True,
+                                 max_bucket_bytes=0 if impl == "off" else DEFAULT_BUCKET_BYTES)
     rs = ag = 0
-    for b in plan.buckets:
+    for b in plan.buckets if plan is not None else ():
         if tuple(a for a in b.axes if a in SUM_AXES) == ("data",):
             rs += len({tuple(a for a in sizes if a in SUM_AXES and a not in lf.psum_axes)
                        for lf in b.leaves})
         ag += b.axes == ("data",) and impl != "ring"
-    for (path, _), spec in zip(leaves_with_path(init_params(tc, device="meta")), specs):
+    for (path, _), spec in zip(leaves_with_path(meta), specs):
         if path.split("/")[-2:-1] == ["moe"] and path.endswith(("gate", "up", "down")):
-            ag += sum("data" in spec[d] for d in (0, 1))
+            ag += sum("data" in e for e in spec)
     return {"all_gather": ag, "reduce_scatter": rs}
 
 
@@ -549,13 +554,12 @@ def test_fsdp_grid_tiles_take_no_second_sum(grid_runs, update):
                 assert v.tolist() == [want[path]], (rank, path, v)
 
 
-def _gathered_state(grid_runs, spec):
-    """The saved grid state of ``spec`` as whole numpy arrays by checkpoint
-    key: the ranks' param tiles and optimizer shards put together."""
-    tc = grid_runs["cfgs"]["mula-7b-a1b"][1]
+def _gathered_state(tc, saved, spec):
+    """The grid state of ``spec`` that the ranks saved (``saved``, in rank
+    order) as whole numpy arrays by checkpoint key: their param tiles and
+    optimizer shards put together."""
     plan = ParallelPlan.parse(spec)
     shape = (plan.dp, plan.pp, plan.ep, plan.tp)
-    saved = [r[("ckpt", spec)]["saved"] for r in grid_runs["ranks4"]]
     place = _place(tc, shape)
     meta = dict(leaves_with_path(init_params(tc, device="meta")))
     params = {}
@@ -608,7 +612,8 @@ def test_fsdp_grid_checkpoint_restores_in_one_process(grid_runs, spec):
     tmpl = init_state(tc, TrainConfig(param_dtype="float32"), seed=3, device="cpu")
     restored, step = Checkpointer(grid_runs["ckpts"][spec]).restore(tmpl)
     assert step == 5
-    want = _gathered_state(grid_runs, spec)
+    want = _gathered_state(grid_runs["cfgs"]["mula-7b-a1b"][1],
+                           [r[("ckpt", spec)]["saved"] for r in grid_runs["ranks4"]], spec)
     got = dict(keyed_leaves(restored))
     assert sorted(got) == sorted(want)
     for key, ref in want.items():
@@ -625,7 +630,8 @@ def test_fsdp_grid_checkpoint_restores_in_jax(grid_runs, spec):
     tmpl = jinit_state(jax.random.PRNGKey(5), jc, JTrain(param_dtype="float32"))
     restored, step = JCheckpointer(grid_runs["ckpts"][spec]).restore(tmpl)
     assert step == 5
-    want = _gathered_state(grid_runs, spec)
+    want = _gathered_state(grid_runs["cfgs"]["mula-7b-a1b"][1],
+                           [r[("ckpt", spec)]["saved"] for r in grid_runs["ranks4"]], spec)
     flat = jax.tree_util.tree_leaves_with_path(restored)
     assert len(flat) == len(want)
     for path, x in flat:

@@ -88,8 +88,8 @@ def test_resume_continues_where_the_checkpoint_left_off(tmp_path):
 @pytest.mark.parametrize("kw", [
     {"parallel": "dp=2,tp=2", "arch": "zamba2-7b"}, {"parallel": "tp=2", "arch": "falcon-mamba-7b"},
     {"parallel": "pod=2,dp=2"},
-    {"parallel": "dp=2,fsdp", "arch": "zamba2-7b"},
-    {"parallel": "dp=2,ep=2,fsdp", "rebalance_force_at": 3},
+    {"parallel": "dp=2,tp=2,fsdp", "arch": "zamba2-7b"},
+    {"parallel": "pod=2,dp=2,ep=2,fsdp", "rebalance_force_at": 3},
     {"parallel": "dp=2,tiles=auto"}, {"kernel_tiles": "auto"}, {"arch": "phi-3-vision-4.2b"},
     {"arch": "seamless-m4t-medium"}],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
@@ -105,12 +105,17 @@ def test_unsupported_arguments_raise(tmp_path, kw):
     ({"arch": "zamba2-7b", "layers": 4}, ValueError, "needs arch_type in"),
     ({"parallel": "pp=2,ep=2,rebalance=50:1.25"}, NotImplementedError,
      "not threaded through the pipeline"),
+    ({"arch": "zamba2-7b", "layers": 4, "parallel": "pp=2,fsdp"}, ValueError,
+     "needs arch_type in"),
+    ({"parallel": "dp=2,pp=2,ep=2,fsdp,rebalance=50:1.25"}, NotImplementedError,
+     "not threaded through the pipeline"),
     ({"pp_impl": "shardmap", "microbatches": 3, "batch": 6}, ValueError,
      "needs microbatches divisible by pp_stages")],
-    ids=["hybrid", "rebalance", "ragged-waves"])
+    ids=["hybrid", "rebalance", "hybrid-fsdp", "rebalance-fsdp", "ragged-waves"])
 def test_pipelines_refuse_what_jax_refuses(tmp_path, kw, err, match):
     """With a pp axis, before any work, the JAX package's errors: a
-    non-uniform (hybrid) stack, a rebalance= policy, and under
+    non-uniform (hybrid) stack, a rebalance= policy (both also with fsdp,
+    which takes the hybrid and a placement elsewhere), and under
     pp_impl='shardmap' a microbatch count pp does not divide."""
     kw = {"parallel": "pp=2", **kw}
     arch = kw.pop("arch", "mula-7b-a1b")

@@ -115,15 +115,17 @@ def test_apply_to_model_matches_jax():
 
 @pytest.mark.parametrize("spec,item,arch", [
     ("pod=2,dp=2", "item 5", "mula-7b-a1b"),
-    ("dp=2,ep=2,fsdp,rebalance=5:1.5", "item 5.1d", "mula-7b-a1b"),
-    ("dp=2,fsdp", "item 5.1d", "zamba2-7b"), ("dp=2,fsdp,opt=so", "item 5.1d", "falcon-mamba-7b"),
+    ("pod=2,dp=2,ep=2,fsdp,rebalance=5:1.5", "item 5", "mula-7b-a1b"),
+    ("dp=2,tp=2,fsdp", "item 5.10", "zamba2-7b"),
+    ("dp=2,tp=2,fsdp,opt=so", "item 5.10", "falcon-mamba-7b"),
     ("dp=2,tp=2", "item 5.10", "zamba2-7b"), ("tp=2", "item 5.10", "falcon-mamba-7b"),
     ("dp=2,tiles=auto", "item 7", "mula-7b-a1b"),
     ("dp=2,tiles=64x256x256", "item 7", "mula-7b-a1b")])
 def test_resolve_refuses_what_the_port_lacks(spec, item, arch):
-    """pod (item 5), fsdp with a rebalance policy or for a state-space arch
-    (item 5.1d), tp for the state-space archs (item 5.10) and explicit
-    tiles (item 7)."""
+    """pod (item 5; also with fsdp and a rebalance policy), tp for the
+    state-space archs (item 5.10; also with fsdp) and explicit tiles (item
+    7). fsdp with a rebalance policy or for a state-space arch resolves
+    (``test_resolve_takes_fsdp``)."""
     cfg = treduced(tget(arch))
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md §1 {item}"):
         ParallelPlan.parse(spec).resolve(cfg, global_batch=8)
@@ -136,14 +138,25 @@ def test_resolve_refuses_what_the_port_lacks(spec, item, arch):
                                        ("dp=2,tp=2,fsdp", "mula-1b"),
                                        ("dp=2,pp=2,fsdp", "mula-7b-a1b"),
                                        ("dp=2,tp=2,fsdp,opt=so", "mula-7b-a1b"),
-                                       ("dp=2,pp=2,ep=2,fsdp,opt=epso", "mula-7b-a1b")])
+                                       ("dp=2,pp=2,ep=2,fsdp,opt=epso", "mula-7b-a1b"),
+                                       ("dp=2,ep=2,fsdp,rebalance=5:1.5", "mula-7b-a1b"),
+                                       ("dp=2,ep=2,tp=2,fsdp,opt=epso,rebalance=5:1.5",
+                                        "mula-7b-a1b"),
+                                       ("dp=2,fsdp", "zamba2-7b"),
+                                       ("dp=2,fsdp,opt=so", "zamba2-7b"),
+                                       ("dp=2,fsdp", "falcon-mamba-7b"),
+                                       ("dp=2,fsdp,opt=so", "falcon-mamba-7b"),
+                                       ("dp=2,pp=2,fsdp", "falcon-mamba-7b")])
 def test_resolve_takes_fsdp(spec, arch):
     """fsdp resolves on any grid of a dense or moe model, with 'tp' and
-    'pp' too, in every optimizer mode (it was refused before the fsdp step
-    was ported, with 'ep' or a sharded optimizer before that was, and with
-    'tp' or 'pp' before those were): the grid, the checkpoint layout the
-    JAX ``ResolvedPlan``'s, and the ParallelConfig carries ``fsdp_params``
-    and the mode."""
+    'pp' too, in every optimizer mode, with a ``rebalance=`` policy on
+    ('data', 'ep') and ('data', 'ep', 'tp') grids, and for the ssm arch on
+    'data' and ('data', 'pp') grids and the hybrid arch on 'data' grids
+    (it was refused before the fsdp step was ported, with 'ep' or a sharded
+    optimizer before that was, with 'tp' or 'pp' before those were, and
+    with a placement or a state-space arch before those were): the grid,
+    the checkpoint layout the JAX ``ResolvedPlan``'s, and the
+    ParallelConfig carries ``fsdp_params`` and the mode."""
     from repro.parallel.plan import ResolvedPlan as JResolved
     r = ParallelPlan.parse(spec).resolve(treduced(tget(arch)), global_batch=8)
     dp, pp, ep, tp = r.plan.dp, r.plan.pp, r.plan.ep, r.plan.tp

@@ -775,3 +775,122 @@ def fsdp_grid_cases_rank(world, tc_by_name, params_by_name, opt_by_name, train, 
             "saved": grid_checkpoint_rank(grid, tc_by_name[name], spec, root, "save"),
             "restored": grid_checkpoint_rank(grid, tc_by_name[name], spec, root, "restore")}
     return out
+
+
+def _expert_tiles(state, layout, tc):
+    """Host copies of the rank's expert-stack tiles of a ``TrainState``
+    (params, master, m, v), by checkpoint key."""
+    import re
+
+    from repro_torch.parallel.placement import is_expert_stack
+    from repro_torch.tree import keyed_leaves
+    L, E = tc.num_layers, tc.moe.num_experts
+    return {k: t.detach().clone() for k, t in keyed_leaves(state)
+            if is_expert_stack("/".join(re.findall(r"\['([^']*)'\]", k)), layout[k][0], L, E)}
+
+
+def fsdp_placed_cases_rank(world, tc_by_name, train, batches, rows_by_name, cases, ckpt=None):
+    """One rank of the fsdp placement tests: for each case ``(name, (dp,
+    pp, ep, tp), mode, overlap, remat policy)`` a grid re-cut from the
+    spawn's processes, config ``name`` from ``init_state`` (seed 0) and the
+    placement of ``rows_by_name[name]``, four runs of one step per batch:
+    'unplaced' (fsdp, no placement), 'moved' (fsdp, unplaced for the first
+    batch, then ``apply_placement`` and the rest placed), 'placed' (fsdp,
+    from the initial state moved to the placement) and 'twin' (the same
+    without fsdp). Per case: each run's metrics; the moved run's expert
+    tiles before and after its move and the bytes it sent; the keys of the
+    placed run's initial params whose tiles differ from the whole init
+    params permuted on one process; the keys (and the largest difference)
+    where the moved run's final state differs from the unplaced run's
+    moved to the placement; the gather's stats and the collectives over
+    'data' of the unplaced run. ``ckpt`` ``(case, spec, root)``: the moved
+    run's final state of that case saved under the placement by a grid
+    ``Checkpointer`` of ``spec`` at step 5 and restored into a fresh state
+    (seed 1)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.models import init_params
+    from repro_torch.parallel import ParallelPlan, init_grid
+    from repro_torch.parallel.placement import (ExpertPlacement, apply_placement,
+                                                permute_expert_tree)
+    from repro_torch.parallel.sharding import tile_slices
+    from repro_torch.train import init_state, state_layout
+    from repro_torch.tree import keyed_leaves
+
+    grids, out = {}, {}
+    for case in cases:
+        name, shape, mode, overlap, sac = case
+        dp, pp, ep, tp = shape
+        if shape not in grids:
+            grids[shape] = init_grid(world, dp, ep, tp, pp)
+        grid, tc = grids[shape], tc_by_name[name]
+        L, E = tc.num_layers, tc.moe.num_experts
+        ident, placed = ExpertPlacement.identity(L, E), ExpertPlacement(L, E, rows_by_name[name])
+        layouts = {f: state_layout(tc, grid.axis_sizes, mode, fsdp=f) for f in (True, False)}
+
+        def fresh(fsdp, seed=0):
+            return init_state(tc, train, seed=seed, grid=grid, opt_sharding_mode=mode, fsdp=fsdp)
+
+        def step_for(placement, fsdp):
+            return make_train_step(tc, ParallelConfig(remat_policy=sac, opt_overlap=overlap,
+                                                      fsdp_params=fsdp), train,
+                                   opt_sharding_mode=mode, grid=grid, placement=placement)
+
+        def run(state, steps, bs):
+            metrics = []
+            for b in bs:
+                state, m = steps(state, grid_rows(grid, b))
+                metrics.append({k: m[k].clone() for k in KEYS if k in m})
+            return state, metrics
+
+        res = {}
+        step = step_for(None, True)
+        with _CountCollectives() as calls:
+            unplaced, res["unplaced"] = run(fresh(True), step, batches)
+        res["stats"], res["data_calls"] = dict(step.fsdp_gather.stats), calls.on(grid.data.group)
+        # the live move: one unplaced step, then the placement
+        moved, first = run(fresh(True), step_for(None, True), batches[:1])
+        res["before"] = _expert_tiles(moved, layouts[True], tc)
+        moved, res["sent"] = apply_placement(moved, ident, placed, grid=grid,
+                                             layout=layouts[True])
+        res["after"] = _expert_tiles(moved, layouts[True], tc)
+        moved, rest = run(moved, step_for(placed, True), batches[1:])
+        res["moved"] = first + rest
+        whole = dict(keyed_leaves(permute_expert_tree(init_params(tc, seed=0, device="cpu"),
+                                                      ident.relative_to(placed), L, E),
+                                  ".params"))
+        lay = layouts[True]
+        start, _ = apply_placement(fresh(True), ident, placed, grid=grid, layout=lay)
+        res["tiles_differ"] = [k for k, t in keyed_leaves(start.params, ".params")
+                               if not torch.equal(t, whole[k][tile_slices(
+                                   lay[k][1], lay[k][0], grid.coords, grid.axis_sizes)])]
+        _, res["placed"] = run(start, step_for(placed, True), batches)
+        twin, _ = apply_placement(fresh(False), ident, placed, grid=grid, layout=layouts[False])
+        _, res["twin"] = run(twin, step_for(placed, False), batches)
+        apply_placement(unplaced, ident, placed, grid=grid, layout=lay)
+        differ = [(k, float((a.float() - b.float()).abs().max()))
+                  for (k, a), (_, b) in zip(keyed_leaves(moved), keyed_leaves(unplaced))
+                  if not torch.equal(a, b)]
+        res["state_differ"] = differ
+        res["coords"] = grid.coords
+        if ckpt is not None and ckpt[0] == case:
+            _, spec, root = ckpt
+            plan = ParallelPlan.parse(spec).resolve(tc)
+            ck = Checkpointer(root, plan=plan, grid=grid, layout=lay)
+            ck.placement = placed
+            ck.save(moved, 5)
+            back = Checkpointer(root, plan=plan, grid=grid, layout=lay)
+            restored, at = back.restore(fresh(True, seed=1))
+            res["ckpt"] = {"saved": dict(keyed_leaves(moved)), "step": at,
+                           "restored": dict(keyed_leaves(restored)),
+                           "placement": back.restored_placement == placed}
+        out[case] = res
+    return out
+
+
+def fsdp_ssm_cases_rank(world, *args, **kw):
+    """``fsdp_grid_cases_rank`` with Mamba-1's scan streams kept in float32
+    (``models.ssm.STREAM_DTYPE``), as the JAX oracle's are patched to: the
+    bf16 rounding of the streams would part the two at single elements."""
+    from repro_torch.models import ssm
+    ssm.STREAM_DTYPE = torch.float32
+    return fsdp_grid_cases_rank(world, *args, **kw)
