@@ -3,10 +3,11 @@
 H100: the quickest proof that the port builds, is right, serves and trains.
 
     python3 chip_smoke.py                      # all phases, one card
-    python3 chip_smoke.py --compare PARENT     # serve and train phases of the
-                                               # checkout at PARENT and of this
-                                               # one, in turns (parent, this,
-                                               # this, parent)
+    python3 chip_smoke.py --compare PARENT     # serve, train and epso_train's
+                                               # four runs of the checkout at
+                                               # PARENT and of this one, in
+                                               # turns (parent, this, this,
+                                               # parent)
 
 Phases, each printing JSON lines:
 
@@ -196,7 +197,7 @@ Phases, each printing JSON lines:
              the grad norms within 1e-5 while the params are step 0's and
              2e-3 after an update, the losses and ce within 1e-3; rank 0's
              metrics on every rank, the state bytes (3,137,107,968) and
-             param elements (424,814,592) a rank, the gathers and
+             param elements (321,529,856) a rank, the gathers and
              reduce-scatters of each step, the exact launch count; prints
              peak memory a rank beside epso_train's, step ms and the bytes
              gathered a step;
@@ -210,7 +211,7 @@ Phases, each printing JSON lines:
              no warmup (step 1 after an update):
              held as fsdp_ep_train is, plus no drops and every routed pair
              counted; the state bytes (3,137,107,968) and param elements
-             (416,425,984) a rank; prints peak memory a rank of both runs,
+             (313,141,248) a rank; prints peak memory a rank of both runs,
              step ms and the bytes gathered a step;
   fsdp_pp_train inside epso_train's ranks, the 4 processes re-cut into
              ('data', 2) x ('pp', 2): the same widths at 2 layers, one a
@@ -298,6 +299,12 @@ Phases, each printing JSON lines:
              shape (at most 3) and of one MoE block at a decode step, each
              captured in a CUDA graph and counted there.
 
+Every grid phase with an 'ep' or 'tp' axis (ep_train, epso_train and the
+phases its ranks run on such grids, grid_serve and the launcher runs on
+them) also prints the embedding and head table elements a rank holds,
+split on their vocab rows over 'tp', else 'ep' (``parallel.vocab``), held
+to the figure the shapes give.
+
 The last three lines are the card's name and power limit as nvidia-smi
 prints them, one JSON object listing the kernels, and
 ``{"ok": true, "device": {...}}``. Any failure raises: the script exits
@@ -339,8 +346,9 @@ EP_RANKS, EP_SEQ, EP_STEPS, EP_LAYERS = 4, 2048, 3, 2
 EPSO_DP, EPSO_EP, EPSO_LAYERS, EPSO_STEPS = 2, 2, 2, 3
 EPSO_RUNS = (("none", "off"), ("so", "off"), ("epso", "ring"), ("epso", "xla"))
 # per-rank fp32 master + m + v bytes of full-width Mula-7B-A1B at 2 layers on
-# the 2 x 2 grid (optim.epso.state_bytes_per_device; every leaf divides)
-EPSO_STATE_BYTES = {"none": 7_716_593_664, "so": 3_858_296_832, "epso": 3_137_107_968}
+# the 2 x 2 grid (optim.epso.state_bytes_per_device; every leaf divides; the
+# tables' vocab rows on 'ep')
+EPSO_STATE_BYTES = {"none": 6_477_176_832, "so": 3_238_588_416, "epso": 3_137_107_968}
 # a2a_train (inside epso_train's ranks): the all-to-all Stage 1 in
 # 'epso'/'ring', EPSO_STEPS steps, losses within A2A_LOSS_TOL of an allgather
 # run at the same capacity factor A2A_CF and peak lr CMP_LR. Not the config's
@@ -397,7 +405,7 @@ FSDP_LOSS_TOL, FSDP_NORM_TOL, FSDP_NORM_TOL_UPDATED = 1e-3, 1e-5, 2e-3
 # full-width Mula-7B-A1B at 2 layers on 2 x 2 with fsdp (the JAX package's:
 # tests/test_torch_fsdp_ep.py)
 FSDP_EP_RUN = ("epso", "ring")
-FSDP_EP_STATE_BYTES, FSDP_EP_PARAM_ELEMS = 3_137_107_968, 424_814_592
+FSDP_EP_STATE_BYTES, FSDP_EP_PARAM_ELEMS = 3_137_107_968, 321_529_856
 # fsdp_tp_train (inside epso_train's ranks, the 4 processes re-cut as
 # FSDP_TP_GRID (dp, ep, tp)): full-width Mula-7B-A1B at EPSO_LAYERS layers in
 # the expert-TP EP = 1 form, dropless, router terms on, one EP_SEQ-token row a
@@ -405,7 +413,7 @@ FSDP_EP_STATE_BYTES, FSDP_EP_PARAM_ELEMS = 3_137_107_968, 424_814_592
 # EPSO_STEPS steps each, held at the fsdp_train tolerances; the per-rank fp32
 # state bytes and param elements with fsdp (tests/test_torch_fsdp_grid.py)
 FSDP_TP_GRID = (2, 1, 2)
-FSDP_TP_STATE_BYTES, FSDP_TP_PARAM_ELEMS = 3_137_107_968, 416_425_984
+FSDP_TP_STATE_BYTES, FSDP_TP_PARAM_ELEMS = 3_137_107_968, 313_141_248
 # fsdp_pp_train (inside epso_train's ranks, re-cut as ('data', FSDP_PP_DP) x
 # ('pp', FSDP_PP_STAGES)): full-width Mula-7B-A1B at EPSO_LAYERS layers, one
 # a stage, 'epso'/'ring', dropless, router terms on, peak lr CMP_LR,
@@ -2542,11 +2550,11 @@ def _ep_reference_rank(group, t_cfg):
     import torch
     from repro_torch.configs import ParallelConfig
     from repro_torch.kernels import ops
-    from repro_torch.parallel import expert_shard
+    from repro_torch.parallel import ep_shard
     from repro_torch.train import init_state, make_train_step
     cfg = _ep_small_cfg()
     p, x, ct = _ep_block_inputs(cfg, group.device)
-    p = expert_shard({"moe": p}, group.rank, group.world)["moe"]
+    p = ep_shard({"moe": p}, group.rank, group.world)["moe"]
     r = group.rank
     out, gx = _ep_block_grad(p, x[r:r + 1], ct[r:r + 1], cfg, group)
     state = init_state(cfg, t_cfg, seed=0, ep_group=group)
@@ -2641,8 +2649,10 @@ def _ep_train_rank(group, steps):
     import torch
     from repro_torch.configs import ParallelConfig, TrainConfig, get_config
     from repro_torch.kernels import ops
+    from repro_torch.models import init_params
     from repro_torch.parallel.sharding import replicated_leaves
     from repro_torch.train import init_state, make_train_step
+    from repro_torch.train.trainer import placements
     from repro_torch.tree import leaves
 
     cfg = dataclasses.replace(get_config(MULA), num_layers=EP_LAYERS)
@@ -2676,10 +2686,12 @@ def _ep_train_rank(group, steps):
     else:
         step(state, mine)
         torch.cuda.synchronize()
-    rep = [t for t, k in zip(leaves(state.params), replicated_leaves(state.params)) if k]
+    place = placements(cfg, init_params(cfg, device="meta"), {"ep": group.world})
+    rep = [t for t, k in zip(leaves(state.params), replicated_leaves(place)) if k]
     return {"history": history, "moe_counts": counts, "launches": launches, "profile": profile,
             "peak_bytes": torch.cuda.max_memory_allocated(), "init_s": init_s,
             "params_held": sum(t.numel() for t in leaves(state.params)),
+            "table_elems": table_elems(state.params),
             "replicated_checksum": float(sum(t.double().sum() for t in rep)),
             "backend": group.backend, "device": str(group.device)}
 
@@ -2728,6 +2740,7 @@ def phase_ep_train(ranks, wall: float) -> dict:
            "step_ms_median_by_rank": step_ms,
            "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
            "params_held_by_rank": [r["params_held"] for r in ranks],
+           **table_row("ep_train", [r["table_elems"] for r in ranks], cfg, {"ep": EP_RANKS}),
            "init_s_by_rank": [r["init_s"] for r in ranks],
            "launches_per_rank": ranks[0]["launches"], "expected_launches": expect, "wall_s": wall,
            "profile_step_rank0": ranks[0]["profile"],
@@ -2741,6 +2754,33 @@ def phase_ep_train(ranks, wall: float) -> dict:
 # ----------------------------------------------------------------------------
 # the sharded optimizer (SO / EPSO) on a dp x ep grid
 # ----------------------------------------------------------------------------
+
+def table_elems(params) -> int:
+    """The embedding and head table elements a rank holds: its vocab rows
+    of a split table (``parallel.vocab``)."""
+    from repro_torch.parallel.sharding import is_table_path
+    from repro_torch.tree import leaves_with_path
+    return sum(t.numel() for path, t in leaves_with_path(params) if is_table_path(path))
+
+
+def table_row(phase: str, got: list, cfg, sizes: dict) -> dict:
+    """Each rank's table elements (``got``, rank order) against the shapes'
+    figure: 2 (1 tied) x V_pad x d_model over the size of the grid axis
+    that splits the tables, 'tp', else 'ep', where it divides V_pad
+    (``parallel.sharding.vocab_axis``; ``sizes`` the grid's axes); raises
+    where a rank differs. The fields a phase line prints."""
+    from repro_torch.models.model import padded_vocab
+    from repro_torch.parallel.sharding import vocab_axis
+    vp = padded_vocab(cfg)
+    whole = (1 if cfg.tie_embeddings else 2) * vp * cfg.d_model
+    axis = vocab_axis(sizes, vp)
+    want = whole // (sizes[axis] if axis else 1)
+    if any(n != want for n in got):
+        raise AssertionError(f"{phase}: table elements a rank {got}, expected {want} "
+                             f"(the tables split over {axis!r})")
+    return {"table_elems_per_rank": got[0], "table_elems_expected": want,
+            "table_elems_whole": whole, "table_split_axis": axis}
+
 
 def _checksums(tree) -> dict:
     """Per leaf, its float64 sum and sum of squares: equal leaves on two
@@ -2816,6 +2856,7 @@ def _epso_train_rank(grid, steps):
         sums = _checksums(state.params)
         out[f"{mode}/{overlap}"] = {
             "history": history, "launches": launches, "checksums": sums, "profile": profile,
+            "table_elems": table_elems(state.params),
             "peak_bytes": torch.cuda.max_memory_allocated(), "init_s": init_s,
             "state_bytes": held, "plan": plan,
             "state_bytes_expected": state_bytes_per_device(
@@ -2959,9 +3000,10 @@ def _fsdp_placement_rank(grid, cfg, train, rows):
                                                           state.opt.v) for t in leaves(tree))}
     step = make_train_step(cfg, par, train, opt_sharding_mode=mode, grid=grid, placement=placed)
     state, placed_rec = one(step, state)
+    held = table_elems(state.params)
     del state, step
     return {"row": list(placed.perm[0]), "history": history, "unplaced": unplaced,
-            "placed": placed_rec, "move": move}
+            "placed": placed_rec, "move": move, "table_elems": held}
 
 
 def _fsdp_hybrid_train_rank(world):
@@ -3069,6 +3111,7 @@ def _history_run(cfg, train, grid, mode, overlap, rows, steps, sac="block", prof
                                saved_peak=step.saved_peak[grid.coords["pp"]])
     out = {"history": history, "launches": dict(ops.launches), "state_bytes": held,
            "param_elems": sum(t.numel() for t in leaves(state.params)),
+           "table_elems": table_elems(state.params),
            "peak_bytes": max(init_peak, torch.cuda.max_memory_allocated()),
            "peak_bytes_steps": torch.cuda.max_memory_allocated(),
            "fsdp_stats": dict(step.fsdp_gather.stats) if step.fsdp_gather is not None else None,
@@ -3181,6 +3224,7 @@ def _pp_train_rank(grid):
     launches = dict(ops.launches)
     shapes = init_params(cfg, device="meta")
     out = {"history": history, "launches": launches, "coords": g.coords,
+           "table_elems": table_elems(state.params),
            "peak_bytes": torch.cuda.max_memory_allocated(), "state_bytes": held,
            "state_bytes_expected": state_bytes_per_device(
                shapes, placements(cfg, shapes, g.axis_sizes), g.axis_sizes, "epso")}
@@ -3312,7 +3356,7 @@ def _grid_serve_rank(grid):
     torch.cuda.synchronize()
     params_s = time.perf_counter() - t0
     out = serve_run(cfg, params, plan=plan, grid=g)
-    out.update(coords=g.coords, params_s=params_s,
+    out.update(coords=g.coords, params_s=params_s, table_elems=table_elems(params),
                param_bytes=sum(t.numel() * t.element_size() for t in leaves(params)))
     del params
     torch.cuda.empty_cache()
@@ -3380,6 +3424,8 @@ def phase_grid_serve(ranks) -> dict:
            "peak_bytes_by_rank": [rk["serve"]["peak_bytes"] for rk in ranks],
            "peak_bytes_one_rank": one["peak_bytes"],
            "param_bytes_by_rank": [rk["serve"]["param_bytes"] for rk in ranks],
+           **table_row("grid_serve", [rk["serve"]["table_elems"] for rk in ranks], cfg,
+                       {"ep": GRID_SERVE_EP, "tp": GRID_SERVE_TP}),
            "params_s_by_rank": [rk["serve"]["params_s"] for rk in ranks],
            "params_s_one_rank": params_s,
            "coords_by_rank": [rk["serve"]["coords"] for rk in ranks],
@@ -3428,7 +3474,7 @@ def _tp_train_rank(grid, cfg, train, batch):
             run = _history_run(cfg, train, g, mode, overlap, rows, TP_STEPS, profile=sc)
             run["state_bytes_expected"] = state_bytes_per_device(
                 shapes, placements(cfg, shapes, sizes), sizes, mode)
-            run["coords"] = g.coords
+            run["coords"], run["sizes"] = g.coords, sizes
             if sc:
                 run["block_sc"] = _history_run(cfg, train, g, mode, overlap, rows, TP_STEPS,
                                                sac="block_sc", profile=True)
@@ -3543,6 +3589,7 @@ def _placement_train_rank(grid, cfg, train, mine, steps):
                                                           state.opt.v) for t in leaves(tree))}
     out["placed"] = {**run(make_train_step(cfg, par, train, opt_sharding_mode=mode, grid=grid,
                                            placement=placed), cut), "move": move}
+    out["table_elems"] = table_elems(state.params)
     del state
     return out
 
@@ -3588,10 +3635,17 @@ def phase_epso_train(ranks, wall: float) -> tuple:
     the session's job ``ranks`` (``_epso_train_rank``), and the phases
     its ranks ran after it."""
     from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.train.trainer import placements
+    from repro_torch.tree import leaves_with_path
 
     cfg = get_config(MULA)
     world = EPSO_DP * EPSO_EP
+    sizes = {"data": EPSO_DP, "ep": EPSO_EP}
     expect = expected_train_launches(EPSO_LAYERS, 1, EPSO_STEPS)
+    # the leaves 'ep' splits (the expert stacks, the tables' vocab rows)
+    on_ep = {path for path, pl in leaves_with_path(placements(
+        cfg, init_params(cfg, device="meta"), sizes)) if any("ep" in e for e in pl)}
     keys = ("loss", "ce", "grad_norm", "clip_scale", "lr", "moe_drops")
     names = [f"{mode}/{ov}" for mode, ov in EPSO_RUNS]
     base = [s["loss"] for s in ranks[0]["runs"][names[0]]["history"]]
@@ -3620,13 +3674,13 @@ def phase_epso_train(ranks, wall: float) -> tuple:
                                      f"{EPSO_STATE_BYTES[mode]} expected")
             if run["launches"] != expect:
                 raise AssertionError(f"{where}: launches {run['launches']} != {expect}")
-            # replicated leaves equal on every rank, an expert slice on the
-            # ranks holding it (the same 'ep' coordinate)
+            # replicated leaves equal on every rank, a tile 'ep' cuts (an
+            # expert slice, a table's vocab rows) on the ranks holding it
+            # (the same 'ep' coordinate)
             twin = next(o for o in ranks if o["coords"]["ep"] == rk["coords"]["ep"]
                         and o is not rk)["runs"][name]["checksums"]
             for path, cs in run["checksums"].items():
-                other = twin if "/moe/" in path and path.rsplit("/", 1)[-1] in (
-                    "gate", "up", "down") else ranks[0]["runs"][name]["checksums"]
+                other = twin if path in on_ep else ranks[0]["runs"][name]["checksums"]
                 if cs != other[path]:
                     raise AssertionError(f"{where}: params {path} differ across ranks")
     runs = {}
@@ -3645,6 +3699,8 @@ def phase_epso_train(ranks, wall: float) -> tuple:
             "peak_bytes_by_rank": [rk["runs"][name]["peak_bytes"] for rk in ranks],
             "init_s_by_rank": [rk["runs"][name]["init_s"] for rk in ranks],
             "state_bytes_per_rank": r0["state_bytes"], "plan": r0["plan"],
+            **table_row(f"epso_train {name}", [rk["runs"][name]["table_elems"] for rk in ranks],
+                        cfg, sizes),
             "collectives_host_ms_rank0": sum(
                 v["ms"] for n, v in r0["profile"]["host_events"].items()
                 if n.startswith("gloo:")),
@@ -3897,6 +3953,8 @@ def phase_fsdp_ep_train(ranks, cfg) -> dict:
            "grad_norm_tolerance": {"steps_on_step0_params": fresh, "there": FSDP_NORM_TOL,
                                    "after_an_update": FSDP_NORM_TOL_UPDATED},
            "state_bytes_per_rank": r0["state_bytes"], "param_elems_per_rank": r0["param_elems"],
+           **table_row("fsdp_ep_train", [rk["fsdp_ep"]["table_elems"] for rk in ranks], cfg,
+                       sizes),
            "peak_bytes_by_rank": [rk["fsdp_ep"]["peak_bytes"] for rk in ranks],
            "peak_bytes_steps_by_rank": [rk["fsdp_ep"]["peak_bytes_steps"] for rk in ranks],
            "peak_bytes_by_rank_epso": [rk["runs"][name]["peak_bytes"] for rk in ranks],
@@ -3992,7 +4050,10 @@ def _fsdp_pair(ranks, key: str, sizes: dict, lcfg, want: dict, expect: dict, pai
             raise AssertionError(f"{where}: gathers {run['fsdp_stats']} != {want_stats}")
     r0, p0 = ranks[0][key]["fsdp"], ranks[0][key]["plain"]
     rel, fresh = _fsdp_held_to(r0["history"], p0["history"], name, "the plain run")
+    tables = table_row(name, [rk[key][w]["table_elems"] for rk in ranks for w in
+                              ("fsdp", "plain")], lcfg, sizes)
     row = {"model": lcfg.name, "layers": lcfg.num_layers, "grid": sizes, "ranks": len(ranks),
+           **tables,
            "mode": "epso/ring", "dispatch": "dropless",
            "router_coefs": [lcfg.moe.router_aux_coef, lcfg.moe.router_z_coef],
            "microbatches": n_mb, "steps": n, "remat": "block",
@@ -4142,6 +4203,8 @@ def phase_fsdp_placement_train(ranks, cfg) -> dict:
            "sent_bytes_by_rank": [rk["fsdp_placement"]["move"]["sent_bytes"] for rk in ranks],
            "slices_compared": compared, "slices_differ": len(differ),
            "state_bytes_per_rank": r0["move"]["state_bytes"],
+           **table_row("fsdp_placement_train",
+                       [rk["fsdp_placement"]["table_elems"] for rk in ranks], cfg, sizes),
            "losses_before_move": [s["loss"] for s in r0["history"]],
            "loss_unplaced": r0["unplaced"]["loss"], "loss_placed": r0["placed"]["loss"],
            "loss_gap": abs(r0["placed"]["loss"] - r0["unplaced"]["loss"]),
@@ -4374,6 +4437,8 @@ def phase_pp_train(ranks) -> dict:
            "step_ms_one_rank": [q["step_ms"] for q in ref],
            "peak_bytes_by_rank": [rk["pp"]["peak_bytes"] for rk in ranks],
            "state_bytes_per_rank": [rk["pp"]["state_bytes"] for rk in ranks],
+           **table_row("pp_train", [rk["pp"]["table_elems"] for rk in ranks], cfg,
+                       {"data": PP_DP, "pp": PP_STAGES, "ep": PP_EP}),
            "handoff_bytes_per_message_computed": act,
            "handoff_bytes_per_step_by_rank": [rk["pp"]["history"][0]["sent_bytes"]
                                               for rk in ranks],
@@ -4458,6 +4523,9 @@ def phase_a2a_train(ranks, cfg) -> dict:
            "step_ms_median_a2a": statistics.median(s["step_ms"] for s in r0["history"][1:]),
            "step_ms_median_allgather": statistics.median(s["step_ms"] for s in ref0[1:]),
            "peak_bytes_by_rank": [rk["a2a"]["a2a"]["peak_bytes"] for rk in ranks],
+           **table_row("a2a_train", [rk["a2a"][s]["table_elems"] for rk in ranks
+                                     for s in ("a2a", "allgather")], cfg,
+                       {"data": EPSO_DP, "ep": EPSO_EP}),
            "stage1_bytes": a2a_bytes(cfg, EP_SEQ, EPSO_EP, A2A_CF),
            "dispatch_plans_per_layer_forward": r0["launches"]["dispatch_plan"] / (
                EPSO_LAYERS * EPSO_STEPS * 2),
@@ -4529,7 +4597,9 @@ def phase_tp_train(ranks, cfg) -> dict:
             "step_ms_median_by_rank": [statistics.median(s["step_ms"] for s in
                                                          rk["tp"][name]["history"][1:])
                                        for rk in ranks],
-            "coords_by_rank": [rk["tp"][name]["coords"] for rk in ranks]}
+            "coords_by_rank": [rk["tp"][name]["coords"] for rk in ranks],
+            **table_row(f"tp_train {name}", [rk["tp"][name]["table_elems"] for rk in ranks],
+                        cfg, ranks[0]["tp"][name]["sizes"])}
         if "block_sc" in ranks[0]["tp"][name]:
             runs[name]["block_sc"] = _block_sc_row(ranks[0]["tp"][name], EPSO_LAYERS)
     row = {"model": cfg.name, "layers": EPSO_LAYERS, "dispatch": "dropless", "steps": TP_STEPS,
@@ -4650,6 +4720,8 @@ def phase_placement_train(ranks, cfg) -> dict:
                                    "placed": imbalance(before, tuple(r0["row"]), EPSO_EP)},
            "slices_compared": compared, "slices_differ": len(differ),
            "state_bytes_per_rank": r0["placed"]["move"]["state_bytes"],
+           **table_row("placement_train", [rk["placement"]["table_elems"] for rk in ranks],
+                       cfg, {"data": EPSO_DP, "ep": EPSO_EP}),
            "moe_drops": [s["moe_drops"] for s in a + b],
            "routed_pairs": [sum(s["counts"]) for s in a + b],
            "placed_steps": list(range(cut, PLACEMENT_STEPS)),
@@ -4726,7 +4798,8 @@ def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
 
     rec = {"step_ms": [], "h2d_ms": [], "save_ms": [], "save_model_only_ms": [],
            "restore_ms": [], "disk_free_before_save": [], "profile": None,
-           "state_bytes": None, "calls": [], "move_ms": [], "move_sent_bytes": []}
+           "state_bytes": None, "table_elems": None, "calls": [], "move_ms": [],
+           "move_sent_bytes": []}
     made, mover, place = launch.make_train_step, launch._batch_mover, launch.apply_placement
     calls = [0]
 
@@ -4750,6 +4823,7 @@ def _launcher_probe(*, profile_call: int = -1, need_disk: bool = False):
             if rec["state_bytes"] is None:      # the fp32 master, m and v this rank holds
                 rec["state_bytes"] = sum(t.numel() * t.element_size() for tree in (
                     state.opt.master, state.opt.m, state.opt.v) for t in leaves(tree))
+                rec["table_elems"] = table_elems(state.params)
             if i == profile_call:
                 out = []
                 rec["profile"] = _profile_window(lambda: out.append(fn(state, batch)))
@@ -5207,6 +5281,13 @@ def phase_launcher_grid_dense(session: dict, specs: dict) -> dict:
     return row
 
 
+def _run_tables(phase: str, ranks, spec) -> dict:
+    """``table_row`` of a launcher run's ranks (their probes' table elements)
+    on its plan's grid."""
+    return table_row(phase, [r["rec"]["table_elems"] for r in ranks], spec.cfg,
+                     spec.plan.axis_sizes)
+
+
 def _cli_args(run: dict) -> list:
     """The launcher's command line (``launch.train.main``) for the
     ``run`` keywords of ``launch.train.run``: each key as its --flag."""
@@ -5237,7 +5318,7 @@ def phase_launcher_grid_ft(ft: dict, session: dict, specs: dict) -> dict:
     cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch", FT_ARCH,
            *_cli_args(dict(GRID_FT_RUN, **FT_INJECT, out=str(out / "faulty")))]
     try:
-        clean, clean_wall = _grid_run(session, specs, "grid_ft/clean")[1:]
+        spec, clean, clean_wall = _grid_run(session, specs, "grid_ft/clean")
         t0 = time.perf_counter()
         proc = subprocess.run(cli, capture_output=True, text=True, timeout=600, cwd=str(ROOT),
                               env={**os.environ, "PYTHONPATH": str(SRC)})
@@ -5270,6 +5351,7 @@ def phase_launcher_grid_ft(ft: dict, session: dict, specs: dict) -> dict:
            "history_bit_identical": faulty == c0,
            "step_ms_median_by_rank": [statistics.median(r["rec"]["step_ms"]) for r in clean],
            "peak_bytes_by_rank": [r["peak_bytes"] for r in clean],
+           **_run_tables("launcher_grid_ft", clean, spec),
            "wall_s": [clean_wall, faulty_wall],
            "launches_per_rank": clean[0]["launches"], "expected_launches": expect}
     emit("launcher_grid_ft", **row)
@@ -5312,6 +5394,7 @@ def phase_launcher_grid_tp(ft: dict, session: dict, specs: dict) -> dict:
     try:
         for name in ("clean", "faulty"):
             runs[name] = _grid_run(session, specs, f"grid_tp/{name}")[1:]
+        spec = specs["grid_tp/clean"]
         manifest = _newest_manifest(_grid_run_dir("grid_tp/faulty") / "ckpt")
     finally:
         shutil.rmtree(LAUNCH_DIR / "grid_tp", ignore_errors=True)
@@ -5336,6 +5419,7 @@ def phase_launcher_grid_tp(ft: dict, session: dict, specs: dict) -> dict:
            "save_ms_rank0": faulty[0]["rec"]["save_ms"],
            "restore_ms_rank0": faulty[0]["rec"]["restore_ms"],
            "peak_bytes_by_rank": [r["peak_bytes"] for r in clean + faulty],
+           **_run_tables("launcher_grid_tp", clean + faulty, spec),
            "wall_s": [clean_wall, faulty_wall],
            "launches_per_rank": {"clean": clean[0]["launches"], "faulty": faulty[0]["launches"]},
            "expected_launches": expect}
@@ -5446,6 +5530,7 @@ def phase_launcher_grid_fsdp(session: dict, specs: dict, base: str = "grid_fsdp"
            "peak_bytes_by_rank": [r["peak_bytes"] for r in first],
            "state_bytes_by_rank": [r["rec"]["state_bytes"] for r in first],
            "state_bytes_expected": want_bytes,
+           **_run_tables(phase, first + second, spec),
            "save_ms_by_rank": [r["rec"]["save_ms"] for r in first],
            "save_model_only_ms_by_rank": [r["rec"]["save_model_only_ms"] for r in first],
            "restore_ms_by_rank": [r["rec"]["restore_ms"] for r in second], **ckpt_bytes,
@@ -5537,7 +5622,8 @@ def phase_launcher_grid_pp() -> dict:
     finally:
         shutil.rmtree(out, ignore_errors=True)
     steps = run["steps"]
-    par = launch.prepare_run(FT_ARCH, **run, out=str(out / "grid")).par
+    spec = launch.prepare_run(FT_ARCH, **run, out=str(out / "grid"))
+    par = spec.par
     expect = expected_pp_launches(run["layers"] // par.pp_stages, par.microbatches, steps + 1,
                                   whole_pool=True)
     losses = [h["loss"] for h in history]
@@ -5559,6 +5645,7 @@ def phase_launcher_grid_pp() -> dict:
            "save_ms_rank0": ranks[0]["rec"]["save_ms"],
            "restore_ms_rank0": ranks[0]["rec"]["restore_ms"],
            "peak_bytes_by_rank": [r["peak_bytes"] for r in ranks],
+           **_run_tables("launcher_grid_pp", ranks, spec),
            "one_rank_resumed_steps": [h["step"] for h in one],
            "one_rank_losses": [h["loss"] for h in one],
            "grid_losses_same_steps": [losses[h["step"]] for h in one],
@@ -5638,6 +5725,7 @@ def phase_launcher_grid_rebalance(session: dict, specs: dict,
     want_bytes = state_bytes_per_device(shapes, placements(cfg, shapes, sizes, fsdp=fsdp), sizes,
                                         "epso")
     row = {"model": launcher_ft_cfg().name, "run": run, "inject": GRID_REB_INJECT,
+           **_run_tables(phase, clean + faulty, spec),
            "ranks": len(clean), "events_at_steps": events, "rebalances": sum_c["rebalances"],
            "rebalances_faulty": sum_f["rebalances"],
            "moe_imbalance": [h["moe_imbalance"] for h in c0],
@@ -5765,9 +5853,59 @@ def phase_launches(cfg) -> dict:
 
 
 # ----------------------------------------------------------------------------
-# parent against change: --compare runs the serve and train phases of two
-# trees in turns, each side in its own process (--side)
+# parent against change: --compare runs the serve and train phases and
+# epso_train's runs of two trees in turns, each side in its own process
+# (--side)
 # ----------------------------------------------------------------------------
+
+def _smoke_under(root: str):
+    """The chip_smoke.py under ``root`` as a module (its ``src/`` first on
+    the path), profiled by this file's ``_profile_window``."""
+    import importlib.util
+
+    if sys.path[0] != str(Path(root) / "src"):
+        sys.path.insert(0, str(Path(root) / "src"))
+    spec = importlib.util.spec_from_file_location("smoke_under_test",
+                                                  Path(root) / "chip_smoke.py")
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    other._profile_window = _profile_window
+    return other
+
+
+def _compare_grid_rank(grid, root: str) -> dict:
+    """One rank of a ``--compare`` side's grid runs: epso_train's model,
+    grid and row, each (mode, overlap) of EPSO_RUNS through the
+    ``_history_run`` of the chip_smoke.py under ``root``, EPSO_STEPS steps,
+    the last profiled on rank 0: the losses, step ms, peak memory, state
+    bytes and param elements, and rank 0's ``gloo:`` and ``c10d::`` calls
+    and host ms of the profiled step."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, get_config
+
+    other = _smoke_under(root)
+    cfg = dataclasses.replace(get_config(MULA), num_layers=EPSO_LAYERS)
+    r = grid.world.rank
+    train = TrainConfig(seq_len=EP_SEQ, global_batch=grid.world.world, warmup_steps=2,
+                        total_steps=100)
+    batch = _fixed_batch(cfg.vocab_size, train.global_batch, train.seq_len, grid.world.device)
+    mine = {k: v[r:r + 1] for k, v in batch.items()}
+    out = {}
+    for mode, overlap in EPSO_RUNS:
+        run = other._history_run(cfg, train, grid, mode, overlap, mine, EPSO_STEPS,
+                                 profile_last=True)
+        prof = run["profile"]
+        out[f"{mode}/{overlap}"] = {
+            **{k: run[k] for k in ("state_bytes", "param_elems", "peak_bytes",
+                                   "peak_bytes_steps")},
+            "losses": [h["loss"] for h in run["history"]],
+            "step_ms": [h["step_ms"] for h in run["history"]],
+            "collectives_rank0": None if prof is None else {
+                k: v for k, v in prof["host_events"].items()
+                if k.startswith(("gloo:", "c10d::"))}}
+    return out
+
 
 def _side(root: str) -> None:
     """One side of ``--compare``: the serve and train phases of the
@@ -5775,20 +5913,16 @@ def _side(root: str) -> None:
     expectations), profiled by this file's ``_profile_window``; the tokens
     of the serve run; the host time to enqueue one ``make_dispatch_plan``
     at a decode step's and a train microbatch's shapes; the device launches
-    of one MoE block at a decode step. Prints a ``side`` line."""
-    import importlib.util
-
-    sys.path.insert(0, str(Path(root) / "src"))
-    spec = importlib.util.spec_from_file_location("smoke_under_test",
-                                                  Path(root) / "chip_smoke.py")
-    other = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(other)
-    other._profile_window = _profile_window
+    of one MoE block at a decode step; then epso_train's four runs on
+    SESSION_RANKS ranks sharing the card (``_compare_grid_rank``). Prints a
+    ``side`` line."""
+    other = _smoke_under(root)
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import moe
     from repro_torch.kernels import _build, ops
+    from repro_torch.parallel import spawn
     from repro_torch.serve import ServeEngine
     from repro_torch.serve.engine import dropless_cfg
 
@@ -5815,7 +5949,12 @@ def _side(root: str) -> None:
     moe_launches = graph_launches(_moe_block_decode(cfg, DEV))
     torch.cuda.empty_cache()
     train = other.phase_train()
+    torch.cuda.empty_cache()
+    grid = spawn(_compare_grid_rank, SESSION_RANKS, args=(str(root),), backend="gloo",
+                 device=DEV, timeout_s=SESSION_TIMEOUT_S, grid=(EPSO_DP, EPSO_EP))
     emit("side", root=str(root), nvidia_smi=nvidia_smi(), host_us_make_dispatch_plan=plan_us,
+         epso_train={name: {**grid[0][name], "peak_bytes_by_rank": [
+             g[name]["peak_bytes"] for g in grid]} for name in grid[0]},
          moe_block_decode_device_launches=moe_launches, serve_tokens=runs[1],
          serve={k: serve[k] for k in ("decode_step_ms_median", "tokens_per_s", "wall_s",
                                       "profile_decode_3_steps", "profile_prefill_1024")},
@@ -5828,7 +5967,7 @@ def compare(parent: str) -> int:
     parent, each in its own process on the card."""
     for root in (parent, ROOT, ROOT, parent):
         subprocess.run([sys.executable, str(Path(__file__).resolve()), "--side", str(root)],
-                       check=True, timeout=900)
+                       check=True, timeout=1200)
     print(nvidia_smi(), flush=True)
     return 0
 

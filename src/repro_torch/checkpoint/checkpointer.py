@@ -178,7 +178,7 @@ class _Tiles:
         if grid.world.backend != "gloo":
             raise NotImplementedError(
                 f"checkpoints of a grid on the {grid.world.backend!r} backend: the tiles go "
-                f"through host tensors over gloo (ROADMAP.md §1 item 5, NCCL with one card per "
+                f"through host tensors over gloo (ROADMAP.md §1 item 5.9, NCCL with one card per "
                 f"rank)")
         self.group, self.rank = grid.world.group, grid.world.rank
         self.sizes = grid.axis_sizes
@@ -282,16 +282,21 @@ def dp_scattered_writers(num_model_shards: int, dp_size: int) -> dict:
     return {m: m % dp_size for m in range(num_model_shards)}
 
 
-def broadcast_params(params, group=None):
+def broadcast_params(params, group=None, place=None):
     """Load-once-broadcast (paper §4 'Model Broadcasting'). Without a group
-    the identity. With an EP group (``parallel.EPGroup``) rank 0's values of
-    every leaf that each rank holds whole (``parallel.replicated_leaves``)
-    are broadcast into the other ranks' tensors in place; the expert slices
+    the identity. With an EP group (``parallel.EPGroup``) and ``place``,
+    the placement of the whole tree whose rank's share ``params`` is
+    (``param_placements`` on ('ep', world), as ``parallel.ep_shard`` cut
+    it), rank 0's values of every leaf that no axis splits
+    (``parallel.replicated_leaves``) are broadcast into the other ranks'
+    tensors in place; the tiles (the expert slices, a table's vocab rows)
     are each rank's own and stay as they are."""
     if group is None:
         return params
+    if place is None:
+        raise ValueError("broadcast_params over a group needs the params' placement (place=)")
     from repro_torch.parallel.sharding import replicated_leaves
-    for t, whole in zip(leaves(params), replicated_leaves(params)):
+    for t, whole in zip(leaves(params), replicated_leaves(place)):
         if whole:
             dist.broadcast(t.data, src=0, group=group.group)
     return params

@@ -7,7 +7,7 @@ parameter dict: the same nested layout, leaves as tensors.
 ``opt_state_from_jax`` does the same for an ``AdamWState``. Tests use them
 to start both packages from the same weights and optimizer state, since
 JAX's PRNG is not reproduced. Under expert parallelism each rank takes its
-share: ``parallel.expert_shard(params, rank, world)`` of the params and
+share: ``parallel.ep_shard(params, rank, world)`` of the params and
 ``opt_state_shard(opt, rank, world)`` of the AdamW state. On a dp x pp x
 ep x tp grid, ``params_for_rank`` cuts a rank's tiles of the params,
 ``opt_state_for_rank`` its shards of the full optimizer state (any mode)
@@ -28,7 +28,7 @@ from repro_torch.models.model import init_params, padded_vocab
 from repro_torch.optim import AdamWState
 from repro_torch.optim.epso import optimizer_state_specs
 from repro_torch.parallel.grid import rank_coords
-from repro_torch.parallel.sharding import expert_shard, tile_slices
+from repro_torch.parallel.sharding import ep_shard, tile_slices
 from repro_torch.train.trainer import placements
 from repro_torch.tree import leaves, leaves_with_path, tree_map
 
@@ -60,10 +60,11 @@ def opt_state_from_jax(opt, *, device: DeviceLike = None) -> AdamWState:
 
 
 def opt_state_shard(opt: AdamWState, rank: int, world: int) -> AdamWState:
-    """Rank ``rank``'s share of an AdamW state: its slices of the expert
-    stacks in the master weights and both moments (``expert_shard``), the
-    rest and the step as they are."""
-    return AdamWState(opt.step, *(expert_shard(t, rank, world) for t in (opt.master, opt.m, opt.v)))
+    """Rank ``rank``'s share of an AdamW state over ``world`` EP ranks:
+    its tiles (``ep_shard``: the expert slices, the tables' vocab rows) of
+    the master weights and both moments, the rest and the step as they
+    are."""
+    return AdamWState(opt.step, *(ep_shard(t, rank, world) for t in (opt.master, opt.m, opt.v)))
 
 
 def _grid_specs(cfg: ModelConfig, dp: int, ep: int, mode: str, tp: int = 1, pp: int = 1,

@@ -65,11 +65,13 @@ float32 the JAX launcher fixes. The MoE kernels on the card take bf16, so
 an MoE model on the card runs with ``bfloat16``.
 
 Not ported, and raising ``NotImplementedError`` with the ``ROADMAP.md``
-item that ports them: plans with a pod axis (§1 item 5), ``fsdp`` under
-a remat policy without 'block' or 'block_sc' (§1 item 5.1e), tp for the
-ssm and hybrid archs (§1 item 5.10), the all-to-all Stage 1 under pp
-(§1 item 5.11), ``kernel_tiles`` and ``tiles=`` (§1 item 7), and the vlm
-and audio archs (§1 item 6). A pp axis refuses the hybrid arch and
+item that ports them: plans with a pod axis (§1 item 5.12), ``fsdp``
+under a remat policy without 'block' or 'block_sc' (§1 item 5.1e), tp for
+the ssm and hybrid archs (§1 item 5.10), ``kernel_tiles`` and ``tiles=``
+(§1 item 7), and the vlm and audio archs (§1 item 6). The embedding and
+head tables follow the plan as in JAX: split on their vocab rows over
+'tp', or over 'ep' without 'tp' (``parallel.sharding``); no flag asks for
+it. A pp axis refuses the hybrid arch and
 rebalancing, as the JAX step and plan do. The ssm (Mamba-1) and hybrid (Zamba2) archs train on
 tokens-only batches, as the JAX launcher feeds them; a plan with ``ep=``
 refuses them, as the JAX plan does (they have no experts).

@@ -10,7 +10,9 @@ and the MLP take the rank's shards (``parallel.sharding``: its heads' columns
 of wq, wk, wv and rows of wo; its d_ff columns of gate, up and rows of
 down): the input enters through ``tp_copy`` and the output projection's
 partial sums leave through ``tp_reduce``. The head counts come from the
-weights' widths, so the same code runs whole weights and shards. KV caches are updated in place (the JAX package returns new
+weights' widths, so the same code runs whole weights and shards. A
+vocab-split table (``parallel.vocab``) is looked up and unembedded over
+its group. KV caches are updated in place (the JAX package returns new
 arrays): a decode step writes one position per row instead of copying the
 cache.
 """
@@ -23,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG, slot_decode_attention_ref
+from repro_torch.parallel import vocab as V
 from repro_torch.parallel.ep import tp_copy, tp_reduce
 
 
@@ -272,9 +275,18 @@ def init_embedding(vocab: int, d: int, *, generator: torch.Generator, device,
                                  dtype=dtype).mul_(0.02)}
 
 
-def embed(params, tokens, dtype):
+def embed(params, tokens, dtype, vocab=None):
+    """The rows of ``tokens`` in ``dtype``; ``vocab``: the split
+    (``parallel.vocab.VocabShard``) of a table tile, or None for a whole
+    table."""
+    if vocab is not None:
+        return V.embed(params["table"], tokens, dtype, vocab)
     return params["table"][tokens].to(dtype)
 
 
-def unembed(params, x):
+def unembed(params, x, vocab=None):
+    """The logits of ``x`` over the whole padded vocab; ``vocab``: as in
+    ``embed`` (a tile's columns, put together over its group)."""
+    if vocab is not None:
+        return V.logits(params["table"], x, vocab)
     return x @ params["table"].T.to(x.dtype)

@@ -27,6 +27,7 @@ from repro_torch.core import moe as moe_lib
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.parallel.ep import CollectiveTape, all_reduce_sum
 from repro_torch.parallel.grid import BATCH_AXES, as_grid
+from repro_torch.parallel.vocab import nll as vocab_nll, vocab_shard
 from repro_torch.tree import leaves, tree_map
 
 from . import layers as L
@@ -178,10 +179,33 @@ def _ffn(lp, x2, cfg, grid=None):
     return L.apply_mlp(lp["mlp"], x2, cfg.mlp_activation, tp=tp)
 
 
-def _logits(params, h, cfg):
-    h = L.apply_norm(params["final_norm"], h, cfg.norm)
-    head = params.get("head", params["embed"])
-    return L.unembed(head, h)
+def table_split(params, cfg: ModelConfig, ep_group=None, tp_group=None,
+                replicated: bool = False):
+    """The split of the params' embedding and head tables
+    (``parallel.vocab.VocabShard``; both tables, or the one tied table,
+    share it), or None when they are whole. ``ep_group`` / ``tp_group``:
+    the rank's 'ep' and 'tp' groups; ``replicated``: every rank holds the
+    whole batch (serving)."""
+    return vocab_shard(params["embed"]["table"], padded_vocab(cfg), ep=ep_group, tp=tp_group,
+                       replicated=replicated)
+
+
+def _head(params, h, cfg):
+    return L.apply_norm(params["final_norm"], h, cfg.norm), params.get("head", params["embed"])
+
+
+def _logits(params, h, cfg, vocab=None):
+    h, head = _head(params, h, cfg)
+    return L.unembed(head, h, vocab)
+
+
+def _nll(params, h, labels, cfg, vocab=None):
+    """``masked_nll`` of ``_logits``; over a vocab-split table the
+    vocab-parallel NLL, which never puts the logits together."""
+    h, head = _head(params, h, cfg)
+    if vocab is None:
+        return masked_nll(L.unembed(head, h), labels, cfg)
+    return vocab_nll(head["table"], h, labels, cfg.vocab_size, vocab)
 
 
 def _ssm_block(lp, h, cfg, sac: str):
@@ -233,10 +257,12 @@ def decode_step(params, tokens, cache: dict, index, cfg: ModelConfig, *,
     ``serve.engine.serving_grid`` (dense and moe archs): every rank takes
     the same tokens with its tiles of the params and a cache of its kv
     heads (``init_cache(tp=)``), attention runs on its heads and the MoE on
-    its experts' d_ff shards, and every rank gets the whole logits."""
+    its experts' d_ff shards, and every rank gets the whole logits (its
+    columns of a vocab-split table's, gathered over the table's axis)."""
     _check_arch(cfg)
     tp = grid.tp if grid is not None else None
-    h = L.embed(params["embed"], tokens, compute_dtype)
+    vocab = table_split(params, cfg, grid.ep, tp, replicated=True) if grid is not None else None
+    h = L.embed(params["embed"], tokens, compute_dtype, vocab)
     if cfg.arch_type == "hybrid":
         return _logits(params, _hybrid_decode(params, h, cache, index, cfg), cfg), cache
     if cfg.arch_type == "ssm":
@@ -249,7 +275,7 @@ def decode_step(params, tokens, cache: dict, index, cfg: ModelConfig, *,
                                {"k": kv["k"][i], "v": kv["v"][i]}, index, cfg, tp=tp)
         h = h + a
         h = h + _ffn(lp, L.apply_norm(lp["ln2"], h, cfg.norm), cfg, grid)
-    return _logits(params, h, cfg), cache
+    return _logits(params, h, cfg, vocab), cache
 
 
 def prefill_with_cache(params, tokens, cache: dict, slots, lengths, cfg: ModelConfig, *,
@@ -273,6 +299,7 @@ def prefill_with_cache(params, tokens, cache: dict, slots, lengths, cfg: ModelCo
             f"prefill_with_cache supports attention-KV archs {KV_ARCHS}, not "
             f"{cfg.arch_type!r}; step decode_step over the prompt instead")
     tp = grid.tp if grid is not None else None
+    vocab = table_split(params, cfg, grid.ep, tp, replicated=True) if grid is not None else None
     dev = tokens.device
     kv = cache["kv"]
     W = kv["k"].shape[2]
@@ -291,7 +318,7 @@ def prefill_with_cache(params, tokens, cache: dict, slots, lengths, cfg: ModelCo
     rows = slots[b_idx]
     dest = p_idx % W if cfg.sliding_window > 0 else p_idx
 
-    h = L.embed(params["embed"], tokens, compute_dtype)
+    h = L.embed(params["embed"], tokens, compute_dtype, vocab)
     for i, lp in enumerate(unstack_layers(params["layers"], cfg.num_layers)):
         a, (k, v) = L.attention(lp["attn"], L.apply_norm(lp["ln1"], h, cfg.norm), cfg,
                                 return_kv=True, tp=tp)
@@ -301,7 +328,7 @@ def prefill_with_cache(params, tokens, cache: dict, slots, lengths, cfg: ModelCo
         h = h + _ffn(lp, L.apply_norm(lp["ln2"], h, cfg.norm), cfg, grid)
 
     last = h[torch.arange(len(lens), device=dev), lengths - 1]             # (B', d)
-    return _logits(params, last, cfg), cache
+    return _logits(params, last, cfg, vocab), cache
 
 
 # ----------------------------------------------------------------------------
@@ -380,7 +407,7 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
             fsdp=None):
     """The forward over whole sequences. batch["tokens"]: (B, S) int; under
     an EP group (``parallel.EPGroup``) the rank's rows, with the rank's
-    share of the params (``parallel.expert_shard``); the MoE blocks then
+    share of the params (``parallel.ep_shard``); the MoE blocks then
     communicate and their aux and stats are global. Under a 'tp' group
     ``tp_group`` (dense and moe archs) the params are the rank's shards
     (``parallel.sharding.rank_shard``): attention, the MLPs and the expert
@@ -412,10 +439,22 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     projections (``layers``), the expert stacks and router (``core.moe``),
     and the SSM mixers' ``in_proj``, ``conv_w``, ``x_proj``, ``dt_proj``
     and ``out_proj`` (``ssm.mamba1_block``, ``_mamba1_inner``,
-    ``mamba2_block``)."""
+    ``mamba2_block``). A vocab-split embedding and head (``table_split``:
+    the tables' vocab rows on the 'tp' or 'ep' group) are looked up and
+    unembedded over their group, and the logits are the whole vocab's."""
+    vocab = table_split(params, cfg, ep_group, tp_group, replicated)
+    h, aux = _trunk(params, batch["tokens"], cfg, vocab, sac=sac, compute_dtype=compute_dtype,
+                    attn_impl=attn_impl, ep_group=ep_group, placement=placement,
+                    tp_group=tp_group, replicated=replicated, fsdp=fsdp)
+    return _logits(params, h, cfg, vocab), aux
+
+
+def _trunk(params, tokens, cfg: ModelConfig, vocab, *, sac, compute_dtype, attn_impl,
+           ep_group, placement, tp_group, replicated, fsdp):
+    """``forward`` up to the final norm: (h, aux)."""
     _check_arch(cfg)
     gather = fsdp if fsdp is not None else (lambda lp, part="layers", out_dtype=None: lp)
-    h = L.embed(params["embed"], batch["tokens"], compute_dtype)
+    h = L.embed(params["embed"], tokens, compute_dtype, vocab)
     zero = torch.zeros((), dtype=torch.float32, device=h.device)
     aux = {"moe_aux": zero, "moe_z": zero}
 
@@ -426,7 +465,7 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
         block = ssm("layers")
         for lp in unstack_layers(params["layers"], cfg.num_layers):
             h = block(lp, h)
-        return _logits(params, h, cfg), aux
+        return h, aux
     if cfg.arch_type == "hybrid":
         groups, rem = _hybrid_layers(params, cfg)
         grouped, last = ssm("groups"), ssm("rem")
@@ -437,7 +476,7 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
             h = _dense_block(shared, h, cfg, sac, attn_impl)
         for lp in rem:
             h = last(lp, h)
-        return _logits(params, h, cfg), aux
+        return h, aux
     layers = unstack_layers(params["layers"], cfg.num_layers)
     if cfg.arch_type == "moe":
         block = block_remat(lambda lp, x, pl: _moe_block(gather(lp), x, cfg, sac, attn_impl,
@@ -459,7 +498,7 @@ def forward(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
                                                        tp_group), sac)
         for lp in layers:
             h = block(lp, h)
-    return _logits(params, h, cfg), aux
+    return h, aux
 
 
 # ----------------------------------------------------------------------------
@@ -470,9 +509,11 @@ PP_ARCH_TYPES = ("dense", "moe", "ssm")   # uniform stacked 'layers'
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig, *,
-                 compute_dtype: torch.dtype = torch.bfloat16):
-    """Stage 0's input: the token embedding, as ``forward`` computes it."""
-    return L.embed(params["embed"], tokens, compute_dtype)
+                 compute_dtype: torch.dtype = torch.bfloat16, vocab=None):
+    """Stage 0's input: the token embedding, as ``forward`` computes it.
+    ``vocab``: the tables' split (``table_split`` over the stage's 'ep' and
+    'tp' groups), or None."""
+    return L.embed(params["embed"], tokens, compute_dtype, vocab)
 
 
 def pipeline_stage_forward(stage_lp, h, cfg: ModelConfig, *, sac: str = "", ep_group=None,
@@ -530,16 +571,18 @@ def pipeline_stage_forward(stage_lp, h, cfg: ModelConfig, *, sac: str = "", ep_g
     return h, aux, z, moe_lib.MoeStats(counts, drops)
 
 
-def lm_head_nll(params, h, labels, cfg: ModelConfig):
+def lm_head_nll(params, h, labels, cfg: ModelConfig, vocab=None):
     """The last stage's tail: final norm, unembed and the summed next-token
-    NLL with the count of unmasked labels (``masked_nll``), the ops
-    ``forward`` and ``loss_fn`` apply after the layer stack."""
-    return masked_nll(_logits(params, h, cfg), labels, cfg)
+    NLL of the rank's rows with the count of their unmasked labels
+    (``masked_nll``), the ops ``forward`` and ``loss_fn`` apply after the
+    layer stack. ``vocab``: as in ``embed_tokens`` (the vocab-parallel
+    NLL)."""
+    return _nll(params, h, labels, cfg, vocab)
 
 
-def lm_head_ce(params, h, labels, cfg: ModelConfig):
+def lm_head_ce(params, h, labels, cfg: ModelConfig, vocab=None):
     """The last stage's tail as the masked CE (``masked_ce``)."""
-    nll, n = lm_head_nll(params, h, labels, cfg)
+    nll, n = lm_head_nll(params, h, labels, cfg, vocab)
     return nll / torch.clamp(n, min=1)
 
 
@@ -588,23 +631,27 @@ def loss_fn(params, batch: dict, cfg: ModelConfig, *, sac: str = "block",
     their mean over its ranks; the metrics are global (the MoE terms also
     summed over 'data'), the same on every rank, and carry the global loss
     as "loss". ``placement`` and ``fsdp``: as in ``forward``; the metrics
-    stay in global expert ids."""
+    stay in global expert ids. A vocab-split head takes the vocab-parallel
+    NLL (``parallel.vocab.nll``), which never puts the logits together."""
     grid = as_grid(ep_group)
-    logits, aux = forward(params, batch, cfg, sac=sac, compute_dtype=compute_dtype,
-                          ep_group=grid.ep if grid is not None else None, placement=placement,
-                          tp_group=grid.tp if grid is not None else None, fsdp=fsdp)
+    ep, tp = (grid.ep, grid.tp) if grid is not None else (None, None)
+    vocab = table_split(params, cfg, ep, tp)
+    h, aux = _trunk(params, batch["tokens"], cfg, vocab, sac=sac, compute_dtype=compute_dtype,
+                    attn_impl="blockwise", ep_group=ep, placement=placement, tp_group=tp,
+                    replicated=False, fsdp=fsdp)
+    nll, n = _nll(params, h, batch["labels"], cfg, vocab)
     nl = max(cfg.num_layers, 1)
     router = []
     if cfg.is_moe:
         router = [cfg.moe.router_aux_coef * aux["moe_aux"] / cfg.num_layers,
                   cfg.moe.router_z_coef * aux["moe_z"] / cfg.num_layers]
     if grid is None:
-        ce, ntok = masked_ce(logits, batch["labels"], cfg)
+        ntok = torch.clamp(n, min=1)
+        ce = nll / ntok
         total = ce
         for term in router:
             total = total + term
     else:
-        nll, n = masked_nll(logits, batch["labels"], cfg)
         rows = grid.group(BATCH_AXES)
         tot = all_reduce_sum(torch.stack([nll.detach(), n.float()]), rows)
         ntok = torch.clamp(tot[1], min=1)

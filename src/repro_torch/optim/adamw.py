@@ -70,16 +70,24 @@ def expert_slice_sumsq(g: torch.Tensor, inv=None, group=None, tp=None,
     (L, E / world, ...) slice: the slice sums of all ranks are gathered in
     rank (= expert) order first, so every expert counts once and the sum
     associates as on one device. With a 'tp' group ``tp`` ``g`` holds the
-    rank's d_ff shard: the slice sums are summed over 'tp' first; with a
-    'data' group ``data`` (fsdp) ``g`` holds the rank's tile of a per-slice
-    dim, and they are summed over 'data' in rank order
-    (``sum_in_rank_order``), so that a slice's sum does not depend on the
-    position an expert placement gives it. With a
+    rank's d_ff shard, and with a 'data' group ``data`` (fsdp) the rank's
+    tile of a per-slice dim: the slice sums are summed over 'tp', then
+    over 'data', each in rank order (``sum_in_rank_order``), so that a
+    slice's sum does not depend on the position an expert placement gives
+    it, at any group size (an all-reduce may associate an element by its
+    offset in the buffer). With a
     'pp' group ``pp`` ``g`` holds the rank's stage of the layers: the slice
     sums of the stages are gathered in stage (= layer) order."""
-    s = torch.sum(torch.square(g.float()), dim=tuple(range(2, g.ndim)))
+    return reduce_slice_sums(torch.sum(torch.square(g.float()), dim=tuple(range(2, g.ndim))),
+                             inv, group, tp, pp, data)
+
+
+def reduce_slice_sums(s: torch.Tensor, inv=None, group=None, tp=None, pp=None,
+                      data=None) -> torch.Tensor:
+    """The total of a rank's (L, E') per-(layer, expert) slice sums ``s``
+    over the groups, as ``expert_slice_sumsq`` takes it."""
     if tp is not None and tp.world > 1:
-        s = all_reduce_sum(s, tp)
+        s = sum_in_rank_order(s, tp)
     if data is not None and data.world > 1:
         s = sum_in_rank_order(s, data)
     if group is not None:
@@ -92,7 +100,8 @@ def expert_slice_sumsq(g: torch.Tensor, inv=None, group=None, tp=None,
 
 
 def global_norm(grads, *, expert_norm=None, group=None, tp=None, tp_split=None, pp=None,
-                pp_split=None, data=None, data_split=None) -> torch.Tensor:
+                pp_split=None, data=None, data_split=None, ep=None,
+                ep_split=None) -> torch.Tensor:
     """Global L2 norm of a gradient tree. ``expert_norm``, when given, is a
     ``(mask, inv)`` pair: leaves flagged in ``mask`` contribute through
     ``expert_slice_sumsq``; ``None`` keeps the plain whole-leaf sums. With
@@ -102,9 +111,11 @@ def global_norm(grads, *, expert_norm=None, group=None, tp=None, tp_split=None, 
     ``tp_split`` are the rank's tp shards: their squares are summed over
     'tp' (one all-reduce for the others, inside ``expert_slice_sumsq`` for
     the expert stacks); with a 'pp' group ``pp`` likewise the leaves
-    flagged in ``pp_split``, the rank's stage of the layers, over 'pp'; and
+    flagged in ``pp_split``, the rank's stage of the layers, over 'pp';
     with a 'data' group ``data`` the leaves flagged in ``data_split``, the
-    rank's fsdp tiles, over 'data'. An expert stack cut on its expert dim
+    rank's fsdp tiles, over 'data'; and with an 'ep' group ``ep`` the
+    leaves flagged in ``ep_split`` other than the expert stacks (a table
+    split on its vocab rows), over 'ep'. An expert stack cut on its expert dim
     by 'data' no longer matches ``expert_norm``'s mask (its slices are
     not the rank's count of experts) and counts as a plain tile."""
     mask = expert_norm[0] if expert_norm is not None else ()
@@ -116,15 +127,18 @@ def global_norm(grads, *, expert_norm=None, group=None, tp=None, tp_split=None, 
         pp, pp_split = None, ()
     if data is None or data.world == 1 or not data_split:
         data, data_split = None, ()
+    if ep is None or ep.world == 1 or not ep_split:
+        ep, ep_split = None, ()
     expert = [i < len(mask) and mask[i] for i in range(n)]
     split = [i < len(tp_split) and tp_split[i] for i in range(n)]
     staged = [i < len(pp_split) and pp_split[i] for i in range(n)]
     tiled = [i < len(data_split) and data_split[i] for i in range(n)]
+    vocab = [i < len(ep_split) and ep_split[i] for i in range(n)]
     sums = [expert_slice_sumsq(g, inv, group, tp if split[i] else None,
                                pp if staged[i] else None, data if tiled[i] else None)
             if expert[i] else torch.sum(torch.square(g.float()))
             for i, g in enumerate(leaves(grads))]
-    for g_, flags in ((tp, split), (pp, staged), (data, tiled)):
+    for g_, flags in ((tp, split), (pp, staged), (data, tiled), (ep, vocab)):
         shards = [i for i, sp in enumerate(flags) if sp and not expert[i]]
         if shards:
             tot = all_reduce_sum(torch.stack([sums[i] for i in shards]), g_)
@@ -175,19 +189,22 @@ def adamw_leaf_(g, master, m, v, **hyper) -> None:
 def adamw_update(grads, state: AdamWState, *, lr, beta1=0.9, beta2=0.99, eps=1e-8,
                  weight_decay=0.1, grad_clip=1.0, clip_enabled=None,
                  param_dtype=torch.float32, expert_norm=None, group=None, tp=None,
-                 tp_split=None, pp=None, pp_split=None, data=None, data_split=None):
+                 tp_split=None, pp=None, pp_split=None, data=None, data_split=None, ep=None,
+                 ep_split=None):
     """One optimizer step; ``lr`` and ``clip_enabled`` may be tensors. The
     state's master, m and v are updated in place. ``group``: the EP group
     whose ranks hold the slices of the leaves flagged in ``expert_norm``;
     ``tp``: the 'tp' group whose ranks hold shards of the leaves flagged
     in ``tp_split``, ``pp``: the 'pp' group whose stages hold the layers
     of the leaves flagged in ``pp_split``, ``data``: the 'data' group whose
-    ranks hold the fsdp tiles of the leaves flagged in ``data_split``
-    (``global_norm``). Returns (new_params in
+    ranks hold the fsdp tiles of the leaves flagged in ``data_split``,
+    ``ep``: the 'ep' group whose ranks hold the vocab rows of the tables
+    flagged in ``ep_split`` (``global_norm``). Returns (new_params in
     ``param_dtype``, new_state, metrics {grad_norm, clip_scale})."""
     step = state.step + 1
     gnorm = global_norm(grads, expert_norm=expert_norm, group=group, tp=tp, tp_split=tp_split,
-                        pp=pp, pp_split=pp_split, data=data, data_split=data_split)
+                        pp=pp, pp_split=pp_split, data=data, data_split=data_split, ep=ep,
+                        ep_split=ep_split)
     scale = clip_scale(gnorm, grad_clip, clip_enabled)
     t = step.to(torch.float32)
     bc1 = 1.0 - beta1 ** t

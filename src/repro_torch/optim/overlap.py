@@ -21,9 +21,12 @@ mismatch between grads/params and states; here each is one explicit
 * the global grad norm comes from the shards: one scalar all-reduce per
   distinct state-axis set; the expert stacks take the canonical (L, E)
   slice-sum path (gathered over the axes tiling dims 0 and 1, summed over
-  the rest, over 'data' in rank order, put in global-id order under an
-  expert placement, then reduced in one fixed order), so that the clip
-  scale is the same whichever rank holds an expert;
+  the rest in rank order, 'data' then 'tp', put in global-id order under
+  an expert placement, then reduced in one fixed order), so that the clip
+  scale is the same whichever rank holds an expert. The gradients' own
+  reduce-scatters and all-reduces are gloo's, which may associate an
+  element by its offset once a group has 3 ranks or more: a step is the
+  same bits across an expert move for dp <= 2 alone;
 * ``adamw_leaf`` runs on each shard, in place;
 * the updated master shards are cast to the param dtype and gathered, one
   buffer per bucket, over the bucket's axes, and written into the params
@@ -331,11 +334,11 @@ def overlapped_adamw_update(grads: list, state: AdamWState, params: list, *,
             for a in reversed(spec[d] if d < len(spec) else ()):
                 s = all_gather_dim(s, grid.group((a,)), d)
                 lead.append(a)
-        trail = tuple(a for a in lf.psum_axes if a not in lead and a != "data")
-        if "data" in lf.psum_axes and "data" not in lead:
-            s = sum_in_rank_order(s, grid.group(("data",)))
-        if trail:
-            s = _all_reduce_(s, grid.group(trail))
+        # the other axes in rank order too ('data', then 'tp'): an
+        # all-reduce may associate an element by its offset, which a move
+        # changes
+        for a in sorted((a for a in lf.psum_axes if a not in lead), key=lambda a: a != "data"):
+            s = sum_in_rank_order(s, grid.group((a,)))
         if inv is not None:
             s = torch.gather(s, 1, inv.long())
         total = total + torch.sum(s)

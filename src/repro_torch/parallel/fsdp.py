@@ -39,7 +39,11 @@ twice and once.
   the ones the cast's backward would hand on;
 * backward: each whole gradient rounded to ``reduce_dtype`` (the paper's
   bf16 gradient reduction), packed as the forward unpacked, and one
-  reduce-scatter over 'data' onto the tiles, summed over the ranks.
+  reduce-scatter over 'data' onto the tiles, summed over the ranks. gloo
+  runs it as an all-reduce, which may add an element's values in an order
+  that depends on its offset once 'data' has 3 ranks or more: an expert
+  slice's gradient is the same bits across an expert move for dp <= 2
+  alone.
 
 The collectives are called directly, not through ``parallel.ep``'s taped
 ones: under 'block_sc' a ``CollectiveTape`` would keep the gathered

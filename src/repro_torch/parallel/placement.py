@@ -218,7 +218,9 @@ def apply_placement(state, current: ExpertPlacement, new: ExpertPlacement, *,
     """Move a ``TrainState`` from ``current`` to ``new`` in place: every
     expert stack of the params and of the AdamW master, m and v takes
     ``W_new[l, pos] = W_live[l, rel[l, pos]]`` (``rel =
-    current.relative_to(new)``); the router and the other leaves stay.
+    current.relative_to(new)``); the router and the other leaves stay,
+    also a table that 'ep' splits on its vocab rows (the stacks are found
+    by their path and (L, E) shape, ``is_expert_stack``, not by 'ep').
     Returns (the state, its own tensors; the bytes this rank sent).
 
     Without a grid the stacks are whole and gathered on dim 1. On a

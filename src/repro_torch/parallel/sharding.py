@@ -21,10 +21,15 @@ the lower dim), for the expert stacks, the router, attention, the dense and
 shared MLPs and the SSM mixers' projections; never the embedding and head
 tables, the norms or the other small leaves, and never a stacked layer dim.
 
-The JAX package also splits ``embed/table`` and ``head/table`` on the vocab
-over the model axis; that is a memory layout of its compiler, not part of
-the math, and the port keeps them replicated. It splits the SSM mixers'
-in and out projections over 'tp' too; the port refuses tp for the ssm and
+The embedding and head tables (``embed/table``, ``head/table``, (V_pad,
+d)) are split on their vocab rows over the model axis, the JAX rule's
+``mdl = tp or ep``: over 'tp' where the grid has a 'tp' axis, else over
+'ep'; a table stays whole where that axis does not divide the padded
+vocab (a 'tp' axis that does not divide it leaves it whole, as in JAX,
+with no fall back to 'ep'). Rank k of the axis holds rows ``[k * V_pad /
+n, (k + 1) * V_pad / n)``; the lookup and the cross-entropy over such a
+tile are ``parallel.vocab``'s. The JAX package splits the SSM mixers' in
+and out projections over 'tp' too; the port refuses tp for the ssm and
 hybrid archs (``parallel.plan``) and keeps them whole here.
 
 On a ``ProcessGrid`` the same layout is data, ``param_placements``: per
@@ -33,13 +38,13 @@ JAX ``PartitionSpec``, every dim listed, ``()`` for a whole dim). The
 sharded optimizer (``optim.epso``) takes placements as input, so its
 parity tests can feed it the JAX package's own ``param_specs``.
 ``tile_slices`` says which tile of a global leaf a rank holds under any
-placement: a rank's params (``rank_shard``), the expert slices
-(``expert_shard``), the optimizer shards (``convert``) and the grid
+placement: a rank's params (``rank_shard``), an EP rank's share
+(``ep_shard``), the optimizer shards (``convert``) and the grid
 checkpoints (``checkpoint``) all cut by it.
 """
 from __future__ import annotations
 
-from repro_torch.tree import leaves_with_path, tree_map
+from repro_torch.tree import leaves, tree_map
 
 STACKS = ("gate", "up", "down")
 
@@ -90,14 +95,15 @@ def tile_slices(place, shape, coords: dict, axis_sizes: dict) -> tuple:
     return tuple(out)
 
 
-def expert_shard(params: dict, rank: int, world: int) -> dict:
+def ep_shard(params: dict, rank: int, world: int) -> dict:
     """Rank ``rank``'s share of a parameter tree (or of any tree shaped like
-    it: AdamW master, moments, gradients; or of one MoE block's params)
-    over ``world`` EP ranks: each expert stack's tile of ``param_placements``
-    (a view, no copy), the other leaves as they are."""
+    it: AdamW master, moments, gradients; or of one MoE block's params) over
+    ``world`` EP ranks, the grid ('ep', ``world``) alone: each leaf's tile of
+    ``param_placements`` on it (a view, no copy): the expert stacks' slices
+    and the tables' vocab rows, which the JAX 'ep' role splits too; the
+    other leaves as they are."""
     sizes = {"ep": world}
-    return tree_map(lambda t, place: t[tile_slices(place, t.shape, {"ep": rank}, sizes)]
-                    if any(place) else t, params, param_placements(params, sizes))
+    return rank_shard(params, param_placements(params, sizes), {"ep": rank}, sizes)
 
 
 def stacked_dims(path: str) -> int:
@@ -125,6 +131,24 @@ def _tp_dim(path: str, inner: tuple):
     return None
 
 
+def is_table_path(path: str) -> bool:
+    """True for the embedding and head tables, ``embed/table`` and
+    ``head/table``."""
+    return ("/" + path).endswith(("/embed/table", "/head/table"))
+
+
+def vocab_axis(axis_sizes: dict, vocab_rows: int):
+    """The grid axis that splits the tables' ``vocab_rows`` (the padded
+    vocab), or None: the JAX ``mdl = tp or ep``, 'tp' where the grid has
+    a 'tp' axis of size > 1, else 'ep' where it has one, and only where
+    that axis divides the rows."""
+    for a in ("tp", "ep"):
+        n = axis_sizes.get(a, 1)
+        if n > 1:
+            return a if vocab_rows % n == 0 else None
+    return None
+
+
 def _fsdp_wrapped(path: str, inner: tuple) -> bool:
     """Whether ``fsdp`` may split a leaf over 'data': the leaves the JAX
     ``_param_spec`` passes through ``fsdp_wrap``, matched on the path as
@@ -135,7 +159,7 @@ def _fsdp_wrapped(path: str, inner: tuple) -> bool:
         return True
     if "/moe/router" in p:
         return True
-    if p.endswith(("embed/table", "head/table")):
+    if is_table_path(path):
         return False
     if p.endswith(("/wq", "/wk", "/wv", "/wo")):
         return True
@@ -151,8 +175,9 @@ def param_placements(params: dict, axis_sizes: dict, *, split_experts: bool = Tr
     with a 'pp' axis the leading layer dim of each ``layers/`` leaf on
     ('pp',) where pp divides it, an expert stack's E dim on ('ep',) where
     'ep' is an axis and divides it (not with ``split_experts=False``, the
-    dense MoE path that holds every expert), and with a 'tp' axis each
-    leaf's tp dim (``_tp_dim``) on ('tp',) where tp divides it; with
+    dense MoE path that holds every expert), with a 'tp' axis each
+    leaf's tp dim (``_tp_dim``) on ('tp',) where tp divides it, the
+    tables' vocab rows on ``vocab_axis`` (never on 'data'); with
     ``fsdp`` and a 'data' axis, then, the largest whole per-layer dim that
     dp divides of each leaf ``fsdp_wrap`` takes, on ('data',); every other
     dim and leaf whole."""
@@ -165,6 +190,11 @@ def param_placements(params: dict, axis_sizes: dict, *, split_experts: bool = Tr
         if isinstance(node, dict):
             return {k: walk(v, f"{prefix}/{k}" if prefix else k) for k, v in node.items()}
         place = [()] * len(node.shape)
+        if is_table_path(prefix) and len(node.shape) == 2:
+            ax = vocab_axis(axis_sizes, node.shape[0])
+            if ax is not None:
+                place[0] = (ax,)
+            return tuple(place)
         if n_pp > 1 and prefix.startswith("layers/") and node.shape[0] % n_pp == 0:
             place[0] = ("pp",)
         ax = _expert_axis(prefix, node, n_ep) if n_ep > 1 else None
@@ -194,10 +224,9 @@ def rank_shard(params: dict, place: dict, coords: dict, axis_sizes: dict) -> dic
                     if any(pl) else t, params, place)
 
 
-def replicated_leaves(tree: dict) -> tuple[bool, ...]:
-    """Per leaf of a tree whose expert stacks ``expert_shard`` split, in
-    leaf order: True where every rank holds the whole leaf (its gradient is
-    summed over the ranks), False for the rank's expert slices."""
-    return tuple(not is_expert_stack_path(path) for path, _ in leaves_with_path(tree))
-
-
+def replicated_leaves(place: dict) -> tuple[bool, ...]:
+    """Per leaf of a placement tree (``param_placements``), in leaf order:
+    True where no grid axis splits the leaf, so every rank holds it whole
+    (its gradient is summed over the ranks), False for a tile: the expert
+    slices, the vocab rows of a split table."""
+    return tuple(not any(pl) for pl in leaves(place))

@@ -35,6 +35,14 @@ state is placed by ``opt_sharding_mode`` (paper §3.2, ``optim.epso``):
   back into the params, bucket by bucket (``optim.overlap``, with
   ``ParallelConfig.opt_overlap`` 'off', 'ring', 'xla' or 'auto').
 
+The embedding and head tables are split on their vocab rows over 'tp',
+or over 'ep' without 'tp' (the JAX ``mdl = tp or ep``;
+``param_placements``), and looked up and unembedded over that group
+(``parallel.vocab``). A 'tp'-split table's gradient is the rank's own, as
+any tp shard's; an 'ep'-split table's already covers every 'ep' rank's
+tokens, so it is summed over 'data' and 'pp' alone, and the grad norm
+adds its squares over 'ep'.
+
 An expert placement (``parallel.placement.ExpertPlacement``) runs the
 MoE blocks on stacks stored in placed order (``apply_placement`` moves a
 state there) and takes the expert stacks' grad-norm share in global-id
@@ -112,7 +120,7 @@ from repro_torch.configs.base import ModelConfig, ParallelConfig, TrainConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.model import (PP_ARCH_TYPES, decode_step, embed_tokens, forward,
                                       init_params, lm_head_nll, loss_fn, pipeline_stage_forward,
-                                      prefill_with_cache)
+                                      prefill_with_cache, table_split)
 from repro_torch.core.moe import uses_ep
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update, expert_leaf_mask,
                                warmup_cosine)
@@ -324,7 +332,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
     if fsdp and not {"block", "block_sc"} & set(sac.split(",")):
         refuse(f"fsdp under remat_policy={sac!r} (autograd would keep every layer's "
                f"gathered weights; take 'block' or 'block_sc')", FSDP_ITEM)
-    split_axes = tp_split = pp_split = data_split = gather = None
+    split_axes = tp_split = pp_split = ep_split = data_split = gather = None
     if grid is not None:
         # per leaf, the grid axes splitting it (its gradient is summed over
         # the batch axes that do not), and whether 'tp' does
@@ -333,6 +341,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         split_axes = [{a for e in pl for a in e} for pl in place]
         tp_split = tuple("tp" in ax for ax in split_axes)
         pp_split = tuple("pp" in ax for ax in split_axes)
+        ep_split = tuple("ep" in ax for ax in split_axes)
         if any("data" in ax for ax in split_axes):
             data_split = tuple("data" in ax for ax in split_axes)
             gather = LayerGather(tree, grid.data, rd, cd)
@@ -377,6 +386,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         g_lay = [torch.zeros(p.shape, dtype=torch.float32, device=dev) for p in lay_flat]
         ep = grid.ep if grid is not None else None
         tpg = grid.tp if grid is not None else None
+        vocab = table_split(io, cfg, ep, tpg)
         rows = grid.group(BATCH_AXES) if grid is not None else None
         n_rows = rows.world if rows is not None else 1
         moe = cfg.is_moe
@@ -401,13 +411,13 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
 
         def forward(s, m, x):
             with torch.no_grad():
-                h = embed_tokens(io, x, cfg, compute_dtype=cd) if s == 0 else x
+                h = embed_tokens(io, x, cfg, compute_dtype=cd, vocab=vocab) if s == 0 else x
                 h, aux, z, st = run_stage(stage_tree(s, lay_flat), h)
                 sums[1], sums[2] = sums[1] + aux, sums[2] + z
                 if moe:
                     sums[3], sums[4] = sums[3] + st.counts, sums[4] + st.drops
                 if s == last:
-                    nll, n = lm_head_nll(io, h, mbs[m]["labels"], cfg)
+                    nll, n = lm_head_nll(io, h, mbs[m]["labels"], cfg, vocab)
                     if rows is not None:
                         nll, n = all_reduce_sum(torch.stack([nll, n.float()]), rows).unbind()
                     ntok[m] = torch.clamp(n, min=1)
@@ -419,14 +429,14 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
             inputs = lp_in + io_flat
             with torch.enable_grad():
                 if s == 0:
-                    h = embed_tokens(io_in, x, cfg, compute_dtype=cd)
+                    h = embed_tokens(io_in, x, cfg, compute_dtype=cd, vocab=vocab)
                 else:
                     h = x = x.detach().requires_grad_()
                     inputs.append(x)
                 h, aux, z, _ = run_stage(unflatten(lay, lp_in), h)
                 outs, cots = [], []
                 if s == last:
-                    nll, _ = lm_head_nll(io_in, h, mbs[m]["labels"], cfg)
+                    nll, _ = lm_head_nll(io_in, h, mbs[m]["labels"], cfg, vocab)
                     obj = nll / ntok[m]
                 else:
                     outs, cots, obj = [h], [dy], None
@@ -544,6 +554,7 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
             grads, state.opt, param_dtype=pd, group=grid.ep if sharded else None,
             tp=grid.tp if grid is not None else None, tp_split=tp_split,
             pp=grid.pp if grid is not None else None, pp_split=pp_split,
+            ep=grid.ep if grid is not None else None, ep_split=ep_split,
             data=grid.data if data_split else None, data_split=data_split, **hyper)
         return TrainState(new_params, new_opt), {"lr": lr, **om}
 
@@ -558,11 +569,17 @@ def make_train_step(cfg: ModelConfig, parallel: ParallelConfig, train: TrainConf
         """Sum each gradient over the axes of ``SUM_AXES`` that do not split
         its leaf, in ``dtype``, one flat buffer per set of axes: the whole
         leaves' over ('data', 'pp', 'ep'), the layer tiles' over ('data',
-        'ep'), the expert slices' over 'data', the fsdp tiles' (their sum
+        'ep'), the expert slices' over 'data', a table split on 'ep' over
+        ('data', 'pp') (its gradient already covers every 'ep' rank's
+        tokens, ``parallel.vocab``), the fsdp tiles' (their sum
         over 'data' was the gather's reduce-scatter) over 'ep' where it
         does not split them: a layer tile's over 'ep', an expert stack's
         over none. Never over 'tp' (not in ``SUM_AXES``), and a stage's
-        layers never over 'pp' (their placement uses it)."""
+        layers never over 'pp' (their placement uses it). The sums are
+        gloo all-reduces, which may add a buffer's elements in an order
+        that depends on their offset once a group has 3 ranks or more: an
+        expert slice's sum is the same bits across an expert move for dp
+        <= 2 alone."""
         by_axes = {}
         for g, split in zip(leaves(grads), split_axes):
             by_axes.setdefault(tuple(a for a in SUM_AXES if a not in split), []).append(g)

@@ -26,7 +26,8 @@ from repro_torch.checkpoint import (Checkpointer, broadcast_params,  # noqa: E40
                                     dp_scattered_writers, load_pytree, save_pytree)
 from repro_torch.configs import TrainConfig, get_config, reduced  # noqa: E402
 from repro_torch.convert import opt_state_from_jax, params_from_jax  # noqa: E402
-from repro_torch.parallel import expert_shard, replicated_leaves, spawn  # noqa: E402
+from repro_torch.parallel import ep_shard, replicated_leaves, spawn  # noqa: E402
+from repro_torch.parallel.sharding import param_placements  # noqa: E402
 from repro_torch.train import TrainState, init_state  # noqa: E402
 from repro_torch.tree import keyed_leaves, leaves, leaves_with_path  # noqa: E402
 
@@ -255,17 +256,20 @@ def test_manifest_placement_raises_plan_is_ignored(tmp_path, extra, placed):
 def test_broadcast_params():
     """Without a group the identity; over 2 gloo ranks whose leaves differ,
     rank 0's value of every replicated leaf reaches rank 1, and each rank
-    keeps its own expert slices."""
+    keeps its own tiles: the expert slices and the tables' vocab rows."""
     _, tc = _cfgs()
     params = init_state(tc, TrainConfig(), seed=0, device="cpu").params
     assert broadcast_params(params) is params
+    place = param_placements(params, {"ep": 2})
     out = spawn(ranks.broadcast_rank, 2, args=(params,), device="cpu", timeout_s=120)
     for r, got in enumerate(out):
-        mine = expert_shard(params, r, 2)
-        for (path, g), keep, m in zip(leaves_with_path(got), replicated_leaves(got),
+        mine = ep_shard(params, r, 2)
+        for (path, g), keep, m in zip(leaves_with_path(got), replicated_leaves(place),
                                       leaves(mine)):
             assert torch.equal(g, m if keep else m + r), (r, path)
-    assert not all(replicated_leaves(params))
+    tiles = {p for (p, _), keep in zip(leaves_with_path(params), replicated_leaves(place))
+             if not keep}
+    assert {"embed/table", "layers/moe/gate"} <= tiles
 
 
 def test_plan_in_the_manifest_and_its_refusal_match_jax(tmp_path):

@@ -46,7 +46,8 @@ from repro_torch.convert import opt_state_from_jax, params_from_jax  # noqa: E40
 from repro_torch.core import moe as tmoe  # noqa: E402
 from repro_torch.core.router import RouterOut  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.parallel import expert_shard, replicated_leaves, spawn  # noqa: E402
+from repro_torch.parallel import ep_shard, replicated_leaves, spawn  # noqa: E402
+from repro_torch.parallel.sharding import param_placements, tile_slices  # noqa: E402
 from repro_torch.tree import leaves_with_path  # noqa: E402
 
 import torch_ep_ranks as ranks  # noqa: E402
@@ -200,7 +201,7 @@ def test_ep_block_matches_jax(world):
 
 
 def test_ep_falls_back_to_dense_when_experts_do_not_divide():
-    """6 experts on 4 ranks: ``expert_shard`` keeps the stacks whole and the
+    """6 experts on 4 ranks: ``ep_shard`` keeps the stacks whole and the
     block runs the dense path on each rank's tokens, with the global
     batch's aux, z and stats, as the JAX package's auto-sharded fallback;
     every gradient but x's is summed over the ranks."""
@@ -224,18 +225,23 @@ def test_ep_falls_back_to_dense_when_experts_do_not_divide():
 
 def test_expert_shard_layout():
     """Rank r holds experts [r * E / world, (r + 1) * E / world) of each
-    routed stack; the router, attention and embeddings stay whole; a stack
-    whose E does not divide stays whole."""
+    routed stack and vocab rows [r * V / world, (r + 1) * V / world) of the
+    embedding and head tables (the JAX 'ep' role splits them too); the
+    router and attention stay whole; a stack whose E does not divide stays
+    whole."""
     _, tc = _cfgs()
     from repro_torch.models import init_params
     p = init_params(tc, seed=0, device="cpu")
-    s = expert_shard(p, 1, 4)
+    s = ep_shard(p, 1, 4)
     assert torch.equal(s["layers"]["moe"]["up"], p["layers"]["moe"]["up"][:, 2:4])
     assert s["layers"]["moe"]["router"] is p["layers"]["moe"]["router"]
-    assert s["embed"]["table"] is p["embed"]["table"]
-    assert expert_shard(p, 1, 3)["layers"]["moe"]["gate"] is p["layers"]["moe"]["gate"]
-    rep = dict(zip((k for k, _ in leaves_with_path(s)), replicated_leaves(s)))
-    assert [k for k, v in rep.items() if not v] == ["layers/moe/down", "layers/moe/gate",
+    for t in ("embed", "head"):
+        assert torch.equal(s[t]["table"], p[t]["table"][64:128]), t
+    assert ep_shard(p, 1, 3)["layers"]["moe"]["gate"] is p["layers"]["moe"]["gate"]
+    rep = dict(zip((k for k, _ in leaves_with_path(s)),
+                   replicated_leaves(param_placements(p, {"ep": 4}))))
+    assert [k for k, v in rep.items() if not v] == ["embed/table", "head/table",
+                                                     "layers/moe/down", "layers/moe/gate",
                                                      "layers/moe/up"]
 
 
@@ -261,8 +267,9 @@ def test_ep_train_steps_match_jax(microbatches):
     """Three steps of 2 EP ranks (reduced Mula MoE, 8 experts, dropless)
     against three JAX single-device steps of 2 * microbatches microbatches,
     from the same params and AdamW state: every metric on every rank, then
-    the params and both moments, each rank's expert slices against the
-    JAX stacks' slices. warmup_steps=1: step 0 does not clip, steps 1-2
+    the params and both moments, each rank's tiles (its expert slices,
+    its vocab rows of the tables) against the JAX arrays' tiles.
+    warmup_steps=1: step 0 does not clip, steps 1-2
     do."""
     world = 2
     jc, tc = _cfgs(dispatch="dropless")
@@ -295,15 +302,14 @@ def test_ep_train_steps_match_jax(microbatches):
                 np.testing.assert_allclose(r["metrics"][i][k].numpy(), np.asarray(jm[k]), **TOL,
                                            err_msg=f"step {i} rank {rank} {k}")
             assert torch.equal(res[0]["metrics"][i][k], res[1]["metrics"][i][k]), k
-    EL = jc.moe.num_experts // world
+    place = dict(leaves_with_path(param_placements(params, {"ep": world})))
     for what, jtree in (("params", jstate.params), ("m", jstate.opt.m), ("v", jstate.opt.v)):
         jl = _jleaves(jtree)
         for rank, r in enumerate(res):
             assert sorted(r[what]) == sorted(jl)
             for path, leaf in r[what].items():
-                ref = jl[path]
-                if path.split("/")[-2:] in (["moe", "gate"], ["moe", "up"], ["moe", "down"]):
-                    ref = ref[:, rank * EL:(rank + 1) * EL]
+                ref = jl[path][tile_slices(place[path], jl[path].shape, {"ep": rank},
+                                           {"ep": world})]
                 np.testing.assert_allclose(leaf.numpy(), ref, **TOL,
                                            err_msg=f"{what} rank {rank} {path}")
     assert all(r["step"] == 3 for r in res)

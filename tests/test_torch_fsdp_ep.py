@@ -9,9 +9,10 @@ layout and the launcher's ``--parallel dp=2,ep=2,fsdp``.
   plans on those specs the JAX package's, for reduced Mula-7B-A1B and
   Mula-1B; ``init_state(fsdp=True)`` under 'so' and 'epso' cuts the shards
   ``opt_state_for_rank`` cuts from the one-process state; full-width
-  Mula-7B-A1B at 2 layers holds 424,814,592 param elements a rank and
-  5,097,775,104 ('none'), 3,858,296,832 ('so') and 3,137,107,968 ('epso')
-  fp32 state bytes (meta tensors).
+  Mula-7B-A1B at 2 layers holds 321,529,856 param elements a rank and
+  3,858,358,272 ('none'), 3,238,588,416 ('so') and 3,137,107,968 ('epso')
+  fp32 state bytes (meta tensors; the tables' vocab rows split over
+  'ep').
 * Step: one spawn of 4 gloo ranks (in a thread, beside the JAX oracles)
   runs every case: reduced Mula-7B-A1B (dropless, router terms on) and
   reduced Mula-1B, 'none', 'so' (overlap 'off'), 'epso' ('ring' and
@@ -90,8 +91,8 @@ SAME_STEP_RTOL = 1e-5
 # full-width Mula-7B-A1B at 2 of its 16 layers on 2 x 2 with fsdp: param
 # elements and fp32 state bytes a rank (the H100 smoke's fsdp_ep_train
 # holds its measured 'epso' ones to these)
-FULL_PARAM_ELEMS = 424_814_592
-FULL_STATE_BYTES = {"none": 5_097_775_104, "so": 3_858_296_832, "epso": 3_137_107_968}
+FULL_PARAM_ELEMS = 321_529_856
+FULL_STATE_BYTES = {"none": 3_858_358_272, "so": 3_238_588_416, "epso": 3_137_107_968}
 CKPT_SPEC = "dp=2,ep=2,opt=epso,fsdp"
 TABLES = ("embed/table", "head/table")
 
@@ -122,7 +123,8 @@ def _place(tc):
 def test_fsdp_ep_layout_matches_jax(arch):
     """On the plan mesh ('data', 2) x ('ep', 2): the fsdp param placements
     leaf by leaf the JAX fsdp ``param_specs`` (an expert stack keeps 'ep' on
-    E and takes 'data' on another dim, never the embedding or head); the
+    E and takes 'data' on another dim; the embedding and head take 'ep' on
+    their vocab rows and never 'data'); the
     optimizer specs, state bytes and update plans ('none', 'so', 'epso')
     the JAX package's on them."""
     jc, tc = _cfgs(arch)
@@ -135,12 +137,9 @@ def test_fsdp_ep_layout_matches_jax(arch):
     tflat = leaves_with_path(got)
     assert len(jflat) == len(tflat)
     for js, (path, ts) in zip(jflat, tflat):
+        assert ts == js, path
         if path in TABLES:
-            # the JAX rule splits the tables' vocab over the model axis, the
-            # port keeps them whole (ROADMAP.md §1 item 5.5); fsdp leaves them
-            assert ts == ((), ()) and "data" not in {a for e in js for a in e}, path
-        else:
-            assert ts == js, path
+            assert ts == (("ep",), ()), path
     split = {p: pl for p, pl in tflat if any("data" in e for e in pl)}
     assert split and not any(p in TABLES for p in split)
     if jc.moe is not None:
@@ -305,9 +304,10 @@ def test_fsdp_ep_data_collectives_are_exact(fsdp_ep_runs, case):
     """The all-gathers and reduce-scatters over the 'data' group of STEPS
     steps: the gather's (one a layer and microbatch in the forward, one in
     the recompute, also under 'block_sc'), its reduce-scatters (one a
-    layer), and under 'so' one reduce-scatter for each update bucket
-    gathered over 'data' alone (the leaves fsdp leaves whole) and one
-    all-gather for it (blocking under 'off'); in every mode one all-gather
+    layer), and under 'so' and 'epso' one reduce-scatter for each update
+    bucket gathered over 'data' alone (under 'so' the leaves fsdp leaves
+    whole, under 'epso' the tables, which 'ep' splits) and one all-gather
+    for it (blocking under 'off'); in every mode one all-gather
     a step of each expert stack's grad-norm slice sums, added over 'data'
     in rank order; its counts and bytes agree with the gather's
     ``stats``."""
@@ -325,7 +325,7 @@ def test_fsdp_ep_data_collectives_are_exact(fsdp_ep_runs, case):
     for r in fsdp_ep_runs["ranks"]:
         run = r[case + (True,)]
         buckets = run["data_buckets"] * STEPS
-        assert (case[1] == "so") == (buckets > 0)
+        assert (case[1] != "none") == (buckets > 0)
         assert run["data_calls"]["all_gather"] == 2 * n + stacks + (
             buckets if run["impl"] != "ring" else 0), run["data_calls"]
         assert run["data_calls"]["reduce_scatter"] == n + buckets, run["data_calls"]
@@ -336,8 +336,9 @@ def test_fsdp_ep_data_collectives_are_exact(fsdp_ep_runs, case):
 def _grad_norm_of_update(tc):
     """The grad norm of ``torch_ep_ranks.fsdp_ep_grad`` gradients summed
     as the step sums them: a leaf each rank holds whole over every rank, a
-    layer tile ('data') over 'ep' alone, an expert stack's tile ('data' and
-    'ep') not at all; each distinct tile counted once."""
+    layer tile ('data') over 'ep' alone, a table's vocab rows ('ep') over
+    'data' alone, an expert stack's tile ('data' and 'ep') not at all;
+    each distinct tile counted once."""
     vals = {(d, e): d + 1.0 + 10.0 * e for d in range(DP) for e in range(EP)}
     numel = {path: t.numel() for path, t in leaves_with_path(init_params(tc, device="meta"))}
     sq = 0.0
@@ -348,6 +349,8 @@ def _grad_norm_of_update(tc):
             sq += n * sum(vals.values()) ** 2
         elif axes == {"data"}:
             sq += n / DP * sum((vals[d, 0] + vals[d, 1]) ** 2 for d in range(DP))
+        elif axes == {"ep"}:
+            sq += n / EP * sum(sum(vals[d, e] for d in range(DP)) ** 2 for e in range(EP))
         else:
             assert axes == {"data", "ep"}, path
             sq += n / (DP * EP) * sum(v * v for v in vals.values())
@@ -359,8 +362,9 @@ def test_fsdp_tiles_take_no_second_sum_over_data(fsdp_ep_runs, arch, mode, overl
     """``train_step.update`` on gradients of (d + 1) + 10 e at ('data' d,
     'ep' e): every rank's grad norm is that of the gradients summed as the
     step must sum them (a layer tile's sum over 'data' was the gather's
-    reduce-scatter, so it takes 'ep' alone; an expert stack's tile none),
-    in both update paths; under 'none' the summed gradients themselves."""
+    reduce-scatter, so it takes 'ep' alone; a table's vocab rows, split on
+    'ep', 'data' alone; an expert stack's tile none), in both update paths;
+    under 'none' the summed gradients themselves."""
     tc = fsdp_ep_runs["cfgs"][arch][1]
     want = _grad_norm_of_update(tc)
     place = _place(tc)
@@ -374,6 +378,7 @@ def test_fsdp_tiles_take_no_second_sum_over_data(fsdp_ep_runs, arch, mode, overl
         for path, v in up["grads"].items():
             axes = frozenset(a for e in place[path] for a in e)
             expect = {frozenset(): 26.0, frozenset({"data"}): 2 * (c["data"] + 1.0) + 10.0,
+                      frozenset({"ep"}): sum(d + 1.0 + 10.0 * c["ep"] for d in range(DP)),
                       frozenset({"data", "ep"}): mine}[axes]
             assert v.tolist() == [expect], (rank, path, v)
 

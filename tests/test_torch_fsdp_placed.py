@@ -74,8 +74,7 @@ from repro_torch.tree import keyed_leaves, leaves, leaves_with_path  # noqa: E40
 
 import torch_ep_ranks as ranks  # noqa: E402
 from test_torch_epso import F32, _placements  # noqa: E402
-from test_torch_fsdp_grid import (TABLES, _plan_rules, _sizes,  # noqa: E402
-                                  _update_data_calls)
+from test_torch_fsdp_grid import _plan_rules, _sizes, _update_data_calls  # noqa: E402
 
 EP_GRID, TP_GRID = (2, 1, 2, 1), (2, 1, 2, 2)
 STEPS, BATCH, SEQ = 2, 8, 16
@@ -130,7 +129,7 @@ def _cfgs():
 @pytest.mark.parametrize("shape", [EP_GRID, TP_GRID], ids=["dp2ep2", "dp2ep2tp2"])
 def test_fsdp_placed_layout_matches_jax(shape):
     """Full-size Mula-7B-A1B: the fsdp param placements the JAX fsdp
-    ``param_specs`` leaf by leaf but the tables'; an expert stack's 'data'
+    ``param_specs`` leaf by leaf, the tables' too; an expert stack's 'data'
     tile on a per-slice dim, and in 'none', 'so' and 'epso' its state's
     expert dim on ('ep',) alone, so that a placement moves whole (layer,
     expert) tiles over 'ep' and leaves their 'data' cut alone."""
@@ -140,8 +139,7 @@ def test_fsdp_placed_layout_matches_jax(shape):
     got = placements(tc, init_params(tc, device="meta"), sizes, fsdp=True)
     want = leaves(_placements(param_specs(shapes, _plan_rules(jc, shape)), shapes))
     for (path, g), w in zip(leaves_with_path(got), want):
-        if path not in TABLES:
-            assert g == w, (path, g, w)
+        assert g == w, (path, g, w)
     for mode in ("none", "so", "epso"):
         layout = state_layout(tc, sizes, mode, fsdp=True)
         stacks = [(k, pl) for k, (_, pl) in layout.items() if k.endswith(
@@ -208,6 +206,17 @@ def test_fsdp_placed_step_matches_the_placed_step_without_fsdp(placed_runs, case
         for g, f in zip(got, runs[0]["placed"]):
             assert all(torch.equal(g[k], f[k]) for k in g)
         assert any(m["clip_scale"] < 1 for m in got)
+
+
+def test_expert_slice_norm_is_the_same_at_every_position(placed_runs):
+    """The grad norm's slice-sum total (``optim.adamw.reduce_slice_sums``)
+    on a 4-rank 'tp' group whose ranks hold 1, 1e8, -1e8 and 3 at one
+    (layer, expert) position of an (L, E) tensor: the same bits at two
+    positions, the ranks' values added in rank order (3; a gloo all-reduce
+    gave 0, 1 or 4 by the offset), so a move cannot change it."""
+    for r in placed_runs["ranks4"]:
+        a, b = r["norm_positions"]
+        assert torch.equal(a, b) and a.item() == 3.0
 
 
 @pytest.mark.parametrize("case", CASES4 + CASES8, ids=_ids)

@@ -36,7 +36,10 @@ from repro.parallel.sharding import ShardingRules, param_specs  # noqa: E402
 from repro_torch.configs import ParallelConfig, TrainConfig  # noqa: E402
 from repro_torch.configs import get_config as tget, reduced as treduced  # noqa: E402
 from repro_torch.optim import overlap as toverlap  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
 from repro_torch.train import make_train_step  # noqa: E402
+from repro_torch.train.trainer import placements  # noqa: E402
+from repro_torch.tree import leaves_with_path  # noqa: E402
 
 from test_torch_epso import check_against_jax, run_grid_against_jax  # noqa: E402
 
@@ -127,14 +130,17 @@ def test_grid_2x2_all_modes_match_jax():
                 np.testing.assert_allclose(leaf.numpy(), r[base]["params"][path].numpy(),
                                            rtol=1e-5, atol=1e-6,
                                            err_msg=f"{run} rank {rank} {path}")
-    # the replicated leaves are equal on every rank, each expert slice on the
-    # ranks that hold it (the two 'data' replicas)
+    # the replicated leaves are equal on every rank, each tile 'ep' cuts (an
+    # expert slice, a table's vocab rows) on the ranks that hold it (the two
+    # 'data' replicas)
+    on_ep = {path for path, pl in leaves_with_path(placements(
+        tc, init_params(tc, device="meta"), {"data": dp, "ep": ep})) if any("ep" in e for e in pl)}
+    assert {"embed/table", "layers/moe/gate"} <= on_ep
     for run in RUNS_2X2:
         for rank, r in enumerate(res):
             twin = res[(rank + ep) % (dp * ep)][run]
             for path, leaf in r[run]["params"].items():
-                other = twin["params"][path] if "/moe/" in path and path.split("/")[-1] in (
-                    "gate", "up", "down") else res[0][run]["params"][path]
+                other = (twin if path in on_ep else res[0][run])["params"][path]
                 assert torch.equal(leaf, other), (run, rank, path)
     sizes = [res[0][run]["state_bytes"] for run in RUNS_2X2]
     assert sizes[0] == 2 * sizes[1] and sizes[2] == sizes[3] < sizes[1]

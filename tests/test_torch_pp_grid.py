@@ -31,9 +31,8 @@ step (``tests/test_torch_pp_train.py`` holds that one to the JAX PP step):
   and under 1f1b stage 0 never more than pp saved stage inputs;
 * placements and state bytes of full-width Mula-7B-A1B on ('data', 'pp',
   'ep', 'tp') meshes equal the JAX plan's ``param_specs`` and
-  ``state_bytes_per_device``, the embedding and head tables excepted (the
-  JAX plan splits them on the vocab over the model axis, the port keeps
-  them whole, ROADMAP.md §1 item 5.5).
+  ``state_bytes_per_device``, the embedding and head tables' vocab split
+  over the model axis ('tp', else 'ep') too.
 
 Each world size spawns once (two spawns, run side by side; the block
 cases a third), every case a grid re-cut from the same processes
@@ -71,7 +70,6 @@ from test_torch_epso import _placements  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 F32 = dict(param_dtype="float32", compute_dtype="float32", grad_reduce_dtype="float32")
-TABLES = ("embed/table", "head/table")
 MODES = ("none", "so", "epso")
 BATCH, SEQ = 8, 16
 TRAIN = TrainConfig(seq_len=SEQ, global_batch=BATCH, warmup_steps=1, total_steps=10,
@@ -285,11 +283,10 @@ def _plan_rules(cfg, dp, pp, ep, tp):
 @pytest.mark.parametrize("grid", [(1, 2, 1, 1), (2, 2, 1, 1), (1, 2, 2, 1), (1, 2, 1, 2),
                                   (1, 4, 1, 1), (2, 2, 2, 2)])
 def test_placements_and_state_bytes_match_jax_plan(grid):
-    """Full-width Mula-7B-A1B at 4 layers: every leaf's placement but the
-    tables' is the JAX plan's (the layer stacks' leading dim on 'pp'); the
-    per-rank state bytes under 'epso' are the JAX plan's, and under 'none'
-    and 'so' exceed them by exactly the tables' share the JAX plan splits
-    over the model axis ('tp', else 'ep')."""
+    """Full-width Mula-7B-A1B at 4 layers: every leaf's placement is the
+    JAX plan's (the layer stacks' leading dim on 'pp', the tables' vocab
+    rows on the model axis, 'tp', else 'ep'); the per-rank state bytes are
+    the JAX plan's in 'none', 'so' and 'epso'."""
     dp, pp, ep, tp = grid
     jc, tc = (dataclasses.replace(get("mula-7b-a1b"), num_layers=4) for get in (jget, tget))
     shapes = jax.eval_shape(lambda: jinit_params(jax.random.PRNGKey(0), jc))
@@ -299,19 +296,9 @@ def test_placements_and_state_bytes_match_jax_plan(grid):
     want = leaves(_placements(param_specs(shapes, rules), shapes))
     staged = 0
     for (path, g), w in zip(leaves_with_path(place), want):
-        if path in TABLES:
-            assert g == ((),) * len(g), path
-            continue
         assert g == w, (grid, path, g, w)
         staged += path.startswith("layers/") and g[0] == ("pp",)
     assert staged == len([p for p, _ in leaves_with_path(meta) if p.startswith("layers/")])
-    tables = sum(t.numel() for path, t in leaves_with_path(meta) if path in TABLES)
-    mdl = tp if tp > 1 else ep
     for mode in MODES:
         got = tepso.state_bytes_per_device(meta, place, sizes, mode)
-        jwant = jepso.state_bytes_per_device(shapes, rules, mode)
-        if mode == "epso":
-            assert got == jwant, (grid, mode)
-            continue
-        share = dp if mode == "so" else 1
-        assert got - jwant == 12 * (tables // share - tables // (share * mdl)), (grid, mode)
+        assert got == jepso.state_bytes_per_device(shapes, rules, mode), (grid, mode)

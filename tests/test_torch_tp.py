@@ -4,8 +4,8 @@ package, float32.
 
 * ``param_placements`` (through ``train.placements``) leaf by leaf against
   the JAX ``param_specs`` on ('data', 'ep', 'tp') plan meshes for Mula-1B
-  and Mula-7B-A1B at full width, ``embed/table`` and ``head/table``
-  excepted (the port keeps them whole, ROADMAP.md §1 item 5.5).
+  and Mula-7B-A1B at full width, ``embed/table`` and ``head/table`` (their
+  vocab rows on 'tp', else 'ep') too.
 * ``loss_fn`` and every leaf's gradient on (1, 1, 2), (1, 2, 2) and (2, 1,
   2) grids of CPU ranks over gloo against the JAX ``loss_fn`` on one
   device over the whole batch, atol = rtol = 1e-4: the shares of the ranks
@@ -17,9 +17,8 @@ package, float32.
   (2, 1, 2) in 'so' and 'epso' (with a shared expert) against the JAX step
   with dp * ep microbatches, atol = rtol = 1e-4: metrics, every rank's
   params and the gathered master, m and v.
-* The per-rank state bytes: 'epso' equal to the JAX EPSO plan's on the
-  same mesh; 'none' and 'so' differ from the JAX plan's by the vocab split
-  of the embedding and head tables alone.
+* The per-rank state bytes in 'none', 'so' and 'epso' equal to the JAX
+  plan's on the same mesh.
 """
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
@@ -52,9 +51,6 @@ import torch_ep_ranks as ranks  # noqa: E402
 from test_torch_epso import (TIMEOUT_S, TOL, _np, _placements, check_against_jax,  # noqa: E402
                              run_grid_against_jax)
 
-TABLES = ("embed/table", "head/table")
-
-
 def _plan_rules(cfg, dp, ep, tp):
     """The JAX rules of a ('data', 'ep', 'tp') plan mesh, its size-1 axes
     dropped as ``ParallelPlan.mesh_axes`` drops them."""
@@ -71,9 +67,9 @@ MESHES = [(2, 2, 2), (1, 2, 2), (1, 1, 4), (2, 1, 2), (1, 4, 2)]
 
 @pytest.mark.parametrize("arch", ["mula-1b", "mula-7b-a1b"])
 def test_param_placements_match_jax(arch):
-    """Leaf by leaf, the port's placement of every full-width leaf but the
-    embedding and head tables is the JAX plan's on each mesh (the dense
-    model on the meshes without an 'ep' axis)."""
+    """Leaf by leaf, the port's placement of every full-width leaf, the
+    embedding and head tables' vocab split too, is the JAX plan's on each
+    mesh (the dense model on the meshes without an 'ep' axis)."""
     jc, tc = jget(arch), tget(arch)
     shapes = jax.eval_shape(lambda: jinit_params(jax.random.PRNGKey(0), jc))
     meta = init_params(tc, device="meta")
@@ -86,9 +82,6 @@ def test_param_placements_match_jax(arch):
         got = leaves_with_path(placements(tc, meta, sizes))
         assert len(want) == len(got)
         for (path, g), w in zip(got, want):
-            if path in TABLES:
-                assert g == ((),) * len(g), path
-                continue
             assert g == w, ((dp, ep, tp), path, g, w)
             checked += any(g)
     assert checked > 0
@@ -178,22 +171,14 @@ def test_train_steps_match_jax(grid, runs, moe_kw):
 @pytest.mark.parametrize("grid", [(1, 2, 2), (2, 2, 2), (1, 1, 4), (2, 1, 2)])
 def test_state_bytes_match_jax_plan(grid):
     """Full-width Mula-7B-A1B at 2 layers: the per-rank bytes of master, m
-    and v under 'epso' are the JAX EPSO plan's on the same mesh; under
-    'none' and 'so' they exceed the JAX plan's by exactly the tables' share
-    that the JAX plan splits on the vocab over 'tp' and the port keeps
-    whole."""
+    and v are the JAX plan's on the same mesh in 'none', 'so' and 'epso'
+    (the tables split on the vocab over 'tp', else 'ep', in both)."""
     dp, ep, tp = grid
     jc, tc = (dataclasses.replace(get("mula-7b-a1b"), num_layers=2) for get in (jget, tget))
     shapes = jax.eval_shape(lambda: jinit_params(jax.random.PRNGKey(0), jc))
     rules, sizes = _plan_rules(jc, dp, ep, tp)
     meta = init_params(tc, device="meta")
     place = placements(tc, meta, sizes)
-    tables = sum(t.numel() for path, t in leaves_with_path(meta) if path in TABLES)
     for mode in ("none", "so", "epso"):
         got = tepso.state_bytes_per_device(meta, place, sizes, mode)
-        want = jepso.state_bytes_per_device(shapes, rules, mode)
-        if mode == "epso":
-            assert got == want, (grid, mode)
-            continue
-        share = dp if mode == "so" else 1
-        assert got - want == 12 * (tables // share - tables // (share * tp)), (grid, mode)
+        assert got == jepso.state_bytes_per_device(shapes, rules, mode), (grid, mode)

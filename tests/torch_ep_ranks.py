@@ -8,7 +8,8 @@ from repro_torch.configs import ParallelConfig
 from repro_torch.convert import opt_state_shard
 from repro_torch.core import moe as tmoe
 from repro_torch.models import loss_fn
-from repro_torch.parallel import expert_shard
+from repro_torch.parallel import ep_shard
+from repro_torch.parallel.sharding import param_placements
 from repro_torch.train import TrainState, make_train_step
 from repro_torch.tree import leaves_with_path
 
@@ -24,7 +25,7 @@ def block_rank(group, tc, tp, x, ct, placement=None):
     rank, world, dev = group.rank, group.world, group.device
     x, ct = x.to(dev), ct.to(dev)
     p = {k: v.to(dev).clone().requires_grad_()
-         for k, v in expert_shard({"moe": tp}, rank, world)["moe"].items()}
+         for k, v in ep_shard({"moe": tp}, rank, world)["moe"].items()}
     rows = slice(rank * x.shape[0] // world, (rank + 1) * x.shape[0] // world)
     xl = x[rows].clone().requires_grad_()
     out, aux, z, st = tmoe.sparse_moe_block(p, xl, tc, ep_group=group, placement=placement)
@@ -39,7 +40,7 @@ def train_rank(group, tc, train, nmb, params, opt, batches):
     microbatches per step, one step per batch on its rows; the metrics and
     the state after the steps."""
     rank, world = group.rank, group.world
-    state = TrainState(expert_shard(params, rank, world), opt_state_shard(opt, rank, world))
+    state = TrainState(ep_shard(params, rank, world), opt_state_shard(opt, rank, world))
     step = make_train_step(tc, ParallelConfig(microbatches=nmb), train, ep_group=group)
     metrics = []
     for b in batches:
@@ -55,7 +56,7 @@ def loss_rank(group, tc, params, batch):
     """One rank: ``loss_fn`` on its rows; its share and the metrics."""
     n = batch["tokens"].shape[0] // group.world
     rows = slice(group.rank * n, (group.rank + 1) * n)
-    share, m = loss_fn(expert_shard(params, group.rank, group.world),
+    share, m = loss_fn(ep_shard(params, group.rank, group.world),
                        {k: v[rows] for k, v in batch.items()}, tc, compute_dtype=torch.float32,
                        ep_group=group)
     return {"share": share, **m}
@@ -70,12 +71,13 @@ def fail_on_rank_1(group):
 
 def broadcast_rank(group, params):
     """Rank r's share of ``params`` with r added to every leaf, then
-    ``checkpoint.broadcast_params`` over the group."""
+    ``checkpoint.broadcast_params`` over the group, on the share's
+    placement."""
     from repro_torch.checkpoint import broadcast_params
     from repro_torch.tree import tree_map
     mine = tree_map(lambda t: t.clone() + group.rank,
-                    expert_shard(params, group.rank, group.world))
-    return broadcast_params(mine, group)
+                    ep_shard(params, group.rank, group.world))
+    return broadcast_params(mine, group, param_placements(params, {"ep": group.world}))
 
 
 def grid_rows(grid, b: dict) -> dict:
@@ -355,7 +357,7 @@ def whole_pool_block_rank(world, tc_by_name, p_by_name, x, ct, cases):
         rows = grid.group(BATCH_AXES)
         p = p_by_name[name]
         if tmoe.uses_ep(tc.moe, ep):
-            p = expert_shard({"moe": p}, grid.ep.rank, ep)["moe"]
+            p = ep_shard({"moe": p}, grid.ep.rank, ep)["moe"]
         p = {k: v.clone().requires_grad_() for k, v in p.items()}
         r = {"tokens": x, "ct": ct}
         mine = grid_rows(grid, r)
@@ -806,7 +808,9 @@ def fsdp_placed_cases_rank(world, tc_by_name, train, batches, rows_by_name, case
     'data' of the unplaced run. ``ckpt`` ``(case, spec, root)``: the moved
     run's final state of that case saved under the placement by a grid
     ``Checkpointer`` of ``spec`` at step 5 and restored into a fresh state
-    (seed 1)."""
+    (seed 1). On 4 ranks also ``norm_positions``: the grad norm's total
+    of an (L, E) slice-sum tensor over the world taken as a 'tp' group,
+    with the rank's value at two positions."""
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.models import init_params
     from repro_torch.parallel import ParallelPlan, init_grid
@@ -884,6 +888,16 @@ def fsdp_placed_cases_rank(world, tc_by_name, train, batches, rows_by_name, case
                            "restored": dict(keyed_leaves(restored)),
                            "placement": back.restored_placement == placed}
         out[case] = res
+    if world.world == 4:
+        # the grad norm's slice sums over a 4-rank 'tp' group: values that
+        # an all-reduce associates by their offset, at two positions
+        from repro_torch.optim.adamw import reduce_slice_sums
+        sums = []
+        for pos in ((0, 1), (3, 50)):
+            s = torch.zeros(4, 64)
+            s[pos] = (1.0, 1e8, -1e8, 3.0)[world.rank]
+            sums.append(reduce_slice_sums(s, tp=world))
+        out["norm_positions"] = sums
     return out
 
 
@@ -894,3 +908,57 @@ def fsdp_ssm_cases_rank(world, *args, **kw):
     from repro_torch.models import ssm
     ssm.STREAM_DTYPE = torch.float32
     return fsdp_grid_cases_rank(world, *args, **kw)
+
+
+def vocab_cases_rank(world, table, batch, vocab_size, cases, params):
+    """One rank of ``test_torch_vocab``: for each case ``(form, n)`` the
+    rank's group of ``n`` ranks (the world cut into consecutive blocks;
+    the tiles of ``table`` (V_pad, d) on it, rank k holding rows k * V_pad
+    / n on), and the vocab-parallel ops of ``parallel.vocab`` on its rows
+    of ``batch`` ("same": every rank the whole batch; "differ": the group
+    splits the rows, rank k block k): the lookup and its table gradient
+    against the cotangent ``ct``, the NLL with its table and hidden-state
+    gradients, the whole logits with the gradients of their sum against
+    ``ctl``. Then ``params`` cut by ``ep_shard`` on the world as the 'ep'
+    group, rank r added to every leaf, through ``broadcast_params``."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import broadcast_params
+    from repro_torch.parallel import vocab as V
+    from repro_torch.parallel.ep import EPGroup
+    from repro_torch.tree import tree_map
+
+    groups = {}
+    for n in sorted({n for _, n in cases}):
+        if n == world.world:
+            groups[n] = world
+            continue
+        for start in range(0, world.world, n):
+            members = list(range(start, start + n))
+            pg = dist.new_group(members)
+            if world.rank in members:
+                groups[n] = EPGroup(pg, members.index(world.rank), n, world.device,
+                                    world.backend)
+    vp, out = table.shape[0], {}
+    for form, n in cases:
+        g, same = groups[n], form == "same"
+        vs = V.VocabShard(g, vp, same)
+        k = vp // n
+        tile = table[g.rank * k:(g.rank + 1) * k].clone().requires_grad_()
+        b = batch["tokens"].shape[0]
+        mine = slice(None) if same else slice(g.rank * b // n, (g.rank + 1) * b // n)
+        h = batch["h"][mine].clone().requires_grad_()
+        emb = V.embed(tile, batch["tokens"][mine], torch.float32, vs)
+        (g_embed,) = torch.autograd.grad((emb * batch["ct"][mine]).sum(), tile)
+        nll, count = V.nll(tile, h, batch["labels"][mine], vocab_size, vs)
+        g_table, g_h = torch.autograd.grad(nll, (tile, h))
+        logits = V.logits(tile, h, vs)
+        g_ltable, g_lh = torch.autograd.grad((logits * batch["ctl"][mine]).sum(), (tile, h))
+        out[(form, n)] = {"rows": mine, "cols": slice(g.rank * k, (g.rank + 1) * k),
+                          "embed": emb.detach(), "g_embed": g_embed, "nll": nll.detach(),
+                          "count": count, "g_table": g_table, "g_h": g_h,
+                          "logits": logits.detach(), "g_ltable": g_ltable, "g_lh": g_lh}
+    mine = tree_map(lambda t: t.clone() + world.rank, ep_shard(params, world.rank, world.world))
+    out["broadcast"] = broadcast_params(mine, world,
+                                        param_placements(params, {"ep": world.world}))
+    return out
